@@ -25,3 +25,9 @@ jax.config.update("jax_threefry_partitionable", True)
 # persistent compile cache across test runs
 jax.config.update("jax_compilation_cache_dir", "/tmp/jax_test_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips without one"
+    )
