@@ -3,8 +3,9 @@
 
 Slow and fast exponential filters (exponential_filter.hpp:26-50) over the
 post-normalize average weight, ``p = clamp(1 - fast / slow, 0, 1)``
-(thrun_recovery_probability_estimator.hpp:40-95).  The state is 0-d
-tensors on the particles' device, so the update never reads back.
+(thrun_recovery_probability_estimator.hpp:40-95).  The state is tensors
+on the particles' device, one entry per filter (0-d for one filter), so
+the update never reads back.
 """
 
 from __future__ import annotations
@@ -23,10 +24,10 @@ class ExpFilterState(NamedTuple):
     seeded: Tensor  # bool
 
     @staticmethod
-    def init(device=None) -> "ExpFilterState":
+    def init(device=None, shape=()) -> "ExpFilterState":
         return ExpFilterState(
-            torch.zeros((), dtype=torch.float32, device=device),
-            torch.zeros((), dtype=torch.bool, device=device),
+            torch.zeros(shape, dtype=torch.float32, device=device),
+            torch.zeros(shape, dtype=torch.bool, device=device),
         )
 
 
@@ -40,8 +41,8 @@ class ThrunState(NamedTuple):
     fast: ExpFilterState
 
     @staticmethod
-    def init(device=None) -> "ThrunState":
-        return ThrunState(ExpFilterState.init(device), ExpFilterState.init(device))
+    def init(device=None, shape=()) -> "ThrunState":
+        return ThrunState(ExpFilterState.init(device, shape), ExpFilterState.init(device, shape))
 
 
 def thrun_update(

@@ -66,11 +66,24 @@ def field_codes(codes_book, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
     return _t(codes, device, np.uint8), _t(book, device, np.float32)
 
 
+def field_values3(values3, shape, device="cpu") -> torch.Tensor:
+    """The reference's codebook16 table (``build_values3``: transposed,
+    padded, four shifted copies along y) as the port's ``bf16[H, W]``:
+    copy 0, transposed back.  ``shape`` is ``(H, W)``."""
+    h, w = shape
+    bits = np.ascontiguousarray(np.asarray(values3)[:w, :h].T).view(np.int16)
+    return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+
+
 def ctx(c: dict, device="cpu") -> dict:
-    """The likelihood-field ctx dict (``grid``, ``field``, ``field_codes``)."""
+    """The likelihood-field ctx dict (``grid``, ``field``, ``field_codes``
+    and, in codebook16 mode, ``field_values3``)."""
     out = {"grid": grid(c["grid"], device), "field": field(c["field"], device)}
     if "field_codes" in c:
         out["field_codes"] = field_codes(c["field_codes"], device)
+    if "field_values3" in c:
+        out["field_values3"] = field_values3(c["field_values3"], out["field_codes"][0].shape,
+                                             device)
     return out
 
 
@@ -84,19 +97,26 @@ def particles(p, device="cpu") -> ParticleSet:
 
 
 def amcl_state(s, generator: torch.Generator, device="cpu") -> AmclState:
-    """An ``AmclState``.  The JAX key has no counterpart: the port's draws
-    come from ``generator``.  Odometry memory goes to the host."""
+    """An ``AmclState``, of one filter or (leaves with a leading ``B``
+    axis, as ``vmap`` makes them) of a fleet.  The JAX key has no
+    counterpart: the port's draws come from ``generator``.  Odometry memory
+    and gates go to the host, as Python scalars for one filter and numpy
+    arrays for a fleet."""
     def exp_filter(e):
         return ExpFilterState(_t(e.value, device, np.float32), _t(e.seeded, device, bool))
+
+    def host(a, dtype):
+        a = np.array(a, dtype=dtype)
+        return a.item() if a.ndim == 0 else a
 
     return AmclState(
         particles=particles(s.particles, device),
         generator=generator,
         thrun=ThrunState(exp_filter(s.thrun.slow), exp_filter(s.thrun.fast)),
-        resample_count=int(np.asarray(s.resample_count)),
+        resample_count=host(s.resample_count, np.int64),
         motion_latest=se2(s.motion_latest, "cpu"),
-        motion_seeded=bool(np.asarray(s.motion_seeded)),
+        motion_seeded=host(s.motion_seeded, bool),
         control_prev=se2(s.control_prev, "cpu"),
-        control_seeded=bool(np.asarray(s.control_seeded)),
-        force_update=bool(np.asarray(s.force_update)),
+        control_seeded=host(s.control_seeded, bool),
+        force_update=host(s.force_update, bool),
     )

@@ -2,10 +2,15 @@
 
 A particle set has a static capacity ``N`` and an active count: slots
 ``>= active`` are dead padding, and the alive particles are the prefix
-``[0, active)``.  ``active`` is a 0-d int32 tensor on the particles' device,
-so the adaptive (KLD) count never has to be read back to the host.
+``[0, active)``.  ``active`` is an int32 tensor on the particles' device, so
+the adaptive (KLD) count never has to be read back to the host.
 
-State "trees" are tensors, or frozen dataclasses / NamedTuples of them
+Every function takes leading filter axes: a fleet of B filters holds
+``log_weight f32[B, N]``, ``active i32[B]`` and states shaped ``[B, N]``
+(an ``SE2`` with ``xy f32[B, N, 2]``); the particle axis is the last axis
+of ``log_weight``.
+
+State "trees" are tensors, or frozen dataclasses / tuples of them
 (``SE2``, ``ThrunState``); :func:`tree_map` walks them.
 """
 
@@ -24,7 +29,7 @@ DEAD_LOG_WEIGHT = -1e30
 
 
 def tree_map(fn: Callable, *trees: Any) -> Any:
-    """Apply ``fn`` leaf-wise across tensors, dataclasses and NamedTuples."""
+    """Apply ``fn`` leaf-wise across tensors, dataclasses and tuples."""
     t0 = trees[0]
     if isinstance(t0, torch.Tensor):
         return fn(*trees)
@@ -35,6 +40,8 @@ def tree_map(fn: Callable, *trees: Any) -> Any:
         })
     if isinstance(t0, tuple) and hasattr(t0, "_fields"):
         return type(t0)(*(tree_map(fn, *leaves) for leaves in zip(*trees)))
+    if isinstance(t0, tuple):
+        return tuple(tree_map(fn, *leaves) for leaves in zip(*trees))
     raise TypeError(f"not a tensor tree: {type(t0).__name__}")
 
 
@@ -49,10 +56,12 @@ class ParticleSet:
     """Weighted particles with static capacity.
 
     Attributes:
-      state: a tensor tree whose leaves have leading dimension ``N``.
-      log_weight: ``f32[N]`` unnormalized log-weights; dead slots hold
-        ``DEAD_LOG_WEIGHT``.
-      active: 0-d int32 tensor, the number of alive particles (prefix).
+      state: a tensor tree whose leaves are shaped ``[..., N, ...]``, the
+        filter axes first.
+      log_weight: ``f32[..., N]`` unnormalized log-weights; dead slots
+        hold ``DEAD_LOG_WEIGHT``.
+      active: int32 ``[...]``, the number of alive particles (prefix) of
+        each filter.
     """
 
     state: Any
@@ -65,8 +74,9 @@ class ParticleSet:
 
     @property
     def mask(self) -> Tensor:
-        """``bool[N]`` alive mask."""
-        return torch.arange(self.capacity, device=self.log_weight.device) < self.active
+        """``bool[..., N]`` alive mask."""
+        return (torch.arange(self.capacity, device=self.log_weight.device)
+                < self.active[..., None])
 
     @property
     def weight(self) -> Tensor:
@@ -77,17 +87,24 @@ class ParticleSet:
         return dataclasses.replace(self, **kw)
 
 
-def make_from_states(states: Any, active: Tensor | int | None = None) -> ParticleSet:
+def make_from_states(states: Any, active: Tensor | int | None = None,
+                     batch_dims: int | None = None) -> ParticleSet:
     """Particle set with unit weights (log-weight 0) on the first ``active``
-    slots (``beluga::make_from_state``, particle_traits.hpp:96)."""
+    slots (``beluga::make_from_state``, particle_traits.hpp:96).
+
+    ``batch_dims`` is the number of leading filter axes; by default the
+    number of axes of ``active`` (0 for a count given as an int)."""
+    if batch_dims is None:
+        batch_dims = active.dim() if isinstance(active, torch.Tensor) else 0
     leaf = tree_leaves(states)[0]
-    n, device = leaf.shape[0], leaf.device
+    lead, device = tuple(leaf.shape[:batch_dims]), leaf.device
+    n = leaf.shape[batch_dims]
     if active is None:
         active = n
     if isinstance(active, int):
-        active = torch.full((), active, dtype=torch.int32, device=device)
+        active = torch.full(lead, active, dtype=torch.int32, device=device)
     active = active.to(torch.int32)
-    alive = torch.arange(n, device=device) < active
+    alive = torch.arange(n, device=device) < active[..., None]
     log_w = torch.where(
         alive,
         torch.zeros((), dtype=torch.float32, device=device),
@@ -112,6 +129,22 @@ def tree_scatter(base: Any, indices: Tensor, updates: Any) -> Any:
         return out
 
     return tree_map(scatter, base, updates)
+
+
+def tree_sort_by(key: Tensor, states: Any) -> Any:
+    """Reorder a state tree by ascending ``key`` ``f32[..., N]`` along the
+    particle axis (``lax.sort`` with one key, particles.py:105-126).  The
+    sort is stable, as ``lax.sort`` is, so equal keys (the ``inf`` of dead
+    slots) keep their order; every leaf is gathered with the one
+    permutation."""
+    axis = key.dim() - 1
+    order = torch.sort(key, dim=-1, stable=True).indices
+
+    def take(leaf: Tensor) -> Tensor:
+        idx = order.reshape(order.shape + (1,) * (leaf.dim() - order.dim()))
+        return torch.take_along_dim(leaf, idx, dim=axis)
+
+    return tree_map(take, states)
 
 
 def tree_where(mask: Tensor, a: Any, b: Any) -> Any:

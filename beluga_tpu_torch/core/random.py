@@ -4,7 +4,9 @@ Each sampler is a core that takes its random draws as inputs, plus a thin
 wrapper that draws them from an explicit ``torch.Generator``.  JAX's
 threefry streams cannot be reproduced in torch, so parity tests feed the
 reference's own draws to the cores and compare exactly; only the draws
-themselves differ between the two packages.
+themselves differ between the two packages.  Every wrapper takes leading
+filter axes ``lead``: a fleet draws ``[B, n]`` states from one generator,
+each filter independently.
 """
 
 from __future__ import annotations
@@ -40,12 +42,12 @@ def normal_se2_from_draws(z: Tensor, mean: SE2, cov) -> SE2:
 
 
 def sample_normal_se2(
-    generator: torch.Generator, n: int, mean: SE2, cov
+    generator: torch.Generator, n: int, mean: SE2, cov, lead=()
 ) -> SE2:
-    """Draw n SE2 poses ~ N(mean, cov) on the generator's device; ``cov`` is
-    the 3x3 covariance over (x, y, theta)."""
+    """Draw ``[*lead, n]`` SE2 poses ~ N(mean, cov) on the generator's
+    device; ``cov`` is the 3x3 covariance over (x, y, theta)."""
     z = torch.randn(
-        (n, 3), generator=generator, dtype=torch.float32, device=generator.device
+        (*lead, n, 3), generator=generator, dtype=torch.float32, device=generator.device
     )
     return normal_se2_from_draws(z, mean, cov)
 
@@ -55,16 +57,51 @@ def uniform_free_cells_from_draws(
 ) -> SE2:
     """SE2 states at the free-cell centroids ``free_xy[cells]`` with headings
     ``theta`` (multivariate_uniform_distribution.hpp:127-150)."""
-    return SE2(free_xy.index_select(0, cells), SO2.exp(theta))
+    return SE2(free_xy[cells], SO2.exp(theta))
+
+
+def _headings(generator: torch.Generator, shape, device) -> Tensor:
+    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+    return u * (2.0 * math.pi) - math.pi
 
 
 def sample_uniform_free_cells(
-    generator: torch.Generator, n: int, free_xy: Tensor, num_free: int
+    generator: torch.Generator, n: int, free_xy: Tensor, num_free: int, lead=()
 ) -> SE2:
     """Uniform SE2 over the free cells: the translation snaps to a free-cell
     centroid (``free_xy`` prefix of length ``num_free``), the heading is
     uniform in [-pi, pi)."""
-    cells = torch.randint(0, max(int(num_free), 1), (n,), generator=generator,
+    cells = torch.randint(0, max(int(num_free), 1), (*lead, n), generator=generator,
                           device=free_xy.device)
-    u = torch.rand((n,), generator=generator, dtype=torch.float32, device=free_xy.device)
-    return uniform_free_cells_from_draws(cells, u * (2.0 * math.pi) - math.pi, free_xy)
+    theta = _headings(generator, (*lead, n), free_xy.device)
+    return uniform_free_cells_from_draws(cells, theta, free_xy)
+
+
+def uniform_free_cells_pooled_from_draws(
+    cand: Tensor, idx: Tensor, theta: Tensor, free_xy: Tensor
+) -> SE2:
+    """Free-cell states through a candidate pool (random.py:97-134): the
+    pool ``free_xy[cand]`` (``cand`` ``[..., P]``, plain indexing, as the
+    reference's XLA gather), then slot ``i`` takes pool row ``idx[..., i]``
+    through kernel B3 (ops/cuda_pool_take.py), headings ``theta``."""
+    from beluga_tpu_torch.ops.cuda_pool_take import pool_take
+
+    return SE2(pool_take(free_xy[cand], idx), SO2.exp(theta))
+
+
+def sample_uniform_free_cells_pooled(
+    generator: torch.Generator, n: int, free_xy: Tensor, num_free: int,
+    pool: int = 256, lead=(),
+) -> SE2:
+    """Free-cell-uniform SE2 states from a fresh pool of ``pool`` iid
+    candidate cells per call and filter: every slot picks a pool entry
+    uniformly.  The marginal of every state is exactly uniform over the
+    free cells; two slots of one call may share a cell (the bootstrap
+    deviation the reference documents).  Headings stay iid uniform."""
+    dev = free_xy.device
+    cand = torch.randint(0, max(int(num_free), 1), (*lead, pool), generator=generator,
+                         device=dev)
+    idx = torch.randint(0, pool, (*lead, n), generator=generator, device=dev,
+                        dtype=torch.int32)
+    return uniform_free_cells_pooled_from_draws(cand, idx, _headings(generator, (*lead, n), dev),
+                                                free_xy)

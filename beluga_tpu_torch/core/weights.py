@@ -2,7 +2,8 @@
 
 ``normalize`` is ``beluga::actions::normalize`` (normalize.hpp:54-84) as a
 log-space shift; ``effective_sample_size`` is 1 / Σ ŵ²
-(effective_sample_size.hpp:46).
+(effective_sample_size.hpp:46).  Each reduces over the last (particle)
+axis only, so a fleet ``[B, N]`` gets one total per filter.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ def normalize(particles: ParticleSet) -> ParticleSet:
     ``DEAD_LOG_WEIGHT``."""
     mask = particles.mask
     total = masked_logsumexp(particles.log_weight, mask)
-    new_log_w = torch.where(mask, particles.log_weight - total, DEAD_LOG_WEIGHT)
+    new_log_w = torch.where(mask, particles.log_weight - total[..., None], DEAD_LOG_WEIGHT)
     return particles.replace(log_weight=new_log_w)
 
 
@@ -37,10 +38,10 @@ def normalized_weights(particles: ParticleSet) -> Tensor:
     """Linear weights summing to one over alive slots."""
     mask = particles.mask
     total = masked_logsumexp(particles.log_weight, mask)
-    return torch.where(mask, torch.exp(particles.log_weight - total), 0.0)
+    return torch.where(mask, torch.exp(particles.log_weight - total[..., None]), 0.0)
 
 
 def effective_sample_size(particles: ParticleSet) -> Tensor:
     """ESS = 1 / Σ ŵ² (algorithm/effective_sample_size.hpp:46)."""
     w = normalized_weights(particles)
-    return 1.0 / torch.clamp_min(torch.sum(w * w), 1e-38)
+    return 1.0 / torch.clamp_min(torch.sum(w * w, dim=-1), 1e-38)

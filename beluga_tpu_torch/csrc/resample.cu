@@ -2,9 +2,10 @@
 //
 // Replaces beluga_tpu/ops/pallas_resample.py:resample_take (its small,
 // blocked, huge and pipelined variants are schedules for the TPU's VMEM;
-// one kernel covers them here).  Input: a monotone CDF f32[N] (computed
-// outside the kernel, as in JAX: cumsum, divide by the last entry, cummax),
-// positions f32[M], and the particle state as planes f32[D, N].  For every
+// one kernel covers them here).  Input, for each of `batch` filters: a
+// monotone CDF f32[N] (computed outside the kernel, as in JAX: cumsum,
+// divide by the last entry, cummax, all per filter), positions f32[M], and
+// the particle state as planes f32[D, N].  For every
 // position q the donor is the first k with cdf[k] > u_q (searchsorted
 // side='right'), so a zero-weight slot, whose interval is empty, is never
 // chosen; row q of out f32[M, D] gets a bit-exact copy of the donor's D
@@ -15,9 +16,10 @@
 // CDF entries and D*N state values and write M*D values; the ~log2(N)
 // search steps per position hit the same few CDF lines for neighbouring
 // positions, which are sorted on the main path, so they stay in L1/L2.
-// Design: one thread per position, a binary search over global memory
-// through the read-only path, then D loads from the donor's column
-// and one contiguous row store (a 16 B vector store when D == 4).
+// Design: one thread per position, the filter in blockIdx.y (a filter
+// searches its own CDF only), a binary search over global memory through
+// the read-only path, then D loads from the donor's column and one
+// contiguous row store (a 16 B vector store when D == 4).
 
 #include <cuda_runtime.h>
 
@@ -31,7 +33,11 @@ __global__ void resample_take_kernel(const float* __restrict__ cdf, int n,
                                      float* __restrict__ out) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= m) return;
-  const float u = positions[q];
+  const size_t f = blockIdx.y;
+  cdf += f * n;
+  values += f * d * n;
+  out += f * d * m;
+  const float u = positions[f * m + q];
   // first k in [0, n] with cdf[k] > u
   int lo = 0, len = n;
   while (len > 0) {
@@ -60,13 +66,15 @@ __global__ void resample_take_kernel(const float* __restrict__ cdf, int n,
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() of the launch.  `out`
-// must be 16-byte aligned when d == 4 (PyTorch allocations are).
+// Launches on `stream` over `batch` filters; returns cudaGetLastError() of
+// the launch.  `out` must be 16-byte aligned when d == 4 (PyTorch
+// allocations are).
 extern "C" int beluga_resample_take(const void* cdf, int n, const void* positions, int m,
-                                    const void* values, int d, void* out, void* stream) {
-  if (m == 0) return 0;
-  const int blocks = (m + kThreads - 1) / kThreads;
-  resample_take_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                                    const void* values, int d, void* out, int batch,
+                                    void* stream) {
+  if (m == 0 || batch == 0) return 0;
+  const dim3 grid((m + kThreads - 1) / kThreads, batch);
+  resample_take_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cdf), n, static_cast<const float*>(positions), m,
       static_cast<const float*>(values), d, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());

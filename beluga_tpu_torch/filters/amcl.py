@@ -8,25 +8,35 @@ estimator sees the post-normalize average weight; it resets when a
 resample fires while the random-state probability is > 0; resampled
 particles restart with weight 1; ``every_n`` counts gated-in updates.
 
+One update body serves one filter and a fleet (port of
+``parallel/fleet.py:make_fleet_update``, which ``vmap``s this update): every
+stage takes leading filter axes and reduces over the particle axis only.
 Where the JAX package branches with ``lax.cond``, the port decides on the
 host without reading the particles back:
 
 * the motion gate uses only the odometry, which the caller holds on the
   host; the delta is computed in float32 in the reference's operation
   order, so a move right at ``update_min_d`` gates the same way;
-* ``force_update`` and the ``every_n`` counter are host values;
+* ``force_update``, the ``every_n`` counter and the theta-sort schedule are
+  host values (numpy ``[B]`` in a fleet);
 * the ESS gate of ``selective_resampling`` (off at nav2 defaults) reads
-  one value back, once per gated-in update;
+  one value back per gated-in update of one filter; in a fleet it is a
+  device ``bool[B]`` select with no readback;
 * the KLD active count stays a device tensor.
+
+Under ``vmap`` JAX's gates become selects; so in a fleet the port skips a
+stage when no filter is due, runs it for every filter otherwise, and
+``torch.where``-selects per filter: a gated-out filter keeps its
+particles, Thrun state, counters and control window bit for bit.
 
 Resampling always takes the accelerator branch of the reference
 (amcl.py:399-423): positions, then kernel B2 (ops/cuda_resample.py), on
 the CPU through its plain version.  Random draws come from the state's
-``torch.Generator``, which the update advances in place, or from
-``draws`` (:class:`UpdateDraws`), which lets a test feed the reference's
-own draws.  The theta-sorted slots, the bounded recovery pool, residual
-resampling and the fused propagate+reweight path wait for later slices
-(ROADMAP A8, A9).
+``torch.Generator`` (one for a whole fleet, drawing ``[B, ...]``), which
+the update advances in place, or from ``draws`` (:class:`UpdateDraws`),
+which lets a test feed the reference's own draws.  The bounded recovery
+pool (the reference's ``AmclParams.recovery_pool``) waits for ROADMAP A9,
+residual resampling and the sparse cluster estimate for A8.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from beluga_tpu_torch import resolve_device
@@ -45,8 +56,10 @@ from beluga_tpu_torch.core.particles import (
     ParticleSet,
     make_from_states,
     tree_map,
+    tree_sort_by,
     tree_where,
 )
+from beluga_tpu_torch.core.random import sample_normal_se2
 from beluga_tpu_torch.core.weights import effective_sample_size, normalize
 from beluga_tpu_torch.lie import SE2
 from beluga_tpu_torch.ops.cuda_resample import (
@@ -82,6 +95,11 @@ class AmclParams:
     spatial_resolution_y: float = 0.5
     spatial_resolution_theta: float = 10.0 * 3.141592653589793 / 180.0
     resampling: str = "multinomial"  # reference default (views/sample.hpp)
+    # keep slots in theta order (strays last, se2_sort_key); with a fixed
+    # count the multinomial resampler then keeps donors in CDF order
+    sorted_slots: bool = False
+    # re-sort on every sort_interval-th resample (fixed counts only)
+    sort_interval: int = 1
 
     def __post_init__(self):
         if self.resampling not in POSITIONERS:
@@ -89,17 +107,29 @@ class AmclParams:
                 f"resampling {self.resampling!r} is not ported; the port has "
                 f"{sorted(POSITIONERS)} (residual waits for ROADMAP A8)"
             )
+        if self.sort_interval > 1 and self.min_particles < self.max_particles:
+            raise ValueError(
+                "sort_interval > 1 requires a fixed particle count "
+                "(min_particles == max_particles): adaptive KLD relies on "
+                "the per-resample sort for the kept-first live prefix"
+            )
 
 
 class AmclModels(NamedTuple):
     """Model functions; each takes the opaque ``ctx`` dict.
 
-    propagate:    (ctx, z f32[3, N], states, pose, prev_pose) -> states, with
-                  ``z`` the standard normals of the motion sample
-    log_weight:   (ctx, states, points, beam_mask) -> f32[N]
-    random_state: (ctx, generator, n, particles) -> states (recovery)
-    hash_state:   (params, states) -> int64[N] spatial hashes (KLD buckets)
+    Each takes and returns leading filter axes ``[...]`` where it is given
+    them.
+
+    propagate:    (ctx, z f32[..., 3, N], states, pose, prev_pose) -> states,
+                  with ``z`` the standard normals of the motion sample
+    log_weight:   (ctx, states, points, beam_mask) -> f32[..., N]
+    random_state: (ctx, generator, n, particles) -> ``[..., n]`` states
+                  (recovery), with the filter axes of ``particles``
+    hash_state:   (params, states) -> int64[..., N] spatial hashes (KLD buckets)
     estimate:     (params, particles) -> (mean pose, covariance)
+    sort_key:     (states) -> f32[..., N] slot-sort key of ``sorted_slots``
+                  filters; ``None`` selects :func:`se2_sort_key`
     """
 
     propagate: Callable
@@ -107,40 +137,64 @@ class AmclModels(NamedTuple):
     random_state: Callable
     hash_state: Callable
     estimate: Callable
+    sort_key: Callable | None = None
 
 
 class AmclState(NamedTuple):
     """Filter state.  Particles and the Thrun filters live on the device;
-    the odometry memory and the gates live on the host."""
+    the odometry memory and the gates live on the host: Python scalars and
+    0-d poses for one filter, numpy arrays and poses ``[B]`` for a fleet."""
 
     particles: ParticleSet
     generator: torch.Generator
     thrun: ThrunState
-    resample_count: int  # every_n internal counter
+    resample_count: Any  # every_n internal counter
     motion_latest: SE2  # on-motion policy memory (host)
-    motion_seeded: bool
+    motion_seeded: Any
     control_prev: SE2  # previous odometry of the control window (host)
-    control_seeded: bool
-    force_update: bool
+    control_seeded: Any
+    force_update: Any
 
 
 class Estimate(NamedTuple):
     pose: SE2
-    covariance: Tensor  # f32[3, 3]
-    valid: bool  # False when the update was gated out
+    covariance: Tensor  # f32[..., 3, 3]
+    valid: Any  # False when the update was gated out (numpy bool[B] in a fleet)
 
 
 class UpdateDraws(NamedTuple):
-    """Every random draw of one update, in place of the generator's:
-    ``motion_normals`` f32[3, N]; ``positions`` f32[M] for the resampler;
-    ``inject_uniform`` f32[M] (slot m is replaced by a recovery state when
-    it is below the random-state probability); ``random_states`` the M
-    recovery states."""
+    """Every random draw of one update, in place of the generator's, with
+    the state's filter axes ``[...]`` first: ``motion_normals``
+    f32[..., 3, N]; ``positions`` f32[..., M] for the resampler;
+    ``inject_uniform`` f32[..., M] (slot m is replaced by a recovery state
+    when it is below the random-state probability); ``random_states`` the
+    ``[..., M]`` recovery states."""
 
     motion_normals: Tensor
     positions: Tensor
     inject_uniform: Tensor
     random_states: Any
+
+
+def se2_sort_key(states: SE2) -> Tensor:
+    """Slot-sort key of ``sorted_slots`` SE2 filters (amcl.py:179-201):
+    theta, plus 100 for stray particles beyond 3.5 sigma of their filter's
+    cloud in x, y or heading-chord distance, so that strays pool at the
+    end.  The deviations are population ones (``jnp.std``'s ddof 0)."""
+
+    def mean(v):
+        return torch.mean(v, dim=-1, keepdim=True)
+
+    def std(v):
+        return torch.std(v, dim=-1, correction=0, keepdim=True)
+
+    x, y, c, s = states.x, states.y, states.rot.cos, states.rot.sin
+    zx = torch.abs(x - mean(x)) / (std(x) + 1e-6)
+    zy = torch.abs(y - mean(y)) / (std(y) + 1e-6)
+    rc = torch.hypot(c - mean(c), s - mean(s))
+    zt = (rc - mean(rc)) / (std(rc) + 1e-6)
+    stray = (zx > 3.5) | (zy > 3.5) | (zt > 3.5)
+    return states.theta + 100.0 * stray.to(torch.float32)
 
 
 def default_hash_state(params: AmclParams, states: SE2) -> Tensor:
@@ -160,41 +214,65 @@ def host_pose(x: float, y: float, theta: float) -> SE2:
     return SE2.from_xytheta(float(x), float(y), float(theta), device="cpu")
 
 
+def _host(a):
+    """A host gate value: a Python scalar for one filter, else the array."""
+    return a.item() if np.ndim(a) == 0 else a
+
+
+def _generator(generator: torch.Generator | int, device) -> torch.Generator:
+    if isinstance(generator, int):
+        seed, generator = generator, torch.Generator(device=device)
+        generator.manual_seed(seed)
+    return generator
+
+
 def init_state(generator: torch.Generator | int, states: SE2, params: AmclParams,
                device=None) -> AmclState:
     """Filter state from ``max_particles`` initial states (amcl_core.hpp:
-    131-137): unit weights and a forced first update.  ``generator`` is a
+    131-137): unit weights and a forced first update.  ``states`` shaped
+    ``[N]`` make one filter, ``[B, N]`` a fleet of B.  ``generator`` is a
     ``torch.Generator`` on ``device`` or a seed for a new one; ``device``
     defaults to ``"cuda"``."""
     device = resolve_device(device)
-    if isinstance(generator, int):
-        seed = generator
-        generator = torch.Generator(device=device)
-        generator.manual_seed(seed)
+    generator = _generator(generator, device)
     states = tree_map(lambda t: t.to(device), states)
-    particles = make_from_states(states)
+    lead = tuple(states.shape[:-1])
+    particles = make_from_states(states, batch_dims=len(lead))
     if particles.capacity != params.max_particles:
         raise ValueError(
             f"need exactly max_particles={params.max_particles} initial states, "
             f"got {particles.capacity}"
         )
-    identity = host_pose(0.0, 0.0, 0.0)
+    identity = SE2.identity(lead, device="cpu")
     return AmclState(
         particles=particles,
         generator=generator,
-        thrun=ThrunState.init(device),
-        resample_count=0,
+        thrun=ThrunState.init(device, lead),
+        resample_count=_host(np.zeros(lead, np.int64)),
         motion_latest=identity,
-        motion_seeded=False,
+        motion_seeded=_host(np.zeros(lead, bool)),
         control_prev=identity,
-        control_seeded=False,
-        force_update=True,
+        control_seeded=_host(np.zeros(lead, bool)),
+        force_update=_host(np.ones(lead, bool)),
     )
 
 
+def init_fleet_state(generator: torch.Generator | int, batch: int, mean: SE2, cov,
+                     params: AmclParams, device=None) -> AmclState:
+    """A fleet of ``batch`` filters, each from its own normal cloud of
+    ``max_particles`` states about ``mean`` (3x3 ``cov`` over x, y, theta),
+    taken in theta order when ``sorted_slots`` (bench.py:193-210)."""
+    device = resolve_device(device)
+    generator = _generator(generator, device)
+    states = sample_normal_se2(generator, params.max_particles, mean, cov, lead=(batch,))
+    if params.sorted_slots:
+        states = tree_sort_by(states.theta, states)
+    return init_state(generator, states, params, device)
+
+
 def reinit_particles(state: AmclState, states: SE2) -> AmclState:
-    """Replace the particle set (re-initialization, global relocation),
-    keep the odometry memory, and schedule a forced update."""
+    """Replace the particle set of one filter (re-initialization, global
+    relocation), keep the odometry memory, and schedule a forced update."""
     device = state.particles.log_weight.device
     states = tree_map(lambda t: t.to(device), states)
     return state._replace(particles=make_from_states(states), force_update=True)
@@ -208,12 +286,22 @@ def se2_motion_delta(prev: SE2, pose: SE2):
     return dist, torch.abs(delta.theta)
 
 
-def _on_motion(params: AmclParams, latest: SE2, seeded: bool, pose: SE2):
+def _on_motion(params: AmclParams, latest: SE2, seeded, pose: SE2):
+    """``(moved, new pose memory)``; ``moved`` a numpy bool per filter."""
     dist, angle = se2_motion_delta(latest, pose)
-    moved = (not seeded) or bool(dist > params.update_min_d) or bool(
-        angle > params.update_min_a
+    moved = ~np.asarray(seeded) | (
+        (dist > params.update_min_d) | (angle > params.update_min_a)
+    ).numpy()
+    return moved, tree_where(torch.as_tensor(moved), pose, latest)
+
+
+def _select(mask: Tensor, a: ParticleSet, b: ParticleSet) -> ParticleSet:
+    """``a`` for the filters where ``mask`` (device ``bool[B]``), else ``b``."""
+    return ParticleSet(
+        tree_where(mask, a.state, b.state),
+        torch.where(mask[..., None], a.log_weight, b.log_weight),
+        torch.where(mask, a.active, b.active),
     )
-    return moved, (pose if moved else latest)
 
 
 def update(
@@ -225,34 +313,63 @@ def update(
     points: Tensor,
     beam_mask: Tensor,
     draws: UpdateDraws | None = None,
+    sort_now: bool | None = None,
 ) -> tuple[AmclState, Estimate]:
-    """One filter update.
+    """One update of one filter, or of a fleet of B filters.
 
     Args:
       ctx: map and model context forwarded to the model functions.
-      odom_pose: base pose in the odom frame, a 0-d SE2 on the host.
-      points: ``f32[B, 2]`` measurement points in the base frame, on the
-        particles' device; beam_mask: ``bool[B]``.
+      state: from :func:`init_state`; its particles' filter axes ``[...]``
+        (none, or ``[B]``) shape every other argument.
+      odom_pose: base pose in the odom frame, an SE2 ``[...]`` on the host.
+      points: ``f32[..., nb, 2]`` measurement points in the base frame, on
+        the particles' device; beam_mask: ``bool[..., nb]``.
       draws: the update's random draws; ``None`` draws them from
         ``state.generator``.
+      sort_now: override of the ``sorted_slots`` sort schedule: ``True``
+        sorts, ``False`` does not, ``None`` follows ``sort_interval``.
     """
     moved, motion_latest = _on_motion(
         params, state.motion_latest, state.motion_seeded, odom_pose
     )
-    state = state._replace(motion_latest=motion_latest, motion_seeded=True)
-    if not (moved or state.force_update):
-        mean, cov = models.estimate(params, state.particles)
-        return state, Estimate(mean, cov, False)
+    due = moved | np.asarray(state.force_update)
+    state = state._replace(motion_latest=motion_latest,
+                           motion_seeded=_host(np.ones_like(due)))
+    if due.all():
+        state = _gated_in(params, models, ctx, state, odom_pose, points, beam_mask,
+                          draws, sort_now)
+    elif due.any():
+        # filters that gate apart: step them all, keep the gated-out ones
+        new = _gated_in(params, models, ctx, state, odom_pose, points, beam_mask,
+                        draws, sort_now)
+        keep = torch.as_tensor(due, device=state.particles.log_weight.device)
+        state = new._replace(
+            particles=_select(keep, new.particles, state.particles),
+            thrun=tree_where(keep, new.thrun, state.thrun),
+            resample_count=np.where(due, new.resample_count, state.resample_count),
+            control_prev=tree_where(torch.as_tensor(due), odom_pose, state.control_prev),
+            control_seeded=state.control_seeded | due,
+            force_update=state.force_update & ~due,
+        )
+    mean, cov = models.estimate(params, state.particles)
+    return state, Estimate(mean, cov, _host(due))
 
+
+def _gated_in(params: AmclParams, models: AmclModels, ctx: Any, state: AmclState,
+              odom_pose: SE2, points: Tensor, beam_mask: Tensor,
+              draws: UpdateDraws | None, sort_now: bool | None) -> AmclState:
+    """The update of every filter of ``state`` (amcl.py:314-536)."""
     gen = state.generator
     particles = state.particles
-    n, m = particles.capacity, params.max_particles
+    lead = tuple(particles.log_weight.shape[:-1])
+    n = particles.capacity
     dev = particles.log_weight.device
-    prev_pose = state.control_prev if state.control_seeded else odom_pose
+    prev_pose = tree_where(torch.as_tensor(np.asarray(state.control_seeded)),
+                           state.control_prev, odom_pose)
 
     # -- propagate | reweight | normalize -----------------------------------
     if draws is None:
-        z = torch.randn((3, n), generator=gen, dtype=torch.float32, device=dev)
+        z = torch.randn((*lead, 3, n), generator=gen, dtype=torch.float32, device=dev)
     else:
         z = draws.motion_normals
     new_states = models.propagate(ctx, z, particles.state, odom_pose, prev_pose)
@@ -265,57 +382,109 @@ def update(
     thrun, p_random = thrun_update(state.thrun, params.alpha_slow, params.alpha_fast, avg_weight)
 
     # -- resample policy: every_n [&& ESS drop] -----------------------------
-    resample_count = (state.resample_count + 1) % params.resample_interval
-    do_resample = resample_count == 0
-    if do_resample and params.selective_resampling:
-        ess = effective_sample_size(particles)
-        do_resample = bool(ess < 0.5 * particles.active.float())  # one readback
+    # the counter cycles over resample_interval * sort_interval so that it
+    # drives both the resample and the theta-sort schedule (amcl.py:344-349)
+    modulus = params.resample_interval * max(params.sort_interval, 1)
+    resample_count = (np.asarray(state.resample_count) + 1) % modulus
+    do_resample = resample_count % params.resample_interval == 0
+    select = None  # device bool[B] of the filters that resample; None: all
+    if do_resample.any() and params.selective_resampling:
+        ess_low = effective_sample_size(particles) < 0.5 * particles.active.float()
+        if lead:
+            select = torch.as_tensor(do_resample, device=dev) & ess_low  # no readback
+        else:
+            do_resample = np.asarray(bool(ess_low))  # one readback
+    elif not do_resample.all():
+        select = torch.as_tensor(do_resample, device=dev)
 
-    if do_resample:
-        # reset the estimator after injecting randomness (amcl_core.hpp:184-186)
-        fresh = ThrunState.init(dev)
-        thrun = tree_map(lambda a, b: torch.where(p_random > 0.0, a, b), fresh, thrun)
-        adaptive = params.min_particles < params.max_particles
-        weights = particles.weight
-        if params.resampling == "multinomial":
-            # sorted order statistics, interleaved slot order: the exact
-            # multinomial donor multiset (pallas_resample.py:548-574)
-            positions = (sorted_multinomial_positions(gen, m) if draws is None
-                         else draws.positions)
-            donors = resample_take_tree_multinomial(
-                gen, weights, particles.state, m, positions=positions
-            )
+    if do_resample.any():
+        resampled, thrun_r = _resample(params, models, ctx, gen, particles, thrun,
+                                       p_random, draws)
+        if select is None:
+            particles, thrun = resampled, thrun_r
         else:
-            positions = (POSITIONERS[params.resampling](gen, m) if draws is None
-                         else draws.positions)
-            donors = resample_take_tree(weights, positions, particles.state)
-            if adaptive:
-                # CDF-ordered donors: spread them so any slot prefix (the
-                # KLD active prefix) covers the whole CDF
-                donors = tree_map(interleave_slots, donors)
-        if draws is None:
-            inject_u = torch.rand((m,), generator=gen, dtype=torch.float32, device=dev)
-            randoms = models.random_state(ctx, gen, m, particles)
-        else:
-            inject_u, randoms = draws.inject_uniform, draws.random_states
-        candidates = tree_where(inject_u < p_random, randoms, donors)
-        if adaptive:
-            active = kld_active_count(
-                models.hash_state(params, candidates), params.min_particles, m,
-                params.kld_epsilon, params.kld_z,
-            )
-        else:
-            # take_while_kld's `count <= min` clause keeps all of them
-            active = m
-        particles = make_from_states(candidates, active=active)
+            particles = _select(select, resampled, particles)
+            thrun = tree_where(select, thrun_r, thrun)
 
-    mean, cov = models.estimate(params, particles)
-    new_state = state._replace(
+    if params.sorted_slots and sort_now is not False:
+        # keep the theta-sorted slot invariant on the sort schedule, outside
+        # the resample branch (amcl.py:486-524); the schedule is a host
+        # value per filter, as vmap makes the reference's cond a select
+        if sort_now is None and (params.sort_interval > 1 or params.selective_resampling
+                                 or params.resample_interval > 1):
+            sort_due = resample_count == 0
+        else:
+            sort_due = np.ones(lead, bool)
+        if sort_due.all():
+            particles = _sort_slots(models, particles)
+        elif sort_due.any():
+            particles = _select(torch.as_tensor(sort_due, device=dev),
+                                _sort_slots(models, particles), particles)
+
+    return state._replace(
         particles=particles,
         thrun=thrun,
-        resample_count=resample_count,
+        resample_count=_host(resample_count),
         control_prev=odom_pose,
-        control_seeded=True,
-        force_update=False,
+        control_seeded=_host(np.ones(lead, bool)),
+        force_update=_host(np.zeros(lead, bool)),
     )
-    return new_state, Estimate(mean, cov, True)
+
+
+def _resample(params: AmclParams, models: AmclModels, ctx: Any, gen: torch.Generator,
+              particles: ParticleSet, thrun: ThrunState, p_random: Tensor,
+              draws: UpdateDraws | None) -> tuple[ParticleSet, ThrunState]:
+    """The resample branch for every filter (amcl.py:354-477)."""
+    lead = tuple(particles.log_weight.shape[:-1])
+    m = params.max_particles
+    dev = particles.log_weight.device
+    # reset the estimator after injecting randomness (amcl_core.hpp:184-186)
+    fresh = ThrunState.init(dev, lead)
+    thrun = tree_map(lambda a, b: torch.where(p_random > 0.0, a, b), fresh, thrun)
+    adaptive = params.min_particles < params.max_particles
+    weights = particles.weight
+    if params.resampling == "multinomial":
+        # sorted order statistics: the exact multinomial donor multiset
+        # (pallas_resample.py:548-574), interleaved unless the slots keep
+        # theta order with a fixed count; adaptive KLD needs the unbiased
+        # prefix the interleave gives (amcl.py:414-417)
+        positions = (sorted_multinomial_positions(gen, m, lead) if draws is None
+                     else draws.positions)
+        donors = resample_take_tree_multinomial(
+            gen, weights, particles.state, m, positions=positions,
+            interleave=adaptive or not params.sorted_slots,
+        )
+    else:
+        positions = (POSITIONERS[params.resampling](gen, m, lead) if draws is None
+                     else draws.positions)
+        donors = resample_take_tree(weights, positions, particles.state)
+        if adaptive:
+            # CDF-ordered donors: spread them so any slot prefix (the KLD
+            # active prefix) covers the whole CDF
+            donors = tree_map(lambda leaf: interleave_slots(leaf, axis=len(lead)), donors)
+    if draws is None:
+        inject_u = torch.rand((*lead, m), generator=gen, dtype=torch.float32, device=dev)
+        randoms = models.random_state(ctx, gen, m, particles)
+    else:
+        inject_u, randoms = draws.inject_uniform, draws.random_states
+    candidates = tree_where(inject_u < p_random[..., None], randoms, donors)
+    if adaptive:
+        # KLD on the candidates in draw/CDF order, before any theta sort
+        # (take_while_kld.hpp:72-88)
+        active = kld_active_count(
+            models.hash_state(params, candidates), params.min_particles, m,
+            params.kld_epsilon, params.kld_z,
+        )
+    else:
+        # take_while_kld's `count <= min` clause keeps all of them
+        active = torch.full(lead, m, dtype=torch.int32, device=dev)
+    return make_from_states(candidates, active=active, batch_dims=len(lead)), thrun
+
+
+def _sort_slots(models: AmclModels, particles: ParticleSet) -> ParticleSet:
+    """Theta-sort the slots: log-weights travel with their states, dead
+    slots sort last (``inf`` keys) so the live prefix holds."""
+    key_fn = models.sort_key or se2_sort_key
+    keys = torch.where(particles.mask, key_fn(particles.state), torch.inf)
+    state, log_w = tree_sort_by(keys, (particles.state, particles.log_weight))
+    return ParticleSet(state, log_w, particles.active)

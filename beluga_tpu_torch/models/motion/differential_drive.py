@@ -80,15 +80,19 @@ def diff_drive_propagate(
     params: DifferentialDriveParams, z: Tensor, states: SE2, pose: SE2, previous_pose: SE2
 ) -> SE2:
     """New states ``state * SE2(rot1, 0) * SE2(rot2, (trans, 0))`` for every
-    particle, from the standard normals ``z`` f32[3, N].  The poses may be
-    0-d tensors on the host: they enter the particle arithmetic as
-    scalars."""
+    particle, from the standard normals ``z`` f32[..., 3, N].  The poses may
+    live on the host: 0-d poses enter the particle arithmetic as scalars,
+    and the six coefficients of batched poses ``[B]`` cross to the
+    particles' device in one copy."""
     (r1_mu, r1_sd), (t_mu, t_sd), (r2_mu, r2_sd) = diff_drive_decompose(
         params, pose, previous_pose
     )
-    rot1 = r1_mu + r1_sd * z[0]
-    trans = t_mu + t_sd * z[1]
-    rot2 = r2_mu + r2_sd * z[2]
+    if r1_mu.dim() > 0:
+        coef = torch.stack([r1_mu, r1_sd, t_mu, t_sd, r2_mu, r2_sd]).to(z.device)[..., None]
+        r1_mu, r1_sd, t_mu, t_sd, r2_mu, r2_sd = coef.unbind(0)
+    rot1 = r1_mu + r1_sd * z[..., 0, :]
+    trans = t_mu + t_sd * z[..., 1, :]
+    rot2 = r2_mu + r2_sd * z[..., 2, :]
 
     theta1 = states.theta + rot1
     new_xy = states.xy + torch.stack([torch.cos(theta1) * trans, torch.sin(theta1) * trans], -1)

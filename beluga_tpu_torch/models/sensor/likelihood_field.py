@@ -7,9 +7,10 @@
 * Weight (likelihood_field_model.hpp:68-91): per beam endpoint, transform
   into the field frame, read the nearest cell (``unknown_prob`` outside the
   map) and return ``1 + Σ pz³``.  The pz³ sum and the 1.0 seed are nav2
-  parity quirks.  The port reads the field through its code table only
-  (kernel B1); the float-table lookup modes, the probability model and the
-  lowrank mode wait for ROADMAP item A11.
+  parity quirks.  The port reads the field through its code table
+  (kernel B1) or, in codebook16 mode, through the bf16 pz³ table (kernel
+  B4); the float-table lookup modes, the probability model and the lowrank
+  mode wait for ROADMAP item A11.
 """
 
 from __future__ import annotations
@@ -106,10 +107,14 @@ def likelihood_field_weights_codebook(
     states: SE2,
     points: Tensor,
     beam_mask: Tensor,
+    values3: Tensor | None = None,
 ) -> Tensor:
     """AMCL-parity weights through the code table
     (likelihood_field.py:192-237): kernel B1 (ops/cuda_reweight.py) on a
-    CUDA tensor, its plain version on a CPU tensor."""
+    CUDA tensor, its plain version on a CPU tensor; with ``values3`` (the
+    codebook16 table of ``build_values3``) kernel B4 instead, within 5e-3
+    of B1.  States ``[..., N]`` take points ``[..., nb, 2]`` and masks
+    ``[..., nb]`` with the same filter axes."""
     from beluga_tpu_torch.ops.cuda_reweight import fused_reweight
 
     codes, book = codes_book
@@ -117,5 +122,5 @@ def likelihood_field_weights_codebook(
     return fused_reweight(
         codes, book, tf.x.contiguous(), tf.y.contiguous(),
         tf.rot.cos.contiguous(), tf.rot.sin.contiguous(),
-        points, beam_mask, field.resolution, field.unknown_prob,
+        points, beam_mask, field.resolution, field.unknown_prob, values3=values3,
     )

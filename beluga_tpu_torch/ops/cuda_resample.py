@@ -10,12 +10,15 @@ PyTorch version, on CPU tensors.
 Contract: donor ``k`` of position ``u`` is the first slot with
 ``cdf[k] > u``; zero-weight slots are never chosen; a position at or above
 the last CDF entry (padding ``u = 1.5``) gets a zero row; donor rows are
-bit-exact copies.
+bit-exact copies.  Every input may carry leading filter axes: a fleet
+passes weights ``[B, N]``, positions ``[B, M]`` and planes ``[B, D, N]``,
+and each filter searches its own CDF.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Any
 
 import torch
@@ -39,7 +42,7 @@ def _kernel():
         fn = load_library("resample").beluga_resample_take
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -47,22 +50,23 @@ def _kernel():
 
 
 def monotone_cdf(weights: Tensor) -> Tensor:
-    """``cummax(cumsum(w) / Σw)`` (pallas_resample.py:405-412): a parallel
-    cumsum can dip by an ulp, and the interval search needs a monotone
-    CDF."""
-    c = torch.cumsum(weights, dim=0)
-    cdf = c / torch.clamp_min(c[-1], 1e-38)
-    return torch.cummax(cdf, dim=0).values
+    """``cummax(cumsum(w) / Σw)`` along the last axis, one CDF per filter
+    (pallas_resample.py:405-412): a parallel cumsum can dip by an ulp, and
+    the interval search needs a monotone CDF."""
+    c = torch.cumsum(weights, dim=-1)
+    cdf = c / torch.clamp_min(c[..., -1:], 1e-38)
+    return torch.cummax(cdf, dim=-1).values
 
 
 def resample_take_reference(cdf: Tensor, positions: Tensor, values: Tensor) -> Tensor:
     """Plain PyTorch version of the kernel: ``searchsorted`` (side right)
-    and a gather; ``f32[M, D]``."""
-    n = cdf.shape[0]
+    and a gather; ``f32[..., M, D]``."""
+    n, d = cdf.shape[-1], values.shape[-2]
     idx = torch.searchsorted(cdf, positions, right=True)
     found = idx < n
-    rows = values.index_select(1, torch.clamp_max(idx, n - 1)).T
-    return torch.where(found[:, None], rows, 0.0)
+    safe = torch.clamp_max(idx, n - 1)[..., None, :].expand(*idx.shape[:-1], d, idx.shape[-1])
+    rows = torch.take_along_dim(values, safe, dim=-1).transpose(-1, -2)
+    return torch.where(found[..., None], rows, 0.0)
 
 
 def _check(cdf: Tensor, positions: Tensor, values: Tensor) -> None:
@@ -74,32 +78,35 @@ def _check(cdf: Tensor, positions: Tensor, values: Tensor) -> None:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    n = cdf.shape[0]
-    if cdf.dim() != 1 or n == 0:
-        raise ValueError(f"cdf must be float32[N], N > 0, got {list(cdf.shape)}")
-    if positions.dim() != 1:
-        raise ValueError(f"positions must be float32[M], got {list(positions.shape)}")
-    if values.dim() != 2 or values.shape[1] != n:
-        raise ValueError(f"values must be float32[D, {n}], got {list(values.shape)}")
+    if cdf.dim() < 1 or cdf.shape[-1] == 0:
+        raise ValueError(f"cdf must be float32[..., N], N > 0, got {list(cdf.shape)}")
+    lead, n = tuple(cdf.shape[:-1]), cdf.shape[-1]
+    if positions.shape[:-1] != lead or positions.dim() != cdf.dim():
+        raise ValueError(f"positions must be float32{list(lead) + ['M']}, "
+                         f"got {list(positions.shape)}")
+    if values.dim() != cdf.dim() + 1 or values.shape[:-2] != lead or values.shape[-1] != n:
+        raise ValueError(f"values must be float32{list(lead) + ['D', n]}, got {list(values.shape)}")
+    if math.prod(lead) > 65535:
+        raise ValueError(f"{math.prod(lead)} filters; the kernel takes at most 65535")
 
 
 def search_take(cdf: Tensor, positions: Tensor, values: Tensor) -> Tensor:
-    """The kernel's function on a monotone ``cdf`` f32[N]: donor rows
-    ``f32[M, D]`` for ``positions`` f32[M] from ``values`` f32[D, N].
-    Launches the kernel on CUDA tensors, runs the plain version on CPU
-    tensors."""
+    """The kernel's function on a monotone ``cdf`` f32[..., N]: donor rows
+    ``f32[..., M, D]`` for ``positions`` f32[..., M] from ``values``
+    f32[..., D, N].  Launches the kernel on CUDA tensors, runs the plain
+    version on CPU tensors."""
     global launches
     _check(cdf, positions, values)
     if cdf.device.type == "cpu":
         return resample_take_reference(cdf, positions, values)
     if cdf.device.type != "cuda":
         raise ValueError(f"unsupported device {cdf.device}")
-    d, n = values.shape
-    m = positions.shape[0]
-    out = torch.empty((m, d), dtype=torch.float32, device=cdf.device)
+    d, n = values.shape[-2:]
+    m = positions.shape[-1]
+    out = torch.empty((*positions.shape, d), dtype=torch.float32, device=cdf.device)
     stream = torch.cuda.current_stream(cdf.device).cuda_stream
     err = _kernel()(cdf.data_ptr(), n, positions.data_ptr(), m, values.data_ptr(), d,
-                    out.data_ptr(), stream)
+                    out.data_ptr(), math.prod(positions.shape[:-1]), stream)
     if err != 0:
         raise RuntimeError(f"resample kernel launch failed: cudaError {err}")
     launches += 1
@@ -110,35 +117,42 @@ def resample_take(weights: Tensor, positions: Tensor, values: Tensor) -> Tensor:
     """Donor states for every position.
 
     Args:
-      weights: ``f32[N]`` linear weights (zero on dead slots).
-      positions: ``f32[M]`` in [0, 1); ``1.5`` pads a slot that takes none.
-      values: ``f32[D, N]`` state planes.
-    Returns ``f32[M, D]``.
+      weights: ``f32[..., N]`` linear weights (zero on dead slots).
+      positions: ``f32[..., M]`` in [0, 1); ``1.5`` pads a slot that takes none.
+      values: ``f32[..., D, N]`` state planes.
+    Returns ``f32[..., M, D]``.
     """
-    if weights.dtype != torch.float32 or weights.dim() != 1:
-        raise ValueError(f"weights must be float32[N], got {weights.dtype}{list(weights.shape)}")
+    if (weights.dtype != torch.float32 or weights.dim() < 1
+            or weights.shape[:-1] != positions.shape[:-1]):
+        raise ValueError(f"weights must be float32 with the positions' filter axes, "
+                         f"got {weights.dtype}{list(weights.shape)}")
     return search_take(monotone_cdf(weights), positions, values)
 
 
-def pack_state(states: Any) -> tuple[Tensor, Any]:
-    """Flatten a state tree (leaves ``[N]`` or ``[N, k]``) into ``f32[D, N]``
-    planes; returns the planes and the tree to unpack into."""
+def pack_state(states: Any, batch_dims: int = 0) -> tuple[Tensor, Any]:
+    """Flatten a state tree (leaves ``[..., N]`` or ``[..., N, k]`` after
+    ``batch_dims`` filter axes) into ``f32[..., D, N]`` planes; returns the
+    planes and the tree to unpack into."""
     leaves = tree_leaves(states)
-    n = leaves[0].shape[0]
-    planes = torch.cat([leaf.reshape(n, -1).T.float() for leaf in leaves], dim=0)
+    lead = tuple(leaves[0].shape[:batch_dims])
+    n = leaves[0].shape[batch_dims]
+    planes = torch.cat([leaf.reshape(*lead, n, -1).transpose(-1, -2).float()
+                        for leaf in leaves], dim=-2)
     return planes.contiguous(), states
 
 
 def unpack_state(packed: Tensor, like: Any) -> Any:
-    """Inverse of :func:`pack_state` for ``packed`` ``f32[M, D]``, shaped
-    like the tree ``like``."""
-    m = packed.shape[0]
+    """Inverse of :func:`pack_state` for ``packed`` ``f32[..., M, D]``,
+    shaped like the tree ``like`` (with M particles in place of N)."""
+    lead, m = tuple(packed.shape[:-2]), packed.shape[-2]
+    b = len(lead)
     at = 0
 
     def take(leaf: Tensor) -> Tensor:
         nonlocal at
-        k = leaf[0].numel() if leaf.dim() > 1 else 1
-        out = packed[:, at : at + k].reshape((m,) + tuple(leaf.shape[1:]))
+        trailing = tuple(leaf.shape[b + 1:])
+        k = math.prod(trailing)
+        out = packed[..., at : at + k].reshape(lead + (m,) + trailing)
         at += k
         return out
 
@@ -146,18 +160,25 @@ def unpack_state(packed: Tensor, like: Any) -> Any:
 
 
 def resample_take_tree(weights: Tensor, positions: Tensor, states: Any) -> Any:
-    """:func:`resample_take` over a state tree."""
-    packed, like = pack_state(states)
+    """:func:`resample_take` over a state tree whose leaves carry the
+    weights' filter axes."""
+    packed, like = pack_state(states, weights.dim() - 1)
     return unpack_state(resample_take(weights, positions, packed), like)
 
 
 def resample_take_tree_multinomial(
     generator: torch.Generator, weights: Tensor, states: Any, num: int,
-    positions: Tensor | None = None,
+    positions: Tensor | None = None, interleave: bool = True,
 ) -> Any:
     """Exact-multiset multinomial resample: sorted uniform order statistics
     (``positions``, drawn from ``generator`` when not given), the kernel,
-    then the slot interleave so slot prefixes cover the CDF uniformly."""
+    then, with ``interleave``, the slot interleave so slot prefixes cover
+    the CDF uniformly.  Without it the donors stay in CDF order, which
+    keeps theta-sorted slots sorted (pallas_resample.py:548-574)."""
+    lead = tuple(weights.shape[:-1])
     if positions is None:
-        positions = sorted_multinomial_positions(generator, num)
-    return tree_map(interleave_slots, resample_take_tree(weights, positions, states))
+        positions = sorted_multinomial_positions(generator, num, lead)
+    donors = resample_take_tree(weights, positions, states)
+    if not interleave:
+        return donors
+    return tree_map(lambda leaf: interleave_slots(leaf, axis=len(lead)), donors)

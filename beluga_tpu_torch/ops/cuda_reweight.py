@@ -1,19 +1,27 @@
-"""Kernel B1: fused likelihood-field reweight through the code table.
+"""Kernels B1 and B4: fused likelihood-field reweight.
 
 Port of ``beluga_tpu/ops/pallas_reweight.py:fused_reweight`` on its exact
-path (``values3=None``, ``log_space=False``); the kernel is
-``csrc/reweight.cu``.  :func:`fused_reweight` launches it on CUDA tensors
-and runs :func:`fused_reweight_reference`, the plain PyTorch version, on
-CPU tensors.
+path (``values3=None``, kernel B1) and on its codebook16 path
+(``values3=``, kernel B4, with :func:`build_values3` for the table);
+``log_space=True`` waits for ROADMAP item A11.  Both kernels are in
+``csrc/reweight.cu``.  :func:`fused_reweight` launches them on CUDA tensors
+and runs :func:`fused_reweight_reference` or
+:func:`fused_reweight_values3_reference`, the plain PyTorch versions, on
+CPU tensors.  Every input may carry leading filter axes (a fleet of B
+filters passes ``f32[B, N]`` particles, ``f32[B, nb, 2]`` points and
+``bool[B, nb]`` masks); the tables are shared, as under JAX's ``vmap``.
 
-Contract: every table lookup is exact (the cell ``floor(x / res)`` and the
-codebook value match the plain version bit for bit); the beam sum runs in
-another order, so weights agree to ~1e-5 relative.
+Contract: every cell ``floor(x / res)`` matches the plain version bit for
+bit; B1 reads the codebook value, B4 the bf16 value ``bf16(book³)`` of the
+cell; the beam sum runs in another order, so weights agree to ~1e-5
+relative, and B4's weights lie within 5e-3 of B1's (bf16 keeps 8
+significant bits: an entry may be off by 2^-8 relative).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -23,43 +31,62 @@ Tensor = torch.Tensor
 
 MAX_BEAMS = 16384  # shared memory: (256 + 3 * beams) floats per block
 MAX_CODES = 256
+MAX_FILTERS = 65535  # grid.y
 
-# kernel launches since the count was last set to 0
+# kernel launches since the count was last set to 0: B1, and B4
 launches = 0
+values3_launches = 0
 
-_fn = None
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
         from beluga_tpu_torch.ops._build import load_library
 
-        fn = load_library("reweight").beluga_reweight
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-        ]
+        fn = getattr(load_library("reweight"), name)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        table = [p, i, i, p, i] if name == "beluga_reweight" else [p, i, i]
+        fn.argtypes = table + [p, p, p, p, i, p, p, i, f, f, p, i, p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
+
+
+def build_values3(codes: Tensor, codebook: Tensor) -> Tensor:
+    """Kernel B4's table ``bf16[H, W] = bf16(book³[codes])``
+    (pallas_reweight.py:364-386).  The cube is ``b * b * b`` in float32,
+    as XLA lowers ``** 3``; both frameworks round to bf16 to nearest even.
+    The reference's transposed, padded and shifted copies serve Mosaic's
+    windows only."""
+    book = codebook.float()
+    return (book * book * book)[codes.long()].to(torch.bfloat16)
 
 
 def endpoint_cells(tx: Tensor, ty: Tensor, cos: Tensor, sin: Tensor, points: Tensor,
                    resolution: float) -> tuple[Tensor, Tensor]:
     """Cell coordinates ``floor(x / res)``, ``floor(y / res)`` of every
-    (particle, beam) endpoint as float32 ``[N, B]``, in the reference's
-    operation order (likelihood_field.py:226-233).  The division is by a
-    tensor on the same device, never by a Python number: CUDA would turn
-    that into a multiplication by the reciprocal and move cell edges."""
-    c, s = cos[:, None], sin[:, None]
-    px, py = points[None, :, 0], points[None, :, 1]
-    x = px * c - py * s + tx[:, None]
-    y = px * s + py * c + ty[:, None]
+    (particle, beam) endpoint as float32 ``[..., N, nb]``, in the
+    reference's operation order (likelihood_field.py:226-233).  The
+    division is by a tensor on the same device, never by a Python number:
+    CUDA would turn that into a multiplication by the reciprocal and move
+    cell edges."""
+    c, s = cos[..., :, None], sin[..., :, None]
+    px, py = points[..., None, :, 0], points[..., None, :, 1]
+    x = px * c - py * s + tx[..., :, None]
+    y = px * s + py * c + ty[..., :, None]
     res = torch.full((), resolution, dtype=torch.float32, device=x.device)
     return torch.floor(x / res), torch.floor(y / res)
+
+
+def _cells(shape, tx, ty, cos, sin, points, resolution):
+    """``(inside, row, col)`` of every endpoint, clipped to 0 off the map."""
+    fx, fy = endpoint_cells(tx, ty, cos, sin, points, resolution)
+    h, w = shape
+    inside = (fx >= 0) & (fx < w) & (fy >= 0) & (fy < h)
+    zero = torch.zeros((), dtype=torch.float32, device=fx.device)
+    return inside, torch.where(inside, fy, zero).long(), torch.where(inside, fx, zero).long()
 
 
 def fused_reweight_reference(
@@ -67,23 +94,31 @@ def fused_reweight_reference(
     sin: Tensor, points: Tensor, beam_mask: Tensor, resolution: float,
     unknown_prob: float,
 ) -> Tensor:
-    """Plain PyTorch version of the kernel."""
-    fx, fy = endpoint_cells(tx, ty, cos, sin, points, resolution)
-    h, w = codes.shape
-    inside = (fx >= 0) & (fx < w) & (fy >= 0) & (fy < h)
-    zero = torch.zeros((), dtype=torch.float32, device=fx.device)
-    vals = codebook_lookup(
-        codes, codebook,
-        torch.where(inside, fy, zero).long(), torch.where(inside, fx, zero).long(),
-    )
-    pz = torch.where(inside, vals, unknown_prob)
-    return 1.0 + torch.sum(torch.where(beam_mask[None, :], pz * pz * pz, 0.0), dim=-1)
+    """Plain PyTorch version of kernel B1."""
+    inside, row, col = _cells(codes.shape, tx, ty, cos, sin, points, resolution)
+    pz = torch.where(inside, codebook_lookup(codes, codebook, row, col), unknown_prob)
+    return 1.0 + torch.sum(torch.where(beam_mask[..., None, :], pz * pz * pz, 0.0), dim=-1)
 
 
-def _check(codes, codebook, tx, ty, cos, sin, points, beam_mask):
+def fused_reweight_values3_reference(
+    values3: Tensor, tx: Tensor, ty: Tensor, cos: Tensor, sin: Tensor,
+    points: Tensor, beam_mask: Tensor, resolution: float, unknown_prob: float,
+) -> Tensor:
+    """Plain PyTorch version of kernel B4: ``1 + Σ pz³`` with in-map pz³
+    read from the bf16 table and ``unknown·unknown·unknown`` off the map
+    (pallas_reweight.py:183-184, 203)."""
+    inside, row, col = _cells(values3.shape, tx, ty, cos, sin, points, resolution)
+    u = torch.tensor(unknown_prob, dtype=torch.float32, device=tx.device)
+    pz3 = torch.where(inside, values3[row, col].float(), u * u * u)
+    return 1.0 + torch.sum(torch.where(beam_mask[..., None, :], pz3, 0.0), dim=-1)
+
+
+def _check(codes, codebook, tx, ty, cos, sin, points, beam_mask, values3):
     device = codes.device
     tensors = {"codes": codes, "codebook": codebook, "tx": tx, "ty": ty, "cos": cos,
                "sin": sin, "points": points, "beam_mask": beam_mask}
+    if values3 is not None:
+        tensors["values3"] = values3
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, codes on {device}")
@@ -95,53 +130,73 @@ def _check(codes, codebook, tx, ty, cos, sin, points, beam_mask):
         0 < codebook.shape[0] <= MAX_CODES
     ):
         raise ValueError(f"codebook must be float32[K], 0 < K <= {MAX_CODES}")
-    n = tx.shape[0]
+    if values3 is not None and (values3.dtype != torch.bfloat16 or values3.shape != codes.shape):
+        raise ValueError(f"values3 must be bfloat16{list(codes.shape)}, "
+                         f"got {values3.dtype}{list(values3.shape)}")
+    shape = tx.shape
+    if tx.dim() < 1:
+        raise ValueError("tx must be float32[..., N]")
     for name in ("tx", "ty", "cos", "sin"):
         t = tensors[name]
-        if t.dtype != torch.float32 or t.shape != (n,):
-            raise ValueError(f"{name} must be float32[{n}], got {t.dtype}{list(t.shape)}")
-    nb = points.shape[0]
-    if points.dtype != torch.float32 or points.shape != (nb, 2):
-        raise ValueError(f"points must be float32[B, 2], got {points.dtype}{list(points.shape)}")
-    if beam_mask.dtype != torch.bool or beam_mask.shape != (nb,):
-        raise ValueError(f"beam_mask must be bool[{nb}]")
+        if t.dtype != torch.float32 or t.shape != shape:
+            raise ValueError(f"{name} must be float32{list(shape)}, got {t.dtype}{list(t.shape)}")
+    lead = tuple(shape[:-1])
+    nb = points.shape[-2] if points.dim() >= 2 else 0
+    if points.dtype != torch.float32 or points.shape != (*lead, nb, 2):
+        raise ValueError(f"points must be float32[..., nb, 2] with the particles' filter "
+                         f"axes {list(lead)}, got {points.dtype}{list(points.shape)}")
+    if beam_mask.dtype != torch.bool or beam_mask.shape != (*lead, nb):
+        raise ValueError(f"beam_mask must be bool{list((*lead, nb))}")
     if nb > MAX_BEAMS:
         raise ValueError(f"{nb} beams; the kernel takes at most {MAX_BEAMS}")
+    if math.prod(lead) > MAX_FILTERS:
+        raise ValueError(f"{math.prod(lead)} filters; the kernel takes at most {MAX_FILTERS}")
 
 
 def fused_reweight(
     codes: Tensor, codebook: Tensor, tx: Tensor, ty: Tensor, cos: Tensor,
     sin: Tensor, points: Tensor, beam_mask: Tensor, resolution: float,
-    unknown_prob: float,
+    unknown_prob: float, values3: Tensor | None = None,
 ) -> Tensor:
-    """AMCL-parity weights ``1 + Σ_b pz_b³``, ``f32[N]``.
+    """AMCL-parity weights ``1 + Σ_b pz_b³``, ``f32[..., N]``.
 
     Args:
       codes: ``uint8[H, W]`` field code table; codebook: ``f32[K]``, K <= 256.
-      tx/ty/cos/sin: ``f32[N]`` per-particle field-frame transform.
-      points: ``f32[B, 2]`` beam endpoints in the base frame;
-        beam_mask: ``bool[B]``.
+      tx/ty/cos/sin: ``f32[..., N]`` per-particle field-frame transform.
+      points: ``f32[..., nb, 2]`` beam endpoints in the base frame;
+        beam_mask: ``bool[..., nb]``, with the particles' filter axes.
       resolution, unknown_prob: float32 values as Python floats.
+      values3: ``bf16[H, W]`` from :func:`build_values3`: kernel B4 (the
+        codebook16 mode) instead of B1.
     """
-    global launches
-    _check(codes, codebook, tx, ty, cos, sin, points, beam_mask)
+    global launches, values3_launches
+    _check(codes, codebook, tx, ty, cos, sin, points, beam_mask, values3)
     if codes.device.type == "cpu":
+        if values3 is not None:
+            return fused_reweight_values3_reference(
+                values3, tx, ty, cos, sin, points, beam_mask, resolution, unknown_prob)
         return fused_reweight_reference(
             codes, codebook, tx, ty, cos, sin, points, beam_mask, resolution, unknown_prob
         )
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
     h, w = codes.shape
-    n, nb = tx.shape[0], points.shape[0]
-    out = torch.empty(n, dtype=torch.float32, device=codes.device)
+    n, nb = tx.shape[-1], points.shape[-2]
+    batch = math.prod(tx.shape[:-1])
+    out = torch.empty(tx.shape, dtype=torch.float32, device=codes.device)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    err = _kernel()(
-        codes.data_ptr(), h, w, codebook.data_ptr(), codebook.shape[0],
-        tx.data_ptr(), ty.data_ptr(), cos.data_ptr(), sin.data_ptr(), n,
-        points.data_ptr(), beam_mask.data_ptr(), nb, resolution, unknown_prob,
-        out.data_ptr(), stream,
-    )
+    particles = (tx.data_ptr(), ty.data_ptr(), cos.data_ptr(), sin.data_ptr(), n,
+                 points.data_ptr(), beam_mask.data_ptr(), nb, resolution, unknown_prob,
+                 out.data_ptr(), batch, stream)
+    if values3 is None:
+        err = _kernel("beluga_reweight")(
+            codes.data_ptr(), h, w, codebook.data_ptr(), codebook.shape[0], *particles)
+    else:
+        err = _kernel("beluga_reweight_values3")(values3.data_ptr(), h, w, *particles)
     if err != 0:
         raise RuntimeError(f"reweight kernel launch failed: cudaError {err}")
-    launches += 1
+    if values3 is None:
+        launches += 1
+    else:
+        values3_launches += 1
     return out

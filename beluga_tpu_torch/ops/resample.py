@@ -9,7 +9,9 @@ positions are drawn, so each is a core that takes its uniforms as inputs
 (ops/cuda_resample.py).
 
 Every positioner clamps below 1.0 (``1 - 2^-24``): the interval search maps
-a position at or above the last CDF entry to no donor.
+a position at or above the last CDF entry to no donor.  Positions may carry
+leading filter axes (``lead``), one independent draw per filter, and the
+interleave works on any one axis (the particle axis).
 """
 
 from __future__ import annotations
@@ -29,14 +31,14 @@ def _uniform(generator: torch.Generator, shape) -> Tensor:
 
 
 def systematic_from_uniform(u0: Tensor, num: int) -> Tensor:
-    """``(i + u0) / num`` for one shared uniform ``u0`` (0-d f32)."""
+    """``(i + u0) / num`` for one uniform ``u0`` per filter (f32 ``[...]``)."""
     i = torch.arange(num, dtype=torch.float32, device=u0.device)
-    return torch.clamp_max((i + u0) / num, _BELOW_ONE)
+    return torch.clamp_max((i + u0[..., None]) / num, _BELOW_ONE)
 
 
 def stratified_from_uniform(u: Tensor) -> Tensor:
-    """``(i + u_i) / num`` for ``num`` iid uniforms ``u``."""
-    num = u.shape[0]
+    """``(i + u_i) / num`` for ``num`` iid uniforms ``u`` (last axis)."""
+    num = u.shape[-1]
     i = torch.arange(num, dtype=torch.float32, device=u.device)
     return torch.clamp_max((i + u) / num, _BELOW_ONE)
 
@@ -49,26 +51,26 @@ def sorted_multinomial_from_uniform(u: Tensor) -> Tensor:
     sorted.  ``cummax`` keeps the sequence monotone where a parallel
     cumsum dips by an ulp."""
     e = -torch.log1p(-u)
-    s = torch.cummax(torch.cumsum(e, dim=0), dim=0).values
-    out = s[:-1] / torch.clamp_min(s[-1], 1e-38)
+    s = torch.cummax(torch.cumsum(e, dim=-1), dim=-1).values
+    out = s[..., :-1] / torch.clamp_min(s[..., -1:], 1e-38)
     return torch.clamp_max(out, _BELOW_ONE)
 
 
-def multinomial_positions(generator: torch.Generator, num: int) -> Tensor:
+def multinomial_positions(generator: torch.Generator, num: int, lead=()) -> Tensor:
     """iid positions (views/sample.hpp's discrete_distribution)."""
-    return _uniform(generator, (num,))
+    return _uniform(generator, (*lead, num))
 
 
-def systematic_positions(generator: torch.Generator, num: int) -> Tensor:
-    return systematic_from_uniform(_uniform(generator, ()), num)
+def systematic_positions(generator: torch.Generator, num: int, lead=()) -> Tensor:
+    return systematic_from_uniform(_uniform(generator, tuple(lead)), num)
 
 
-def stratified_positions(generator: torch.Generator, num: int) -> Tensor:
-    return stratified_from_uniform(_uniform(generator, (num,)))
+def stratified_positions(generator: torch.Generator, num: int, lead=()) -> Tensor:
+    return stratified_from_uniform(_uniform(generator, (*lead, num)))
 
 
-def sorted_multinomial_positions(generator: torch.Generator, num: int) -> Tensor:
-    return sorted_multinomial_from_uniform(_uniform(generator, (num + 1,)))
+def sorted_multinomial_positions(generator: torch.Generator, num: int, lead=()) -> Tensor:
+    return sorted_multinomial_from_uniform(_uniform(generator, (*lead, num + 1)))
 
 
 POSITIONERS = {
@@ -99,13 +101,13 @@ def interleave_ranks(k: Tensor, m: int, rows: int = 512) -> Tensor:
     return (k % g) * r + k // g
 
 
-def interleave_slots(x: Tensor, rows: int = 512) -> Tensor:
-    """Reorder the leading axis by a ``[m / r, r]`` transpose, so that any
-    slot prefix (the KLD active prefix) spans the whole sorted CDF."""
-    m = x.shape[0]
+def interleave_slots(x: Tensor, rows: int = 512, axis: int = 0) -> Tensor:
+    """Reorder the slot axis ``axis`` by a ``[m / r, r]`` transpose, so that
+    any slot prefix (the KLD active prefix) spans the whole sorted CDF."""
+    m = x.shape[axis]
     r, _ = interleave_stride(m, rows)
     if r == 1 and m > 4:
         ranks = interleave_ranks(torch.arange(m, device=x.device), m, rows)
-        return x.index_select(0, ranks)
-    lead = (m // r, r)
-    return x.reshape(lead + x.shape[1:]).transpose(0, 1).reshape(x.shape)
+        return x.index_select(axis, ranks)
+    split = x.shape[:axis] + (m // r, r) + x.shape[axis + 1:]
+    return x.reshape(split).transpose(axis, axis + 1).reshape(x.shape)

@@ -1,16 +1,21 @@
-"""Where an update's time goes on the card: the port's two main-path
+"""Where an update's time goes on the card: the port's main-path
 workloads under ``torch.profiler``.
 
     python -m beluga_tpu_torch.tools.profile_update [--scans 20] [--trace-dir DIR]
+        [--workloads node,large,fleet]
 
-Workloads, both on the synthetic arena of ``io/synthetic.py`` with 60
-beams:
+Workloads, the configurations of ``tools/workloads.py`` (which
+``chip_smoke.py`` drives too):
 
 * ``node``: ``AmclNode`` at nav2 defaults (2000 particles, KLD down to
   500, multinomial resampling, cluster estimate), one ``handle_scan`` per
   scan;
 * ``large``: one 262144-particle filter (systematic resampling, KLD down
-  to 65536, plain estimate) through ``filters.amcl.update``.
+  to 65536, plain estimate, pooled recovery) through
+  ``filters.amcl.update``;
+* ``fleet``: the JAX benchmark's fleet, 64 filters x 4096 particles
+  (codebook16, theta-sorted slots, fixed count, multinomial resampling,
+  pooled recovery) through ``parallel.fleet.make_fleet_update``.
 
 After a warm-up each workload runs ``--scans`` scans on the host clock
 (wall ms per update, a synchronize after the last), then ``--scans`` more
@@ -31,13 +36,13 @@ import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-GRID, RES, BEAMS = 384, 0.05, 60
-STAGES = ("propagate", "log_weight", "random_state", "hash_state", "estimate")
+from beluga_tpu_torch.tools import workloads
+
+STAGES = ("propagate", "log_weight", "random_state", "hash_state", "estimate", "sort_key")
 
 
 def _ranged(models):
@@ -48,28 +53,24 @@ def _ranged(models):
                 return fn(*args, **kwargs)
         return inner
 
+    from beluga_tpu_torch.filters.amcl import se2_sort_key
+
+    models = models._replace(sort_key=models.sort_key or se2_sort_key)
     return models._replace(**{s: wrap(s, getattr(models, s)) for s in STAGES})
 
 
 def _node(scans: int):
-    from beluga_tpu_torch.io import synthetic
-    from beluga_tpu_torch.io.config import AmclNodeConfig
     from beluga_tpu_torch.maps.occupancy import make_grid
     from beluga_tpu_torch.node import AmclNode, make_packed_step_se2
 
-    data = synthetic.tracking_arena(GRID, RES)
-    xs, ys, yaws = synthetic.circle_trajectory(scans, GRID, RES)
-    pts, mask = synthetic.simulate_scans(data, RES, xs, ys, yaws, BEAMS)
-    cfg = AmclNodeConfig(set_initial_pose=True, initial_pose_x=float(xs[0]),
-                         initial_pose_y=float(ys[0]), initial_pose_yaw=float(yaws[0]),
-                         initial_pose_covariance_yaw=0.068)
-    node = AmclNode(cfg, seed=0)
-    node.set_map(make_grid(data, RES))
+    s = workloads.arena_scans(scans)
+    node = AmclNode(workloads.node_config(s), seed=0)
+    node.set_map(make_grid(s.data, workloads.RES))
     node._models = _ranged(node._models)
     node._step = make_packed_step_se2(node.params, node._models, node.device)
 
     def step(t):
-        r = node.handle_scan((xs[t], ys[t], yaws[t]), pts[t], mask[t])
+        r = node.handle_scan((s.xs[t], s.ys[t], s.yaws[t]), s.points[t], s.mask[t])
         if not r.valid:
             raise RuntimeError(f"node scan {t} was gated out")
 
@@ -77,33 +78,37 @@ def _node(scans: int):
 
 
 def _large(scans: int):
-    from beluga_tpu_torch.core.random import sample_normal_se2
-    from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_state, update
-    from beluga_tpu_torch.filters.builders import make_likelihood_field_filter
-    from beluga_tpu_torch.io import synthetic
-    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.filters.amcl import host_pose, update
 
-    dev = torch.device("cuda")
-    data = synthetic.tracking_arena(GRID, RES)
-    xs, ys, yaws = synthetic.circle_trajectory(scans, GRID, RES)
-    pts, mask = synthetic.simulate_scans(data, RES, xs, ys, yaws, BEAMS)
-    pts_d, mask_d = torch.as_tensor(pts).to(dev), torch.as_tensor(mask).to(dev)
-    models, ctx = make_likelihood_field_filter(make_grid(data, RES))
-    models = _ranged(models)
-    n = 262144
-    params = AmclParams(max_particles=n, min_particles=n // 4, resampling="systematic")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    states = sample_normal_se2(gen, n, host_pose(xs[0], ys[0], yaws[0]),
-                               np.diag([0.25, 0.25, 0.068]))
-    box = {"state": init_state(gen, states, params)}
+    w = workloads.large_filter(scans, torch.device("cuda"))
+    models, s = _ranged(w.models), w.scans
+    box = {"state": w.state}
 
     def step(t):
-        box["state"], est = update(params, models, ctx, box["state"],
-                                   host_pose(xs[t], ys[t], yaws[t]), pts_d[t], mask_d[t])
+        box["state"], est = update(w.params, models, w.ctx, box["state"],
+                                   host_pose(s.xs[t], s.ys[t], s.yaws[t]), w.points[t], w.mask[t])
         est.pose.xy.cpu()  # the one readback per scan, as the node does
 
     return step
+
+
+def _fleet(scans: int):
+    from beluga_tpu_torch.parallel.fleet import make_fleet_update
+
+    w = workloads.fleet(scans, torch.device("cuda"))
+    batch = w.points.shape[1]
+    fleet_update = make_fleet_update(w.params, _ranged(w.models))
+    box = {"state": w.state}
+
+    def step(t):
+        odoms = workloads.fleet_odometry(w.scans, t, batch)
+        box["state"], est = fleet_update(w.ctx, box["state"], odoms, w.points[t], w.mask[t])
+        est.pose.xy.cpu()  # the one readback per scan: every filter's pose
+
+    return step
+
+
+WORKLOADS = {"node": _node, "large": _large, "fleet": _fleet}
 
 
 def profile_workload(name: str, make, scans: int, warmup: int, trace_dir: str | None) -> dict:
@@ -157,6 +162,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scans", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--trace-dir", default=None, help="write Chrome traces here")
+    ap.add_argument("--workloads", default=",".join(WORKLOADS),
+                    help="comma-separated subset of " + ",".join(WORKLOADS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_update: no CUDA device", file=sys.stderr)
@@ -166,8 +173,9 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)} | {smi}")
-    for name, make in (("node", _node), ("large", _large)):
-        print(json.dumps(profile_workload(name, make, args.scans, args.warmup, args.trace_dir)))
+    for name in args.workloads.split(","):
+        print(json.dumps(profile_workload(name, WORKLOADS[name], args.scans, args.warmup,
+                                          args.trace_dir)))
     return 0
 
 

@@ -1,0 +1,120 @@
+"""The main-path configurations that ``chip_smoke.py`` drives and
+``tools/profile_update.py`` profiles, built in one place.
+
+All run on the synthetic 384x384 arena at 5 cm of ``io/synthetic.py`` (the
+numpy copy of ``bench.py:113-178``), along its circle trajectory, with 60
+beams per scan:
+
+* :func:`node_config`: ``AmclNode`` at nav2 defaults, started at the first
+  truth pose with covariance diag(0.25, 0.25, 0.068);
+* :func:`large_filter`: ``bench.py:848-854``'s single filter, 262144
+  particles, KLD down to 65536, systematic resampling, pooled recovery;
+* :func:`fleet`: the JAX benchmark's fleet (``bench.py:46-49, 180-220``),
+  64 filters x 4096 particles, codebook16, theta-sorted slots, a fixed
+  count, multinomial resampling, pooled recovery; every filter scores the
+  same scan and starts from its own cloud.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+GRID, RES, BEAMS = 384, 0.05, 60
+INITIAL_COV = np.diag([0.25, 0.25, 0.068])
+RECOVERY_CANDIDATES = 256  # bench.py:190, :850
+
+
+class Scans(NamedTuple):
+    """The arena, the truth poses of ``scans`` steps and their scans."""
+
+    data: np.ndarray  # int8 occupancy [GRID, GRID]
+    xs: np.ndarray
+    ys: np.ndarray
+    yaws: np.ndarray
+    points: np.ndarray  # f32[scans, BEAMS, 2]
+    mask: np.ndarray  # bool[scans, BEAMS]
+
+
+class Workload(NamedTuple):
+    """A filter configuration ready to step: per scan ``t``, update with
+    odometry ``(xs[t], ys[t], yaws[t])`` and ``points[t]``, ``mask[t]`` (on
+    the device; ``[B, BEAMS, ...]`` per scan for a fleet)."""
+
+    scans: Scans
+    points: torch.Tensor
+    mask: torch.Tensor
+    params: Any  # AmclParams
+    models: Any  # AmclModels
+    ctx: dict
+    state: Any  # AmclState
+
+
+def arena_scans(scans: int) -> Scans:
+    from beluga_tpu_torch.io import synthetic
+
+    data = synthetic.tracking_arena(GRID, RES)
+    xs, ys, yaws = synthetic.circle_trajectory(scans, GRID, RES)
+    pts, mask = synthetic.simulate_scans(data, RES, xs, ys, yaws, BEAMS)
+    return Scans(data, xs, ys, yaws, pts, mask)
+
+
+def node_config(s: Scans):
+    """nav2 defaults, with the initial pose at the first truth."""
+    from beluga_tpu_torch.io.config import AmclNodeConfig
+
+    return AmclNodeConfig(
+        set_initial_pose=True, initial_pose_x=float(s.xs[0]), initial_pose_y=float(s.ys[0]),
+        initial_pose_yaw=float(s.yaws[0]), initial_pose_covariance_x=float(INITIAL_COV[0, 0]),
+        initial_pose_covariance_y=float(INITIAL_COV[1, 1]),
+        initial_pose_covariance_yaw=float(INITIAL_COV[2, 2]),
+    )
+
+
+def large_filter(scans: int, device, n: int = 262144, n_min: int = 65536) -> Workload:
+    from beluga_tpu_torch.core.random import sample_normal_se2
+    from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_state
+    from beluga_tpu_torch.filters.builders import make_likelihood_field_filter
+    from beluga_tpu_torch.maps.occupancy import make_grid
+
+    s = arena_scans(scans)
+    models, ctx = make_likelihood_field_filter(make_grid(s.data, RES, device=device),
+                                               recovery_candidates=RECOVERY_CANDIDATES,
+                                               device=device)
+    params = AmclParams(max_particles=n, min_particles=n_min, resampling="systematic")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    states = sample_normal_se2(gen, n, host_pose(s.xs[0], s.ys[0], s.yaws[0]), INITIAL_COV)
+    return Workload(s, torch.as_tensor(s.points).to(device), torch.as_tensor(s.mask).to(device),
+                    params, models, ctx, init_state(gen, states, params, device=device))
+
+
+def fleet(scans: int, device, batch: int = 64, n: int = 4096) -> Workload:
+    from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_fleet_state
+    from beluga_tpu_torch.filters.builders import make_likelihood_field_filter
+    from beluga_tpu_torch.maps.occupancy import make_grid
+
+    s = arena_scans(scans)
+    pts = torch.as_tensor(s.points).to(device)[:, None].expand(scans, batch, BEAMS, 2)
+    mask = torch.as_tensor(s.mask).to(device)[:, None].expand(scans, batch, BEAMS)
+    models, ctx = make_likelihood_field_filter(make_grid(s.data, RES, device=device),
+                                               lookup_mode="codebook16",
+                                               recovery_candidates=RECOVERY_CANDIDATES,
+                                               device=device)
+    params = AmclParams(max_particles=n, min_particles=n, sorted_slots=True)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    state = init_fleet_state(gen, batch, host_pose(s.xs[0], s.ys[0], s.yaws[0]), INITIAL_COV,
+                             params, device=device)
+    return Workload(s, pts.contiguous(), mask.contiguous(), params, models, ctx, state)
+
+
+def fleet_odometry(s: Scans, t: int, batch: int):
+    """Scan ``t``'s odometry for every filter of a fleet: ``SE2 [batch]``
+    on the host."""
+    from beluga_tpu_torch.lie import SE2
+
+    return SE2.from_xytheta(np.full(batch, s.xs[t]), np.full(batch, s.ys[t]),
+                            np.full(batch, s.yaws[t]), device="cpu")

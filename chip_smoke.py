@@ -10,16 +10,29 @@ Phases, each of which exits non-zero when it fails:
 2. build: every ``beluga_tpu_torch/csrc/*.cu`` with nvcc, one process per
    source, started together;
 3. kernels: each kernel's wrapper on card tensors at the shapes the main
-   path gives it (2000 particles x 60 beams) and at 262144, held against
-   its plain PyTorch version on the same inputs and timed beside it;
+   paths give it (the node's 2000 particles x 60 beams, the fleet's 64
+   filters x 4096 particles x 60 beams, the large filter's 262144), held
+   against its plain PyTorch version on the same inputs and timed beside
+   it: B1 (exact reweight), B4 (codebook16 reweight), B2 (resample take),
+   B3 (pool take).  ``ms`` is the time per call of calls issued back to
+   back, the wrapper's host cost included; ``device_ms`` is the device's
+   own time per call under ``torch.profiler``;
 4. node: ``AmclNode`` at nav2 defaults tracks the synthetic arena's circle
    for 50 scans; every valid estimate must lie within 0.9 m / 30 degrees
-   of the truth, and both kernels must have been launched;
+   of the truth, and B1 and B2 must have been launched;
 5. large filter: one 262144-particle filter (systematic resampling, KLD
-   down to 65536) through ``filters.amcl.update`` for 12 scans, same gate.
+   down to 65536, pooled recovery) through ``filters.amcl.update`` for 12
+   scans, same gate; B1, B2 and B3 launched;
+6. fleet: 64 filters x 4096 particles in codebook16 mode with theta-sorted
+   slots and pooled recovery through ``parallel.fleet.make_fleet_update``
+   for 40 scans, same gate on every filter; B4, B2 and B3 launched once per
+   update, B1 never.
 
-The line before the last two is the ``kernels`` JSON; the line before the
-last is ``nvidia-smi``'s name and power limit; the last line is
+Phases 4 to 6 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
+
+Each path's launch counts are set to 0 just before it runs and read just
+after.  The line before the last two is the ``kernels`` JSON; the line
+before the last is ``nvidia-smi``'s name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -39,14 +52,16 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 # float32 operations per unmasked (particle, beam) in kernel B1: 8 for the
-# endpoint transform, 2 divisions, 2 for the cube, 1 for the sum
+# endpoint transform, 2 divisions, 2 for the cube, 1 for the sum; kernel B4
+# reads the cube from its table
 B1_OPS_PER_BEAM = 13
+B4_OPS_PER_BEAM = 11
 
 GATE_POS_M = 0.9  # tests/test_system.py:44-45
 GATE_YAW_RAD = math.radians(30.0)
-GRID, RES, BEAMS = 384, 0.05, 60
 NODE_SCANS = 50
 LARGE_N, LARGE_MIN, LARGE_SCANS = 262144, 65536, 12
+FLEET_B, FLEET_N, FLEET_SCANS = 64, 4096, 40  # bench.py:46-49
 
 
 class SmokeFailure(Exception):
@@ -59,8 +74,9 @@ def check(ok: bool, what: str) -> None:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events),
-    after a warm-up."""
+    """Mean time per call of ``fn`` over ``iters`` calls back to back
+    (CUDA events), after a warm-up.  It includes the host's cost of issuing
+    each call wherever that exceeds the device's time for it."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -72,6 +88,35 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float | None:
+    """Mean device time per call of ``fn``: the summed durations of the
+    kernels and copies it ran under ``torch.profiler``, which leaves the
+    host's cost out; None when the profiler saw no device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    return 1e-3 * busy_us / iters if busy_us > 0 else None
+
+
+def timings(kernel, plain, iters: int, library=None) -> dict:
+    """``ms``, ``plain_ms`` and ``library_ms`` (``cuda_ms``) and their
+    ``device_ms`` counterparts for a kernel's wrapper, its plain version
+    and the library call (None where there is none)."""
+    out = {}
+    for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
+        out[key] = None if fn is None else cuda_ms(fn, iters)
+        out[key.replace("ms", "device_ms")] = None if fn is None else device_ms(fn, 20)
+    return out
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -87,44 +132,67 @@ def yaw_error(a: float, b: float) -> float:
 # -- phase 3: kernels against their plain versions ---------------------------
 
 
-def workload(n: int, dev):
+def workload(n: int, dev, batch: int | None = None):
     """Field code table, particles and one scan of the tracking workload:
-    90% of the particles in a cloud about the first pose, 10% spread over
-    a box larger than the map (some endpoints fall off the map)."""
+    per filter, 90% of the particles in a cloud about the first pose, 10%
+    spread over a box larger than the map (some endpoints fall off the
+    map).  One filter ``[n]``, or ``batch`` filters ``[batch, n]`` that
+    score the same scan, as the fleet does."""
     from beluga_tpu_torch.filters.builders import make_likelihood_field_filter
-    from beluga_tpu_torch.io import synthetic
     from beluga_tpu_torch.io.config import AmclNodeConfig
     from beluga_tpu_torch.lie import SE2
     from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.tools.workloads import GRID, RES, arena_scans
 
-    data = synthetic.tracking_arena(GRID, RES)
-    xs, ys, yaws = synthetic.circle_trajectory(1, GRID, RES)
-    pts, mask = synthetic.simulate_scans(data, RES, xs, ys, yaws, BEAMS)
+    data, xs, ys, yaws, pts, mask = arena_scans(1)
     _, ctx = make_likelihood_field_filter(
         make_grid(data, RES, device=dev),
         AmclNodeConfig().likelihood_field_params(), device=dev,
     )
-    rng = np.random.default_rng(n)
+    lead = () if batch is None else (batch,)
+    rng = np.random.default_rng(n * (batch or 1))
     near = int(n * 0.9)
-    px = np.concatenate([rng.normal(xs[0], 0.5, near), rng.uniform(-2, GRID * RES + 2, n - near)])
-    py = np.concatenate([rng.normal(ys[0], 0.5, near), rng.uniform(-2, GRID * RES + 2, n - near)])
-    pth = np.concatenate([rng.normal(yaws[0], 0.26, near), rng.uniform(-np.pi, np.pi, n - near)])
+
+    def mix(center, sd, lo, hi):
+        return np.concatenate([rng.normal(center, sd, (*lead, near)),
+                               rng.uniform(lo, hi, (*lead, n - near))], axis=-1)
+
+    px = mix(xs[0], 0.5, -2, GRID * RES + 2)
+    py = mix(ys[0], 0.5, -2, GRID * RES + 2)
+    pth = mix(yaws[0], 0.26, -np.pi, np.pi)
     states = SE2.from_xytheta(px.astype(np.float32), py.astype(np.float32),
                               pth.astype(np.float32), device=dev)
     tf = ctx["field"].world_to_field @ states
+    points = torch.as_tensor(pts[0]).to(dev)
+    beams = torch.as_tensor(mask[0]).to(dev)
     return dict(
-        ctx=ctx,
+        ctx=ctx, lead=lead,
         tf=[t.contiguous() for t in (tf.x, tf.y, tf.rot.cos, tf.rot.sin)],
         states=states,
-        points=torch.as_tensor(pts[0]).to(dev),
-        mask=torch.as_tensor(mask[0]).to(dev),
+        points=points.expand(*lead, *points.shape).contiguous(),
+        mask=beams.expand(*lead, *beams.shape).contiguous(),
     )
 
 
-def check_reweight(n: int, dev, iters: int) -> dict:
+def shape_label(w: dict, n: int) -> str:
+    b = w["lead"][0] if w["lead"] else 1
+    nb = w["points"].shape[-2]
+    return f"{b}x{n}x{nb} ({int(w['mask'][(0,) * len(w['lead'])].sum())} unmasked)"
+
+
+def single_beam(mask: torch.Tensor) -> torch.Tensor:
+    """The mask with only its first unmasked beam left on (every filter
+    scores the same scan)."""
+    first = int(torch.nonzero(mask.reshape(-1, mask.shape[-1])[0])[0])
+    one = torch.zeros_like(mask)
+    one[..., first] = True
+    return one
+
+
+def check_reweight(n: int, dev, iters: int, batch: int | None = None) -> tuple[dict, dict]:
     from beluga_tpu_torch.ops import cuda_reweight as b1
 
-    w = workload(n, dev)
+    w = workload(n, dev, batch)
     codes, book = w["ctx"]["field_codes"]
     field = w["ctx"]["field"]
     args = lambda mask: (codes, book, *w["tf"], w["points"], mask,  # noqa: E731
@@ -132,137 +200,211 @@ def check_reweight(n: int, dev, iters: int) -> dict:
 
     # cell exactness: one unmasked beam, so the beam-sum order cannot
     # matter; any cell index that moved reads another codebook value
-    one = torch.zeros_like(w["mask"])
-    one[int(torch.nonzero(w["mask"])[0])] = True
+    one = single_beam(w["mask"])
     got1 = b1.fused_reweight(*args(one))
     want1 = b1.fused_reweight_reference(*args(one))
     torch.cuda.synchronize()
+    label = shape_label(w, n)
     check(torch.equal(got1, want1),
-          f"B1 {n}x{BEAMS} single beam: {int((got1 != want1).sum())} weights differ")
+          f"B1 {label} single beam: {int((got1 != want1).sum())} weights differ")
 
     got = b1.fused_reweight(*args(w["mask"]))
     want = b1.fused_reweight_reference(*args(w["mask"]))
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), "B1 weights not finite")
     check(torch.allclose(got, want, rtol=1e-5, atol=0),
-          f"B1 {n}x{BEAMS}: max rel err {float(((got - want).abs() / want).max()):.3g} > 1e-5")
+          f"B1 {label}: max rel err {float(((got - want).abs() / want).max()):.3g} > 1e-5")
     err = float((got - want).abs().max())
+    w["b1_weights"] = got
 
-    ms = cuda_ms(lambda: b1.fused_reweight(*args(w["mask"])), iters)
-    plain_ms = cuda_ms(lambda: b1.fused_reweight_reference(*args(w["mask"])), iters)
+    times = timings(lambda: b1.fused_reweight(*args(w["mask"])),
+                    lambda: b1.fused_reweight_reference(*args(w["mask"])), iters)
     h, wd = codes.shape
-    nb = w["points"].shape[0]
-    unmasked = int(w["mask"].sum())
-    nbytes = h * wd + 4 * book.numel() + 16 * n + 9 * nb + 4 * n
+    total, filters = w["tf"][0].numel(), batch or 1
+    nb = w["points"].shape[-2]
+    unmasked = int(w["mask"].sum())  # over every filter
+    nbytes = h * wd + 4 * book.numel() + 16 * total + 9 * nb * filters + 4 * total
     bms, by = bound_ms(nbytes, B1_OPS_PER_BEAM * n * unmasked)
     return dict(
         name="B1 fused_reweight", route="cuda", source="beluga_tpu_torch/csrc/reweight.cu",
         replaces="beluga_tpu/ops/pallas_reweight.py:390", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"{n}x{nb} ({unmasked} unmasked)",
+        bound_ms=bms, bound_by=by, shape=label, **times,
     ), w
+
+
+def check_codebook16(n: int, w: dict, iters: int) -> dict:
+    """Kernel B4 on ``check_reweight``'s inputs: single-beam weights equal,
+    60-beam weights within rtol 1e-5 of its plain version and within 5e-3
+    of B1's exact weights."""
+    from beluga_tpu_torch.ops import cuda_reweight as b1
+
+    codes, book = w["ctx"]["field_codes"]
+    field = w["ctx"]["field"]
+    v3 = b1.build_values3(codes, book)
+
+    def kernel(mask):
+        return b1.fused_reweight(codes, book, *w["tf"], w["points"], mask, field.resolution,
+                                 field.unknown_prob, values3=v3)
+
+    def plain(mask):
+        return b1.fused_reweight_values3_reference(v3, *w["tf"], w["points"], mask,
+                                                   field.resolution, field.unknown_prob)
+
+    label = shape_label(w, n)
+    one = single_beam(w["mask"])
+    got1, want1 = kernel(one), plain(one)
+    torch.cuda.synchronize()
+    check(torch.equal(got1, want1),
+          f"B4 {label} single beam: {int((got1 != want1).sum())} weights differ")
+    got, want = kernel(w["mask"]), plain(w["mask"])
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "B4 weights not finite")
+    check(torch.allclose(got, want, rtol=1e-5, atol=0),
+          f"B4 {label}: max rel err {float(((got - want).abs() / want).max()):.3g} > 1e-5")
+    rel_b1 = float(((got - w["b1_weights"]).abs() / w["b1_weights"]).max())
+    check(rel_b1 < 5e-3, f"B4 {label}: {rel_b1:.3g} relative to B1's exact weights")
+    times = timings(lambda: kernel(w["mask"]), lambda: plain(w["mask"]), iters)
+    h, wd = codes.shape
+    total, filters = w["tf"][0].numel(), (w["lead"][0] if w["lead"] else 1)
+    nb = w["points"].shape[-2]
+    nbytes = 2 * h * wd + 16 * total + 9 * nb * filters + 4 * total
+    bms, by = bound_ms(nbytes, B4_OPS_PER_BEAM * n * int(w["mask"].sum()))
+    return dict(
+        name="B4 fused_reweight values3", route="cuda",
+        source="beluga_tpu_torch/csrc/reweight.cu",
+        replaces="beluga_tpu/ops/pallas_reweight.py:390 (values3=, build_values3:364)",
+        max_abs_err=float((got - want).abs().max()), rel_to_b1=rel_b1,
+        bound_ms=bms, bound_by=by, shape=label, **times,
+    )
 
 
 def check_resample(n: int, w: dict, dev, iters: int) -> dict:
     from beluga_tpu_torch.ops import cuda_resample as b2
-    from beluga_tpu_torch.ops import cuda_reweight as b1
     from beluga_tpu_torch.ops.resample import sorted_multinomial_positions, systematic_positions
 
-    codes, book = w["ctx"]["field_codes"]
-    field = w["ctx"]["field"]
-    weights = b1.fused_reweight_reference(codes, book, *w["tf"], w["points"], w["mask"],
-                                          field.resolution, field.unknown_prob)
-    weights[n // 4 : n // 4 + n // 16] = 0.0  # a block of zero-weight slots
+    lead = w["lead"]
+    weights = w["b1_weights"].clone()
+    block = (0,) * len(lead)  # one filter holds a block of zero-weight slots
+    weights[block][n // 4 : n // 4 + n // 16] = 0.0
     st = w["states"]
-    values = torch.stack([st.x, st.y, st.rot.cos, st.rot.sin]).contiguous()  # D = 4
+    values = torch.stack([st.x, st.y, st.rot.cos, st.rot.sin], dim=-2).contiguous()  # D = 4
     cdf = b2.monotone_cdf(weights)
     gen = torch.Generator(device=dev)
     gen.manual_seed(n)
     pad = max(n // 32, 1)
     results = []
-    for label, pos in (("sorted multinomial", sorted_multinomial_positions(gen, n)),
-                       ("systematic", systematic_positions(gen, n))):
+    for label, pos in (("sorted multinomial", sorted_multinomial_positions(gen, n, lead)),
+                       ("systematic", systematic_positions(gen, n, lead))):
         pos = pos.clone()
-        pos[-pad:] = 1.5  # padding selects nothing
+        pos[..., -pad:] = 1.5  # padding selects nothing
         got = b2.search_take(cdf, pos, values)
         want = b2.resample_take_reference(cdf, pos, values)
         torch.cuda.synchronize()
         check(torch.equal(got, want),
-              f"B2 {label} N=M={n}: {int((got != want).any(1).sum())} rows differ")
+              f"B2 {label} {lead} N=M={n}: {int((got != want).any(-1).sum())} rows differ")
         idx = torch.searchsorted(cdf, pos, right=True)
         found = idx < n
-        check(bool((weights[idx[found]] > 0).all()), "B2 chose a zero-weight slot")
-        check(not bool(found[-pad:].any()) and bool((got[-pad:] == 0).all()),
+        chosen = torch.take_along_dim(weights, torch.clamp_max(idx, n - 1), dim=-1)
+        check(bool((chosen[found] > 0).all()), "B2 chose a zero-weight slot")
+        check(not bool(found[..., -pad:].any()) and bool((got[..., -pad:, :] == 0).all()),
               "B2 padded positions selected a donor")
         results.append((pos, got, want))
     pos = results[0][0]  # time the main path's positions (sorted multinomial)
     err = max(float((g - x).abs().max()) for _, g, x in results)
-    ms = cuda_ms(lambda: b2.search_take(cdf, pos, values), iters)
-    plain_ms = cuda_ms(lambda: b2.resample_take_reference(cdf, pos, values), iters)
-    d, m = values.shape[0], pos.shape[0]
-    nbytes = 4 * n + 4 * m + 4 * d * n + 4 * m * d
-    bms, by = bound_ms(nbytes, m * math.ceil(math.log2(n + 1)))
+    times = timings(lambda: b2.search_take(cdf, pos, values),
+                    lambda: b2.resample_take_reference(cdf, pos, values), iters)
+    filters = lead[0] if lead else 1
+    d, m = values.shape[-2], pos.shape[-1]
+    nbytes = filters * (4 * n + 4 * m + 4 * d * n + 4 * m * d)
+    bms, by = bound_ms(nbytes, filters * m * math.ceil(math.log2(n + 1)))
     return dict(
         name="B2 resample_take", route="cuda", source="beluga_tpu_torch/csrc/resample.cu",
         replaces="beluga_tpu/ops/pallas_resample.py:369", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"N=M={n} D={d}",
+        bound_ms=bms, bound_by=by, **times,
+        shape=f"{filters}x N=M={n} D={d}",
     )
 
 
-# -- phases 4 and 5: the main path --------------------------------------------
+def check_pool_take(batch: int | None, p: int, n: int, dev, iters: int) -> dict:
+    """Kernel B3 on a pool of ``p`` (x, y) rows: bit-equal to its plain
+    version with some indices out of range, timed on in-range indices (the
+    sampler's)."""
+    from beluga_tpu_torch.ops import cuda_pool_take as b3
+
+    lead = () if batch is None else (batch,)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(p + n)
+    pool = torch.randn((*lead, p, 2), generator=gen, device=dev)
+    wild = torch.randint(-8, p + 8, (*lead, n), generator=gen, device=dev, dtype=torch.int32)
+    got, want = b3.pool_take(pool, wild), b3.pool_take_reference(pool, wild)
+    torch.cuda.synchronize()
+    label = f"[{', '.join(map(str, (*lead, p, 2)))}] x {n}"
+    check(torch.equal(got, want), f"B3 {label}: {int((got != want).any(-1).sum())} rows differ")
+    outside = (wild < 0) | (wild >= p)
+    check(bool(outside.any()) and bool((got[outside] == 0).all()),
+          "B3 out-of-range indices did not give zero rows")
+    idx = torch.randint(0, p, (*lead, n), generator=gen, device=dev, dtype=torch.int32)
+    gather_idx = idx.long()[..., None].expand(*idx.shape, 2).contiguous()
+    times = timings(lambda: b3.pool_take(pool, idx), lambda: b3.pool_take_reference(pool, idx),
+                    iters, library=lambda: torch.gather(pool, -2, gather_idx))
+    filters, c = (batch or 1), 2
+    bms, by = bound_ms(filters * (n * (4 + 4 * c) + p * c * 4), 0)
+    return dict(
+        name="B3 pool_take", route="cuda", source="beluga_tpu_torch/csrc/pool_take.cu",
+        replaces="beluga_tpu/ops/pallas_lookup.py:153", max_abs_err=float((got - want).abs().max()),
+        bound_ms=bms, bound_by=by, shape=label, **times,
+    )
+
+
+# -- phases 4 to 6: the main paths --------------------------------------------
 
 
 def reset_counts() -> None:
-    from beluga_tpu_torch.ops import cuda_resample, cuda_reweight
+    from beluga_tpu_torch.ops import cuda_pool_take, cuda_resample, cuda_reweight
 
     cuda_reweight.launches = 0
+    cuda_reweight.values3_launches = 0
     cuda_resample.launches = 0
+    cuda_pool_take.launches = 0
 
 
 def read_counts() -> dict:
-    from beluga_tpu_torch.ops import cuda_resample, cuda_reweight
+    from beluga_tpu_torch.ops import cuda_pool_take, cuda_resample, cuda_reweight
 
     return {"B1 fused_reweight": cuda_reweight.launches,
-            "B2 resample_take": cuda_resample.launches}
+            "B2 resample_take": cuda_resample.launches,
+            "B3 pool_take": cuda_pool_take.launches,
+            "B4 fused_reweight values3": cuda_reweight.values3_launches}
 
 
 def run_node(dev) -> tuple[dict, dict]:
-    from beluga_tpu_torch.io import synthetic
-    from beluga_tpu_torch.io.config import AmclNodeConfig
     from beluga_tpu_torch.maps.occupancy import make_grid
     from beluga_tpu_torch.node import AmclNode
+    from beluga_tpu_torch.tools import workloads
 
-    data = synthetic.tracking_arena(GRID, RES)
-    xs, ys, yaws = synthetic.circle_trajectory(NODE_SCANS, GRID, RES)
-    pts, mask = synthetic.simulate_scans(data, RES, xs, ys, yaws, BEAMS)
-    cfg = AmclNodeConfig(  # nav2 defaults, initial pose at the first truth
-        set_initial_pose=True, initial_pose_x=float(xs[0]), initial_pose_y=float(ys[0]),
-        initial_pose_yaw=float(yaws[0]), initial_pose_covariance_x=0.25,
-        initial_pose_covariance_y=0.25, initial_pose_covariance_yaw=0.068,
-    )
+    s = workloads.arena_scans(NODE_SCANS)
     reset_counts()
-    node = AmclNode(cfg, seed=0, device=dev)
-    node.set_map(make_grid(data, RES, device=dev))
+    node = AmclNode(workloads.node_config(s), seed=0, device=dev)
+    node.set_map(make_grid(s.data, workloads.RES, device=dev))
     times, worst_pos, worst_yaw, valid = [], 0.0, 0.0, 0
     for t in range(NODE_SCANS):
         t0 = time.perf_counter()
-        r = node.handle_scan((xs[t], ys[t], yaws[t]), pts[t], mask[t])
+        r = node.handle_scan((s.xs[t], s.ys[t], s.yaws[t]), s.points[t], s.mask[t])
         times.append(time.perf_counter() - t0)
         if not r.valid:
             continue
         valid += 1
         check(bool(np.isfinite(r.pose).all() and np.isfinite(r.covariance[:2, :2]).all()),
               f"node scan {t}: estimate not finite")
-        e_pos = math.hypot(r.pose[0] - xs[t], r.pose[1] - ys[t])
-        e_yaw = yaw_error(r.pose[2], yaws[t])
+        e_pos = math.hypot(r.pose[0] - s.xs[t], r.pose[1] - s.ys[t])
+        e_yaw = yaw_error(r.pose[2], s.yaws[t])
         worst_pos, worst_yaw = max(worst_pos, e_pos), max(worst_yaw, e_yaw)
         check(e_pos < GATE_POS_M and e_yaw < GATE_YAW_RAD,
               f"node scan {t}: error {e_pos:.3f} m / {math.degrees(e_yaw):.1f} deg")
     counts = read_counts()
     check(valid >= NODE_SCANS - 1, f"node: only {valid} valid updates of {NODE_SCANS}")
-    for name, c in counts.items():
-        check(c > 0, f"node: {name} was never launched")
+    for name in ("B1 fused_reweight", "B2 resample_take"):
+        check(counts[name] > 0, f"node: {name} was never launched")
     steady = sorted(times[2:])
     return counts, dict(
         scans=NODE_SCANS, valid=valid, worst_pos_m=worst_pos,
@@ -276,49 +418,80 @@ def run_node(dev) -> tuple[dict, dict]:
 
 def run_large_filter(dev, n: int = LARGE_N, n_min: int = LARGE_MIN,
                      scans: int = LARGE_SCANS) -> tuple[dict, dict]:
-    from beluga_tpu_torch.core.random import sample_normal_se2
-    from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_state, update
-    from beluga_tpu_torch.filters.builders import make_likelihood_field_filter
-    from beluga_tpu_torch.io import synthetic
-    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.filters.amcl import host_pose, update
+    from beluga_tpu_torch.tools import workloads
 
-    data = synthetic.tracking_arena(GRID, RES)
-    xs, ys, yaws = synthetic.circle_trajectory(scans, GRID, RES)
-    pts, mask = synthetic.simulate_scans(data, RES, xs, ys, yaws, BEAMS)
-    pts_d, mask_d = torch.as_tensor(pts).to(dev), torch.as_tensor(mask).to(dev)
-    models, ctx = make_likelihood_field_filter(make_grid(data, RES, device=dev), device=dev)
-    params = AmclParams(max_particles=n, min_particles=n_min, resampling="systematic")
+    w = workloads.large_filter(scans, dev, n, n_min)
+    s, state = w.scans, w.state
     reset_counts()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    states = sample_normal_se2(gen, n, host_pose(xs[0], ys[0], yaws[0]),
-                               np.diag([0.25, 0.25, 0.068]))
-    state = init_state(gen, states, params, device=dev)
     times, worst_pos, worst_yaw, active = [], 0.0, 0.0, []
     for t in range(scans):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, est = update(params, models, ctx, state, host_pose(xs[t], ys[t], yaws[t]),
-                            pts_d[t], mask_d[t])
+        state, est = update(w.params, w.models, w.ctx, state,
+                            host_pose(s.xs[t], s.ys[t], s.yaws[t]), w.points[t], w.mask[t])
         pose = est.pose.as_xytheta().cpu().numpy()
         times.append(time.perf_counter() - t0)
         check(est.valid, f"large filter scan {t}: update gated out")
         check(bool(np.isfinite(pose).all()), f"large filter scan {t}: estimate not finite")
-        e_pos = math.hypot(pose[0] - xs[t], pose[1] - ys[t])
-        e_yaw = yaw_error(float(pose[2]), yaws[t])
+        e_pos = math.hypot(pose[0] - s.xs[t], pose[1] - s.ys[t])
+        e_yaw = yaw_error(float(pose[2]), s.yaws[t])
         worst_pos, worst_yaw = max(worst_pos, e_pos), max(worst_yaw, e_yaw)
         check(e_pos < GATE_POS_M and e_yaw < GATE_YAW_RAD,
               f"large filter scan {t}: error {e_pos:.3f} m / {math.degrees(e_yaw):.1f} deg")
         active.append(int(state.particles.active))
     counts = read_counts()
-    for name, c in counts.items():
-        check(c > 0, f"large filter: {name} was never launched")
+    for name in ("B1 fused_reweight", "B2 resample_take", "B3 pool_take"):
+        check(counts[name] > 0, f"large filter: {name} was never launched")
     steady = times[2:]
     mean_s = sum(steady) / len(steady)
     return counts, dict(
         particles=n, scans=scans, worst_pos_m=worst_pos,
         worst_yaw_deg=math.degrees(worst_yaw), ms_per_update_mean=1e3 * mean_s,
         particle_updates_per_s=n / mean_s, active_last=active[-1],
+    )
+
+
+def run_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
+              scans: int = FLEET_SCANS) -> tuple[dict, dict]:
+    """The JAX benchmark's fleet (bench.py:46-49, :180-220): B filters of N
+    particles, codebook16, theta-sorted slots, fixed count, multinomial
+    resampling, pooled recovery; every filter scores the same scan."""
+    from beluga_tpu_torch.parallel.fleet import make_fleet_update
+    from beluga_tpu_torch.tools import workloads
+
+    w = workloads.fleet(scans, dev, b, n)
+    s, state = w.scans, w.state
+    fleet_update = make_fleet_update(w.params, w.models)
+    reset_counts()
+    times, worst_pos, worst_yaw = [], 0.0, 0.0
+    for t in range(scans):
+        odoms = workloads.fleet_odometry(s, t, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, est = fleet_update(w.ctx, state, odoms, w.points[t], w.mask[t])
+        pose = est.pose.as_xytheta().cpu().numpy()  # [b, 3], the one readback
+        times.append(time.perf_counter() - t0)
+        check(bool(np.all(est.valid)), f"fleet scan {t}: a filter was gated out")
+        check(bool(np.isfinite(pose).all()), f"fleet scan {t}: estimate not finite")
+        e_pos = np.hypot(pose[:, 0] - s.xs[t], pose[:, 1] - s.ys[t])
+        e_yaw = np.abs(np.arctan2(np.sin(pose[:, 2] - s.yaws[t]), np.cos(pose[:, 2] - s.yaws[t])))
+        worst_pos, worst_yaw = max(worst_pos, float(e_pos.max())), max(worst_yaw, float(e_yaw.max()))
+        check(bool((e_pos < GATE_POS_M).all() and (e_yaw < GATE_YAW_RAD).all()),
+              f"fleet scan {t}: worst filter {e_pos.max():.3f} m / "
+              f"{math.degrees(e_yaw.max()):.1f} deg")
+    counts = read_counts()
+    for name in ("B2 resample_take", "B3 pool_take", "B4 fused_reweight values3"):
+        check(counts[name] == scans,
+              f"fleet: {name} launched {counts[name]} times in {scans} updates")
+    check(counts["B1 fused_reweight"] == 0, "fleet: B1 launched in codebook16 mode")
+    steady = sorted(times[2:])
+    mean_s = sum(steady) / len(steady)
+    return counts, dict(
+        filters=b, particles=n, scans=scans, worst_pos_m=worst_pos,
+        worst_yaw_deg=math.degrees(worst_yaw), ms_per_update_mean=1e3 * mean_s,
+        ms_per_update_median=1e3 * steady[len(steady) // 2],
+        ms_first_update=1e3 * times[0], particle_updates_per_s=b * n / mean_s,
     )
 
 
@@ -353,30 +526,52 @@ def main() -> int:
 
     # 3. kernels against their plain versions, on the card
     dev = torch.device("cuda")
-    k_main, w_main = check_reweight(2000, dev, iters=200)
-    r_main = check_resample(2000, w_main, dev, iters=200)
-    k_big, w_big = check_reweight(LARGE_N, dev, iters=50)
-    r_big = check_resample(LARGE_N, w_big, dev, iters=50)
-    del w_main, w_big
-    for k in (k_main, r_main, k_big, r_big):
-        print(f"kernel {k['name']} {k['shape']}: {k['ms']:.5f} ms (plain {k['plain_ms']:.5f} ms,"
-              f" bound {k['bound_ms']:.5f} ms by {k['bound_by']}), max abs err {k['max_abs_err']}")
-    print("large-shape kernels: " + json.dumps({"kernels": [k_big, r_big]}))
+    k_main, w = check_reweight(2000, dev, iters=200)
+    r_main = check_resample(2000, w, dev, iters=200)
+    k_big, w = check_reweight(LARGE_N, dev, iters=50)
+    r_big = check_resample(LARGE_N, w, dev, iters=50)
+    c_big = check_codebook16(LARGE_N, w, iters=50)
+    k_fleet, w = check_reweight(FLEET_N, dev, iters=50, batch=FLEET_B)
+    r_fleet = check_resample(FLEET_N, w, dev, iters=50)
+    c_fleet = check_codebook16(FLEET_N, w, iters=50)
+    del w
+    p_fleet = check_pool_take(FLEET_B, 512, FLEET_N, dev, iters=200)
+    p_big = check_pool_take(None, 4096, LARGE_N, dev, iters=50)
+    checked = (k_main, r_main, k_big, r_big, c_big, k_fleet, r_fleet, c_fleet, p_fleet, p_big)
+    ms = lambda v: "not measured" if v is None else f"{v:.5f} ms"  # noqa: E731
+    for k in checked:
+        lib = "" if k["library_ms"] is None else (
+            f", library {ms(k['library_ms'])} (device {ms(k['library_device_ms'])})")
+        print(f"kernel {k['name']} {k['shape']}: {ms(k['ms'])} (device {ms(k['device_ms'])};"
+              f" plain {ms(k['plain_ms'])}, device {ms(k['plain_device_ms'])};"
+              f" bound {ms(k['bound_ms'])} by {k['bound_by']}{lib}),"
+              f" max abs err {k['max_abs_err']}")
+    print("all-shape kernels: " + json.dumps({"kernels": checked}))
 
-    # 4. the node at nav2 defaults (the main path)
+    # 4. the node at nav2 defaults (slice 1's main path)
     node_counts, node = run_node(dev)
     print("node: " + json.dumps(node) + " launches " + json.dumps(node_counts))
 
-    # 5. the large single filter
+    # 5. the large single filter, with its pooled recovery
     large_counts, large = run_large_filter(dev)
     print("large filter: " + json.dumps(large) + " launches " + json.dumps(large_counts))
 
+    # 6. the fleet (slice 2's main path)
+    fleet_counts, fleet = run_fleet(dev)
+    print("fleet: " + json.dumps(fleet) + " launches " + json.dumps(fleet_counts))
+
+    # each kernel at the shapes and with the launches of the newest main
+    # path that runs it: B1 the node's, B2-B4 the fleet's
+    by_path = {"node": node_counts, "large": large_counts, "fleet": fleet_counts}
     kernels = []
-    for k in (k_main, r_main):
+    for k, path in ((k_main, "node"), (r_fleet, "fleet"), (p_fleet, "fleet"), (c_fleet, "fleet")):
         entry = {key: k[key] for key in ("name", "route", "source", "replaces")}
-        entry["launches"] = node_counts[k["name"]]
+        entry["launches"] = by_path[path][k["name"]]
         entry.update({key: k[key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "plain_device_ms", "library_device_ms", "shape")})
+        entry["path"] = path
+        entry["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

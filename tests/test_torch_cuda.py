@@ -1,5 +1,5 @@
-"""Kernels B1 and B2 of the PyTorch port on the card, against their plain
-versions on the same card tensors.  Every test here needs an NVIDIA GPU
+"""Kernels B1-B4 of the PyTorch port on the card, against their plain
+versions on the same card tensors, and a fleet update on the card.  Every test here needs an NVIDIA GPU
 and skips without one.  The module imports neither JAX nor the JAX
 package, so on a machine with the card it runs without the repository's
 conftest:
@@ -13,6 +13,8 @@ import torch
 
 pytestmark = pytest.mark.cuda
 
+BEAMS = 60
+
 
 @pytest.fixture
 def dev():
@@ -21,7 +23,7 @@ def dev():
     return torch.device("cuda")
 
 
-def arena_inputs(n, dev, seed=0):
+def arena_inputs(n, dev, seed=0, batch=None):
     from beluga_tpu_torch.filters.builders import make_likelihood_field_filter
     from beluga_tpu_torch.io import synthetic
     from beluga_tpu_torch.io.config import AmclNodeConfig
@@ -30,31 +32,38 @@ def arena_inputs(n, dev, seed=0):
 
     data = synthetic.tracking_arena(384, 0.05)
     xs, ys, yaws = synthetic.circle_trajectory(1)
-    pts, mask = synthetic.simulate_scans(data, 0.05, xs, ys, yaws, 60)
+    pts, mask = synthetic.simulate_scans(data, 0.05, xs, ys, yaws, BEAMS)
     _, ctx = make_likelihood_field_filter(make_grid(data, 0.05, device=dev),
                                           AmclNodeConfig().likelihood_field_params(),
                                           device=dev)
+    lead = () if batch is None else (batch,)
     rng = np.random.default_rng(seed)
-    xyt = rng.normal([xs[0], ys[0], yaws[0]], [1.0, 1.0, 0.5], (n, 3)).astype(np.float32)
-    xyt[: n // 10, :2] = rng.uniform(-2, 21, (n // 10, 2))  # some off the map
-    states = SE2.from_xytheta(xyt[:, 0], xyt[:, 1], xyt[:, 2], device=dev)
+    xyt = rng.normal([xs[0], ys[0], yaws[0]], [1.0, 1.0, 0.5], (*lead, n, 3)).astype(np.float32)
+    xyt[..., : n // 10, :2] = rng.uniform(-2, 21, (*lead, n // 10, 2))  # some off the map
+    states = SE2.from_xytheta(xyt[..., 0], xyt[..., 1], xyt[..., 2], device=dev)
     tf = ctx["field"].world_to_field @ states
     codes, book = ctx["field_codes"]
+    points = torch.as_tensor(pts[0]).to(dev).expand(*lead, BEAMS, 2).contiguous()
+    beams = torch.as_tensor(mask[0]).to(dev).expand(*lead, BEAMS).contiguous()
     return (codes, book, tf.x.contiguous(), tf.y.contiguous(), tf.rot.cos.contiguous(),
-            tf.rot.sin.contiguous(), torch.as_tensor(pts[0]).to(dev),
-            torch.as_tensor(mask[0]).to(dev), ctx["field"].resolution,
+            tf.rot.sin.contiguous(), points, beams, ctx["field"].resolution,
             ctx["field"].unknown_prob), states
 
 
-@pytest.mark.parametrize("n", [2000, 65537])
-def test_b1_kernel_matches_plain_version(dev, n):
+def one_beam(mask):
+    """The mask with only its first unmasked beam on: cells must be exact."""
+    one = torch.zeros_like(mask)
+    one[..., int(torch.nonzero(mask.reshape(-1, mask.shape[-1])[0])[0])] = True
+    return one
+
+
+@pytest.mark.parametrize("n,batch", [(2000, None), (65537, None), (4096, 64), (1000, 3)])
+def test_b1_kernel_matches_plain_version(dev, n, batch):
     from beluga_tpu_torch.ops import cuda_reweight as b1
 
-    args, _ = arena_inputs(n, dev)
+    args, _ = arena_inputs(n, dev, batch=batch)
     before = b1.launches
-    one = torch.zeros_like(args[7])
-    one[int(torch.nonzero(args[7])[0])] = True  # one beam: cells must be exact
-    single = (*args[:7], one, *args[8:])
+    single = (*args[:7], one_beam(args[7]), *args[8:])
     assert torch.equal(b1.fused_reweight(*single), b1.fused_reweight_reference(*single))
     got, want = b1.fused_reweight(*args), b1.fused_reweight_reference(*args)
     torch.cuda.synchronize()
@@ -62,23 +71,99 @@ def test_b1_kernel_matches_plain_version(dev, n):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)  # the beam-sum order
 
 
-@pytest.mark.parametrize("n,m", [(2000, 2000), (5000, 3001), (262144, 262144)])
-def test_b2_kernel_matches_plain_version(dev, n, m):
+@pytest.mark.parametrize("n,batch", [(4096, 64), (262144, None), (777, 5)])
+def test_b4_kernel_matches_plain_version(dev, n, batch):
+    from beluga_tpu_torch.ops import cuda_reweight as b1
+
+    args, _ = arena_inputs(n, dev, seed=1, batch=batch)
+    v3 = b1.build_values3(args[0], args[1])
+    before = b1.values3_launches, b1.launches
+
+    def both(mask):
+        kernel = b1.fused_reweight(*args[:7], mask, *args[8:], values3=v3)
+        plain = b1.fused_reweight_values3_reference(v3, *args[2:7], mask, *args[8:])
+        return kernel, plain
+
+    got1, want1 = both(one_beam(args[7]))
+    assert torch.equal(got1, want1)  # same cells, same bf16 entries
+    got, want = both(args[7])
+    torch.cuda.synchronize()
+    assert (b1.values3_launches, b1.launches) == (before[0] + 2, before[1])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    exact = b1.fused_reweight(*args)
+    assert float(((got - exact).abs() / exact).max()) < 5e-3
+
+
+@pytest.mark.parametrize("n,m,lead,d", [(2000, 2000, (), 4), (5000, 3001, (), 4),
+                                        (262144, 262144, (), 4), (4096, 4096, (64,), 4),
+                                        (300, 500, (2, 3), 3)])
+def test_b2_kernel_matches_plain_version(dev, n, m, lead, d):
     from beluga_tpu_torch.ops import cuda_resample as b2
     from beluga_tpu_torch.ops.resample import sorted_multinomial_positions, systematic_positions
 
     gen = torch.Generator(device=dev).manual_seed(n)
-    w = torch.rand(n, generator=gen, device=dev)
-    w[n // 4 : n // 3] = 0.0
-    values = torch.randn((4, n), generator=gen, device=dev)
+    w = torch.rand((*lead, n), generator=gen, device=dev)
+    w[..., n // 4 : n // 3] = 0.0
+    if lead:
+        w[(0,) * len(lead)] *= 1e-6  # filters of very different total weight
+    values = torch.randn((*lead, d, n), generator=gen, device=dev)
     cdf = b2.monotone_cdf(w)
-    for pos in (sorted_multinomial_positions(gen, m), systematic_positions(gen, m)):
-        pos[-7:] = 1.5
+    for pos in (sorted_multinomial_positions(gen, m, lead), systematic_positions(gen, m, lead)):
+        pos[..., -7:] = 1.5
         got = b2.search_take(cdf, pos, values)
         want = b2.resample_take_reference(cdf, pos, values)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
-        assert not got[-7:].any()
+        assert not got[..., -7:, :].any()
+
+
+@pytest.mark.parametrize("lead,p,c,n", [((64,), 512, 2, 4096), ((), 4096, 2, 262144),
+                                        ((3,), 100, 3, 999), ((2,), 64, 8, 1000)])
+def test_b3_kernel_matches_plain_version(dev, lead, p, c, n):
+    from beluga_tpu_torch.ops import cuda_pool_take as b3
+
+    gen = torch.Generator(device=dev).manual_seed(p)
+    pool = torch.randn((*lead, p, c), generator=gen, device=dev)
+    idx = torch.randint(-5, p + 5, (*lead, n), generator=gen, device=dev, dtype=torch.int32)
+    before = b3.launches
+    got, want = b3.pool_take(pool, idx), b3.pool_take_reference(pool, idx)
+    torch.cuda.synchronize()
+    assert b3.launches == before + 1
+    assert torch.equal(got, want)
+    assert not got[(idx < 0) | (idx >= p)].any()
+
+
+def test_fleet_on_card(dev):
+    """The fleet entry points with their default device: four filters in
+    codebook16 mode with theta-sorted slots and pooled recovery, one
+    update, launching B4, B2 and B3 once each and B1 never."""
+    from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_fleet_state
+    from beluga_tpu_torch.filters.builders import make_likelihood_field_filter
+    from beluga_tpu_torch.io import synthetic
+    from beluga_tpu_torch.lie import SE2
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.ops import cuda_pool_take, cuda_resample, cuda_reweight
+    from beluga_tpu_torch.parallel.fleet import make_fleet_update
+
+    data = synthetic.tracking_arena(384, 0.05)
+    xs, ys, yaws = synthetic.circle_trajectory(1)
+    pts, mask = synthetic.simulate_scans(data, 0.05, xs, ys, yaws, BEAMS)
+    models, ctx = make_likelihood_field_filter(make_grid(data, 0.05), lookup_mode="codebook16",
+                                               recovery_candidates=256)
+    params = AmclParams(max_particles=4096, min_particles=4096, sorted_slots=True)
+    state = init_fleet_state(0, 4, host_pose(xs[0], ys[0], yaws[0]),
+                             np.diag([0.25, 0.25, 0.068]), params)
+    assert state.particles.log_weight.is_cuda and state.particles.log_weight.shape == (4, 4096)
+    counts = (cuda_reweight.launches, cuda_reweight.values3_launches, cuda_resample.launches,
+              cuda_pool_take.launches)
+    state, est = make_fleet_update(params, models)(
+        ctx, state, SE2.from_xytheta(np.full(4, xs[0]), np.full(4, ys[0]), np.full(4, yaws[0]),
+                                     device="cpu"),
+        torch.as_tensor(pts[0]).to(dev).expand(4, BEAMS, 2).contiguous(),
+        torch.as_tensor(mask[0]).to(dev).expand(4, BEAMS).contiguous())
+    assert est.valid.all() and torch.isfinite(est.pose.xy).all()
+    assert (cuda_reweight.launches, cuda_reweight.values3_launches, cuda_resample.launches,
+            cuda_pool_take.launches) == (counts[0], counts[1] + 1, counts[2] + 1, counts[3] + 1)
 
 
 def test_node_on_card(dev):

@@ -256,6 +256,8 @@ def test_entry_points_default_to_the_card():
     params = amcl.AmclParams(max_particles=4, min_particles=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         amcl.init_state(0, amcl.host_pose(0, 0, 0), params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        amcl.init_fleet_state(0, 2, amcl.host_pose(0, 0, 0), np.eye(3), params)
 
 
 @pytest.mark.parametrize("points", [np.zeros((10, 3)), np.zeros(20), np.zeros((2, 5, 2))])
