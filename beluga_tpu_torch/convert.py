@@ -17,6 +17,7 @@ from beluga_tpu_torch.filters.amcl import AmclState
 from beluga_tpu_torch.lie import SE2, SO2
 from beluga_tpu_torch.maps.occupancy import OccupancyGrid
 from beluga_tpu_torch.models.sensor.likelihood_field import LikelihoodField
+from beluga_tpu_torch.models.sensor.likelihood_field_winlut import WindowedScanLut
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -76,15 +77,34 @@ def field_values3(values3, shape, device="cpu") -> torch.Tensor:
 
 
 def ctx(c: dict, device="cpu") -> dict:
-    """The likelihood-field ctx dict (``grid``, ``field``, ``field_codes``
-    and, in codebook16 mode, ``field_values3``)."""
+    """The likelihood-field ctx dict (``grid``, ``field``, ``field_codes``,
+    in codebook16 mode ``field_values3``, and for the windowed filter
+    ``field_pad3``)."""
     out = {"grid": grid(c["grid"], device), "field": field(c["field"], device)}
     if "field_codes" in c:
         out["field_codes"] = field_codes(c["field_codes"], device)
     if "field_values3" in c:
         out["field_values3"] = field_values3(c["field_values3"], out["field_codes"][0].shape,
                                              device)
+    if "field_pad3" in c:
+        out["field_pad3"] = _t(c["field_pad3"], device, np.float32)
     return out
+
+
+def windowed_scan_lut(lut, device="cpu") -> WindowedScanLut:
+    """A bf16 ``WindowedScanLut`` with numpy leaves (``values_t`` as
+    float32 or bfloat16 values)."""
+    if getattr(lut, "scale", None) is not None:
+        raise ValueError("int8 window tables are not ported (ROADMAP B6-int8)")
+    values = torch.as_tensor(np.asarray(lut.values_t, np.float32)).to(torch.bfloat16)
+    return WindowedScanLut(
+        values_t=values.to(device),
+        x0=_t(lut.x0, device, np.int64), y0=_t(lut.y0, device, np.int64),
+        theta0=_t(lut.theta0, device, np.float32), miss=_t(lut.miss, device, np.float32),
+        resolution=_f32(lut.resolution), world_to_field=se2(lut.world_to_field, device),
+        pad_cells=int(lut.pad_cells), k_bins=int(lut.k_bins), win_x=int(lut.win_x),
+        win_y=int(lut.win_y), dth=float(lut.dth),
+    )
 
 
 def particles(p, device="cpu") -> ParticleSet:

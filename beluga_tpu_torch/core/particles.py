@@ -17,6 +17,7 @@ State "trees" are tensors, or frozen dataclasses / tuples of them
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -29,8 +30,11 @@ DEAD_LOG_WEIGHT = -1e30
 
 
 def tree_map(fn: Callable, *trees: Any) -> Any:
-    """Apply ``fn`` leaf-wise across tensors, dataclasses and tuples."""
+    """Apply ``fn`` leaf-wise across tensors, dataclasses and tuples;
+    ``None`` is an empty subtree, as in JAX."""
     t0 = trees[0]
+    if t0 is None:
+        return None
     if isinstance(t0, torch.Tensor):
         return fn(*trees)
     if dataclasses.is_dataclass(t0):
@@ -119,14 +123,23 @@ def tree_take(states: Any, indices: Tensor) -> Any:
 
 
 def tree_scatter(base: Any, indices: Tensor, updates: Any) -> Any:
-    """``base[indices[j]] = updates[j]`` across every leaf; indices outside
-    ``[0, N)`` are dropped (callers mask invalid slots with ``N``)."""
+    """``base[..., indices[..., j]] = updates[..., j]`` along the particle
+    axis of every leaf, with the filter axes ``[...]`` of ``indices``
+    first; indices outside ``[0, N)`` are dropped (callers mask invalid
+    slots with ``N``).  Nothing is read back: dropped entries land in a
+    spare slot that is cut off.  Duplicate indices keep one of their
+    updates, in no specified order (as JAX's scatter)."""
+    lead = tuple(indices.shape[:-1])
+    rows = math.prod(lead)
 
     def scatter(b: Tensor, u: Tensor) -> Tensor:
-        keep = (indices >= 0) & (indices < b.shape[0])
-        out = b.clone()
-        out[indices[keep]] = u[keep]
-        return out
+        n, tail = b.shape[len(lead)], b.shape[len(lead) + 1:]
+        idx = torch.where((indices >= 0) & (indices < n), indices, n).long().reshape(rows, -1)
+        idx = idx + (n + 1) * torch.arange(rows, device=idx.device)[:, None]
+        out = torch.cat([b.reshape(rows, n, *tail), b.reshape(rows, n, *tail)[:, :1]], dim=1)
+        out.view(rows * (n + 1), *tail).index_copy_(0, idx.reshape(-1),
+                                                    u.reshape(-1, *tail))
+        return out[:, :n].reshape(b.shape)
 
     return tree_map(scatter, base, updates)
 

@@ -1,0 +1,258 @@
+// Kernels B6 and B5: the windowed pose-LUT lookup, alone (B6) and fused with
+// the differential-drive motion sample (B5).
+//
+// B6 replaces beluga_tpu/ops/pallas_winlut.py:winlut_lookup (bf16 tables).
+// Per particle p with fractional window coordinates (xi, yi, t):
+//
+//   val_p = sum_x tx(x) * sum_j wt(j) * sum_y ty(y) * L[t_lo + j, x, y]
+//   out_p = valid_p ? base + val_p : miss
+//
+// every tent weight is max(1 - |c - i|, 0), and only i = floor(c) and
+// floor(c) + 1 can be non-zero, so each valid particle reads eight table
+// entries.  Slots come in tiles of `tile`; a tile's theta slab starts at
+// t_lo = clip(floor(min of its t in [0, K)), 0, K - tblk), and a particle is
+// valid when 0 <= xi <= Wx-1, 0 <= yi <= Wy-1 and 0 <= floor(t) - t_lo <=
+// tblk - 2.  Slots past n are padding (t = -1) and never enter the minimum.
+//
+// B5 replaces beluga_tpu/ops/pallas_fused_step.py:fused_propagate_winlut
+// (kernel_prng=False).  Per particle it samples rot1/trans/rot2 from the
+// normals z[3, N] and the per-update (mean, sd) pairs, moves the pose
+// (th1 = th + rot1, x' = x + trans cos th1, y' = y + trans sin th1,
+// th2 = th1 + rot2), maps it to window coordinates by the field-frame
+// affine and t = (jnp.mod(th2 + T_ANG + pi, 2 pi) - pi) * inv_dth + t_bias,
+// takes B6's slab and lookup, and writes (x', y', cos th2, sin th2,
+// log(max(w, 1e-30))).  Its 18 scalars are a device array read here, since
+// the window origin is a device value.  Padded lanes carry 1.0 in every
+// input, as in the reference, and take part in the last tile's slab minimum.
+//
+// Contract: the reference's interpret-mode semantics (float32 tents).  On
+// the TPU the y tent was rounded to bf16 before the matrix product
+// (pallas_winlut.py:109-112); here every weight stays float32.  The sums
+// nest as the reference's do: y innermost, then theta, then x, each written
+// with the round-to-nearest intrinsics so that nvcc contracts nothing and
+// the plain PyTorch version (same operations, same order) agrees bit for
+// bit; the coordinate chain likewise, so that validity at a window edge is
+// the plain version's.
+//
+// What bounds them on an H100: bytes.  B6 reads 12 B and writes 4 B per
+// particle, B5 reads 24 B and writes 20 B, and both read the table (160 KB
+// at the mega geometry 20x32x128, 2 MB at 64x128x128) once; the ~40 float32
+// operations per particle are far below the byte time.  Design, simple
+// first: one block per tile (min(tile, 1024) threads rounded up to whole
+// warps, each walking
+// tile / blockDim slots), a block-wide minimum by warp shuffles and shared
+// memory, then eight table reads per valid particle straight from global
+// memory (the table stays in L2).  A bf16 entry widens to float32 by a
+// 16-bit shift, which is exact.  B5 writes its four state outputs and t (in
+// the log-likelihood slot) in the first pass and reads them back in the
+// second, so the sincos is computed once.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxThreads = 1024;
+constexpr float kPi = 3.14159265358979f;     // float32(pi), as jnp.pi enters f32 math
+constexpr float k2Pi = 6.28318530717959f;    // float32(2 pi)
+
+// scalar layout of B5 (ops/pallas_fused_step.py:50-52)
+enum {
+  kR1Mu, kR1Sd, kTMu, kTSd, kR2Mu, kR2Sd, kWfC, kWfS, kWfX, kWfY,
+  kInvRes, kOffX, kOffY, kTAng, kInvDth, kTBias, kMiss, kBase, kNumScalars
+};
+
+__device__ __forceinline__ float bf16_to_float(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
+__device__ __forceinline__ float tent(float c, float i) {
+  return fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(c, i))), 0.0f);
+}
+
+// The minimum of v over the block, returned to every thread.
+__device__ float block_min(float v) {
+  __shared__ float warp_min[kMaxThreads / 32];
+  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) warp_min[warp] = v;
+  __syncthreads();
+  const int warps = (blockDim.x + 31) >> 5;
+  v = lane < warps ? warp_min[lane] : CUDART_INF_F;
+  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// A t value that can base a slab: inside [0, K); +inf otherwise.
+__device__ __forceinline__ float slab_candidate(float t, int k) {
+  return (t >= 0.0f && t < static_cast<float>(k)) ? t : CUDART_INF_F;
+}
+
+// t_lo = clip(floor(tile min), 0, K - tblk), as float.
+__device__ __forceinline__ float slab_base(float tmin, int k, int tblk) {
+  return fminf(fmaxf(floorf(tmin), 0.0f), static_cast<float>(k - tblk));
+}
+
+// base + trilinear lookup, or miss outside the window or the tile's slab.
+__device__ float trilinear(const uint16_t* __restrict__ vals, int wx, int wy, int tblk,
+                           float t_lo, float xf, float yf, float t, float miss, float base) {
+  const float k0rel = __fsub_rn(floorf(t), t_lo);
+  const bool valid = xf >= 0.0f && xf <= static_cast<float>(wx - 1) && yf >= 0.0f &&
+                     yf <= static_cast<float>(wy - 1) && k0rel >= 0.0f &&
+                     k0rel <= static_cast<float>(tblk - 2);
+  if (!valid) return miss;
+  const float u = __fsub_rn(t, t_lo);
+  const float x0f = floorf(xf), y0f = floorf(yf);
+  const int ix = static_cast<int>(x0f), iy = static_cast<int>(y0f);
+  const int jt = static_cast<int>(t_lo) + static_cast<int>(k0rel);
+  // the upper neighbour past the last row has weight 0: read the last row
+  const int ix1 = min(ix + 1, wx - 1), iy1 = min(iy + 1, wy - 1);
+  const float tx0 = tent(xf, x0f), tx1 = tent(xf, x0f + 1.0f);
+  const float ty0 = tent(yf, y0f), ty1 = tent(yf, y0f + 1.0f);
+  const float tt0 = tent(u, k0rel), tt1 = tent(u, k0rel + 1.0f);
+  float byx[2];
+  for (int dx = 0; dx < 2; ++dx) {
+    const int x = dx ? ix1 : ix;
+    float byj[2];
+    for (int dj = 0; dj < 2; ++dj) {
+      const uint16_t* row = vals + (static_cast<size_t>(jt + dj) * wx + x) * wy;
+      byj[dj] = __fadd_rn(__fmul_rn(ty0, bf16_to_float(__ldg(row + iy))),
+                          __fmul_rn(ty1, bf16_to_float(__ldg(row + iy1))));
+    }
+    byx[dx] = __fadd_rn(__fmul_rn(tt0, byj[0]), __fmul_rn(tt1, byj[1]));
+  }
+  return __fadd_rn(base, __fadd_rn(__fmul_rn(tx0, byx[0]), __fmul_rn(tx1, byx[1])));
+}
+
+__global__ void winlut_kernel(const uint16_t* __restrict__ vals, int k, int wx, int wy,
+                              int tblk, const float* __restrict__ xi,
+                              const float* __restrict__ yi, const float* __restrict__ t,
+                              int n, int tile, const float* __restrict__ miss_ptr, float base,
+                              float* __restrict__ out) {
+  const size_t first = static_cast<size_t>(blockIdx.x) * tile;
+  float tmin = CUDART_INF_F;
+  for (int s = threadIdx.x; s < tile; s += blockDim.x) {
+    const size_t i = first + s;
+    if (i < static_cast<size_t>(n)) tmin = fminf(tmin, slab_candidate(t[i], k));
+  }
+  const float t_lo = slab_base(block_min(tmin), k, tblk);
+  const float miss = *miss_ptr;
+  for (int s = threadIdx.x; s < tile; s += blockDim.x) {
+    const size_t i = first + s;
+    if (i >= static_cast<size_t>(n)) break;
+    out[i] = trilinear(vals, wx, wy, tblk, t_lo, xi[i], yi[i], t[i], miss, base);
+  }
+}
+
+struct Moved {
+  float x, y, c, s, t;
+};
+
+// The motion sample and the fractional heading bin of one particle.
+__device__ __forceinline__ Moved propagate(const float* sc, float x, float y, float th,
+                                           float z0, float z1, float z2) {
+  const float rot1 = __fadd_rn(sc[kR1Mu], __fmul_rn(sc[kR1Sd], z0));
+  const float trans = __fadd_rn(sc[kTMu], __fmul_rn(sc[kTSd], z1));
+  const float rot2 = __fadd_rn(sc[kR2Mu], __fmul_rn(sc[kR2Sd], z2));
+  const float th1 = __fadd_rn(th, rot1);
+  const float th2 = __fadd_rn(th1, rot2);
+  Moved m;
+  m.x = __fadd_rn(x, __fmul_rn(trans, cosf(th1)));
+  m.y = __fadd_rn(y, __fmul_rn(trans, sinf(th1)));
+  m.c = cosf(th2);
+  m.s = sinf(th2);
+  // jnp.mod(a, 2 pi): fmod, plus the divisor where the remainder is negative
+  float r = fmodf(__fadd_rn(__fadd_rn(th2, sc[kTAng]), kPi), k2Pi);
+  if (r < 0.0f) r = __fadd_rn(r, k2Pi);
+  m.t = __fadd_rn(__fmul_rn(__fsub_rn(r, kPi), sc[kInvDth]), sc[kTBias]);
+  return m;
+}
+
+// Field-frame affine to fractional window cells.
+__device__ __forceinline__ void window_xy(const float* sc, float x, float y, float* xf,
+                                          float* yf) {
+  const float fx = __fadd_rn(__fsub_rn(__fmul_rn(sc[kWfC], x), __fmul_rn(sc[kWfS], y)), sc[kWfX]);
+  const float fy = __fadd_rn(__fadd_rn(__fmul_rn(sc[kWfS], x), __fmul_rn(sc[kWfC], y)), sc[kWfY]);
+  *xf = __fadd_rn(__fmul_rn(fx, sc[kInvRes]), sc[kOffX]);
+  *yf = __fadd_rn(__fmul_rn(fy, sc[kInvRes]), sc[kOffY]);
+}
+
+__global__ void fused_step_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                                  const float* __restrict__ th, const float* __restrict__ z,
+                                  int n, const uint16_t* __restrict__ vals, int k, int wx,
+                                  int wy, int tblk, int tile, const float* __restrict__ scalars,
+                                  float* __restrict__ xo, float* __restrict__ yo,
+                                  float* __restrict__ co, float* __restrict__ so,
+                                  float* __restrict__ lw) {
+  __shared__ float sc[kNumScalars];
+  if (threadIdx.x < kNumScalars) sc[threadIdx.x] = scalars[threadIdx.x];
+  __syncthreads();
+  const size_t first = static_cast<size_t>(blockIdx.x) * tile;
+  float tmin = CUDART_INF_F;
+  for (int s = threadIdx.x; s < tile; s += blockDim.x) {
+    const size_t i = first + s;
+    const bool live = i < static_cast<size_t>(n);
+    // padded lanes read 1.0 everywhere and take part in the minimum
+    const Moved m = live ? propagate(sc, x[i], y[i], th[i], z[i], z[n + i], z[2 * static_cast<size_t>(n) + i])
+                         : propagate(sc, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f);
+    tmin = fminf(tmin, slab_candidate(m.t, k));
+    if (live) {
+      xo[i] = m.x;
+      yo[i] = m.y;
+      co[i] = m.c;
+      so[i] = m.s;
+      lw[i] = m.t;  // the heading bin, until the second pass
+    }
+  }
+  const float t_lo = slab_base(block_min(tmin), k, tblk);
+  for (int s = threadIdx.x; s < tile; s += blockDim.x) {
+    const size_t i = first + s;
+    if (i >= static_cast<size_t>(n)) break;
+    float xf, yf;
+    window_xy(sc, xo[i], yo[i], &xf, &yf);
+    const float w = trilinear(vals, wx, wy, tblk, t_lo, xf, yf, lw[i], sc[kMiss], sc[kBase]);
+    lw[i] = logf(fmaxf(w, 1e-30f));
+  }
+}
+
+// whole warps (block_min shuffles over full warps), at most kMaxThreads
+int threads_for(int tile) {
+  const int warps = (tile + 31) / 32;
+  return warps * 32 < kMaxThreads ? warps * 32 : kMaxThreads;
+}
+
+}  // namespace
+
+// B6 over n particles in tiles of `tile` slots; `vals` is the bf16 table
+// [k, wx, wy] as raw bits, `miss` a float on the device.  Returns
+// cudaGetLastError() of the launch.
+extern "C" int beluga_winlut_lookup(const void* vals, int k, int wx, int wy, int tblk,
+                                    const void* xi, const void* yi, const void* t, int n,
+                                    int tile, const void* miss, float base, void* out,
+                                    void* stream) {
+  if (n == 0) return 0;
+  const int blocks = (n + tile - 1) / tile;
+  winlut_kernel<<<blocks, threads_for(tile), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(vals), k, wx, wy, tblk, static_cast<const float*>(xi),
+      static_cast<const float*>(yi), static_cast<const float*>(t), n, tile,
+      static_cast<const float*>(miss), base, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B5 over n particles: z is [3, n]; `scalars` the 18 device floats of
+// pack_scalars; outputs x', y', cos', sin', log-likelihood, each [n].
+extern "C" int beluga_fused_step(const void* x, const void* y, const void* th, const void* z,
+                                 int n, const void* vals, int k, int wx, int wy, int tblk,
+                                 int tile, const void* scalars, void* xo, void* yo, void* co,
+                                 void* so, void* lw, void* stream) {
+  if (n == 0) return 0;
+  const int blocks = (n + tile - 1) / tile;
+  fused_step_kernel<<<blocks, threads_for(tile), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(y),
+      static_cast<const float*>(th), static_cast<const float*>(z), n,
+      static_cast<const uint16_t*>(vals), k, wx, wy, tblk, tile,
+      static_cast<const float*>(scalars), static_cast<float*>(xo), static_cast<float*>(yo),
+      static_cast<float*>(co), static_cast<float*>(so), static_cast<float*>(lw));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -34,9 +34,12 @@ Resampling always takes the accelerator branch of the reference
 the CPU through its plain version.  Random draws come from the state's
 ``torch.Generator`` (one for a whole fleet, drawing ``[B, ...]``), which
 the update advances in place, or from ``draws`` (:class:`UpdateDraws`),
-which lets a test feed the reference's own draws.  The bounded recovery
-pool (the reference's ``AmclParams.recovery_pool``) waits for ROADMAP A9,
-residual resampling and the sparse cluster estimate for A8.
+which lets a test feed the reference's own draws.  With
+``recovery_pool`` the injection draws a binomial count and ``pool`` target
+slots instead of one uniform per slot (amcl.py:436-458).  A model table
+with ``fused_propagate_reweight`` (the windowed mega filter's kernel B5)
+replaces the separate propagate and reweight.  Residual resampling and the
+sparse cluster estimate wait for ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from beluga_tpu_torch.core.particles import (
     ParticleSet,
     make_from_states,
     tree_map,
+    tree_scatter,
     tree_sort_by,
     tree_where,
 )
@@ -95,6 +99,10 @@ class AmclParams:
     spatial_resolution_y: float = 0.5
     spatial_resolution_theta: float = 10.0 * 3.141592653589793 / 180.0
     resampling: str = "multinomial"  # reference default (views/sample.hpp)
+    # recovery-injection pool: 0 draws max_particles random states per
+    # resample; K > 0 draws K and scatters the first n_inj ~ Binomial(m, p),
+    # clamped to K, onto uniform slots (amcl.py:80-87, 436-458)
+    recovery_pool: int = 0
     # keep slots in theta order (strays last, se2_sort_key); with a fixed
     # count the multinomial resampler then keeps donors in CDF order
     sorted_slots: bool = False
@@ -128,6 +136,10 @@ class AmclModels(NamedTuple):
                   (recovery), with the filter axes of ``particles``
     hash_state:   (params, states) -> int64[..., N] spatial hashes (KLD buckets)
     estimate:     (params, particles) -> (mean pose, covariance)
+    fused_propagate_reweight: (ctx, z, states, pose, prev_pose, points,
+                  beam_mask) -> (states, log_lik) in place of propagate +
+                  log_weight (the windowed mega filter's kernel B5); ``None``
+                  keeps them separate
     sort_key:     (states) -> f32[..., N] slot-sort key of ``sorted_slots``
                   filters; ``None`` selects :func:`se2_sort_key`
     """
@@ -137,6 +149,7 @@ class AmclModels(NamedTuple):
     random_state: Callable
     hash_state: Callable
     estimate: Callable
+    fused_propagate_reweight: Callable | None = None
     sort_key: Callable | None = None
 
 
@@ -168,12 +181,17 @@ class UpdateDraws(NamedTuple):
     f32[..., 3, N]; ``positions`` f32[..., M] for the resampler;
     ``inject_uniform`` f32[..., M] (slot m is replaced by a recovery state
     when it is below the random-state probability); ``random_states`` the
-    ``[..., M]`` recovery states."""
+    ``[..., M]`` recovery states.  With a ``recovery_pool`` P instead:
+    ``random_states`` the ``[..., P]`` pool, ``inject_count`` f32[...] the
+    binomial count before the clamp to P, ``inject_slots`` int[..., P] the
+    target slots; ``inject_uniform`` is not read."""
 
     motion_normals: Tensor
     positions: Tensor
-    inject_uniform: Tensor
+    inject_uniform: Tensor | None
     random_states: Any
+    inject_count: Tensor | None = None
+    inject_slots: Tensor | None = None
 
 
 def se2_sort_key(states: SE2) -> Tensor:
@@ -372,8 +390,12 @@ def _gated_in(params: AmclParams, models: AmclModels, ctx: Any, state: AmclState
         z = torch.randn((*lead, 3, n), generator=gen, dtype=torch.float32, device=dev)
     else:
         z = draws.motion_normals
-    new_states = models.propagate(ctx, z, particles.state, odom_pose, prev_pose)
-    log_lik = models.log_weight(ctx, new_states, points, beam_mask)
+    if models.fused_propagate_reweight is not None:
+        new_states, log_lik = models.fused_propagate_reweight(
+            ctx, z, particles.state, odom_pose, prev_pose, points, beam_mask)
+    else:
+        new_states = models.propagate(ctx, z, particles.state, odom_pose, prev_pose)
+        log_lik = models.log_weight(ctx, new_states, points, beam_mask)
     log_w = torch.where(particles.mask, particles.log_weight + log_lik, DEAD_LOG_WEIGHT)
     particles = normalize(ParticleSet(new_states, log_w, particles.active))
 
@@ -462,12 +484,28 @@ def _resample(params: AmclParams, models: AmclModels, ctx: Any, gen: torch.Gener
             # CDF-ordered donors: spread them so any slot prefix (the KLD
             # active prefix) covers the whole CDF
             donors = tree_map(lambda leaf: interleave_slots(leaf, axis=len(lead)), donors)
-    if draws is None:
-        inject_u = torch.rand((*lead, m), generator=gen, dtype=torch.float32, device=dev)
-        randoms = models.random_state(ctx, gen, m, particles)
+    pool = params.recovery_pool
+    if pool and pool < m:
+        # bounded pool: n_inj ~ Binomial(m, p), clamped to the pool, entries
+        # at iid uniform slots; colliding targets keep one of their entries
+        if draws is None:
+            randoms = models.random_state(ctx, gen, pool, particles)
+            count = torch.binomial(torch.full_like(p_random, float(m)), p_random,
+                                   generator=gen)
+            slots = torch.randint(0, m, (*lead, pool), generator=gen, device=dev)
+        else:
+            randoms, count, slots = draws.random_states, draws.inject_count, draws.inject_slots
+        n_inj = torch.clamp_max(count.to(dev), float(pool))
+        target = torch.where(torch.arange(pool, device=dev) < n_inj[..., None],
+                             slots.to(dev), m)  # m: dropped
+        candidates = tree_scatter(donors, target, randoms)
     else:
-        inject_u, randoms = draws.inject_uniform, draws.random_states
-    candidates = tree_where(inject_u < p_random[..., None], randoms, donors)
+        if draws is None:
+            inject_u = torch.rand((*lead, m), generator=gen, dtype=torch.float32, device=dev)
+            randoms = models.random_state(ctx, gen, m, particles)
+        else:
+            inject_u, randoms = draws.inject_uniform, draws.random_states
+        candidates = tree_where(inject_u < p_random[..., None], randoms, donors)
     if adaptive:
         # KLD on the candidates in draw/CDF order, before any theta sort
         # (take_while_kld.hpp:72-88)

@@ -1,0 +1,372 @@
+"""Windowed shared-scan pose-likelihood LUT, the mega-filter tracking path
+(port of ``beluga_tpu/models/sensor/likelihood_field_winlut.py``).
+
+For a converged cloud the per-beam reweight is replaced by one table read
+per particle: per scan, the pose likelihood ``L_θ(q) = Σ_b pz³(q + R(θ)
+p_b / res)`` is built over a ``win_x × win_y``-cell window of poses around
+the cloud, for ``k_bins`` heading bins, and each particle reads it
+trilinearly (kernel B6, ``ops/cuda_winlut.py``; kernel B5,
+``ops/cuda_fused_step.py``, fuses the read with the motion sample).
+
+**Build = windowed DFT correlation**, as the reference writes it:
+
+    S = Fy · region · Fxᵀ                       (one DFT of the region)
+    G[k] = Σ_b wy[k,b] ⊗ wx[k,b]                (footprint spectra)
+    L[k] = Re( IFy · (S ⊙ G[k]) · IFxᵀ )        (windowed inverse DFT)
+
+in ``complex64`` matrix products (``torch.matmul``; cuBLAS on the card,
+which runs them in full float32 unless TF32 is switched on, and callers
+must leave it off).  The DFT matrices depend only on the window and the
+pad, so :func:`windowed_dft` builds them once per filter.  Their phases are
+the reference's float32 values bit for bit: the angle ``(f32(±2π)·i·j) /
+n`` in float32, then ``torch.polar``; a float64 build would not match
+(the phase error at ``i·j`` up to 275² is part of the reference's table).
+
+**Dynamic window origin.**  ``x0``, ``y0`` and ``theta0`` follow the
+cloud's mean, a device value.  ``lax.dynamic_slice`` has no sync-free
+counterpart in PyTorch, so the region is cut with device index arithmetic
+(``index_select`` with ``y0 - pad + arange(hr)``, likewise for x): nothing
+is read back, and the gate-free mega update reads no window value on the
+host.
+
+Approximations against the exact model are the reference's (pose xy and
+heading quantized and interpolated, endpoints sinc-sampled, strays score
+the all-beams-unknown ``miss``).  Only ``table_dtype="bf16"`` is ported:
+``"int8"`` tables raise (ROADMAP B6-int8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from beluga_tpu_torch.lie import SE2
+from beluga_tpu_torch.models.sensor.likelihood_field import LikelihoodField
+from beluga_tpu_torch.models.sensor.likelihood_field_lut import _pad_field_cubed
+from beluga_tpu_torch.ops.cuda_winlut import floor_mod, winlut_lookup
+
+Tensor = torch.Tensor
+F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowedScanLut:
+    """Windowed per-scan pose-likelihood maps.
+
+    ``values_t``: x-major ``bf16[k_bins, win_x, win_y]`` pz³ sums;
+    ``x0``/``y0``: window origin in padded-field cells (int64 0-d device
+    tensors); ``theta0``: heading of bin 0 (bin j covers theta0 + j·dth);
+    ``miss``: the all-beams-unknown weight for out-of-window particles
+    (f32 0-d).  ``resolution`` is the field's float32 value as a float.
+    """
+
+    values_t: Tensor
+    x0: Tensor
+    y0: Tensor
+    theta0: Tensor
+    miss: Tensor
+    resolution: float
+    world_to_field: SE2
+    pad_cells: int
+    k_bins: int
+    win_x: int
+    win_y: int
+    dth: float
+    # quantization scale of int8 tables; None for bf16 tables (the only
+    # ones the port builds)
+    scale: Tensor | None = None
+
+
+def _win_xy(win) -> tuple[int, int]:
+    """An int window is square; a pair is ``(win_x, win_y)``."""
+    if isinstance(win, (tuple, list)):
+        return int(win[0]), int(win[1])
+    return int(win), int(win)
+
+
+def _pad_cells(max_point_radius: float, resolution_hint: float) -> int:
+    return int(np.ceil(max_point_radius / resolution_hint)) + 2
+
+
+def _f32(v, device) -> Tensor:
+    return torch.tensor(v, dtype=F32, device=device)
+
+
+def _grow_padded(padded: Tensor, pad: int, field: LikelihoodField,
+                 win_x: int, win_y: int) -> Tensor:
+    """Maps smaller than the window: grow the pad band (fill = unknown³)."""
+    hr, wr = win_y + 2 * pad, win_x + 2 * pad
+    hp, wp = padded.shape
+    u = _f32(field.unknown_prob, padded.device)
+    unknown3 = u * u * u
+    if hp < hr:
+        padded = torch.cat([padded, unknown3.expand(hr - hp, wp)], dim=0)
+        hp = hr
+    if wp < wr:
+        padded = torch.cat([padded, unknown3.expand(hp, wr - wp)], dim=1)
+    return padded
+
+
+def precompute_padded_field(field: LikelihoodField, win, max_point_radius: float = 4.0,
+                            resolution_hint: float | None = None) -> Tensor:
+    """Map-static padded pz³ image for :func:`build_windowed_scan_lut`
+    (``ctx["field_pad3"]``), so the per-scan build skips the cube and pad."""
+    if resolution_hint is None:
+        resolution_hint = field.resolution
+    win_x, win_y = _win_xy(win)
+    padded, pad = _pad_field_cubed(field, max_point_radius, resolution_hint)
+    return _grow_padded(padded, pad, field, win_x, win_y)
+
+
+def window_geometry(field: LikelihoodField, center_x, center_y, center_theta,
+                    k_bins: int = 64, win=128, dth: float = 2.0 * np.pi / 128.0,
+                    max_point_radius: float = 4.0, resolution_hint: float | None = None):
+    """Window origin ``(x0, y0, theta0, pad)`` for a cloud center (world
+    frame, 0-d tensors on the field's device), without the correlation
+    build, so that a gate can run first.  ``x0``/``y0`` are int64 and
+    ``theta0`` float32 0-d device tensors."""
+    if resolution_hint is None:
+        resolution_hint = field.resolution
+    win_x, win_y = _win_xy(win)
+    dev = field.values.device
+    pad = _pad_cells(max_point_radius, resolution_hint)
+    h, w = field.values.shape
+    hp = max(h + 2 * pad, win_y + 2 * pad)
+    wp = max(w + 2 * pad, win_x + 2 * pad)
+    res = _f32(field.resolution, dev)
+    tf = field.world_to_field @ SE2.from_xytheta(center_x, center_y, center_theta, device=dev)
+    cx = torch.floor(tf.x / res).to(torch.int32).to(torch.int64) + pad
+    cy = torch.floor(tf.y / res).to(torch.int32).to(torch.int64) + pad
+    # clamped so that the scan-radius ring around the window stays inside
+    # the padded image
+    x0 = torch.clamp(cx - win_x // 2, pad, wp - win_x - pad)
+    y0 = torch.clamp(cy - win_y // 2, pad, hp - win_y - pad)
+    # the θ grid is anchored absolutely (quantized to dth), like the xy
+    # origin (likelihood_field_winlut.py:175-181)
+    dth_t = _f32(dth, dev)
+    theta0 = (torch.floor(tf.theta / dth_t) - (k_bins // 2)) * dth_t
+    return x0, y0, theta0, pad
+
+
+def windowed_dft(win, pad: int, device=None) -> dict:
+    """The DFT matrices of the windowed correlation for a ``win`` window
+    and ``pad`` cells of band: forward ``fy [hr, hr]``, ``fx [wr, wr]``,
+    windowed inverses ``ify [win_y, hr]``, ``ifx [win_x, wr]`` (complex64)
+    and the signed frequencies ``fy_freq [hr]``, ``fx_freq [wr]``
+    (float32), with ``hr = win_y + 2·pad``, ``wr = win_x + 2·pad``.  The
+    phases are computed in float32 in the reference's operation order."""
+    win_x, win_y = _win_xy(win)
+    hr, wr = win_y + 2 * pad, win_x + 2 * pad
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    two_pi = _f32(2.0 * math.pi, dev)
+    ii = torch.arange(hr, dtype=F32, device=dev)
+    jj = torch.arange(wr, dtype=F32, device=dev)
+    hh_y = torch.arange(win_y, dtype=F32, device=dev) + pad
+    hh_x = torch.arange(win_x, dtype=F32, device=dev) + pad
+
+    def phasor(angle: Tensor) -> Tensor:
+        return torch.polar(torch.ones_like(angle), angle)
+
+    def freq(a: Tensor, n: int) -> Tensor:
+        return torch.where(a < n // 2, a, a - n) / _f32(n, dev)
+
+    return dict(
+        hr=hr, wr=wr,
+        fy=phasor((-two_pi * ii[:, None] * ii[None, :]) / _f32(hr, dev)),
+        fx=phasor((-two_pi * jj[:, None] * jj[None, :]) / _f32(wr, dev)),
+        ify=phasor((two_pi * hh_y[:, None] * ii[None, :]) / _f32(hr, dev)) / hr,
+        ifx=phasor((two_pi * hh_x[:, None] * jj[None, :]) / _f32(wr, dev)) / wr,
+        fy_freq=freq(ii, hr),
+        fx_freq=freq(jj, wr),
+    )
+
+
+def build_windowed_scan_lut(
+    field: LikelihoodField,
+    points: Tensor,
+    beam_mask: Tensor,
+    center_x: Tensor,
+    center_y: Tensor,
+    center_theta: Tensor,
+    k_bins: int = 64,
+    win=128,
+    dth: float = 2.0 * np.pi / 128.0,
+    max_point_radius: float = 4.0,
+    resolution_hint: float | None = None,
+    table_dtype: str = "bf16",
+    padded_cubed: Tensor | None = None,
+    dft: dict | None = None,
+) -> WindowedScanLut:
+    """The windowed LUT of one scan around a cloud center
+    (likelihood_field_winlut.py:185-290).
+
+    ``center_*`` are world-frame 0-d tensors on the field's device
+    (typically the cloud's mean); ``points f32[nb, 2]``, ``beam_mask
+    bool[nb]``.  ``padded_cubed`` is :func:`precompute_padded_field`'s
+    image and ``dft`` :func:`windowed_dft`'s matrices, both built once per
+    map and filter; each is computed here when absent."""
+    if table_dtype == "int8":
+        raise NotImplementedError(
+            "int8 window tables are not ported (ROADMAP B6-int8): the JAX "
+            "package measured them slower and keeps them opt-in")
+    if table_dtype != "bf16":
+        raise ValueError(f"unknown table_dtype {table_dtype!r}")
+    if resolution_hint is None:
+        resolution_hint = field.resolution
+    win_x, win_y = _win_xy(win)
+    dev = field.values.device
+    pad = _pad_cells(max_point_radius, resolution_hint)
+    if padded_cubed is None:
+        padded_cubed = precompute_padded_field(field, win, max_point_radius, resolution_hint)
+    if dft is None:
+        dft = windowed_dft(win, pad, dev)
+    hr, wr = dft["hr"], dft["wr"]
+    res = _f32(field.resolution, dev)
+    u = _f32(field.unknown_prob, dev)
+    unknown3 = u * u * u
+
+    x0, y0, theta0, _ = window_geometry(
+        field, center_x, center_y, center_theta, k_bins=k_bins, win=win, dth=dth,
+        max_point_radius=max_point_radius, resolution_hint=resolution_hint,
+    )
+    rows = (y0 - pad) + torch.arange(hr, device=dev)
+    cols = (x0 - pad) + torch.arange(wr, device=dev)
+    region = padded_cubed.index_select(0, rows).index_select(1, cols)
+
+    # ---- explicit DFT correlation (likelihood_field_winlut.py:241-264) ----
+    spectrum = dft["fy"] @ region.to(torch.complex64) @ dft["fx"].T  # [hr, wr]
+    th = theta0 + torch.arange(k_bins, dtype=F32, device=dev) * _f32(dth, dev)
+    c, s = torch.cos(th)[:, None], torch.sin(th)[:, None]
+    px, py = points[None, :, 0], points[None, :, 1]
+    ox = (c * px - s * py) / res  # [K, B]
+    oy = (s * px + c * py) / res
+    two_pi = _f32(2.0 * math.pi, dev)
+    # value at cell q is Σ_b region(q + off_b): multiplier exp(+2πi f·off)
+    ay = two_pi * dft["fy_freq"][None, None, :] * oy[:, :, None]  # [K, B, hr]
+    ax = two_pi * dft["fx_freq"][None, None, :] * ox[:, :, None]  # [K, B, wr]
+    wy = torch.polar(torch.ones_like(ay), ay) * beam_mask[None, :, None]
+    wx = torch.polar(torch.ones_like(ax), ax)
+    footprint = wy.transpose(1, 2) @ wx  # [K, hr, wr]
+    t1 = (spectrum[None] * footprint) @ dft["ifx"].T  # [K, hr, win_x]
+    values = (dft["ify"] @ t1).real  # [K, win_y, win_x]
+
+    miss = 1.0 + torch.sum(torch.where(beam_mask, unknown3, 0.0))
+    return WindowedScanLut(
+        values_t=values.transpose(1, 2).contiguous().to(torch.bfloat16),
+        x0=x0, y0=y0, theta0=theta0, miss=miss,
+        resolution=field.resolution, world_to_field=field.world_to_field,
+        pad_cells=pad, k_bins=k_bins, win_x=win_x, win_y=win_y, dth=dth,
+    )
+
+
+def _coords(world_to_field: SE2, resolution: float, pad: int, x0: Tensor, y0: Tensor,
+            theta0: Tensor, k_bins: int, dth: float, states: SE2):
+    """Fractional ``(xi, yi, t)`` window coordinates (winlut.py:293-304): the
+    -0.5 aligns the sinc-built point samples with the exact model's
+    floor-cell convention."""
+    dev = states.xy.device
+    tf = world_to_field @ states
+    res = _f32(resolution, dev)
+    xi = tf.x / res - 0.5 + (pad - x0).to(F32)
+    yi = tf.y / res - 0.5 + (pad - y0).to(F32)
+    center = theta0 + _f32((k_bins // 2) * dth, dev)
+    pi = _f32(math.pi, dev)
+    rel = floor_mod(tf.theta - center + pi, _f32(2.0 * math.pi, dev)) - pi
+    t = rel / _f32(dth, dev) + (k_bins // 2)
+    return xi, yi, t
+
+
+def windowed_coords(lut: WindowedScanLut, states: SE2):
+    """Per-particle fractional ``(xi, yi, t)`` f32 window coordinates
+    (strays fall outside ``[0, win - 1]`` / ``[0, k_bins)``)."""
+    return _coords(lut.world_to_field, lut.resolution, lut.pad_cells, lut.x0, lut.y0,
+                   lut.theta0, lut.k_bins, lut.dth, states)
+
+
+def _in_window(xi, yi, t, win_x: int, win_y: int, k_bins: int) -> Tensor:
+    return ((xi >= 0) & (xi <= win_x - 1) & (yi >= 0) & (yi <= win_y - 1)
+            & (t >= 0) & (torch.floor(t) <= k_bins - 2))
+
+
+def windowed_coverage_from_center(field: LikelihoodField, states: SE2, center_x, center_y,
+                                  center_theta, k_bins: int = 64, win=128,
+                                  dth: float = 2.0 * np.pi / 128.0,
+                                  max_point_radius: float = 4.0,
+                                  resolution_hint: float | None = None,
+                                  stride: int = 8) -> Tensor:
+    """Coverage fraction (every ``stride``-th particle) of the window that
+    would be built around ``center_*``, without building it."""
+    win_x, win_y = _win_xy(win)
+    x0, y0, theta0, pad = window_geometry(
+        field, center_x, center_y, center_theta, k_bins=k_bins, win=win, dth=dth,
+        max_point_radius=max_point_radius, resolution_hint=resolution_hint)
+    xi, yi, t = _coords(field.world_to_field, field.resolution, pad, x0, y0, theta0,
+                        k_bins, dth, states)
+    ok = _in_window(xi[::stride], yi[::stride], t[::stride], win_x, win_y, k_bins)
+    return torch.mean(ok.to(F32))
+
+
+def coverage_tiled_from_coords(xi: Tensor, yi: Tensor, t: Tensor, k_bins: int, win,
+                               tile: int, tblk: int) -> Tensor:
+    """Fraction of particles the winlut kernel scores, the per-tile θ slab
+    included (winlut.py:350-385): each ``tile`` of slots gets a slab of
+    ``tblk`` bins based at the clamped floor of its min valid ``t``, and
+    particles above the slab score miss."""
+    win_x, win_y = _win_xy(win)
+    tblk = min(tblk, k_bins)
+    n = xi.shape[0]
+    n_pad = -(-n // tile) * tile
+
+    def pad(v):
+        return torch.nn.functional.pad(v, (0, n_pad - n), value=-1.0)
+
+    xi_p, yi_p, t_p = pad(xi), pad(yi), pad(t)
+    tt = t_p.reshape(-1, tile)
+    t_in = torch.where((tt >= 0.0) & (tt < k_bins), tt, torch.inf)
+    t_lo = torch.clamp(torch.floor(torch.amin(t_in, dim=1)), 0.0, max(k_bins - tblk, 0))
+    k0rel = torch.floor(tt) - t_lo[:, None]
+    ok = (((xi_p >= 0) & (xi_p <= win_x - 1) & (yi_p >= 0)
+           & (yi_p <= win_y - 1)).reshape(-1, tile)
+          & (k0rel >= 0.0) & (k0rel <= tblk - 2))
+    return torch.sum(ok.to(F32)) / n
+
+
+def windowed_coverage_tiled_from_center(field: LikelihoodField, states: SE2, center_x,
+                                        center_y, center_theta, tile: int = 512,
+                                        tblk: int = 16, k_bins: int = 64, win=128,
+                                        dth: float = 2.0 * np.pi / 128.0,
+                                        max_point_radius: float = 4.0,
+                                        resolution_hint: float | None = None) -> Tensor:
+    """Kernel-exact coverage (θ slab included) of the window that would be
+    built around ``center_*``: the fast-path gate."""
+    x0, y0, theta0, pad = window_geometry(
+        field, center_x, center_y, center_theta, k_bins=k_bins, win=win, dth=dth,
+        max_point_radius=max_point_radius, resolution_hint=resolution_hint)
+    xi, yi, t = _coords(field.world_to_field, field.resolution, pad, x0, y0, theta0,
+                        k_bins, dth, states)
+    return coverage_tiled_from_coords(xi, yi, t, k_bins, win, tile, tblk)
+
+
+def windowed_coverage(lut: WindowedScanLut, states: SE2, stride: int = 8) -> Tensor:
+    """Fraction of (every ``stride``-th) particles the window covers."""
+    xi, yi, t = windowed_coords(lut, states)
+    ok = _in_window(xi[::stride], yi[::stride], t[::stride], lut.win_x, lut.win_y,
+                    lut.k_bins)
+    return torch.mean(ok.to(F32))
+
+
+def windowed_scan_lut_weights(lut: WindowedScanLut, states: SE2, tile: int = 512,
+                              tblk: int = 16) -> Tensor:
+    """AMCL-parity weights ``1 + Σ_b pz³`` from the windowed LUT, ``f32[N]``:
+    one trilinear lookup per particle (kernel B6 on a CUDA tensor, its
+    plain version on a CPU tensor); strays score ``lut.miss``.  Slots
+    should be θ-sorted so that each ``tile`` spans at most ``tblk - 1``
+    bins."""
+    if lut.scale is not None:
+        raise NotImplementedError("int8 window tables are not ported (ROADMAP B6-int8)")
+    xi, yi, t = windowed_coords(lut, states)
+    return winlut_lookup(lut.values_t, xi.contiguous(), yi.contiguous(), t.contiguous(),
+                         lut.miss, base=1.0, tile=tile, tblk=tblk)

@@ -1,0 +1,169 @@
+"""Kernel B6: the windowed pose-LUT lookup.
+
+Port of ``beluga_tpu/ops/pallas_winlut.py:winlut_lookup`` for bf16 tables
+(``csrc/winlut.cu``).  :func:`winlut_lookup` launches the kernel on CUDA
+tensors and runs :func:`winlut_lookup_reference`, the plain PyTorch
+version, on CPU tensors.
+
+Per particle it returns ``base + Σ_x tx·Σ_j wθ·Σ_y ty·L[t_lo + j, x, y]``
+with tent weights ``max(1 - |c - i|, 0)``, or ``miss`` outside the window
+or the tile's θ slab: slots come in tiles of ``tile``, each tile's slab
+starts at ``t_lo = clip(floor(min of its t in [0, K)), 0, K - tblk)``, and
+a particle is valid when ``0 <= xi <= Wx-1``, ``0 <= yi <= Wy-1`` and
+``0 <= floor(t) - t_lo <= tblk - 2``.
+
+Contract: the reference's interpret-mode semantics, float32 tents (on the
+TPU the y tent was rounded to bf16 before the MXU product,
+pallas_winlut.py:109-112; not here).  The kernel and the plain version
+take the same float32 operations in the same order (y innermost, then θ,
+then x), so they agree bit for bit; against the reference's dot products
+the values agree to ~1e-6 relative and the miss sets are equal.
+``dynamic_span`` only changed the TPU schedule and is not reproduced;
+int8 tables wait for ROADMAP B6-int8.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+MAX_PARTICLES = 2**31 - 1
+
+# kernel launches since the count was last set to 0
+launches = 0
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from beluga_tpu_torch.ops._build import load_library
+
+        fn = load_library("winlut").beluga_winlut_lookup
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, i, i, i, i, p, p, p, i, i, p, f, p, p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def floor_mod(a: Tensor, b: Tensor) -> Tensor:
+    """``jnp.mod`` for a positive divisor ``b``: ``fmod``, plus ``b`` where
+    the remainder is negative (``fmod`` keeps the dividend's sign)."""
+    r = torch.fmod(a, b)
+    return torch.where(r < 0, r + b, r)
+
+
+def slab_bases(t: Tensor, k_bins: int, tblk: int, tile: int) -> Tensor:
+    """Per-slot θ-slab base ``t_lo`` (float32) of slots ``t`` padded to
+    whole tiles: the clamped floor of each tile's min ``t`` in ``[0, K)``."""
+    tt = t.reshape(-1, tile)
+    t_in = torch.where((tt >= 0.0) & (tt < k_bins), tt, torch.inf)
+    t_lo = torch.clamp(torch.floor(torch.amin(t_in, dim=1)), 0.0, max(k_bins - tblk, 0))
+    return t_lo[:, None].expand(-1, tile).reshape(-1)
+
+
+def _tent(c: Tensor, i: Tensor) -> Tensor:
+    return torch.clamp_min(1.0 - torch.abs(c - i), 0.0)
+
+
+def trilinear_reference(values_t: Tensor, xf: Tensor, yf: Tensor, t: Tensor, t_lo: Tensor,
+                        tblk: int, miss, base) -> Tensor:
+    """``base`` + the trilinear slab lookup of each particle, or ``miss``:
+    the eight table reads of the kernel's ``trilinear``, in its order."""
+    _, wx, wy = values_t.shape
+    k0rel = torch.floor(t) - t_lo
+    valid = ((xf >= 0.0) & (xf <= wx - 1) & (yf >= 0.0) & (yf <= wy - 1)
+             & (k0rel >= 0.0) & (k0rel <= tblk - 2))
+    u = t - t_lo
+    x0f, y0f = torch.floor(xf), torch.floor(yf)
+    zero = torch.zeros((), dtype=torch.float32, device=xf.device)
+    ix = torch.where(valid, x0f, zero).long()
+    iy = torch.where(valid, y0f, zero).long()
+    jt = torch.where(valid, t_lo + k0rel, zero).long()
+    ix1, iy1 = torch.clamp_max(ix + 1, wx - 1), torch.clamp_max(iy + 1, wy - 1)
+    flat = values_t.reshape(-1)
+
+    def read(j, x, y):
+        return flat[(j * wx + x) * wy + y].float()
+
+    ty0, ty1 = _tent(yf, y0f), _tent(yf, y0f + 1.0)
+    tt0, tt1 = _tent(u, k0rel), _tent(u, k0rel + 1.0)
+    tx0, tx1 = _tent(xf, x0f), _tent(xf, x0f + 1.0)
+
+    def along_y(j, x):
+        return ty0 * read(j, x, iy) + ty1 * read(j, x, iy1)
+
+    def along_theta(x):
+        return tt0 * along_y(jt, x) + tt1 * along_y(jt + 1, x)
+
+    val = tx0 * along_theta(ix) + tx1 * along_theta(ix1)
+    return torch.where(valid, base + val, miss)
+
+
+def winlut_lookup_reference(values_t: Tensor, xi: Tensor, yi: Tensor, t: Tensor, miss,
+                            base: float = 1.0, tile: int = 512, tblk: int = 16) -> Tensor:
+    """Plain PyTorch version of kernel B6: the tile reshape, the per-tile
+    minimum and the eight gathers."""
+    k = values_t.shape[0]
+    tblk = min(tblk, k)
+    n = xi.shape[0]
+    n_pad = -(-n // tile) * tile
+    t_lo = slab_bases(F.pad(t, (0, n_pad - n), value=-1.0), k, tblk, tile)[:n]
+    return trilinear_reference(values_t, xi, yi, t, t_lo, tblk, miss, base)
+
+
+def _check(values_t, xi, yi, t, tile, tblk):
+    if values_t.dtype != torch.bfloat16 or values_t.dim() != 3:
+        raise ValueError(f"values_t must be bfloat16[K, Wx, Wy], got "
+                         f"{values_t.dtype}{list(values_t.shape)} (int8 tables: ROADMAP B6-int8)")
+    n = xi.shape[0] if xi.dim() == 1 else -1
+    for name, v in (("values_t", values_t), ("xi", xi), ("yi", yi), ("t", t)):
+        if v.device != values_t.device:
+            raise ValueError(f"{name} is on {v.device}, values_t on {values_t.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if name != "values_t" and (v.dtype != torch.float32 or v.shape != (n,)):
+            raise ValueError(f"{name} must be float32[N] like xi, got {v.dtype}{list(v.shape)}")
+    if n > MAX_PARTICLES:
+        raise ValueError(f"{n} particles; the kernel takes at most {MAX_PARTICLES}")
+    if tile < 1 or tblk < 1:
+        raise ValueError(f"tile and tblk must be positive, got {tile}, {tblk}")
+
+
+def winlut_lookup(values_t: Tensor, xi: Tensor, yi: Tensor, t: Tensor, miss,
+                  base: float = 1.0, tile: int = 512, tblk: int = 16) -> Tensor:
+    """Evaluate ``base + lerp_θ(L[t, xi, yi])`` per particle, ``f32[N]``.
+
+    Args:
+      values_t: ``bf16[K, Wx, Wy]`` x-major windowed LUT.
+      xi, yi: ``f32[N]`` fractional window cells; t: ``f32[N]`` fractional
+        θ bins.  Slots should be θ-sorted so that a tile spans at most
+        ``tblk - 1`` bins; particles above their tile's slab score miss.
+      miss: replacement weight outside (a float or a 0-d tensor, which may
+        live on the device); base: additive base (1.0 for ``1 + Σ pz³``).
+      tile: slots per tile; tblk: θ-slab depth (clipped to K).
+    """
+    global launches
+    _check(values_t, xi, yi, t, tile, tblk)
+    if values_t.device.type == "cpu":
+        return winlut_lookup_reference(values_t, xi, yi, t, miss, base, tile, tblk)
+    if values_t.device.type != "cuda":
+        raise ValueError(f"unsupported device {values_t.device}")
+    k, wx, wy = values_t.shape
+    n = xi.shape[0]
+    miss_t = torch.as_tensor(miss, dtype=torch.float32, device=values_t.device).reshape(1)
+    out = torch.empty(n, dtype=torch.float32, device=values_t.device)
+    stream = torch.cuda.current_stream(values_t.device).cuda_stream
+    err = _kernel()(values_t.data_ptr(), k, wx, wy, min(tblk, k), xi.data_ptr(),
+                    yi.data_ptr(), t.data_ptr(), n, tile, miss_t.data_ptr(), float(base),
+                    out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"winlut kernel launch failed: cudaError {err}")
+    launches += 1
+    return out

@@ -2,7 +2,7 @@
 workloads under ``torch.profiler``.
 
     python -m beluga_tpu_torch.tools.profile_update [--scans 20] [--trace-dir DIR]
-        [--workloads node,large,fleet]
+        [--workloads node,large,fleet,mega,windowed]
 
 Workloads, the configurations of ``tools/workloads.py`` (which
 ``chip_smoke.py`` drives too):
@@ -15,7 +15,12 @@ Workloads, the configurations of ``tools/workloads.py`` (which
   ``filters.amcl.update``;
 * ``fleet``: the JAX benchmark's fleet, 64 filters x 4096 particles
   (codebook16, theta-sorted slots, fixed count, multinomial resampling,
-  pooled recovery) through ``parallel.fleet.make_fleet_update``.
+  pooled recovery) through ``parallel.fleet.make_fleet_update``;
+* ``mega``: the JAX benchmark's headline filter, 2097152 particles through
+  the fused windowed kernel B5 (gate-free, systematic and selective
+  resampling, a 4096-state recovery pool, the θ sort every 8th update);
+* ``windowed``: the coverage-gated windowed filter, 262144 particles, kernel
+  B6 with kernel B1 for the exact tail and the fallback.
 
 After a warm-up each workload runs ``--scans`` scans on the host clock
 (wall ms per update, a synchronize after the last), then ``--scans`` more
@@ -23,7 +28,8 @@ under the profiler.  For each it prints one JSON line: the wall ms per
 update, device-busy ms per update (the sum of the CUDA kernels' and
 copies' device times under the profiler), the device's idle share
 (1 - busy / wall), kernel launches per update, and the model stages
-(wrapped in profiler ranges here, not in the port) and the kernels that
+(wrapped in profiler ranges here, not in the port), a few PyTorch
+operators by name (device time and calls per update) and the kernels that
 take the most time.  A run without a CUDA device exits 2.
 """
 
@@ -42,7 +48,11 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from beluga_tpu_torch.tools import workloads
 
-STAGES = ("propagate", "log_weight", "random_state", "hash_state", "estimate", "sort_key")
+STAGES = ("propagate", "log_weight", "random_state", "hash_state", "estimate", "sort_key",
+          "fused_propagate_reweight")
+# PyTorch operators whose device time the profile reports by name, to see
+# how they scale with the particle count
+OPS = ("aten::cummax", "aten::sort", "aten::cumsum", "aten::matmul", "aten::index_select")
 
 
 def _ranged(models):
@@ -56,7 +66,8 @@ def _ranged(models):
     from beluga_tpu_torch.filters.amcl import se2_sort_key
 
     models = models._replace(sort_key=models.sort_key or se2_sort_key)
-    return models._replace(**{s: wrap(s, getattr(models, s)) for s in STAGES})
+    return models._replace(**{s: wrap(s, getattr(models, s)) for s in STAGES
+                              if getattr(models, s) is not None})
 
 
 def _node(scans: int):
@@ -108,7 +119,32 @@ def _fleet(scans: int):
     return step
 
 
-WORKLOADS = {"node": _node, "large": _large, "fleet": _fleet}
+def _forced(make_workload, sort_every: int | None):
+    """A single filter stepped with ``force_update`` on every scan and, with
+    ``sort_every``, ``sort_now`` on every ``sort_every``-th."""
+    from beluga_tpu_torch.filters.amcl import host_pose, update
+
+    def make(scans: int):
+        w = make_workload(scans, torch.device("cuda"))
+        models, s = _ranged(w.models), w.scans
+        box = {"state": w.state}
+
+        def step(t):
+            sort_now = None if sort_every is None else t % sort_every == 0
+            box["state"], est = update(w.params, models, w.ctx,
+                                       box["state"]._replace(force_update=True),
+                                       host_pose(s.xs[t], s.ys[t], s.yaws[t]), w.points[t],
+                                       w.mask[t], sort_now=sort_now)
+            est.pose.xy.cpu()
+
+        return step
+
+    return make
+
+
+WORKLOADS = {"node": _node, "large": _large, "fleet": _fleet,
+             "mega": _forced(workloads.mega, workloads.MEGA_SORT_EVERY),
+             "windowed": _forced(workloads.windowed, None)}
 
 
 def profile_workload(name: str, make, scans: int, warmup: int, trace_dir: str | None) -> dict:
@@ -136,10 +172,16 @@ def profile_workload(name: str, make, scans: int, warmup: int, trace_dir: str | 
         by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
     stages: dict[str, list[float]] = {s: [0.0, 0.0] for s in STAGES}
+    ops, calls = dict.fromkeys(OPS, 0.0), dict.fromkeys(OPS, 0)
     for e in events:
         if e.device_type == DeviceType.CPU and e.name in stages:
             stages[e.name][0] += e.time_range.elapsed_us()
             stages[e.name][1] += e.device_time_total
+        parent = e.cpu_parent
+        if (e.device_type == DeviceType.CPU and e.name in ops
+                and (parent is None or parent.name != e.name)):  # outermost call only
+            ops[e.name] += e.device_time_total
+            calls[e.name] += 1
     wall_ms = 1e3 * wall / scans
     busy_ms = 1e-3 * busy_us / scans
     return {
@@ -153,6 +195,8 @@ def profile_workload(name: str, make, scans: int, warmup: int, trace_dir: str | 
             k: {"host": 1e-3 * h / scans, "device": 1e-3 * d / scans}
             for k, (h, d) in stages.items()
         },
+        "ops_device_ms_per_update": {k: 1e-3 * v / scans for k, v in ops.items()},
+        "ops_calls_per_update": {k: v / scans for k, v in calls.items()},
         "top_device_ms_per_update": {k: 1e-3 * v / scans for k, v in top},
     }
 

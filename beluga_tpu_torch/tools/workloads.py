@@ -12,7 +12,20 @@ beams per scan:
 * :func:`fleet`: the JAX benchmark's fleet (``bench.py:46-49, 180-220``),
   64 filters x 4096 particles, codebook16, theta-sorted slots, a fixed
   count, multinomial resampling, pooled recovery; every filter scores the
-  same scan and starts from its own cloud.
+  same scan and starts from its own cloud;
+* :func:`mega`: the JAX benchmark's headline mega filter
+  (``bench.py:247-386``, ``winlut_mega_1x2097152x60``): one filter of
+  2097152 particles through the fused windowed kernel B5, k_bins 20, a
+  (32, 128) window at dth 2π/64, tile 4096, tblk 20, gate-free, systematic
+  and selective resampling, a 4096-state recovery pool; every update is
+  forced, and the θ sort runs on every :data:`MEGA_SORT_EVERY`-th
+  (``bench.py:313-325``);
+* :func:`windowed`: the unfused, coverage-gated windowed filter of
+  ``bench.py:880-900``, 262144 particles, k_bins 64, a 128-cell window,
+  the hybrid exact tail; every update is forced.
+
+The mega and windowed filters start from a θ-sorted cloud about the first
+pose (their slots must stay θ-sorted).
 """
 
 from __future__ import annotations
@@ -25,6 +38,15 @@ import torch
 GRID, RES, BEAMS = 384, 0.05, 60
 INITIAL_COV = np.diag([0.25, 0.25, 0.068])
 RECOVERY_CANDIDATES = 256  # bench.py:190, :850
+MEGA_N, WINDOWED_N = 2097152, 262144  # bench.py:266, :884
+MEGA_SORT_EVERY = 8  # bench.py:313: sort_now on every 8th update
+MEGA_FILTER = dict(k_bins=20, win=(32, 128), dth=2.0 * np.pi / 64.0, max_point_radius=3.6,
+                   tile=4096, tblk=20, recovery_candidates=RECOVERY_CANDIDATES,
+                   coverage_threshold=0.0, exact_tail_frac=0.0, fused=True)  # bench.py:289-299
+# bench.py:886-889, with make_windowed_scan_filter's defaults written out
+WINDOWED_FILTER = dict(k_bins=64, win=128, dth=2.0 * np.pi / 128.0, max_point_radius=3.6,
+                       tile=512, tblk=16, recovery_candidates=RECOVERY_CANDIDATES,
+                       coverage_threshold=0.98, exact_tail_frac=0.125)
 
 
 class Scans(NamedTuple):
@@ -109,6 +131,41 @@ def fleet(scans: int, device, batch: int = 64, n: int = 4096) -> Workload:
     state = init_fleet_state(gen, batch, host_pose(s.xs[0], s.ys[0], s.yaws[0]), INITIAL_COV,
                              params, device=device)
     return Workload(s, pts.contiguous(), mask.contiguous(), params, models, ctx, state)
+
+
+def _sorted_filter(scans: int, device, n: int, seed: int, filter_kw: dict, params_kw: dict):
+    from beluga_tpu_torch.core.particles import tree_sort_by
+    from beluga_tpu_torch.core.random import sample_normal_se2
+    from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_state
+    from beluga_tpu_torch.filters.builders import make_windowed_scan_filter
+    from beluga_tpu_torch.maps.occupancy import make_grid
+
+    s = arena_scans(scans)
+    models, ctx = make_windowed_scan_filter(make_grid(s.data, RES, device=device),
+                                            device=device, **filter_kw)
+    params = AmclParams(max_particles=n, min_particles=n, sorted_slots=True,
+                        resampling="systematic", **params_kw)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    states = sample_normal_se2(gen, n, host_pose(s.xs[0], s.ys[0], s.yaws[0]), INITIAL_COV)
+    states = tree_sort_by(states.theta, states)
+    return Workload(s, torch.as_tensor(s.points).to(device), torch.as_tensor(s.mask).to(device),
+                    params, models, ctx, init_state(gen, states, params, device=device))
+
+
+def mega(scans: int, device, n: int | None = None) -> Workload:
+    """The mega filter (``bench.py:289-304``) of ``n`` (default
+    :data:`MEGA_N`) particles; step it with ``force_update=True`` and
+    ``sort_now=(t % MEGA_SORT_EVERY == 0)``."""
+    return _sorted_filter(scans, device, MEGA_N if n is None else n, 3, MEGA_FILTER,
+                          dict(recovery_pool=4096, selective_resampling=True))
+
+
+def windowed(scans: int, device, n: int | None = None) -> Workload:
+    """The coverage-gated windowed filter (``bench.py:886-891``) of ``n``
+    (default :data:`WINDOWED_N`) particles; step it with
+    ``force_update=True``."""
+    return _sorted_filter(scans, device, WINDOWED_N if n is None else n, 4, WINDOWED_FILTER, {})
 
 
 def fleet_odometry(s: Scans, t: int, batch: int):

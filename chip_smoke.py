@@ -11,12 +11,14 @@ Phases, each of which exits non-zero when it fails:
    source, started together;
 3. kernels: each kernel's wrapper on card tensors at the shapes the main
    paths give it (the node's 2000 particles x 60 beams, the fleet's 64
-   filters x 4096 particles x 60 beams, the large filter's 262144), held
-   against its plain PyTorch version on the same inputs and timed beside
-   it: B1 (exact reweight), B4 (codebook16 reweight), B2 (resample take),
-   B3 (pool take).  ``ms`` is the time per call of calls issued back to
-   back, the wrapper's host cost included; ``device_ms`` is the device's
-   own time per call under ``torch.profiler``;
+   filters x 4096 particles x 60 beams, the large and windowed filters'
+   262144, the mega filter's 2097152), held against its plain PyTorch
+   version on the same inputs and timed beside it: B1 (exact reweight), B4
+   (codebook16 reweight), B2 (resample take), B3 (pool take), B6 (windowed
+   LUT lookup, beside ``grid_sample`` as the library yardstick) and B5
+   (fused propagate + lookup).  ``ms`` is the time per call of calls
+   issued back to back, the wrapper's host cost included; ``device_ms`` is
+   the device's own time per call under ``torch.profiler``;
 4. node: ``AmclNode`` at nav2 defaults tracks the synthetic arena's circle
    for 50 scans; every valid estimate must lie within 0.9 m / 30 degrees
    of the truth, and B1 and B2 must have been launched;
@@ -26,9 +28,19 @@ Phases, each of which exits non-zero when it fails:
 6. fleet: 64 filters x 4096 particles in codebook16 mode with theta-sorted
    slots and pooled recovery through ``parallel.fleet.make_fleet_update``
    for 40 scans, same gate on every filter; B4, B2 and B3 launched once per
-   update, B1 never.
+   update, B1 never;
+7. mega: the JAX benchmark's headline filter, 1 x 2097152 particles x 60
+   beams through the fused windowed kernel B5 (``bench.py:247-386``), 64
+   forced updates with the theta sort on every 8th; every scan within
+   0.9 m / 30 degrees and the last 32 within 0.35 m (the benchmark's own
+   gate on its last block, ``bench.py:364-377``); B5 launched once per
+   update, B1, B4 and B6 never;
+8. windowed: the coverage-gated windowed filter, 262144 particles
+   (``bench.py:880-900``), 40 forced updates, same 0.9 m / 30 degree gate;
+   B6 launched at least once, B1 on every update (the exact tail, or the
+   fallback); prints how many updates took each branch.
 
-Phases 4 to 6 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
+Phases 4 to 8 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The line before the last two is the ``kernels`` JSON; the line
@@ -56,12 +68,22 @@ PEAK_F32_PER_S = 67e12
 # reads the cube from its table
 B1_OPS_PER_BEAM = 13
 B4_OPS_PER_BEAM = 11
+# float32 operations per particle of kernel B6: 6 tents of 3, 14 products
+# and 7 sums of the trilinear read, the base; kernel B5 adds the motion
+# sample, the window affine and the heading bin (~40 with sincos counted
+# as 8 each) and the log
+B6_OPS_PER_PARTICLE = 40
+B5_OPS_PER_PARTICLE = 120
+EDGE = 1e-4  # window coordinates this close to an edge may flip validity
 
 GATE_POS_M = 0.9  # tests/test_system.py:44-45
 GATE_YAW_RAD = math.radians(30.0)
 NODE_SCANS = 50
 LARGE_N, LARGE_MIN, LARGE_SCANS = 262144, 65536, 12
+MEGA_N = 2097152  # bench.py:266
 FLEET_B, FLEET_N, FLEET_SCANS = 64, 4096, 40  # bench.py:46-49
+MEGA_SCANS, MEGA_LAST, MEGA_LAST_GATE_M = 64, 32, 0.35  # bench.py:364-377
+WINDOWED_SCANS = 40
 
 
 class SmokeFailure(Exception):
@@ -356,25 +378,211 @@ def check_pool_take(batch: int | None, p: int, n: int, dev, iters: int) -> dict:
     )
 
 
-# -- phases 4 to 6: the main paths --------------------------------------------
+def resample_inputs(n: int, dev) -> dict:
+    """Inputs of ``check_resample`` without a reweight: positive random
+    weights and a random cloud of ``n`` particles."""
+    from beluga_tpu_torch.lie import SE2
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    xyt = torch.randn((3, n), generator=gen, device=dev)
+    weights = torch.rand(n, generator=gen, device=dev) + 0.5
+    return dict(lead=(), b1_weights=weights, states=SE2.from_xytheta(xyt[0], xyt[1], xyt[2]))
+
+
+def window_inputs(w, cfg: dict, stray_every: int = 20):
+    """The workload's θ-sorted cloud with every ``stray_every``-th slot moved
+    5 m off (it scores miss), and the window LUT of its first scan about the
+    cloud's mean, built as the filter builds it."""
+    from beluga_tpu_torch.lie import SE2
+    from beluga_tpu_torch.models.sensor.likelihood_field_winlut import build_windowed_scan_lut
+
+    st = w.state.particles.state
+    xy = st.xy.clone()
+    xy[::stray_every] += 5.0
+    states = SE2(xy, st.rot)
+    ct = torch.atan2(torch.mean(st.rot.sin), torch.mean(st.rot.cos))
+    geo = {k: v for k, v in cfg.items() if k in ("k_bins", "win", "dth", "max_point_radius")}
+    lut = build_windowed_scan_lut(w.ctx["field"], w.points[0], w.mask[0], torch.mean(st.x),
+                                  torch.mean(st.y), ct, padded_cubed=w.ctx["field_pad3"],
+                                  dft=w.ctx["winlut_dft"], **geo)
+    return states, lut
+
+
+def check_winlut(dev, iters: int) -> dict:
+    """Kernel B6 at the windowed filter's geometry (262144 particles, 64
+    bins, a 128x128 window, tile 512, tblk 16; a θ-sorted cloud whose tiles
+    span several slabs): within rtol 1e-6 of its plain version with an
+    equal miss set, timed beside its plain version and ``grid_sample``
+    (trilinear, ``align_corners=True``, the same coordinates, no slab rule),
+    the library yardstick the port never calls."""
+    import torch.nn.functional as F
+
+    from beluga_tpu_torch.models.sensor.likelihood_field_winlut import windowed_coords
+    from beluga_tpu_torch.ops import cuda_winlut as b6
+    from beluga_tpu_torch.tools import workloads
+
+    cfg = workloads.WINDOWED_FILTER
+    states, lut = window_inputs(workloads.windowed(1, dev), cfg)
+    tile, tblk = cfg["tile"], cfg["tblk"]
+    xi, yi, t = (v.contiguous() for v in windowed_coords(lut, states))
+    k, wx, wy = lut.values_t.shape
+    got = b6.winlut_lookup(lut.values_t, xi, yi, t, lut.miss, 1.0, tile, tblk)
+    want = b6.winlut_lookup_reference(lut.values_t, xi, yi, t, lut.miss, 1.0, tile, tblk)
+    torch.cuda.synchronize()
+    n = xi.numel()
+    label = f"{n} particles, [{k}, {wx}, {wy}] bf16, tile {tile}, tblk {tblk}"
+    miss_got, miss_want = got == lut.miss, want == lut.miss
+    check(torch.equal(miss_got, miss_want),
+          f"B6 {label}: {int((miss_got != miss_want).sum())} particles differ in the miss set")
+    check(bool(torch.isfinite(got).all()), "B6 weights not finite")
+    check(torch.allclose(got, want, rtol=1e-6, atol=0),
+          f"B6 {label}: max rel err {float(((got - want).abs() / want).max()):.3g} > 1e-6")
+    t_lo = b6.slab_bases(F.pad(t, (0, -n % tile), value=-1.0), k, min(tblk, k), tile)
+    slabs = int(torch.unique(t_lo).numel())
+    check(slabs > 1, f"B6 {label}: the cloud's tiles share one slab")
+    check(0 < int(miss_got.sum()) < n // 10, f"B6 {label}: {int(miss_got.sum())} misses")
+    vol = lut.values_t.float()[None, None].contiguous()  # [1, 1, K, Wx, Wy]
+    grid = torch.stack([2 * yi / (wy - 1) - 1, 2 * xi / (wx - 1) - 1, 2 * t / (k - 1) - 1],
+                       -1)[None, None, None].contiguous()  # (W, H, D) = (y, x, θ)
+
+    def library():
+        return F.grid_sample(vol, grid, mode="bilinear", align_corners=True)
+
+    lib = 1.0 + library().reshape(-1)
+    hit = ~miss_got
+    lib_rel = float(((lib[hit] - got[hit]).abs() / got[hit]).max())
+    check(lib_rel < 1e-3, f"B6 {label}: grid_sample differs by {lib_rel:.3g} where B6 scores")
+    times = timings(lambda: b6.winlut_lookup(lut.values_t, xi, yi, t, lut.miss, 1.0, tile, tblk),
+                    lambda: b6.winlut_lookup_reference(lut.values_t, xi, yi, t, lut.miss, 1.0,
+                                                       tile, tblk),
+                    iters, library=library)
+    bms, by = bound_ms(16 * n + 2 * lut.values_t.numel(), B6_OPS_PER_PARTICLE * int(hit.sum()))
+    return dict(
+        name="B6 winlut_lookup", route="cuda", source="beluga_tpu_torch/csrc/winlut.cu",
+        replaces="beluga_tpu/ops/pallas_winlut.py:157", max_abs_err=float((got - want).abs().max()),
+        bound_ms=bms, bound_by=by, shape=label, slabs=slabs, misses=int(miss_got.sum()),
+        grid_sample_max_rel=lib_rel, **times,
+    )
+
+
+def near_edge(xo, yo, co, so, scalars, k: int, wx: int, wy: int, tile: int):
+    """Particles whose float64 window coordinates (recomputed from the
+    plain version's outputs) lie within EDGE of a window or bin edge, or in
+    a tile whose minimum bin does."""
+    from beluga_tpu_torch.ops import cuda_fused_step as b5
+
+    sc = scalars.double()
+    x, y, c, s = (v.double() for v in (xo, yo, co, so))
+    xf = (sc[b5.WF_C] * x - sc[b5.WF_S] * y + sc[b5.WF_X]) * sc[b5.INV_RES] + sc[b5.OFF_X]
+    yf = (sc[b5.WF_S] * x + sc[b5.WF_C] * y + sc[b5.WF_Y]) * sc[b5.INV_RES] + sc[b5.OFF_Y]
+    rel = torch.remainder(torch.atan2(s, c) + sc[b5.T_ANG] + math.pi, 2 * math.pi) - math.pi
+    t = rel * sc[b5.INV_DTH] + sc[b5.T_BIAS]
+    frac = (t - torch.round(t)).abs()
+    near = ((xf.abs() < EDGE) | ((xf - (wx - 1)).abs() < EDGE) | (yf.abs() < EDGE)
+            | ((yf - (wy - 1)).abs() < EDGE) | (frac < EDGE))
+    n = t.numel()
+    pad = -n % tile
+    tt = torch.nn.functional.pad(t, (0, pad), value=-1.0).reshape(-1, tile)
+    ft = torch.nn.functional.pad(frac, (0, pad), value=1.0).reshape(-1, tile)
+    arg = torch.where((tt >= 0) & (tt < k), tt, torch.inf).argmin(dim=1)
+    tile_near = ft.gather(1, arg[:, None]) < EDGE
+    return near | tile_near.expand(-1, tile).reshape(-1)[:n]
+
+
+def check_fused_step(n: int, dev, iters: int) -> dict:
+    """Kernel B5 at the mega geometry (2097152 particles, 20 bins, a 32x128
+    window, tile 4096, tblk 20) on the workload's cloud with strays, the
+    motion of its first step, fresh normals: states within 1e-5 of its
+    plain version, log-likelihoods within 1e-5, miss sets equal except
+    within EDGE of an edge (counted)."""
+    from beluga_tpu_torch.filters.amcl import host_pose
+    from beluga_tpu_torch.filters.builders import fused_step_scalars
+    from beluga_tpu_torch.ops import cuda_fused_step as b5
+    from beluga_tpu_torch.tools import workloads
+
+    from beluga_tpu_torch.models.motion.differential_drive import DifferentialDriveParams
+
+    cfg = workloads.MEGA_FILTER
+    w = workloads.mega(2, dev)
+    states, lut = window_inputs(w, cfg)
+    s = w.scans
+    scalars = fused_step_scalars(lut, DifferentialDriveParams(),
+                                 host_pose(s.xs[1], s.ys[1], s.yaws[1]),
+                                 host_pose(s.xs[0], s.ys[0], s.yaws[0]), dev)
+    tile, tblk = cfg["tile"], cfg["tblk"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    z = torch.randn((3, n), generator=gen, device=dev)
+    planes = [v[:n].contiguous() for v in (states.x, states.y, states.theta)]
+    args = (*planes, z, lut.values_t, scalars)
+    got = b5.fused_propagate_winlut(*args, tile=tile, tblk=tblk)
+    want = b5.fused_propagate_winlut_reference(*args, tile=tile, tblk=tblk)
+    torch.cuda.synchronize()
+    k, wx, wy = lut.values_t.shape
+    label = f"{n} particles, [{k}, {wx}, {wy}] bf16, tile {tile}, tblk {tblk}"
+    for g, x, what in zip(got, want, ("x'", "y'", "cos'", "sin'", "log_lik")):
+        check(bool(torch.isfinite(g).all()), f"B5 {label}: {what} not finite")
+    state_err = max(float((g - x).abs().max()) for g, x in zip(got[:4], want[:4]))
+    check(state_err <= 1e-5, f"B5 {label}: states differ by {state_err:.3g} > 1e-5")
+    miss_lw = torch.log(lut.miss)
+    miss_got, miss_want = got[4] == miss_lw, want[4] == miss_lw
+    near = near_edge(*want[:4], scalars, k, wx, wy, tile)
+    flips = miss_got != miss_want
+    check(not bool((flips & ~near).any()),
+          f"B5 {label}: {int((flips & ~near).sum())} miss flips away from an edge")
+    both = ~miss_got & ~miss_want
+    lw_err = float((got[4][both] - want[4][both]).abs().max())
+    check(lw_err <= 1e-5, f"B5 {label}: log-likelihoods differ by {lw_err:.3g} > 1e-5")
+    check(0 < int(miss_got.sum()) < n // 2, f"B5 {label}: {int(miss_got.sum())} misses")
+    times = timings(lambda: b5.fused_propagate_winlut(*args, tile=tile, tblk=tblk),
+                    lambda: b5.fused_propagate_winlut_reference(*args, tile=tile, tblk=tblk),
+                    iters)
+    bms, by = bound_ms(44 * n + 2 * lut.values_t.numel(), B5_OPS_PER_PARTICLE * n)
+    return dict(
+        name="B5 fused_propagate_winlut", route="cuda", source="beluga_tpu_torch/csrc/winlut.cu",
+        replaces="beluga_tpu/ops/pallas_fused_step.py:169",
+        max_abs_err=max(state_err, lw_err), bound_ms=bms, bound_by=by, shape=label,
+        misses=int(miss_got.sum()), miss_flips=int(flips.sum()),
+        near_edge=int(near.sum()), **times,
+    )
+
+
+# -- phases 4 to 8: the main paths --------------------------------------------
 
 
 def reset_counts() -> None:
-    from beluga_tpu_torch.ops import cuda_pool_take, cuda_resample, cuda_reweight
+    from beluga_tpu_torch.ops import (
+        cuda_fused_step,
+        cuda_pool_take,
+        cuda_resample,
+        cuda_reweight,
+        cuda_winlut,
+    )
 
     cuda_reweight.launches = 0
     cuda_reweight.values3_launches = 0
     cuda_resample.launches = 0
     cuda_pool_take.launches = 0
+    cuda_winlut.launches = 0
+    cuda_fused_step.launches = 0
 
 
 def read_counts() -> dict:
-    from beluga_tpu_torch.ops import cuda_pool_take, cuda_resample, cuda_reweight
+    from beluga_tpu_torch.ops import (
+        cuda_fused_step,
+        cuda_pool_take,
+        cuda_resample,
+        cuda_reweight,
+        cuda_winlut,
+    )
 
     return {"B1 fused_reweight": cuda_reweight.launches,
             "B2 resample_take": cuda_resample.launches,
             "B3 pool_take": cuda_pool_take.launches,
-            "B4 fused_reweight values3": cuda_reweight.values3_launches}
+            "B4 fused_reweight values3": cuda_reweight.values3_launches,
+            "B5 fused_propagate_winlut": cuda_fused_step.launches,
+            "B6 winlut_lookup": cuda_winlut.launches}
 
 
 def run_node(dev) -> tuple[dict, dict]:
@@ -495,6 +703,74 @@ def run_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
     )
 
 
+def run_forced(w, scans: int, what: str, sort_every: int | None = None):
+    """Step a single filter with ``force_update`` on every scan (and
+    ``sort_now`` on every ``sort_every``-th): the gate on every scan, the
+    launch counts, wall times and errors."""
+    from beluga_tpu_torch.filters.amcl import host_pose, update
+
+    s, state = w.scans, w.state
+    reset_counts()
+    times, errs, yaws = [], [], []
+    for t in range(scans):
+        sort_now = None if sort_every is None else t % sort_every == 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, est = update(w.params, w.models, w.ctx, state._replace(force_update=True),
+                            host_pose(s.xs[t], s.ys[t], s.yaws[t]), w.points[t], w.mask[t],
+                            sort_now=sort_now)
+        pose = est.pose.as_xytheta().cpu().numpy()
+        times.append(time.perf_counter() - t0)
+        check(est.valid, f"{what} scan {t}: update gated out")
+        check(bool(np.isfinite(pose).all()), f"{what} scan {t}: estimate not finite")
+        errs.append(math.hypot(pose[0] - s.xs[t], pose[1] - s.ys[t]))
+        yaws.append(yaw_error(float(pose[2]), s.yaws[t]))
+        check(errs[-1] < GATE_POS_M and yaws[-1] < GATE_YAW_RAD,
+              f"{what} scan {t}: error {errs[-1]:.3f} m / {math.degrees(yaws[-1]):.1f} deg")
+    counts = read_counts()
+    n = w.params.max_particles
+    steady = sorted(times[2:])
+    mean_s = sum(steady) / len(steady)
+    return counts, errs, dict(
+        particles=n, scans=scans, err_mean_m=float(np.mean(errs)), err_max_m=max(errs),
+        worst_yaw_deg=math.degrees(max(yaws)), ms_per_update_mean=1e3 * mean_s,
+        ms_per_update_median=1e3 * steady[len(steady) // 2], ms_first_update=1e3 * times[0],
+        particle_updates_per_s=n / mean_s,
+    )
+
+
+def run_mega(dev, scans: int = MEGA_SCANS, n: int | None = None) -> tuple[dict, dict]:
+    """The JAX benchmark's headline mega filter (bench.py:247-386)."""
+    from beluga_tpu_torch.tools import workloads
+
+    w = workloads.mega(scans, dev, **({} if n is None else {"n": n}))
+    counts, errs, out = run_forced(w, scans, "mega", workloads.MEGA_SORT_EVERY)
+    last = errs[-MEGA_LAST:]
+    out.update(err_mean_last_m=float(np.mean(last)), err_max_last_m=max(last))
+    check(max(last) <= MEGA_LAST_GATE_M,
+          f"mega: max error {max(last):.3f} m over the last {MEGA_LAST} scans > "
+          f"{MEGA_LAST_GATE_M} m")
+    check(counts["B5 fused_propagate_winlut"] == scans,
+          f"mega: B5 launched {counts['B5 fused_propagate_winlut']} times in {scans} updates")
+    for name in ("B1 fused_reweight", "B4 fused_reweight values3", "B6 winlut_lookup"):
+        check(counts[name] == 0, f"mega: {name} launched {counts[name]} times")
+    return counts, out
+
+
+def run_windowed(dev, scans: int = WINDOWED_SCANS) -> tuple[dict, dict]:
+    """The coverage-gated windowed filter (bench.py:880-900)."""
+    from beluga_tpu_torch.tools import workloads
+
+    w = workloads.windowed(scans, dev)
+    counts, _, out = run_forced(w, scans, "windowed")
+    fast = counts["B6 winlut_lookup"]
+    check(fast >= 1, "windowed: B6 was never launched")
+    check(counts["B1 fused_reweight"] == scans,
+          f"windowed: B1 launched {counts['B1 fused_reweight']} times in {scans} updates")
+    out.update(fast_updates=fast, exact_updates=scans - fast)
+    return counts, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -537,7 +813,13 @@ def main() -> int:
     del w
     p_fleet = check_pool_take(FLEET_B, 512, FLEET_N, dev, iters=200)
     p_big = check_pool_take(None, 4096, LARGE_N, dev, iters=50)
-    checked = (k_main, r_main, k_big, r_big, c_big, k_fleet, r_fleet, c_fleet, p_fleet, p_big)
+    p_mega = check_pool_take(None, 512, 4096, dev, iters=200)
+    r_mega = check_resample(MEGA_N, resample_inputs(MEGA_N, dev), dev, iters=20)
+    w_big = check_winlut(dev, iters=50)
+    f_mega = check_fused_step(MEGA_N, dev, iters=20)
+    f_ragged = check_fused_step(MEGA_N - 1000, dev, iters=5)
+    checked = (k_main, r_main, k_big, r_big, c_big, k_fleet, r_fleet, c_fleet, p_fleet, p_big,
+               p_mega, r_mega, w_big, f_mega, f_ragged)
     ms = lambda v: "not measured" if v is None else f"{v:.5f} ms"  # noqa: E731
     for k in checked:
         lib = "" if k["library_ms"] is None else (
@@ -560,11 +842,28 @@ def main() -> int:
     fleet_counts, fleet = run_fleet(dev)
     print("fleet: " + json.dumps(fleet) + " launches " + json.dumps(fleet_counts))
 
+    # 7. the mega filter (slice 3's headline path)
+    mega_counts, mega = run_mega(dev)
+    print("mega: " + json.dumps(mega) + " launches " + json.dumps(mega_counts))
+
+    # 8. the windowed filter (slice 3's gated path)
+    win_counts, windowed = run_windowed(dev)
+    print("windowed: " + json.dumps(windowed) + " launches " + json.dumps(win_counts))
+
     # each kernel at the shapes and with the launches of the newest main
-    # path that runs it: B1 the node's, B2-B4 the fleet's
-    by_path = {"node": node_counts, "large": large_counts, "fleet": fleet_counts}
+    # path that runs it: B1 the windowed filter's (tail and fallback), B2
+    # and B3 the mega filter's where its selective resampling fired, else
+    # the windowed filter's, B4 the fleet's, B5 the mega filter's, B6 the
+    # windowed filter's
+    by_path = {"node": node_counts, "large": large_counts, "fleet": fleet_counts,
+               "mega": mega_counts, "windowed": win_counts}
+    resampled = mega_counts["B2 resample_take"] > 0
     kernels = []
-    for k, path in ((k_main, "node"), (r_fleet, "fleet"), (p_fleet, "fleet"), (c_fleet, "fleet")):
+    for k, path in ((k_big, "windowed"), (r_mega if resampled else r_big,
+                                          "mega" if resampled else "windowed"),
+                    (p_mega if mega_counts["B3 pool_take"] else p_big,
+                     "mega" if mega_counts["B3 pool_take"] else "windowed"),
+                    (c_fleet, "fleet"), (f_mega, "mega"), (w_big, "windowed")):
         entry = {key: k[key] for key in ("name", "route", "source", "replaces")}
         entry["launches"] = by_path[path][k["name"]]
         entry.update({key: k[key] for key in (

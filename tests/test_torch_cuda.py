@@ -1,8 +1,8 @@
-"""Kernels B1-B4 of the PyTorch port on the card, against their plain
-versions on the same card tensors, and a fleet update on the card.  Every test here needs an NVIDIA GPU
-and skips without one.  The module imports neither JAX nor the JAX
-package, so on a machine with the card it runs without the repository's
-conftest:
+"""Kernels B1-B6 of the PyTorch port on the card, against their plain
+versions on the same card tensors, and fleet and mega updates on the card.
+Every test here needs an NVIDIA GPU and skips without one.  The module
+imports neither JAX nor the JAX package, so on a machine with the card it
+runs without the repository's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -195,3 +195,83 @@ def test_node_on_card(dev):
     node.set_map(make_grid(data, 0.1))
     xyt, _ = node.particle_cloud()
     assert abs(np.mean(xyt[:, 0]) - node.last_known_estimate[0][0]) < 0.5
+
+
+def window_case(dev, n, cfg, workload, stray_every=20):
+    """A workload's θ-sorted cloud with strays and its window LUT, built
+    on the card."""
+    from beluga_tpu_torch.lie import SE2
+    from beluga_tpu_torch.models.sensor.likelihood_field_winlut import build_windowed_scan_lut
+
+    w = workload(1, dev, n)
+    st = w.state.particles.state
+    xy = st.xy.clone()
+    xy[::stray_every] += 5.0
+    ct = torch.atan2(torch.mean(st.rot.sin), torch.mean(st.rot.cos))
+    geo = {k: cfg[k] for k in ("k_bins", "win", "dth", "max_point_radius")}
+    lut = build_windowed_scan_lut(w.ctx["field"], w.points[0], w.mask[0], torch.mean(st.x),
+                                  torch.mean(st.y), ct, padded_cubed=w.ctx["field_pad3"],
+                                  dft=w.ctx["winlut_dft"], **geo)
+    return w, SE2(xy, st.rot), lut
+
+
+@pytest.mark.parametrize("n,tile,tblk", [(262144, 512, 16), (5000, 128, 8), (3000, 2048, 16)])
+def test_b6_kernel_matches_plain_version(dev, n, tile, tblk):
+    from beluga_tpu_torch.models.sensor.likelihood_field_winlut import windowed_coords
+    from beluga_tpu_torch.ops import cuda_winlut as b6
+    from beluga_tpu_torch.tools import workloads
+
+    _, states, lut = window_case(dev, n, workloads.WINDOWED_FILTER, workloads.windowed)
+    xi, yi, t = (v.contiguous() for v in windowed_coords(lut, states))
+    before = b6.launches
+    got = b6.winlut_lookup(lut.values_t, xi, yi, t, lut.miss, 1.0, tile, tblk)
+    want = b6.winlut_lookup_reference(lut.values_t, xi, yi, t, lut.miss, 1.0, tile, tblk)
+    torch.cuda.synchronize()
+    assert b6.launches == before + 1
+    assert torch.equal(got == lut.miss, want == lut.miss)
+    assert 0 < int((got == lut.miss).sum()) < n
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("n,tile", [(2097152, 4096), (2097152 - 1000, 4096), (777, 128)])
+def test_b5_kernel_matches_plain_version(dev, n, tile):
+    from beluga_tpu_torch.filters.amcl import host_pose
+    from beluga_tpu_torch.filters.builders import fused_step_scalars
+    from beluga_tpu_torch.models.motion.differential_drive import DifferentialDriveParams
+    from beluga_tpu_torch.ops import cuda_fused_step as b5
+    from beluga_tpu_torch.tools import workloads
+
+    w, states, lut = window_case(dev, max(n, 4096), workloads.MEGA_FILTER, workloads.mega)
+    s = w.scans
+    scalars = fused_step_scalars(lut, DifferentialDriveParams(), host_pose(0.3, 0.1, 0.2),
+                                 host_pose(s.xs[0], s.ys[0], s.yaws[0]), dev)
+    z = torch.randn((3, n), generator=torch.Generator(device=dev).manual_seed(n), device=dev)
+    args = (*(v[:n].contiguous() for v in (states.x, states.y, states.theta)), z,
+            lut.values_t, scalars)
+    before = b5.launches
+    got = b5.fused_propagate_winlut(*args, tile=tile, tblk=20)
+    want = b5.fused_propagate_winlut_reference(*args, tile=tile, tblk=20)
+    torch.cuda.synchronize()
+    assert b5.launches == before + 1
+    for g, x in zip(got[:4], want[:4]):
+        torch.testing.assert_close(g, x, rtol=0, atol=1e-5)
+    miss = torch.log(lut.miss)
+    both = (got[4] != miss) & (want[4] != miss)
+    assert int(((got[4] == miss) != (want[4] == miss)).sum()) <= n // 10000
+    torch.testing.assert_close(got[4][both], want[4][both], rtol=0, atol=1e-5)
+
+
+def test_mega_update_on_card(dev):
+    """The fused mega filter on the card: one forced update of 65536
+    particles launches B5 once and B6 never."""
+    from beluga_tpu_torch.filters.amcl import host_pose, update
+    from beluga_tpu_torch.ops import cuda_fused_step, cuda_winlut
+    from beluga_tpu_torch.tools import workloads
+
+    w = workloads.mega(2, dev, 65536)
+    assert w.state.particles.log_weight.is_cuda
+    counts = (cuda_fused_step.launches, cuda_winlut.launches)
+    state, est = update(w.params, w.models, w.ctx, w.state, host_pose(w.scans.xs[0],
+                        w.scans.ys[0], w.scans.yaws[0]), w.points[0], w.mask[0], sort_now=True)
+    assert est.valid and torch.isfinite(est.pose.xy).all()
+    assert (cuda_fused_step.launches, cuda_winlut.launches) == (counts[0] + 1, counts[1])

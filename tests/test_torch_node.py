@@ -47,8 +47,7 @@ def test_config_fields_and_mappings_match_reference():
     assert ours == theirs
     cfg, jcfg = AmclNodeConfig(min_particles=100, pf_err=0.02), JAmclNodeConfig(
         min_particles=100, pf_err=0.02)
-    assert dataclasses.asdict(cfg.amcl_params()) == {
-        k: v for k, v in dataclasses.asdict(jcfg.amcl_params()).items() if k != "recovery_pool"}
+    assert dataclasses.asdict(cfg.amcl_params()) == dataclasses.asdict(jcfg.amcl_params())
     assert dataclasses.asdict(cfg.likelihood_field_params()) == dataclasses.asdict(
         jcfg.likelihood_field_params())
     assert dataclasses.asdict(cfg.motion_params()) == dataclasses.asdict(jcfg.motion_params())
