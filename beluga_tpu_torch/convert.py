@@ -16,8 +16,10 @@ from beluga_tpu_torch.core.particles import ParticleSet
 from beluga_tpu_torch.filters.amcl import AmclState
 from beluga_tpu_torch.lie import SE2, SO2
 from beluga_tpu_torch.maps.occupancy import OccupancyGrid
+from beluga_tpu_torch.models.sensor.beam_lut import RangeLut
 from beluga_tpu_torch.models.sensor.likelihood_field import LikelihoodField
 from beluga_tpu_torch.models.sensor.likelihood_field_winlut import WindowedScanLut
+from beluga_tpu_torch.ops.cuda_beam_lut import padded_dims
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -76,11 +78,47 @@ def field_values3(values3, shape, device="cpu") -> torch.Tensor:
     return torch.from_numpy(bits).view(torch.bfloat16).to(device)
 
 
+def range_lut(lut, device="cpu") -> RangeLut:
+    """A ``RangeLut`` with numpy leaves."""
+    return RangeLut(ranges=_t(lut.ranges, device, np.float32), resolution=_f32(lut.resolution),
+                    origin_inv=se2(lut.origin_inv, device), n_bearings=int(lut.n_bearings),
+                    max_range=float(lut.max_range))
+
+
+def beam_dist(dist_cells, device="cpu") -> torch.Tensor:
+    """The reference's int8 distance table (``make_distance_cells``, cells
+    minus 128) as the port's ``uint8`` cells."""
+    return _t(np.asarray(dist_cells, np.int16) + 128, device, np.uint8)
+
+
+def range_lut_bf16(twin, shape, device="cpu") -> torch.Tensor:
+    """The reference's twin-table ``bf16[2·Wq, K, Hq]`` (x-major, the second
+    copy y-shifted by 64) as the port's cell-major ``bf16[Hq, Wq, K]``: copy
+    0, transposed.  ``shape`` is the map's ``(H, W)``; the padding past it
+    is zero in both."""
+    hq, wq = padded_dims(*shape)
+    values = np.asarray(twin, np.float32)
+    if values.shape[0] != 2 * wq or values.shape[2] != hq:
+        raise ValueError(f"twin table {list(values.shape)} does not fit a map of {shape}")
+    cells = np.ascontiguousarray(values[:wq].transpose(2, 0, 1))  # [Hq, Wq, K]
+    return torch.as_tensor(cells).to(torch.bfloat16).to(device)
+
+
 def ctx(c: dict, device="cpu") -> dict:
-    """The likelihood-field ctx dict (``grid``, ``field``, ``field_codes``,
-    in codebook16 mode ``field_values3``, and for the windowed filter
-    ``field_pad3``)."""
-    out = {"grid": grid(c["grid"], device), "field": field(c["field"], device)}
+    """A model ctx dict: the likelihood-field one (``grid``, ``field``,
+    ``field_codes``, in codebook16 mode ``field_values3``, and for the
+    windowed filter ``field_pad3``) or the beam one (``grid`` and, by
+    path, ``range_lut``, ``range_lut_bf16`` or ``beam_dist``)."""
+    out = {"grid": grid(c["grid"], device)}
+    if "field" in c:
+        out["field"] = field(c["field"], device)
+    if "range_lut" in c:
+        out["range_lut"] = range_lut(c["range_lut"], device)
+    if "range_lut_bf16" in c:
+        out["range_lut_bf16"] = range_lut_bf16(c["range_lut_bf16"], out["grid"].data.shape,
+                                               device)
+    if "beam_dist" in c:
+        out["beam_dist"] = beam_dist(c["beam_dist"], device)
     if "field_codes" in c:
         out["field_codes"] = field_codes(c["field_codes"], device)
     if "field_values3" in c:

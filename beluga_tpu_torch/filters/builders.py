@@ -1,5 +1,5 @@
 """Constructors wiring models into the AMCL filter (port of the
-likelihood-field part of ``beluga_tpu/filters/builders.py``).
+likelihood-field and beam parts of ``beluga_tpu/filters/builders.py``).
 
 Returns the :class:`AmclModels` table and the ``ctx`` dict that
 ``filters.amcl.update`` consumes.  :func:`make_likelihood_field_filter`
@@ -10,6 +10,9 @@ the other modes wait for later slices and raise.
 :func:`make_windowed_scan_filter` is the single (mega) filter's tracking
 path through the windowed pose LUT: kernel B6, or kernel B5 fused with the
 motion sample, with kernel B1 for the exact tail and the fallback.
+:func:`make_beam_filter` is the beam model's four evaluation paths: the
+exact Bresenham march (kernel R1), the range LUT by gather (built by R1),
+the range LUT through kernel B7, and the sphere trace (kernel B8).
 """
 
 from __future__ import annotations
@@ -35,6 +38,12 @@ from beluga_tpu_torch.models.motion.differential_drive import (
     diff_drive_decompose,
     diff_drive_propagate,
 )
+from beluga_tpu_torch.models.sensor.beam import (
+    BeamModelParams,
+    beam_log_weights,
+    beam_sphere_trace_log_weights,
+)
+from beluga_tpu_torch.models.sensor.beam_lut import beam_lut_weights, build_range_lut
 from beluga_tpu_torch.models.sensor.likelihood_field import (
     LikelihoodFieldParams,
     likelihood_field_weights_codebook,
@@ -48,9 +57,12 @@ from beluga_tpu_torch.models.sensor.likelihood_field_winlut import (
     windowed_dft,
     windowed_scan_lut_weights,
 )
+from beluga_tpu_torch.ops.cuda_beam import make_distance_cells
+from beluga_tpu_torch.ops.cuda_beam_lut import build_lut_bf16
 from beluga_tpu_torch.ops.cuda_fused_step import fused_propagate_winlut, pack_scalars
 from beluga_tpu_torch.ops.cuda_reweight import build_values3
 from beluga_tpu_torch.ops.gather2d import build_device_codebook, encode_table
+from beluga_tpu_torch.ops.raycast import VARIANTS
 
 _LATER_MODES = {"gather": "A11", "onehot": "A11", "lowrank": "A11"}
 POOL_CAP = 4096  # rows of kernel B3's pool
@@ -92,6 +104,18 @@ def make_grid_random_state_fn(recovery_candidates: int = 0):
     return random_state
 
 
+def _estimate_fn(use_cluster_estimate: bool):
+    """The cluster estimate of the node path, or the plain weighted mean."""
+    if not use_cluster_estimate:
+        return default_estimate
+
+    def estimate(params, particles):
+        del params
+        return cluster_based_estimate(particles.state, particles.weight, particles.mask)
+
+    return estimate
+
+
 def make_likelihood_field_filter(
     grid: OccupancyGrid,
     lf_params: LikelihoodFieldParams = LikelihoodFieldParams(),
@@ -127,19 +151,12 @@ def make_likelihood_field_filter(
         )
         return torch.log(lik)
 
-    if use_cluster_estimate:
-        def estimate(params, particles):
-            del params
-            return cluster_based_estimate(particles.state, particles.weight, particles.mask)
-    else:
-        estimate = default_estimate
-
     models = AmclModels(
         propagate=make_motion_fn(motion_params),
         log_weight=log_weight,
         random_state=make_grid_random_state_fn(recovery_candidates),
         hash_state=default_hash_state,
-        estimate=estimate,
+        estimate=_estimate_fn(use_cluster_estimate),
     )
     ctx = update_map_ctx({}, grid.to(resolve_device(device)), lf_params)
     if lookup_mode == "codebook16":
@@ -347,4 +364,85 @@ def make_windowed_scan_filter(
     )
     ctx = update_map_ctx({}, grid.to(resolve_device(device)), lf_params)
     ctx.update(_winlut_ctx(ctx["field"], win, max_point_radius))
+    return models, ctx
+
+
+def sphere_trace_steps(max_range: float, resolution: float) -> int:
+    """The sphere trace's march budget, ``2·sqrt(max_range / res)`` cells
+    clipped to [20, 96] (builders.py:778-785): a beam that exhausts it
+    scores the max range, and 20 steps cover only ~10 m at 5 cm cells."""
+    return int(min(96, max(20, 2.0 * (max_range / resolution) ** 0.5)))
+
+
+def make_beam_filter(
+    grid: OccupancyGrid,
+    beam_params: BeamModelParams | None = None,
+    motion_params: Any = DifferentialDriveParams(),
+    use_range_lut: bool | str = False,
+    n_bearings: int = 128,
+    use_cluster_estimate: bool = False,
+    use_sphere_trace: bool = False,
+    raycast_variant: str = "standard",
+    recovery_candidates: int = 0,
+    device=None,
+):
+    """Beam-model AMCL (builders.py:741-839): ``(models, ctx)`` on
+    ``device`` (default ``"cuda"``).
+
+    Paths, one filter or a fleet of ``[B, N]`` each:
+      * default: the exact Bresenham march of every (particle, beam) ray,
+        kernel R1 (``raycast_variant`` ``"standard"`` or ``"supercover"``);
+        ``ctx = {'grid'}``;
+      * ``use_range_lut=True``: the per-map CDDT range LUT of ``n_bearings``
+        bins, built by R1 and read by a gather (bearing-quantization
+        error); ``ctx = {'grid', 'range_lut'}``;
+      * ``use_range_lut="windowed"``: the same LUT in bf16 through kernel
+        B7, the fleet-scale tracking path; strays outside their block's
+        window score as if every cast missed; ``ctx`` adds
+        ``'range_lut_bf16'``.  The reference falls back to the gather off
+        its TPU; the port runs B7, its plain version on the CPU;
+      * ``use_sphere_trace=True``: kernel B8 over the distance table, range
+        error ~1 cell, a march budget of :func:`sphere_trace_steps`;
+        ``ctx = {'grid', 'beam_dist'}``.
+    """
+    if raycast_variant not in VARIANTS:
+        raise ValueError(f"unknown Bresenham variant: {raycast_variant!r}")
+    beam_params = beam_params or BeamModelParams()
+    grid = grid.to(resolve_device(device))
+    if use_sphere_trace:
+        march_steps = sphere_trace_steps(beam_params.beam_max_range, grid.resolution)
+
+        def log_weight(ctx, states, points, beam_mask):
+            return beam_sphere_trace_log_weights(beam_params, ctx["beam_dist"], ctx["grid"],
+                                                 states, points, beam_mask,
+                                                 march_steps=march_steps)
+
+        ctx = {"grid": grid, "beam_dist": make_distance_cells(grid.free_mask)}
+    elif use_range_lut:
+        if use_range_lut not in (True, "windowed"):
+            raise ValueError(f"unknown use_range_lut {use_range_lut!r}")
+
+        def log_weight(ctx, states, points, beam_mask):
+            w = beam_lut_weights(beam_params, ctx["range_lut"], states, points, beam_mask,
+                                 lut_bf16=ctx.get("range_lut_bf16"))
+            return torch.log(torch.clamp_min(w, 1e-30))
+
+        lut = build_range_lut(grid, beam_params.beam_max_range, n_bearings)
+        ctx = {"grid": grid, "range_lut": lut}
+        if use_range_lut == "windowed":
+            ctx["range_lut_bf16"] = build_lut_bf16(lut.ranges)
+    else:
+        def log_weight(ctx, states, points, beam_mask):
+            return beam_log_weights(beam_params, ctx["grid"], states, points, beam_mask,
+                                    variant=raycast_variant)
+
+        ctx = {"grid": grid}
+
+    models = AmclModels(
+        propagate=make_motion_fn(motion_params),
+        log_weight=log_weight,
+        random_state=make_grid_random_state_fn(recovery_candidates),
+        hash_state=default_hash_state,
+        estimate=_estimate_fn(use_cluster_estimate),
+    )
     return models, ctx

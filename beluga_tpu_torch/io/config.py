@@ -17,6 +17,7 @@ import numpy as np
 
 from beluga_tpu_torch.filters.amcl import AmclParams
 from beluga_tpu_torch.models.motion.differential_drive import DifferentialDriveParams
+from beluga_tpu_torch.models.sensor.beam import BeamModelParams
 from beluga_tpu_torch.models.sensor.likelihood_field import LikelihoodFieldParams
 
 MOTION_MODELS = {
@@ -169,6 +170,17 @@ class AmclNodeConfig:
             sigma_hit=self.sigma_hit,
             model_unknown_space=self.model_unknown_space,
             only_obstacle_boundaries=self.only_obstacle_boundaries,
+        )
+
+    def beam_params(self) -> BeamModelParams:
+        return BeamModelParams(
+            z_hit=self.z_hit,
+            z_short=self.z_short,
+            z_max=self.z_max,
+            z_rand=self.z_rand,
+            sigma_hit=self.sigma_hit,
+            lambda_short=self.lambda_short,
+            beam_max_range=self.laser_max_range,
         )
 
     def initial_pose_covariance(self) -> np.ndarray:

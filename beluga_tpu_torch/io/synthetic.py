@@ -1,7 +1,8 @@
-"""Synthetic tracking workload in numpy: the arena, the circular
+"""Synthetic tracking workloads in numpy: the arena, the circular
 trajectory and the DDA scan simulator of the JAX package's ``bench.py``
-(``build``), so that the port's tests and ``chip_smoke.py`` need neither
-``bench.py`` nor JAX.
+(``build``), and the long-range world and arc of
+``tests/test_system_long_range.py:27-37, 62-69``, so that the port's tests
+and ``chip_smoke.py`` need neither ``bench.py`` nor JAX.
 
 The arena is a free disk of radius 2.6 m inside a walled square with
 random clutter outside, an irregular ring of obstacles at ~3.2 m and three
@@ -51,6 +52,30 @@ def circle_trajectory(steps: int, grid_size: int = 384, res: float = 0.05):
     center = grid_size * res / 2
     ts = np.arange(steps) * 0.22
     return center + 1.2 * np.cos(ts), center + 1.2 * np.sin(ts), ts + np.pi / 2
+
+
+def long_range_world(cells: int = 1024, seed: int = 3) -> np.ndarray:
+    """``int8[cells, cells]``: a walled square with 36 random blocks of 4-30
+    cells, sparse enough that most beams fly tens of meters at 0.1 m
+    (tests/test_system_long_range.py:27-37)."""
+    rng = np.random.default_rng(seed)
+    data = np.zeros((cells, cells), np.int8)
+    data[0, :] = data[-1, :] = data[:, 0] = data[:, -1] = OCCUPIED_VALUE
+    for _ in range(36):
+        r, c = rng.integers(40, cells - 60, 2)
+        h, w = rng.integers(4, 30, 2)
+        data[r : r + h, c : c + w] = OCCUPIED_VALUE
+    return data
+
+
+def arc_trajectory(steps: int, cells: int = 1024, res: float = 0.1):
+    """Ground-truth poses of the long-range test's arc, continued: a circle
+    of radius 6 m about a point 12 m left of the map's centre, 0.12 rad
+    (~0.7 m) a step, tangent heading (tests/test_system_long_range.py:
+    62-69)."""
+    center = cells * res / 2
+    ts = np.arange(steps) * 0.12
+    return center - 12.0 + 6.0 * np.cos(ts), center + 6.0 * np.sin(ts), ts + np.pi / 2
 
 
 def simulate_scans(data: np.ndarray, res: float, xs, ys, yaws, num_beams: int,

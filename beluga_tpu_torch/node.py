@@ -14,9 +14,10 @@ The same behaviour as a plain object driven by explicit calls:
 The node runs on the card unless it is given ``device="cpu"``.  Each scan
 costs one host-to-device copy of the points and one device-to-host copy
 of the packed estimate; nothing else is read back.  The likelihood-field
-model is the one ported; the other ``laser_model_type`` values, the raw
+model and the beam model (``laser_model_type="beam"``, each of its four
+``beam_fast_path`` modes) are ported; the probability model, the raw
 laser-scan and point-cloud adapters and the pipelined mode wait for later
-slices (ROADMAP A10, A13).
+slices (ROADMAP A11, A13).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 from beluga_tpu_torch import resolve_device
 from beluga_tpu_torch.core.random import sample_normal_se2, sample_uniform_free_cells
 from beluga_tpu_torch.filters import amcl as amcl_filter
-from beluga_tpu_torch.filters.builders import make_likelihood_field_filter
+from beluga_tpu_torch.filters.builders import make_beam_filter, make_likelihood_field_filter
 from beluga_tpu_torch.io.config import AmclNodeConfig
 from beluga_tpu_torch.lifecycle import BaseLifecycleNode
 from beluga_tpu_torch.lie import SE2, SO2
@@ -108,10 +109,9 @@ class AmclNode(BaseLifecycleNode):
                  device=None, verbose: bool = False, autostart: bool = True):
         """``device`` defaults to ``"cuda"`` and raises when CUDA is absent."""
         self.config = config or AmclNodeConfig()
-        if self.config.laser_model_type != "likelihood_field":
+        if self.config.laser_model_type == "likelihood_field_prob":
             raise NotImplementedError(
-                f"laser_model_type {self.config.laser_model_type!r} is not ported "
-                "(ROADMAP A10, A11)"
+                f"laser_model_type {self.config.laser_model_type!r} is not ported (ROADMAP A11)"
             )
         self.device = resolve_device(device)
         self.verbose = verbose
@@ -157,13 +157,26 @@ class AmclNode(BaseLifecycleNode):
         if self._first_map_set and self.config.first_map_only:
             return
         cfg = self.config
-        self._models, self._ctx = make_likelihood_field_filter(
-            grid,
-            cfg.likelihood_field_params(),
-            motion_params=cfg.motion_params(),
-            use_cluster_estimate=True,
-            device=self.device,
-        )
+        # the cluster estimate for every sensor model, as the reference node
+        # (beluga_ros/amcl.hpp estimate())
+        if cfg.laser_model_type == "beam":
+            self._models, self._ctx = make_beam_filter(
+                grid,
+                cfg.beam_params(),
+                motion_params=cfg.motion_params(),
+                use_range_lut={"lut": True, "windowed": "windowed"}.get(cfg.beam_fast_path, False),
+                use_sphere_trace=cfg.beam_fast_path == "sphere_trace",
+                use_cluster_estimate=True,
+                device=self.device,
+            )
+        else:
+            self._models, self._ctx = make_likelihood_field_filter(
+                grid,
+                cfg.likelihood_field_params(),
+                motion_params=cfg.motion_params(),
+                use_cluster_estimate=True,
+                device=self.device,
+            )
         self._grid = self._ctx["grid"]
         self._first_map_set = True
         if self._step is None:

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` exposes a plain C launcher and is compiled at first
 use with ``nvcc`` into its own shared library under
 ``build/beluga_tpu_torch/`` beside the package, named by a hash of the
-source and the flags, then loaded with ``ctypes``.  No PyTorch header is
+source, the shared headers and the flags, then loaded with ``ctypes``.  No PyTorch header is
 compiled, so a build takes seconds.  Importing this module needs neither
 ``nvcc`` nor a GPU.
 """
@@ -39,8 +39,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives: named by a
+    hash of the source, every ``csrc/*.cuh`` header and the flags."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -2,7 +2,7 @@
 workloads under ``torch.profiler``.
 
     python -m beluga_tpu_torch.tools.profile_update [--scans 20] [--trace-dir DIR]
-        [--workloads node,large,fleet,mega,windowed]
+        [--workloads node,large,fleet,mega,windowed,beam_node,long_range,beam_fleet]
 
 Workloads, the configurations of ``tools/workloads.py`` (which
 ``chip_smoke.py`` drives too):
@@ -20,7 +20,13 @@ Workloads, the configurations of ``tools/workloads.py`` (which
   the fused windowed kernel B5 (gate-free, systematic and selective
   resampling, a 4096-state recovery pool, the θ sort every 8th update);
 * ``windowed``: the coverage-gated windowed filter, 262144 particles, kernel
-  B6 with kernel B1 for the exact tail and the fallback.
+  B6 with kernel B1 for the exact tail and the fallback;
+* ``beam_node``: ``AmclNode`` with the beam model at nav2 defaults (100 m)
+  through the sphere trace, kernel B8;
+* ``long_range``: the long-range sphere-trace filter, 2048 particles x 60
+  beams on the 1024² map at 60 m (kernel B8), forced updates;
+* ``beam_fleet``: 64 filters x 4096 particles x 60 beams through the
+  windowed range LUT (kernel B7).
 
 After a warm-up each workload runs ``--scans`` scans on the host clock
 (wall ms per update, a synchronize after the last), then ``--scans`` more
@@ -70,12 +76,12 @@ def _ranged(models):
                               if getattr(models, s) is not None})
 
 
-def _node(scans: int):
+def _node(scans: int, **overrides):
     from beluga_tpu_torch.maps.occupancy import make_grid
     from beluga_tpu_torch.node import AmclNode, make_packed_step_se2
 
     s = workloads.arena_scans(scans)
-    node = AmclNode(workloads.node_config(s), seed=0)
+    node = AmclNode(workloads.node_config(s, **overrides), seed=0)
     node.set_map(make_grid(s.data, workloads.RES))
     node._models = _ranged(node._models)
     node._step = make_packed_step_se2(node.params, node._models, node.device)
@@ -103,10 +109,10 @@ def _large(scans: int):
     return step
 
 
-def _fleet(scans: int):
+def _fleet(scans: int, make_workload=workloads.fleet):
     from beluga_tpu_torch.parallel.fleet import make_fleet_update
 
-    w = workloads.fleet(scans, torch.device("cuda"))
+    w = make_workload(scans, torch.device("cuda"))
     batch = w.points.shape[1]
     fleet_update = make_fleet_update(w.params, _ranged(w.models))
     box = {"state": w.state}
@@ -144,7 +150,11 @@ def _forced(make_workload, sort_every: int | None):
 
 WORKLOADS = {"node": _node, "large": _large, "fleet": _fleet,
              "mega": _forced(workloads.mega, workloads.MEGA_SORT_EVERY),
-             "windowed": _forced(workloads.windowed, None)}
+             "windowed": _forced(workloads.windowed, None),
+             "beam_node": lambda scans: _node(scans, laser_model_type="beam",
+                                              beam_fast_path="sphere_trace"),
+             "long_range": _forced(workloads.long_range, None),
+             "beam_fleet": lambda scans: _fleet(scans, workloads.beam_fleet)}
 
 
 def profile_workload(name: str, make, scans: int, warmup: int, trace_dir: str | None) -> dict:

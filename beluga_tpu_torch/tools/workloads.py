@@ -22,10 +22,22 @@ beams per scan:
   (``bench.py:313-325``);
 * :func:`windowed`: the unfused, coverage-gated windowed filter of
   ``bench.py:880-900``, 262144 particles, k_bins 64, a 128-cell window,
-  the hybrid exact tail; every update is forced.
+  the hybrid exact tail; every update is forced;
+* :func:`node_config` with ``laser_model_type="beam"``: the beam node at
+  nav2 defaults (``laser_max_range`` 100 m) in one of its four
+  ``beam_fast_path`` modes;
+* :func:`beam_fleet`: ``bench.py:678-720``, 64 filters x 4096 particles
+  through the windowed range LUT (kernel B7), ``beam_max_range`` 4 m, 128
+  bearing bins, θ-sorted slots, a fixed count, multinomial resampling.
 
-The mega and windowed filters start from a θ-sorted cloud about the first
-pose (their slots must stay θ-sorted).
+:func:`long_range` runs elsewhere: the JAX package's long-range beam row
+(``benchmarks/REPORT.md:175-185``, ``tests/test_system_long_range.py``), a
+1024² map at 0.1 m with sparse blocks, its arc trajectory and 60 m scans,
+2048 particles through the sphere trace (kernel B8), ``sigma_hit`` 0.4,
+nav2's alphas, 128 recovery candidates; every update forced.
+
+The mega, windowed and beam-fleet filters start from a θ-sorted cloud
+about the first pose (their slots must stay θ-sorted).
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import numpy as np
 import torch
 
 GRID, RES, BEAMS = 384, 0.05, 60
+BEAM_MODES = ("exact", "lut", "sphere_trace", "windowed")  # AmclNodeConfig.beam_fast_path
 INITIAL_COV = np.diag([0.25, 0.25, 0.068])
 RECOVERY_CANDIDATES = 256  # bench.py:190, :850
 MEGA_N, WINDOWED_N = 2097152, 262144  # bench.py:266, :884
@@ -74,6 +87,13 @@ class Workload(NamedTuple):
     state: Any  # AmclState
 
 
+# tests/test_system_long_range.py:40-57, benchmarks/REPORT.md:175-185
+LONG_RANGE = dict(cells=1024, res=0.1, n=2048, beam_max_range=60.0, sigma_hit=0.4,
+                  alphas=(0.1, 0.05, 0.1, 0.05), recovery_candidates=128,
+                  initial_cov=np.diag([0.3, 0.3, 0.05]))
+BEAM_FLEET = dict(beam_max_range=4.0, n_bearings=128)  # bench.py:694-699
+
+
 def arena_scans(scans: int) -> Scans:
     from beluga_tpu_torch.io import synthetic
 
@@ -83,15 +103,17 @@ def arena_scans(scans: int) -> Scans:
     return Scans(data, xs, ys, yaws, pts, mask)
 
 
-def node_config(s: Scans):
-    """nav2 defaults, with the initial pose at the first truth."""
+def node_config(s: Scans, **overrides):
+    """nav2 defaults, with the initial pose at the first truth; keyword
+    arguments override fields (``laser_model_type="beam"``,
+    ``beam_fast_path=...`` for the beam node)."""
     from beluga_tpu_torch.io.config import AmclNodeConfig
 
     return AmclNodeConfig(
         set_initial_pose=True, initial_pose_x=float(s.xs[0]), initial_pose_y=float(s.ys[0]),
         initial_pose_yaw=float(s.yaws[0]), initial_pose_covariance_x=float(INITIAL_COV[0, 0]),
         initial_pose_covariance_y=float(INITIAL_COV[1, 1]),
-        initial_pose_covariance_yaw=float(INITIAL_COV[2, 2]),
+        initial_pose_covariance_yaw=float(INITIAL_COV[2, 2]), **overrides,
     )
 
 
@@ -166,6 +188,61 @@ def windowed(scans: int, device, n: int | None = None) -> Workload:
     (default :data:`WINDOWED_N`) particles; step it with
     ``force_update=True``."""
     return _sorted_filter(scans, device, WINDOWED_N if n is None else n, 4, WINDOWED_FILTER, {})
+
+
+def long_range(scans: int, device) -> Workload:
+    """The long-range sphere-trace filter (tests/test_system_long_range.py:
+    40-57) of :data:`LONG_RANGE`; step it with ``force_update=True``."""
+    from beluga_tpu_torch.core.random import sample_normal_se2
+    from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_state
+    from beluga_tpu_torch.filters.builders import make_beam_filter
+    from beluga_tpu_torch.io import synthetic
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.models.motion.differential_drive import DifferentialDriveParams
+    from beluga_tpu_torch.models.sensor.beam import BeamModelParams
+
+    cfg = LONG_RANGE
+    data = synthetic.long_range_world(cfg["cells"])
+    xs, ys, yaws = synthetic.arc_trajectory(scans, cfg["cells"], cfg["res"])
+    pts, mask = synthetic.simulate_scans(data, cfg["res"], xs, ys, yaws, BEAMS,
+                                         max_range=cfg["beam_max_range"])
+    s = Scans(data, xs, ys, yaws, pts, mask)
+    models, ctx = make_beam_filter(
+        make_grid(data, cfg["res"], device=device),
+        BeamModelParams(beam_max_range=cfg["beam_max_range"], sigma_hit=cfg["sigma_hit"]),
+        motion_params=DifferentialDriveParams(*cfg["alphas"]), use_sphere_trace=True,
+        recovery_candidates=cfg["recovery_candidates"], device=device)
+    n = cfg["n"]
+    params = AmclParams(max_particles=n, min_particles=n)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    states = sample_normal_se2(gen, n, host_pose(xs[0], ys[0], yaws[0]), cfg["initial_cov"])
+    return Workload(s, torch.as_tensor(pts).to(device), torch.as_tensor(mask).to(device),
+                    params, models, ctx, init_state(gen, states, params, device=device))
+
+
+def beam_fleet(scans: int, device, batch: int = 64, n: int = 4096) -> Workload:
+    """The windowed beam fleet (bench.py:678-720): ``batch`` filters of
+    ``n`` particles through kernel B7; the range LUT is cast here (kernel
+    R1 on the card)."""
+    from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_fleet_state
+    from beluga_tpu_torch.filters.builders import make_beam_filter
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.models.sensor.beam import BeamModelParams
+
+    s = arena_scans(scans)
+    pts = torch.as_tensor(s.points).to(device)[:, None].expand(scans, batch, BEAMS, 2)
+    mask = torch.as_tensor(s.mask).to(device)[:, None].expand(scans, batch, BEAMS)
+    models, ctx = make_beam_filter(
+        make_grid(s.data, RES, device=device),
+        BeamModelParams(beam_max_range=BEAM_FLEET["beam_max_range"]),
+        use_range_lut="windowed", n_bearings=BEAM_FLEET["n_bearings"], device=device)
+    params = AmclParams(max_particles=n, min_particles=n, sorted_slots=True)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    state = init_fleet_state(gen, batch, host_pose(s.xs[0], s.ys[0], s.yaws[0]), INITIAL_COV,
+                             params, device=device)
+    return Workload(s, pts.contiguous(), mask.contiguous(), params, models, ctx, state)
 
 
 def fleet_odometry(s: Scans, t: int, batch: int):

@@ -38,9 +38,27 @@ Phases, each of which exits non-zero when it fails:
 8. windowed: the coverage-gated windowed filter, 262144 particles
    (``bench.py:880-900``), 40 forced updates, same 0.9 m / 30 degree gate;
    B6 launched at least once, B1 on every update (the exact tail, or the
-   fallback); prints how many updates took each branch.
+   fallback); prints how many updates took each branch;
+9. beam node: ``AmclNode`` with ``laser_model_type="beam"`` at nav2
+   defaults (100 m range) in each ``beam_fast_path`` for 30 scans, same
+   gate; R1 on every update in ``exact``, R1 once (the range-LUT build) in
+   ``lut`` and ``windowed``, B8 on every update in ``sphere_trace``, B7 on
+   every update in ``windowed``, B2 in all four;
+10. long range: the JAX package's long-range beam row (1024² map at 0.1 m,
+   2048 particles x 60 beams, 60 m, sphere trace), 40 forced updates along
+   the arc of ``tests/test_system_long_range.py``; every scan after the 2
+   warm-up scans within the gate; B8 once per update;
+11. beam fleet: 64 filters x 4096 particles x 60 beams through the
+   windowed range LUT (``bench.py:678-720``) for 40 scans, every filter
+   within the gate; B7 once per update, B1 and B4 never, R1 during the
+   build (its time printed).
 
-Phases 4 to 8 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
+Phase 3 also holds kernels B8 (the node's 2000 x 60 at 100 m and the
+long-range 2048 x 60 at 60 m), B7 (64 x 4096 x 60, K = 128, θ-sorted slots
+with strays) and R1 (the node's 2000 x 60 rays at 100 m and the LUT
+build's 128 x 384 x 384 rays at 4 m) against their plain versions.
+
+Phases 4 to 11 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The line before the last two is the ``kernels`` JSON; the line
@@ -84,6 +102,16 @@ MEGA_N = 2097152  # bench.py:266
 FLEET_B, FLEET_N, FLEET_SCANS = 64, 4096, 40  # bench.py:46-49
 MEGA_SCANS, MEGA_LAST, MEGA_LAST_GATE_M = 64, 32, 0.35  # bench.py:364-377
 WINDOWED_SCANS = 40
+BEAM_NODE_SCANS, LONG_RANGE_SCANS, LONG_RANGE_WARMUP, BEAM_FLEET_SCANS = 30, 40, 2, 40
+# float32 operations per (particle, unmasked beam) of the beam mixture, with
+# exp counted as 10: two A&S erfs of ~28, eta_hit 6, the Gaussian 17, the
+# short term 26, the rest 6; kernel B7 adds the bin and the blend (12),
+# kernel B8 the ray direction (6) and 8 per trace step; kernel R1 takes ~10
+# integer operations per visited cell
+MIXTURE_OPS = 110
+B7_OPS_PER_BEAM = MIXTURE_OPS + 12
+B8_OPS_PER_BEAM, B8_OPS_PER_STEP = MIXTURE_OPS + 6, 8
+R1_OPS_PER_CELL = 10
 
 
 class SmokeFailure(Exception):
@@ -130,14 +158,16 @@ def device_ms(fn, iters: int) -> float | None:
     return 1e-3 * busy_us / iters if busy_us > 0 else None
 
 
-def timings(kernel, plain, iters: int, library=None) -> dict:
+def timings(kernel, plain, iters: int, library=None, plain_iters: int | None = None) -> dict:
     """``ms``, ``plain_ms`` and ``library_ms`` (``cuda_ms``) and their
     ``device_ms`` counterparts for a kernel's wrapper, its plain version
-    and the library call (None where there is none)."""
+    and the library call (None where there is none); ``plain_iters``
+    bounds the calls of a slow plain version."""
     out = {}
     for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
-        out[key] = None if fn is None else cuda_ms(fn, iters)
-        out[key.replace("ms", "device_ms")] = None if fn is None else device_ms(fn, 20)
+        n = plain_iters if key == "plain_ms" and plain_iters else iters
+        out[key] = None if fn is None else cuda_ms(fn, n)
+        out[key.replace("ms", "device_ms")] = None if fn is None else device_ms(fn, min(n, 20))
     return out
 
 
@@ -548,16 +578,224 @@ def check_fused_step(n: int, dev, iters: int) -> dict:
     )
 
 
-# -- phases 4 to 8: the main paths --------------------------------------------
+def beam_scan(points: torch.Tensor):
+    """Measured ranges, unit bearings and bearing angles of a scan's points."""
+    px, py = points[..., 0], points[..., 1]
+    z = torch.sqrt(px * px + py * py)
+    return z, points / torch.clamp_min(z, 1e-12)[..., None], torch.atan2(py, px)
+
+
+def arena_cloud(n: int, dev, seed: int, batch: int | None = None, stray_every: int = 0):
+    """``n`` particles about the arena's first pose (sd 0.3 m, 0.2 rad),
+    θ-sorted, every ``stray_every``-th moved 5 m off; one filter or
+    ``batch``."""
+    from beluga_tpu_torch.lie import SE2
+    from beluga_tpu_torch.tools.workloads import arena_scans
+
+    s = arena_scans(1)
+    lead = () if batch is None else (batch,)
+    rng = np.random.default_rng(seed)
+    xyt = rng.normal([s.xs[0], s.ys[0], s.yaws[0]], [0.3, 0.3, 0.2], (*lead, n, 3))
+    xyt = np.take_along_axis(xyt, np.argsort(xyt[..., 2:], axis=-2, kind="stable"), axis=-2)
+    if stray_every:
+        xyt[..., ::stray_every, :2] += 5.0
+    return SE2.from_xytheta(*(torch.as_tensor(xyt[..., i], dtype=torch.float32)
+                              for i in range(3)), device=dev), s
+
+
+def check_raycast(dev, iters: int, lut_build: bool) -> dict:
+    """Kernel R1 at the beam node's 2000 x 60 rays at 100 m (the exact
+    path), or at the range-LUT build's 128 x 384 x 384 rays at 4 m: hit
+    flags and distances bit-equal to its plain version, both variants."""
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.ops import raycast as r1
+    from beluga_tpu_torch.tools import workloads
+
+    grid = make_grid(workloads.arena_scans(1).data, workloads.RES, device=dev)
+    if lut_build:
+        k, h, w = workloads.BEAM_FLEET["n_bearings"], grid.height, grid.width
+        max_range = workloads.BEAM_FLEET["beam_max_range"]
+        res = torch.tensor(grid.resolution, dtype=torch.float32, device=dev)
+        xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) * res
+        ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) * res
+        src = torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w)], -1)[None]
+        th = torch.arange(k, dtype=torch.float32, device=dev) * (2.0 * math.pi / k)
+        dirs = torch.stack([torch.cos(th), torch.sin(th)], -1)[:, None, None, :]
+        label = f"{k}x{h}x{w} rays (range-LUT build, {max_range} m)"
+        plain_iters = 2
+    else:
+        states, s = arena_cloud(2000, dev, seed=11)
+        _, bearing, _ = beam_scan(torch.as_tensor(s.points[0]).to(dev))
+        c, sn = states.rot.cos[:, None], states.rot.sin[:, None]
+        bx, by = bearing[None, :, 0], bearing[None, :, 1]
+        src = states.xy[:, None, :]
+        dirs = torch.stack([c * bx - sn * by, sn * bx + c * by], -1)
+        max_range = 100.0
+        label = f"2000x{bearing.shape[0]} rays (beam node, {max_range} m)"
+        plain_iters = 3
+    src, dirs = (v.contiguous() for v in torch.broadcast_tensors(src, dirs))
+    steps = r1.num_steps(max_range, grid.resolution)
+    err, casts = 0.0, {}
+    for variant in r1.VARIANTS:
+        got = casts[variant] = r1.cast_rays(grid, src, dirs, max_range, variant=variant)
+        want = r1.cast_rays_reference(grid.free_mask, src, dirs, max_range, grid.resolution,
+                                      steps, variant)
+        torch.cuda.synchronize()
+        check(torch.equal(got[1], want[1]),
+              f"R1 {variant} {label}: {int((got[1] != want[1]).sum())} hit flags differ")
+        check(torch.equal(got[0], want[0]),
+              f"R1 {variant} {label}: {int((got[0] != want[0]).sum())} distances differ")
+        err = max(err, float((got[0] - want[0]).abs().max()))
+    dist, hit = casts["standard"]
+    check(0 < int(hit.sum()) < hit.numel() or lut_build, f"R1 {label}: no hits or no misses")
+    # cells visited: up to the hit cell, else to the far cell
+    x0, y0, x1, y1 = r1.line_ends(src, dirs, max_range, grid.resolution)
+    span = torch.maximum((x1 - x0).abs(), (y1 - y0).abs()).float()
+    cells = float(torch.where(hit, torch.round(dist / grid.resolution), span).sum() + hit.numel())
+    times = timings(lambda: r1.cast_rays(grid, src, dirs, max_range),
+                    lambda: r1.cast_rays_reference(grid.free_mask, src, dirs, max_range,
+                                                   grid.resolution, steps, "standard"),
+                    iters, plain_iters=plain_iters)
+    n = hit.numel()
+    bms, by = bound_ms(21 * n + grid.height * grid.width, R1_OPS_PER_CELL * cells)
+    return dict(
+        name="R1 cast_rays", route="cuda", source="beluga_tpu_torch/csrc/raycast.cu",
+        replaces="beluga_tpu/ops/raycast.py:33 (no Pallas kernel)", max_abs_err=err,
+        bound_ms=bms, bound_by=by, shape=label, cells_visited=cells, hits=int(hit.sum()),
+        **times,
+    )
+
+
+def check_sphere_trace(dev, iters: int, long_range: bool) -> dict:
+    """Kernel B8 at the beam node's 2000 x 60 on the arena at 100 m (89
+    steps), or the long-range filter's 2048 x 60 on the 1024² map at 60 m
+    (48 steps): weights bit-equal to its plain version (same operations in
+    the same order), finite."""
+    from beluga_tpu_torch.filters.builders import sphere_trace_steps
+    from beluga_tpu_torch.io import synthetic
+    from beluga_tpu_torch.lie import SE2
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.models.sensor.beam import BeamModelParams
+    from beluga_tpu_torch.ops import cuda_beam as b8
+    from beluga_tpu_torch.tools import workloads
+
+    if long_range:
+        cfg = workloads.LONG_RANGE
+        data = synthetic.long_range_world(cfg["cells"])
+        xs, ys, yaws = synthetic.arc_trajectory(1, cfg["cells"], cfg["res"])
+        pts, mask = synthetic.simulate_scans(data, cfg["res"], xs, ys, yaws, workloads.BEAMS,
+                                             max_range=cfg["beam_max_range"])
+        grid = make_grid(data, cfg["res"], device=dev)
+        params = BeamModelParams(beam_max_range=cfg["beam_max_range"], sigma_hit=cfg["sigma_hit"])
+        rng = np.random.default_rng(12)
+        xyt = rng.normal([xs[0], ys[0], yaws[0]], [0.5, 0.5, 0.2], (cfg["n"], 3))
+        states = SE2.from_xytheta(*(torch.as_tensor(xyt[:, i], dtype=torch.float32)
+                                    for i in range(3)), device=dev)
+        label = f"{cfg['n']}x{workloads.BEAMS}, 1024² at 0.1 m, {params.beam_max_range} m"
+    else:
+        states, s = arena_cloud(2000, dev, seed=13)
+        pts, mask = s.points, s.mask
+        grid = make_grid(s.data, workloads.RES, device=dev)
+        params = workloads.node_config(s, laser_model_type="beam").beam_params()
+        label = f"2000x{workloads.BEAMS}, arena, {params.beam_max_range} m"
+    steps = sphere_trace_steps(params.beam_max_range, grid.resolution)
+    label += f", {steps} steps"
+    dist = b8.make_distance_cells(grid.free_mask)
+    z, bearing, _ = beam_scan(torch.as_tensor(pts[0]).to(dev))
+    beams = torch.as_tensor(mask[0]).to(dev)
+    pv = (params.beam_max_range, params.z_hit, params.z_short, params.z_max, params.z_rand,
+          params.sigma_hit, params.lambda_short)
+    poses = [v.contiguous() for v in (states.x, states.y, states.rot.cos, states.rot.sin)]
+    args = (dist, *poses, bearing.contiguous(), z.contiguous(), beams, grid.resolution, pv)
+    got = b8.sphere_trace_beam_weights(*args, march_steps=steps)
+    want = b8.sphere_trace_reference(*args, march_steps=steps)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"B8 {label}: weights not finite")
+    check(torch.equal(got, want),
+          f"B8 {label}: {int((got != want).sum())} weights differ from the plain version")
+    traced = b8.trace_steps(dist, *poses, bearing, beams, grid.resolution, pv, steps)
+    times = timings(lambda: b8.sphere_trace_beam_weights(*args, march_steps=steps),
+                    lambda: b8.sphere_trace_reference(*args, march_steps=steps), iters,
+                    plain_iters=5)
+    n, unmasked = poses[0].numel(), int(beams.sum())
+    bms, by = bound_ms(20 * n + 13 * beams.numel() + dist.numel(),
+                       B8_OPS_PER_BEAM * n * unmasked + B8_OPS_PER_STEP * traced)
+    return dict(
+        name="B8 sphere_trace_beam_weights", route="cuda", source="beluga_tpu_torch/csrc/beam.cu",
+        replaces="beluga_tpu/ops/pallas_beam.py:188", max_abs_err=float((got - want).abs().max()),
+        bound_ms=bms, bound_by=by, shape=label, trace_steps=traced, **times,
+    )
+
+
+def check_beam_lut(dev, iters: int) -> dict:
+    """Kernel B7 at the beam fleet's geometry: 64 filters x 4096 θ-sorted
+    particles x 60 beams, K = 128 at 4 m, every 50th slot a stray 5 m off
+    (all-miss): weights bit-equal to its plain version, the strays scoring
+    the LUT's max range in every bin."""
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.models.sensor.beam import BeamModelParams
+    from beluga_tpu_torch.models.sensor.beam_lut import build_range_lut, lut_cells
+    from beluga_tpu_torch.ops import cuda_beam_lut as b7
+    from beluga_tpu_torch.tools import workloads
+
+    cfg = workloads.BEAM_FLEET
+    states, s = arena_cloud(FLEET_N, dev, seed=14, batch=FLEET_B, stray_every=50)
+    lut = build_range_lut(make_grid(s.data, workloads.RES, device=dev), cfg["beam_max_range"],
+                          cfg["n_bearings"])
+    table = b7.build_lut_bf16(lut.ranges)
+    local, xi, yi = lut_cells(lut, states)
+    z, _, beta = beam_scan(torch.as_tensor(s.points[0]).to(dev))
+    beams = torch.as_tensor(s.mask[0]).to(dev)
+    p = BeamModelParams(beam_max_range=cfg["beam_max_range"])
+    mix = (p.z_hit, p.z_short, p.z_rand, p.z_max, p.sigma_hit, p.lambda_short, p.beam_max_range)
+    lead = (FLEET_B, workloads.BEAMS)
+    args = (table, local.theta.contiguous(), xi, yi, z.expand(lead).contiguous(),
+            beta.expand(lead).contiguous(), beams.expand(lead).contiguous(), lut.max_range, mix)
+    got, want = b7.beam_lut_windowed(*args), b7.beam_lut_windowed_reference(*args)
+    torch.cuda.synchronize()
+    label = f"{FLEET_B}x{FLEET_N}x{workloads.BEAMS}, K={cfg['n_bearings']}, bf16{list(table.shape)}"
+    check(bool(torch.isfinite(got).all()), f"B7 {label}: weights not finite")
+    check(torch.equal(got, want),
+          f"B7 {label}: {int((got != want).sum())} weights differ from the plain version")
+    hq, wq, k = table.shape
+    origins = b7.window_origins(xi, yi, hq, wq)
+    slot = torch.arange(FLEET_N, device=dev)
+    o = origins[:, slot // b7.TILE, (slot % b7.TILE >= b7.BLOCKS[1][0]).long()]
+    covered = ((xi >= o[..., 0]) & (xi < o[..., 0] + b7.CWX) & (yi >= o[..., 1])
+               & (yi < o[..., 1] + b7.CWY))
+    strays = ~covered
+    check(bool(strays[:, ::50].all()) and int(strays.sum()) < covered.numel() // 10,
+          f"B7 {label}: {int(strays.sum())} particles outside their windows")
+    all_miss = b7.beam_lut_windowed_reference(
+        torch.full_like(table, lut.max_range), *args[1:])
+    check(torch.equal(got[strays], all_miss[strays]), f"B7 {label}: strays do not read max range")
+    times = timings(lambda: b7.beam_lut_windowed(*args),
+                    lambda: b7.beam_lut_windowed_reference(*args), iters, plain_iters=5)
+    cells = int(torch.unique((yi * wq + xi)[covered]).numel())
+    total, unmasked = xi.numel(), int(beams.sum()) * FLEET_B
+    bms, by = bound_ms(16 * total + 9 * FLEET_B * workloads.BEAMS + 2 * k * cells,
+                       B7_OPS_PER_BEAM * FLEET_N * unmasked)
+    return dict(
+        name="B7 beam_lut_windowed", route="cuda", source="beluga_tpu_torch/csrc/beam_lut.cu",
+        replaces="beluga_tpu/ops/pallas_beam_lut.py:342", max_abs_err=float((got - want).abs().max()),
+        bound_ms=bms, bound_by=by, shape=label, strays=int(strays.sum()), lut_cells_read=cells,
+        **times,
+    )
+
+
+# -- phases 4 to 11: the main paths --------------------------------------------
 
 
 def reset_counts() -> None:
     from beluga_tpu_torch.ops import (
+        cuda_beam,
+        cuda_beam_lut,
         cuda_fused_step,
         cuda_pool_take,
         cuda_resample,
         cuda_reweight,
         cuda_winlut,
+        raycast,
     )
 
     cuda_reweight.launches = 0
@@ -566,15 +804,21 @@ def reset_counts() -> None:
     cuda_pool_take.launches = 0
     cuda_winlut.launches = 0
     cuda_fused_step.launches = 0
+    cuda_beam_lut.launches = 0
+    cuda_beam.launches = 0
+    raycast.launches = 0
 
 
 def read_counts() -> dict:
     from beluga_tpu_torch.ops import (
+        cuda_beam,
+        cuda_beam_lut,
         cuda_fused_step,
         cuda_pool_take,
         cuda_resample,
         cuda_reweight,
         cuda_winlut,
+        raycast,
     )
 
     return {"B1 fused_reweight": cuda_reweight.launches,
@@ -582,20 +826,32 @@ def read_counts() -> dict:
             "B3 pool_take": cuda_pool_take.launches,
             "B4 fused_reweight values3": cuda_reweight.values3_launches,
             "B5 fused_propagate_winlut": cuda_fused_step.launches,
-            "B6 winlut_lookup": cuda_winlut.launches}
+            "B6 winlut_lookup": cuda_winlut.launches,
+            "B7 beam_lut_windowed": cuda_beam_lut.launches,
+            "B8 sphere_trace_beam_weights": cuda_beam.launches,
+            "R1 cast_rays": raycast.launches}
 
 
-def run_node(dev) -> tuple[dict, dict]:
+def run_node(dev, scans: int = NODE_SCANS, what: str = "node",
+             must_launch=("B1 fused_reweight", "B2 resample_take"),
+             **overrides) -> tuple[dict, dict]:
+    """The node at nav2 defaults (``overrides`` of ``AmclNodeConfig``
+    fields select the beam node) for ``scans`` scans; the launch counts
+    cover the map load and every scan, and each kernel of ``must_launch``
+    must have been launched."""
     from beluga_tpu_torch.maps.occupancy import make_grid
     from beluga_tpu_torch.node import AmclNode
     from beluga_tpu_torch.tools import workloads
 
-    s = workloads.arena_scans(NODE_SCANS)
+    s = workloads.arena_scans(scans)
     reset_counts()
-    node = AmclNode(workloads.node_config(s), seed=0, device=dev)
+    t0 = time.perf_counter()
+    node = AmclNode(workloads.node_config(s, **overrides), seed=0, device=dev)
     node.set_map(make_grid(s.data, workloads.RES, device=dev))
+    torch.cuda.synchronize()
+    set_map_s = time.perf_counter() - t0
     times, worst_pos, worst_yaw, valid = [], 0.0, 0.0, 0
-    for t in range(NODE_SCANS):
+    for t in range(scans):
         t0 = time.perf_counter()
         r = node.handle_scan((s.xs[t], s.ys[t], s.yaws[t]), s.points[t], s.mask[t])
         times.append(time.perf_counter() - t0)
@@ -603,19 +859,19 @@ def run_node(dev) -> tuple[dict, dict]:
             continue
         valid += 1
         check(bool(np.isfinite(r.pose).all() and np.isfinite(r.covariance[:2, :2]).all()),
-              f"node scan {t}: estimate not finite")
+              f"{what} scan {t}: estimate not finite")
         e_pos = math.hypot(r.pose[0] - s.xs[t], r.pose[1] - s.ys[t])
         e_yaw = yaw_error(r.pose[2], s.yaws[t])
         worst_pos, worst_yaw = max(worst_pos, e_pos), max(worst_yaw, e_yaw)
         check(e_pos < GATE_POS_M and e_yaw < GATE_YAW_RAD,
-              f"node scan {t}: error {e_pos:.3f} m / {math.degrees(e_yaw):.1f} deg")
+              f"{what} scan {t}: error {e_pos:.3f} m / {math.degrees(e_yaw):.1f} deg")
     counts = read_counts()
-    check(valid >= NODE_SCANS - 1, f"node: only {valid} valid updates of {NODE_SCANS}")
-    for name in ("B1 fused_reweight", "B2 resample_take"):
-        check(counts[name] > 0, f"node: {name} was never launched")
+    check(valid >= scans - 1, f"{what}: only {valid} valid updates of {scans}")
+    for name in must_launch:
+        check(counts[name] > 0, f"{what}: {name} was never launched")
     steady = sorted(times[2:])
     return counts, dict(
-        scans=NODE_SCANS, valid=valid, worst_pos_m=worst_pos,
+        scans=scans, valid=valid, set_map_s=set_map_s, worst_pos_m=worst_pos,
         worst_yaw_deg=math.degrees(worst_yaw),
         ms_per_update_median=1e3 * steady[len(steady) // 2],
         ms_per_update_mean=1e3 * sum(steady) / len(steady),
@@ -771,6 +1027,118 @@ def run_windowed(dev, scans: int = WINDOWED_SCANS) -> tuple[dict, dict]:
     return counts, out
 
 
+def run_beam_node(dev, mode: str) -> tuple[dict, dict]:
+    """The beam node at nav2 defaults (100 m) in ``beam_fast_path=mode``."""
+    counts, out = run_node(dev, BEAM_NODE_SCANS, f"beam node {mode}", ("B2 resample_take",),
+                           laser_model_type="beam", beam_fast_path=mode)
+    updates = out["valid"]
+    expected = {  # launches of each beam kernel: the map load and every update
+        "exact": {"R1 cast_rays": updates, "B7 beam_lut_windowed": 0,
+                  "B8 sphere_trace_beam_weights": 0},
+        "lut": {"R1 cast_rays": 1, "B7 beam_lut_windowed": 0, "B8 sphere_trace_beam_weights": 0},
+        "windowed": {"R1 cast_rays": 1, "B7 beam_lut_windowed": updates,
+                     "B8 sphere_trace_beam_weights": 0},
+        "sphere_trace": {"R1 cast_rays": 0, "B7 beam_lut_windowed": 0,
+                         "B8 sphere_trace_beam_weights": updates},
+    }[mode]
+    for name, want in {**expected, "B1 fused_reweight": 0}.items():
+        check(counts[name] == want,
+              f"beam node {mode}: {name} launched {counts[name]} times, expected {want}")
+    return counts, out
+
+
+def run_long_range(dev, scans: int = LONG_RANGE_SCANS) -> tuple[dict, dict]:
+    """The long-range sphere-trace filter (benchmarks/REPORT.md:175-185):
+    every scan after the warm-up within the gate, B8 once per update."""
+    from beluga_tpu_torch.filters.amcl import host_pose, update
+    from beluga_tpu_torch.tools import workloads
+
+    w = workloads.long_range(scans, dev)
+    s, state = w.scans, w.state
+    reset_counts()
+    times, errs, yaws = [], [], []
+    for t in range(scans):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, est = update(w.params, w.models, w.ctx, state._replace(force_update=True),
+                            host_pose(s.xs[t], s.ys[t], s.yaws[t]), w.points[t], w.mask[t])
+        pose = est.pose.as_xytheta().cpu().numpy()
+        times.append(time.perf_counter() - t0)
+        check(est.valid, f"long range scan {t}: update gated out")
+        check(bool(np.isfinite(pose).all()), f"long range scan {t}: estimate not finite")
+        errs.append(math.hypot(pose[0] - s.xs[t], pose[1] - s.ys[t]))
+        yaws.append(yaw_error(float(pose[2]), s.yaws[t]))
+        if t >= LONG_RANGE_WARMUP:
+            check(errs[-1] < GATE_POS_M and yaws[-1] < GATE_YAW_RAD,
+                  f"long range scan {t}: error {errs[-1]:.3f} m / "
+                  f"{math.degrees(yaws[-1]):.1f} deg")
+    counts = read_counts()
+    check(counts["B8 sphere_trace_beam_weights"] == scans,
+          f"long range: B8 launched {counts['B8 sphere_trace_beam_weights']} times in "
+          f"{scans} updates")
+    for name in ("B1 fused_reweight", "R1 cast_rays", "B7 beam_lut_windowed"):
+        check(counts[name] == 0, f"long range: {name} launched {counts[name]} times")
+    hits = s.mask[LONG_RANGE_WARMUP:]
+    ranges = np.hypot(s.points[..., 0], s.points[..., 1])[LONG_RANGE_WARMUP:][hits]
+    steady = sorted(times[2:])
+    mean_s = sum(steady) / len(steady)
+    gated = errs[LONG_RANGE_WARMUP:]
+    return counts, dict(
+        particles=w.params.max_particles, scans=scans, err_mean_m=float(np.mean(gated)),
+        err_max_m=max(gated), worst_yaw_deg=math.degrees(max(yaws[LONG_RANGE_WARMUP:])),
+        mean_hit_range_m=float(ranges.mean()), ms_per_update_mean=1e3 * mean_s,
+        ms_per_update_median=1e3 * steady[len(steady) // 2], ms_first_update=1e3 * times[0],
+        particle_updates_per_s=w.params.max_particles / mean_s,
+    )
+
+
+def run_beam_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
+                   scans: int = BEAM_FLEET_SCANS) -> tuple[dict, dict]:
+    """The windowed beam fleet (bench.py:678-720): every filter within the
+    gate, B7 once per update, B1 and B4 never, R1 in the LUT build."""
+    from beluga_tpu_torch.parallel.fleet import make_fleet_update
+    from beluga_tpu_torch.tools import workloads
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = workloads.beam_fleet(scans, dev, b, n)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    s, state = w.scans, w.state
+    fleet_update = make_fleet_update(w.params, w.models)
+    times, worst_pos, worst_yaw = [], 0.0, 0.0
+    for t in range(scans):
+        odoms = workloads.fleet_odometry(s, t, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, est = fleet_update(w.ctx, state, odoms, w.points[t], w.mask[t])
+        pose = est.pose.as_xytheta().cpu().numpy()
+        times.append(time.perf_counter() - t0)
+        check(bool(np.all(est.valid)), f"beam fleet scan {t}: a filter was gated out")
+        check(bool(np.isfinite(pose).all()), f"beam fleet scan {t}: estimate not finite")
+        e_pos = np.hypot(pose[:, 0] - s.xs[t], pose[:, 1] - s.ys[t])
+        e_yaw = np.abs(np.arctan2(np.sin(pose[:, 2] - s.yaws[t]), np.cos(pose[:, 2] - s.yaws[t])))
+        worst_pos, worst_yaw = max(worst_pos, float(e_pos.max())), max(worst_yaw, float(e_yaw.max()))
+        check(bool((e_pos < GATE_POS_M).all() and (e_yaw < GATE_YAW_RAD).all()),
+              f"beam fleet scan {t}: worst filter {e_pos.max():.3f} m / "
+              f"{math.degrees(e_yaw.max()):.1f} deg")
+    counts = read_counts()
+    check(counts["B7 beam_lut_windowed"] == scans,
+          f"beam fleet: B7 launched {counts['B7 beam_lut_windowed']} times in {scans} updates")
+    check(counts["R1 cast_rays"] >= 1, "beam fleet: R1 was not launched by the LUT build")
+    for name in ("B1 fused_reweight", "B4 fused_reweight values3"):
+        check(counts[name] == 0, f"beam fleet: {name} launched {counts[name]} times")
+    steady = sorted(times[2:])
+    mean_s = sum(steady) / len(steady)
+    return counts, dict(
+        filters=b, particles=n, scans=scans, lut_build_s=build_s, worst_pos_m=worst_pos,
+        worst_yaw_deg=math.degrees(worst_yaw), ms_per_update_mean=1e3 * mean_s,
+        ms_per_update_median=1e3 * steady[len(steady) // 2], ms_first_update=1e3 * times[0],
+        particle_updates_per_s=b * n / mean_s,
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -778,6 +1146,7 @@ def main() -> int:
         return 2
     import beluga_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
     from beluga_tpu_torch.ops import _build
+    from beluga_tpu_torch.tools import workloads
 
     # float32 products in full precision, stated rather than assumed
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -818,8 +1187,13 @@ def main() -> int:
     w_big = check_winlut(dev, iters=50)
     f_mega = check_fused_step(MEGA_N, dev, iters=20)
     f_ragged = check_fused_step(MEGA_N - 1000, dev, iters=5)
+    s_node = check_sphere_trace(dev, iters=100, long_range=False)
+    s_long = check_sphere_trace(dev, iters=100, long_range=True)
+    l_fleet = check_beam_lut(dev, iters=50)
+    c_node = check_raycast(dev, iters=100, lut_build=False)
+    c_build = check_raycast(dev, iters=10, lut_build=True)
     checked = (k_main, r_main, k_big, r_big, c_big, k_fleet, r_fleet, c_fleet, p_fleet, p_big,
-               p_mega, r_mega, w_big, f_mega, f_ragged)
+               p_mega, r_mega, w_big, f_mega, f_ragged, s_node, s_long, l_fleet, c_node, c_build)
     ms = lambda v: "not measured" if v is None else f"{v:.5f} ms"  # noqa: E731
     for k in checked:
         lib = "" if k["library_ms"] is None else (
@@ -850,20 +1224,39 @@ def main() -> int:
     win_counts, windowed = run_windowed(dev)
     print("windowed: " + json.dumps(windowed) + " launches " + json.dumps(win_counts))
 
+    # 9. the beam node in each of its four modes (slice 4)
+    beam_counts = {}
+    for mode in workloads.BEAM_MODES:
+        beam_counts[mode], beam = run_beam_node(dev, mode)
+        print(f"beam node {mode}: " + json.dumps(beam) + " launches "
+              + json.dumps(beam_counts[mode]))
+
+    # 10. the long-range sphere-trace filter
+    long_counts, long_range = run_long_range(dev)
+    print("long range: " + json.dumps(long_range) + " launches " + json.dumps(long_counts))
+
+    # 11. the windowed beam fleet (slice 4's fleet path)
+    bfleet_counts, bfleet = run_beam_fleet(dev)
+    print("beam fleet: " + json.dumps(bfleet) + " launches " + json.dumps(bfleet_counts))
+
     # each kernel at the shapes and with the launches of the newest main
     # path that runs it: B1 the windowed filter's (tail and fallback), B2
     # and B3 the mega filter's where its selective resampling fired, else
     # the windowed filter's, B4 the fleet's, B5 the mega filter's, B6 the
-    # windowed filter's
+    # windowed filter's, B7 and R1 the beam fleet's (R1 in its LUT build),
+    # B8 the long-range filter's
     by_path = {"node": node_counts, "large": large_counts, "fleet": fleet_counts,
-               "mega": mega_counts, "windowed": win_counts}
+               "mega": mega_counts, "windowed": win_counts,
+               **{f"beam_node_{m}": c for m, c in beam_counts.items()},
+               "long_range": long_counts, "beam_fleet": bfleet_counts}
     resampled = mega_counts["B2 resample_take"] > 0
     kernels = []
     for k, path in ((k_big, "windowed"), (r_mega if resampled else r_big,
                                           "mega" if resampled else "windowed"),
                     (p_mega if mega_counts["B3 pool_take"] else p_big,
                      "mega" if mega_counts["B3 pool_take"] else "windowed"),
-                    (c_fleet, "fleet"), (f_mega, "mega"), (w_big, "windowed")):
+                    (c_fleet, "fleet"), (f_mega, "mega"), (w_big, "windowed"),
+                    (l_fleet, "beam_fleet"), (s_long, "long_range"), (c_build, "beam_fleet")):
         entry = {key: k[key] for key in ("name", "route", "source", "replaces")}
         entry["launches"] = by_path[path][k["name"]]
         entry.update({key: k[key] for key in (

@@ -1,5 +1,6 @@
-"""Kernels B1-B6 of the PyTorch port on the card, against their plain
-versions on the same card tensors, and fleet and mega updates on the card.
+"""Kernels B1-B8 and R1 of the PyTorch port on the card, against their
+plain versions on the same card tensors, and fleet, mega and beam updates
+on the card.
 Every test here needs an NVIDIA GPU and skips without one.  The module
 imports neither JAX nor the JAX package, so on a machine with the card it
 runs without the repository's conftest:
@@ -275,3 +276,153 @@ def test_mega_update_on_card(dev):
                         w.scans.ys[0], w.scans.yaws[0]), w.points[0], w.mask[0], sort_now=True)
     assert est.valid and torch.isfinite(est.pose.xy).all()
     assert (cuda_fused_step.launches, cuda_winlut.launches) == (counts[0] + 1, counts[1])
+
+
+# -- slice 4: the beam model (R1, B8, B7) ------------------------------------------
+
+
+def beam_arena(dev, n, seed, batch=None):
+    """The arena's grid and first scan, and ``n`` particles about its first
+    pose (``[batch, n]`` for a fleet)."""
+    from beluga_tpu_torch.io import synthetic
+    from beluga_tpu_torch.lie import SE2
+    from beluga_tpu_torch.maps.occupancy import make_grid
+
+    data = synthetic.tracking_arena(384, 0.05)
+    xs, ys, yaws = synthetic.circle_trajectory(1)
+    pts, mask = synthetic.simulate_scans(data, 0.05, xs, ys, yaws, BEAMS)
+    lead = () if batch is None else (batch,)
+    rng = np.random.default_rng(seed)
+    xyt = rng.normal([xs[0], ys[0], yaws[0]], [0.5, 0.5, 0.3], (*lead, n, 3)).astype(np.float32)
+    xyt[..., ::25, :2] += 4.0  # some far off
+    states = SE2.from_xytheta(xyt[..., 0], xyt[..., 1], xyt[..., 2], device=dev)
+    points = torch.as_tensor(pts[0]).to(dev)
+    px, py = points[:, 0], points[:, 1]
+    z = torch.sqrt(px * px + py * py)
+    return (make_grid(data, 0.05, device=dev), states, points, z,
+            torch.as_tensor(mask[0]).to(dev))
+
+
+@pytest.mark.parametrize("variant", ["standard", "supercover"])
+@pytest.mark.parametrize("max_range", [100.0, 4.0])
+def test_r1_kernel_matches_plain_version(dev, variant, max_range):
+    from beluga_tpu_torch.ops import raycast as r1
+
+    grid, states, points, z, _ = beam_arena(dev, 3000, 0)
+    bearing = points / torch.clamp_min(z, 1e-12)[:, None]
+    c, s = states.rot.cos[:, None], states.rot.sin[:, None]
+    dirs = torch.stack([c * bearing[None, :, 0] - s * bearing[None, :, 1],
+                        s * bearing[None, :, 0] + c * bearing[None, :, 1]], -1)
+    src = states.xy[:, None, :].expand(dirs.shape).contiguous()
+    src[:7] = -1.0  # sources off the grid
+    before = r1.launches
+    got = r1.cast_rays(grid, src, dirs, max_range, variant=variant)
+    want = r1.cast_rays_reference(grid.free_mask, src, dirs, max_range, grid.resolution,
+                                  r1.num_steps(max_range, grid.resolution), variant)
+    torch.cuda.synchronize()
+    assert r1.launches == before + 1
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert 0 < int(got[1].sum()) < got[1].numel()
+
+
+def test_r1_range_lut_build_matches_plain_version(dev):
+    from beluga_tpu_torch.models.sensor.beam_lut import build_range_lut
+    from beluga_tpu_torch.ops import raycast as r1
+
+    grid, *_ = beam_arena(dev, 1, 0)
+    before = r1.launches
+    lut = build_range_lut(grid, 4.0, 32)
+    torch.cuda.synchronize()
+    assert r1.launches == before + 1
+    cpu = build_range_lut(grid.to("cpu"), 4.0, 32)
+    assert torch.equal(lut.ranges.cpu(), cpu.ranges)
+
+
+@pytest.mark.parametrize("n,batch,max_range", [(2000, None, 100.0), (2048, None, 60.0),
+                                               (777, 3, 8.0)])
+def test_b8_kernel_matches_plain_version(dev, n, batch, max_range):
+    from beluga_tpu_torch.filters.builders import sphere_trace_steps
+    from beluga_tpu_torch.ops import cuda_beam as b8
+
+    grid, states, points, z, mask = beam_arena(dev, n, 1, batch)
+    lead = states.x.shape[:-1]
+    bearing = (points / torch.clamp_min(z, 1e-12)[:, None]).expand(*lead, BEAMS, 2).contiguous()
+    ranges = z.expand(*lead, BEAMS).contiguous()
+    beams = mask.expand(*lead, BEAMS).contiguous()
+    pv = (max_range, 0.5, 0.05, 0.05, 0.5, 0.2, 0.1)
+    args = (b8.make_distance_cells(grid.free_mask),
+            *(v.contiguous() for v in (states.x, states.y, states.rot.cos, states.rot.sin)),
+            bearing, ranges, beams, grid.resolution, pv)
+    steps = sphere_trace_steps(max_range, grid.resolution)
+    before = b8.launches
+    got = b8.sphere_trace_beam_weights(*args, march_steps=steps)
+    want = b8.sphere_trace_reference(*args, march_steps=steps)
+    torch.cuda.synchronize()
+    assert b8.launches == before + 1
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+def test_b8_masked_nan_beam_on_card(dev):
+    from beluga_tpu_torch.ops import cuda_beam as b8
+
+    grid, states, points, z, mask = beam_arena(dev, 500, 2)
+    bearing = (points / torch.clamp_min(z, 1e-12)[:, None]).contiguous()
+    first = int(torch.nonzero(mask)[0])
+    mask, bearing, z = mask.clone(), bearing.clone(), z.clone()
+    mask[first] = False
+    poses = [v.contiguous() for v in (states.x, states.y, states.rot.cos, states.rot.sin)]
+    dist = b8.make_distance_cells(grid.free_mask)
+    pv = (100.0, 0.5, 0.05, 0.05, 0.5, 0.2, 0.1)
+    clean = b8.sphere_trace_beam_weights(dist, *poses, bearing, z, mask, 0.05, pv, 89)
+    bearing[first], z[first] = float("nan"), float("nan")
+    got = b8.sphere_trace_beam_weights(dist, *poses, bearing, z, mask, 0.05, pv, 89)
+    assert torch.isfinite(got).all() and torch.equal(got, clean)
+
+
+@pytest.mark.parametrize("batch,n,k", [(64, 4096, 128), (3, 5000, 32), (1, 777, 16)])
+def test_b7_kernel_matches_plain_version(dev, batch, n, k):
+    from beluga_tpu_torch.models.sensor.beam_lut import build_range_lut, lut_cells
+    from beluga_tpu_torch.ops import cuda_beam_lut as b7
+
+    grid, states, points, z, mask = beam_arena(dev, n, 3, batch)
+    lut = build_range_lut(grid, 4.0, k)
+    table = b7.build_lut_bf16(lut.ranges)
+    local, xi, yi = lut_cells(lut, states)
+    beta = torch.atan2(points[:, 1], points[:, 0])
+    lead = (batch, BEAMS)
+    mix = (0.5, 0.05, 0.05, 0.05, 0.2, 0.1, 4.0)
+    args = (table, local.theta.contiguous(), xi, yi, z.expand(lead).contiguous(),
+            beta.expand(lead).contiguous(), mask.expand(lead).contiguous(), lut.max_range, mix)
+    before = b7.launches
+    got, want = b7.beam_lut_windowed(*args), b7.beam_lut_windowed_reference(*args)
+    torch.cuda.synchronize()
+    assert b7.launches == before + 1
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["exact", "lut", "sphere_trace", "windowed"])
+def test_beam_node_on_card(dev, mode):
+    """The beam node with its default device in each beam_fast_path: a scan
+    runs each mode's kernel."""
+    from beluga_tpu_torch.io.config import AmclNodeConfig
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.node import AmclNode
+    from beluga_tpu_torch.ops import cuda_beam, cuda_beam_lut, raycast
+
+    data = np.zeros((80, 80), np.int8)
+    data[0, :] = data[-1, :] = data[:, 0] = data[:, -1] = 100
+    data[30:40, 30:40] = 100
+    node = AmclNode(AmclNodeConfig(max_particles=300, min_particles=50, set_initial_pose=True,
+                                   initial_pose_x=2.0, initial_pose_y=2.0,
+                                   laser_model_type="beam", laser_max_range=8.0,
+                                   beam_fast_path=mode))
+    node.set_map(make_grid(data, 0.1))
+    assert node._state.particles.log_weight.is_cuda
+    before = (raycast.launches, cuda_beam.launches, cuda_beam_lut.launches)
+    pts = np.random.default_rng(0).uniform(0.5, 2.0, (30, 2)).astype(np.float32)
+    res = node.handle_scan((0.0, 0.0, 0.0), pts)
+    assert res.valid and np.isfinite(res.pose).all()
+    after = (raycast.launches, cuda_beam.launches, cuda_beam_lut.launches)
+    want = {"exact": (1, 0, 0), "lut": (0, 0, 0), "sphere_trace": (0, 1, 0),
+            "windowed": (0, 0, 1)}[mode]
+    assert tuple(a - b for a, b in zip(after, before)) == want
