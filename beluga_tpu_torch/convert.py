@@ -18,6 +18,7 @@ from beluga_tpu_torch.lie import SE2, SO2
 from beluga_tpu_torch.maps.occupancy import OccupancyGrid
 from beluga_tpu_torch.models.sensor.beam_lut import RangeLut
 from beluga_tpu_torch.models.sensor.likelihood_field import LikelihoodField
+from beluga_tpu_torch.models.sensor.likelihood_field_lut import ScanLut
 from beluga_tpu_torch.models.sensor.likelihood_field_winlut import WindowedScanLut
 from beluga_tpu_torch.ops.cuda_beam_lut import padded_dims
 
@@ -71,8 +72,9 @@ def field_codes(codes_book, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
 
 def field_values3(values3, shape, device="cpu") -> torch.Tensor:
     """The reference's codebook16 table (``build_values3``: transposed,
-    padded, four shifted copies along y) as the port's ``bf16[H, W]``:
-    copy 0, transposed back.  ``shape`` is ``(H, W)``."""
+    padded, four shifted copies along y; pz³ or, for the probability
+    model, log pz) as the port's ``bf16[H, W]``: copy 0, transposed back.
+    ``shape`` is ``(H, W)``."""
     h, w = shape
     bits = np.ascontiguousarray(np.asarray(values3)[:w, :h].T).view(np.int16)
     return torch.from_numpy(bits).view(torch.bfloat16).to(device)
@@ -104,10 +106,19 @@ def range_lut_bf16(twin, shape, device="cpu") -> torch.Tensor:
     return torch.as_tensor(cells).to(torch.bfloat16).to(device)
 
 
+def scan_lut(lut, device="cpu") -> ScanLut:
+    """A shared-scan ``ScanLut`` with numpy leaves."""
+    return ScanLut(values=_t(lut.values, device, np.float32), resolution=_f32(lut.resolution),
+                   world_to_field=se2(lut.world_to_field, device),
+                   pad_cells=int(lut.pad_cells), n_theta=int(lut.n_theta))
+
+
 def ctx(c: dict, device="cpu") -> dict:
     """A model ctx dict: the likelihood-field one (``grid``, ``field``,
-    ``field_codes``, in codebook16 mode ``field_values3``, and for the
-    windowed filter ``field_pad3``) or the beam one (``grid`` and, by
+    ``field_codes``, in codebook16 mode ``field_values3`` with
+    ``field_values3_log`` for the probability model, in lowrank mode
+    ``field_factors``, for the windowed filter ``field_pad3`` and for the
+    shared-scan filter ``scan_lut``) or the beam one (``grid`` and, by
     path, ``range_lut``, ``range_lut_bf16`` or ``beam_dist``)."""
     out = {"grid": grid(c["grid"], device)}
     if "field" in c:
@@ -124,19 +135,28 @@ def ctx(c: dict, device="cpu") -> dict:
     if "field_values3" in c:
         out["field_values3"] = field_values3(c["field_values3"], out["field_codes"][0].shape,
                                              device)
+    if "field_values3_log" in c:
+        out["field_values3_log"] = bool(c["field_values3_log"])
+    if "field_factors" in c:
+        out["field_factors"] = tuple(_t(f, device, np.float32) for f in c["field_factors"])
     if "field_pad3" in c:
         out["field_pad3"] = _t(c["field_pad3"], device, np.float32)
+    if "scan_lut" in c:
+        out["scan_lut"] = scan_lut(c["scan_lut"], device)
     return out
 
 
 def windowed_scan_lut(lut, device="cpu") -> WindowedScanLut:
-    """A bf16 ``WindowedScanLut`` with numpy leaves (``values_t`` as
-    float32 or bfloat16 values)."""
-    if getattr(lut, "scale", None) is not None:
-        raise ValueError("int8 window tables are not ported (ROADMAP B6-int8)")
-    values = torch.as_tensor(np.asarray(lut.values_t, np.float32)).to(torch.bfloat16)
+    """A ``WindowedScanLut`` with numpy leaves: a bf16 table (``values_t``
+    as float32 or bfloat16 values), or an int8 table with its ``scale``."""
+    scale = getattr(lut, "scale", None)
+    if scale is None:
+        values = torch.as_tensor(np.asarray(lut.values_t, np.float32)).to(torch.bfloat16)
+    else:
+        values = _t(lut.values_t, device, np.int8)
+        scale = _t(scale, device, np.float32)
     return WindowedScanLut(
-        values_t=values.to(device),
+        values_t=values.to(device), scale=scale,
         x0=_t(lut.x0, device, np.int64), y0=_t(lut.y0, device, np.int64),
         theta0=_t(lut.theta0, device, np.float32), miss=_t(lut.miss, device, np.float32),
         resolution=_f32(lut.resolution), world_to_field=se2(lut.world_to_field, device),

@@ -1,11 +1,19 @@
 // Kernels B6 and B5: the windowed pose-LUT lookup, alone (B6) and fused with
 // the differential-drive motion sample (B5).
 //
-// B6 replaces beluga_tpu/ops/pallas_winlut.py:winlut_lookup (bf16 tables).
-// Per particle p with fractional window coordinates (xi, yi, t):
+// B6 replaces beluga_tpu/ops/pallas_winlut.py:winlut_lookup, for bf16 and
+// int8 tables.  Per particle p with fractional window coordinates
+// (xi, yi, t):
 //
 //   val_p = sum_x tx(x) * sum_j wt(j) * sum_y ty(y) * L[t_lo + j, x, y]
 //   out_p = valid_p ? base + val_p : miss
+//
+// An int8 table (B6-int8) takes the reference's int8 path
+// (pallas_winlut.py:109-142) exactly: the y tent is quantized to the integer
+// q(y) = round_half_even(ty(y) * 127), each slab's y sum is the int32 dot
+// sum_y L[j, x, y] * q(y), exact, then acc(x) = sum_j wt(j) * f32(dot),
+// acc(x) * (scale * f32(1/127)), and last the x tent.  scale is a device
+// float (the per-build quantization step).
 //
 // every tent weight is max(1 - |c - i|, 0), and only i = floor(c) and
 // floor(c) + 1 can be non-zero, so each valid particle reads eight table
@@ -94,9 +102,11 @@ __device__ __forceinline__ float slab_base(float tmin, int k, int tblk) {
   return fminf(fmaxf(floorf(tmin), 0.0f), static_cast<float>(k - tblk));
 }
 
-// base + trilinear lookup, or miss outside the window or the tile's slab.
+// base + trilinear lookup, or miss outside the window or the tile's slab
+// (bf16 table; `inv_step` is unused).
 __device__ float trilinear(const uint16_t* __restrict__ vals, int wx, int wy, int tblk,
-                           float t_lo, float xf, float yf, float t, float miss, float base) {
+                           float t_lo, float xf, float yf, float t, float miss, float base,
+                           float /*inv_step*/ = 0.0f) {
   const float k0rel = __fsub_rn(floorf(t), t_lo);
   const bool valid = xf >= 0.0f && xf <= static_cast<float>(wx - 1) && yf >= 0.0f &&
                      yf <= static_cast<float>(wy - 1) && k0rel >= 0.0f &&
@@ -125,10 +135,45 @@ __device__ float trilinear(const uint16_t* __restrict__ vals, int wx, int wy, in
   return __fadd_rn(base, __fadd_rn(__fmul_rn(tx0, byx[0]), __fmul_rn(tx1, byx[1])));
 }
 
-__global__ void winlut_kernel(const uint16_t* __restrict__ vals, int k, int wx, int wy,
+// The same lookup from an int8 table: integer y dots with the quantized y
+// tent, `step` = scale * f32(1/127) applied to each x row's theta sum.
+__device__ float trilinear(const int8_t* __restrict__ vals, int wx, int wy, int tblk,
+                           float t_lo, float xf, float yf, float t, float miss, float base,
+                           float step) {
+  const float k0rel = __fsub_rn(floorf(t), t_lo);
+  const bool valid = xf >= 0.0f && xf <= static_cast<float>(wx - 1) && yf >= 0.0f &&
+                     yf <= static_cast<float>(wy - 1) && k0rel >= 0.0f &&
+                     k0rel <= static_cast<float>(tblk - 2);
+  if (!valid) return miss;
+  const float u = __fsub_rn(t, t_lo);
+  const float x0f = floorf(xf), y0f = floorf(yf);
+  const int ix = static_cast<int>(x0f), iy = static_cast<int>(y0f);
+  const int jt = static_cast<int>(t_lo) + static_cast<int>(k0rel);
+  const int ix1 = min(ix + 1, wx - 1), iy1 = min(iy + 1, wy - 1);
+  const float tx0 = tent(xf, x0f), tx1 = tent(xf, x0f + 1.0f);
+  const int q0 = __float2int_rn(__fmul_rn(tent(yf, y0f), 127.0f));
+  const int q1 = __float2int_rn(__fmul_rn(tent(yf, y0f + 1.0f), 127.0f));
+  const float tt0 = tent(u, k0rel), tt1 = tent(u, k0rel + 1.0f);
+  float byx[2];
+  for (int dx = 0; dx < 2; ++dx) {
+    const int x = dx ? ix1 : ix;
+    float byj[2];
+    for (int dj = 0; dj < 2; ++dj) {
+      const int8_t* row = vals + (static_cast<size_t>(jt + dj) * wx + x) * wy;
+      byj[dj] = static_cast<float>(static_cast<int>(__ldg(row + iy)) * q0 +
+                                   static_cast<int>(__ldg(row + iy1)) * q1);
+    }
+    byx[dx] = __fmul_rn(__fadd_rn(__fmul_rn(tt0, byj[0]), __fmul_rn(tt1, byj[1])), step);
+  }
+  return __fadd_rn(base, __fadd_rn(__fmul_rn(tx0, byx[0]), __fmul_rn(tx1, byx[1])));
+}
+
+template <typename T>
+__global__ void winlut_kernel(const T* __restrict__ vals, int k, int wx, int wy,
                               int tblk, const float* __restrict__ xi,
                               const float* __restrict__ yi, const float* __restrict__ t,
                               int n, int tile, const float* __restrict__ miss_ptr, float base,
+                              const float* __restrict__ scale_ptr, float inv127,
                               float* __restrict__ out) {
   const size_t first = static_cast<size_t>(blockIdx.x) * tile;
   float tmin = CUDART_INF_F;
@@ -138,10 +183,11 @@ __global__ void winlut_kernel(const uint16_t* __restrict__ vals, int k, int wx, 
   }
   const float t_lo = slab_base(block_min(tmin), k, tblk);
   const float miss = *miss_ptr;
+  const float step = scale_ptr ? __fmul_rn(*scale_ptr, inv127) : 0.0f;
   for (int s = threadIdx.x; s < tile; s += blockDim.x) {
     const size_t i = first + s;
     if (i >= static_cast<size_t>(n)) break;
-    out[i] = trilinear(vals, wx, wy, tblk, t_lo, xi[i], yi[i], t[i], miss, base);
+    out[i] = trilinear(vals, wx, wy, tblk, t_lo, xi[i], yi[i], t[i], miss, base, step);
   }
 }
 
@@ -233,10 +279,27 @@ extern "C" int beluga_winlut_lookup(const void* vals, int k, int wx, int wy, int
                                     void* stream) {
   if (n == 0) return 0;
   const int blocks = (n + tile - 1) / tile;
-  winlut_kernel<<<blocks, threads_for(tile), 0, static_cast<cudaStream_t>(stream)>>>(
+  winlut_kernel<uint16_t><<<blocks, threads_for(tile), 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(vals), k, wx, wy, tblk, static_cast<const float*>(xi),
       static_cast<const float*>(yi), static_cast<const float*>(t), n, tile,
-      static_cast<const float*>(miss), base, static_cast<float*>(out));
+      static_cast<const float*>(miss), base, nullptr, 0.0f, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B6-int8: the same over an int8 table [k, wx, wy]; `scale` a float on the
+// device, `inv127` the float32 value of 1/127.
+extern "C" int beluga_winlut_lookup_int8(const void* vals, int k, int wx, int wy, int tblk,
+                                         const void* xi, const void* yi, const void* t, int n,
+                                         int tile, const void* miss, float base,
+                                         const void* scale, float inv127, void* out,
+                                         void* stream) {
+  if (n == 0) return 0;
+  const int blocks = (n + tile - 1) / tile;
+  winlut_kernel<int8_t><<<blocks, threads_for(tile), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(vals), k, wx, wy, tblk, static_cast<const float*>(xi),
+      static_cast<const float*>(yi), static_cast<const float*>(t), n, tile,
+      static_cast<const float*>(miss), base, static_cast<const float*>(scale), inv127,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

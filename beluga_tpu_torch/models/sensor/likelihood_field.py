@@ -1,16 +1,20 @@
-"""Likelihood-field range-finder model (port of the AMCL-parity part of
+"""Likelihood-field range-finder models (port of
 ``beluga_tpu/models/sensor/likelihood_field.py``).
 
 * Field precompute (likelihood_field_model_base.hpp:130-185): exact EDT,
   optional unknown-space overlay, per-cell ``amplitude * exp(-d²/2σ²) +
   offset``.
-* Weight (likelihood_field_model.hpp:68-91): per beam endpoint, transform
-  into the field frame, read the nearest cell (``unknown_prob`` outside the
-  map) and return ``1 + Σ pz³``.  The pz³ sum and the 1.0 seed are nav2
-  parity quirks.  The port reads the field through its code table
-  (kernel B1) or, in codebook16 mode, through the bf16 pz³ table (kernel
-  B4); the float-table lookup modes, the probability model and the lowrank
-  mode wait for ROADMAP item A11.
+* ``LikelihoodFieldModel`` weight (likelihood_field_model.hpp:68-91): per
+  beam endpoint, transform into the field frame, read the nearest cell
+  (``unknown_prob`` outside the map) and return ``1 + Σ pz³``.  The pz³ sum
+  and the 1.0 seed are nav2 parity quirks.  The port reads the field
+  through its code table (kernel B1), in codebook16 mode through the bf16
+  pz³ table (kernel B4), as the float table itself (``gather``/``onehot``,
+  plain torch) or through its SVD factors (``lowrank``, plain torch).
+* ``LikelihoodFieldProbModel`` (likelihood_field_prob_model.hpp:68-90):
+  the same field, the proper probability ``exp(Σ log pz)``, returned in log
+  space; through the code table it is kernel B1-log, through a
+  ``bf16(log pz)`` table kernel B4-log.
 """
 
 from __future__ import annotations
@@ -99,6 +103,71 @@ def make_likelihood_field(params: LikelihoodFieldParams, grid: OccupancyGrid) ->
         world_to_field=grid.origin.inverse(),
         unknown_prob=float(torch.tensor(1.0 / params.max_laser_distance, dtype=f32)),
     )
+
+
+def _field_lookup(field: LikelihoodField, states: SE2, points: Tensor, beam_mask: Tensor,
+                  lookup_mode: str = "auto") -> tuple[Tensor, Tensor]:
+    """Per-(particle, beam) field values ``f32[..., N, nb]`` and the beam
+    mask ``[..., 1, nb]`` (likelihood_field.py:115-141): endpoints into the
+    field frame, the nearest cell, ``unknown_prob`` off the map."""
+    from beluga_tpu_torch.ops.gather2d import table_lookup
+
+    inside, row, col = _map_cells(field, states, points)
+    vals = table_lookup(field.values, row, col, mode=lookup_mode)
+    return torch.where(inside, vals, field.unknown_prob), beam_mask[..., None, :]
+
+
+def _map_cells(field: LikelihoodField, states: SE2, points: Tensor):
+    """``(inside, row, col)`` of every (particle, beam) endpoint, in the
+    reference's operation order (kernel B1's cells)."""
+    from beluga_tpu_torch.ops.cuda_reweight import map_cells
+
+    tf = field.world_to_field @ states
+    return map_cells(field.values.shape, tf.x, tf.y, tf.rot.cos, tf.rot.sin, points,
+                     field.resolution)
+
+
+def likelihood_field_weights(field: LikelihoodField, states: SE2, points: Tensor,
+                             beam_mask: Tensor, lookup_mode: str = "auto") -> Tensor:
+    """AMCL-parity weights ``1 + Σ pz³`` from the float table
+    (likelihood_field.py:144-154), plain torch in every lookup mode."""
+    pz, m = _field_lookup(field, states, points, beam_mask, lookup_mode)
+    return 1.0 + torch.sum(torch.where(m, pz * pz * pz, 0.0), dim=-1)
+
+
+def likelihood_field_weights_lowrank(field: LikelihoodField, factors: tuple[Tensor, Tensor],
+                                     states: SE2, points: Tensor, beam_mask: Tensor) -> Tensor:
+    """Approximate weights ``1 + Σ pz³`` from the SVD factors ``(U·s, V)``
+    of :func:`ops.gather2d.factorize_table` (likelihood_field.py:157-189);
+    a read below 0 from the truncation is clamped to 0."""
+    from beluga_tpu_torch.ops.gather2d import lowrank_lookup
+
+    inside, row, col = _map_cells(field, states, points)
+    pz = torch.where(inside, lowrank_lookup(*factors, row, col), field.unknown_prob)
+    pz = torch.clamp_min(pz, 0.0)
+    return 1.0 + torch.sum(torch.where(beam_mask[..., None, :], pz * pz * pz, 0.0), dim=-1)
+
+
+def likelihood_field_prob_weights(field: LikelihoodField, states: SE2, points: Tensor,
+                                  beam_mask: Tensor,
+                                  codes_book: tuple[Tensor, Tensor] | None = None,
+                                  values3: Tensor | None = None) -> Tensor:
+    """The probability model's log-weights ``Σ log pz``, ``f32[..., N]``
+    (likelihood_field.py:240-264, likelihood_field_prob_model.hpp:68-90):
+    with ``codes_book`` kernel B1-log, or B4-log with ``values3`` (a table
+    of :func:`ops.cuda_reweight.build_values3` with ``log_space=True``),
+    their plain versions on a CPU tensor; without it the float table."""
+    if codes_book is not None:
+        from beluga_tpu_torch.ops.cuda_reweight import fused_reweight
+
+        codes, book = codes_book
+        tf = field.world_to_field @ states
+        return fused_reweight(
+            codes, book, tf.x.contiguous(), tf.y.contiguous(), tf.rot.cos.contiguous(),
+            tf.rot.sin.contiguous(), points, beam_mask, field.resolution, field.unknown_prob,
+            values3=values3, log_space=True)
+    pz, m = _field_lookup(field, states, points, beam_mask)
+    return torch.sum(torch.where(m, torch.log(pz), 0.0), dim=-1)
 
 
 def likelihood_field_weights_codebook(

@@ -31,8 +31,10 @@ host.
 
 Approximations against the exact model are the reference's (pose xy and
 heading quantized and interpolated, endpoints sinc-sampled, strays score
-the all-beams-unknown ``miss``).  Only ``table_dtype="bf16"`` is ported:
-``"int8"`` tables raise (ROADMAP B6-int8).
+the all-beams-unknown ``miss``).  ``table_dtype="int8"`` stores
+``round(L / scale)`` with the per-build ``scale = max(max L, 1e-6) / 127``
+(at most ``scale / 2`` of quantization error) and reads it through kernel
+B6-int8.
 """
 
 from __future__ import annotations
@@ -56,7 +58,8 @@ F32 = torch.float32
 class WindowedScanLut:
     """Windowed per-scan pose-likelihood maps.
 
-    ``values_t``: x-major ``bf16[k_bins, win_x, win_y]`` pz³ sums;
+    ``values_t``: x-major ``bf16[k_bins, win_x, win_y]`` pz³ sums, or
+    their int8 quantization (value = entry · ``scale``);
     ``x0``/``y0``: window origin in padded-field cells (int64 0-d device
     tensors); ``theta0``: heading of bin 0 (bin j covers theta0 + j·dth);
     ``miss``: the all-beams-unknown weight for out-of-window particles
@@ -75,8 +78,8 @@ class WindowedScanLut:
     win_x: int
     win_y: int
     dth: float
-    # quantization scale of int8 tables; None for bf16 tables (the only
-    # ones the port builds)
+    # quantization step of an int8 table (f32 0-d device tensor); None for
+    # a bf16 table
     scale: Tensor | None = None
 
 
@@ -207,12 +210,9 @@ def build_windowed_scan_lut(
     (typically the cloud's mean); ``points f32[nb, 2]``, ``beam_mask
     bool[nb]``.  ``padded_cubed`` is :func:`precompute_padded_field`'s
     image and ``dft`` :func:`windowed_dft`'s matrices, both built once per
-    map and filter; each is computed here when absent."""
-    if table_dtype == "int8":
-        raise NotImplementedError(
-            "int8 window tables are not ported (ROADMAP B6-int8): the JAX "
-            "package measured them slower and keeps them opt-in")
-    if table_dtype != "bf16":
+    map and filter; each is computed here when absent.  ``table_dtype``
+    ``"bf16"`` or ``"int8"`` (likelihood_field_winlut.py:267-275)."""
+    if table_dtype not in ("bf16", "int8"):
         raise ValueError(f"unknown table_dtype {table_dtype!r}")
     if resolution_hint is None:
         resolution_hint = field.resolution
@@ -254,11 +254,17 @@ def build_windowed_scan_lut(
     values = (dft["ify"] @ t1).real  # [K, win_y, win_x]
 
     miss = 1.0 + torch.sum(torch.where(beam_mask, unknown3, 0.0))
+    values_t = values.transpose(1, 2).contiguous()
+    scale = None
+    if table_dtype == "int8":
+        scale = torch.clamp_min(torch.amax(values_t), 1e-6) / _f32(127.0, dev)
+        values_t = torch.clamp(torch.round(values_t / scale), -128, 127).to(torch.int8)
+    else:
+        values_t = values_t.to(torch.bfloat16)
     return WindowedScanLut(
-        values_t=values.transpose(1, 2).contiguous().to(torch.bfloat16),
-        x0=x0, y0=y0, theta0=theta0, miss=miss,
+        values_t=values_t, x0=x0, y0=y0, theta0=theta0, miss=miss,
         resolution=field.resolution, world_to_field=field.world_to_field,
-        pad_cells=pad, k_bins=k_bins, win_x=win_x, win_y=win_y, dth=dth,
+        pad_cells=pad, k_bins=k_bins, win_x=win_x, win_y=win_y, dth=dth, scale=scale,
     )
 
 
@@ -361,12 +367,10 @@ def windowed_coverage(lut: WindowedScanLut, states: SE2, stride: int = 8) -> Ten
 def windowed_scan_lut_weights(lut: WindowedScanLut, states: SE2, tile: int = 512,
                               tblk: int = 16) -> Tensor:
     """AMCL-parity weights ``1 + Σ_b pz³`` from the windowed LUT, ``f32[N]``:
-    one trilinear lookup per particle (kernel B6 on a CUDA tensor, its
-    plain version on a CPU tensor); strays score ``lut.miss``.  Slots
-    should be θ-sorted so that each ``tile`` spans at most ``tblk - 1``
-    bins."""
-    if lut.scale is not None:
-        raise NotImplementedError("int8 window tables are not ported (ROADMAP B6-int8)")
+    one trilinear lookup per particle (kernel B6, or B6-int8 for an int8
+    table, on a CUDA tensor, the plain version on a CPU tensor); strays
+    score ``lut.miss``.  Slots should be θ-sorted so that each ``tile``
+    spans at most ``tblk - 1`` bins."""
     xi, yi, t = windowed_coords(lut, states)
     return winlut_lookup(lut.values_t, xi.contiguous(), yi.contiguous(), t.contiguous(),
-                         lut.miss, base=1.0, tile=tile, tblk=tblk)
+                         lut.miss, base=1.0, tile=tile, tblk=tblk, scale=lut.scale)

@@ -13,11 +13,12 @@ The same behaviour as a plain object driven by explicit calls:
 
 The node runs on the card unless it is given ``device="cpu"``.  Each scan
 costs one host-to-device copy of the points and one device-to-host copy
-of the packed estimate; nothing else is read back.  The likelihood-field
-model and the beam model (``laser_model_type="beam"``, each of its four
-``beam_fast_path`` modes) are ported; the probability model, the raw
-laser-scan and point-cloud adapters and the pipelined mode wait for later
-slices (ROADMAP A11, A13).
+of the packed estimate; nothing else is read back.  All three laser models
+of nav2 are ported: the likelihood field, its probability model
+(``laser_model_type="likelihood_field_prob"``, kernel B1-log) and the beam
+model (``"beam"``, each of its four ``beam_fast_path`` modes); the raw
+laser-scan and point-cloud adapters and the pipelined mode wait for a later
+slice (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -109,10 +110,6 @@ class AmclNode(BaseLifecycleNode):
                  device=None, verbose: bool = False, autostart: bool = True):
         """``device`` defaults to ``"cuda"`` and raises when CUDA is absent."""
         self.config = config or AmclNodeConfig()
-        if self.config.laser_model_type == "likelihood_field_prob":
-            raise NotImplementedError(
-                f"laser_model_type {self.config.laser_model_type!r} is not ported (ROADMAP A11)"
-            )
         self.device = resolve_device(device)
         self.verbose = verbose
         self._seed = seed
@@ -174,6 +171,7 @@ class AmclNode(BaseLifecycleNode):
                 grid,
                 cfg.likelihood_field_params(),
                 motion_params=cfg.motion_params(),
+                prob_model=cfg.laser_model_type == "likelihood_field_prob",
                 use_cluster_estimate=True,
                 device=self.device,
             )

@@ -2,20 +2,22 @@
 
 Port of ``beluga_tpu/ops/pallas_reweight.py:fused_reweight`` on its exact
 path (``values3=None``, kernel B1) and on its codebook16 path
-(``values3=``, kernel B4, with :func:`build_values3` for the table);
-``log_space=True`` waits for ROADMAP item A11.  Both kernels are in
-``csrc/reweight.cu``.  :func:`fused_reweight` launches them on CUDA tensors
-and runs :func:`fused_reweight_reference` or
+(``values3=``, kernel B4, with :func:`build_values3` for the table), each
+with and without ``log_space``: the likelihood-field model's ``1 + Σ pz³``
+or, for nav2's ``likelihood_field_prob`` model, ``Σ log pz`` (B1-log and
+B4-log; B4-log reads a ``bf16(log pz)`` table and ``log(unknown)`` off the
+map).  Both kernels are in ``csrc/reweight.cu``.  :func:`fused_reweight`
+launches them on CUDA tensors and runs :func:`fused_reweight_reference` or
 :func:`fused_reweight_values3_reference`, the plain PyTorch versions, on
 CPU tensors.  Every input may carry leading filter axes (a fleet of B
 filters passes ``f32[B, N]`` particles, ``f32[B, nb, 2]`` points and
 ``bool[B, nb]`` masks); the tables are shared, as under JAX's ``vmap``.
 
 Contract: every cell ``floor(x / res)`` matches the plain version bit for
-bit; B1 reads the codebook value, B4 the bf16 value ``bf16(book³)`` of the
-cell; the beam sum runs in another order, so weights agree to ~1e-5
-relative, and B4's weights lie within 5e-3 of B1's (bf16 keeps 8
-significant bits: an entry may be off by 2^-8 relative).
+bit; B1 reads the codebook value, B4 the bf16 table entry of the cell; the
+beam sum runs in another order, so weights agree to ~1e-5 relative, and
+B4's weights lie within 5e-3 of B1's (bf16 keeps 8 significant bits: an
+entry may be off by 2^-8 relative; a log entry by 2^-9 of its magnitude).
 """
 
 from __future__ import annotations
@@ -33,9 +35,11 @@ MAX_BEAMS = 16384  # shared memory: (256 + 3 * beams) floats per block
 MAX_CODES = 256
 MAX_FILTERS = 65535  # grid.y
 
-# kernel launches since the count was last set to 0: B1, and B4
+# kernel launches since the count was last set to 0: B1, B4, B1-log, B4-log
 launches = 0
 values3_launches = 0
+log_launches = 0
+values3_log_launches = 0
 
 _fns: dict = {}
 
@@ -48,20 +52,21 @@ def _kernel(name: str):
         fn = getattr(load_library("reweight"), name)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         table = [p, i, i, p, i] if name == "beluga_reweight" else [p, i, i]
-        fn.argtypes = table + [p, p, p, p, i, p, p, i, f, f, p, i, p]
+        fn.argtypes = table + [p, p, p, p, i, p, p, i, f, f, p, i, i, p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
-def build_values3(codes: Tensor, codebook: Tensor) -> Tensor:
-    """Kernel B4's table ``bf16[H, W] = bf16(book³[codes])``
-    (pallas_reweight.py:364-386).  The cube is ``b * b * b`` in float32,
-    as XLA lowers ``** 3``; both frameworks round to bf16 to nearest even.
-    The reference's transposed, padded and shifted copies serve Mosaic's
-    windows only."""
+def build_values3(codes: Tensor, codebook: Tensor, log_space: bool = False) -> Tensor:
+    """Kernel B4's table ``bf16[H, W] = bf16(book³[codes])``, or with
+    ``log_space`` ``bf16(log book[codes])`` (pallas_reweight.py:364-386).
+    The cube is ``b * b * b`` in float32, as XLA lowers ``** 3``; both
+    frameworks round to bf16 to nearest even.  The reference's transposed,
+    padded and shifted copies serve Mosaic's windows only."""
     book = codebook.float()
-    return (book * book * book)[codes.long()].to(torch.bfloat16)
+    vals = torch.log(book) if log_space else book * book * book
+    return vals[codes.long()].to(torch.bfloat16)
 
 
 def endpoint_cells(tx: Tensor, ty: Tensor, cos: Tensor, sin: Tensor, points: Tensor,
@@ -80,8 +85,9 @@ def endpoint_cells(tx: Tensor, ty: Tensor, cos: Tensor, sin: Tensor, points: Ten
     return torch.floor(x / res), torch.floor(y / res)
 
 
-def _cells(shape, tx, ty, cos, sin, points, resolution):
-    """``(inside, row, col)`` of every endpoint, clipped to 0 off the map."""
+def map_cells(shape, tx, ty, cos, sin, points, resolution):
+    """``(inside, row, col)`` of every endpoint on an ``(H, W)`` map, the
+    cell clipped to 0 off the map."""
     fx, fy = endpoint_cells(tx, ty, cos, sin, points, resolution)
     h, w = shape
     inside = (fx >= 0) & (fx < w) & (fy >= 0) & (fy < h)
@@ -92,25 +98,32 @@ def _cells(shape, tx, ty, cos, sin, points, resolution):
 def fused_reweight_reference(
     codes: Tensor, codebook: Tensor, tx: Tensor, ty: Tensor, cos: Tensor,
     sin: Tensor, points: Tensor, beam_mask: Tensor, resolution: float,
-    unknown_prob: float,
+    unknown_prob: float, log_space: bool = False,
 ) -> Tensor:
-    """Plain PyTorch version of kernel B1."""
-    inside, row, col = _cells(codes.shape, tx, ty, cos, sin, points, resolution)
+    """Plain PyTorch version of kernel B1: ``1 + Σ pz³``, or with
+    ``log_space`` ``Σ log pz`` (pallas_reweight.py:248, 306, 312)."""
+    inside, row, col = map_cells(codes.shape, tx, ty, cos, sin, points, resolution)
     pz = torch.where(inside, codebook_lookup(codes, codebook, row, col), unknown_prob)
+    if log_space:
+        return torch.sum(torch.where(beam_mask[..., None, :], torch.log(pz), 0.0), dim=-1)
     return 1.0 + torch.sum(torch.where(beam_mask[..., None, :], pz * pz * pz, 0.0), dim=-1)
 
 
 def fused_reweight_values3_reference(
     values3: Tensor, tx: Tensor, ty: Tensor, cos: Tensor, sin: Tensor,
     points: Tensor, beam_mask: Tensor, resolution: float, unknown_prob: float,
+    log_space: bool = False,
 ) -> Tensor:
     """Plain PyTorch version of kernel B4: ``1 + Σ pz³`` with in-map pz³
     read from the bf16 table and ``unknown·unknown·unknown`` off the map
-    (pallas_reweight.py:183-184, 203)."""
-    inside, row, col = _cells(values3.shape, tx, ty, cos, sin, points, resolution)
+    (pallas_reweight.py:183-184, 203), or with ``log_space`` ``Σ log pz``
+    with in-map ``log pz`` from the table and ``log(unknown)`` off it."""
+    inside, row, col = map_cells(values3.shape, tx, ty, cos, sin, points, resolution)
     u = torch.tensor(unknown_prob, dtype=torch.float32, device=tx.device)
-    pz3 = torch.where(inside, values3[row, col].float(), u * u * u)
-    return 1.0 + torch.sum(torch.where(beam_mask[..., None, :], pz3, 0.0), dim=-1)
+    off_map = torch.log(u) if log_space else u * u * u
+    pz3 = torch.where(inside, values3[row, col].float(), off_map)
+    total = torch.sum(torch.where(beam_mask[..., None, :], pz3, 0.0), dim=-1)
+    return total if log_space else 1.0 + total
 
 
 def _check(codes, codebook, tx, ty, cos, sin, points, beam_mask, values3):
@@ -156,9 +169,10 @@ def _check(codes, codebook, tx, ty, cos, sin, points, beam_mask, values3):
 def fused_reweight(
     codes: Tensor, codebook: Tensor, tx: Tensor, ty: Tensor, cos: Tensor,
     sin: Tensor, points: Tensor, beam_mask: Tensor, resolution: float,
-    unknown_prob: float, values3: Tensor | None = None,
+    unknown_prob: float, values3: Tensor | None = None, log_space: bool = False,
 ) -> Tensor:
-    """AMCL-parity weights ``1 + Σ_b pz_b³``, ``f32[..., N]``.
+    """AMCL-parity weights ``1 + Σ_b pz_b³``, or with ``log_space`` the
+    probability model's log-weights ``Σ_b log pz_b``, ``f32[..., N]``.
 
     Args:
       codes: ``uint8[H, W]`` field code table; codebook: ``f32[K]``, K <= 256.
@@ -166,18 +180,20 @@ def fused_reweight(
       points: ``f32[..., nb, 2]`` beam endpoints in the base frame;
         beam_mask: ``bool[..., nb]``, with the particles' filter axes.
       resolution, unknown_prob: float32 values as Python floats.
-      values3: ``bf16[H, W]`` from :func:`build_values3`: kernel B4 (the
-        codebook16 mode) instead of B1.
+      values3: ``bf16[H, W]`` from :func:`build_values3` (built with the
+        same ``log_space``): kernel B4 (the codebook16 mode) instead of B1.
+      log_space: the probability model's sum of logs, base 0.
     """
-    global launches, values3_launches
+    global launches, values3_launches, log_launches, values3_log_launches
     _check(codes, codebook, tx, ty, cos, sin, points, beam_mask, values3)
     if codes.device.type == "cpu":
         if values3 is not None:
             return fused_reweight_values3_reference(
-                values3, tx, ty, cos, sin, points, beam_mask, resolution, unknown_prob)
+                values3, tx, ty, cos, sin, points, beam_mask, resolution, unknown_prob,
+                log_space)
         return fused_reweight_reference(
-            codes, codebook, tx, ty, cos, sin, points, beam_mask, resolution, unknown_prob
-        )
+            codes, codebook, tx, ty, cos, sin, points, beam_mask, resolution, unknown_prob,
+            log_space)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
     h, w = codes.shape
@@ -187,7 +203,7 @@ def fused_reweight(
     stream = torch.cuda.current_stream(codes.device).cuda_stream
     particles = (tx.data_ptr(), ty.data_ptr(), cos.data_ptr(), sin.data_ptr(), n,
                  points.data_ptr(), beam_mask.data_ptr(), nb, resolution, unknown_prob,
-                 out.data_ptr(), batch, stream)
+                 out.data_ptr(), batch, int(log_space), stream)
     if values3 is None:
         err = _kernel("beluga_reweight")(
             codes.data_ptr(), h, w, codebook.data_ptr(), codebook.shape[0], *particles)
@@ -195,8 +211,12 @@ def fused_reweight(
         err = _kernel("beluga_reweight_values3")(values3.data_ptr(), h, w, *particles)
     if err != 0:
         raise RuntimeError(f"reweight kernel launch failed: cudaError {err}")
-    if values3 is None:
+    if values3 is None and log_space:
+        log_launches += 1
+    elif values3 is None:
         launches += 1
+    elif log_space:
+        values3_log_launches += 1
     else:
         values3_launches += 1
     return out

@@ -1,6 +1,6 @@
-"""Kernel B6: the windowed pose-LUT lookup.
+"""Kernel B6: the windowed pose-LUT lookup, bf16 and int8 tables.
 
-Port of ``beluga_tpu/ops/pallas_winlut.py:winlut_lookup`` for bf16 tables
+Port of ``beluga_tpu/ops/pallas_winlut.py:winlut_lookup``
 (``csrc/winlut.cu``).  :func:`winlut_lookup` launches the kernel on CUDA
 tensors and runs :func:`winlut_lookup_reference`, the plain PyTorch
 version, on CPU tensors.
@@ -18,38 +18,49 @@ pallas_winlut.py:109-112; not here).  The kernel and the plain version
 take the same float32 operations in the same order (y innermost, then θ,
 then x), so they agree bit for bit; against the reference's dot products
 the values agree to ~1e-6 relative and the miss sets are equal.
-``dynamic_span`` only changed the TPU schedule and is not reproduced;
-int8 tables wait for ROADMAP B6-int8.
+``dynamic_span`` only changed the TPU schedule and is not reproduced.
+
+**int8 tables** (B6-int8, a table ``round(L / scale)`` with a per-build
+``scale``) take the reference's int8 path (pallas_winlut.py:109-142): the y
+tent is quantized to ``round_half_even(ty · 127)``, each slab's y sum is an
+exact integer dot, ``acc = Σ_j wθ · f32(dot)``, then ``acc · (scale ·
+f32(1/127))`` and the x tent.  The kernel and its plain version
+(:func:`trilinear_int8_reference`) take the same operations in the same
+order and agree bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 Tensor = torch.Tensor
 
 MAX_PARTICLES = 2**31 - 1
+INV127 = float(np.float32(1.0 / 127.0))  # the reference's scale * (1.0 / 127.0) in float32
 
-# kernel launches since the count was last set to 0
+# kernel launches since the count was last set to 0: bf16 tables, int8 tables
 launches = 0
+int8_launches = 0
 
-_fn = None
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(int8: bool = False):
+    name = "beluga_winlut_lookup_int8" if int8 else "beluga_winlut_lookup"
+    fn = _fns.get(name)
+    if fn is None:
         from beluga_tpu_torch.ops._build import load_library
 
-        fn = load_library("winlut").beluga_winlut_lookup
+        fn = getattr(load_library("winlut"), name)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, i, i, i, p, p, p, i, i, p, f, p, p]
+        fn.argtypes = [p, i, i, i, i, p, p, p, i, i, p, f] + ([p, f] if int8 else []) + [p, p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def floor_mod(a: Tensor, b: Tensor) -> Tensor:
@@ -106,22 +117,63 @@ def trilinear_reference(values_t: Tensor, xf: Tensor, yf: Tensor, t: Tensor, t_l
     return torch.where(valid, base + val, miss)
 
 
+def trilinear_int8_reference(values_t: Tensor, xf: Tensor, yf: Tensor, t: Tensor,
+                             t_lo: Tensor, tblk: int, miss, base, scale) -> Tensor:
+    """:func:`trilinear_reference` over an int8 table in the reference's
+    int8 arithmetic: integer y dots with the quantized y tent, the θ lerp,
+    ``· (scale · f32(1/127))``, then the x lerp."""
+    _, wx, wy = values_t.shape
+    dev = xf.device
+    k0rel = torch.floor(t) - t_lo
+    valid = ((xf >= 0.0) & (xf <= wx - 1) & (yf >= 0.0) & (yf <= wy - 1)
+             & (k0rel >= 0.0) & (k0rel <= tblk - 2))
+    u = t - t_lo
+    x0f, y0f = torch.floor(xf), torch.floor(yf)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    ix = torch.where(valid, x0f, zero).long()
+    iy = torch.where(valid, y0f, zero).long()
+    jt = torch.where(valid, t_lo + k0rel, zero).long()
+    ix1, iy1 = torch.clamp_max(ix + 1, wx - 1), torch.clamp_max(iy + 1, wy - 1)
+    flat = values_t.reshape(-1)
+    q0 = torch.round(_tent(yf, y0f) * 127.0).to(torch.int32)
+    q1 = torch.round(_tent(yf, y0f + 1.0) * 127.0).to(torch.int32)
+    tt0, tt1 = _tent(u, k0rel), _tent(u, k0rel + 1.0)
+    tx0, tx1 = _tent(xf, x0f), _tent(xf, x0f + 1.0)
+    step = torch.as_tensor(scale, dtype=torch.float32, device=dev) * torch.tensor(
+        INV127, dtype=torch.float32, device=dev)
+
+    def dot(j, x):
+        row = (j * wx + x) * wy
+        return (flat[row + iy].to(torch.int32) * q0 + flat[row + iy1].to(torch.int32) * q1).float()
+
+    def along_theta(x):
+        return (tt0 * dot(jt, x) + tt1 * dot(jt + 1, x)) * step
+
+    val = tx0 * along_theta(ix) + tx1 * along_theta(ix1)
+    return torch.where(valid, base + val, miss)
+
+
 def winlut_lookup_reference(values_t: Tensor, xi: Tensor, yi: Tensor, t: Tensor, miss,
-                            base: float = 1.0, tile: int = 512, tblk: int = 16) -> Tensor:
+                            base: float = 1.0, tile: int = 512, tblk: int = 16,
+                            scale=None) -> Tensor:
     """Plain PyTorch version of kernel B6: the tile reshape, the per-tile
-    minimum and the eight gathers."""
+    minimum and the eight reads (int8 tables with their ``scale``)."""
     k = values_t.shape[0]
     tblk = min(tblk, k)
     n = xi.shape[0]
     n_pad = -(-n // tile) * tile
     t_lo = slab_bases(F.pad(t, (0, n_pad - n), value=-1.0), k, tblk, tile)[:n]
+    if values_t.dtype == torch.int8:
+        return trilinear_int8_reference(values_t, xi, yi, t, t_lo, tblk, miss, base, scale)
     return trilinear_reference(values_t, xi, yi, t, t_lo, tblk, miss, base)
 
 
-def _check(values_t, xi, yi, t, tile, tblk):
-    if values_t.dtype != torch.bfloat16 or values_t.dim() != 3:
-        raise ValueError(f"values_t must be bfloat16[K, Wx, Wy], got "
-                         f"{values_t.dtype}{list(values_t.shape)} (int8 tables: ROADMAP B6-int8)")
+def _check(values_t, xi, yi, t, tile, tblk, scale):
+    if values_t.dtype not in (torch.bfloat16, torch.int8) or values_t.dim() != 3:
+        raise ValueError(f"values_t must be bfloat16 or int8 [K, Wx, Wy], got "
+                         f"{values_t.dtype}{list(values_t.shape)}")
+    if (values_t.dtype == torch.int8) != (scale is not None):
+        raise ValueError("an int8 table needs its scale, and only an int8 table takes one")
     n = xi.shape[0] if xi.dim() == 1 else -1
     for name, v in (("values_t", values_t), ("xi", xi), ("yi", yi), ("t", t)):
         if v.device != values_t.device:
@@ -137,33 +189,45 @@ def _check(values_t, xi, yi, t, tile, tblk):
 
 
 def winlut_lookup(values_t: Tensor, xi: Tensor, yi: Tensor, t: Tensor, miss,
-                  base: float = 1.0, tile: int = 512, tblk: int = 16) -> Tensor:
+                  base: float = 1.0, tile: int = 512, tblk: int = 16, scale=None) -> Tensor:
     """Evaluate ``base + lerp_θ(L[t, xi, yi])`` per particle, ``f32[N]``.
 
     Args:
-      values_t: ``bf16[K, Wx, Wy]`` x-major windowed LUT.
+      values_t: ``bf16[K, Wx, Wy]`` x-major windowed LUT, or its int8
+        quantization (entry · ``scale`` is the value).
       xi, yi: ``f32[N]`` fractional window cells; t: ``f32[N]`` fractional
         θ bins.  Slots should be θ-sorted so that a tile spans at most
         ``tblk - 1`` bins; particles above their tile's slab score miss.
       miss: replacement weight outside (a float or a 0-d tensor, which may
         live on the device); base: additive base (1.0 for ``1 + Σ pz³``).
       tile: slots per tile; tblk: θ-slab depth (clipped to K).
+      scale: an int8 table's quantization step (a float or a 0-d tensor,
+        which may live on the device); None for a bf16 table.
     """
-    global launches
-    _check(values_t, xi, yi, t, tile, tblk)
+    global launches, int8_launches
+    _check(values_t, xi, yi, t, tile, tblk, scale)
     if values_t.device.type == "cpu":
-        return winlut_lookup_reference(values_t, xi, yi, t, miss, base, tile, tblk)
+        return winlut_lookup_reference(values_t, xi, yi, t, miss, base, tile, tblk, scale)
     if values_t.device.type != "cuda":
         raise ValueError(f"unsupported device {values_t.device}")
     k, wx, wy = values_t.shape
     n = xi.shape[0]
-    miss_t = torch.as_tensor(miss, dtype=torch.float32, device=values_t.device).reshape(1)
-    out = torch.empty(n, dtype=torch.float32, device=values_t.device)
-    stream = torch.cuda.current_stream(values_t.device).cuda_stream
-    err = _kernel()(values_t.data_ptr(), k, wx, wy, min(tblk, k), xi.data_ptr(),
-                    yi.data_ptr(), t.data_ptr(), n, tile, miss_t.data_ptr(), float(base),
-                    out.data_ptr(), stream)
+    dev = values_t.device
+    miss_t = torch.as_tensor(miss, dtype=torch.float32, device=dev).reshape(1)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = (values_t.data_ptr(), k, wx, wy, min(tblk, k), xi.data_ptr(), yi.data_ptr(),
+            t.data_ptr(), n, tile, miss_t.data_ptr(), float(base))
+    int8 = values_t.dtype == torch.int8
+    if int8:
+        scale_t = torch.as_tensor(scale, dtype=torch.float32, device=dev).reshape(1)
+        err = _kernel(True)(*head, scale_t.data_ptr(), INV127, out.data_ptr(), stream)
+    else:
+        err = _kernel()(*head, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"winlut kernel launch failed: cudaError {err}")
-    launches += 1
+    if int8:
+        int8_launches += 1
+    else:
+        launches += 1
     return out

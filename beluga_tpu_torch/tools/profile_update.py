@@ -2,7 +2,8 @@
 workloads under ``torch.profiler``.
 
     python -m beluga_tpu_torch.tools.profile_update [--scans 20] [--trace-dir DIR]
-        [--workloads node,large,fleet,mega,windowed,beam_node,long_range,beam_fleet]
+        [--workloads node,large,fleet,mega,windowed,beam_node,long_range,beam_fleet,
+                     prob_node,shared_scan,prob_fleet,windowed_int8]
 
 Workloads, the configurations of ``tools/workloads.py`` (which
 ``chip_smoke.py`` drives too):
@@ -26,7 +27,15 @@ Workloads, the configurations of ``tools/workloads.py`` (which
 * ``long_range``: the long-range sphere-trace filter, 2048 particles x 60
   beams on the 1024² map at 60 m (kernel B8), forced updates;
 * ``beam_fleet``: 64 filters x 4096 particles x 60 beams through the
-  windowed range LUT (kernel B7).
+  windowed range LUT (kernel B7);
+* ``prob_node``: ``AmclNode`` with nav2's probability model at nav2
+  defaults (kernel B1-log);
+* ``shared_scan``: one 262144-particle filter through the shared-scan LUT,
+  rebuilt by kernel B9 before every forced update (the ``prepare`` stage);
+* ``prob_fleet``: the fleet in the probability model's codebook16 mode
+  (kernel B4-log);
+* ``windowed_int8``: the windowed filter on int8 window tables (kernel
+  B6-int8).
 
 After a warm-up each workload runs ``--scans`` scans on the host clock
 (wall ms per update, a synchronize after the last), then ``--scans`` more
@@ -55,7 +64,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from beluga_tpu_torch.tools import workloads
 
 STAGES = ("propagate", "log_weight", "random_state", "hash_state", "estimate", "sort_key",
-          "fused_propagate_reweight")
+          "fused_propagate_reweight", "prepare")
 # PyTorch operators whose device time the profile reports by name, to see
 # how they scale with the particle count
 OPS = ("aten::cummax", "aten::sort", "aten::cumsum", "aten::matmul", "aten::index_select")
@@ -73,7 +82,7 @@ def _ranged(models):
 
     models = models._replace(sort_key=models.sort_key or se2_sort_key)
     return models._replace(**{s: wrap(s, getattr(models, s)) for s in STAGES
-                              if getattr(models, s) is not None})
+                              if getattr(models, s, None) is not None})
 
 
 def _node(scans: int, **overrides):
@@ -127,7 +136,8 @@ def _fleet(scans: int, make_workload=workloads.fleet):
 
 def _forced(make_workload, sort_every: int | None):
     """A single filter stepped with ``force_update`` on every scan and, with
-    ``sort_every``, ``sort_now`` on every ``sort_every``-th."""
+    ``sort_every``, ``sort_now`` on every ``sort_every``-th; a shared-scan
+    workload's ``prepare`` builds the scan's LUT first."""
     from beluga_tpu_torch.filters.amcl import host_pose, update
 
     def make(scans: int):
@@ -137,7 +147,11 @@ def _forced(make_workload, sort_every: int | None):
 
         def step(t):
             sort_now = None if sort_every is None else t % sort_every == 0
-            box["state"], est = update(w.params, models, w.ctx,
+            ctx = w.ctx
+            if w.prepare is not None:
+                with record_function("prepare"):
+                    ctx = w.prepare(ctx, w.points[t], w.mask[t])
+            box["state"], est = update(w.params, models, ctx,
                                        box["state"]._replace(force_update=True),
                                        host_pose(s.xs[t], s.ys[t], s.yaws[t]), w.points[t],
                                        w.mask[t], sort_now=sort_now)
@@ -154,7 +168,13 @@ WORKLOADS = {"node": _node, "large": _large, "fleet": _fleet,
              "beam_node": lambda scans: _node(scans, laser_model_type="beam",
                                               beam_fast_path="sphere_trace"),
              "long_range": _forced(workloads.long_range, None),
-             "beam_fleet": lambda scans: _fleet(scans, workloads.beam_fleet)}
+             "beam_fleet": lambda scans: _fleet(scans, workloads.beam_fleet),
+             "prob_node": lambda scans: _node(scans, laser_model_type="likelihood_field_prob"),
+             "shared_scan": _forced(workloads.shared_scan, None),
+             "prob_fleet": lambda scans: _fleet(
+                 scans, lambda n, dev: workloads.fleet(n, dev, prob_model=True)),
+             "windowed_int8": _forced(
+                 lambda n, dev: workloads.windowed(n, dev, table_dtype="int8"), None)}
 
 
 def profile_workload(name: str, make, scans: int, warmup: int, trace_dir: str | None) -> dict:

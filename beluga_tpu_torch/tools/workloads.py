@@ -28,7 +28,17 @@ beams per scan:
   ``beam_fast_path`` modes;
 * :func:`beam_fleet`: ``bench.py:678-720``, 64 filters x 4096 particles
   through the windowed range LUT (kernel B7), ``beam_max_range`` 4 m, 128
-  bearing bins, θ-sorted slots, a fixed count, multinomial resampling.
+  bearing bins, θ-sorted slots, a fixed count, multinomial resampling;
+* :func:`node_config` with ``laser_model_type="likelihood_field_prob"``:
+  the probability-model node at nav2 defaults (kernel B1-log);
+* :func:`shared_scan`: ``bench.py:916-955``, one filter of 262144
+  particles, KLD down to 65536, systematic resampling, through the
+  shared-scan LUT (kernel B9: 128 bins, 4 m, nearest sampling, downsample
+  2), the LUT rebuilt by ``Workload.prepare`` before every update;
+* :func:`fleet` with ``prob_model=True``: the fleet in the probability
+  model's codebook16 mode (kernel B4-log);
+* :func:`windowed` with ``table_dtype="int8"``: the windowed filter on
+  int8 window tables (kernel B6-int8).
 
 :func:`long_range` runs elsewhere: the JAX package's long-range beam row
 (``benchmarks/REPORT.md:175-185``, ``tests/test_system_long_range.py``), a
@@ -60,6 +70,9 @@ MEGA_FILTER = dict(k_bins=20, win=(32, 128), dth=2.0 * np.pi / 64.0, max_point_r
 WINDOWED_FILTER = dict(k_bins=64, win=128, dth=2.0 * np.pi / 128.0, max_point_radius=3.6,
                        tile=512, tblk=16, recovery_candidates=RECOVERY_CANDIDATES,
                        coverage_threshold=0.98, exact_tail_frac=0.125)
+SHARED_SCAN_N, SHARED_SCAN_MIN = 262144, 65536  # bench.py:926, :933
+SHARED_SCAN_FILTER = dict(n_theta=128, max_point_radius=4.0, lut_build="pallas",
+                          lut_build_kwargs=dict(sampling="nearest", downsample=2))  # :928-932
 
 
 class Scans(NamedTuple):
@@ -76,7 +89,8 @@ class Scans(NamedTuple):
 class Workload(NamedTuple):
     """A filter configuration ready to step: per scan ``t``, update with
     odometry ``(xs[t], ys[t], yaws[t])`` and ``points[t]``, ``mask[t]`` (on
-    the device; ``[B, BEAMS, ...]`` per scan for a fleet)."""
+    the device; ``[B, BEAMS, ...]`` per scan for a fleet), on the ctx that
+    ``prepare(ctx, points[t], mask[t])`` returns where there is one."""
 
     scans: Scans
     points: torch.Tensor
@@ -85,6 +99,7 @@ class Workload(NamedTuple):
     models: Any  # AmclModels
     ctx: dict
     state: Any  # AmclState
+    prepare: Any = None  # the shared-scan filter's per-scan LUT build
 
 
 # tests/test_system_long_range.py:40-57, benchmarks/REPORT.md:175-185
@@ -135,7 +150,31 @@ def large_filter(scans: int, device, n: int = 262144, n_min: int = 65536) -> Wor
                     params, models, ctx, init_state(gen, states, params, device=device))
 
 
-def fleet(scans: int, device, batch: int = 64, n: int = 4096) -> Workload:
+def shared_scan(scans: int, device, n: int = SHARED_SCAN_N,
+                n_min: int = SHARED_SCAN_MIN) -> Workload:
+    """The shared-scan filter of ``bench.py:916-955``; before each update
+    call ``prepare`` on the scan (the bench folds the build into its step)
+    and step with ``force_update=True``."""
+    from beluga_tpu_torch.core.random import sample_normal_se2
+    from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_state
+    from beluga_tpu_torch.filters.builders import make_shared_scan_filter
+    from beluga_tpu_torch.maps.occupancy import make_grid
+
+    s = arena_scans(scans)
+    models, ctx, prepare = make_shared_scan_filter(make_grid(s.data, RES, device=device),
+                                                   device=device, **SHARED_SCAN_FILTER)
+    params = AmclParams(max_particles=n, min_particles=n_min, resampling="systematic")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    states = sample_normal_se2(gen, n, host_pose(s.xs[0], s.ys[0], s.yaws[0]), INITIAL_COV)
+    return Workload(s, torch.as_tensor(s.points).to(device), torch.as_tensor(s.mask).to(device),
+                    params, models, ctx, init_state(gen, states, params, device=device), prepare)
+
+
+def fleet(scans: int, device, batch: int = 64, n: int = 4096,
+          prob_model: bool = False) -> Workload:
+    """The codebook16 fleet; ``prob_model`` scores it with the probability
+    model (its ``bf16(log pz)`` table, kernel B4-log)."""
     from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_fleet_state
     from beluga_tpu_torch.filters.builders import make_likelihood_field_filter
     from beluga_tpu_torch.maps.occupancy import make_grid
@@ -144,7 +183,7 @@ def fleet(scans: int, device, batch: int = 64, n: int = 4096) -> Workload:
     pts = torch.as_tensor(s.points).to(device)[:, None].expand(scans, batch, BEAMS, 2)
     mask = torch.as_tensor(s.mask).to(device)[:, None].expand(scans, batch, BEAMS)
     models, ctx = make_likelihood_field_filter(make_grid(s.data, RES, device=device),
-                                               lookup_mode="codebook16",
+                                               prob_model=prob_model, lookup_mode="codebook16",
                                                recovery_candidates=RECOVERY_CANDIDATES,
                                                device=device)
     params = AmclParams(max_particles=n, min_particles=n, sorted_slots=True)
@@ -183,11 +222,12 @@ def mega(scans: int, device, n: int | None = None) -> Workload:
                           dict(recovery_pool=4096, selective_resampling=True))
 
 
-def windowed(scans: int, device, n: int | None = None) -> Workload:
+def windowed(scans: int, device, n: int | None = None, table_dtype: str = "bf16") -> Workload:
     """The coverage-gated windowed filter (``bench.py:886-891``) of ``n``
-    (default :data:`WINDOWED_N`) particles; step it with
-    ``force_update=True``."""
-    return _sorted_filter(scans, device, WINDOWED_N if n is None else n, 4, WINDOWED_FILTER, {})
+    (default :data:`WINDOWED_N`) particles, on bf16 or int8 window tables;
+    step it with ``force_update=True``."""
+    return _sorted_filter(scans, device, WINDOWED_N if n is None else n, 4,
+                          {**WINDOWED_FILTER, "table_dtype": table_dtype}, {})
 
 
 def long_range(scans: int, device) -> Workload:

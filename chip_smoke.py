@@ -51,14 +51,30 @@ Phases, each of which exits non-zero when it fails:
 11. beam fleet: 64 filters x 4096 particles x 60 beams through the
    windowed range LUT (``bench.py:678-720``) for 40 scans, every filter
    within the gate; B7 once per update, B1 and B4 never, R1 during the
-   build (its time printed).
+   build (its time printed);
+12. prob node: ``AmclNode`` with nav2's probability model
+   (``laser_model_type="likelihood_field_prob"``) at nav2 defaults for 50
+   scans, same gate; B1-log on every update, the cube B1 never;
+13. shared scan: the shared-scan filter of ``bench.py:916-955``, 262144
+   particles, KLD down to 65536, the LUT (128 bins, 4 m, nearest,
+   downsample 2) rebuilt before each of 40 forced updates, same gate; B9
+   once per update, B1 and B4 (either mode) never; prints ms/update,
+   particle-updates/s and the LUT build's share;
+14. prob fleet: the fleet in the probability model's codebook16 mode for
+   20 scans, every filter within the gate; B4-log once per update;
+15. windowed int8: the windowed filter on int8 window tables for 20
+   forced updates, same gate; B6-int8 at least once, B1 on every update.
 
 Phase 3 also holds kernels B8 (the node's 2000 x 60 at 100 m and the
 long-range 2048 x 60 at 60 m), B7 (64 x 4096 x 60, K = 128, θ-sorted slots
 with strays) and R1 (the node's 2000 x 60 rays at 100 m and the LUT
-build's 128 x 384 x 384 rays at 4 m) against their plain versions.
+build's 128 x 384 x 384 rays at 4 m) against their plain versions, and
+slice 5's: B9 (nearest at the shared-scan shape, 128 x 280 x 384, and
+bilinear at full resolution, 128 x 552 x 640, beside ``conv2d``), B1-log
+(2000 x 60 and 64 x 4096 x 60), B4-log (64 x 4096 x 60) and B6-int8
+(262144 particles, [64, 128, 128]).
 
-Phases 4 to 11 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
+Phases 4 to 15 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The line before the last two is the ``kernels`` JSON; the line
@@ -86,6 +102,12 @@ PEAK_F32_PER_S = 67e12
 # reads the cube from its table
 B1_OPS_PER_BEAM = 13
 B4_OPS_PER_BEAM = 11
+# B1-log: the transform and divisions (10), a log counted as 10, the sum;
+# B4-log reads the log from its table, as B4
+B1_LOG_OPS_PER_BEAM = 21
+# float32 operations per (output cell, unmasked beam) of kernel B9: nearest
+# a multiply and an add; bilinear the x lerp (3), two products and two sums
+B9_OPS = {"nearest": 2, "bilinear": 7}
 # float32 operations per particle of kernel B6: 6 tents of 3, 14 products
 # and 7 sums of the trilinear read, the base; kernel B5 adds the motion
 # sample, the window affine and the heading bin (~40 with sincos counted
@@ -103,6 +125,8 @@ FLEET_B, FLEET_N, FLEET_SCANS = 64, 4096, 40  # bench.py:46-49
 MEGA_SCANS, MEGA_LAST, MEGA_LAST_GATE_M = 64, 32, 0.35  # bench.py:364-377
 WINDOWED_SCANS = 40
 BEAM_NODE_SCANS, LONG_RANGE_SCANS, LONG_RANGE_WARMUP, BEAM_FLEET_SCANS = 30, 40, 2, 40
+SHARED_SCAN_SCANS, PROB_FLEET_SCANS, WINDOWED_INT8_SCANS = 40, 20, 20
+LIBRARY_LIMIT_MS = 1000.0  # a library yardstick slower than this per call is not timed
 # float32 operations per (particle, unmasked beam) of the beam mixture, with
 # exp counted as 10: two A&S erfs of ~28, eta_hit 6, the Gaussian 17, the
 # short term 26, the rest 6; kernel B7 adds the bin and the blend (12),
@@ -241,7 +265,11 @@ def single_beam(mask: torch.Tensor) -> torch.Tensor:
     return one
 
 
-def check_reweight(n: int, dev, iters: int, batch: int | None = None) -> tuple[dict, dict]:
+def check_reweight(n: int, dev, iters: int, batch: int | None = None,
+                   log_space: bool = False) -> tuple[dict, dict]:
+    """Kernel B1, or with ``log_space`` B1-log (the probability model's
+    ``Σ log pz``): single-beam weights equal to the plain version's, the
+    full beam sum within rtol 1e-5 (and atol 1e-5 in log space)."""
     from beluga_tpu_torch.ops import cuda_reweight as b1
 
     w = workload(n, dev, batch)
@@ -249,82 +277,94 @@ def check_reweight(n: int, dev, iters: int, batch: int | None = None) -> tuple[d
     field = w["ctx"]["field"]
     args = lambda mask: (codes, book, *w["tf"], w["points"], mask,  # noqa: E731
                          field.resolution, field.unknown_prob)
+    name = "B1-log" if log_space else "B1"
 
     # cell exactness: one unmasked beam, so the beam-sum order cannot
     # matter; any cell index that moved reads another codebook value
     one = single_beam(w["mask"])
-    got1 = b1.fused_reweight(*args(one))
-    want1 = b1.fused_reweight_reference(*args(one))
+    got1 = b1.fused_reweight(*args(one), log_space=log_space)
+    want1 = b1.fused_reweight_reference(*args(one), log_space=log_space)
     torch.cuda.synchronize()
     label = shape_label(w, n)
     check(torch.equal(got1, want1),
-          f"B1 {label} single beam: {int((got1 != want1).sum())} weights differ")
+          f"{name} {label} single beam: {int((got1 != want1).sum())} weights differ")
 
-    got = b1.fused_reweight(*args(w["mask"]))
-    want = b1.fused_reweight_reference(*args(w["mask"]))
+    got = b1.fused_reweight(*args(w["mask"]), log_space=log_space)
+    want = b1.fused_reweight_reference(*args(w["mask"]), log_space=log_space)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), "B1 weights not finite")
-    check(torch.allclose(got, want, rtol=1e-5, atol=0),
-          f"B1 {label}: max rel err {float(((got - want).abs() / want).max()):.3g} > 1e-5")
+    check(bool(torch.isfinite(got).all()), f"{name} weights not finite")
+    atol = 1e-5 if log_space else 0.0
+    check(torch.allclose(got, want, rtol=1e-5, atol=atol),
+          f"{name} {label}: max err {float((got - want).abs().max()):.3g} > rtol 1e-5")
     err = float((got - want).abs().max())
-    w["b1_weights"] = got
+    w["log_weights" if log_space else "b1_weights"] = got
 
-    times = timings(lambda: b1.fused_reweight(*args(w["mask"])),
-                    lambda: b1.fused_reweight_reference(*args(w["mask"])), iters)
+    times = timings(lambda: b1.fused_reweight(*args(w["mask"]), log_space=log_space),
+                    lambda: b1.fused_reweight_reference(*args(w["mask"]), log_space=log_space),
+                    iters)
     h, wd = codes.shape
     total, filters = w["tf"][0].numel(), batch or 1
     nb = w["points"].shape[-2]
     unmasked = int(w["mask"].sum())  # over every filter
     nbytes = h * wd + 4 * book.numel() + 16 * total + 9 * nb * filters + 4 * total
-    bms, by = bound_ms(nbytes, B1_OPS_PER_BEAM * n * unmasked)
+    ops = B1_LOG_OPS_PER_BEAM if log_space else B1_OPS_PER_BEAM
+    bms, by = bound_ms(nbytes, ops * n * unmasked)
+    replaces = "beluga_tpu/ops/pallas_reweight.py:390" + (" (log_space=True)" if log_space else "")
     return dict(
-        name="B1 fused_reweight", route="cuda", source="beluga_tpu_torch/csrc/reweight.cu",
-        replaces="beluga_tpu/ops/pallas_reweight.py:390", max_abs_err=err,
-        bound_ms=bms, bound_by=by, shape=label, **times,
+        name=f"{name} fused_reweight", route="cuda", source="beluga_tpu_torch/csrc/reweight.cu",
+        replaces=replaces, max_abs_err=err, bound_ms=bms, bound_by=by, shape=label, **times,
     ), w
 
 
-def check_codebook16(n: int, w: dict, iters: int) -> dict:
+def check_codebook16(n: int, w: dict, iters: int, log_space: bool = False) -> dict:
     """Kernel B4 on ``check_reweight``'s inputs: single-beam weights equal,
     60-beam weights within rtol 1e-5 of its plain version and within 5e-3
-    of B1's exact weights."""
+    of B1's exact weights.  With ``log_space``, B4-log on its ``bf16(log
+    pz)`` table against B1-log: within 2^-7 of the log-weight's magnitude
+    (bf16 keeps 8 significant bits)."""
     from beluga_tpu_torch.ops import cuda_reweight as b1
 
     codes, book = w["ctx"]["field_codes"]
     field = w["ctx"]["field"]
-    v3 = b1.build_values3(codes, book)
+    v3 = b1.build_values3(codes, book, log_space=log_space)
+    name = "B4-log" if log_space else "B4"
 
     def kernel(mask):
         return b1.fused_reweight(codes, book, *w["tf"], w["points"], mask, field.resolution,
-                                 field.unknown_prob, values3=v3)
+                                 field.unknown_prob, values3=v3, log_space=log_space)
 
     def plain(mask):
         return b1.fused_reweight_values3_reference(v3, *w["tf"], w["points"], mask,
-                                                   field.resolution, field.unknown_prob)
+                                                   field.resolution, field.unknown_prob,
+                                                   log_space=log_space)
 
     label = shape_label(w, n)
     one = single_beam(w["mask"])
     got1, want1 = kernel(one), plain(one)
     torch.cuda.synchronize()
     check(torch.equal(got1, want1),
-          f"B4 {label} single beam: {int((got1 != want1).sum())} weights differ")
+          f"{name} {label} single beam: {int((got1 != want1).sum())} weights differ")
     got, want = kernel(w["mask"]), plain(w["mask"])
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), "B4 weights not finite")
-    check(torch.allclose(got, want, rtol=1e-5, atol=0),
-          f"B4 {label}: max rel err {float(((got - want).abs() / want).max()):.3g} > 1e-5")
-    rel_b1 = float(((got - w["b1_weights"]).abs() / w["b1_weights"]).max())
-    check(rel_b1 < 5e-3, f"B4 {label}: {rel_b1:.3g} relative to B1's exact weights")
+    check(bool(torch.isfinite(got).all()), f"{name} weights not finite")
+    atol = 1e-5 if log_space else 0.0
+    check(torch.allclose(got, want, rtol=1e-5, atol=atol),
+          f"{name} {label}: max err {float((got - want).abs().max()):.3g} > rtol 1e-5")
+    exact = w["log_weights" if log_space else "b1_weights"]
+    rel_b1 = float(((got - exact).abs() / exact.abs()).max())
+    limit = 2.0**-7 if log_space else 5e-3
+    check(rel_b1 < limit, f"{name} {label}: {rel_b1:.3g} relative to the exact weights")
     times = timings(lambda: kernel(w["mask"]), lambda: plain(w["mask"]), iters)
     h, wd = codes.shape
     total, filters = w["tf"][0].numel(), (w["lead"][0] if w["lead"] else 1)
     nb = w["points"].shape[-2]
     nbytes = 2 * h * wd + 16 * total + 9 * nb * filters + 4 * total
     bms, by = bound_ms(nbytes, B4_OPS_PER_BEAM * n * int(w["mask"].sum()))
+    replaces = "beluga_tpu/ops/pallas_reweight.py:390 (values3=, build_values3:364" + (
+        ", log_space=True)" if log_space else ")")
     return dict(
-        name="B4 fused_reweight values3", route="cuda",
-        source="beluga_tpu_torch/csrc/reweight.cu",
-        replaces="beluga_tpu/ops/pallas_reweight.py:390 (values3=, build_values3:364)",
+        name=f"{name} fused_reweight values3", route="cuda",
+        source="beluga_tpu_torch/csrc/reweight.cu", replaces=replaces,
         max_abs_err=float((got - want).abs().max()), rel_to_b1=rel_b1,
         bound_ms=bms, bound_by=by, shape=label, **times,
     )
@@ -420,7 +460,7 @@ def resample_inputs(n: int, dev) -> dict:
     return dict(lead=(), b1_weights=weights, states=SE2.from_xytheta(xyt[0], xyt[1], xyt[2]))
 
 
-def window_inputs(w, cfg: dict, stray_every: int = 20):
+def window_inputs(w, cfg: dict, stray_every: int = 20, table_dtype: str = "bf16"):
     """The workload's θ-sorted cloud with every ``stray_every``-th slot moved
     5 m off (it scores miss), and the window LUT of its first scan about the
     cloud's mean, built as the filter builds it."""
@@ -434,8 +474,9 @@ def window_inputs(w, cfg: dict, stray_every: int = 20):
     ct = torch.atan2(torch.mean(st.rot.sin), torch.mean(st.rot.cos))
     geo = {k: v for k, v in cfg.items() if k in ("k_bins", "win", "dth", "max_point_radius")}
     lut = build_windowed_scan_lut(w.ctx["field"], w.points[0], w.mask[0], torch.mean(st.x),
-                                  torch.mean(st.y), ct, padded_cubed=w.ctx["field_pad3"],
-                                  dft=w.ctx["winlut_dft"], **geo)
+                                  torch.mean(st.y), ct, table_dtype=table_dtype,
+                                  padded_cubed=w.ctx["field_pad3"], dft=w.ctx["winlut_dft"],
+                                  **geo)
     return states, lut
 
 
@@ -493,6 +534,155 @@ def check_winlut(dev, iters: int) -> dict:
         replaces="beluga_tpu/ops/pallas_winlut.py:157", max_abs_err=float((got - want).abs().max()),
         bound_ms=bms, bound_by=by, shape=label, slabs=slabs, misses=int(miss_got.sum()),
         grid_sample_max_rel=lib_rel, **times,
+    )
+
+
+def check_winlut_int8(dev, iters: int) -> dict:
+    """Kernel B6-int8 at the windowed filter's geometry on an int8 window
+    table (the same cloud and scan as ``check_winlut``): bit-equal to its
+    plain version, timed beside it (``grid_sample`` on the dequantized
+    table as the yardstick)."""
+    import torch.nn.functional as F
+
+    from beluga_tpu_torch.models.sensor.likelihood_field_winlut import windowed_coords
+    from beluga_tpu_torch.ops import cuda_winlut as b6
+    from beluga_tpu_torch.tools import workloads
+
+    cfg = workloads.WINDOWED_FILTER
+    states, lut = window_inputs(workloads.windowed(1, dev, table_dtype="int8"), cfg,
+                                table_dtype="int8")
+    tile, tblk = cfg["tile"], cfg["tblk"]
+    xi, yi, t = (v.contiguous() for v in windowed_coords(lut, states))
+    k, wx, wy = lut.values_t.shape
+    args = (lut.values_t, xi, yi, t, lut.miss, 1.0, tile, tblk)
+    got = b6.winlut_lookup(*args, scale=lut.scale)
+    want = b6.winlut_lookup_reference(*args, scale=lut.scale)
+    torch.cuda.synchronize()
+    n = xi.numel()
+    label = f"{n} particles, [{k}, {wx}, {wy}] int8, tile {tile}, tblk {tblk}"
+    check(lut.values_t.dtype == torch.int8, "B6-int8: the table is not int8")
+    check(bool(torch.isfinite(got).all()), "B6-int8 weights not finite")
+    check(torch.equal(got, want),
+          f"B6-int8 {label}: {int((got != want).sum())} weights differ from the plain version")
+    miss = got == lut.miss
+    check(0 < int(miss.sum()) < n // 10, f"B6-int8 {label}: {int(miss.sum())} misses")
+    vol = (lut.values_t.float() * lut.scale)[None, None].contiguous()
+    grid = torch.stack([2 * yi / (wy - 1) - 1, 2 * xi / (wx - 1) - 1, 2 * t / (k - 1) - 1],
+                       -1)[None, None, None].contiguous()
+
+    def library():
+        return F.grid_sample(vol, grid, mode="bilinear", align_corners=True)
+
+    times = timings(lambda: b6.winlut_lookup(*args, scale=lut.scale),
+                    lambda: b6.winlut_lookup_reference(*args, scale=lut.scale), iters,
+                    library=library)
+    hit = ~miss
+    bms, by = bound_ms(16 * n + lut.values_t.numel(), B6_OPS_PER_PARTICLE * int(hit.sum()))
+    return dict(
+        name="B6-int8 winlut_lookup", route="cuda", source="beluga_tpu_torch/csrc/winlut.cu",
+        replaces="beluga_tpu/ops/pallas_winlut.py:157 (int8 table, :109-142)",
+        max_abs_err=float((got - want).abs().max()), bound_ms=bms, bound_by=by, shape=label,
+        misses=int(miss.sum()), **times,
+    )
+
+
+def scan_lut_conv_weight(ox, oy, mask, sampling: str, radius: int) -> torch.Tensor:
+    """``f32[K, 1, 2R+2, 2R+2]``: each beam's sampling weights scattered
+    (summed) at its offset, so that a cross-correlation of the circularly
+    padded field with it is B9's output (the library yardstick only)."""
+    k, nb = ox.shape
+    dev = ox.device
+    m = mask[None, :].to(torch.float32).expand(k, nb)
+    if sampling == "nearest":
+        taps = [(torch.round(oy), torch.round(ox), m)]
+    else:
+        fx, fy = torch.floor(ox), torch.floor(oy)
+        ax, ay = ox - fx, oy - fy
+        taps = [(fy, fx, m * (1 - ax) * (1 - ay)), (fy, fx + 1, m * ax * (1 - ay)),
+                (fy + 1, fx, m * (1 - ax) * ay), (fy + 1, fx + 1, m * ax * ay)]
+    size = 2 * radius + 2
+    weight = torch.zeros((k, size, size), dtype=torch.float32, device=dev)
+    kk = torch.arange(k, device=dev)[:, None].expand(k, nb)
+    for iy, ix, wt in taps:
+        weight.index_put_((kk, iy.long() + radius, ix.long() + radius), wt, accumulate=True)
+    return weight[:, None]
+
+
+def check_scan_lut(dev, iters: int, sampling: str, downsample: int) -> dict:
+    """Kernel B9 on the arena's padded pz³ field and first scan: the
+    shared-scan filter's shape (nearest, downsample 2: K 128 x 280 x 384)
+    or full resolution (bilinear: 128 x 552 x 640); bit-equal to its plain
+    version, timed beside it and beside ``conv2d`` on the circularly padded
+    field (TF32 off), the library yardstick the port never calls, when one
+    call of it takes under LIBRARY_LIMIT_MS."""
+    import torch.nn.functional as F
+
+    from beluga_tpu_torch.filters.builders import make_likelihood_field_filter
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.models.sensor.likelihood_field_lut import scan_lut_padded
+    from beluga_tpu_torch.ops import cuda_scan_lut as b9
+    from beluga_tpu_torch.tools import workloads
+
+    cfg = workloads.SHARED_SCAN_FILTER
+    s = workloads.arena_scans(1)
+    _, ctx = make_likelihood_field_filter(make_grid(s.data, workloads.RES, device=dev),
+                                          lookup_mode="gather", device=dev)
+    field = ctx["field"]
+    padded, _ = scan_lut_padded(field, cfg["max_point_radius"], "pallas", downsample)
+    res = field.resolution * downsample
+    points = torch.as_tensor(s.points[0]).to(dev)
+    mask = torch.as_tensor(s.mask[0]).to(dev)
+    k = cfg["n_theta"]
+    hp, wp = padded.shape
+    shifts, weights = b9.scan_lut_tables(points, mask, res, k, hp, wp, sampling)
+    got = b9.correlate(padded, shifts, weights, sampling)
+    want = b9.correlate_reference(padded, shifts, weights, sampling)
+    torch.cuda.synchronize()
+    label = f"K {k} x {hp} x {wp}, {points.shape[0]} beams ({int(mask.sum())} unmasked), {sampling}"
+    check(bool(torch.isfinite(got).all()), f"B9 {label}: not finite")
+    check(torch.equal(got, want),
+          f"B9 {label}: {int((got != want).sum())} cells differ from the plain version")
+    # the library yardstick: cross-correlation with the scattered footprint
+    ox, oy = b9.beam_offsets(points, res, k)
+    radius = int(torch.ceil(torch.maximum(ox.abs().max(), oy.abs().max())).item()) + 1
+    conv_w = scan_lut_conv_weight(ox, oy, mask, sampling, radius)
+    src = F.pad(padded[None, None], (radius, radius + 1, radius, radius + 1), mode="circular")
+
+    def library():
+        return F.conv2d(src, conv_w)
+
+    plain_iters = 2 if sampling == "bilinear" and downsample == 1 else 5
+    times = timings(lambda: b9.correlate(padded, shifts, weights, sampling),
+                    lambda: b9.correlate_reference(padded, shifts, weights, sampling), iters,
+                    plain_iters=plain_iters)
+    extra = {}
+    try:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        first = library()
+        end.record()
+        torch.cuda.synchronize()
+    except RuntimeError as e:  # the yardstick only: B9 stands without it
+        extra["library_note"] = f"conv2d failed: {e}"[:200]
+    else:
+        once = start.elapsed_time(end)
+        lib_err = float((first[0] - got).abs().max() / got.abs().max())
+        extra.update(conv2d_radius=radius, conv2d_rel_err=lib_err, conv2d_first_call_ms=once)
+        if lib_err > 1e-4:
+            extra["library_note"] = f"conv2d differs by {lib_err:.3g} of the maximum: not timed"
+        elif once < LIBRARY_LIMIT_MS:
+            times["library_ms"] = cuda_ms(library, max(2, min(iters, int(200 / max(once, 1e-3)))))
+            times["library_device_ms"] = device_ms(library, 3)
+        else:
+            extra["library_note"] = f"conv2d took {once:.0f} ms on its first call: not timed"
+    nb = points.shape[0]
+    cells = k * hp * wp
+    bms, by = bound_ms(4 * hp * wp + 20 * k * nb + 4 * cells,
+                       B9_OPS[sampling] * cells * int(mask.sum()))
+    return dict(
+        name="B9 scan_lut_correlate", route="cuda", source="beluga_tpu_torch/csrc/scan_lut.cu",
+        replaces="beluga_tpu/ops/pallas_scan_lut.py:74",
+        max_abs_err=float((got - want).abs().max()), bound_ms=bms, bound_by=by, shape=label, **extra, **times,
     )
 
 
@@ -794,19 +984,24 @@ def reset_counts() -> None:
         cuda_pool_take,
         cuda_resample,
         cuda_reweight,
+        cuda_scan_lut,
         cuda_winlut,
         raycast,
     )
 
     cuda_reweight.launches = 0
     cuda_reweight.values3_launches = 0
+    cuda_reweight.log_launches = 0
+    cuda_reweight.values3_log_launches = 0
     cuda_resample.launches = 0
     cuda_pool_take.launches = 0
     cuda_winlut.launches = 0
+    cuda_winlut.int8_launches = 0
     cuda_fused_step.launches = 0
     cuda_beam_lut.launches = 0
     cuda_beam.launches = 0
     raycast.launches = 0
+    cuda_scan_lut.launches = 0
 
 
 def read_counts() -> dict:
@@ -817,18 +1012,23 @@ def read_counts() -> dict:
         cuda_pool_take,
         cuda_resample,
         cuda_reweight,
+        cuda_scan_lut,
         cuda_winlut,
         raycast,
     )
 
     return {"B1 fused_reweight": cuda_reweight.launches,
+            "B1-log fused_reweight": cuda_reweight.log_launches,
             "B2 resample_take": cuda_resample.launches,
             "B3 pool_take": cuda_pool_take.launches,
             "B4 fused_reweight values3": cuda_reweight.values3_launches,
+            "B4-log fused_reweight values3": cuda_reweight.values3_log_launches,
             "B5 fused_propagate_winlut": cuda_fused_step.launches,
             "B6 winlut_lookup": cuda_winlut.launches,
+            "B6-int8 winlut_lookup": cuda_winlut.int8_launches,
             "B7 beam_lut_windowed": cuda_beam_lut.launches,
             "B8 sphere_trace_beam_weights": cuda_beam.launches,
+            "B9 scan_lut_correlate": cuda_scan_lut.launches,
             "R1 cast_rays": raycast.launches}
 
 
@@ -916,15 +1116,18 @@ def run_large_filter(dev, n: int = LARGE_N, n_min: int = LARGE_MIN,
     )
 
 
-def run_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
-              scans: int = FLEET_SCANS) -> tuple[dict, dict]:
+def run_fleet(dev, b: int = FLEET_B, n: int = FLEET_N, scans: int = FLEET_SCANS,
+              prob_model: bool = False) -> tuple[dict, dict]:
     """The JAX benchmark's fleet (bench.py:46-49, :180-220): B filters of N
     particles, codebook16, theta-sorted slots, fixed count, multinomial
-    resampling, pooled recovery; every filter scores the same scan."""
+    resampling, pooled recovery; every filter scores the same scan.  With
+    ``prob_model`` the fleet scores the probability model through B4-log."""
     from beluga_tpu_torch.parallel.fleet import make_fleet_update
     from beluga_tpu_torch.tools import workloads
 
-    w = workloads.fleet(scans, dev, b, n)
+    what = "prob fleet" if prob_model else "fleet"
+    reweight = "B4-log fused_reweight values3" if prob_model else "B4 fused_reweight values3"
+    w = workloads.fleet(scans, dev, b, n, prob_model=prob_model)
     s, state = w.scans, w.state
     fleet_update = make_fleet_update(w.params, w.models)
     reset_counts()
@@ -936,19 +1139,22 @@ def run_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
         state, est = fleet_update(w.ctx, state, odoms, w.points[t], w.mask[t])
         pose = est.pose.as_xytheta().cpu().numpy()  # [b, 3], the one readback
         times.append(time.perf_counter() - t0)
-        check(bool(np.all(est.valid)), f"fleet scan {t}: a filter was gated out")
-        check(bool(np.isfinite(pose).all()), f"fleet scan {t}: estimate not finite")
+        check(bool(np.all(est.valid)), f"{what} scan {t}: a filter was gated out")
+        check(bool(np.isfinite(pose).all()), f"{what} scan {t}: estimate not finite")
         e_pos = np.hypot(pose[:, 0] - s.xs[t], pose[:, 1] - s.ys[t])
         e_yaw = np.abs(np.arctan2(np.sin(pose[:, 2] - s.yaws[t]), np.cos(pose[:, 2] - s.yaws[t])))
         worst_pos, worst_yaw = max(worst_pos, float(e_pos.max())), max(worst_yaw, float(e_yaw.max()))
         check(bool((e_pos < GATE_POS_M).all() and (e_yaw < GATE_YAW_RAD).all()),
-              f"fleet scan {t}: worst filter {e_pos.max():.3f} m / "
+              f"{what} scan {t}: worst filter {e_pos.max():.3f} m / "
               f"{math.degrees(e_yaw.max()):.1f} deg")
     counts = read_counts()
-    for name in ("B2 resample_take", "B3 pool_take", "B4 fused_reweight values3"):
+    for name in ("B2 resample_take", "B3 pool_take", reweight):
         check(counts[name] == scans,
-              f"fleet: {name} launched {counts[name]} times in {scans} updates")
-    check(counts["B1 fused_reweight"] == 0, "fleet: B1 launched in codebook16 mode")
+              f"{what}: {name} launched {counts[name]} times in {scans} updates")
+    others = {"B1 fused_reweight", "B1-log fused_reweight", "B4 fused_reweight values3",
+              "B4-log fused_reweight values3"} - {reweight}
+    for name in sorted(others):
+        check(counts[name] == 0, f"{what}: {name} launched {counts[name]} times")
     steady = sorted(times[2:])
     mean_s = sum(steady) / len(steady)
     return counts, dict(
@@ -967,12 +1173,17 @@ def run_forced(w, scans: int, what: str, sort_every: int | None = None):
 
     s, state = w.scans, w.state
     reset_counts()
-    times, errs, yaws = [], [], []
+    times, errs, yaws, builds = [], [], [], []
     for t in range(scans):
         sort_now = None if sort_every is None else t % sort_every == 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, est = update(w.params, w.models, w.ctx, state._replace(force_update=True),
+        ctx = w.ctx
+        if w.prepare is not None:  # the shared-scan LUT, rebuilt for every scan
+            ctx = w.prepare(ctx, w.points[t], w.mask[t])
+            torch.cuda.synchronize()
+            builds.append(time.perf_counter() - t0)
+        state, est = update(w.params, w.models, ctx, state._replace(force_update=True),
                             host_pose(s.xs[t], s.ys[t], s.yaws[t]), w.points[t], w.mask[t],
                             sort_now=sort_now)
         pose = est.pose.as_xytheta().cpu().numpy()
@@ -987,12 +1198,16 @@ def run_forced(w, scans: int, what: str, sort_every: int | None = None):
     n = w.params.max_particles
     steady = sorted(times[2:])
     mean_s = sum(steady) / len(steady)
-    return counts, errs, dict(
+    out = dict(
         particles=n, scans=scans, err_mean_m=float(np.mean(errs)), err_max_m=max(errs),
         worst_yaw_deg=math.degrees(max(yaws)), ms_per_update_mean=1e3 * mean_s,
         ms_per_update_median=1e3 * steady[len(steady) // 2], ms_first_update=1e3 * times[0],
         particle_updates_per_s=n / mean_s,
     )
+    if builds:
+        out.update(lut_build_ms_mean=1e3 * sum(builds[2:]) / len(builds[2:]),
+                   lut_build_share=sum(builds[2:]) / sum(times[2:]))
+    return counts, errs, out
 
 
 def run_mega(dev, scans: int = MEGA_SCANS, n: int | None = None) -> tuple[dict, dict]:
@@ -1013,17 +1228,57 @@ def run_mega(dev, scans: int = MEGA_SCANS, n: int | None = None) -> tuple[dict, 
     return counts, out
 
 
-def run_windowed(dev, scans: int = WINDOWED_SCANS) -> tuple[dict, dict]:
-    """The coverage-gated windowed filter (bench.py:880-900)."""
+def run_windowed(dev, scans: int = WINDOWED_SCANS,
+                 table_dtype: str = "bf16") -> tuple[dict, dict]:
+    """The coverage-gated windowed filter (bench.py:880-900) on bf16 window
+    tables (B6) or int8 ones (B6-int8): the lookup kernel at least once, B1
+    on every update (the exact tail, or the fallback), the other lookup
+    never."""
     from beluga_tpu_torch.tools import workloads
 
-    w = workloads.windowed(scans, dev)
-    counts, _, out = run_forced(w, scans, "windowed")
-    fast = counts["B6 winlut_lookup"]
-    check(fast >= 1, "windowed: B6 was never launched")
+    what = "windowed" if table_dtype == "bf16" else f"windowed {table_dtype}"
+    lookup, other = "B6 winlut_lookup", "B6-int8 winlut_lookup"
+    if table_dtype == "int8":
+        lookup, other = other, lookup
+    w = workloads.windowed(scans, dev, table_dtype=table_dtype)
+    counts, _, out = run_forced(w, scans, what)
+    fast = counts[lookup]
+    check(fast >= 1, f"{what}: {lookup} was never launched")
+    check(counts[other] == 0, f"{what}: {other} launched {counts[other]} times")
     check(counts["B1 fused_reweight"] == scans,
-          f"windowed: B1 launched {counts['B1 fused_reweight']} times in {scans} updates")
+          f"{what}: B1 launched {counts['B1 fused_reweight']} times in {scans} updates")
     out.update(fast_updates=fast, exact_updates=scans - fast)
+    return counts, out
+
+
+def run_shared_scan(dev, scans: int = SHARED_SCAN_SCANS) -> tuple[dict, dict]:
+    """The shared-scan filter (bench.py:916-955), the LUT rebuilt for every
+    scan: every scan within the gate, B9 once per update, B1 and B4 (either
+    mode) never."""
+    from beluga_tpu_torch.tools import workloads
+
+    w = workloads.shared_scan(scans, dev)
+    counts, _, out = run_forced(w, scans, "shared scan")
+    check(counts["B9 scan_lut_correlate"] == scans,
+          f"shared scan: B9 launched {counts['B9 scan_lut_correlate']} times in {scans} updates")
+    for name in ("B1 fused_reweight", "B1-log fused_reweight", "B4 fused_reweight values3",
+                 "B4-log fused_reweight values3"):
+        check(counts[name] == 0, f"shared scan: {name} launched {counts[name]} times")
+    return counts, out
+
+
+def run_prob_node(dev) -> tuple[dict, dict]:
+    """The node with nav2's probability model (laser_model_type
+    likelihood_field_prob) at nav2 defaults: B1-log on every update, the
+    cube B1 never."""
+    counts, out = run_node(dev, NODE_SCANS, "prob node",
+                           ("B1-log fused_reweight", "B2 resample_take"),
+                           laser_model_type="likelihood_field_prob")
+    check(counts["B1-log fused_reweight"] == out["valid"],
+          f"prob node: B1-log launched {counts['B1-log fused_reweight']} times in "
+          f"{out['valid']} updates")
+    check(counts["B1 fused_reweight"] == 0,
+          f"prob node: B1 launched {counts['B1 fused_reweight']} times")
     return counts, out
 
 
@@ -1192,8 +1447,16 @@ def main() -> int:
     l_fleet = check_beam_lut(dev, iters=50)
     c_node = check_raycast(dev, iters=100, lut_build=False)
     c_build = check_raycast(dev, iters=10, lut_build=True)
+    g_shared = check_scan_lut(dev, iters=20, sampling="nearest", downsample=2)
+    g_full = check_scan_lut(dev, iters=10, sampling="bilinear", downsample=1)
+    k_log_node, _ = check_reweight(2000, dev, iters=200, log_space=True)
+    k_log_fleet, w = check_reweight(FLEET_N, dev, iters=50, batch=FLEET_B, log_space=True)
+    c_log_fleet = check_codebook16(FLEET_N, w, iters=50, log_space=True)
+    del w
+    i_big = check_winlut_int8(dev, iters=50)
     checked = (k_main, r_main, k_big, r_big, c_big, k_fleet, r_fleet, c_fleet, p_fleet, p_big,
-               p_mega, r_mega, w_big, f_mega, f_ragged, s_node, s_long, l_fleet, c_node, c_build)
+               p_mega, r_mega, w_big, f_mega, f_ragged, s_node, s_long, l_fleet, c_node, c_build,
+               g_shared, g_full, k_log_node, k_log_fleet, c_log_fleet, i_big)
     ms = lambda v: "not measured" if v is None else f"{v:.5f} ms"  # noqa: E731
     for k in checked:
         lib = "" if k["library_ms"] is None else (
@@ -1239,16 +1502,36 @@ def main() -> int:
     bfleet_counts, bfleet = run_beam_fleet(dev)
     print("beam fleet: " + json.dumps(bfleet) + " launches " + json.dumps(bfleet_counts))
 
+    # 12. the node with nav2's probability model (slice 5)
+    prob_counts, prob = run_prob_node(dev)
+    print("prob node: " + json.dumps(prob) + " launches " + json.dumps(prob_counts))
+
+    # 13. the shared-scan filter, its LUT built by B9 for every scan (slice 5)
+    shared_counts, shared = run_shared_scan(dev)
+    print("shared scan: " + json.dumps(shared) + " launches " + json.dumps(shared_counts))
+
+    # 14. the fleet in the probability model's codebook16 mode (slice 5)
+    pfleet_counts, pfleet = run_fleet(dev, scans=PROB_FLEET_SCANS, prob_model=True)
+    print("prob fleet: " + json.dumps(pfleet) + " launches " + json.dumps(pfleet_counts))
+
+    # 15. the windowed filter on int8 window tables (slice 5)
+    int8_counts, int8 = run_windowed(dev, WINDOWED_INT8_SCANS, table_dtype="int8")
+    print("windowed int8: " + json.dumps(int8) + " launches " + json.dumps(int8_counts))
+
     # each kernel at the shapes and with the launches of the newest main
     # path that runs it: B1 the windowed filter's (tail and fallback), B2
     # and B3 the mega filter's where its selective resampling fired, else
     # the windowed filter's, B4 the fleet's, B5 the mega filter's, B6 the
     # windowed filter's, B7 and R1 the beam fleet's (R1 in its LUT build),
-    # B8 the long-range filter's
+    # B8 the long-range filter's, B1-log the prob node's, B4-log the prob
+    # fleet's, B6-int8 the int8 windowed filter's, B9 the shared-scan
+    # filter's
     by_path = {"node": node_counts, "large": large_counts, "fleet": fleet_counts,
                "mega": mega_counts, "windowed": win_counts,
                **{f"beam_node_{m}": c for m, c in beam_counts.items()},
-               "long_range": long_counts, "beam_fleet": bfleet_counts}
+               "long_range": long_counts, "beam_fleet": bfleet_counts,
+               "prob_node": prob_counts, "shared_scan": shared_counts,
+               "prob_fleet": pfleet_counts, "windowed_int8": int8_counts}
     resampled = mega_counts["B2 resample_take"] > 0
     kernels = []
     for k, path in ((k_big, "windowed"), (r_mega if resampled else r_big,
@@ -1256,7 +1539,9 @@ def main() -> int:
                     (p_mega if mega_counts["B3 pool_take"] else p_big,
                      "mega" if mega_counts["B3 pool_take"] else "windowed"),
                     (c_fleet, "fleet"), (f_mega, "mega"), (w_big, "windowed"),
-                    (l_fleet, "beam_fleet"), (s_long, "long_range"), (c_build, "beam_fleet")):
+                    (l_fleet, "beam_fleet"), (s_long, "long_range"), (c_build, "beam_fleet"),
+                    (k_log_node, "prob_node"), (c_log_fleet, "prob_fleet"),
+                    (i_big, "windowed_int8"), (g_shared, "shared_scan")):
         entry = {key: k[key] for key in ("name", "route", "source", "replaces")}
         entry["launches"] = by_path[path][k["name"]]
         entry.update({key: k[key] for key in (

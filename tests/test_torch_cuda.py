@@ -1,6 +1,6 @@
-"""Kernels B1-B8 and R1 of the PyTorch port on the card, against their
-plain versions on the same card tensors, and fleet, mega and beam updates
-on the card.
+"""Kernels B1-B9 (with B1-log, B4-log and B6-int8) and R1 of the PyTorch
+port on the card, against their plain versions on the same card tensors,
+and fleet, mega, beam, prob-model and shared-scan updates on the card.
 Every test here needs an NVIDIA GPU and skips without one.  The module
 imports neither JAX nor the JAX package, so on a machine with the card it
 runs without the repository's conftest:
@@ -426,3 +426,183 @@ def test_beam_node_on_card(dev, mode):
     want = {"exact": (1, 0, 0), "lut": (0, 0, 0), "sphere_trace": (0, 1, 0),
             "windowed": (0, 0, 1)}[mode]
     assert tuple(a - b for a, b in zip(after, before)) == want
+
+
+# -- slice 5: B9, B1-log, B4-log, B6-int8 ---------------------------------------------
+
+
+def scan_lut_case(dev, downsample):
+    """The arena's padded pz³ field at the shared-scan filter's geometry
+    (4 m, (8, 128) alignment), and its first scan."""
+    from beluga_tpu_torch.filters.builders import make_shared_scan_filter
+    from beluga_tpu_torch.io import synthetic
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.models.sensor.likelihood_field_lut import scan_lut_padded
+
+    data = synthetic.tracking_arena(384, 0.05)
+    xs, ys, yaws = synthetic.circle_trajectory(1)
+    pts, mask = synthetic.simulate_scans(data, 0.05, xs, ys, yaws, BEAMS)
+    _, ctx, _ = make_shared_scan_filter(make_grid(data, 0.05, device=dev), device=dev)
+    field = ctx["field"]
+    padded, _ = scan_lut_padded(field, 4.0, "pallas", downsample)
+    mask[0, 3] = False  # a masked beam
+    return (padded, torch.as_tensor(pts[0]).to(dev), torch.as_tensor(mask[0]).to(dev),
+            field.resolution * downsample)
+
+
+@pytest.mark.parametrize("sampling,downsample,k", [("nearest", 2, 128), ("bilinear", 1, 128),
+                                                   ("bilinear", 2, 7), ("nearest", 1, 33)])
+def test_b9_kernel_matches_plain_version(dev, sampling, downsample, k):
+    from beluga_tpu_torch.ops import cuda_scan_lut as b9
+
+    padded, pts, mask, res = scan_lut_case(dev, downsample)
+    shifts, weights = b9.scan_lut_tables(pts, mask, res, k, *padded.shape, sampling)
+    before = b9.launches
+    got = b9.correlate(padded, shifts, weights, sampling)
+    want = b9.correlate_reference(padded, shifts, weights, sampling)
+    torch.cuda.synchronize()
+    assert b9.launches == before + 1
+    assert got.shape == (k, *padded.shape) and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("sampling", ["nearest", "bilinear"])
+def test_b9_kernel_leaves_out_masked_beams(dev, sampling):
+    """The kernel stages only the (bin, beam) pairs with m != 0: masks that
+    differ by bin, over more beams than a warp has lanes, give the plain
+    version's sums bit for bit, and a bin with every beam masked is 0."""
+    from beluga_tpu_torch.ops import cuda_scan_lut as b9
+
+    padded, pts, mask, res = scan_lut_case(dev, 2)
+    k = 9
+    shifts, weights = b9.scan_lut_tables(pts, mask, res, k, *padded.shape, sampling)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    keep = torch.rand(weights.shape[:2], generator=gen, device=dev) < 0.6
+    keep[0] = False
+    weights[..., 0] *= keep
+    got = b9.correlate(padded, shifts, weights, sampling)
+    want = b9.correlate_reference(padded, shifts, weights, sampling)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not bool(got[0].any()) and bool(got[1:].any())
+
+
+@pytest.mark.parametrize("n,batch", [(2000, None), (4096, 64), (777, 5)])
+def test_b1_log_kernel_matches_plain_version(dev, n, batch):
+    from beluga_tpu_torch.ops import cuda_reweight as b1
+
+    args, _ = arena_inputs(n, dev, seed=2, batch=batch)
+    before = b1.log_launches, b1.launches
+    single = (*args[:7], one_beam(args[7]), *args[8:])
+    assert torch.equal(b1.fused_reweight(*single, log_space=True),
+                       b1.fused_reweight_reference(*single, log_space=True))
+    got = b1.fused_reweight(*args, log_space=True)
+    want = b1.fused_reweight_reference(*args, log_space=True)
+    torch.cuda.synchronize()
+    assert (b1.log_launches, b1.launches) == (before[0] + 2, before[1])
+    assert bool((got < 0).all())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)  # the beam-sum order
+
+
+@pytest.mark.parametrize("n,batch", [(4096, 64), (262144, None)])
+def test_b4_log_kernel_matches_plain_version(dev, n, batch):
+    from beluga_tpu_torch.ops import cuda_reweight as b1
+
+    args, _ = arena_inputs(n, dev, seed=3, batch=batch)
+    v3 = b1.build_values3(args[0], args[1], log_space=True)
+    before = b1.values3_log_launches, b1.values3_launches
+
+    def both(mask):
+        kernel = b1.fused_reweight(*args[:7], mask, *args[8:], values3=v3, log_space=True)
+        plain = b1.fused_reweight_values3_reference(v3, *args[2:7], mask, *args[8:],
+                                                    log_space=True)
+        return kernel, plain
+
+    got1, want1 = both(one_beam(args[7]))
+    assert torch.equal(got1, want1)
+    got, want = both(args[7])
+    torch.cuda.synchronize()
+    assert (b1.values3_log_launches, b1.values3_launches) == (before[0] + 2, before[1])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    exact = b1.fused_reweight(*args, log_space=True)
+    assert float((got - exact).abs().max()) < float(exact.abs().max()) * 2.0**-7
+
+
+@pytest.mark.parametrize("n,tile,tblk", [(262144, 512, 16), (5000, 128, 8)])
+def test_b6_int8_kernel_matches_plain_version(dev, n, tile, tblk):
+    from beluga_tpu_torch.models.sensor.likelihood_field_winlut import (
+        build_windowed_scan_lut,
+        windowed_coords,
+    )
+    from beluga_tpu_torch.ops import cuda_winlut as b6
+    from beluga_tpu_torch.tools import workloads
+
+    w, states, lut = window_case(dev, n, workloads.WINDOWED_FILTER, workloads.windowed)
+    st = w.state.particles.state
+    geo = {k: workloads.WINDOWED_FILTER[k] for k in ("k_bins", "win", "dth", "max_point_radius")}
+    lut = build_windowed_scan_lut(w.ctx["field"], w.points[0], w.mask[0], torch.mean(st.x),
+                                  torch.mean(st.y), torch.atan2(torch.mean(st.rot.sin),
+                                                                torch.mean(st.rot.cos)),
+                                  table_dtype="int8", padded_cubed=w.ctx["field_pad3"],
+                                  dft=w.ctx["winlut_dft"], **geo)
+    assert lut.values_t.dtype == torch.int8 and lut.scale.is_cuda
+    xi, yi, t = (v.contiguous() for v in windowed_coords(lut, states))
+    before = b6.int8_launches, b6.launches
+    got = b6.winlut_lookup(lut.values_t, xi, yi, t, lut.miss, 1.0, tile, tblk, scale=lut.scale)
+    want = b6.winlut_lookup_reference(lut.values_t, xi, yi, t, lut.miss, 1.0, tile, tblk,
+                                      scale=lut.scale)
+    torch.cuda.synchronize()
+    assert (b6.int8_launches, b6.launches) == (before[0] + 1, before[1])
+    assert 0 < int((got == lut.miss).sum()) < n
+    assert torch.equal(got, want)
+
+
+def test_prob_node_on_card(dev):
+    """The prob node with its default device: a scan launches B1-log and not
+    the cube B1."""
+    from beluga_tpu_torch.io.config import AmclNodeConfig
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.node import AmclNode
+    from beluga_tpu_torch.ops import cuda_reweight as b1
+
+    data = np.zeros((80, 80), np.int8)
+    data[0, :] = data[-1, :] = data[:, 0] = data[:, -1] = 100
+    data[30:40, 30:40] = 100
+    node = AmclNode(AmclNodeConfig(max_particles=300, min_particles=50, set_initial_pose=True,
+                                   initial_pose_x=2.0, initial_pose_y=2.0,
+                                   laser_model_type="likelihood_field_prob"))
+    node.set_map(make_grid(data, 0.1))
+    before = b1.log_launches, b1.launches
+    pts = np.random.default_rng(0).uniform(0.5, 2.0, (30, 2)).astype(np.float32)
+    assert node.handle_scan((0.0, 0.0, 0.0), pts).valid
+    assert (b1.log_launches, b1.launches) == (before[0] + 1, before[1])
+
+
+def test_shared_scan_update_on_card(dev):
+    """The shared-scan filter on the card: ``prepare`` launches B9 once and
+    the update launches no reweight kernel."""
+    from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_state, update
+    from beluga_tpu_torch.filters.builders import make_shared_scan_filter
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.core.random import sample_normal_se2
+    from beluga_tpu_torch.ops import cuda_reweight as b1
+    from beluga_tpu_torch.ops import cuda_scan_lut as b9
+
+    data = np.zeros((96, 96), np.int8)
+    data[0, :] = data[-1, :] = data[:, 0] = data[:, -1] = 100
+    data[30:40, 50:60] = 100
+    models, ctx, prepare = make_shared_scan_filter(
+        make_grid(data, 0.05), n_theta=64, max_point_radius=2.5,
+        lut_build_kwargs=dict(sampling="nearest", downsample=2))
+    params = AmclParams(max_particles=4096, min_particles=1024, resampling="systematic")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = init_state(gen, sample_normal_se2(gen, 4096, host_pose(2.4, 2.4, 0.3),
+                                              np.eye(3) * 0.05), params)
+    pts = torch.as_tensor(np.random.default_rng(1).uniform(-2, 2, (40, 2)),
+                          dtype=torch.float32, device=dev)
+    mask = torch.ones(40, dtype=torch.bool, device=dev)
+    before = b9.launches, b1.launches, b1.values3_launches
+    sctx = prepare(ctx, pts, mask)
+    state, est = update(params, models, sctx, state, host_pose(0.0, 0.0, 0.0), pts, mask)
+    assert est.valid and torch.isfinite(est.pose.xy).all()
+    assert (b9.launches, b1.launches, b1.values3_launches) == (before[0] + 1, *before[1:])

@@ -220,7 +220,8 @@ def test_fused_matches_unfused():
 
 def test_fused_filter_rejects_what_the_reference_rejects():
     """Both of the reference's ValueErrors, and fused int8 tables (which
-    the reference's fused kernel truncates)."""
+    the reference's fused kernel truncates); the unfused int8 filter builds
+    (B6-int8) and an unknown table type raises."""
     grid = make_grid(block_map(), 0.1, device="cpu")
     with pytest.raises(ValueError, match="exact_tail_frac"):
         make_windowed_scan_filter(grid, fused=True, device="cpu")
@@ -230,5 +231,7 @@ def test_fused_filter_rejects_what_the_reference_rejects():
     with pytest.raises(ValueError, match="int8"):
         make_windowed_scan_filter(grid, fused=True, exact_tail_frac=0.0, table_dtype="int8",
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="B6-int8"):
-        make_windowed_scan_filter(grid, table_dtype="int8", device="cpu")
+    models, ctx = make_windowed_scan_filter(grid, table_dtype="int8", device="cpu")
+    assert models.fused_propagate_reweight is None and "field_pad3" in ctx
+    with pytest.raises(ValueError, match="table_dtype"):
+        make_windowed_scan_filter(grid, table_dtype="fp8", device="cpu")

@@ -83,11 +83,19 @@ def test_load_config_yaml(tmp_path):
      "laser_model_type"),
 ])
 def test_models_not_ported_raise(kw, match):
-    """The probability model waits for ROADMAP A11 (the beam model is
-    ported: tests/test_torch_beam_filter.py), whatever the beam knob says."""
-    with pytest.raises(NotImplementedError, match=match) as err:
-        AmclNode(AmclNodeConfig(**kw), device="cpu")
-    assert "A11" in str(err.value)
+    """Every laser model of nav2 is ported: the probability model builds
+    (whatever the beam knob says) with the code table its kernel B1-log
+    reads, returns log-weights (``Σ log pz``, below 0), and handles a scan;
+    only a laser model nav2 does not have still raises."""
+    node = make_node(**kw)
+    assert "field_codes" in node._ctx and "beam_dist" not in node._ctx
+    states = node._state.particles.state
+    pts = torch.as_tensor(scan_toward_wall())
+    log_w = node._models.log_weight(node._ctx, states, pts, torch.ones(len(pts), dtype=bool))
+    assert bool((log_w < 0).all())
+    assert node.handle_scan((0.0, 0.0, 0.0), scan_toward_wall()).valid
+    with pytest.raises(ValueError, match=match):
+        AmclNode(AmclNodeConfig(**{**kw, "laser_model_type": "sonar"}), device="cpu")
 
 
 def test_other_motion_models_raise():

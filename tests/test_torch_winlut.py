@@ -14,6 +14,15 @@ Tolerances:
 * B6's plain version matches ``winlut_lookup(interpret=True)`` on the same
   table and coordinates within rtol 1e-6 (the reference sums through dot
   products), with an equal miss set;
+* int8 tables (B6-int8): the port's quantized table and scale are
+  bit-equal to the reference's on these inputs; B6-int8's plain version on
+  the reference's table is within rtol 1e-6 of ``winlut_lookup(interpret=
+  True)`` with an equal miss set: the y dots are exact integers, and XLA's
+  CPU backend contracts the float θ lerp into fused multiply-adds, so
+  1-7% of the weights differ in the last one or two bits (measured at most
+  4.8e-7 absolute on weights near 2); the unfused int8 filter's
+  log-weights within 2·scale of the reference's (one quantization step per
+  table read; on these inputs the tables are equal);
 * against the exact per-beam model, the reference's own accuracy bounds
   (``tests/test_winlut.py:61-75``).
 """
@@ -147,11 +156,63 @@ def test_build_matches_reference_table(setup, win, k_bins):
     np.testing.assert_allclose(float(lut.miss), float(jlut.miss), rtol=1e-6)
 
 
+def int8_luts(setup):
+    jlut = J.build_windowed_scan_lut(setup["jfield"], jnp.asarray(setup["points"]),
+                                     jnp.asarray(setup["mask"]), *map(jnp.float32, CENTER),
+                                     table_dtype="int8", **GEO)
+    lut = P.build_windowed_scan_lut(setup["field"], torch.as_tensor(setup["points"]),
+                                    torch.as_tensor(setup["mask"]), *map(torch.tensor, CENTER),
+                                    table_dtype="int8", **GEO)
+    return jlut, lut
+
+
 def test_int8_tables_raise(setup):
-    with pytest.raises(NotImplementedError, match="B6-int8"):
+    """An int8 table builds (``round(L / scale)``, ``scale = max(max L,
+    1e-6) / 127``, likelihood_field_winlut.py:268-274); the lookup raises
+    when an int8 table comes without its scale or a bf16 table with one,
+    and an unknown table type raises."""
+    jlut, lut = int8_luts(setup)
+    assert lut.values_t.dtype == torch.int8 and lut.scale is not None
+    assert float(lut.scale) == float(jlut.scale)
+    np.testing.assert_array_equal(lut.values_t.numpy(), np.asarray(jlut.values_t))
+    bf16 = setup["lut"]
+    xi, yi, t = (v.contiguous() for v in P.windowed_coords(lut, cloud(8)[1]))
+    with pytest.raises(ValueError, match="scale"):
+        cuda_winlut.winlut_lookup(lut.values_t, xi, yi, t, lut.miss)
+    with pytest.raises(ValueError, match="scale"):
+        cuda_winlut.winlut_lookup(bf16.values_t, xi, yi, t, bf16.miss, scale=lut.scale)
+    with pytest.raises(ValueError, match="table_dtype"):
         P.build_windowed_scan_lut(setup["field"], torch.as_tensor(setup["points"]),
                                   torch.as_tensor(setup["mask"]), *map(torch.tensor, CENTER),
-                                  table_dtype="int8", **GEO)
+                                  table_dtype="int4", **GEO)
+
+
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("n", [512, 500])
+def test_b6_int8_plain_matches_interpret(setup, sort, n):
+    """B6-int8's plain version on the reference's int8 table, scale and
+    coordinates, tile 128 and tblk 8, against the interpret-mode kernel."""
+    jlut, _ = int8_luts(setup)
+    jstates, _ = cloud(n, spread_th=0.55, sort=sort)
+    xi, yi, t = J.windowed_coords(jlut, jstates)
+    want = np.asarray(j_winlut_lookup(jlut.values_t, xi, yi, t, jlut.miss, base=1.0, tile=128,
+                                      tblk=8, interpret=True, scale=jlut.scale))
+    lut = convert.windowed_scan_lut(jax.device_get(jlut))
+    assert lut.values_t.dtype == torch.int8
+    got = cuda_winlut.winlut_lookup(lut.values_t, *(torch.as_tensor(np.array(v))
+                                                    for v in (xi, yi, t)),
+                                    lut.miss, base=1.0, tile=128, tblk=8, scale=lut.scale).numpy()
+    miss = float(jlut.miss)
+    np.testing.assert_array_equal(got == miss, want == miss)
+    hit = want != miss
+    assert 0.1 < hit.mean() < 1.0 if not sort else hit.mean() > 0.9
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    print(f"bit-equal share {np.mean(got == want):.4f}")
+    # the bf16 table's weights, within a quantization step per read
+    bf16 = cuda_winlut.winlut_lookup(setup["lut"].values_t, *(torch.as_tensor(np.array(v))
+                                                             for v in (xi, yi, t)),
+                                     setup["lut"].miss, base=1.0, tile=128, tblk=8).numpy()
+    assert np.abs(got - bf16)[hit].max() < float(jlut.scale)
 
 
 @pytest.mark.parametrize("sort", [True, False])
@@ -234,3 +295,41 @@ def test_accuracy_against_exact_model(setup):
     strays = SE2.from_xytheta([CENTER[0], -5.0], [CENTER[1], -5.0], [CENTER[2] + np.pi, 0.7])
     np.testing.assert_allclose(P.windowed_scan_lut_weights(lut, strays).numpy(),
                                float(lut.miss), rtol=1e-6)
+
+
+def test_unfused_int8_filter_scores_like_reference():
+    """``make_windowed_scan_filter(table_dtype="int8")``, unfused, gate-free,
+    no exact tail: its log-weights on a θ-sorted cloud against the
+    reference's filter, each on its own ctx, within 2·scale of the weight
+    (one quantization step per table read)."""
+    from beluga_tpu.filters.builders import make_windowed_scan_filter as j_make_windowed
+    from beluga_tpu.maps.occupancy import make_grid as j_grid
+    from beluga_tpu_torch.filters.builders import make_windowed_scan_filter
+    from beluga_tpu_torch.maps.occupancy import make_grid
+
+    kw = dict(k_bins=32, win=64, max_point_radius=2.5, tile=128, tblk=8, coverage_threshold=0.0,
+              exact_tail_frac=0.0, table_dtype="int8")
+    jmodels, jctx = j_make_windowed(j_grid(block_map(), 0.1), JLFParams(max_laser_distance=5.0),
+                                    **kw)
+    from beluga_tpu_torch.models.sensor.likelihood_field import LikelihoodFieldParams
+
+    models, ctx = make_windowed_scan_filter(make_grid(block_map(), 0.1, device="cpu"),
+                                            LikelihoodFieldParams(max_laser_distance=5.0),
+                                            device="cpu", **kw)
+    rng = np.random.default_rng(0)
+    angles = np.linspace(-np.pi, np.pi, 24, endpoint=False)
+    r = rng.uniform(0.5, 2.0, 24)
+    pts = np.stack([r * np.cos(angles), r * np.sin(angles)], -1).astype(np.float32)
+    mask = np.ones(24, bool)
+    jst, st = cloud(512, spread_th=0.3)
+    want = np.asarray(jmodels.log_weight(jctx, jst, jnp.asarray(pts), jnp.asarray(mask)))
+    got = models.log_weight(ctx, st, torch.as_tensor(pts), torch.as_tensor(mask)).numpy()
+    lut = P.build_windowed_scan_lut(ctx["field"], torch.as_tensor(pts), torch.as_tensor(mask),
+                                    torch.mean(st.x), torch.mean(st.y),
+                                    torch.atan2(torch.mean(st.rot.sin), torch.mean(st.rot.cos)),
+                                    k_bins=32, win=64, max_point_radius=2.5, table_dtype="int8")
+    assert lut.values_t.dtype == torch.int8
+    np.testing.assert_allclose(np.exp(got), np.exp(want), rtol=0, atol=2 * float(lut.scale))
+    print(f"bit-equal share {np.mean(got == want):.4f}, max abs log diff "
+          f"{np.abs(got - want).max():.3g}")
+    assert np.isfinite(got).all() and (got > 0).all()
