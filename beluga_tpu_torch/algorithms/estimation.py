@@ -1,18 +1,22 @@
-"""Weighted SE2 mean and covariance (port of the SE2 part of
-``beluga_tpu/algorithms/estimation.py``, estimation.hpp:436-475).
+"""Weighted SE2 and SE3 means and covariances (port of
+``beluga_tpu/algorithms/estimation.py``).
 
-Coefficient average of (cos, sin, x, y); translation covariance with the
-``1 / (1 - Σw²)`` correction; yaw variance ``-2 log |mean complex|``; the
-all-cancelled case gives yaw 0 with infinite variance.  Weights are
-normalized here, as ``beluga::estimate`` does.  States and weights may
-carry leading filter axes; each filter gets its own estimate.
+SE2 (estimation.hpp:436-475): coefficient average of (cos, sin, x, y);
+translation covariance with the ``1 / (1 - Σw²)`` correction; yaw variance
+``-2 log |mean complex|``; the all-cancelled case gives yaw 0 with
+infinite variance.  SE3 (estimation.hpp:319-358): the translation
+average, the chordal quaternion mean (the eigenvector of the largest
+eigenvalue of ``Σ w q qᵀ``, signed to w >= 0) and the covariance of
+``log(mean⁻¹ · state)`` in the tangent space, with the same correction.
+Weights are normalized here, as ``beluga::estimate`` does.  States and
+weights may carry leading filter axes; each filter gets its own estimate.
 """
 
 from __future__ import annotations
 
 import torch
 
-from beluga_tpu_torch.lie import SE2, SO2
+from beluga_tpu_torch.lie import SE2, SE3, SO2, SO3
 
 Tensor = torch.Tensor
 
@@ -49,3 +53,29 @@ def estimate_se2(states: SE2, weights: Tensor, mask: Tensor | None = None):
     cov[..., :2, :2] = cov_t
     cov[..., 2, 2] = yaw_var
     return SE2(mean_xy, mean_rot), cov
+
+
+def estimate_se3(states: SE3, weights: Tensor, mask: Tensor | None = None):
+    """``(SE3 mean [...], f32[..., 6, 6] covariance)``, the covariance over
+    the tangent (vx, vy, vz, wx, wy, wz).
+
+    ``eigh`` returns an eigenvector of either sign; the flip to w >= 0
+    makes the mean unique unless the largest eigenvalue is degenerate
+    (particles spread evenly between two rotations), where any unit vector
+    of its eigenspace is a mean and the two packages may pick different
+    ones."""
+    w = _normalize_weights(weights, mask)
+    corr = torch.clamp_min(1.0 - torch.sum(w * w, dim=-1), 1e-9)
+    mean_xyz = torch.sum(w[..., None] * states.xyz, dim=-2)
+    q = states.rot.q
+    m = (q * w[..., None]).transpose(-1, -2) @ q  # Σ w q qᵀ, [..., 4, 4]
+    _, vecs = torch.linalg.eigh(m)
+    mean_q = vecs[..., :, -1]
+    mean_q = mean_q * torch.where(mean_q[..., :1] < 0, -1.0, 1.0)
+    mean = SE3(mean_xyz, SO3.from_quat_wxyz(mean_q))
+    lead = mean_xyz.shape[:-1]
+    inv = mean.inverse()
+    inv = SE3(inv.xyz[..., None, :], SO3(inv.rot.q[..., None, :]))
+    delta = (inv @ states).log()  # [..., N, 6]
+    cov = (delta * w[..., None]).transpose(-1, -2) @ delta / corr.reshape(*lead, 1, 1)
+    return mean, cov

@@ -14,8 +14,10 @@ import torch
 from beluga_tpu_torch.algorithms.thrun import ExpFilterState, ThrunState
 from beluga_tpu_torch.core.particles import ParticleSet
 from beluga_tpu_torch.filters.amcl import AmclState
-from beluga_tpu_torch.lie import SE2, SO2
+from beluga_tpu_torch.lie import SE2, SE3, SO2, SO3
+from beluga_tpu_torch.maps.ndt import NdtMap
 from beluga_tpu_torch.maps.occupancy import OccupancyGrid
+from beluga_tpu_torch.maps.voxel import DistanceGrid3
 from beluga_tpu_torch.models.sensor.beam_lut import RangeLut
 from beluga_tpu_torch.models.sensor.likelihood_field import LikelihoodField
 from beluga_tpu_torch.models.sensor.likelihood_field_lut import ScanLut
@@ -34,6 +36,43 @@ def _f32(a) -> float:
 def se2(pose, device="cpu") -> SE2:
     """An ``SE2`` (``xy``, ``rot.z``) of numpy arrays."""
     return SE2(_t(pose.xy, device, np.float32), SO2(_t(pose.rot.z, device, np.float32)))
+
+
+def se3(pose, device="cpu") -> SE3:
+    """An ``SE3`` (``xyz``, ``rot.q``) of numpy arrays."""
+    return SE3(_t(pose.xyz, device, np.float32), SO3(_t(pose.rot.q, device, np.float32)))
+
+
+def pose(p, device="cpu"):
+    """An SE2 or an SE3 of numpy arrays, by its fields."""
+    return se3(p, device) if hasattr(p, "xyz") else se2(p, device)
+
+
+def ndt_map(m, device="cpu") -> NdtMap:
+    """An ``NdtMap`` from the reference's (uint32 keys, means, covariances,
+    ``num_cells``, ``resolution``), keys widened to int64."""
+    means = np.asarray(m.means, np.float32)
+    covs = np.asarray(m.covs, np.float32)
+    rows, d = means.shape
+    return NdtMap(
+        keys=_t(np.asarray(m.keys, np.uint32).astype(np.int64), device),
+        means=_t(means, device), covs=_t(covs, device),
+        values=_t(np.concatenate([means, covs.reshape(rows, d * d)], axis=1), device),
+        num_cells=int(np.asarray(m.num_cells)), resolution=_f32(m.resolution),
+    )
+
+
+def distance_grid(g, device="cpu") -> DistanceGrid3:
+    """A ``DistanceGrid3`` with numpy leaves."""
+    return DistanceGrid3(values=_t(g.values, device, np.float32), voxel_size=_f32(g.voxel_size),
+                         origin_xyz=_t(g.origin_xyz, device, np.float32),
+                         background=_f32(g.background))
+
+
+def distance_codes(codes_book, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's 3D ``(codes int32[H, D·W], codebook f32[256])`` as the
+    port's ``(uint8 codes, f32 book)``."""
+    return field_codes(codes_book, device)
 
 
 def grid(g, device="cpu") -> OccupancyGrid:
@@ -114,12 +153,21 @@ def scan_lut(lut, device="cpu") -> ScanLut:
 
 
 def ctx(c: dict, device="cpu") -> dict:
-    """A model ctx dict: the likelihood-field one (``grid``, ``field``,
+    """A model ctx dict: the NDT one (``ndt_map``), the VDB one
+    (``vdb_grid``, with ``vdb_codes`` where the reference built them), the
+    likelihood-field one (``grid``, ``field``,
     ``field_codes``, in codebook16 mode ``field_values3`` with
     ``field_values3_log`` for the probability model, in lowrank mode
     ``field_factors``, for the windowed filter ``field_pad3`` and for the
     shared-scan filter ``scan_lut``) or the beam one (``grid`` and, by
     path, ``range_lut``, ``range_lut_bf16`` or ``beam_dist``)."""
+    if "ndt_map" in c:
+        return {"ndt_map": ndt_map(c["ndt_map"], device)}
+    if "vdb_grid" in c:
+        out = {"vdb_grid": distance_grid(c["vdb_grid"], device)}
+        if "vdb_codes" in c:
+            out["vdb_codes"] = distance_codes(c["vdb_codes"], device)
+        return out
     out = {"grid": grid(c["grid"], device)}
     if "field" in c:
         out["field"] = field(c["field"], device)
@@ -166,9 +214,9 @@ def windowed_scan_lut(lut, device="cpu") -> WindowedScanLut:
 
 
 def particles(p, device="cpu") -> ParticleSet:
-    """A ``ParticleSet`` whose state is an SE2."""
+    """A ``ParticleSet`` whose state is an SE2 or an SE3."""
     return ParticleSet(
-        state=se2(p.state, device),
+        state=pose(p.state, device),
         log_weight=_t(p.log_weight, device, np.float32),
         active=_t(p.active, device, np.int32),
     )
@@ -176,10 +224,11 @@ def particles(p, device="cpu") -> ParticleSet:
 
 def amcl_state(s, generator: torch.Generator, device="cpu") -> AmclState:
     """An ``AmclState``, of one filter or (leaves with a leading ``B``
-    axis, as ``vmap`` makes them) of a fleet.  The JAX key has no
-    counterpart: the port's draws come from ``generator``.  Odometry memory
-    and gates go to the host, as Python scalars for one filter and numpy
-    arrays for a fleet."""
+    axis, as ``vmap`` makes them) of a fleet, with SE2 or SE3 particles
+    and odometry (an SE3 odometry identity for the 3D filters).  The JAX
+    key has no counterpart: the port's draws come from ``generator``.
+    Odometry memory and gates go to the host, as Python scalars for one
+    filter and numpy arrays for a fleet."""
     def exp_filter(e):
         return ExpFilterState(_t(e.value, device, np.float32), _t(e.seeded, device, bool))
 
@@ -192,9 +241,9 @@ def amcl_state(s, generator: torch.Generator, device="cpu") -> AmclState:
         generator=generator,
         thrun=ThrunState(exp_filter(s.thrun.slow), exp_filter(s.thrun.fast)),
         resample_count=host(s.resample_count, np.int64),
-        motion_latest=se2(s.motion_latest, "cpu"),
+        motion_latest=pose(s.motion_latest, "cpu"),
         motion_seeded=host(s.motion_seeded, bool),
-        control_prev=se2(s.control_prev, "cpu"),
+        control_prev=pose(s.control_prev, "cpu"),
         control_seeded=host(s.control_seeded, bool),
         force_update=host(s.force_update, bool),
     )

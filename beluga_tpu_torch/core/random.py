@@ -16,28 +16,38 @@ import math
 import numpy as np
 import torch
 
-from beluga_tpu_torch.lie import SE2, SO2
+from beluga_tpu_torch.lie import SE2, SE3, SO2, SO3
 
 Tensor = torch.Tensor
 
 
 def _sqrt_psd(cov) -> Tensor:
-    """``V·diag(sqrt(max(w, 0)))`` from the eigendecomposition of the 3x3
-    covariance, on the host (multivariate_normal_distribution.hpp:76-90;
-    negative eigenvalues clamp to zero)."""
-    c = torch.as_tensor(np.asarray(cov, np.float32))
+    """``V·diag(sqrt(max(w, 0)))`` from the eigendecomposition of the
+    covariance (multivariate_normal_distribution.hpp:76-90; negative
+    eigenvalues clamp to zero): on the host for a host array, on the
+    tensor's device for a tensor ``[..., D, D]`` (one per filter)."""
+    if isinstance(cov, torch.Tensor):
+        c = cov.float()
+    else:
+        c = torch.as_tensor(np.asarray(cov, np.float32))
     w, v = torch.linalg.eigh(c)
     return v * torch.sqrt(torch.clamp_min(w, 0.0))[..., None, :]
 
 
+def _deltas(z: Tensor, cov) -> Tensor:
+    """``z @ T^T`` for the draws ``z`` ``f32[..., n, D]``, with ``T`` the
+    square root of ``cov`` (one ``[D, D]``, or ``[..., D, D]`` per filter)."""
+    return z @ _sqrt_psd(cov).to(z.device).transpose(-1, -2)
+
+
 def normal_se2_from_draws(z: Tensor, mean: SE2, cov) -> SE2:
-    """SE2 poses ``mean + z @ T^T`` with ``z`` the f32[n, 3] standard
+    """SE2 poses ``mean + z @ T^T`` with ``z`` the f32[..., n, 3] standard
     normals; additive in (x, y) and in yaw, as the reference samples SE2
-    (multivariate_distribution_traits.hpp)."""
-    t = _sqrt_psd(cov).to(z.device)
-    delta = z @ t.T
-    xy = mean.xy.to(z.device) + delta[..., :2]
-    theta = mean.theta.to(z.device) + delta[..., 2]
+    (multivariate_distribution_traits.hpp).  ``mean`` is one pose or one
+    per filter ``[...]``."""
+    delta = _deltas(z, cov)
+    xy = mean.xy.to(z.device)[..., None, :] + delta[..., :2]
+    theta = mean.theta.to(z.device)[..., None] + delta[..., 2]
     return SE2(xy, SO2.exp(theta))
 
 
@@ -50,6 +60,52 @@ def sample_normal_se2(
         (*lead, n, 3), generator=generator, dtype=torch.float32, device=generator.device
     )
     return normal_se2_from_draws(z, mean, cov)
+
+
+def normal_se3_from_draws(z: Tensor, mean: SE3, cov) -> SE3:
+    """SE3 poses from the f32[..., n, 6] standard normals ``z``: ``delta =
+    z @ T^T`` over (x, y, z, roll, pitch, yaw) with ``T`` the square root of
+    the 6x6 ``cov`` (random.py:54-61); the translation adds, the rotation
+    composes ``mean.rot @ exp(delta[3:])``.  ``mean`` is one pose or one
+    per filter ``[...]``."""
+    delta = _deltas(z, cov)
+    xyz = mean.xyz.to(z.device)[..., None, :] + delta[..., :3]
+    rot = SO3(mean.rot.q.to(z.device)[..., None, :]) @ SO3.exp(delta[..., 3:])
+    return SE3(xyz, rot)
+
+
+def sample_normal_se3(
+    generator: torch.Generator, n: int, mean: SE3, cov, lead=()
+) -> SE3:
+    """Draw ``[*lead, n]`` SE3 poses ~ N(mean, cov) on the generator's
+    device; ``cov`` is 6x6 over (x, y, z, roll, pitch, yaw), or one per
+    filter ``[*lead, 6, 6]``."""
+    z = torch.randn(
+        (*lead, n, 6), generator=generator, dtype=torch.float32, device=generator.device
+    )
+    return normal_se3_from_draws(z, mean, cov)
+
+
+def uniform_box_se3_from_draws(u: Tensor, q: Tensor, lo, hi) -> SE3:
+    """SE3 states uniform in the box ``[lo, hi)`` with uniform orientation
+    (random.py:71-79): ``u`` f32[..., n, 3] uniforms in [0, 1) place the
+    translation as ``jax.random.uniform`` does (``lo + u·(hi − lo)``, then
+    at least ``lo``); ``q`` f32[..., n, 4] standard normals, normalized,
+    give the rotation."""
+    lo = torch.as_tensor(np.asarray(lo, np.float32), device=u.device)
+    hi = torch.as_tensor(np.asarray(hi, np.float32), device=u.device)
+    xyz = torch.maximum(lo, u * (hi - lo) + lo)
+    return SE3(xyz, SO3.from_quat_wxyz(q))
+
+
+def sample_uniform_box_se3(generator: torch.Generator, n: int, lo, hi, lead=()) -> SE3:
+    """Draw ``[*lead, n]`` SE3 states uniform in the axis-aligned box
+    ``[lo, hi)`` with uniform random orientation
+    (multivariate_uniform_distribution.hpp:81-120)."""
+    dev = generator.device
+    u = torch.rand((*lead, n, 3), generator=generator, dtype=torch.float32, device=dev)
+    q = torch.randn((*lead, n, 4), generator=generator, dtype=torch.float32, device=dev)
+    return uniform_box_se3_from_draws(u, q, lo, hi)
 
 
 def uniform_free_cells_from_draws(

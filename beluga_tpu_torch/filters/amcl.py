@@ -15,8 +15,10 @@ Where the JAX package branches with ``lax.cond``, the port decides on the
 host without reading the particles back:
 
 * the motion gate uses only the odometry, which the caller holds on the
-  host; the delta is computed in float32 in the reference's operation
-  order, so a move right at ``update_min_d`` gates the same way;
+  host (SE2, or SE3 for the 3D filters, whose model table names
+  :func:`se3_motion_delta`); the delta is computed in float32 in the
+  reference's operation order, so a move right at ``update_min_d`` gates
+  the same way;
 * ``force_update``, the ``every_n`` counter and the theta-sort schedule are
   host values (numpy ``[B]`` in a fleet);
 * the ESS gate of ``selective_resampling`` (off at nav2 defaults) reads
@@ -65,7 +67,7 @@ from beluga_tpu_torch.core.particles import (
 )
 from beluga_tpu_torch.core.random import sample_normal_se2
 from beluga_tpu_torch.core.weights import effective_sample_size, normalize
-from beluga_tpu_torch.lie import SE2
+from beluga_tpu_torch.lie import SE2, SE3
 from beluga_tpu_torch.ops.cuda_resample import (
     resample_take_tree,
     resample_take_tree_multinomial,
@@ -142,6 +144,10 @@ class AmclModels(NamedTuple):
                   keeps them separate
     sort_key:     (states) -> f32[..., N] slot-sort key of ``sorted_slots``
                   filters; ``None`` selects :func:`se2_sort_key`
+    motion_delta: (prev_pose, pose) -> (distance, angle) of the on-motion
+                  gate, on the host; ``None`` selects :func:`se2_motion_delta`
+                  (on_motion.hpp:63-76; the SE3 filters take
+                  :func:`se3_motion_delta`, :115-134)
     """
 
     propagate: Callable
@@ -151,6 +157,7 @@ class AmclModels(NamedTuple):
     estimate: Callable
     fused_propagate_reweight: Callable | None = None
     sort_key: Callable | None = None
+    motion_delta: Callable | None = None
 
 
 class AmclState(NamedTuple):
@@ -162,16 +169,16 @@ class AmclState(NamedTuple):
     generator: torch.Generator
     thrun: ThrunState
     resample_count: Any  # every_n internal counter
-    motion_latest: SE2  # on-motion policy memory (host)
+    motion_latest: Any  # on-motion policy memory (host SE2 or SE3)
     motion_seeded: Any
-    control_prev: SE2  # previous odometry of the control window (host)
+    control_prev: Any  # previous odometry of the control window (host)
     control_seeded: Any
     force_update: Any
 
 
 class Estimate(NamedTuple):
-    pose: SE2
-    covariance: Tensor  # f32[..., 3, 3]
+    pose: Any  # SE2, or SE3 for the 3D filters
+    covariance: Tensor  # f32[..., 3, 3], or f32[..., 6, 6] for SE3
     valid: Any  # False when the update was gated out (numpy bool[B] in a fleet)
 
 
@@ -244,13 +251,15 @@ def _generator(generator: torch.Generator | int, device) -> torch.Generator:
     return generator
 
 
-def init_state(generator: torch.Generator | int, states: SE2, params: AmclParams,
-               device=None) -> AmclState:
+def init_state(generator: torch.Generator | int, states, params: AmclParams,
+               device=None, odom_identity=None) -> AmclState:
     """Filter state from ``max_particles`` initial states (amcl_core.hpp:
     131-137): unit weights and a forced first update.  ``states`` shaped
     ``[N]`` make one filter, ``[B, N]`` a fleet of B.  ``generator`` is a
     ``torch.Generator`` on ``device`` or a seed for a new one; ``device``
-    defaults to ``"cuda"``."""
+    defaults to ``"cuda"``.  ``odom_identity`` sets the odometry pose type
+    (default SE2; ``SE3.identity()`` for the 3D filters): the odometry
+    memory starts at that type's identity, one per filter."""
     device = resolve_device(device)
     generator = _generator(generator, device)
     states = tree_map(lambda t: t.to(device), states)
@@ -261,7 +270,8 @@ def init_state(generator: torch.Generator | int, states: SE2, params: AmclParams
             f"need exactly max_particles={params.max_particles} initial states, "
             f"got {particles.capacity}"
         )
-    identity = SE2.identity(lead, device="cpu")
+    pose_type = SE2 if odom_identity is None else type(odom_identity)
+    identity = pose_type.identity(lead, device="cpu")
     return AmclState(
         particles=particles,
         generator=generator,
@@ -304,9 +314,18 @@ def se2_motion_delta(prev: SE2, pose: SE2):
     return dist, torch.abs(delta.theta)
 
 
-def _on_motion(params: AmclParams, latest: SE2, seeded, pose: SE2):
+def se3_motion_delta(prev: SE3, pose: SE3):
+    """(translation, rotation angle) of the relative SE3 motion
+    (on_motion.hpp:115-134), in float32."""
+    delta = prev.inverse() @ pose
+    w = delta.rot.log()
+    angle = torch.sqrt(torch.sum(w * w, dim=-1))
+    return torch.sqrt(torch.sum(delta.xyz * delta.xyz, dim=-1)), angle
+
+
+def _on_motion(params: AmclParams, models: AmclModels, latest, seeded, pose):
     """``(moved, new pose memory)``; ``moved`` a numpy bool per filter."""
-    dist, angle = se2_motion_delta(latest, pose)
+    dist, angle = (models.motion_delta or se2_motion_delta)(latest, pose)
     moved = ~np.asarray(seeded) | (
         (dist > params.update_min_d) | (angle > params.update_min_a)
     ).numpy()
@@ -339,7 +358,8 @@ def update(
       ctx: map and model context forwarded to the model functions.
       state: from :func:`init_state`; its particles' filter axes ``[...]``
         (none, or ``[B]``) shape every other argument.
-      odom_pose: base pose in the odom frame, an SE2 ``[...]`` on the host.
+      odom_pose: base pose in the odom frame, an SE2 (SE3 for the 3D
+        filters) ``[...]`` on the host.
       points: ``f32[..., nb, 2]`` measurement points in the base frame, on
         the particles' device; beam_mask: ``bool[..., nb]``.
       draws: the update's random draws; ``None`` draws them from
@@ -348,7 +368,7 @@ def update(
         sorts, ``False`` does not, ``None`` follows ``sort_interval``.
     """
     moved, motion_latest = _on_motion(
-        params, state.motion_latest, state.motion_seeded, odom_pose
+        params, models, state.motion_latest, state.motion_seeded, odom_pose
     )
     due = moved | np.asarray(state.force_update)
     state = state._replace(motion_latest=motion_latest,

@@ -1,11 +1,14 @@
 """Sampled differential-drive odometry model, Thrun table 5.6 (port of
-the SE2 part of ``beluga_tpu/models/motion/differential_drive.py``).
+``beluga_tpu/models/motion/differential_drive.py``).
 
 The rot1 - translate - rot2 decomposition and its noise scales come from
 the odometry delta once per update (differential_drive_model.hpp:129-155),
 on whatever device the poses are on (the host, in the filter).  The
 sampler takes its standard normals ``z[3, N]`` as an input and perturbs
-every particle (differential_drive_model.hpp:156-163).
+every particle (differential_drive_model.hpp:156-163).  SE3 states take
+the flattened-3D variant: states and controls are projected on the plane,
+sampled in 2D and embedded again at z = 0 (differential_drive_model.hpp:
+122-127).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import math
 
 import torch
 
-from beluga_tpu_torch.lie import SE2, SO2
+from beluga_tpu_torch.lie import SE2, SE3, SO2, to_2d, to_3d
 
 Tensor = torch.Tensor
 
@@ -97,3 +100,13 @@ def diff_drive_propagate(
     theta1 = states.theta + rot1
     new_xy = states.xy + torch.stack([torch.cos(theta1) * trans, torch.sin(theta1) * trans], -1)
     return SE2(new_xy, SO2.exp(theta1 + rot2))
+
+
+def diff_drive_propagate_3d(
+    params: DifferentialDriveParams, z: Tensor, states: SE3, pose: SE3, previous_pose: SE3
+) -> SE3:
+    """The flattened-3D sample: project states and controls on the plane,
+    run :func:`diff_drive_propagate` with the normals ``z`` f32[..., 3, N],
+    and embed the result at z = 0 with zero roll and pitch."""
+    return to_3d(diff_drive_propagate(params, z, to_2d(states), to_2d(pose),
+                                      to_2d(previous_pose)))

@@ -1,0 +1,271 @@
+"""NDT (Normal Distributions Transform) sensor model, 2D and 3D (port of
+``beluga_tpu/models/sensor/ndt.py``; ``sensor/ndt_sensor_model.hpp``).
+
+The measurement points are clustered into per-voxel Gaussians on the
+device (``to_cells``, hpp:86-111: at least 5 points a cell, a minimum
+variance of 1e-5, voxels by truncation ``(p / resolution).cast<int>()``).
+Each particle's weight is ``1 + Σ_cells max(Σ_stencil d1·exp(-d2/2 ·
+eᵀ(Σa + Σb)⁻¹e), min_likelihood)`` against the map, over a 3x3 stencil in
+2D and a 7-cell one in 3D (hpp:112-147, 218-239).
+
+Maps of more than 256 rows take the stencil probe, whose table lookups go
+through kernel B10 on the card (``maps/ndt.py:NdtMap.lookup_gaussians``);
+smaller maps take the dense cross-evaluation of every (query, map cell)
+pair, which has no kernel.  The particle axis is cut into chunks of
+``particle_chunk`` with every filter of a fleet at once, as the
+reference's ``lax.map`` inside ``vmap`` does, so that a 64 x 4096 fleet
+never holds its whole ``[B, N, C, K]`` probe.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from beluga_tpu_torch.core.particles import tree_map
+from beluga_tpu_torch.lie import SE2, SE3
+from beluga_tpu_torch.maps.ndt import NdtMap, decode_keys, encode_cells
+
+Tensor = torch.Tensor
+
+MIN_VARIANCE = 1e-5  # fit_points kMinVariance (ndt_sensor_model.hpp:67)
+MIN_POINTS_PER_CELL = 5  # to_cells kMinPointsPerCell (hpp:90)
+
+KERNEL_2D = np.array(
+    [[-1, -1], [-1, 0], [-1, 1], [0, -1], [0, 0], [0, 1], [1, -1], [1, 0], [1, 1]],
+    np.int32,
+)  # hpp:113-123
+KERNEL_3D = np.array(
+    [[0, 0, 0], [0, 0, 1], [0, 0, -1], [0, 1, 0], [0, -1, 0], [-1, 0, 0], [1, 0, 0]],
+    np.int32,
+)  # hpp:126-136
+
+# maps of at most this many rows take the dense cross-evaluation
+# (models/sensor/ndt.py:106-109)
+DENSE_MAX_CELLS = 256
+_NO_CELL = 0xFFFFFFFF
+
+
+@dataclasses.dataclass(frozen=True)
+class NdtModelParams:
+    """(ndt_sensor_model.hpp:152-164)."""
+
+    minimum_likelihood: float = 0.0
+    d1: float = 1.0
+    d2: float = 1.0
+
+
+def _segment_sum(values: Tensor, seg: Tensor) -> Tensor:
+    """``out[..., s, ...] = Σ_{i: seg[..., i] = s} values[..., i, ...]``
+    along the point axis of ``seg`` ``[..., n]``, with n segments."""
+    axis = seg.dim() - 1
+    idx = seg.reshape(seg.shape + (1,) * (values.dim() - seg.dim())).expand(values.shape)
+    return torch.zeros_like(values).scatter_add_(axis, idx, values)
+
+
+def fit_measurement_cells(points: Tensor, point_mask: Tensor, resolution: float):
+    """Cluster measurement points ``f32[..., n, D]`` into per-voxel
+    Gaussians (``to_cells`` + ``fit_points``, hpp:64-111).
+
+    Returns ``(means f32[..., n, D], covs f32[..., n, D, D], cell_mask
+    bool[..., n])``: n slots in ascending key order, as ``jnp.unique(size=n,
+    fill_value=0xFFFFFFFF)`` gives them (masked points share the fill
+    key's slot, the last live one; the slots past the distinct keys are
+    padding); slots with fewer than 5 points are masked out.  The unique
+    is a sort, so nothing is read back.  Voxels truncate toward zero, the
+    covariance divides by count − 1 and its diagonal is floored at 1e-5.
+    The segment sums add in another order than the reference's (and, on
+    the card, in no fixed order).
+    """
+    n, d = points.shape[-2:]
+    res = torch.full((), resolution, dtype=torch.float32, device=points.device)
+    voxel = torch.trunc(points / res).to(torch.int32)
+    key = torch.where(point_mask, encode_cells(voxel), _NO_CELL)
+    sorted_key, order = torch.sort(key, dim=-1)
+    new = torch.ones_like(sorted_key, dtype=torch.int64)
+    new[..., 1:] = (sorted_key[..., 1:] != sorted_key[..., :-1]).to(torch.int64)
+    seg = torch.cumsum(new, dim=-1) - 1  # each sorted point's slot
+    inv = torch.empty_like(seg).scatter_(-1, order, seg)
+    uniq = torch.full_like(sorted_key, _NO_CELL).scatter_(-1, seg, sorted_key)
+    valid_cell = uniq != _NO_CELL
+
+    w = point_mask.to(torch.float32)
+    count = _segment_sum(w, inv)
+    safe = torch.clamp_min(count, 1.0)
+    mean = _segment_sum(w[..., None] * points, inv) / safe[..., None]
+    centered = points - torch.take_along_dim(mean, inv[..., None], dim=-2)
+    outer = centered[..., :, None] * centered[..., None, :] * w[..., None, None]
+    cov = _segment_sum(outer, inv) / torch.clamp_min(count - 1.0, 1.0)[..., None, None]
+    eye = torch.eye(d, dtype=torch.float32, device=points.device)
+    diag_clamped = torch.clamp_min(torch.diagonal(cov, dim1=-2, dim2=-1), MIN_VARIANCE)
+    cov = cov * (1.0 - eye) + diag_clamped[..., None] * eye
+    return mean, cov, valid_cell & (count >= MIN_POINTS_PER_CELL)
+
+
+def _inv_2x2(m: Tensor) -> Tensor:
+    a, b = m[..., 0, 0], m[..., 0, 1]
+    c, d = m[..., 1, 0], m[..., 1, 1]
+    det = a * d - b * c
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1e-12, det)
+    adj = torch.stack([torch.stack([d, -b], -1), torch.stack([-c, a], -1)], -2)
+    return adj * inv_det[..., None, None]
+
+
+def _inv_3x3(m: Tensor) -> Tensor:
+    """``inv(m + 1e-12·I)`` through the library's batched inverse, without
+    its error check (which would read a flag back from the card); a
+    singular matrix gives inf or NaN, as ``jnp.linalg.inv`` does."""
+    eye = torch.eye(3, dtype=m.dtype, device=m.device)
+    return torch.linalg.inv_ex(m + 1e-12 * eye).inverse
+
+
+def _matmul(a: Tensor, b: Tensor) -> Tensor:
+    """Batched product of small matrices as broadcast sums (no library
+    call for D <= 3)."""
+    return torch.sum(a[..., :, :, None] * b[..., None, :, :], dim=-2)
+
+
+def _kernel_likelihood(ndt_map: NdtMap, params: NdtModelParams, meas_mean: Tensor,
+                       meas_cov: Tensor, kernel) -> Tensor:
+    """Σ over the stencil of ``d1·exp(-d2/2 · eᵀ(Σa + Σb)⁻¹e)`` per query
+    Gaussian (``meas_mean`` ``f32[..., D]``, ``meas_cov`` ``f32[..., D,
+    D]``); the dense form for a standard stencil on a map of at most
+    :data:`DENSE_MAX_CELLS` rows (models/sensor/ndt.py:115-137)."""
+    d = meas_mean.shape[-1]
+    standard = np.array_equal(np.asarray(kernel), KERNEL_2D if d == 2 else KERNEL_3D)
+    if standard and ndt_map.keys.shape[0] <= DENSE_MAX_CELLS:
+        return _kernel_likelihood_dense(ndt_map, params, meas_mean, meas_cov)
+    center = ndt_map.cell_near(meas_mean)
+    offsets = torch.as_tensor(np.asarray(kernel, np.int32), device=meas_mean.device)
+    cells = center[..., None, :] + offsets  # [..., K, D]
+    map_mean, map_cov, found = ndt_map.lookup_gaussians(cells)
+
+    err = meas_mean[..., None, :] - map_mean  # [..., K, D]
+    total_cov = meas_cov[..., None, :, :] + map_cov
+    inv = _inv_2x2(total_cov) if d == 2 else _inv_3x3(total_cov)
+    quad = torch.sum(torch.sum(err[..., :, None] * inv, dim=-2) * err, dim=-1)
+    lik = params.d1 * torch.exp((-params.d2 / 2.0) * quad)
+    return torch.sum(torch.where(found, lik, 0.0), dim=-1)
+
+
+def _kernel_likelihood_dense(ndt_map: NdtMap, params: NdtModelParams, meas_mean: Tensor,
+                             meas_cov: Tensor) -> Tensor:
+    """Small-map form (models/sensor/ndt.py:140-212): every (query, map
+    cell) pair, masked to the stencil (2D: |Δ|∞ <= 1; 3D: |Δ|₁ <= 1), with
+    the closed-form 2x2 inverse and the 3x3 adjugate under the same
+    1e-12 diagonal jitter as the probe path."""
+    d = meas_mean.shape[-1]
+    mp = ndt_map.keys.shape[0]
+    live = torch.arange(mp, device=meas_mean.device) < ndt_map.num_cells
+    cells = decode_keys(ndt_map.keys, d)  # [M, D]
+    qcell = ndt_map.cell_near(meas_mean)  # [..., D]
+    delta = torch.abs(qcell[..., None, :] - cells)  # [..., M, D]
+    if d == 2:
+        within = torch.amax(delta, dim=-1) <= 1
+    else:
+        within = torch.sum(delta, dim=-1) <= 1
+    within = within & live
+    mm, mc = ndt_map.means, ndt_map.covs
+
+    if d == 2:
+        ex = meas_mean[..., 0, None] - mm[:, 0]  # [..., M]
+        ey = meas_mean[..., 1, None] - mm[:, 1]
+        txx = meas_cov[..., 0, 0, None] + mc[:, 0, 0]
+        txy = meas_cov[..., 0, 1, None] + mc[:, 0, 1]
+        tyy = meas_cov[..., 1, 1, None] + mc[:, 1, 1]
+        det = txx * tyy - txy * txy
+        det = torch.where(torch.abs(det) < 1e-12, 1e-12, det)
+        quad = (ex * ex * tyy - 2.0 * ex * ey * txy + ey * ey * txx) / det
+    else:
+        ex = meas_mean[..., 0, None] - mm[:, 0]
+        ey = meas_mean[..., 1, None] - mm[:, 1]
+        ez = meas_mean[..., 2, None] - mm[:, 2]
+        xx = meas_cov[..., 0, 0, None] + mc[:, 0, 0] + 1e-12
+        xy = meas_cov[..., 0, 1, None] + mc[:, 0, 1]
+        xz = meas_cov[..., 0, 2, None] + mc[:, 0, 2]
+        yy = meas_cov[..., 1, 1, None] + mc[:, 1, 1] + 1e-12
+        yz = meas_cov[..., 1, 2, None] + mc[:, 1, 2]
+        zz = meas_cov[..., 2, 2, None] + mc[:, 2, 2] + 1e-12
+        c00 = yy * zz - yz * yz
+        c01 = xz * yz - xy * zz
+        c02 = xy * yz - xz * yy
+        c11 = xx * zz - xz * xz
+        c12 = xy * xz - xx * yz
+        c22 = xx * yy - xy * xy
+        det = torch.clamp_min(xx * c00 + xy * c01 + xz * c02, 1e-30)
+        quad = (ex * ex * c00 + ey * ey * c11 + ez * ez * c22
+                + 2.0 * (ex * ey * c01 + ex * ez * c02 + ey * ez * c12)) / det
+        quad = torch.clamp_min(quad, 0.0)
+    lik = params.d1 * torch.exp((-params.d2 / 2.0) * quad)
+    return torch.sum(torch.where(within, lik, 0.0), dim=-1)
+
+
+def _chunked_over_particles(states, particle_chunk: int, body) -> Tensor:
+    """``body(chunk) -> f32[..., ck]`` over chunks of the particle axis (the
+    last axis of ``states.shape``), every filter at once; the per-(particle,
+    cell, stencil) intermediates then stay within one chunk's size."""
+    axis = len(states.shape) - 1
+    n = states.shape[-1]
+    ck = min(particle_chunk, n)
+    return torch.cat([
+        body(tree_map(lambda leaf, s=s: leaf.narrow(axis, s, min(ck, n - s)), states))
+        for s in range(0, n, ck)
+    ], dim=-1)
+
+
+def measurements_in_world(states, meas_means: Tensor, meas_covs: Tensor):
+    """The measurement Gaussians ``[..., C]`` as each particle of ``states``
+    ``[..., n]`` (SE2 or SE3) sees them in the world (ndt_cell.hpp:63-68):
+    means ``f32[..., n, C, D]`` and covariances ``R Σ Rᵀ`` ``f32[..., n, C,
+    D, D]``."""
+    if isinstance(states, SE2):
+        c, s = states.rot.cos[..., :, None], states.rot.sin[..., :, None]
+        mx, my = meas_means[..., None, :, 0], meas_means[..., None, :, 1]
+        mean_w = torch.stack([c * mx - s * my + states.x[..., :, None],
+                              s * mx + c * my + states.y[..., :, None]], -1)
+        rot = torch.stack([torch.stack([states.rot.cos, -states.rot.sin], -1),
+                           torch.stack([states.rot.sin, states.rot.cos], -1)], -2)
+    else:
+        rot = states.rot.as_matrix()
+        mean_w = (torch.sum(rot[..., :, None, :, :] * meas_means[..., None, :, None, :], dim=-1)
+                  + states.xyz[..., :, None, :])
+    rot = rot[..., :, None, :, :]
+    cov_w = _matmul(_matmul(rot, meas_covs[..., None, :, :, :]), rot.transpose(-1, -2))
+    return mean_w, cov_w
+
+
+def _ndt_weights(params, ndt_map, states, meas_means, meas_covs, cell_mask, particle_chunk,
+                 kernel) -> Tensor:
+    def body(st) -> Tensor:
+        mean_w, cov_w = measurements_in_world(st, meas_means, meas_covs)
+        lik = _kernel_likelihood(ndt_map, params, mean_w, cov_w, kernel)
+        lik = torch.clamp_min(lik, params.minimum_likelihood)
+        return 1.0 + torch.sum(torch.where(cell_mask[..., None, :], lik, 0.0), dim=-1)
+
+    return _chunked_over_particles(states, particle_chunk, body)
+
+
+def ndt_weights_2d(params: NdtModelParams, ndt_map: NdtMap, states: SE2, meas_means: Tensor,
+                   meas_covs: Tensor, cell_mask: Tensor, particle_chunk: int = 512) -> Tensor:
+    """Per-particle weights ``1 + Σ_cells max(stencil likelihood, min)``
+    (hpp:218-239), ``f32[..., N]``, for states ``[..., N]`` and measurement
+    cells ``[..., C]``."""
+    return _ndt_weights(params, ndt_map, states, meas_means, meas_covs, cell_mask,
+                        particle_chunk, KERNEL_2D)
+
+
+def ndt_weights_3d(params: NdtModelParams, ndt_map: NdtMap, states: SE3, meas_means: Tensor,
+                   meas_covs: Tensor, cell_mask: Tensor, particle_chunk: int = 512) -> Tensor:
+    """The 3D variant over SE3 states ``[..., N]``; ``f32[..., N]``."""
+    return _ndt_weights(params, ndt_map, states, meas_means, meas_covs, cell_mask,
+                        particle_chunk, KERNEL_3D)
+
+
+def ndt_likelihood_at(params: NdtModelParams, ndt_map: NdtMap, mean: Tensor,
+                      cov: Tensor) -> Tensor:
+    """``likelihood_at`` of one measurement Gaussian (hpp:229-239)."""
+    kernel = KERNEL_2D if mean.shape[-1] == 2 else KERNEL_3D
+    lik = _kernel_likelihood(ndt_map, params, mean[None], cov[None], kernel)[0]
+    return torch.clamp_min(lik, params.minimum_likelihood)

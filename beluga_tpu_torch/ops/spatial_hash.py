@@ -1,5 +1,5 @@
 """Spatial hashing for KLD buckets and clustering (port of
-``beluga_tpu/ops/spatial_hash.py``).
+``beluga_tpu/ops/spatial_hash.py``), of SE2 and SE3 states.
 
 Each coordinate is floored at its resolution, Fibonacci-hashed, rotated
 left by ``bits * index`` and XOR-folded, in 32 bits
@@ -57,3 +57,14 @@ def spatial_hash_se2(xy: Tensor, theta: Tensor, res_xy: float, res_theta: float,
     if res_y is None:
         res_y = res_xy
     return hash_components([xy[..., 0], xy[..., 1], theta], [res_xy, res_y, res_theta])
+
+
+def spatial_hash_se3(xyz: Tensor, rpy: tuple[Tensor, Tensor, Tensor],
+                     res_lin: float, res_ang: float) -> Tensor:
+    """Hash SE3 states on (x, y, z, roll, pitch, yaw) (spatial_hash.hpp:
+    204-274); int64 values in ``[0, 2^32)``."""
+    roll, pitch, yaw = rpy
+    return hash_components(
+        [xyz[..., 0], xyz[..., 1], xyz[..., 2], roll, pitch, yaw],
+        [res_lin, res_lin, res_lin, res_ang, res_ang, res_ang],
+    )

@@ -3,7 +3,8 @@ workloads under ``torch.profiler``.
 
     python -m beluga_tpu_torch.tools.profile_update [--scans 20] [--trace-dir DIR]
         [--workloads node,large,fleet,mega,windowed,beam_node,long_range,beam_fleet,
-                     prob_node,shared_scan,prob_fleet,windowed_int8]
+                     prob_node,shared_scan,prob_fleet,windowed_int8,
+                     ndt_node,ndt_fleet,ndt3d_node,vdb]
 
 Workloads, the configurations of ``tools/workloads.py`` (which
 ``chip_smoke.py`` drives too):
@@ -35,7 +36,15 @@ Workloads, the configurations of ``tools/workloads.py`` (which
 * ``prob_fleet``: the fleet in the probability model's codebook16 mode
   (kernel B4-log);
 * ``windowed_int8``: the windowed filter on int8 window tables (kernel
-  B6-int8).
+  B6-int8);
+* ``ndt_node``: ``NdtAmclNode`` at nav2 defaults on the 2D NDT map, 360-beam
+  point clouds (kernel B10);
+* ``ndt_fleet``: the NDT fleet, 64 filters x 4096 particles x 60 points,
+  forced updates (kernel B10);
+* ``ndt3d_node``: ``NdtAmclNode3D`` at nav2 defaults on the 3D NDT map,
+  3600-point clouds (kernel B10);
+* ``vdb``: BASELINE config #4, 131072 SE3 particles x 80 points, forced
+  updates (kernel B11).
 
 After a warm-up each workload runs ``--scans`` scans on the host clock
 (wall ms per update, a synchronize after the last), then ``--scans`` more
@@ -67,7 +76,8 @@ STAGES = ("propagate", "log_weight", "random_state", "hash_state", "estimate", "
           "fused_propagate_reweight", "prepare")
 # PyTorch operators whose device time the profile reports by name, to see
 # how they scale with the particle count
-OPS = ("aten::cummax", "aten::sort", "aten::cumsum", "aten::matmul", "aten::index_select")
+OPS = ("aten::cummax", "aten::sort", "aten::cumsum", "aten::matmul", "aten::index_select",
+       "aten::linalg_inv_ex")
 
 
 def _ranged(models):
@@ -162,6 +172,74 @@ def _forced(make_workload, sort_every: int | None):
     return make
 
 
+def _ndt_node(scans: int, dim: int = 2):
+    """An NDT node stepped one point cloud per scan (3D: the scan at ten
+    heights)."""
+    from beluga_tpu_torch.io.config import AmclNodeConfig
+    from beluga_tpu_torch.ndt_node import NdtAmclNode, NdtAmclNode3D
+
+    s = workloads.ndt_scans(scans)
+    if dim == 2:
+        node = NdtAmclNode(workloads.node_config(s), seed=0)
+        node.set_map(workloads.ndt_map_2d(node.device))
+        clouds, masks = s.points, s.mask
+        odoms = [(x, y, yaw) for x, y, yaw in zip(s.xs, s.ys, s.yaws)]
+    else:
+        node = NdtAmclNode3D(AmclNodeConfig(), seed=0)
+        node.set_map(workloads.ndt_map_3d(node.device))
+        node.set_initial_pose((s.xs[0], s.ys[0], 0.0), (0.0, 0.0, s.yaws[0]),
+                              workloads.INITIAL_COV_3D)
+        clouds, masks = workloads.ndt_clouds(s)
+        odoms = [(x, y, 0.0, 0.0, 0.0, yaw) for x, y, yaw in zip(s.xs, s.ys, s.yaws)]
+    node._models = _ranged(node._models)
+    node._step = node._make_packed_step()
+
+    def step(t):
+        if not node.handle_point_cloud(odoms[t], clouds[t], masks[t]).valid:
+            raise RuntimeError(f"NDT node scan {t} was gated out")
+
+    return step
+
+
+def _ndt_fleet(scans: int):
+    """The NDT fleet stepped with ``force_update`` at the truth odometry."""
+    import numpy as np
+
+    from beluga_tpu_torch.parallel.fleet import make_fleet_update
+
+    w = workloads.ndt_fleet(scans, torch.device("cuda"))
+    batch = w.points.shape[0]
+    fleet_update = make_fleet_update(w.params, _ranged(w.models))
+    odoms = workloads.fleet_odometry(w.scans, 0, batch)
+    box = {"state": w.state}
+
+    def step(t):
+        box["state"], est = fleet_update(
+            w.ctx, box["state"]._replace(force_update=np.ones(batch, bool)), odoms, w.points,
+            w.mask)
+        est.pose.xy.cpu()
+
+    return step
+
+
+def _vdb(scans: int):
+    """The VDB filter stepped with ``force_update`` at the identity odometry."""
+    from beluga_tpu_torch.filters.amcl import update
+    from beluga_tpu_torch.lie import SE3
+
+    w = workloads.vdb_filter(scans, torch.device("cuda"))
+    models = _ranged(w.models)
+    box = {"state": w.state}
+
+    def step(t):
+        box["state"], est = update(w.params, models, w.ctx,
+                                   box["state"]._replace(force_update=True), SE3.identity(),
+                                   w.points, w.mask)
+        est.pose.xyz.cpu()
+
+    return step
+
+
 WORKLOADS = {"node": _node, "large": _large, "fleet": _fleet,
              "mega": _forced(workloads.mega, workloads.MEGA_SORT_EVERY),
              "windowed": _forced(workloads.windowed, None),
@@ -174,7 +252,9 @@ WORKLOADS = {"node": _node, "large": _large, "fleet": _fleet,
              "prob_fleet": lambda scans: _fleet(
                  scans, lambda n, dev: workloads.fleet(n, dev, prob_model=True)),
              "windowed_int8": _forced(
-                 lambda n, dev: workloads.windowed(n, dev, table_dtype="int8"), None)}
+                 lambda n, dev: workloads.windowed(n, dev, table_dtype="int8"), None),
+             "ndt_node": _ndt_node, "ndt_fleet": _ndt_fleet,
+             "ndt3d_node": lambda scans: _ndt_node(scans, dim=3), "vdb": _vdb}
 
 
 def profile_workload(name: str, make, scans: int, warmup: int, trace_dir: str | None) -> dict:

@@ -38,7 +38,25 @@ beams per scan:
 * :func:`fleet` with ``prob_model=True``: the fleet in the probability
   model's codebook16 mode (kernel B4-log);
 * :func:`windowed` with ``table_dtype="int8"``: the windowed filter on
-  int8 window tables (kernel B6-int8).
+  int8 window tables (kernel B6-int8);
+* :func:`ndt_scans` with :func:`node_config`: ``NdtAmclNode`` at nav2
+  defaults on the 2D NDT map (:func:`ndt_map_2d`: the arena's occupied
+  cells fitted at 0.4 m, 287 rows, so the stencil probe runs kernel B10),
+  360-beam 3.5 m scans of the circle as point clouds;
+* :func:`ndt_fleet`: ``bench.py:780-837``'s NDT fleet, 64 filters x 4096
+  particles, a fixed count, 60 points, forced updates, each filter from a
+  cloud of diag(0.05, 0.05, 0.02) about the truth; the points are 12 map
+  means within 3 m of the truth, 5 points each with 1 cm of noise, in the
+  robot frame (the bench draws 60 independent means, which leaves almost
+  no cell its 5 points);
+* :func:`ndt_clouds` with ``NdtAmclNode3D``: the 3D NDT map
+  (:func:`ndt_map_3d`: the occupied cells extruded over z in [0, 2) m at
+  0.1 m, fitted at 0.5 m, 996 rows) and each 360-beam scan repeated at ten
+  heights, 0.1-1.9 m (3600 points);
+* :func:`vdb_filter`: BASELINE config #4 (``bench.py:722-778``), 131072
+  SE3 particles x 80 points in the room it builds, ``voxel_size_hint=0.2``
+  (kernel B11), KLD down to 32768, forced updates at the identity
+  odometry.
 
 :func:`long_range` runs elsewhere: the JAX package's long-range beam row
 (``benchmarks/REPORT.md:175-185``, ``tests/test_system_long_range.py``), a
@@ -292,3 +310,144 @@ def fleet_odometry(s: Scans, t: int, batch: int):
 
     return SE2.from_xytheta(np.full(batch, s.xs[t]), np.full(batch, s.ys[t]),
                             np.full(batch, s.yaws[t]), device="cpu")
+
+
+# -- slice 6: the NDT and VDB filters --------------------------------------------
+
+NDT_BEAMS = 360  # the NDT workloads' scans: 360 beams at 3.5 m
+NDT_CELL_2D, NDT_CELL_3D = 0.4, 0.5
+NDT_HEIGHTS = np.arange(0.0, 2.0, 0.1)  # the 3D map's extrusion
+CLOUD_HEIGHTS = np.linspace(0.1, 1.9, 10)  # the 3D node's cloud layers
+NDT_FLEET = dict(means=12, points_per_mean=5, noise=0.01, radius=3.0,
+                 cov=np.diag([0.05, 0.05, 0.02]))  # bench.py:793-809
+INITIAL_COV_3D = np.diag([0.25, 0.25, 0.01, 0.001, 0.001, 0.068])
+VDB_N, VDB_POINTS = 131072, 80  # bench.py:742-748
+VDB_TRUTH = (3.0, 3.0, 0.0, 0.0, 0.0, 0.3)  # bench.py:748-754
+
+
+def _arena_points() -> np.ndarray:
+    from beluga_tpu_torch.io import synthetic
+    from beluga_tpu_torch.tools.make_ndt_map import grid_to_points
+
+    return grid_to_points(synthetic.tracking_arena(GRID, RES), RES)
+
+
+def ndt_map_2d(device):
+    """The arena's occupied cells fitted at 0.4 m: 287 rows."""
+    from beluga_tpu_torch.maps.ndt import make_ndt_map
+    from beluga_tpu_torch.tools.make_ndt_map import fit_ndt_cells
+
+    return make_ndt_map(*fit_ndt_cells(_arena_points(), NDT_CELL_2D), NDT_CELL_2D, device)
+
+
+def ndt_map_3d(device):
+    """The arena's occupied cells extruded over z in [0, 2) m at 0.1 m and
+    fitted at 0.5 m: 996 rows."""
+    from beluga_tpu_torch.maps.ndt import make_ndt_map
+    from beluga_tpu_torch.tools.make_ndt_map import fit_ndt_cells
+
+    p2 = _arena_points()
+    p3 = np.concatenate([np.c_[p2, np.full(len(p2), z)] for z in NDT_HEIGHTS])
+    return make_ndt_map(*fit_ndt_cells(p3, NDT_CELL_3D), NDT_CELL_3D, device)
+
+
+def ndt_scans(scans: int) -> Scans:
+    """The arena circle with 360-beam 3.5 m scans (about 165 hits each)."""
+    from beluga_tpu_torch.io import synthetic
+
+    data = synthetic.tracking_arena(GRID, RES)
+    xs, ys, yaws = synthetic.circle_trajectory(scans, GRID, RES)
+    pts, mask = synthetic.simulate_scans(data, RES, xs, ys, yaws, NDT_BEAMS)
+    return Scans(data, xs, ys, yaws, pts, mask)
+
+
+def ndt_clouds(s: Scans) -> tuple[np.ndarray, np.ndarray]:
+    """Each scan's points at ten heights: ``f32[scans, 3600, 3]`` in the base
+    frame and their mask (a beam's mask at every height)."""
+    layers = [np.concatenate([s.points, np.full((*s.points.shape[:2], 1), z, np.float32)], -1)
+              for z in CLOUD_HEIGHTS]
+    return (np.concatenate(layers, axis=1).astype(np.float32),
+            np.concatenate([s.mask] * len(CLOUD_HEIGHTS), axis=1))
+
+
+def ndt_fleet_points(ndt_map, truth, seed: int = 0) -> np.ndarray:
+    """``f32[60, 2]``: 12 map means within 3 m of ``truth`` (x, y, yaw), 5
+    points each with 1 cm of noise, in the robot frame
+    (bench.py:793-809 with 5 points a mean, so that 12 cells are live)."""
+    cfg = NDT_FLEET
+    rng = np.random.default_rng(seed)
+    mu = ndt_map.means[:ndt_map.num_cells].cpu().numpy()
+    near = mu[np.linalg.norm(mu - np.asarray(truth[:2]), axis=1) < cfg["radius"]]
+    sel = np.repeat(near[rng.choice(len(near), cfg["means"], replace=False)],
+                    cfg["points_per_mean"], axis=0)
+    c, s = np.cos(truth[2]), np.sin(truth[2])
+    local = (sel - np.asarray(truth[:2])) @ np.array([[c, -s], [s, c]])
+    return (local + rng.normal(0, cfg["noise"], local.shape)).astype(np.float32)
+
+
+def ndt_fleet(scans: int, device, batch: int = 64, n: int = 4096) -> Workload:
+    """The NDT fleet (bench.py:780-837) at the first truth pose of the
+    circle; step it with ``force_update`` on every filter at the truth
+    odometry (``fleet_odometry(w.scans, 0, batch)``)."""
+    from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_fleet_state
+    from beluga_tpu_torch.filters.ndt_builders import make_ndt_filter_2d
+
+    s = arena_scans(1)
+    truth = (s.xs[0], s.ys[0], s.yaws[0])
+    ndt_map = ndt_map_2d(device)
+    models, ctx = make_ndt_filter_2d(ndt_map)
+    params = AmclParams(max_particles=n, min_particles=n)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    state = init_fleet_state(gen, batch, host_pose(*truth), NDT_FLEET["cov"], params,
+                             device=device)
+    pts = torch.as_tensor(ndt_fleet_points(ndt_map, truth)).to(device)
+    return Workload(s, pts.expand(batch, *pts.shape).contiguous(),
+                    torch.ones((batch, pts.shape[0]), dtype=torch.bool, device=device),
+                    params, models, ctx, state)
+
+
+def vdb_room_points() -> np.ndarray:
+    """BASELINE config #4's room (bench.py:734-739): a floor, two walls and
+    a pillar as an obstacle cloud."""
+    pts = [[x, y, 0.0] for x in np.arange(0, 8, 0.2) for y in np.arange(0, 8, 0.2)]
+    for t in np.arange(0, 8, 0.1):
+        for z in np.arange(0, 2.5, 0.25):
+            pts += [[t, 0.0, z], [0.0, t, z]]
+    pts += [[5.0, 5.0, z] for z in np.arange(0, 2.0, 0.2)]
+    return np.asarray(pts)
+
+
+def vdb_filter(scans: int, device, n: int = VDB_N) -> Workload:
+    """BASELINE config #4 (bench.py:722-778): the room's distance volume at
+    0.2 m (49 x 49 x 21 voxels, 5 m background), its code table, ``n`` SE3
+    particles about (3, 3, 0, yaw 0.3) with covariance 0.05·I, KLD down to
+    n/4, 80 measurement points; ``points`` ``f32[80, 3]`` and ``mask`` serve
+    every update (step with ``force_update`` at ``SE3.identity()``)."""
+    from beluga_tpu_torch.core.random import sample_normal_se3
+    from beluga_tpu_torch.filters.amcl import AmclParams, init_state
+    from beluga_tpu_torch.filters.vdb_builders import make_vdb_filter_3d
+    from beluga_tpu_torch.lie import SE3
+    from beluga_tpu_torch.maps.voxel import make_distance_grid_from_points
+
+    grid = make_distance_grid_from_points(vdb_room_points(), 0.2, max_distance=5.0,
+                                          device=device)
+    models, ctx = make_vdb_filter_3d(grid, voxel_size_hint=0.2)
+    params = AmclParams(max_particles=n, min_particles=n // 4)
+    rng = np.random.default_rng(4)
+    meas = np.asarray([[5.0, 5.0, z] for z in np.arange(0, 2.0, 0.2)]
+                      + [[t, 0.0, 1.0] for t in np.arange(0, 8, 0.4)]
+                      + [[0.0, t, 1.0] for t in np.arange(0, 8, 0.4)])
+    sel = meas[rng.integers(0, len(meas), VDB_POINTS)]
+    x, y, z, _, _, yaw = VDB_TRUTH
+    c, s = np.cos(yaw), np.sin(yaw)
+    rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    pts = ((sel - np.array([x, y, z])) @ rot + rng.normal(0, 0.02, sel.shape)).astype(np.float32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    mean = SE3.from_xyzrpy([x, y, z], VDB_TRUTH[3:], device="cpu")
+    states = sample_normal_se3(gen, n, mean, np.eye(6) * 0.05)
+    state = init_state(gen, states, params, device=device, odom_identity=SE3.identity())
+    return Workload(None, torch.as_tensor(pts).to(device),
+                    torch.ones(VDB_POINTS, dtype=torch.bool, device=device),
+                    params, models, ctx, state)

@@ -63,7 +63,22 @@ Phases, each of which exits non-zero when it fails:
 14. prob fleet: the fleet in the probability model's codebook16 mode for
    20 scans, every filter within the gate; B4-log once per update;
 15. windowed int8: the windowed filter on int8 window tables for 20
-   forced updates, same gate; B6-int8 at least once, B1 on every update.
+   forced updates, same gate; B6-int8 at least once, B1 on every update;
+16. NDT node: ``NdtAmclNode`` at nav2 defaults on the 2D NDT map (the
+   arena fitted at 0.4 m, 287 rows) for 50 scans of 360 beams at 3.5 m,
+   same gate; B10 on every update (once per 512-particle chunk);
+17. NDT fleet: ``bench.py:780-837``'s 64 filters x 4096 particles x 60
+   points (12 map means x 5 points, so that cells are live), a fixed
+   count, 20 forced updates, every filter within the gate at every scan;
+   B10 once per particle chunk;
+18. NDT-3D node: ``NdtAmclNode3D`` at nav2 defaults on the 3D NDT map (the
+   arena extruded to 2 m, fitted at 0.5 m, 996 rows), each cloud the
+   360-beam scan at ten heights (3600 points), 30 scans, the gate on x, y
+   and yaw; B10 on every update;
+19. VDB filter: BASELINE config #4 (``bench.py:722-778``), 131072 SE3
+   particles x 80 points with ``voxel_size_hint=0.2``, 20 forced updates,
+   each within 0.9 m / 30 degrees of (3, 3, 0, yaw 0.3); B11 once per
+   update.
 
 Phase 3 also holds kernels B8 (the node's 2000 x 60 at 100 m and the
 long-range 2048 x 60 at 60 m), B7 (64 x 4096 x 60, K = 128, θ-sorted slots
@@ -72,9 +87,14 @@ build's 128 x 384 x 384 rays at 4 m) against their plain versions, and
 slice 5's: B9 (nearest at the shared-scan shape, 128 x 280 x 384, and
 bilinear at full resolution, 128 x 552 x 640, beside ``conv2d``), B1-log
 (2000 x 60 and 64 x 4096 x 60), B4-log (64 x 4096 x 60) and B6-int8
-(262144 particles, [64, 128, 128]).
+(262144 particles, [64, 128, 128]); and slice 6's: B10 at the NDT fleet's
+particle chunk (64 x 512 particles x 60 cells x 9 stencil cells, 287 keys,
+P = 6) and the 3D node's (512 x 3600 x 7, 996 keys, P = 12), B11 at the VDB
+filter's 131072 x 80 queries on the bench volume (49 x 1029 codes, in
+shared memory) and on a 200 x 200 x 50 building floor (2 MB of codes, from
+global memory), each equal to its plain version (max abs err 0).
 
-Phases 4 to 15 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
+Phases 4 to 19 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The line before the last two is the ``kernels`` JSON; the line
@@ -126,6 +146,8 @@ MEGA_SCANS, MEGA_LAST, MEGA_LAST_GATE_M = 64, 32, 0.35  # bench.py:364-377
 WINDOWED_SCANS = 40
 BEAM_NODE_SCANS, LONG_RANGE_SCANS, LONG_RANGE_WARMUP, BEAM_FLEET_SCANS = 30, 40, 2, 40
 SHARED_SCAN_SCANS, PROB_FLEET_SCANS, WINDOWED_INT8_SCANS = 40, 20, 20
+NDT_NODE_SCANS, NDT_FLEET_SCANS, NDT3D_SCANS, VDB_SCANS = 50, 20, 30, 20
+NDT_CHUNK = 512  # ndt_weights_2d/_3d's default particle chunk
 LIBRARY_LIMIT_MS = 1000.0  # a library yardstick slower than this per call is not timed
 # float32 operations per (particle, unmasked beam) of the beam mixture, with
 # exp counted as 10: two A&S erfs of ~28, eta_hit 6, the Gaussian 17, the
@@ -973,14 +995,151 @@ def check_beam_lut(dev, iters: int) -> dict:
     )
 
 
-# -- phases 4 to 11: the main paths --------------------------------------------
+def ndt_queries(ndt_map, states, points, mask):
+    """The encoded stencil cells that the NDT model probes for ``states``
+    (one particle chunk) and a point cloud (``models/sensor/ndt.py:
+    _kernel_likelihood``)."""
+    from beluga_tpu_torch.maps.ndt import encode_cells
+    from beluga_tpu_torch.models.sensor.ndt import (
+        KERNEL_2D,
+        KERNEL_3D,
+        fit_measurement_cells,
+        measurements_in_world,
+    )
+
+    means, covs, _ = fit_measurement_cells(points, mask, ndt_map.resolution)
+    mean_w, _ = measurements_in_world(states, means, covs)
+    kernel = KERNEL_2D if ndt_map.dim == 2 else KERNEL_3D
+    offsets = torch.as_tensor(kernel, device=mean_w.device)
+    return encode_cells(ndt_map.cell_near(mean_w)[..., None, :] + offsets)
+
+
+def check_ndt_probe(dev, iters: int, dim: int) -> dict:
+    """Kernel B10 at a main path's particle chunk: in 2D the NDT fleet's
+    (64 filters x 512 particles x 60 cells x 9), in 3D the NDT-3D node's
+    (512 particles x 3600 cells x 7), bit-equal to its plain version
+    (``torch.searchsorted`` and a gather, the yardstick); no single library
+    call computes the function."""
+    from beluga_tpu_torch.core.particles import tree_map
+    from beluga_tpu_torch.core.random import sample_normal_se3
+    from beluga_tpu_torch.lie import SE3
+    from beluga_tpu_torch.ops import cuda_ndt as b10
+    from beluga_tpu_torch.tools import workloads
+
+    if dim == 2:
+        w = workloads.ndt_fleet(1, dev)
+        ndt_map = w.ctx["ndt_map"]
+        states = tree_map(lambda leaf: leaf[:, :NDT_CHUNK].contiguous(), w.state.particles.state)
+        q = ndt_queries(ndt_map, states, w.points, w.mask)
+    else:
+        s = workloads.ndt_scans(1)
+        clouds, cmask = workloads.ndt_clouds(s)
+        ndt_map = workloads.ndt_map_3d(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(10)
+        states = sample_normal_se3(gen, NDT_CHUNK, SE3.from_xyzrpy(
+            [s.xs[0], s.ys[0], 0.0], (0.0, 0.0, s.yaws[0]), device="cpu"),
+            workloads.INITIAL_COV_3D)
+        q = ndt_queries(ndt_map, states, torch.as_tensor(clouds[0]).to(dev),
+                        torch.as_tensor(cmask[0]).to(dev))
+    args = (ndt_map.keys, ndt_map.values, ndt_map.num_cells, q)
+    got_v, got_f = b10.ndt_probe(*args)
+    want_v, want_f = b10.ndt_probe_reference(*args)
+    torch.cuda.synchronize()
+    label = f"{list(q.shape)} queries, {ndt_map.num_cells} keys, P = {ndt_map.values.shape[1]}"
+    check(torch.equal(got_f, want_f),
+          f"B10 {label}: {int((got_f != want_f).sum())} found flags differ")
+    check(torch.equal(got_v, want_v),
+          f"B10 {label}: {int((got_v != want_v).any(-1).sum())} value rows differ")
+    hits = float(got_f.float().mean())
+    check(0.0 < hits < 1.0, f"B10 {label}: hit share {hits}")
+    times = timings(lambda: b10.ndt_probe(*args), lambda: b10.ndt_probe_reference(*args), iters)
+    n, m, p = q.numel(), ndt_map.num_cells, ndt_map.values.shape[1]
+    bms, by = bound_ms(n * (4 + 4 * p + 1) + m * (4 + 4 * p), 0)
+    return dict(
+        name="B10 ndt_probe", route="cuda", source="beluga_tpu_torch/csrc/ndt_probe.cu",
+        replaces="beluga_tpu/ops/pallas_ndt.py:48", max_abs_err=float(
+            (got_v - want_v).abs().max()), bound_ms=bms, bound_by=by, hit_share=hits,
+        shape=f"{dim}D {label}", **times,
+    )
+
+
+def building_floor(dev):
+    """The 200 x 200 x 50-voxel building floor of ``maps/voxel.py:6-8`` at
+    0.1 m: a floor slab, outer walls, interior walls with door gaps and a
+    row of pillars, 2 m background."""
+    from beluga_tpu_torch.maps.voxel import make_distance_grid
+
+    occ = np.zeros((50, 200, 200), bool)
+    occ[0] = True
+    occ[:, [0, -1], :] = occ[:, :, [0, -1]] = True
+    for x in (60, 130):
+        occ[:, :, x] = True
+        occ[:21, 90:100, x] = False  # doors
+    occ[:, 100, :] = True
+    occ[:21, 100, 30:40] = occ[:21, 100, 160:170] = False
+    for y in range(20, 200, 40):
+        occ[:, y:y + 3, 95:98] = True
+    return make_distance_grid(occ, 0.1, max_distance=2.0, device=dev)
+
+
+def check_codebook_lookup(dev, iters: int, volume: str) -> dict:
+    """Kernel B11 at the VDB filter's 131072 x 80 queries, on the bench
+    volume (the queries of the filter's initial cloud) or on the building
+    floor (uniform points in the volume), bit-equal to its plain version
+    and timed beside a gather of the float volume (``values[z, y, x]``,
+    the same function where the codebook is exact)."""
+    from beluga_tpu_torch.lie import SO3
+    from beluga_tpu_torch.maps.voxel import make_distance_codes
+    from beluga_tpu_torch.ops import cuda_codebook as b11
+    from beluga_tpu_torch.tools import workloads
+
+    n, p = workloads.VDB_N, workloads.VDB_POINTS
+    if volume == "bench":
+        w = workloads.vdb_filter(1, dev)
+        grid, (codes, book) = w.ctx["vdb_grid"], w.ctx["vdb_codes"]
+        st = w.state.particles.state
+        world = SO3(st.rot.q[:, None, :]).act(w.points[None]) + st.xyz[:, None, :]
+    else:
+        grid = building_floor(dev)
+        codes, book = make_distance_codes(grid, 0.1, 2.0)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(11)
+        world = torch.rand((n, p, 3), generator=gen, device=dev) * torch.tensor(
+            [20.4, 20.4, 5.4], device=dev) - 0.2
+    idx = grid.voxel_index(world)
+    d, h, wd = grid.values.shape
+    x, y, z = (torch.clamp(idx[..., i], 0, lim - 1) for i, lim in enumerate((wd, h, d)))
+    yi, xi = y.contiguous(), (z * wd + x).contiguous()
+    got = b11.codebook_lookup(codes, book, yi, xi)
+    want = b11.codebook_lookup_reference(codes, book, yi, xi)
+    torch.cuda.synchronize()
+    label = (f"{n}x{p} queries, codes [{codes.shape[0]}, {codes.shape[1]}] "
+             f"({'shared memory' if codes.numel() + 1024 <= 200 * 1024 else 'global memory'})")
+    check(torch.equal(got, want), f"B11 {label}: {int((got != want).sum())} values differ")
+    exact = bool(torch.equal(got, grid.values[z.long(), y.long(), x.long()]))
+    zl, yl, xl = z.long(), y.long(), x.long()
+    times = timings(lambda: b11.codebook_lookup(codes, book, yi, xi),
+                    lambda: b11.codebook_lookup_reference(codes, book, yi, xi), iters,
+                    library=lambda: grid.values[zl, yl, xl])
+    bms, by = bound_ms(12 * yi.numel() + codes.numel() + 4 * book.numel(), 0)
+    return dict(
+        name="B11 codebook_lookup", route="cuda", source="beluga_tpu_torch/csrc/codebook_lookup.cu",
+        replaces="beluga_tpu/ops/pallas_lookup.py:82", max_abs_err=float((got - want).abs().max()),
+        codebook_exact=exact, bound_ms=bms, bound_by=by, shape=f"{volume}: {label}", **times,
+    )
+
+
+# -- phases 4 to 19: the main paths --------------------------------------------
 
 
 def reset_counts() -> None:
     from beluga_tpu_torch.ops import (
         cuda_beam,
         cuda_beam_lut,
+        cuda_codebook,
         cuda_fused_step,
+        cuda_ndt,
         cuda_pool_take,
         cuda_resample,
         cuda_reweight,
@@ -989,6 +1148,8 @@ def reset_counts() -> None:
         raycast,
     )
 
+    cuda_ndt.launches = 0
+    cuda_codebook.launches = 0
     cuda_reweight.launches = 0
     cuda_reweight.values3_launches = 0
     cuda_reweight.log_launches = 0
@@ -1008,7 +1169,9 @@ def read_counts() -> dict:
     from beluga_tpu_torch.ops import (
         cuda_beam,
         cuda_beam_lut,
+        cuda_codebook,
         cuda_fused_step,
+        cuda_ndt,
         cuda_pool_take,
         cuda_resample,
         cuda_reweight,
@@ -1029,6 +1192,8 @@ def read_counts() -> dict:
             "B7 beam_lut_windowed": cuda_beam_lut.launches,
             "B8 sphere_trace_beam_weights": cuda_beam.launches,
             "B9 scan_lut_correlate": cuda_scan_lut.launches,
+            "B10 ndt_probe": cuda_ndt.launches,
+            "B11 codebook_lookup": cuda_codebook.launches,
             "R1 cast_rays": raycast.launches}
 
 
@@ -1394,6 +1559,189 @@ def run_beam_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
     )
 
 
+def run_ndt_node(dev, scans: int = NDT_NODE_SCANS) -> tuple[dict, dict]:
+    """``NdtAmclNode`` at nav2 defaults on the 2D NDT map: every valid
+    estimate within the gate, B10 once per particle chunk on every update."""
+    from beluga_tpu_torch.models.sensor.ndt import fit_measurement_cells
+    from beluga_tpu_torch.ndt_node import NdtAmclNode
+    from beluga_tpu_torch.tools import workloads
+
+    s = workloads.ndt_scans(scans)
+    reset_counts()
+    node = NdtAmclNode(workloads.node_config(s), seed=0, device=dev)
+    node.set_map(workloads.ndt_map_2d(dev))
+    chunks = math.ceil(node.params.max_particles / NDT_CHUNK)
+    live = [int(fit_measurement_cells(torch.as_tensor(s.points[t]), torch.as_tensor(s.mask[t]),
+                                      workloads.NDT_CELL_2D)[2].sum()) for t in range(scans)]
+    times, worst_pos, worst_yaw, valid = [], 0.0, 0.0, 0
+    for t in range(scans):
+        t0 = time.perf_counter()
+        r = node.handle_point_cloud((s.xs[t], s.ys[t], s.yaws[t]), s.points[t], s.mask[t])
+        times.append(time.perf_counter() - t0)
+        if not r.valid:
+            continue
+        valid += 1
+        check(bool(np.isfinite(r.pose).all()), f"NDT node scan {t}: estimate not finite")
+        e_pos = math.hypot(r.pose[0] - s.xs[t], r.pose[1] - s.ys[t])
+        e_yaw = yaw_error(r.pose[2], s.yaws[t])
+        worst_pos, worst_yaw = max(worst_pos, e_pos), max(worst_yaw, e_yaw)
+        check(e_pos < GATE_POS_M and e_yaw < GATE_YAW_RAD,
+              f"NDT node scan {t}: error {e_pos:.3f} m / {math.degrees(e_yaw):.1f} deg")
+    counts = read_counts()
+    check(valid >= scans - 1, f"NDT node: only {valid} valid updates of {scans}")
+    check(counts["B10 ndt_probe"] == chunks * valid,
+          f"NDT node: B10 launched {counts['B10 ndt_probe']} times in {valid} updates "
+          f"of {chunks} chunks")
+    check(counts["B2 resample_take"] > 0, "NDT node: B2 was never launched")
+    steady = sorted(times[2:])
+    return counts, dict(
+        scans=scans, valid=valid, live_cells_mean=float(np.mean(live)), worst_pos_m=worst_pos,
+        worst_yaw_deg=math.degrees(worst_yaw), ms_per_update_median=1e3 * steady[len(steady) // 2],
+        ms_per_update_mean=1e3 * sum(steady) / len(steady), ms_first_update=1e3 * times[0],
+        particle_updates_per_s=node.params.max_particles * len(steady) / sum(steady),
+        active_particles=int(node._state.particles.active),
+    )
+
+
+def run_ndt_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
+                  scans: int = NDT_FLEET_SCANS) -> tuple[dict, dict]:
+    """The NDT fleet (bench.py:780-837): forced updates at the truth, every
+    filter within the gate at every scan, B10 once per particle chunk."""
+    from beluga_tpu_torch.models.sensor.ndt import fit_measurement_cells
+    from beluga_tpu_torch.parallel.fleet import make_fleet_update
+    from beluga_tpu_torch.tools import workloads
+
+    w = workloads.ndt_fleet(scans, dev, b, n)
+    s, state = w.scans, w.state
+    live = int(fit_measurement_cells(w.points[0], w.mask[0], workloads.NDT_CELL_2D)[2].sum())
+    print(f"NDT fleet: {live} live measurement cells of {w.points.shape[1]} points")
+    check(live >= 8, f"NDT fleet: only {live} live measurement cells")
+    fleet_update = make_fleet_update(w.params, w.models)
+    odoms = workloads.fleet_odometry(s, 0, b)
+    chunks = math.ceil(n / NDT_CHUNK)
+    reset_counts()
+    times, worst_pos, worst_yaw = [], 0.0, 0.0
+    for t in range(scans):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, est = fleet_update(w.ctx, state._replace(force_update=np.ones(b, bool)), odoms,
+                                  w.points, w.mask)
+        pose = est.pose.as_xytheta().cpu().numpy()
+        times.append(time.perf_counter() - t0)
+        check(bool(np.all(est.valid)), f"NDT fleet scan {t}: a filter was gated out")
+        check(bool(np.isfinite(pose).all()), f"NDT fleet scan {t}: estimate not finite")
+        e_pos = np.hypot(pose[:, 0] - s.xs[0], pose[:, 1] - s.ys[0])
+        e_yaw = np.abs(np.arctan2(np.sin(pose[:, 2] - s.yaws[0]), np.cos(pose[:, 2] - s.yaws[0])))
+        worst_pos, worst_yaw = max(worst_pos, float(e_pos.max())), max(worst_yaw, float(e_yaw.max()))
+        check(bool((e_pos < GATE_POS_M).all() and (e_yaw < GATE_YAW_RAD).all()),
+              f"NDT fleet scan {t}: worst filter {e_pos.max():.3f} m / "
+              f"{math.degrees(e_yaw.max()):.1f} deg")
+    counts = read_counts()
+    check(counts["B10 ndt_probe"] == chunks * scans,
+          f"NDT fleet: B10 launched {counts['B10 ndt_probe']} times in {scans} updates "
+          f"of {chunks} chunks")
+    check(counts["B2 resample_take"] == scans,
+          f"NDT fleet: B2 launched {counts['B2 resample_take']} times in {scans} updates")
+    steady = sorted(times[2:])
+    mean_s = sum(steady) / len(steady)
+    return counts, dict(
+        filters=b, particles=n, scans=scans, live_cells=live, worst_pos_m=worst_pos,
+        worst_yaw_deg=math.degrees(worst_yaw), ms_per_update_mean=1e3 * mean_s,
+        ms_per_update_median=1e3 * steady[len(steady) // 2], ms_first_update=1e3 * times[0],
+        particle_updates_per_s=b * n / mean_s,
+    )
+
+
+def run_ndt3d_node(dev, scans: int = NDT3D_SCANS) -> tuple[dict, dict]:
+    """``NdtAmclNode3D`` at nav2 defaults on the 3D NDT map, 3600-point
+    clouds: every valid estimate within the gate on x, y and yaw, B10 once
+    per particle chunk on every update."""
+    from beluga_tpu_torch.io.config import AmclNodeConfig
+    from beluga_tpu_torch.ndt_node import NdtAmclNode3D
+    from beluga_tpu_torch.tools import workloads
+
+    s = workloads.ndt_scans(scans)
+    clouds, cmask = workloads.ndt_clouds(s)
+    reset_counts()
+    node = NdtAmclNode3D(AmclNodeConfig(), seed=0, device=dev)
+    node.set_map(workloads.ndt_map_3d(dev))
+    node.set_initial_pose((s.xs[0], s.ys[0], 0.0), (0.0, 0.0, s.yaws[0]),
+                          workloads.INITIAL_COV_3D)
+    chunks = math.ceil(node.params.max_particles / NDT_CHUNK)
+    times, worst_pos, worst_yaw, valid = [], 0.0, 0.0, 0
+    for t in range(scans):
+        t0 = time.perf_counter()
+        r = node.handle_point_cloud((s.xs[t], s.ys[t], 0.0, 0.0, 0.0, s.yaws[t]), clouds[t],
+                                    cmask[t])
+        times.append(time.perf_counter() - t0)
+        if not r.valid:
+            continue
+        valid += 1
+        check(bool(np.isfinite(r.pose).all()), f"NDT-3D node scan {t}: estimate not finite")
+        e_pos = math.hypot(r.pose[0] - s.xs[t], r.pose[1] - s.ys[t])
+        e_yaw = yaw_error(r.pose[5], s.yaws[t])
+        worst_pos, worst_yaw = max(worst_pos, e_pos), max(worst_yaw, e_yaw)
+        check(e_pos < GATE_POS_M and e_yaw < GATE_YAW_RAD,
+              f"NDT-3D node scan {t}: error {e_pos:.3f} m / {math.degrees(e_yaw):.1f} deg")
+    counts = read_counts()
+    check(valid >= scans - 1, f"NDT-3D node: only {valid} valid updates of {scans}")
+    check(counts["B10 ndt_probe"] == chunks * valid,
+          f"NDT-3D node: B10 launched {counts['B10 ndt_probe']} times in {valid} updates "
+          f"of {chunks} chunks")
+    steady = sorted(times[2:])
+    return counts, dict(
+        scans=scans, valid=valid, points=int(clouds.shape[1]), worst_pos_m=worst_pos,
+        worst_yaw_deg=math.degrees(worst_yaw), ms_per_update_median=1e3 * steady[len(steady) // 2],
+        ms_per_update_mean=1e3 * sum(steady) / len(steady), ms_first_update=1e3 * times[0],
+        particle_updates_per_s=node.params.max_particles * len(steady) / sum(steady),
+        active_particles=int(node._state.particles.active),
+    )
+
+
+def run_vdb(dev, scans: int = VDB_SCANS) -> tuple[dict, dict]:
+    """BASELINE config #4 (bench.py:722-778): forced updates at the
+    identity odometry, each within 0.9 m / 30 degrees of (3, 3, 0, yaw
+    0.3), B11 once per update."""
+    from beluga_tpu_torch.filters.amcl import update
+    from beluga_tpu_torch.lie import SE3
+    from beluga_tpu_torch.tools import workloads
+
+    w = workloads.vdb_filter(scans, dev)
+    state, truth = w.state, np.asarray(workloads.VDB_TRUTH)
+    odom = SE3.identity()
+    reset_counts()
+    times, errs, yaws, active = [], [], [], []
+    for t in range(scans):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, est = update(w.params, w.models, w.ctx, state._replace(force_update=True), odom,
+                            w.points, w.mask)
+        xyz = est.pose.xyz.cpu().numpy()
+        times.append(time.perf_counter() - t0)
+        yaw = float(est.pose.rot.rpy()[2])
+        check(est.valid, f"VDB scan {t}: update gated out")
+        check(bool(np.isfinite(xyz).all()), f"VDB scan {t}: estimate not finite")
+        errs.append(float(np.linalg.norm(xyz - truth[:3])))
+        yaws.append(yaw_error(yaw, truth[5]))
+        active.append(int(state.particles.active))
+        check(errs[-1] < GATE_POS_M and yaws[-1] < GATE_YAW_RAD,
+              f"VDB scan {t}: error {errs[-1]:.3f} m / {math.degrees(yaws[-1]):.1f} deg")
+    counts = read_counts()
+    check(counts["B11 codebook_lookup"] == scans,
+          f"VDB: B11 launched {counts['B11 codebook_lookup']} times in {scans} updates")
+    check(counts["B10 ndt_probe"] == 0, f"VDB: B10 launched {counts['B10 ndt_probe']} times")
+    steady = sorted(times[2:])
+    mean_s = sum(steady) / len(steady)
+    n = w.params.max_particles
+    return counts, dict(
+        particles=n, points=int(w.points.shape[0]), scans=scans,
+        err_mean_m=float(np.mean(errs)), err_max_m=max(errs),
+        worst_yaw_deg=math.degrees(max(yaws)), active_last=active[-1],
+        ms_per_update_mean=1e3 * mean_s, ms_per_update_median=1e3 * steady[len(steady) // 2],
+        ms_first_update=1e3 * times[0], particle_updates_per_s=n / mean_s,
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -1454,9 +1802,15 @@ def main() -> int:
     c_log_fleet = check_codebook16(FLEET_N, w, iters=50, log_space=True)
     del w
     i_big = check_winlut_int8(dev, iters=50)
+    n_fleet = check_ndt_probe(dev, iters=20, dim=2)
+    n_3d = check_ndt_probe(dev, iters=20, dim=3)
+    v_bench = check_codebook_lookup(dev, iters=20, volume="bench")
+    v_floor = check_codebook_lookup(dev, iters=20, volume="floor")
+    torch.cuda.empty_cache()
     checked = (k_main, r_main, k_big, r_big, c_big, k_fleet, r_fleet, c_fleet, p_fleet, p_big,
                p_mega, r_mega, w_big, f_mega, f_ragged, s_node, s_long, l_fleet, c_node, c_build,
-               g_shared, g_full, k_log_node, k_log_fleet, c_log_fleet, i_big)
+               g_shared, g_full, k_log_node, k_log_fleet, c_log_fleet, i_big, n_fleet, n_3d,
+               v_bench, v_floor)
     ms = lambda v: "not measured" if v is None else f"{v:.5f} ms"  # noqa: E731
     for k in checked:
         lib = "" if k["library_ms"] is None else (
@@ -1518,6 +1872,22 @@ def main() -> int:
     int8_counts, int8 = run_windowed(dev, WINDOWED_INT8_SCANS, table_dtype="int8")
     print("windowed int8: " + json.dumps(int8) + " launches " + json.dumps(int8_counts))
 
+    # 16. the NDT node on the 2D NDT map (slice 6)
+    ndt_counts, ndt = run_ndt_node(dev)
+    print("NDT node: " + json.dumps(ndt) + " launches " + json.dumps(ndt_counts))
+
+    # 17. the NDT fleet (slice 6)
+    nfleet_counts, nfleet = run_ndt_fleet(dev)
+    print("NDT fleet: " + json.dumps(nfleet) + " launches " + json.dumps(nfleet_counts))
+
+    # 18. the NDT-3D node on the 3D NDT map (slice 6)
+    ndt3_counts, ndt3 = run_ndt3d_node(dev)
+    print("NDT-3D node: " + json.dumps(ndt3) + " launches " + json.dumps(ndt3_counts))
+
+    # 19. the VDB filter, BASELINE config #4 (slice 6)
+    vdb_counts, vdb = run_vdb(dev)
+    print("VDB filter: " + json.dumps(vdb) + " launches " + json.dumps(vdb_counts))
+
     # each kernel at the shapes and with the launches of the newest main
     # path that runs it: B1 the windowed filter's (tail and fallback), B2
     # and B3 the mega filter's where its selective resampling fired, else
@@ -1525,13 +1895,16 @@ def main() -> int:
     # windowed filter's, B7 and R1 the beam fleet's (R1 in its LUT build),
     # B8 the long-range filter's, B1-log the prob node's, B4-log the prob
     # fleet's, B6-int8 the int8 windowed filter's, B9 the shared-scan
+    # filter's, B10 the NDT fleet's (2D) and the NDT-3D node's, B11 the VDB
     # filter's
     by_path = {"node": node_counts, "large": large_counts, "fleet": fleet_counts,
                "mega": mega_counts, "windowed": win_counts,
                **{f"beam_node_{m}": c for m, c in beam_counts.items()},
                "long_range": long_counts, "beam_fleet": bfleet_counts,
                "prob_node": prob_counts, "shared_scan": shared_counts,
-               "prob_fleet": pfleet_counts, "windowed_int8": int8_counts}
+               "prob_fleet": pfleet_counts, "windowed_int8": int8_counts,
+               "ndt_node": ndt_counts, "ndt_fleet": nfleet_counts, "ndt3d_node": ndt3_counts,
+               "vdb": vdb_counts}
     resampled = mega_counts["B2 resample_take"] > 0
     kernels = []
     for k, path in ((k_big, "windowed"), (r_mega if resampled else r_big,
@@ -1541,7 +1914,8 @@ def main() -> int:
                     (c_fleet, "fleet"), (f_mega, "mega"), (w_big, "windowed"),
                     (l_fleet, "beam_fleet"), (s_long, "long_range"), (c_build, "beam_fleet"),
                     (k_log_node, "prob_node"), (c_log_fleet, "prob_fleet"),
-                    (i_big, "windowed_int8"), (g_shared, "shared_scan")):
+                    (i_big, "windowed_int8"), (g_shared, "shared_scan"),
+                    (n_fleet, "ndt_fleet"), (n_3d, "ndt3d_node"), (v_bench, "vdb")):
         entry = {key: k[key] for key in ("name", "route", "source", "replaces")}
         entry["launches"] = by_path[path][k["name"]]
         entry.update({key: k[key] for key in (

@@ -1,6 +1,7 @@
-"""Kernels B1-B9 (with B1-log, B4-log and B6-int8) and R1 of the PyTorch
+"""Kernels B1-B11 (with B1-log, B4-log and B6-int8) and R1 of the PyTorch
 port on the card, against their plain versions on the same card tensors,
-and fleet, mega, beam, prob-model and shared-scan updates on the card.
+and fleet, mega, beam, prob-model, shared-scan, NDT and VDB updates on the
+card.
 Every test here needs an NVIDIA GPU and skips without one.  The module
 imports neither JAX nor the JAX package, so on a machine with the card it
 runs without the repository's conftest:
@@ -606,3 +607,135 @@ def test_shared_scan_update_on_card(dev):
     state, est = update(params, models, sctx, state, host_pose(0.0, 0.0, 0.0), pts, mask)
     assert est.valid and torch.isfinite(est.pose.xy).all()
     assert (b9.launches, b1.launches, b1.values3_launches) == (before[0] + 1, *before[1:])
+
+
+# -- slice 6: the NDT probe (B10) and the 3D code-table lookup (B11) ----------
+
+
+def random_ndt_map(d, m, dev, seed=0):
+    """``m`` distinct random cells about the origin (2D keys on both sides
+    of 2^31), random means and covariances."""
+    from beluga_tpu_torch.maps.ndt import make_ndt_map
+
+    rng = np.random.default_rng(seed)
+    span = max(int(m ** (1 / d)) + 2, 4)
+    cells = np.unique(rng.integers(-span, span, (2 * m, d)), axis=0)[:m]
+    means = rng.normal(0, 1, (len(cells), d))
+    covs = np.broadcast_to(np.eye(d) * 0.1, (len(cells), d, d))
+    return make_ndt_map(cells, means, covs, 0.5, device=dev), cells
+
+
+@pytest.mark.parametrize("d,m,shape", [(2, 287, (64, 64, 60, 9)), (3, 996, (512, 300, 7)),
+                                       (2, 20000, (100000,)), (2, 0, (1000,)), (3, 7, (5, 7))])
+def test_b10_kernel_matches_plain_version(dev, d, m, shape):
+    """B10 bit-equal to its plain version: keys on both sides of 2^31 (2D),
+    tables that fit shared memory and one that does not (20000 keys), an
+    empty map, hits and misses."""
+    from beluga_tpu_torch.maps.ndt import encode_cells
+    from beluga_tpu_torch.ops import cuda_ndt as b10
+
+    if m:
+        ndt_map, cells = random_ndt_map(d, m, dev)
+    else:
+        from beluga_tpu_torch.maps.ndt import make_ndt_map
+
+        ndt_map = make_ndt_map(np.zeros((0, d)), np.zeros((0, d)), np.zeros((0, d, d)), 0.5,
+                               device=dev)
+        cells = np.zeros((1, d), np.int64)
+    rng = np.random.default_rng(1)
+    # half the queries on a map cell, half moved by a stencil offset
+    moved = rng.integers(-1, 2, (*shape, d)) * (rng.random(shape) < 0.5)[..., None]
+    q = cells[rng.integers(0, len(cells), shape)] + moved
+    queries = encode_cells(torch.as_tensor(q, device=dev))
+    if d == 2 and m:
+        keys = ndt_map.keys.cpu().numpy()
+        assert (keys >= 2**31).any() and (keys < 2**31).any()
+    before = b10.launches
+    got = b10.ndt_probe(ndt_map.keys, ndt_map.values, ndt_map.num_cells, queries)
+    want = b10.ndt_probe_reference(ndt_map.keys, ndt_map.values, ndt_map.num_cells, queries)
+    torch.cuda.synchronize()
+    assert b10.launches == before + 1
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    if m:
+        assert bool(got[1].any()) and not bool(got[1].all())
+
+
+@pytest.mark.parametrize("volume", ["bench", "floor"])
+def test_b11_kernel_matches_plain_version(dev, volume):
+    """B11 bit-equal to its plain version on the bench volume (49 x 1029
+    codes, in shared memory) and a 200 x 200 x 50 floor (2 MB, read from
+    global memory), queries outside the table on every side, and a short
+    codebook (codes beyond it read 0)."""
+    from beluga_tpu_torch.maps.voxel import make_distance_codes, make_distance_grid
+    from beluga_tpu_torch.ops import cuda_codebook as b11
+
+    rng = np.random.default_rng(2)
+    dims = (21, 49, 49) if volume == "bench" else (50, 200, 200)
+    occ = rng.random(dims) < 0.01
+    grid = make_distance_grid(occ, 0.2, max_distance=2.0, device=dev)
+    codes, book = make_distance_codes(grid, 0.2, 2.0)
+    h, w = codes.shape
+    yi = torch.as_tensor(rng.integers(-3, h + 3, 300000), dtype=torch.int32, device=dev)
+    xi = torch.as_tensor(rng.integers(-3, w + 3, 300000), dtype=torch.int32, device=dev)
+    before = b11.launches
+    for bk in (book, book[:7].contiguous()):
+        got = b11.codebook_lookup(codes, bk, yi, xi)
+        want = b11.codebook_lookup_reference(codes, bk, yi, xi)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert b11.launches == before + 2
+
+
+def test_ndt_nodes_on_card(dev):
+    """The 2D and 3D NDT nodes on arena maps of more than 256 rows: B10 on
+    every update."""
+    from beluga_tpu_torch.io import synthetic
+    from beluga_tpu_torch.io.config import AmclNodeConfig
+    from beluga_tpu_torch.maps.ndt import make_ndt_map
+    from beluga_tpu_torch.ndt_node import NdtAmclNode, NdtAmclNode3D
+    from beluga_tpu_torch.ops import cuda_ndt as b10
+    from beluga_tpu_torch.tools.make_ndt_map import fit_ndt_cells, grid_to_points
+
+    data = synthetic.tracking_arena(384, 0.05)
+    xs, ys, yaws = synthetic.circle_trajectory(3)
+    pts, mask = synthetic.simulate_scans(data, 0.05, xs, ys, yaws, 360)
+    p2 = grid_to_points(data, 0.05)
+    cfg = AmclNodeConfig(set_initial_pose=True, initial_pose_x=float(xs[0]),
+                         initial_pose_y=float(ys[0]), initial_pose_yaw=float(yaws[0]))
+    node = NdtAmclNode(cfg)
+    node.set_map(make_ndt_map(*fit_ndt_cells(p2, 0.4), 0.4))
+    before = b10.launches
+    for i in range(3):
+        r = node.handle_point_cloud((xs[i], ys[i], yaws[i]), pts[i][mask[i]])
+        assert r.valid and np.hypot(r.pose[0] - xs[i], r.pose[1] - ys[i]) < 0.9
+    assert b10.launches >= before + 3 * 4  # 2000 particles in chunks of 512
+    p3 = np.concatenate([np.c_[p2, np.full(len(p2), z)] for z in np.arange(0, 2, 0.1)])
+    node3 = NdtAmclNode3D(AmclNodeConfig())
+    node3.set_map(make_ndt_map(*fit_ndt_cells(p3, 0.5), 0.5))
+    node3.set_initial_pose((xs[0], ys[0], 0.0), (0.0, 0.0, yaws[0]),
+                           np.diag([0.05, 0.05, 0.01, 0.001, 0.001, 0.02]))
+    cloud = np.concatenate([np.c_[pts[0][mask[0]], np.full(int(mask[0].sum()), z)]
+                            for z in (0.5, 1.0, 1.5)]).astype(np.float32)
+    before = b10.launches
+    r = node3.handle_point_cloud((0, 0, 0, 0, 0, 0), cloud)
+    assert r.valid and r.pose.shape == (6,)
+    assert b10.launches > before
+
+
+def test_vdb_filter_on_card(dev):
+    """The VDB filter with its code table: B11 once per update."""
+    from beluga_tpu_torch.filters.amcl import update
+    from beluga_tpu_torch.lie import SE3
+    from beluga_tpu_torch.ops import cuda_codebook as b11
+    from beluga_tpu_torch.tools import workloads
+
+    w = workloads.vdb_filter(2, dev, n=8192)
+    before = b11.launches
+    state = w.state
+    for t in range(2):
+        state, est = update(w.params, w.models, w.ctx, state._replace(force_update=True),
+                            SE3.identity(), w.points, w.mask)
+        assert est.valid
+    assert b11.launches == before + 2
+    err = est.pose.xyz.cpu() - torch.tensor(workloads.VDB_TRUTH[:3], dtype=torch.float32)
+    assert float(torch.linalg.vector_norm(err)) < 0.9

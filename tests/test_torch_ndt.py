@@ -1,0 +1,382 @@
+"""The NDT map, kernel B10's plain version and the NDT sensor model of the
+PyTorch port, held against the JAX package on the CPU.
+
+Every map is built in the repository: small random tables, the two-cell
+map of the C++ golden values, and the synthetic arena fitted at 0.4 m
+(287 rows, above the 256 at which the stencil probe, and so B10, takes
+over from the dense cross-evaluation).
+
+Tolerances: keys, lookups and B10's values are exact (B10 copies the
+map's float32 values; the reference's interpret-mode kernel rebuilds them
+exactly from f32 hi/lo planes).  ``fit_measurement_cells`` puts its slots
+in the reference's order and count exactly; its means and covariances
+agree within 1e-6 (the segment sums add in another order).  Likelihoods
+agree within rtol 2e-6 and particle weights (sums of 60 cells) within rtol
+1e-5 (XLA contracts the quadratic forms and the rotations into FMAs and
+sums the einsums in its own order; its ``exp`` differs in the last bits);
+through the 3x3 library inverse within rtol 1e-5.
+The C++ golden values hold at rel 1e-5, as in ``tests/test_ndt.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import beluga_tpu.models.sensor.ndt as j_ndt_mod
+from beluga_tpu.lie import SE2 as JSE2
+from beluga_tpu.lie import SE3 as JSE3
+from beluga_tpu.lie import SO3 as JSO3
+from beluga_tpu.maps.ndt import encode_cells as j_encode_cells
+from beluga_tpu.maps.ndt import make_ndt_map as j_make_ndt_map
+from beluga_tpu.models.sensor.ndt import NdtModelParams as JNdtParams
+from beluga_tpu.models.sensor.ndt import fit_measurement_cells as j_fit_cells
+from beluga_tpu.ops.pallas_ndt import ndt_probe as j_ndt_probe
+from beluga_tpu_torch import convert
+from beluga_tpu_torch.io import synthetic
+from beluga_tpu_torch.lie import SE2, SE3, SO3
+from beluga_tpu_torch.maps.ndt import encode_cells, make_ndt_map
+from beluga_tpu_torch.models.sensor import ndt as ndt_mod
+from beluga_tpu_torch.models.sensor.ndt import (
+    KERNEL_2D,
+    KERNEL_3D,
+    NdtModelParams,
+    fit_measurement_cells,
+    ndt_likelihood_at,
+    ndt_weights_2d,
+    ndt_weights_3d,
+)
+from beluga_tpu_torch.ops.cuda_ndt import ndt_probe, ndt_probe_reference
+from beluga_tpu_torch.tools.make_ndt_map import fit_ndt_cells, grid_to_points
+
+torch.set_num_threads(1)
+
+DIAG_COV = np.diag([0.5, 0.5]).astype(np.float32)
+
+
+def t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def random_map(d, seed, n=60, span=40, resolution=0.5):
+    """Unique random cells about the origin (negative and positive), with
+    random means and SPD covariances, in both packages."""
+    rng = np.random.default_rng(seed)
+    cells = np.unique(rng.integers(-span, span, (n, d)).astype(np.int32), axis=0)
+    m = cells.shape[0]
+    means = rng.standard_normal((m, d)).astype(np.float32)
+    a = rng.standard_normal((m, d, d)).astype(np.float32)
+    covs = np.einsum("mab,mcb->mac", a, a) + 0.1 * np.eye(d, dtype=np.float32)
+    return (j_make_ndt_map(cells, means, covs, resolution),
+            make_ndt_map(cells, means, covs, resolution, device="cpu"), cells)
+
+
+def arena_ndt(cell=0.4, device="cpu"):
+    data = synthetic.tracking_arena(384, 0.05)
+    cells, means, covs = fit_ndt_cells(grid_to_points(data, 0.05), cell)
+    return (j_make_ndt_map(cells, means, covs, cell),
+            make_ndt_map(cells, means, covs, cell, device=device))
+
+
+@pytest.fixture(scope="module")
+def arena():
+    return arena_ndt()
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_encode_cells_and_table_match_reference(d):
+    """Keys on both sides of 2^31 in 2D (x + 32768 in the top bits), the
+    uint32 wrap of out-of-range cells, and the sorted table."""
+    rng = np.random.default_rng(d)
+    lim = 40000 if d == 2 else 600  # past the biased range: the wrap
+    cells = rng.integers(-lim, lim, (500, d)).astype(np.int32)
+    want = np.asarray(j_encode_cells(jnp.asarray(cells))).astype(np.int64)
+    np.testing.assert_array_equal(encode_cells(t(cells)).numpy(), want)
+    if d == 2:
+        assert (want >= 2**31).any() and (want < 2**31).any()
+    jm, m, _ = random_map(d, 10 + d)
+    np.testing.assert_array_equal(m.keys.numpy(), np.asarray(jm.keys).astype(np.int64))
+    np.testing.assert_array_equal(m.means.numpy(), np.asarray(jm.means))
+    np.testing.assert_array_equal(m.covs.numpy(), np.asarray(jm.covs))
+    assert m.num_cells == int(jm.num_cells) and m.resolution == float(jm.resolution)
+    assert np.all(np.diff(m.keys.numpy()) > 0)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_b10_plain_matches_interpret_kernel_and_gather(d):
+    """B10's plain version against the reference's interpret-mode
+    ``ndt_probe`` (f32 planes, and the hi/lo planes of
+    ``_lookup_gaussians_onehot``) and its gather path, bit for bit: queries
+    on both sides of the origin, misses, the 0xFFFFFFFE query padding and a
+    0xFFFFFFFF key row past ``num_cells``.  A query of 0xFFFFFFFF itself
+    (the 2D cell (32767, 32767)) matches such a row in the reference's
+    one-hot probe but not in its gather path, which checks ``idx <
+    num_cells``; B10 searches only the live rows, as the gather path."""
+    jm, m, cells = random_map(d, 20 + d)
+    rng = np.random.default_rng(30 + d)
+    q = rng.integers(-42, 42, (9, 7, d)).astype(np.int32)
+    q[0, :3] = cells[:3]  # certain hits
+    got_m, got_c, got_f = m.lookup_gaussians(t(q))
+    om, oc, of = jm._lookup_gaussians_onehot(jnp.asarray(q))
+    gm, gc, gf = jm.lookup_gaussians(jnp.asarray(q))
+    for want_m, want_c, want_f in ((om, oc, of), (gm, gc, gf)):
+        np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
+        np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+        np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    assert got_f.any() and not got_f.all()
+
+    # the raw probe: f32 planes in interpret mode, with query padding and a
+    # padding key row
+    keys = np.concatenate([np.asarray(jm.keys), [np.uint32(0xFFFFFFFF)]])
+    values = np.concatenate([m.values.numpy(), np.full((1, m.values.shape[1]), 7.0,
+                                                       np.float32)])
+    qk = np.asarray(j_encode_cells(jnp.asarray(q))).reshape(-1)
+    qk = np.concatenate([qk, [np.uint32(0xFFFFFFFE), np.uint32(0xFFFFFFFF)]])
+    want_v, want_f = j_ndt_probe(jnp.asarray(keys), jnp.asarray(values.T), jnp.asarray(qk),
+                                 interpret=True)
+    vals, found = ndt_probe_reference(t(keys.astype(np.int64)), t(values), m.num_cells,
+                                      t(qk.astype(np.int64)))
+    assert not bool(found[-2:].any())  # neither padding nor the key row past num_cells
+    assert bool(np.asarray(want_f)[-1])  # the one-hot probe matches that row
+    np.testing.assert_array_equal(found.numpy()[:-1], np.asarray(want_f)[:-1])
+    np.testing.assert_array_equal(vals.numpy()[:-1], np.asarray(want_v)[:-1])
+    # the CPU wrapper is the plain version
+    same = ndt_probe(t(keys.astype(np.int64)), t(values), m.num_cells, t(qk.astype(np.int64)))
+    assert torch.equal(same[0], vals) and torch.equal(same[1], found)
+
+
+def test_lookup_matches_reference():
+    jm, m, _ = random_map(2, 40)
+    q = np.random.default_rng(41).integers(-42, 42, (100, 2)).astype(np.int32)
+    idx, found = m.lookup(t(q))
+    jidx, jfound = jm.lookup(jnp.asarray(q))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(found.numpy(), np.asarray(jfound))
+    empty = make_ndt_map(np.zeros((0, 2)), np.zeros((0, 2)), np.zeros((0, 2, 2)), 0.5,
+                         device="cpu")
+    assert not bool(empty.lookup_gaussians(t(q))[2].any())
+
+
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fit_measurement_cells_matches_reference(d, masked):
+    """Slots in the reference's order (ascending keys, masked points in the
+    fill slot, padding after), truncation toward zero about the origin."""
+    rng = np.random.default_rng(50 + d)
+    centers = rng.uniform(-1.5, 1.5, (8, d))
+    pts = (centers[rng.integers(0, 8, 60)] + rng.normal(0, 0.05, (60, d))).astype(np.float32)
+    mask = rng.uniform(size=60) > (0.25 if masked else -1.0)
+    jmeans, jcovs, jcm = jax.jit(j_fit_cells)(jnp.asarray(pts), jnp.asarray(mask),
+                                              jnp.float32(0.5))
+    means, covs, cm = fit_measurement_cells(t(pts), t(mask), 0.5)
+    np.testing.assert_array_equal(cm.numpy(), np.asarray(jcm))
+    assert cm.sum() >= 3
+    np.testing.assert_allclose(means.numpy(), np.asarray(jmeans), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(covs.numpy(), np.asarray(jcovs), rtol=0, atol=1e-6)
+    # batched: each filter's cloud alone
+    both = fit_measurement_cells(t(np.stack([pts, pts[::-1].copy()])),
+                                 t(np.stack([mask, mask[::-1].copy()])), 0.5)
+    np.testing.assert_array_equal(both[2][0].numpy(), cm.numpy())
+    np.testing.assert_allclose(both[0][0].numpy(), means.numpy(), atol=1e-6)
+    single_rev = fit_measurement_cells(t(pts[::-1].copy()), t(mask[::-1].copy()), 0.5)
+    np.testing.assert_allclose(both[1][1].numpy(), single_rev[1].numpy(), atol=1e-6)
+
+
+def test_fit_points_reference_cases():
+    """tests/test_ndt.py:88-115 on the port: mean, variance floor and
+    direction, and too few points."""
+    means, covs, cm = fit_measurement_cells(t(np.array([[0.1, 0.2]] * 6, np.float32)),
+                                            torch.ones(6, dtype=torch.bool), 0.5)
+    i = int(torch.argmax(cm.to(torch.int32)))
+    np.testing.assert_allclose(means[i].numpy(), [0.1, 0.2], atol=1e-6)
+    assert float(covs[i, 0, 0]) >= 1e-5 * (1 - 1e-4)
+    pts = np.array([[0.1, 0.2], [0.1, 0.9], [0.1, 0.2], [0.1, 0.9], [0.1, 0.2], [0.1, 0.2]],
+                   np.float32)
+    means, covs, cm = fit_measurement_cells(t(pts), torch.ones(6, dtype=torch.bool), 1.0)
+    i = int(torch.argmax(cm.to(torch.int32)))
+    np.testing.assert_allclose(means[i].numpy(), [0.1, 0.433333], atol=1e-5)
+    assert float(covs[i, 1, 1]) > float(covs[i, 0, 0])
+    few = t(np.array([[0.1, 0.2], [0.112, 0.22], [0.15, 0.23]], np.float32))
+    assert not bool(fit_measurement_cells(few, torch.ones(3, dtype=torch.bool), 0.5)[2].any())
+
+
+def two_cell_map():
+    """The map of test_ndt_model.cpp's Likelihoood test."""
+    return make_ndt_map([[0, 0], [1, 1]], [[0.5, 0.5], [1.5, 1.5]],
+                        [[[0.5, 0.0], [0.0, 0.3]], [[0.5, 0.0], [0.0, 0.5]]], 1.0, device="cpu")
+
+
+@pytest.mark.parametrize("point,expected", [
+    ([0.5, 0.5], 1.3678794411714423), ([0.8, 0.5], 1.4307317817730123),
+    ([0.5, 0.8], 1.4200370805919718), ([1.5, 1.5], 1.3246524673583497),
+    ([1.8, 1.5], 1.1859229670198237), ([1.5, 1.8], 1.1669230426687498),
+])
+def test_likelihood_cpp_golden(point, expected):
+    """test_ndt_model.cpp's golden values (tests/test_ndt.py:71-86), on the
+    dense path (two rows) and, with the row limit lowered, the probe."""
+    params = NdtModelParams(minimum_likelihood=1e-6)
+    m = two_cell_map()
+    lik = ndt_likelihood_at(params, m, t(np.array(point, np.float32)), t(DIAG_COV))
+    assert float(lik) == pytest.approx(expected, rel=1e-5)
+    limit = ndt_mod.DENSE_MAX_CELLS
+    try:
+        ndt_mod.DENSE_MAX_CELLS = 0
+        lik = ndt_likelihood_at(params, m, t(np.array(point, np.float32)), t(DIAG_COV))
+    finally:
+        ndt_mod.DENSE_MAX_CELLS = limit
+    assert float(lik) == pytest.approx(expected, rel=1e-5)
+
+
+def test_min_likelihood_empty_map():
+    m = make_ndt_map(np.zeros((0, 2)), np.zeros((0, 2)), np.zeros((0, 2, 2)), 0.5, device="cpu")
+    params = NdtModelParams(minimum_likelihood=1e-6)
+    for p in ([0.1, 0.1], [0.5, 0.5], [0.75, 0.75]):
+        lik = ndt_likelihood_at(params, m, t(np.array(p, np.float32)), t(DIAG_COV))
+        assert float(lik) == pytest.approx(1e-6)
+
+
+def reference_kernel_likelihood(jm, q_mean, q_cov, kern, dense: bool):
+    limit = j_ndt_mod._DENSE_MAX_CELLS
+    try:  # the limit is read while the function is traced
+        j_ndt_mod._DENSE_MAX_CELLS = 10**9 if dense else 0
+        return np.asarray(jax.jit(lambda a, b: j_ndt_mod._kernel_likelihood(
+            jm, JNdtParams(), a, b, kern))(jnp.asarray(q_mean), jnp.asarray(q_cov)))
+    finally:
+        j_ndt_mod._DENSE_MAX_CELLS = limit
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_dense_and_probe_paths_agree_and_match_reference(d):
+    """tests/test_ndt.py:143-160 on the port, and each path against the
+    reference's same path."""
+    rng = np.random.default_rng(60 + d)
+    cells = np.unique(rng.integers(-6, 6, (40, d)), axis=0)
+    means = ((cells + rng.uniform(0.2, 0.8, cells.shape)) * 0.5).astype(np.float32)
+    covs = np.broadcast_to(np.eye(d, dtype=np.float32) * 0.02, (len(cells), d, d))
+    jm = j_make_ndt_map(cells, means, covs, 0.5)
+    m = make_ndt_map(cells, means, covs, 0.5, device="cpu")
+    q_mean = rng.uniform(-3, 3, (25, d)).astype(np.float32)
+    q_cov = np.broadcast_to(np.eye(d, dtype=np.float32) * 0.01, (25, d, d)).copy()
+    kern = KERNEL_2D if d == 2 else KERNEL_3D
+    params = NdtModelParams()
+    dense = ndt_mod._kernel_likelihood_dense(m, params, t(q_mean), t(q_cov)).numpy()
+    limit = ndt_mod.DENSE_MAX_CELLS
+    try:
+        ndt_mod.DENSE_MAX_CELLS = 0
+        probe = ndt_mod._kernel_likelihood(m, params, t(q_mean), t(q_cov), kern).numpy()
+    finally:
+        ndt_mod.DENSE_MAX_CELLS = limit
+    np.testing.assert_allclose(dense, probe, rtol=1e-5, atol=1e-8)
+    assert dense.max() > 0.0
+    np.testing.assert_allclose(dense, reference_kernel_likelihood(jm, q_mean, q_cov, kern, True),
+                               rtol=2e-6, atol=1e-12)
+    np.testing.assert_allclose(probe, reference_kernel_likelihood(jm, q_mean, q_cov, kern, False),
+                               rtol=1e-5 if d == 3 else 2e-6, atol=1e-12)
+
+
+def test_dense_3d_singular_covariance_not_max_likelihood():
+    """tests/test_ndt.py:232-250: a planar cell and a measurement degenerate
+    in the same direction score their in-plane error, not the maximum."""
+    params = NdtModelParams()
+    m = make_ndt_map([[0, 0, 0]], [[0.25, 0.25, 0.25]], [np.diag([0.04, 0.04, 0.0])], 0.5,
+                     device="cpu")
+    lik = float(ndt_mod._kernel_likelihood_dense(
+        m, params, t(np.array([[0.30, 0.20, 0.25]], np.float32)),
+        t(np.array([np.diag([0.01, 0.01, 0.0])], np.float32)))[0])
+    assert np.isfinite(lik) and lik < 0.99 * params.d1
+    assert abs(lik - np.exp(-0.5 * (0.05**2 + 0.05**2) / 0.05)) < 5e-3
+
+
+def arena_measurement(d, seed, n=60, z_layers=None):
+    """Map means near a pose, as points in the robot frame at (2.4, 9.0,
+    0.3): a few live measurement cells."""
+    data = synthetic.tracking_arena(384, 0.05)
+    pts = grid_to_points(data, 0.05)
+    rng = np.random.default_rng(seed)
+    truth = np.array([7.0, 9.0, 0.3])
+    near = pts[np.linalg.norm(pts - truth[:2], axis=1) < 3.0]
+    sel = near[rng.integers(0, len(near), 12)][rng.integers(0, 12, n)]
+    c, s = np.cos(truth[2]), np.sin(truth[2])
+    local = (sel - truth[:2]) @ np.array([[c, -s], [s, c]])
+    local = local + rng.normal(0, 0.01, local.shape)
+    if d == 3:
+        local = np.concatenate([local, rng.uniform(0.1, 1.9, (n, 1))], 1)
+    return local.astype(np.float32), truth
+
+
+def test_weights_2d_probe_path_match_reference(arena):
+    """The arena map (287 rows: the probe path, B10's plain version)."""
+    jm, m = arena
+    assert m.keys.shape[0] > ndt_mod.DENSE_MAX_CELLS
+    pts, truth = arena_measurement(2, 70)
+    rng = np.random.default_rng(71)
+    xyt = (truth + rng.normal(0, [0.3, 0.3, 0.1], (300, 3))).astype(np.float32)
+    means, covs, cm = fit_measurement_cells(t(pts), torch.ones(60, dtype=torch.bool), m.resolution)
+    states = SE2.from_xytheta(t(xyt))
+    got = ndt_weights_2d(NdtModelParams(minimum_likelihood=1e-6), m, states, means, covs, cm,
+                         particle_chunk=128)
+    jstates = JSE2.from_xytheta(jnp.asarray(xyt))
+    want = jax.jit(lambda s, a, b, c: j_ndt_mod.ndt_weights_2d(
+        JNdtParams(minimum_likelihood=1e-6), jm, s, a, b, c, particle_chunk=128))(
+        jstates, jnp.asarray(means.numpy()), jnp.asarray(covs.numpy()), jnp.asarray(cm.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    assert float(got.max()) > 1.5  # live cells match the map
+
+
+def test_weights_3d_match_reference():
+    """The 3D arena map (the arena's walls extruded to 2 m, ~1000 rows:
+    the probe path), SE3 states with roll and pitch."""
+    data = synthetic.tracking_arena(384, 0.05)
+    p2 = grid_to_points(data, 0.05)
+    p3 = np.concatenate([np.c_[p2, np.full(len(p2), z)] for z in np.arange(0, 2, 0.1)])
+    cells, means3, covs3 = fit_ndt_cells(p3, 0.5)
+    jm = j_make_ndt_map(cells, means3, covs3, 0.5)
+    m = make_ndt_map(cells, means3, covs3, 0.5, device="cpu")
+    assert m.keys.shape[0] > ndt_mod.DENSE_MAX_CELLS
+    pts, truth = arena_measurement(3, 72, n=200)
+    rng = np.random.default_rng(73)
+    xyz = np.c_[truth[:2] + rng.normal(0, 0.3, (64, 2)), rng.normal(0, 0.05, 64)]
+    rpy = rng.normal(0, 0.02, (64, 3)) + [0, 0, truth[2]]
+    jst = JSE3(jnp.asarray(xyz, jnp.float32), JSO3.from_rpy(*(jnp.asarray(rpy[:, i], jnp.float32)
+                                                             for i in range(3))))
+    st = convert.se3(jax.device_get(jst))
+    means, covs, cm = fit_measurement_cells(t(pts), torch.ones(200, dtype=torch.bool), 0.5)
+    got = ndt_weights_3d(NdtModelParams(minimum_likelihood=1e-6), m, st, means, covs, cm)
+    want = jax.jit(lambda s, a, b, c: j_ndt_mod.ndt_weights_3d(
+        JNdtParams(minimum_likelihood=1e-6), jm, s, a, b, c))(
+        jst, jnp.asarray(means.numpy()), jnp.asarray(covs.numpy()), jnp.asarray(cm.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    assert float(got.max()) > 1.5
+
+
+def test_weights_prefer_true_pose():
+    """tests/test_ndt.py:117-130 and :173-190 on the port."""
+    m = two_cell_map()
+    params = NdtModelParams(minimum_likelihood=1e-6)
+    meas_means = t(np.array([[0.5, 0.5], [1.5, 1.5]], np.float32))
+    meas_covs = t(np.array([np.eye(2) * 0.1] * 2, np.float32))
+    states = SE2.from_xytheta(t([0.0, 3.0]), t([0.0, 3.0]), t([0.0, 0.0]))
+    w = ndt_weights_2d(params, m, states, meas_means, meas_covs, torch.ones(2, dtype=torch.bool))
+    assert float(w[0]) > float(w[1])
+    assert float(w[1]) == pytest.approx(1.0 + 2e-6, abs=1e-7)
+    m3 = make_ndt_map([[0, 0, 0], [1, 1, 1]], [[0.5, 0.5, 0.5], [1.5, 1.5, 1.5]],
+                      [np.eye(3) * 0.3] * 2, 1.0, device="cpu")
+    states3 = SE3(t(np.array([[0, 0, 0], [5, 5, 5]], np.float32)), SO3.identity((2,)))
+    w3 = ndt_weights_3d(params, m3, states3, t(np.array([[0.5] * 3, [1.5] * 3], np.float32)),
+                        t(np.array([np.eye(3) * 0.1] * 2, np.float32)),
+                        torch.ones(2, dtype=torch.bool))
+    assert float(w3[0]) > float(w3[1])
+
+
+def test_particle_chunks_do_not_change_weights(arena):
+    _, m = arena
+    pts, truth = arena_measurement(2, 74)
+    means, covs, cm = fit_measurement_cells(t(pts), torch.ones(60, dtype=torch.bool), m.resolution)
+    xyt = (truth + np.random.default_rng(75).normal(0, 0.3, (2, 100, 3))).astype(np.float32)
+    states = SE2.from_xytheta(t(xyt))
+    fleet = ndt_weights_2d(NdtModelParams(), m, states, means.expand(2, -1, -1),
+                           covs.expand(2, -1, -1, -1), cm.expand(2, -1), particle_chunk=37)
+    for b in range(2):
+        one = ndt_weights_2d(NdtModelParams(), m, SE2.from_xytheta(t(xyt[b])), means, covs, cm)
+        np.testing.assert_array_equal(fleet[b].numpy(), one.numpy())
