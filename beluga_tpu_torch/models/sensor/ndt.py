@@ -8,13 +8,16 @@ Each particle's weight is ``1 + Σ_cells max(Σ_stencil d1·exp(-d2/2 ·
 eᵀ(Σa + Σb)⁻¹e), min_likelihood)`` against the map, over a 3x3 stencil in
 2D and a 7-cell one in 3D (hpp:112-147, 218-239).
 
-Maps of more than 256 rows take the stencil probe, whose table lookups go
-through kernel B10 on the card (``maps/ndt.py:NdtMap.lookup_gaussians``);
-smaller maps take the dense cross-evaluation of every (query, map cell)
-pair, which has no kernel.  The particle axis is cut into chunks of
-``particle_chunk`` with every filter of a fleet at once, as the
-reference's ``lax.map`` inside ``vmap`` does, so that a 64 x 4096 fleet
-never holds its whole ``[B, N, C, K]`` probe.
+Maps of more than 256 rows, and any stencil of its own, take the stencil
+probe: on the card, the fused kernel of ``ops/cuda_ndt.py:ndt_weights``
+computes every particle's weight in one launch; on the CPU, its plain
+version probes through B10's plain version.  Smaller maps take the dense
+cross-evaluation of every (query, map cell) pair, which has no kernel.
+The plain versions cut the particle axis into chunks of ``particle_chunk``
+with every filter of a fleet at once, as the reference's ``lax.map`` inside
+``vmap`` does, so that a 64 x 4096 fleet never holds its whole ``[B, N, C,
+K]`` probe.  ``ndt_likelihood_at`` probes through kernel B10
+(``ops/cuda_ndt.py:ndt_probe``).
 """
 
 from __future__ import annotations
@@ -24,9 +27,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from beluga_tpu_torch.core.particles import tree_map
 from beluga_tpu_torch.lie import SE2, SE3
 from beluga_tpu_torch.maps.ndt import NdtMap, decode_keys, encode_cells
+from beluga_tpu_torch.ops.cuda_ndt import (
+    ndt_probe,
+    ndt_weights,
+    particle_chunks,
+    probe_likelihood,
+    world_gaussians,
+)
 
 Tensor = torch.Tensor
 
@@ -104,27 +113,10 @@ def fit_measurement_cells(points: Tensor, point_mask: Tensor, resolution: float)
     return mean, cov, valid_cell & (count >= MIN_POINTS_PER_CELL)
 
 
-def _inv_2x2(m: Tensor) -> Tensor:
-    a, b = m[..., 0, 0], m[..., 0, 1]
-    c, d = m[..., 1, 0], m[..., 1, 1]
-    det = a * d - b * c
-    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1e-12, det)
-    adj = torch.stack([torch.stack([d, -b], -1), torch.stack([-c, a], -1)], -2)
-    return adj * inv_det[..., None, None]
-
-
-def _inv_3x3(m: Tensor) -> Tensor:
-    """``inv(m + 1e-12·I)`` through the library's batched inverse, without
-    its error check (which would read a flag back from the card); a
-    singular matrix gives inf or NaN, as ``jnp.linalg.inv`` does."""
-    eye = torch.eye(3, dtype=m.dtype, device=m.device)
-    return torch.linalg.inv_ex(m + 1e-12 * eye).inverse
-
-
-def _matmul(a: Tensor, b: Tensor) -> Tensor:
-    """Batched product of small matrices as broadcast sums (no library
-    call for D <= 3)."""
-    return torch.sum(a[..., :, :, None] * b[..., None, :, :], dim=-2)
+def _dense(ndt_map: NdtMap, kernel, d: int) -> bool:
+    """Whether the dense cross-evaluation serves this map and stencil."""
+    standard = np.array_equal(np.asarray(kernel), KERNEL_2D if d == 2 else KERNEL_3D)
+    return standard and ndt_map.keys.shape[0] <= DENSE_MAX_CELLS
 
 
 def _kernel_likelihood(ndt_map: NdtMap, params: NdtModelParams, meas_mean: Tensor,
@@ -133,21 +125,10 @@ def _kernel_likelihood(ndt_map: NdtMap, params: NdtModelParams, meas_mean: Tenso
     Gaussian (``meas_mean`` ``f32[..., D]``, ``meas_cov`` ``f32[..., D,
     D]``); the dense form for a standard stencil on a map of at most
     :data:`DENSE_MAX_CELLS` rows (models/sensor/ndt.py:115-137)."""
-    d = meas_mean.shape[-1]
-    standard = np.array_equal(np.asarray(kernel), KERNEL_2D if d == 2 else KERNEL_3D)
-    if standard and ndt_map.keys.shape[0] <= DENSE_MAX_CELLS:
+    if _dense(ndt_map, kernel, meas_mean.shape[-1]):
         return _kernel_likelihood_dense(ndt_map, params, meas_mean, meas_cov)
-    center = ndt_map.cell_near(meas_mean)
-    offsets = torch.as_tensor(np.asarray(kernel, np.int32), device=meas_mean.device)
-    cells = center[..., None, :] + offsets  # [..., K, D]
-    map_mean, map_cov, found = ndt_map.lookup_gaussians(cells)
-
-    err = meas_mean[..., None, :] - map_mean  # [..., K, D]
-    total_cov = meas_cov[..., None, :, :] + map_cov
-    inv = _inv_2x2(total_cov) if d == 2 else _inv_3x3(total_cov)
-    quad = torch.sum(torch.sum(err[..., :, None] * inv, dim=-2) * err, dim=-1)
-    lik = params.d1 * torch.exp((-params.d2 / 2.0) * quad)
-    return torch.sum(torch.where(found, lik, 0.0), dim=-1)
+    return probe_likelihood(ndt_map.keys, ndt_map.values, ndt_map.num_cells, ndt_map.resolution,
+                            meas_mean, meas_cov, kernel, params.d1, params.d2, probe=ndt_probe)[0]
 
 
 def _kernel_likelihood_dense(ndt_map: NdtMap, params: NdtModelParams, meas_mean: Tensor,
@@ -202,17 +183,13 @@ def _kernel_likelihood_dense(ndt_map: NdtMap, params: NdtModelParams, meas_mean:
     return torch.sum(torch.where(within, lik, 0.0), dim=-1)
 
 
-def _chunked_over_particles(states, particle_chunk: int, body) -> Tensor:
-    """``body(chunk) -> f32[..., ck]`` over chunks of the particle axis (the
-    last axis of ``states.shape``), every filter at once; the per-(particle,
-    cell, stencil) intermediates then stay within one chunk's size."""
-    axis = len(states.shape) - 1
-    n = states.shape[-1]
-    ck = min(particle_chunk, n)
-    return torch.cat([
-        body(tree_map(lambda leaf, s=s: leaf.narrow(axis, s, min(ck, n - s)), states))
-        for s in range(0, n, ck)
-    ], dim=-1)
+def pose_matrices(states) -> tuple[Tensor, Tensor]:
+    """``(R f32[..., n, D, D], t f32[..., n, D])`` of SE2 or SE3 states."""
+    if isinstance(states, SE2):
+        c, s = states.rot.cos, states.rot.sin
+        rot = torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
+        return rot, states.xy
+    return states.rot.as_matrix(), states.xyz
 
 
 def measurements_in_world(states, meas_means: Tensor, meas_covs: Tensor):
@@ -220,31 +197,24 @@ def measurements_in_world(states, meas_means: Tensor, meas_covs: Tensor):
     ``[..., n]`` (SE2 or SE3) sees them in the world (ndt_cell.hpp:63-68):
     means ``f32[..., n, C, D]`` and covariances ``R Σ Rᵀ`` ``f32[..., n, C,
     D, D]``."""
-    if isinstance(states, SE2):
-        c, s = states.rot.cos[..., :, None], states.rot.sin[..., :, None]
-        mx, my = meas_means[..., None, :, 0], meas_means[..., None, :, 1]
-        mean_w = torch.stack([c * mx - s * my + states.x[..., :, None],
-                              s * mx + c * my + states.y[..., :, None]], -1)
-        rot = torch.stack([torch.stack([states.rot.cos, -states.rot.sin], -1),
-                           torch.stack([states.rot.sin, states.rot.cos], -1)], -2)
-    else:
-        rot = states.rot.as_matrix()
-        mean_w = (torch.sum(rot[..., :, None, :, :] * meas_means[..., None, :, None, :], dim=-1)
-                  + states.xyz[..., :, None, :])
-    rot = rot[..., :, None, :, :]
-    cov_w = _matmul(_matmul(rot, meas_covs[..., None, :, :, :]), rot.transpose(-1, -2))
-    return mean_w, cov_w
+    return world_gaussians(*pose_matrices(states), meas_means, meas_covs)
 
 
 def _ndt_weights(params, ndt_map, states, meas_means, meas_covs, cell_mask, particle_chunk,
                  kernel) -> Tensor:
-    def body(st) -> Tensor:
-        mean_w, cov_w = measurements_in_world(st, meas_means, meas_covs)
-        lik = _kernel_likelihood(ndt_map, params, mean_w, cov_w, kernel)
+    rot, trans = pose_matrices(states)
+    if not _dense(ndt_map, kernel, meas_means.shape[-1]):  # the fused kernel on the card
+        return ndt_weights(ndt_map.keys, ndt_map.values, ndt_map.num_cells, ndt_map.resolution,
+                           rot, trans, meas_means, meas_covs, cell_mask, kernel,
+                           params.minimum_likelihood, params.d1, params.d2, particle_chunk)
+
+    def body(r: Tensor, t: Tensor) -> Tensor:
+        mean_w, cov_w = world_gaussians(r, t, meas_means, meas_covs)
+        lik = _kernel_likelihood_dense(ndt_map, params, mean_w, cov_w)
         lik = torch.clamp_min(lik, params.minimum_likelihood)
         return 1.0 + torch.sum(torch.where(cell_mask[..., None, :], lik, 0.0), dim=-1)
 
-    return _chunked_over_particles(states, particle_chunk, body)
+    return particle_chunks(rot, trans, particle_chunk, body)
 
 
 def ndt_weights_2d(params: NdtModelParams, ndt_map: NdtMap, states: SE2, meas_means: Tensor,

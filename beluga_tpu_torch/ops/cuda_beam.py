@@ -16,7 +16,8 @@ the exact model's centroid distance.
 
 Contract: the mixture takes the reference's Abramowitz & Stegun ``_erf``;
 kernel and plain version run the same float32 operations in the same
-order, so they agree bit for bit on the card.  One departure from the
+order, so they agree bit for bit on the card.  The kernel traces one ray a
+thread and adds each particle's beams in beam order.  One departure from the
 reference: a masked beam adds nothing (a select, as kernel B7 and the
 exact path do), where the reference adds ``mask * pz³`` and turns the
 weight NaN when a masked beam carries a NaN point (pallas_beam.py:177).
@@ -36,8 +37,7 @@ from beluga_tpu_torch.ops.distance_transform import squared_distance_transform
 Tensor = torch.Tensor
 
 STEPS = 20  # the reference's default march budget (pallas_beam.py:48)
-MAX_FILTERS = 65535  # grid.y
-MAX_BEAMS = 14000  # shared memory: 16 B a beam
+MAX_FILTERS = 65535  # grid.y; any beam count (the kernel loops over tiles of 256)
 
 # kernel launches since the count was last set to 0
 launches = 0
@@ -242,8 +242,6 @@ def _check(dist_cells, tx, ty, cos, sin, bearings, ranges, beam_mask):
             raise ValueError(f"{name} must be {dtype}{list(shp)}, got {t.dtype}{list(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if nb > MAX_BEAMS:
-        raise ValueError(f"{nb} beams; the kernel takes at most {MAX_BEAMS}")
     if math.prod(lead) > MAX_FILTERS:
         raise ValueError(f"{math.prod(lead)} filters; the kernel takes at most {MAX_FILTERS}")
 

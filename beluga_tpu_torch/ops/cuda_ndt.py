@@ -1,33 +1,56 @@
-"""Kernel B10: the NDT cell probe.
+"""Kernel B10, the NDT cell probe, and its redesign for the card, the
+fused NDT stencil likelihood.
 
-Port of ``beluga_tpu/ops/pallas_ndt.py:ndt_probe``; the kernel is
-``csrc/ndt_probe.cu``.  :func:`ndt_probe` launches it on CUDA tensors and
+Both replace ``beluga_tpu/ops/pallas_ndt.py:ndt_probe``.  B10
+(``csrc/ndt_probe.cu``): :func:`ndt_probe` launches it on CUDA tensors and
 runs :func:`ndt_probe_reference`, the plain PyTorch version, on CPU
-tensors.  It serves ``maps/ndt.py:NdtMap.lookup_gaussians``, the stencil
-probe of the NDT sensor model for maps of more than 256 rows.
+tensors; it serves ``maps/ndt.py:NdtMap.lookup_gaussians`` and the NDT
+model's ``ndt_likelihood_at``.  The NDT sensor model's weights on the
+stencil probe path (maps of more than 256 rows, or a stencil of its own)
+go through the fused kernel instead (``csrc/ndt_weights.cu``):
+:func:`ndt_weights` computes each particle's whole weight in one launch,
+and :func:`ndt_weights_reference`, its plain version, is the chunked probe
+path (:func:`probe_likelihood`) with B10's plain version as its probe.
 
-Contract: ``queries`` are encoded cell keys; each is matched exactly
+B10's contract: ``queries`` are encoded cell keys; each is matched exactly
 against the map's sorted live keys ``keys[:num_cells]``; a match fetches
 that row of ``values`` ``f32[M, P]`` (the cell's mean, then its flattened
 covariance) as bit-exact float32 copies, and no match gives zeros and
 ``found = False``.  Keys are 32-bit unsigned values: this module and the
 plain version hold them in int64 tensors in ``[0, 2^32)`` (PyTorch's
-``uint32`` has few operators), and the kernel takes them as ``uint32_t``
+``uint32`` has few operators), and the kernels take them as ``uint32_t``
 (their low 32 bits, through an int32 tensor of the same bits).
+
+The fused kernel's contract: the plain version's world means and cell
+keys exactly (the same float32 operations in the same order, the same
+division by the resolution), the rest within rtol 1e-4 of the particle
+weight: the kernel sums the stencil and the cells in another order, and in
+3D inverts ``Σa + Σb + 1e-12·I`` by its adjugate where the plain version
+takes the library's LU inverse, so the two part on a total covariance
+that is singular or nearly so (the adjugate's determinant goes to 0, LU
+pivots in another order).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
 
-# kernel launches since the count was last set to 0
+MAX_OFFSETS = 32  # stencil cells, passed by value
+MAX_SLOTS = 32768  # measurement slots a filter: their live list in shared memory
+MAX_FILTERS = 65535  # grid.y
+
+# kernel launches since the count was last set to 0: B10, the fused kernel
 launches = 0
+weights_launches = 0
 
 _fn = None
+_weights_fn = None
 
 
 def _kernel():
@@ -101,3 +124,230 @@ def ndt_probe(keys: Tensor, values: Tensor, num_cells: int,
         raise RuntimeError(f"ndt_probe kernel launch failed: cudaError {err}")
     launches += 1
     return out, found.view(torch.bool)
+
+
+# -- the fused NDT stencil likelihood ------------------------------------------
+
+
+def _weights_kernel():
+    global _weights_fn
+    if _weights_fn is None:
+        from beluga_tpu_torch.ops._build import load_library
+
+        fn = load_library("ndt_weights").beluga_ndt_weights
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, p, i, f, f, f, f, p, p]
+        fn.restype = ctypes.c_int
+        _weights_fn = fn
+    return _weights_fn
+
+
+def _matmul(a: Tensor, b: Tensor) -> Tensor:
+    """Batched product of small matrices as broadcast sums (no library
+    call for D <= 3)."""
+    return torch.sum(a[..., :, :, None] * b[..., None, :, :], dim=-2)
+
+
+def world_gaussians(rot: Tensor, trans: Tensor, means: Tensor, covs: Tensor):
+    """The measurement Gaussians ``means`` ``f32[..., C, D]``, ``covs``
+    ``f32[..., C, D, D]`` as each pose (``rot`` ``f32[..., n, D, D]``,
+    ``trans`` ``f32[..., n, D]``) sees them in the world
+    (ndt_cell.hpp:63-68): means ``R m + t`` ``f32[..., n, C, D]``, each
+    row summed left to right and the translation added last, and
+    covariances ``R Σ Rᵀ`` ``f32[..., n, C, D, D]``."""
+    r = rot[..., :, None, :, :]  # [..., n, 1, D, D]
+    m = means[..., None, :, :]  # [..., 1, C, D]
+    mean_w = r[..., :, 0] * m[..., 0:1]
+    for j in range(1, means.shape[-1]):
+        mean_w = mean_w + r[..., :, j] * m[..., j:j + 1]
+    mean_w = mean_w + trans[..., :, None, :]
+    cov_w = _matmul(_matmul(r, covs[..., None, :, :, :]), r.transpose(-1, -2))
+    return mean_w, cov_w
+
+
+def inv_2x2(m: Tensor) -> Tensor:
+    a, b = m[..., 0, 0], m[..., 0, 1]
+    c, d = m[..., 1, 0], m[..., 1, 1]
+    det = a * d - b * c
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1e-12, det)
+    adj = torch.stack([torch.stack([d, -b], -1), torch.stack([-c, a], -1)], -2)
+    return adj * inv_det[..., None, None]
+
+
+def inv_3x3(m: Tensor) -> Tensor:
+    """``inv(m + 1e-12·I)`` through the library's batched inverse, without
+    its error check (which would read a flag back from the card); a
+    singular matrix gives inf or NaN, as ``jnp.linalg.inv`` does."""
+    eye = torch.eye(3, dtype=m.dtype, device=m.device)
+    return torch.linalg.inv_ex(m + 1e-12 * eye).inverse
+
+
+def stencil_likelihood(mean_w: Tensor, cov_w: Tensor, map_mean: Tensor, map_cov: Tensor,
+                       found: Tensor, d1: float, d2: float) -> Tensor:
+    """``Σ_k found·d1·exp(-d2/2 · eᵀ(Σa + Σb)⁻¹e)`` over the stencil axis of
+    the looked-up map Gaussians (``map_mean`` ``f32[..., K, D]``,
+    ``map_cov`` ``f32[..., K, D, D]``, ``found`` ``bool[..., K]``) for query
+    Gaussians ``mean_w`` ``f32[..., D]``, ``cov_w`` ``f32[..., D, D]``."""
+    err = mean_w[..., None, :] - map_mean  # [..., K, D]
+    total_cov = cov_w[..., None, :, :] + map_cov
+    inv = inv_2x2(total_cov) if mean_w.shape[-1] == 2 else inv_3x3(total_cov)
+    quad = torch.sum(torch.sum(err[..., :, None] * inv, dim=-2) * err, dim=-1)
+    lik = d1 * torch.exp((-d2 / 2.0) * quad)
+    return torch.sum(torch.where(found, lik, 0.0), dim=-1)
+
+
+def probe_likelihood(keys: Tensor, values: Tensor, num_cells: int, resolution: float,
+                     mean_w: Tensor, cov_w: Tensor, offsets, d1: float, d2: float,
+                     probe=ndt_probe_reference) -> tuple[Tensor, Tensor]:
+    """The stencil probe of query Gaussians ``mean_w`` ``f32[..., D]``,
+    ``cov_w`` ``f32[..., D, D]``: their cells (``NdtMap.cell_near``), the
+    keys of the cells at the host ``offsets`` ``[K, D]`` from them, those
+    keys through ``probe`` (:func:`ndt_probe` or its plain version), and the
+    stencil sum of :func:`stencil_likelihood`.  Returns ``(lik f32[...],
+    found bool[..., K])``."""
+    # the map owns the key format, and imports this module
+    from beluga_tpu_torch.maps.ndt import encode_cells
+
+    d = mean_w.shape[-1]
+    res = torch.full((), resolution, dtype=torch.float32, device=mean_w.device)
+    off = torch.as_tensor(np.asarray(offsets, np.int32), device=mean_w.device)
+    center = torch.floor(mean_w / res).to(torch.int32)
+    vals, found = probe(keys, values, num_cells, encode_cells(center[..., None, :] + off))
+    lik = stencil_likelihood(mean_w, cov_w, vals[..., :d],
+                             vals[..., d:].reshape(*found.shape, d, d), found, d1, d2)
+    return lik, found
+
+
+def particle_chunks(rot: Tensor, trans: Tensor, particle_chunk: int, body) -> Tensor:
+    """``body(rot, trans) -> [..., ck]`` over chunks of ``particle_chunk``
+    poses (``rot`` ``f32[..., N, D, D]``, ``trans`` ``f32[..., N, D]``),
+    every filter at once, joined along the last axis; the per-(particle,
+    cell, stencil) intermediates then stay within one chunk's size."""
+    n = rot.shape[-3]
+    ck = max(min(particle_chunk, n), 1)
+    parts = [body(rot.narrow(-3, s, min(ck, n - s)), trans.narrow(-2, s, min(ck, n - s)))
+             for s in range(0, n, ck)]
+    if not parts:
+        return torch.ones((*rot.shape[:-3], 0), dtype=torch.float32, device=rot.device)
+    return torch.cat(parts, dim=-1)
+
+
+def ndt_weights_reference(keys: Tensor, values: Tensor, num_cells: int, resolution: float,
+                          rot: Tensor, trans: Tensor, meas_means: Tensor, meas_covs: Tensor,
+                          cell_mask: Tensor, offsets, minimum_likelihood: float = 0.0,
+                          d1: float = 1.0, d2: float = 1.0,
+                          particle_chunk: int = 512) -> Tensor:
+    """Plain PyTorch version of the fused kernel: the stencil probe
+    (:func:`probe_likelihood` through B10's plain version) over chunks of
+    ``particle_chunk`` particles."""
+    def body(r: Tensor, t: Tensor) -> Tensor:
+        mean_w, cov_w = world_gaussians(r, t, meas_means, meas_covs)
+        lik, _ = probe_likelihood(keys, values, num_cells, resolution, mean_w, cov_w, offsets,
+                                  d1, d2)
+        lik = torch.clamp_min(lik, minimum_likelihood)
+        return 1.0 + torch.sum(torch.where(cell_mask[..., None, :], lik, 0.0), dim=-1)
+
+    return particle_chunks(rot, trans, particle_chunk, body)
+
+
+def _check_weights(keys, values, num_cells, rot, trans, meas_means, meas_covs, cell_mask,
+                   offsets) -> tuple:
+    """The fleet's leading shape, particles, slots and dimension, after
+    the checks of every input against the others."""
+    device = keys.device
+    for name, t in (("values", values), ("rot", rot), ("trans", trans),
+                    ("meas_means", meas_means), ("meas_covs", meas_covs),
+                    ("cell_mask", cell_mask)):
+        if not isinstance(t, Tensor):
+            raise ValueError(f"{name} must be a tensor")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, keys on {device}")
+    if keys.dtype != torch.int64 or keys.dim() != 1:
+        raise ValueError(f"keys must be int64[M], got {keys.dtype}{list(keys.shape)}")
+    if rot.dtype != torch.float32 or rot.dim() < 3 or rot.shape[-1] not in (2, 3) \
+            or rot.shape[-2] != rot.shape[-1]:
+        raise ValueError(f"rot must be float32[..., N, D, D] with D 2 or 3, got "
+                         f"{rot.dtype}{list(rot.shape)}")
+    d, lead, n = rot.shape[-1], tuple(rot.shape[:-3]), rot.shape[-3]
+    if values.dtype != torch.float32 or tuple(values.shape) != (keys.shape[0], d + d * d):
+        raise ValueError(f"values must be float32[{keys.shape[0]}, {d + d * d}], got "
+                         f"{values.dtype}{list(values.shape)}")
+    if not 0 <= num_cells <= keys.shape[0]:
+        raise ValueError(f"num_cells {num_cells} outside [0, {keys.shape[0]}]")
+    if trans.dtype != torch.float32 or tuple(trans.shape) != (*lead, n, d):
+        raise ValueError(f"trans must be float32{[*lead, n, d]}, got "
+                         f"{trans.dtype}{list(trans.shape)}")
+    c = meas_means.shape[-2] if meas_means.dim() >= 2 else -1
+    mlead = tuple(meas_means.shape[:-2])
+    want = {"meas_means": (meas_means, (*mlead, c, d), torch.float32),
+            "meas_covs": (meas_covs, (*mlead, c, d, d), torch.float32),
+            "cell_mask": (cell_mask, (*mlead, c), torch.bool)}
+    for name, (t, shape, dtype) in want.items():
+        if c < 0 or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {dtype}{list(shape)}, got "
+                             f"{t.dtype}{list(t.shape)}")
+    try:
+        broadcast = torch.broadcast_shapes(mlead, lead) == torch.Size(lead)
+    except RuntimeError:
+        broadcast = False
+    if not broadcast:
+        raise ValueError(f"the measurement cells' leading shape {list(mlead)} does not "
+                         f"broadcast to the states' {list(lead)}")
+    off = np.asarray(offsets)
+    if off.dtype.kind not in "iu" or off.ndim != 2 or off.shape[1] != d \
+            or not 0 < off.shape[0] <= MAX_OFFSETS:
+        raise ValueError(f"offsets must be a host integer array [K, {d}] with "
+                         f"0 < K <= {MAX_OFFSETS}, got {off.dtype}{list(off.shape)}")
+    if c > MAX_SLOTS:
+        raise ValueError(f"{c} measurement slots; the kernel takes at most {MAX_SLOTS}")
+    if math.prod(lead) > MAX_FILTERS:
+        raise ValueError(f"{math.prod(lead)} filters; the kernel takes at most {MAX_FILTERS}")
+    return lead, n, c, d
+
+
+def ndt_weights(keys: Tensor, values: Tensor, num_cells: int, resolution: float, rot: Tensor,
+                trans: Tensor, meas_means: Tensor, meas_covs: Tensor, cell_mask: Tensor,
+                offsets, minimum_likelihood: float = 0.0, d1: float = 1.0, d2: float = 1.0,
+                particle_chunk: int = 512) -> Tensor:
+    """Each particle's NDT weight ``1 + Σ_live cells max(Σ_stencil
+    found·d1·exp(-d2/2 · eᵀ(Σa + Σb)⁻¹e), minimum_likelihood)``,
+    ``f32[..., N]``, in one launch on the card.
+
+    Args:
+      keys, values, num_cells, resolution: the map (``NdtMap``'s sorted
+        int64 keys, its ``f32[M, D + D²]`` rows, live rows, cell size).
+      rot, trans: the poses, ``f32[..., N, D, D]`` and ``f32[..., N, D]``.
+      meas_means, meas_covs, cell_mask: the measurement cells, ``f32[...,
+        C, D]``, ``f32[..., C, D, D]``, ``bool[..., C]``; their leading
+        shape broadcasts to the poses'.
+      offsets: the stencil, a host integer array ``[K, D]``.
+      particle_chunk: the plain version's chunk; the kernel has none.
+    """
+    global weights_launches
+    lead, n, c, d = _check_weights(keys, values, num_cells, rot, trans, meas_means, meas_covs,
+                                   cell_mask, offsets)
+    if keys.device.type == "cpu":
+        return ndt_weights_reference(keys, values, num_cells, resolution, rot, trans,
+                                     meas_means, meas_covs, cell_mask, offsets,
+                                     minimum_likelihood, d1, d2, particle_chunk)
+    if keys.device.type != "cuda":
+        raise ValueError(f"unsupported device {keys.device}")
+    filters = math.prod(lead)
+    off = np.ascontiguousarray(np.asarray(offsets, np.int32))
+    host_off = (ctypes.c_int * off.size)(*off.reshape(-1).tolist())
+    means = meas_means.expand(*lead, c, d).contiguous()
+    covs = meas_covs.expand(*lead, c, d, d).contiguous()
+    mask = cell_mask.expand(*lead, c).contiguous()
+    k32 = keys.to(torch.int32)  # the low 32 bits, read as uint32_t
+    vals, r, t = values.contiguous(), rot.contiguous(), trans.contiguous()
+    out = torch.empty((*lead, n), dtype=torch.float32, device=keys.device)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    err = _weights_kernel()(k32.data_ptr(), num_cells, vals.data_ptr(), r.data_ptr(),
+                            t.data_ptr(), means.data_ptr(), covs.data_ptr(), mask.data_ptr(),
+                            filters, n, c, d, host_off, off.shape[0], float(resolution),
+                            float(minimum_likelihood), float(d1), -float(d2) / 2.0,
+                            out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"ndt_weights kernel launch failed: cudaError {err}")
+    weights_launches += 1
+    return out

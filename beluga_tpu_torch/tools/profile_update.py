@@ -38,11 +38,11 @@ Workloads, the configurations of ``tools/workloads.py`` (which
 * ``windowed_int8``: the windowed filter on int8 window tables (kernel
   B6-int8);
 * ``ndt_node``: ``NdtAmclNode`` at nav2 defaults on the 2D NDT map, 360-beam
-  point clouds (kernel B10);
+  point clouds (the fused NDT kernel);
 * ``ndt_fleet``: the NDT fleet, 64 filters x 4096 particles x 60 points,
-  forced updates (kernel B10);
+  forced updates (the fused NDT kernel);
 * ``ndt3d_node``: ``NdtAmclNode3D`` at nav2 defaults on the 3D NDT map,
-  3600-point clouds (kernel B10);
+  3600-point clouds (the fused NDT kernel);
 * ``vdb``: BASELINE config #4, 131072 SE3 particles x 80 points, forced
   updates (kernel B11).
 
@@ -53,8 +53,9 @@ update, device-busy ms per update (the sum of the CUDA kernels' and
 copies' device times under the profiler), the device's idle share
 (1 - busy / wall), kernel launches per update, and the model stages
 (wrapped in profiler ranges here, not in the port), a few PyTorch
-operators by name (device time and calls per update) and the kernels that
-take the most time.  A run without a CUDA device exits 2.
+operators by name (device time and calls per update), the kernels that
+take the most time, and the port's hand-written kernels by name (device
+time and launches per update).  A run without a CUDA device exits 2.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -78,6 +80,20 @@ STAGES = ("propagate", "log_weight", "random_state", "hash_state", "estimate", "
 # how they scale with the particle count
 OPS = ("aten::cummax", "aten::sort", "aten::cumsum", "aten::matmul", "aten::index_select",
        "aten::linalg_inv_ex")
+# the port's hand-written kernels (``csrc/*.cu``) by the names of their
+# ``__global__`` functions, reported by name with their device time and
+# launches per update
+HAND_KERNELS = {
+    "reweight_kernel": "B1/B1-log fused_reweight",
+    "reweight_values3_kernel": "B4/B4-log fused_reweight values3",
+    "resample_take_kernel": "B2 resample_take", "pool_take_kernel": "B3 pool_take",
+    "fused_step_kernel": "B5 fused_propagate_winlut", "winlut_kernel": "B6/B6-int8 winlut_lookup",
+    "beam_lut_kernel": "B7 beam_lut_windowed", "sphere_trace_kernel": "B8 sphere_trace",
+    "scan_lut_kernel": "B9 scan_lut_correlate", "ndt_probe_kernel": "B10 ndt_probe",
+    "ndt_weights_kernel": "B10-fused ndt_weights", "codebook_lookup_kernel": "B11 codebook_lookup",
+    "standard_kernel": "R1 cast_rays", "supercover_kernel": "R1 cast_rays",
+}
+_SYMBOL = re.compile(r"(\w+_kernel)\b")
 
 
 def _ranged(models):
@@ -281,6 +297,14 @@ def profile_workload(name: str, make, scans: int, warmup: int, trace_dir: str | 
     for e in kernels:  # kernel names cut to 90 characters, times summed
         by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
+    hand: dict[str, list[float]] = {}
+    for e in kernels:
+        symbol = _SYMBOL.search(e.name)
+        label = HAND_KERNELS.get(symbol.group(1)) if symbol else None
+        if label:
+            entry = hand.setdefault(label, [0.0, 0])
+            entry[0] += e.time_range.elapsed_us()
+            entry[1] += 1
     stages: dict[str, list[float]] = {s: [0.0, 0.0] for s in STAGES}
     ops, calls = dict.fromkeys(OPS, 0.0), dict.fromkeys(OPS, 0)
     for e in events:
@@ -308,6 +332,8 @@ def profile_workload(name: str, make, scans: int, warmup: int, trace_dir: str | 
         "ops_device_ms_per_update": {k: 1e-3 * v / scans for k, v in ops.items()},
         "ops_calls_per_update": {k: v / scans for k, v in calls.items()},
         "top_device_ms_per_update": {k: 1e-3 * v / scans for k, v in top},
+        "hand_kernels_per_update": {k: {"device_ms": 1e-3 * us / scans, "launches": c / scans}
+                                    for k, (us, c) in sorted(hand.items())},
     }
 
 

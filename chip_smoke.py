@@ -66,22 +66,23 @@ Phases, each of which exits non-zero when it fails:
    forced updates, same gate; B6-int8 at least once, B1 on every update;
 16. NDT node: ``NdtAmclNode`` at nav2 defaults on the 2D NDT map (the
    arena fitted at 0.4 m, 287 rows) for 50 scans of 360 beams at 3.5 m,
-   same gate; B10 on every update (once per 512-particle chunk);
+   same gate; the fused NDT kernel once per update, B10 never;
 17. NDT fleet: ``bench.py:780-837``'s 64 filters x 4096 particles x 60
    points (12 map means x 5 points, so that cells are live), a fixed
    count, 20 forced updates, every filter within the gate at every scan;
-   B10 once per particle chunk;
+   the fused NDT kernel once per update, B10 never;
 18. NDT-3D node: ``NdtAmclNode3D`` at nav2 defaults on the 3D NDT map (the
    arena extruded to 2 m, fitted at 0.5 m, 996 rows), each cloud the
    360-beam scan at ten heights (3600 points), 30 scans, the gate on x, y
-   and yaw; B10 on every update;
+   and yaw; the fused NDT kernel once per update, B10 never;
 19. VDB filter: BASELINE config #4 (``bench.py:722-778``), 131072 SE3
    particles x 80 points with ``voxel_size_hint=0.2``, 20 forced updates,
    each within 0.9 m / 30 degrees of (3, 3, 0, yaw 0.3); B11 once per
    update.
 
-Phase 3 also holds kernels B8 (the node's 2000 x 60 at 100 m and the
-long-range 2048 x 60 at 60 m), B7 (64 x 4096 x 60, K = 128, θ-sorted slots
+Phase 3 also holds kernels B8 (the node's 2000 x 60 at 100 m, the
+long-range 2048 x 60 at 60 m and the node's 2000 particles with a
+1000-beam scan), B7 (64 x 4096 x 60, K = 128, θ-sorted slots
 with strays) and R1 (the node's 2000 x 60 rays at 100 m and the LUT
 build's 128 x 384 x 384 rays at 4 m) against their plain versions, and
 slice 5's: B9 (nearest at the shared-scan shape, 128 x 280 x 384, and
@@ -92,7 +93,13 @@ particle chunk (64 x 512 particles x 60 cells x 9 stencil cells, 287 keys,
 P = 6) and the 3D node's (512 x 3600 x 7, 996 keys, P = 12), B11 at the VDB
 filter's 131072 x 80 queries on the bench volume (49 x 1029 codes, in
 shared memory) and on a 200 x 200 x 50 building floor (2 MB of codes, from
-global memory), each equal to its plain version (max abs err 0).
+global memory), each equal to its plain version (max abs err 0); and
+slice 7's fused NDT kernel (B10 redesigned: the NDT model's whole stencil
+likelihood in one launch) at the NDT node's 2000 particles x 360 slots
+(2D map), the NDT fleet's 64 x 4096 x 60 slots and the NDT-3D node's 2000
+x 3600 slots (3D map), every particle's weight within rtol 1e-4 of its
+plain version, two launches bit-equal; each prints its live cells, hit
+share and bound.
 
 Phases 4 to 19 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
 
@@ -147,7 +154,7 @@ WINDOWED_SCANS = 40
 BEAM_NODE_SCANS, LONG_RANGE_SCANS, LONG_RANGE_WARMUP, BEAM_FLEET_SCANS = 30, 40, 2, 40
 SHARED_SCAN_SCANS, PROB_FLEET_SCANS, WINDOWED_INT8_SCANS = 40, 20, 20
 NDT_NODE_SCANS, NDT_FLEET_SCANS, NDT3D_SCANS, VDB_SCANS = 50, 20, 30, 20
-NDT_CHUNK = 512  # ndt_weights_2d/_3d's default particle chunk
+NDT_CHUNK = 512  # the NDT plain version's particle chunk: B10's check shape
 LIBRARY_LIMIT_MS = 1000.0  # a library yardstick slower than this per call is not timed
 # float32 operations per (particle, unmasked beam) of the beam mixture, with
 # exp counted as 10: two A&S erfs of ~28, eta_hit 6, the Gaussian 17, the
@@ -158,6 +165,21 @@ MIXTURE_OPS = 110
 B7_OPS_PER_BEAM = MIXTURE_OPS + 12
 B8_OPS_PER_BEAM, B8_OPS_PER_STEP = MIXTURE_OPS + 6, 8
 R1_OPS_PER_CELL = 10
+# operations that the NDT stencil likelihood needs, by dimension: per
+# (particle, live cell) the rotated mean (2D 8, 3D 18), the rotated
+# covariance (24, 90), the cell (3 a axis) and the clamped sum (2); per
+# (particle, live cell, stencil offset) the key (6) and one compare, what
+# an exact match needs (the fused kernel's binary search of the sorted
+# keys is its own cost, not counted); per hit the error and the total
+# covariance (6, 12), the inverse and the quadratic form (19, 56), exp
+# counted as 10 and the sum (3); integer operations count as float32 ones
+NDT_CELL_OPS = {2: 40, 3: 119}
+NDT_PROBE_OPS = 7
+NDT_HIT_OPS = {2: 38, 3: 81}
+# the fused kernel against its plain version: every particle's weight
+# within rtol 1e-4 (the kernel sums the stencil and the cells in its own
+# order and in 3D inverts by the adjugate where the plain version takes LU)
+NDT_RTOL = 1e-4
 
 
 class SmokeFailure(Exception):
@@ -878,11 +900,12 @@ def check_raycast(dev, iters: int, lut_build: bool) -> dict:
     )
 
 
-def check_sphere_trace(dev, iters: int, long_range: bool) -> dict:
+def check_sphere_trace(dev, iters: int, long_range: bool, n_beams: int | None = None) -> dict:
     """Kernel B8 at the beam node's 2000 x 60 on the arena at 100 m (89
     steps), or the long-range filter's 2048 x 60 on the 1024² map at 60 m
-    (48 steps): weights bit-equal to its plain version (same operations in
-    the same order), finite."""
+    (48 steps), or the node's 2000 particles with a scan of ``n_beams``
+    beams (more than a block's tile of 256): weights bit-equal to its plain
+    version (same operations in the same order), finite."""
     from beluga_tpu_torch.filters.builders import sphere_trace_steps
     from beluga_tpu_torch.io import synthetic
     from beluga_tpu_torch.lie import SE2
@@ -907,9 +930,12 @@ def check_sphere_trace(dev, iters: int, long_range: bool) -> dict:
     else:
         states, s = arena_cloud(2000, dev, seed=13)
         pts, mask = s.points, s.mask
+        if n_beams:
+            pts, mask = synthetic.simulate_scans(s.data, workloads.RES, s.xs[:1], s.ys[:1],
+                                                 s.yaws[:1], n_beams)
         grid = make_grid(s.data, workloads.RES, device=dev)
         params = workloads.node_config(s, laser_model_type="beam").beam_params()
-        label = f"2000x{workloads.BEAMS}, arena, {params.beam_max_range} m"
+        label = f"2000x{pts.shape[1]}, arena, {params.beam_max_range} m"
     steps = sphere_trace_steps(params.beam_max_range, grid.resolution)
     label += f", {steps} steps"
     dist = b8.make_distance_cells(grid.free_mask)
@@ -928,7 +954,7 @@ def check_sphere_trace(dev, iters: int, long_range: bool) -> dict:
     traced = b8.trace_steps(dist, *poses, bearing, beams, grid.resolution, pv, steps)
     times = timings(lambda: b8.sphere_trace_beam_weights(*args, march_steps=steps),
                     lambda: b8.sphere_trace_reference(*args, march_steps=steps), iters,
-                    plain_iters=5)
+                    plain_iters=2 if n_beams else 5)
     n, unmasked = poses[0].numel(), int(beams.sum())
     bms, by = bound_ms(20 * n + 13 * beams.numel() + dist.numel(),
                        B8_OPS_PER_BEAM * n * unmasked + B8_OPS_PER_STEP * traced)
@@ -1064,6 +1090,114 @@ def check_ndt_probe(dev, iters: int, dim: int) -> dict:
     )
 
 
+def ndt_weights_inputs(dev, which: str) -> tuple[tuple, str]:
+    """The fused NDT kernel's arguments at a main path's shape: the NDT
+    node's (2000 particles about its first pose, one 360-beam scan, the 2D
+    map), the NDT fleet's (64 x 4096 particles, 60 points) or the NDT-3D
+    node's (2000 particles, one 3600-point cloud, the 3D map)."""
+    from beluga_tpu_torch.core.random import sample_normal_se3
+    from beluga_tpu_torch.lie import SE2, SE3
+    from beluga_tpu_torch.models.sensor.ndt import (
+        KERNEL_2D,
+        KERNEL_3D,
+        NdtModelParams,
+        fit_measurement_cells,
+        pose_matrices,
+    )
+    from beluga_tpu_torch.tools import workloads
+
+    if which == "fleet":
+        w = workloads.ndt_fleet(1, dev)
+        ndt_map, states, points, mask = w.ctx["ndt_map"], w.state.particles.state, w.points, w.mask
+    elif which == "node":
+        s = workloads.ndt_scans(1)
+        ndt_map = workloads.ndt_map_2d(dev)
+        rng = np.random.default_rng(15)
+        xyt = rng.normal([s.xs[0], s.ys[0], s.yaws[0]], [0.3, 0.3, 0.2], (2000, 3))
+        states = SE2.from_xytheta(*(torch.as_tensor(xyt[:, i], dtype=torch.float32)
+                                    for i in range(3)), device=dev)
+        points, mask = (torch.as_tensor(v[0]).to(dev) for v in (s.points, s.mask))
+    else:
+        s = workloads.ndt_scans(1)
+        clouds, cmask = workloads.ndt_clouds(s)
+        ndt_map = workloads.ndt_map_3d(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(16)
+        states = sample_normal_se3(gen, 2000, SE3.from_xyzrpy(
+            [s.xs[0], s.ys[0], 0.0], (0.0, 0.0, s.yaws[0]), device="cpu"),
+            workloads.INITIAL_COV_3D)
+        points, mask = torch.as_tensor(clouds[0]).to(dev), torch.as_tensor(cmask[0]).to(dev)
+    means, covs, cell_mask = fit_measurement_cells(points, mask, ndt_map.resolution)
+    rot, trans = pose_matrices(states)
+    p = NdtModelParams()
+    kernel = KERNEL_2D if ndt_map.dim == 2 else KERNEL_3D
+    args = (ndt_map.keys, ndt_map.values, ndt_map.num_cells, ndt_map.resolution,
+            rot.contiguous(), trans.contiguous(), means, covs, cell_mask, kernel,
+            p.minimum_likelihood, p.d1, p.d2)
+    lead = "x".join(str(v) for v in rot.shape[:-2])
+    path = {"node": "NDT node", "fleet": "NDT fleet", "3d": "NDT-3D node"}[which]
+    return args, (f"{path}, {lead} particles x {cell_mask.shape[-1]} slots, "
+                  f"{ndt_map.num_cells} keys ({ndt_map.dim}D), K = {len(kernel)}")
+
+
+def ndt_hits(args, chunk: int = 256) -> tuple[int, int]:
+    """(hits, probes): the stencil probes of live cells that the fused
+    kernel makes on these inputs, and how many find a map cell (the plain
+    version's probe, over particle chunks)."""
+    from beluga_tpu_torch.ops import cuda_ndt
+
+    keys, values, m, res, rot, trans, means, covs, cell_mask, kernel = args[:10]
+
+    def body(r, t):  # hits a particle
+        mean_w, cov_w = cuda_ndt.world_gaussians(r, t, means, covs)
+        _, found = cuda_ndt.probe_likelihood(keys, values, m, res, mean_w, cov_w, kernel, 1.0, 1.0)
+        return torch.sum(found & cell_mask[..., None, :, None], dim=(-1, -2))
+
+    hits = int(cuda_ndt.particle_chunks(rot, trans, chunk, body).sum())
+    live = int(cell_mask.expand(*rot.shape[:-3], cell_mask.shape[-1]).sum())  # (filter, cell)
+    return hits, live * rot.shape[-3] * len(kernel)
+
+
+def check_ndt_weights(dev, iters: int, which: str) -> dict:
+    """The fused NDT kernel at a main path's shape (``ndt_weights_inputs``)
+    against its plain version (the chunked probe path through B10's plain
+    version): every weight finite, two launches bit-equal, every weight
+    within ``NDT_RTOL``; no single library call computes the function."""
+    from beluga_tpu_torch.ops import cuda_ndt
+
+    args, label = ndt_weights_inputs(dev, which)
+    got = cuda_ndt.ndt_weights(*args)
+    again = cuda_ndt.ndt_weights(*args)
+    want = cuda_ndt.ndt_weights_reference(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"NDT weights {label}: weights not finite")
+    check(torch.equal(got, again), f"NDT weights {label}: two launches differ")
+    rel = ((got - want).abs() / want.abs()).reshape(-1)
+    outside = float((rel > NDT_RTOL).float().mean())
+    check(outside == 0.0,
+          f"NDT weights {label}: {outside:.2e} of the particles beyond rtol {NDT_RTOL} "
+          f"(max {float(rel.max()):.2e})")
+    m, rot, cell_mask, kernel = args[2], args[4], args[8], args[9]
+    hits, probes = ndt_hits(args)
+    live = int(cell_mask.sum()) // max(math.prod(cell_mask.shape[:-1]), 1)  # a filter
+    check(0 < hits < probes, f"NDT weights {label}: {hits} hits of {probes} probes")
+    times = timings(lambda: cuda_ndt.ndt_weights(*args),
+                    lambda: cuda_ndt.ndt_weights_reference(*args), iters, plain_iters=3)
+    d, k, n = rot.shape[-1], len(kernel), rot.shape[:-2].numel()
+    p = d + d * d
+    cells = probes // k  # (particle, live cell) pairs
+    ops = NDT_CELL_OPS[d] * cells + NDT_PROBE_OPS * probes + NDT_HIT_OPS[d] * hits
+    nbytes = (n * 4 * (d * d + d + 1) + cell_mask.numel() * (4 * p + 1) + m * (4 + 4 * p))
+    bms, by = bound_ms(nbytes, ops)
+    return dict(
+        name="B10-fused ndt_weights", route="cuda", source="beluga_tpu_torch/csrc/ndt_weights.cu",
+        replaces="beluga_tpu/ops/pallas_ndt.py:48",
+        max_abs_err=float((got - want).abs().max()), max_rel_err=float(rel.max()),
+        outside_rtol_share=outside, live_cells=live, hit_share=hits / probes,
+        bound_ms=bms, bound_by=by, shape=label, **times,
+    )
+
+
 def building_floor(dev):
     """The 200 x 200 x 50-voxel building floor of ``maps/voxel.py:6-8`` at
     0.1 m: a floor slab, outer walls, interior walls with door gaps and a
@@ -1149,6 +1283,7 @@ def reset_counts() -> None:
     )
 
     cuda_ndt.launches = 0
+    cuda_ndt.weights_launches = 0
     cuda_codebook.launches = 0
     cuda_reweight.launches = 0
     cuda_reweight.values3_launches = 0
@@ -1193,6 +1328,7 @@ def read_counts() -> dict:
             "B8 sphere_trace_beam_weights": cuda_beam.launches,
             "B9 scan_lut_correlate": cuda_scan_lut.launches,
             "B10 ndt_probe": cuda_ndt.launches,
+            "B10-fused ndt_weights": cuda_ndt.weights_launches,
             "B11 codebook_lookup": cuda_codebook.launches,
             "R1 cast_rays": raycast.launches}
 
@@ -1559,9 +1695,20 @@ def run_beam_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
     )
 
 
+def check_ndt_launches(counts: dict, updates: int, what: str) -> None:
+    """The NDT paths weigh through the fused kernel, once per update, and
+    never through the standalone probe."""
+    fused = counts["B10-fused ndt_weights"]
+    check(fused == updates, f"{what}: the fused NDT kernel launched {fused} times in "
+          f"{updates} updates")
+    check(counts["B10 ndt_probe"] == 0,
+          f"{what}: B10 launched {counts['B10 ndt_probe']} times")
+
+
 def run_ndt_node(dev, scans: int = NDT_NODE_SCANS) -> tuple[dict, dict]:
     """``NdtAmclNode`` at nav2 defaults on the 2D NDT map: every valid
-    estimate within the gate, B10 once per particle chunk on every update."""
+    estimate within the gate, the fused NDT kernel once per update and B10
+    never."""
     from beluga_tpu_torch.models.sensor.ndt import fit_measurement_cells
     from beluga_tpu_torch.ndt_node import NdtAmclNode
     from beluga_tpu_torch.tools import workloads
@@ -1570,7 +1717,6 @@ def run_ndt_node(dev, scans: int = NDT_NODE_SCANS) -> tuple[dict, dict]:
     reset_counts()
     node = NdtAmclNode(workloads.node_config(s), seed=0, device=dev)
     node.set_map(workloads.ndt_map_2d(dev))
-    chunks = math.ceil(node.params.max_particles / NDT_CHUNK)
     live = [int(fit_measurement_cells(torch.as_tensor(s.points[t]), torch.as_tensor(s.mask[t]),
                                       workloads.NDT_CELL_2D)[2].sum()) for t in range(scans)]
     times, worst_pos, worst_yaw, valid = [], 0.0, 0.0, 0
@@ -1589,9 +1735,7 @@ def run_ndt_node(dev, scans: int = NDT_NODE_SCANS) -> tuple[dict, dict]:
               f"NDT node scan {t}: error {e_pos:.3f} m / {math.degrees(e_yaw):.1f} deg")
     counts = read_counts()
     check(valid >= scans - 1, f"NDT node: only {valid} valid updates of {scans}")
-    check(counts["B10 ndt_probe"] == chunks * valid,
-          f"NDT node: B10 launched {counts['B10 ndt_probe']} times in {valid} updates "
-          f"of {chunks} chunks")
+    check_ndt_launches(counts, valid, "NDT node")
     check(counts["B2 resample_take"] > 0, "NDT node: B2 was never launched")
     steady = sorted(times[2:])
     return counts, dict(
@@ -1606,7 +1750,8 @@ def run_ndt_node(dev, scans: int = NDT_NODE_SCANS) -> tuple[dict, dict]:
 def run_ndt_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
                   scans: int = NDT_FLEET_SCANS) -> tuple[dict, dict]:
     """The NDT fleet (bench.py:780-837): forced updates at the truth, every
-    filter within the gate at every scan, B10 once per particle chunk."""
+    filter within the gate at every scan, the fused NDT kernel once per
+    update and B10 never."""
     from beluga_tpu_torch.models.sensor.ndt import fit_measurement_cells
     from beluga_tpu_torch.parallel.fleet import make_fleet_update
     from beluga_tpu_torch.tools import workloads
@@ -1618,7 +1763,6 @@ def run_ndt_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
     check(live >= 8, f"NDT fleet: only {live} live measurement cells")
     fleet_update = make_fleet_update(w.params, w.models)
     odoms = workloads.fleet_odometry(s, 0, b)
-    chunks = math.ceil(n / NDT_CHUNK)
     reset_counts()
     times, worst_pos, worst_yaw = [], 0.0, 0.0
     for t in range(scans):
@@ -1637,9 +1781,7 @@ def run_ndt_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
               f"NDT fleet scan {t}: worst filter {e_pos.max():.3f} m / "
               f"{math.degrees(e_yaw.max()):.1f} deg")
     counts = read_counts()
-    check(counts["B10 ndt_probe"] == chunks * scans,
-          f"NDT fleet: B10 launched {counts['B10 ndt_probe']} times in {scans} updates "
-          f"of {chunks} chunks")
+    check_ndt_launches(counts, scans, "NDT fleet")
     check(counts["B2 resample_take"] == scans,
           f"NDT fleet: B2 launched {counts['B2 resample_take']} times in {scans} updates")
     steady = sorted(times[2:])
@@ -1654,8 +1796,8 @@ def run_ndt_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
 
 def run_ndt3d_node(dev, scans: int = NDT3D_SCANS) -> tuple[dict, dict]:
     """``NdtAmclNode3D`` at nav2 defaults on the 3D NDT map, 3600-point
-    clouds: every valid estimate within the gate on x, y and yaw, B10 once
-    per particle chunk on every update."""
+    clouds: every valid estimate within the gate on x, y and yaw, the fused
+    NDT kernel once per update and B10 never."""
     from beluga_tpu_torch.io.config import AmclNodeConfig
     from beluga_tpu_torch.ndt_node import NdtAmclNode3D
     from beluga_tpu_torch.tools import workloads
@@ -1667,7 +1809,6 @@ def run_ndt3d_node(dev, scans: int = NDT3D_SCANS) -> tuple[dict, dict]:
     node.set_map(workloads.ndt_map_3d(dev))
     node.set_initial_pose((s.xs[0], s.ys[0], 0.0), (0.0, 0.0, s.yaws[0]),
                           workloads.INITIAL_COV_3D)
-    chunks = math.ceil(node.params.max_particles / NDT_CHUNK)
     times, worst_pos, worst_yaw, valid = [], 0.0, 0.0, 0
     for t in range(scans):
         t0 = time.perf_counter()
@@ -1685,9 +1826,7 @@ def run_ndt3d_node(dev, scans: int = NDT3D_SCANS) -> tuple[dict, dict]:
               f"NDT-3D node scan {t}: error {e_pos:.3f} m / {math.degrees(e_yaw):.1f} deg")
     counts = read_counts()
     check(valid >= scans - 1, f"NDT-3D node: only {valid} valid updates of {scans}")
-    check(counts["B10 ndt_probe"] == chunks * valid,
-          f"NDT-3D node: B10 launched {counts['B10 ndt_probe']} times in {valid} updates "
-          f"of {chunks} chunks")
+    check_ndt_launches(counts, valid, "NDT-3D node")
     steady = sorted(times[2:])
     return counts, dict(
         scans=scans, valid=valid, points=int(clouds.shape[1]), worst_pos_m=worst_pos,
@@ -1729,7 +1868,9 @@ def run_vdb(dev, scans: int = VDB_SCANS) -> tuple[dict, dict]:
     counts = read_counts()
     check(counts["B11 codebook_lookup"] == scans,
           f"VDB: B11 launched {counts['B11 codebook_lookup']} times in {scans} updates")
-    check(counts["B10 ndt_probe"] == 0, f"VDB: B10 launched {counts['B10 ndt_probe']} times")
+    check(counts["B10 ndt_probe"] == 0 and counts["B10-fused ndt_weights"] == 0,
+          f"VDB: B10 launched {counts['B10 ndt_probe']} times, the fused NDT kernel "
+          f"{counts['B10-fused ndt_weights']}")
     steady = sorted(times[2:])
     mean_s = sum(steady) / len(steady)
     n = w.params.max_particles
@@ -1792,6 +1933,7 @@ def main() -> int:
     f_ragged = check_fused_step(MEGA_N - 1000, dev, iters=5)
     s_node = check_sphere_trace(dev, iters=100, long_range=False)
     s_long = check_sphere_trace(dev, iters=100, long_range=True)
+    s_wide = check_sphere_trace(dev, iters=20, long_range=False, n_beams=1000)
     l_fleet = check_beam_lut(dev, iters=50)
     c_node = check_raycast(dev, iters=100, lut_build=False)
     c_build = check_raycast(dev, iters=10, lut_build=True)
@@ -1804,21 +1946,26 @@ def main() -> int:
     i_big = check_winlut_int8(dev, iters=50)
     n_fleet = check_ndt_probe(dev, iters=20, dim=2)
     n_3d = check_ndt_probe(dev, iters=20, dim=3)
+    f_node = check_ndt_weights(dev, iters=50, which="node")
+    f_fleet = check_ndt_weights(dev, iters=20, which="fleet")
+    f_3d = check_ndt_weights(dev, iters=20, which="3d")
     v_bench = check_codebook_lookup(dev, iters=20, volume="bench")
     v_floor = check_codebook_lookup(dev, iters=20, volume="floor")
     torch.cuda.empty_cache()
     checked = (k_main, r_main, k_big, r_big, c_big, k_fleet, r_fleet, c_fleet, p_fleet, p_big,
-               p_mega, r_mega, w_big, f_mega, f_ragged, s_node, s_long, l_fleet, c_node, c_build,
-               g_shared, g_full, k_log_node, k_log_fleet, c_log_fleet, i_big, n_fleet, n_3d,
-               v_bench, v_floor)
+               p_mega, r_mega, w_big, f_mega, f_ragged, s_node, s_long, s_wide, l_fleet, c_node,
+               c_build, g_shared, g_full, k_log_node, k_log_fleet, c_log_fleet, i_big, n_fleet,
+               n_3d, f_node, f_fleet, f_3d, v_bench, v_floor)
     ms = lambda v: "not measured" if v is None else f"{v:.5f} ms"  # noqa: E731
     for k in checked:
         lib = "" if k["library_ms"] is None else (
             f", library {ms(k['library_ms'])} (device {ms(k['library_device_ms'])})")
+        extra = "".join(f", {key} {k[key]}" for key in (
+            "max_rel_err", "outside_rtol_share", "live_cells", "hit_share") if key in k)
         print(f"kernel {k['name']} {k['shape']}: {ms(k['ms'])} (device {ms(k['device_ms'])};"
               f" plain {ms(k['plain_ms'])}, device {ms(k['plain_device_ms'])};"
               f" bound {ms(k['bound_ms'])} by {k['bound_by']}{lib}),"
-              f" max abs err {k['max_abs_err']}")
+              f" max abs err {k['max_abs_err']}{extra}")
     print("all-shape kernels: " + json.dumps({"kernels": checked}))
 
     # 4. the node at nav2 defaults (slice 1's main path)
@@ -1893,10 +2040,15 @@ def main() -> int:
     # and B3 the mega filter's where its selective resampling fired, else
     # the windowed filter's, B4 the fleet's, B5 the mega filter's, B6 the
     # windowed filter's, B7 and R1 the beam fleet's (R1 in its LUT build),
-    # B8 the long-range filter's, B1-log the prob node's, B4-log the prob
-    # fleet's, B6-int8 the int8 windowed filter's, B9 the shared-scan
-    # filter's, B10 the NDT fleet's (2D) and the NDT-3D node's, B11 the VDB
-    # filter's
+    # B8 the long-range filter's and the beam node's (the beam node's entry
+    # also holds, under "other_shapes", a 1000-beam scan that no main path
+    # gives it), B1-log the prob node's, B4-log the prob fleet's, B6-int8
+    # the int8 windowed filter's, B9 the shared-scan filter's, the fused
+    # NDT kernel the NDT node's, the NDT fleet's and the NDT-3D node's,
+    # B11 the VDB filter's; B10, the standalone probe
+    # (``NdtMap.lookup_gaussians``), is on no main path since the fused
+    # kernel took the NDT model's probe: its entries show its launches
+    # summed over every main path
     by_path = {"node": node_counts, "large": large_counts, "fleet": fleet_counts,
                "mega": mega_counts, "windowed": win_counts,
                **{f"beam_node_{m}": c for m, c in beam_counts.items()},
@@ -1906,21 +2058,26 @@ def main() -> int:
                "ndt_node": ndt_counts, "ndt_fleet": nfleet_counts, "ndt3d_node": ndt3_counts,
                "vdb": vdb_counts}
     resampled = mega_counts["B2 resample_take"] > 0
+    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+             "plain_device_ms", "library_device_ms", "shape")
     kernels = []
     for k, path in ((k_big, "windowed"), (r_mega if resampled else r_big,
                                           "mega" if resampled else "windowed"),
                     (p_mega if mega_counts["B3 pool_take"] else p_big,
                      "mega" if mega_counts["B3 pool_take"] else "windowed"),
                     (c_fleet, "fleet"), (f_mega, "mega"), (w_big, "windowed"),
-                    (l_fleet, "beam_fleet"), (s_long, "long_range"), (c_build, "beam_fleet"),
+                    (l_fleet, "beam_fleet"), (s_long, "long_range"),
+                    (s_node, "beam_node_sphere_trace"), (c_build, "beam_fleet"),
                     (k_log_node, "prob_node"), (c_log_fleet, "prob_fleet"),
                     (i_big, "windowed_int8"), (g_shared, "shared_scan"),
-                    (n_fleet, "ndt_fleet"), (n_3d, "ndt3d_node"), (v_bench, "vdb")):
+                    (n_fleet, None), (n_3d, None), (f_node, "ndt_node"),
+                    (f_fleet, "ndt_fleet"), (f_3d, "ndt3d_node"), (v_bench, "vdb")):
         entry = {key: k[key] for key in ("name", "route", "source", "replaces")}
-        entry["launches"] = by_path[path][k["name"]]
-        entry.update({key: k[key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "device_ms", "plain_device_ms", "library_device_ms", "shape")})
+        entry["launches"] = (by_path[path][k["name"]] if path
+                             else sum(c[k["name"]] for c in by_path.values()))
+        entry.update({key: k[key] for key in timed})
+        if k is s_node:
+            entry["other_shapes"] = [{key: s_wide[key] for key in timed}]
         entry["path"] = path
         entry["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         kernels.append(entry)

@@ -206,6 +206,33 @@ def test_sphere_trace_on_its_own_inputs_and_fleet_axes():
         torch.testing.assert_close(got[f], one, rtol=0, atol=0)
 
 
+def test_sphere_trace_long_scan_matches_reference():
+    """A scan of 289 beams, no multiple of 32 and longer than the kernel's
+    beam tile (256): the wrapper on CPU tensors against
+    ``sphere_trace_beam_weights(interpret=True)`` within rtol 1e-5, masked
+    beams on both sides of the tile edge (the reference's interpret mode
+    takes ~10 s per 1000 beams; the card tests take 1000)."""
+    nb = 289
+    data = world96()
+    grid = make_grid(data, 0.1, device="cpu")
+    dist = cuda_beam.make_distance_cells(grid.free_mask)
+    jdist = j_make_distance_cells(j_make_grid(data, 0.1).free_mask)
+    pv = (8.0, 0.5, 0.05, 0.05, 0.5, 0.2, 0.1)
+    xs, ys, ths = cloud(11, 8)
+    pts, mask = scan(12, nb, masked=(0, 255, 256, nb - 1))
+    z = np.linalg.norm(pts, axis=-1).astype(np.float32)
+    bearings = (pts / z[:, None]).astype(np.float32)
+    cos, sin = np.cos(ths).astype(np.float32), np.sin(ths).astype(np.float32)
+    t = torch.as_tensor
+    got = cuda_beam.sphere_trace_beam_weights(dist, t(xs), t(ys), t(cos), t(sin), t(bearings),
+                                              t(z), t(mask), 0.1, pv, march_steps=30)
+    want = np.asarray(j_sphere_trace(jdist, xs, ys, cos, sin, bearings, z, mask,
+                                     jnp.float32(0.1), jnp.asarray(pv, jnp.float32),
+                                     interpret=True, march_steps=30))
+    assert got.shape == (8,) and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
+
+
 def test_masked_nan_beam_leaves_the_weight_finite():
     """A masked beam that carries a NaN point (the usual invalid-return
     encoding) adds nothing in the port's B8; the reference adds ``mask ·

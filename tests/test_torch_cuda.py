@@ -282,16 +282,16 @@ def test_mega_update_on_card(dev):
 # -- slice 4: the beam model (R1, B8, B7) ------------------------------------------
 
 
-def beam_arena(dev, n, seed, batch=None):
-    """The arena's grid and first scan, and ``n`` particles about its first
-    pose (``[batch, n]`` for a fleet)."""
+def beam_arena(dev, n, seed, batch=None, beams=BEAMS):
+    """The arena's grid and first scan of ``beams`` beams, and ``n``
+    particles about its first pose (``[batch, n]`` for a fleet)."""
     from beluga_tpu_torch.io import synthetic
     from beluga_tpu_torch.lie import SE2
     from beluga_tpu_torch.maps.occupancy import make_grid
 
     data = synthetic.tracking_arena(384, 0.05)
     xs, ys, yaws = synthetic.circle_trajectory(1)
-    pts, mask = synthetic.simulate_scans(data, 0.05, xs, ys, yaws, BEAMS)
+    pts, mask = synthetic.simulate_scans(data, 0.05, xs, ys, yaws, beams)
     lead = () if batch is None else (batch,)
     rng = np.random.default_rng(seed)
     xyt = rng.normal([xs[0], ys[0], yaws[0]], [0.5, 0.5, 0.3], (*lead, n, 3)).astype(np.float32)
@@ -339,17 +339,20 @@ def test_r1_range_lut_build_matches_plain_version(dev):
     assert torch.equal(lut.ranges.cpu(), cpu.ranges)
 
 
-@pytest.mark.parametrize("n,batch,max_range", [(2000, None, 100.0), (2048, None, 60.0),
-                                               (777, 3, 8.0)])
-def test_b8_kernel_matches_plain_version(dev, n, batch, max_range):
+@pytest.mark.parametrize("n,batch,max_range,nb", [
+    (2000, None, 100.0, BEAMS), (2048, None, 60.0, BEAMS), (777, 3, 8.0, BEAMS),
+    (500, 2, 100.0, 361), (300, None, 8.0, 1000)])
+def test_b8_kernel_matches_plain_version(dev, n, batch, max_range, nb):
+    """B8 bit-equal to its plain version, at scans of 60 beams, of 361 (no
+    multiple of 32) and of 1000 (more than a block's tile of 256)."""
     from beluga_tpu_torch.filters.builders import sphere_trace_steps
     from beluga_tpu_torch.ops import cuda_beam as b8
 
-    grid, states, points, z, mask = beam_arena(dev, n, 1, batch)
+    grid, states, points, z, mask = beam_arena(dev, n, 1, batch, beams=nb)
     lead = states.x.shape[:-1]
-    bearing = (points / torch.clamp_min(z, 1e-12)[:, None]).expand(*lead, BEAMS, 2).contiguous()
-    ranges = z.expand(*lead, BEAMS).contiguous()
-    beams = mask.expand(*lead, BEAMS).contiguous()
+    bearing = (points / torch.clamp_min(z, 1e-12)[:, None]).expand(*lead, nb, 2).contiguous()
+    ranges = z.expand(*lead, nb).contiguous()
+    beams = mask.expand(*lead, nb).contiguous()
     pv = (max_range, 0.5, 0.05, 0.05, 0.5, 0.2, 0.1)
     args = (b8.make_distance_cells(grid.free_mask),
             *(v.contiguous() for v in (states.x, states.y, states.rot.cos, states.rot.sin)),
@@ -686,9 +689,89 @@ def test_b11_kernel_matches_plain_version(dev, volume):
     assert b11.launches == before + 2
 
 
+def ndt_weights_case(d, rows, batch, minl, dev, seed=3, n=1500, c=200):
+    """The fused NDT kernel's arguments: a map of ``rows`` cells (its means
+    inside them), measurement cells made from map means seen from a pose
+    (60% live, NaN in the masked ones) and ``n`` poses about it, one filter
+    or ``batch``."""
+    from beluga_tpu_torch.lie import SE2, SE3, SO3
+    from beluga_tpu_torch.maps.ndt import make_ndt_map
+    from beluga_tpu_torch.models.sensor.ndt import KERNEL_2D, KERNEL_3D, pose_matrices
+
+    rng = np.random.default_rng(seed)
+    span = int(np.ceil((3 * rows) ** (1 / d) / 2)) + 1
+    cells = np.unique(rng.integers(-span, span, (4 * rows, d)), axis=0)
+    cells = cells[rng.permutation(len(cells))[:rows]]
+    means = (cells + rng.uniform(0.2, 0.8, cells.shape)) * 0.5
+    a = rng.normal(0, 0.1, (len(cells), d, d))
+    ndt_map = make_ndt_map(cells, means, a @ a.transpose(0, 2, 1) + 0.01 * np.eye(d), 0.5,
+                           device=dev)
+    lead = () if batch is None else (batch,)
+    yaw, origin = rng.uniform(-np.pi, np.pi), rng.uniform(-1.0, 1.0, d)
+    rz = np.eye(d)
+    rz[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+    mu = means[rng.integers(0, len(cells), (*lead, c))]
+    local = (mu - origin) @ rz + rng.normal(0, 0.05, mu.shape)
+    b = rng.normal(0, 0.08, (*lead, c, d, d))
+    mcov = b @ np.swapaxes(b, -1, -2) + 1e-3 * np.eye(d)
+    cmask = rng.uniform(size=(*lead, c)) < 0.6
+    local[~cmask], mcov[~cmask] = np.nan, np.nan
+    xy = origin[:2] + rng.normal(0, 0.2, (*lead, n, 2))
+    yaws = yaw + rng.normal(0, 0.05, (*lead, n))
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=dev)
+
+    if d == 2:
+        states = SE2.from_xytheta(f32(xy[..., 0]), f32(xy[..., 1]), f32(yaws))
+    else:
+        z = origin[2] + rng.normal(0, 0.05, (*lead, n, 1))
+        tilt = [f32(rng.normal(0, 0.02, (*lead, n))) for _ in range(2)]
+        states = SE3(f32(np.concatenate([xy, z], -1)), SO3.from_rpy(*tilt, f32(yaws)))
+    rot, trans = pose_matrices(states)
+    return (ndt_map.keys, ndt_map.values, ndt_map.num_cells, ndt_map.resolution,
+            rot.contiguous(), trans.contiguous(), f32(local), f32(mcov),
+            torch.as_tensor(cmask, device=dev), KERNEL_2D if d == 2 else KERNEL_3D, minl,
+            1.0, 1.0)
+
+
+@pytest.mark.parametrize("minl", [0.0, 1e-3])
+@pytest.mark.parametrize("batch", [None, 8])
+@pytest.mark.parametrize("rows", ["shared", "global"])
+@pytest.mark.parametrize("d,c", [(2, 200), (3, 200), (2, 3000), (3, 2000)])
+def test_ndt_weights_kernel_matches_plain_version(dev, d, c, rows, batch, minl):
+    """The fused NDT kernel against its plain version on the same card
+    tensors: a map in shared memory (287 or 996 rows) and one too large for
+    it (4000 rows, searched through L2), one filter and a fleet,
+    ``minimum_likelihood`` zero and positive, and 200 measurement slots or
+    so many (60% live) that the live cells outgrow the kernel's 32 KB cell
+    cache and the rest are read through L2.  Every particle's weight
+    within rtol 1e-4 (the kernel's sums take another order, its 3D inverse
+    the adjugate where the plain version takes LU); two launches
+    bit-equal."""
+    from beluga_tpu_torch.ops import cuda_ndt
+
+    m = {"shared": 287 if d == 2 else 996, "global": 4000}[rows]
+    args = ndt_weights_case(d, m, batch, minl, dev, c=c)
+    if c > 200:  # live cells beyond the cache in every filter
+        cache_cells = 32 * 1024 // (4 * (d + d * d))
+        assert int(args[8].sum(-1).min()) > cache_cells
+    before = cuda_ndt.weights_launches
+    got = cuda_ndt.ndt_weights(*args)
+    again = cuda_ndt.ndt_weights(*args)
+    want = cuda_ndt.ndt_weights_reference(*args, particle_chunk=128)
+    torch.cuda.synchronize()
+    assert cuda_ndt.weights_launches == before + 2
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    rel = (got - want).abs() / want.abs()
+    assert float(rel.max()) <= 1e-4, float(rel.max())
+    assert float(want.max()) > 1.5  # cells match the map
+
+
 def test_ndt_nodes_on_card(dev):
-    """The 2D and 3D NDT nodes on arena maps of more than 256 rows: B10 on
-    every update."""
+    """The 2D and 3D NDT nodes on arena maps of more than 256 rows: the
+    fused NDT kernel once per update, the standalone probe B10 never."""
     from beluga_tpu_torch.io import synthetic
     from beluga_tpu_torch.io.config import AmclNodeConfig
     from beluga_tpu_torch.maps.ndt import make_ndt_map
@@ -704,11 +787,12 @@ def test_ndt_nodes_on_card(dev):
                          initial_pose_y=float(ys[0]), initial_pose_yaw=float(yaws[0]))
     node = NdtAmclNode(cfg)
     node.set_map(make_ndt_map(*fit_ndt_cells(p2, 0.4), 0.4))
-    before = b10.launches
+    before, before_fused = b10.launches, b10.weights_launches
     for i in range(3):
         r = node.handle_point_cloud((xs[i], ys[i], yaws[i]), pts[i][mask[i]])
         assert r.valid and np.hypot(r.pose[0] - xs[i], r.pose[1] - ys[i]) < 0.9
-    assert b10.launches >= before + 3 * 4  # 2000 particles in chunks of 512
+    assert b10.weights_launches == before_fused + 3  # the fused kernel once per update
+    assert b10.launches == before
     p3 = np.concatenate([np.c_[p2, np.full(len(p2), z)] for z in np.arange(0, 2, 0.1)])
     node3 = NdtAmclNode3D(AmclNodeConfig())
     node3.set_map(make_ndt_map(*fit_ndt_cells(p3, 0.5), 0.5))
@@ -716,10 +800,10 @@ def test_ndt_nodes_on_card(dev):
                            np.diag([0.05, 0.05, 0.01, 0.001, 0.001, 0.02]))
     cloud = np.concatenate([np.c_[pts[0][mask[0]], np.full(int(mask[0].sum()), z)]
                             for z in (0.5, 1.0, 1.5)]).astype(np.float32)
-    before = b10.launches
+    before, before_fused = b10.launches, b10.weights_launches
     r = node3.handle_point_cloud((0, 0, 0, 0, 0, 0), cloud)
     assert r.valid and r.pose.shape == (6,)
-    assert b10.launches > before
+    assert b10.weights_launches == before_fused + 1 and b10.launches == before
 
 
 def test_vdb_filter_on_card(dev):

@@ -47,6 +47,7 @@ from beluga_tpu_torch.models.sensor.ndt import (
     ndt_weights_2d,
     ndt_weights_3d,
 )
+from beluga_tpu_torch.ops import cuda_ndt
 from beluga_tpu_torch.ops.cuda_ndt import ndt_probe, ndt_probe_reference
 from beluga_tpu_torch.tools.make_ndt_map import fit_ndt_cells, grid_to_points
 
@@ -380,3 +381,224 @@ def test_particle_chunks_do_not_change_weights(arena):
     for b in range(2):
         one = ndt_weights_2d(NdtModelParams(), m, SE2.from_xytheta(t(xyt[b])), means, covs, cm)
         np.testing.assert_array_equal(fleet[b].numpy(), one.numpy())
+
+
+# -- the fused NDT stencil likelihood's wrapper and plain version -------------
+
+
+def probe_map(d, seed, rows=300, span=None, res=0.5):
+    """A map of ``rows`` (> 256: the probe path) distinct cells about the
+    origin, each mean inside its cell, random SPD covariances, in both
+    packages."""
+    rng = np.random.default_rng(seed)
+    span = span or (14 if d == 2 else 6)
+    cells = np.unique(rng.integers(-span, span, (3 * rows, d)), axis=0)
+    cells = cells[rng.permutation(len(cells))[:rows]].astype(np.int32)
+    means = ((cells + rng.uniform(0.2, 0.8, cells.shape)) * res).astype(np.float32)
+    a = rng.normal(0, 0.1, (len(cells), d, d))
+    covs = (a @ a.transpose(0, 2, 1) + 0.01 * np.eye(d)).astype(np.float32)
+    return (j_make_ndt_map(cells, means, covs, res),
+            make_ndt_map(cells, means, covs, res, device="cpu"))
+
+
+def probe_inputs(jm, d, seed, lead=(), n=40, c=24, nan_masked=False):
+    """Poses about a random pose, and measurement cells ``[*lead, c]`` made
+    from map means seen from it (two thirds live); masked slots carry NaN
+    when ``nan_masked``."""
+    rng = np.random.default_rng(seed)
+    mu = np.asarray(jm.means)[rng.integers(0, int(jm.num_cells), (*lead, c))]
+    yaw = rng.uniform(-np.pi, np.pi)
+    cz, sz = np.cos(yaw), np.sin(yaw)
+    rz = np.array([[cz, -sz], [sz, cz]]) if d == 2 else np.array(
+        [[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    origin = rng.uniform(-1.0, 1.0, d)
+    local = ((mu - origin) @ rz + rng.normal(0, 0.05, mu.shape)).astype(np.float32)
+    a = rng.normal(0, 0.08, (*lead, c, d, d))
+    covs = (a @ np.swapaxes(a, -1, -2) + 1e-3 * np.eye(d)).astype(np.float32)
+    cmask = rng.uniform(size=(*lead, c)) < 0.67
+    if nan_masked:
+        local[~cmask] = np.nan
+        covs[~cmask] = np.nan
+    xy = origin[:2] + rng.normal(0, 0.15, (*lead, n, 2))
+    yaws = yaw + rng.normal(0, 0.05, (*lead, n))
+    if d == 2:
+        xyt = np.concatenate([xy, yaws[..., None]], -1).astype(np.float32)
+        return (xyt, SE2.from_xytheta(t(xyt)), JSE2.from_xytheta(jnp.asarray(xyt)), local,
+                covs, cmask)
+    xyz = np.concatenate([xy, origin[2] + rng.normal(0, 0.05, (*lead, n, 1))], -1)
+    rpy = [rng.normal(0, 0.02, (*lead, n)), rng.normal(0, 0.02, (*lead, n)), yaws]
+    jst = JSE3(jnp.asarray(xyz, jnp.float32),
+               JSO3.from_rpy(*(jnp.asarray(a, jnp.float32) for a in rpy)))
+    return None, convert.se3(jax.device_get(jst)), jst, local, covs, cmask
+
+
+def reference_weights(d, jm, params, jst, means, covs, cmask, lead, chunk=512):
+    """The reference's ``ndt_weights_2d``/``_3d``, mapped over the fleet's
+    leading axes."""
+    fn = j_ndt_mod.ndt_weights_2d if d == 2 else j_ndt_mod.ndt_weights_3d
+
+    def one(s, a, b, c):
+        return fn(JNdtParams(*params), jm, s, a, b, c, particle_chunk=chunk)
+
+    for _ in lead:
+        one = jax.vmap(one)
+    return np.asarray(jax.jit(one)(jst, jnp.asarray(means), jnp.asarray(covs),
+                                   jnp.asarray(cmask)))
+
+
+PROBE_CASES = {  # d, lead, minimum_likelihood, NaN in masked slots
+    "2d": (2, (), 0.0, False),
+    "2d-min-nan": (2, (), 1e-3, True),
+    "2d-fleet": (2, (3,), 1e-3, True),
+    "3d": (3, (), 0.0, False),
+    "3d-min-nan": (3, (), 1e-3, True),
+    "3d-fleet": (3, (2,), 0.0, True),
+}
+
+
+@pytest.mark.parametrize("case", list(PROBE_CASES))
+def test_fused_plain_version_matches_reference_probe_path(case):
+    """The fused kernel's plain version (through ``ndt_weights_2d``/``_3d``
+    on a map of 300 rows) against the reference's probe path within rtol
+    1e-5: ``minimum_likelihood`` 0 and positive, masked slots that carry
+    NaN (they add nothing), fleet axes.  Both invert the 3x3 total
+    covariance by LU here; the kernel's closed form parts from LU only near
+    a singular total covariance (see
+    ``test_closed_form_parts_from_lu_only_near_singular``)."""
+    d, lead, minl, nan = PROBE_CASES[case]
+    jm, m = probe_map(d, 80 + d)
+    _, st, jst, means, covs, cmask = probe_inputs(jm, d, 81, lead, nan_masked=nan)
+    params = (minl, 1.0, 1.0)
+    fn = ndt_weights_2d if d == 2 else ndt_weights_3d
+    got = fn(NdtModelParams(*params), m, st, t(means), t(covs), t(cmask), particle_chunk=16)
+    want = reference_weights(d, jm, params, jst, means, covs, cmask, lead, chunk=16)
+    assert got.shape == (*lead, 40) and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    assert float(got.max()) > 1.5  # cells match the map
+    if minl:
+        assert float(got.min()) >= 1.0 + minl * cmask.sum(-1).min() * (1 - 1e-6)
+
+
+def test_fused_plain_version_on_an_empty_map():
+    """An empty map on the probe path: every live cell scores the minimum
+    likelihood, in both packages."""
+    empty = (np.zeros((0, 2), np.int32), np.zeros((0, 2), np.float32),
+             np.zeros((0, 2, 2), np.float32))
+    jm, m = j_make_ndt_map(*empty, 0.5), make_ndt_map(*empty, 0.5, device="cpu")
+    _, st, jst, means, covs, cmask = probe_inputs(probe_map(2, 82)[0], 2, 83)
+    params = (1e-3, 1.0, 1.0)
+    limit, j_limit = ndt_mod.DENSE_MAX_CELLS, j_ndt_mod._DENSE_MAX_CELLS
+    try:  # the reference reads its limit while it traces
+        ndt_mod.DENSE_MAX_CELLS = j_ndt_mod._DENSE_MAX_CELLS = 0
+        got = ndt_weights_2d(NdtModelParams(*params), m, st, t(means), t(covs), t(cmask))
+        want = reference_weights(2, jm, params, jst, means, covs, cmask, ())
+    finally:
+        ndt_mod.DENSE_MAX_CELLS, j_ndt_mod._DENSE_MAX_CELLS = limit, j_limit
+    expect = np.float32(1.0) + np.float32(1e-3) * np.float32(cmask.sum())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.full(40, expect), rtol=1e-6)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_fused_plain_version_with_a_stencil_of_its_own(d):
+    """A stencil other than the standard one (a cross with a far cell)
+    takes the probe path on a map of any size; the reference's stencil
+    swapped for it while it traces."""
+    kern = np.array([[0, 0], [1, 0], [-1, 0], [0, 1], [0, -1], [2, 0], [0, -2]], np.int32) \
+        if d == 2 else np.array([[0, 0, 0], [1, 1, 0], [-1, 0, 1], [0, 2, 0]], np.int32)
+    jm, m = probe_map(d, 84 + d, rows=100)  # under 256 rows: still the probe
+    _, st, jst, means, covs, cmask = probe_inputs(jm, d, 85)
+    params = (1e-4, 1.0, 2.0)
+    name = "KERNEL_2D" if d == 2 else "KERNEL_3D"
+    standard, limit = getattr(j_ndt_mod, name), j_ndt_mod._DENSE_MAX_CELLS
+    try:  # the reference reads both while it traces; its dense path knows only its stencil
+        setattr(j_ndt_mod, name, kern)
+        j_ndt_mod._DENSE_MAX_CELLS = 0
+        want = reference_weights(d, jm, params, jst, means, covs, cmask, ())
+    finally:
+        setattr(j_ndt_mod, name, standard)
+        j_ndt_mod._DENSE_MAX_CELLS = limit
+    got = ndt_mod._ndt_weights(NdtModelParams(*params), m, st, t(means), t(covs), t(cmask), 512,
+                               kern)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    assert float(got.max()) > 1.2
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_fused_wrapper_on_cpu_is_its_plain_version(d):
+    """On CPU tensors the wrapper returns its plain version's weights bit
+    for bit, launches nothing, and the model's probe path is the
+    wrapper."""
+    jm, m = probe_map(d, 86 + d)
+    _, st, _, means, covs, cmask = probe_inputs(jm, d, 87, (2,), nan_masked=True)
+    rot, trans = ndt_mod.pose_matrices(st)
+    kern = ndt_mod.KERNEL_2D if d == 2 else ndt_mod.KERNEL_3D
+    args = (m.keys, m.values, m.num_cells, m.resolution, rot, trans, t(means), t(covs),
+            t(cmask), kern, 1e-3, 1.0, 1.0, 16)
+    before = cuda_ndt.weights_launches, cuda_ndt.launches
+    got = cuda_ndt.ndt_weights(*args)
+    assert (cuda_ndt.weights_launches, cuda_ndt.launches) == before
+    assert torch.equal(got, cuda_ndt.ndt_weights_reference(*args))
+    fn = ndt_weights_2d if d == 2 else ndt_weights_3d
+    assert torch.equal(got, fn(NdtModelParams(1e-3), m, st, t(means), t(covs), t(cmask),
+                               particle_chunk=16))
+
+
+def test_fused_wrapper_checks_its_inputs():
+    _, m = probe_map(2, 88)
+    _, st, _, means, covs, cmask = probe_inputs(probe_map(2, 88)[0], 2, 89)
+    rot, trans = ndt_mod.pose_matrices(st)
+    base = dict(keys=m.keys, values=m.values, num_cells=m.num_cells, resolution=m.resolution,
+                rot=rot, trans=trans, meas_means=t(means), meas_covs=t(covs),
+                cell_mask=t(cmask), offsets=ndt_mod.KERNEL_2D)
+    assert cuda_ndt.ndt_weights(**base).shape == (40,)
+    bad = {
+        "keys must be int64": dict(keys=m.keys.to(torch.int32)),
+        "values must be float32": dict(values=m.values[:, :5]),
+        "num_cells": dict(num_cells=m.keys.shape[0] + 1),
+        "rot must be": dict(rot=rot.double()),
+        "trans must be": dict(trans=trans[:-1]),
+        "meas_covs must be": dict(meas_covs=t(covs)[:-1]),
+        "cell_mask must be": dict(cell_mask=t(cmask).to(torch.uint8)),
+        "does not broadcast": dict(meas_means=t(means).expand(3, -1, -1),
+                                   meas_covs=t(covs).expand(3, -1, -1, -1),
+                                   cell_mask=t(cmask).expand(3, -1)),
+        "offsets must be": dict(offsets=np.zeros((0, 2), np.int32)),
+        "is on meta": dict(rot=rot.to("meta")),
+    }
+    for match, change in bad.items():
+        with pytest.raises(ValueError, match=match):
+            cuda_ndt.ndt_weights(**{**base, **change})
+    with pytest.raises(ValueError, match="offsets must be"):
+        cuda_ndt.ndt_weights(**{**base, "offsets": np.zeros((33, 2), np.int32)})
+
+
+def test_closed_form_parts_from_lu_only_near_singular():
+    """The inputs on which the kernel's 3D inverse (the adjugate of
+    ``T + 1e-12·I``, as the dense path takes it) and the plain version's
+    LU part: a total covariance singular to float32 precision.  A planar
+    map cell and a planar measurement, flat along one tilted normal, with
+    an in-plane error: at a thickness of 1e-3 the two agree within 1e-5 (as
+    they do off the plane); at 1e-8 the total's smallest eigenvalue is
+    float32 rounding and they part by more than 1e-4."""
+    params = NdtModelParams()
+    normal = np.array([0.3, -0.2, 0.93])
+    normal /= np.linalg.norm(normal)
+    u = np.cross(normal, [1.0, 0.0, 0.0])
+    u /= np.linalg.norm(u)
+    basis = np.stack([u, np.cross(normal, u), normal], 1)
+
+    def liks(thickness, direction):
+        cov = (basis @ np.diag([0.04, 0.04, thickness]) @ basis.T).astype(np.float32)
+        m = make_ndt_map([[0, 0, 0]], [[0.25, 0.25, 0.25]], [cov], 0.5, device="cpu")
+        q = (np.array([[0.25, 0.25, 0.25]]) + 0.05 * direction).astype(np.float32)
+        lu = float(ndt_mod._kernel_likelihood(m, params, t(q), t(cov[None]),
+                                              ndt_mod.KERNEL_3D[:1]))
+        closed = float(ndt_mod._kernel_likelihood_dense(m, params, t(q), t(cov[None]))[0])
+        return lu, closed
+
+    for direction in (u, normal, (u + normal) / np.sqrt(2)):
+        lu, closed = liks(1e-3, direction)
+        assert closed == pytest.approx(lu, rel=1e-5) and lu > 0.1
+    lu, closed = liks(1e-8, u)
+    assert abs(lu - closed) > 1e-4 * lu
