@@ -167,7 +167,7 @@ def build_scan_lut_pallas(field: LikelihoodField, points: Tensor, beam_mask: Ten
     field = _downsampled(field, downsample)
     padded, pad = padded_cubed
     values = scan_lut_correlate(padded, points, beam_mask, field.resolution, n_theta,
-                                sampling=sampling)
+                                sampling=sampling, halo=pad)
     return ScanLut(values, field.resolution, field.world_to_field, pad, n_theta)
 
 

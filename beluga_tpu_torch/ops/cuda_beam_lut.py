@@ -3,8 +3,11 @@
 Port of ``beluga_tpu/ops/pallas_beam_lut.py`` (``csrc/beam_lut.cu``):
 :func:`beam_lut_windowed` launches the kernel on CUDA tensors and runs
 :func:`beam_lut_windowed_reference`, the plain PyTorch version, on CPU
-tensors.  The fleet form is leading filter axes (``[F, N]`` particles,
-``[F, nb]`` beams), as kernels B1 and B2 take them; the LUT is shared.
+tensors.  On the card one call is two launches and no other device
+operation: the window origins (:func:`device_window_origins`, whose plain
+version is :func:`window_origins`), then the weights.  The fleet form is
+leading filter axes (``[F, N]`` particles, ``[F, nb]`` beams), as kernels B1
+and B2 take them; the LUT is shared.
 
 The reference's contract is part of the function:
   * each filter's slots are cut into tiles of 4096, each tile into the
@@ -33,6 +36,7 @@ for bit on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -46,26 +50,31 @@ TILE = 4096  # pallas_reweight.py:_TILE
 BLOCKS = ((0, 3840), (3840, 256))  # pallas_reweight.py:_BLOCKS
 CWX, CWY = 40, 128  # pallas_beam_lut.py:54-55
 TWO_PI = 6.283185307179586  # 2π, rounded to float32 on the device as jnp.float32(2π)
-MAX_FILTERS = 65535  # grid.y
-MAX_BEAMS = 18000  # shared memory: 12 B a beam
+MAX_FILTERS = 65535  # grid.y; any beam count (the kernel stages chunks of 64)
+MAX_LUT_ENTRIES = 2**31  # the kernel's int offsets into the LUT
 
-# kernel launches since the count was last set to 0
+# kernel launches since the counts were last set to 0: the weights, and
+# the window origins (once per weights launch, and by device_window_origins)
 launches = 0
+origins_launches = 0
 
-_fn = None
+_fns = None
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernels():
+    """``(weights, origins)``: the library's two C entries."""
+    global _fns
+    if _fns is None:
         from beluga_tpu_torch.ops._build import load_library
 
-        fn = load_library("beam_lut").beluga_beam_lut
+        lib = load_library("beam_lut")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, i, i, f, p, p, p, i, p, i, p, p, p, i, i, p, p, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        lib.beluga_beam_lut.argtypes = [p, i, i, i, f, p, p, p, i, p, p, p, p, i, i, p, p, p]
+        lib.beluga_beam_lut_origins.argtypes = [p, p, i, i, i, i, p, p]
+        for fn in (lib.beluga_beam_lut, lib.beluga_beam_lut_origins):
+            fn.restype = ctypes.c_int
+        _fns = lib.beluga_beam_lut, lib.beluga_beam_lut_origins
+    return _fns
 
 
 def padded_dims(h: int, w: int) -> tuple[int, int]:
@@ -91,6 +100,13 @@ def beam_mixture(mix) -> Mixture:
     (pallas_beam_lut.py:76-83, beam_lut.py:132-136)."""
     z_hit, z_short, z_rand, z_max, sigma, lam, bmr = (float(v) for v in mix)
     return mixture(z_hit, z_short, z_max, z_rand, sigma, lam, bmr)
+
+
+@functools.lru_cache(maxsize=64)
+def _host_mixture(mix: tuple) -> ctypes.Array:
+    """The kernel's nine mixture floats for a tuple of the seven parameters."""
+    m = beam_mixture(mix)
+    return (ctypes.c_float * len(m))(*m)
 
 
 def window_origins(xi: Tensor, yi: Tensor, hq: int, wq: int) -> Tensor:
@@ -119,6 +135,34 @@ def window_origins(xi: Tensor, yi: Tensor, hq: int, wq: int) -> Tensor:
     y0 = 64 * torch.clamp(torch.div(cy - CWY // 2 + 32, 64, rounding_mode="floor"),
                           0, (hq - CWY) // 64)
     return torch.stack([x0, y0], dim=-1).to(torch.int32).contiguous()
+
+
+def device_window_origins(xi: Tensor, yi: Tensor, hq: int, wq: int) -> Tensor:
+    """:func:`window_origins` of ``int32[F, N]`` cells: B7's origins kernel
+    on CUDA tensors, the plain version on CPU tensors."""
+    global origins_launches
+    for name, t in (("xi", xi), ("yi", yi)):
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape != xi.shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32[F, N], got "
+                             f"{t.dtype}{list(t.shape)}")
+        if t.device != xi.device:
+            raise ValueError(f"{name} is on {t.device}, xi on {xi.device}")
+    if hq < CWY or hq % 64 or wq < CWX:
+        raise ValueError(f"LUT dims [{hq}, {wq}] are not padded as build_lut_bf16 pads")
+    f, n = xi.shape
+    if f > MAX_FILTERS:
+        raise ValueError(f"{f} filters; the kernel takes at most {MAX_FILTERS}")
+    if xi.device.type == "cpu":
+        return window_origins(xi, yi, hq, wq)
+    if xi.device.type != "cuda":
+        raise ValueError(f"unsupported device {xi.device}")
+    out = torch.empty((f, -(-n // TILE), 2, 2), dtype=torch.int32, device=xi.device)
+    stream = torch.cuda.current_stream(xi.device).cuda_stream
+    err = _kernels()[1](xi.data_ptr(), yi.data_ptr(), n, f, hq, wq, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"beam LUT origins kernel launch failed: cudaError {err}")
+    origins_launches += 1
+    return out
 
 
 def _per_slot(origins: Tensor, n: int) -> tuple[Tensor, Tensor]:
@@ -173,8 +217,9 @@ def _check(lut_bf16, theta, xi, yi, z, bearing, beam_mask):
             raise ValueError(f"{name} is on {t.device}, lut_bf16 on {lut_bf16.device}")
         if t.dtype != dtype or tuple(t.shape) != tuple(shp):
             raise ValueError(f"{name} must be {dtype}{list(shp)}, got {t.dtype}{list(t.shape)}")
-    if nb > MAX_BEAMS:
-        raise ValueError(f"{nb} beams; the kernel takes at most {MAX_BEAMS}")
+    if lut_bf16.numel() > MAX_LUT_ENTRIES:
+        raise ValueError(f"{lut_bf16.numel()} LUT entries; the kernel takes at most "
+                         f"{MAX_LUT_ENTRIES}")
     if shape[0] > MAX_FILTERS:
         raise ValueError(f"{shape[0]} filters; the kernel takes at most {MAX_FILTERS}")
 
@@ -193,7 +238,7 @@ def beam_lut_windowed(lut_bf16: Tensor, theta: Tensor, xi: Tensor, yi: Tensor, z
       mix: ``(z_hit, z_short, z_rand, z_max, sigma_hit, lambda_short,
         beam_max_range)``.
     """
-    global launches
+    global launches, origins_launches
     lead = tuple(theta.shape[:-1])
     f = math.prod(lead)
     flat = [v.reshape(f, v.shape[-1]).contiguous() for v in (theta, xi, yi, z, bearing,
@@ -207,16 +252,16 @@ def beam_lut_windowed(lut_bf16: Tensor, theta: Tensor, xi: Tensor, yi: Tensor, z
         raise ValueError(f"unsupported device {lut_bf16.device}")
     hq, wq, k = lut_bf16.shape
     n, nb = theta2.shape[-1], z2.shape[-1]
-    origins = window_origins(xi2, yi2, hq, wq)
-    m = beam_mixture(mix)
-    host = (ctypes.c_float * len(m))(*m)
+    host = _host_mixture(tuple(float(v) for v in mix))
+    origins = torch.empty((f, -(-n // TILE), 2, 2), dtype=torch.int32, device=theta.device)
     out = torch.empty((f, n), dtype=torch.float32, device=theta.device)
     stream = torch.cuda.current_stream(theta.device).cuda_stream
-    err = _kernel()(lut_bf16.data_ptr(), hq, wq, k, float(max_range), theta2.data_ptr(),
-                    xi2.data_ptr(), yi2.data_ptr(), n, origins.data_ptr(), origins.shape[1],
-                    z2.data_ptr(), bearing2.data_ptr(), mask2.data_ptr(), nb, f, host,
-                    out.data_ptr(), stream)
+    err = _kernels()[0](lut_bf16.data_ptr(), hq, wq, k, float(max_range), theta2.data_ptr(),
+                        xi2.data_ptr(), yi2.data_ptr(), n, origins.data_ptr(), z2.data_ptr(),
+                        bearing2.data_ptr(), mask2.data_ptr(), nb, f, host, out.data_ptr(),
+                        stream)
     if err != 0:
         raise RuntimeError(f"beam LUT kernel launch failed: cudaError {err}")
     launches += 1
+    origins_launches += 1
     return out.reshape(theta.shape)

@@ -1,12 +1,13 @@
 """Kernel B9: the shared-scan correlation LUT build.
 
 Port of ``beluga_tpu/ops/pallas_scan_lut.py:scan_lut_correlate``
-(``csrc/scan_lut.cu``).  :func:`scan_lut_correlate` computes the per-(θ bin,
-beam) tables with the reference's operations (:func:`scan_lut_tables`,
-``pallas_scan_lut.py:98-126``) and hands them to :func:`correlate`, which
-launches the kernel on CUDA tensors and runs :func:`correlate_reference`,
-the plain PyTorch version, on CPU tensors.  The kernel core takes the
-tables as inputs, so a test can feed it the reference's own.
+(``csrc/scan_lut.cu``).  :func:`scan_lut_correlate` builds the maps from
+the scan: on a CUDA tensor one launch of the kernel, which forms the
+per-(θ bin, beam) tables in its prologue; on a CPU tensor the tables of
+:func:`scan_lut_tables` (the reference's operations,
+``pallas_scan_lut.py:98-126``) and :func:`correlate_reference`, the plain
+PyTorch version.  :func:`correlate` takes the tables as inputs, so that a
+test can feed the kernel the reference's own.
 
 For bin k at heading ``θ_k = k · f32(2π/K)`` and beam b, the offset in
 cells is ``o = R(θ_k) p_b / res``; ``ix, iy`` are its ``floor``
@@ -15,12 +16,18 @@ cells is ``o = R(θ_k) p_b / res``; ``ix, iy`` are its ``floor``
 ``ax = ox - ix``, ``ay = oy - iy`` (``0, 0`` for nearest).  Output cell
 ``(k, y, x)`` sums the field at ``((y + iy) mod Hp, (x + ix) mod Wp)``
 over the beams, bilinearly or not (the sums are written out in
-``csrc/scan_lut.cu``).
+``csrc/scan_lut.cu``).  The kernel stages a window of the field, the
+output tile grown by ``halo`` cells, in shared memory; shifts beyond it
+are read from global memory, so any halo gives the same maps.
 
 Contract: the kernel and the plain version take the same float32
 operations in the same order, so they agree bit for bit on the same
-tables.  The division by the resolution is by a device tensor, never a
-Python number (CUDA would multiply by the reciprocal and move cell edges).
+tables, and the kernel's prologue forms the tables that
+:func:`scan_lut_tables` forms on the same device: both take the bins'
+``cos`` and ``sin`` from :func:`bin_trig` and divide by the resolution
+rounded to float32 as a true division (never by a Python number on the
+card, which CUDA would turn into a product with the reciprocal and so move
+cell edges).
 """
 
 from __future__ import annotations
@@ -33,25 +40,30 @@ import torch
 Tensor = torch.Tensor
 
 SAMPLINGS = ("bilinear", "nearest")
-MAX_BEAMS = 8192  # shared memory: 20 bytes per beam
+MAX_CELLS = 2**31 - 1  # the kernel packs a cell index of the field into an int
 
-# kernel launches since the count was last set to 0
+# kernel launches since the count was last set to 0 (from tables or from
+# the scan: one kernel)
 launches = 0
 
-_fn = None
+_fns = None
+_trig: dict[tuple[int, str], Tensor] = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernels():
+    """``(from tables, from the scan)``: the library's two C entries."""
+    global _fns
+    if _fns is None:
         from beluga_tpu_torch.ops._build import load_library
 
-        fn = load_library("scan_lut").beluga_scan_lut
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, p, p, i, i, i, p, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        lib = load_library("scan_lut")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.beluga_scan_lut.argtypes = [p, i, i, p, p, i, i, i, i, p, p]
+        lib.beluga_scan_lut_points.argtypes = [p, i, i, p, p, p, f, i, i, i, i, p, p]
+        for fn in (lib.beluga_scan_lut, lib.beluga_scan_lut_points):
+            fn.restype = ctypes.c_int
+        _fns = lib.beluga_scan_lut, lib.beluga_scan_lut_points
+    return _fns
 
 
 def theta_bins(n_theta: int, device) -> Tensor:
@@ -61,11 +73,23 @@ def theta_bins(n_theta: int, device) -> Tensor:
     return torch.arange(n_theta, dtype=torch.float32, device=device) * step
 
 
+def bin_trig(n_theta: int, device) -> Tensor:
+    """``f32[K, 2]``: ``cos`` and ``sin`` of :func:`theta_bins`, computed
+    once per (K, device) and kept."""
+    device = torch.device(device)
+    key = (n_theta, str(device))
+    trig = _trig.get(key)
+    if trig is None:
+        th = theta_bins(n_theta, device)
+        trig = _trig[key] = torch.stack([torch.cos(th), torch.sin(th)], dim=-1).contiguous()
+    return trig
+
+
 def beam_offsets(points: Tensor, resolution: float, n_theta: int) -> tuple[Tensor, Tensor]:
     """Each beam's offset in cells at each bin heading, ``(ox, oy)``
     float32 ``[K, B]`` (pallas_scan_lut.py:98-101)."""
-    th = theta_bins(n_theta, points.device)
-    c, s = torch.cos(th)[:, None], torch.sin(th)[:, None]
+    trig = bin_trig(n_theta, points.device)
+    c, s = trig[:, 0, None], trig[:, 1, None]
     px, py = points[None, :, 0], points[None, :, 1]
     res = torch.tensor(resolution, dtype=torch.float32, device=points.device)
     return (c * px - s * py) / res, (s * px + c * py) / res
@@ -137,17 +161,23 @@ def _check(padded, shifts, weights, sampling):
             raise ValueError(f"{name} is on {t.device}, padded on {padded.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if nb > MAX_BEAMS:
-        raise ValueError(f"{nb} beams; the kernel takes at most {MAX_BEAMS}")
-    if k > 65535:
-        raise ValueError(f"{k} heading bins; the kernel takes at most 65535")
+    if padded.numel() > MAX_CELLS:
+        raise ValueError(f"{padded.numel()} field cells; the kernel takes at most {MAX_CELLS}")
 
 
-def correlate(padded: Tensor, shifts: Tensor, weights: Tensor,
-              sampling: str = "bilinear") -> Tensor:
+def _halo(halo: int | None) -> int:
+    """The kernel's halo argument: -1 asks for the largest window that
+    shared memory holds."""
+    return -1 if halo is None else max(int(halo), 0)
+
+
+def correlate(padded: Tensor, shifts: Tensor, weights: Tensor, sampling: str = "bilinear",
+              halo: int | None = None) -> Tensor:
     """The correlation maps ``f32[K, Hp, Wp]`` of ``padded`` from the
     tables of :func:`scan_lut_tables`: kernel B9 on a CUDA tensor, its plain
-    version on a CPU tensor.  Shifts must lie in ``[0, Hp) x [0, Wp)``."""
+    version on a CPU tensor.  Shifts must lie in ``[0, Hp) x [0, Wp)``;
+    ``halo`` (cells) sizes the kernel's shared-memory window, None for as
+    large as fits; it changes no value."""
     global launches
     _check(padded, shifts, weights, sampling)
     if padded.device.type == "cpu":
@@ -158,8 +188,8 @@ def correlate(padded: Tensor, shifts: Tensor, weights: Tensor,
     k, nb, _ = shifts.shape
     out = torch.empty((k, hp, wp), dtype=torch.float32, device=padded.device)
     stream = torch.cuda.current_stream(padded.device).cuda_stream
-    err = _kernel()(padded.data_ptr(), hp, wp, shifts.data_ptr(), weights.data_ptr(), k, nb,
-                    int(sampling == "bilinear"), out.data_ptr(), stream)
+    err = _kernels()[0](padded.data_ptr(), hp, wp, shifts.data_ptr(), weights.data_ptr(), k, nb,
+                        int(sampling == "bilinear"), _halo(halo), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"scan_lut kernel launch failed: cudaError {err}")
     launches += 1
@@ -167,10 +197,46 @@ def correlate(padded: Tensor, shifts: Tensor, weights: Tensor,
 
 
 def scan_lut_correlate(padded: Tensor, points: Tensor, beam_mask: Tensor, resolution: float,
-                       n_theta: int, sampling: str = "bilinear") -> Tensor:
+                       n_theta: int, sampling: str = "bilinear",
+                       halo: int | None = None) -> Tensor:
     """Correlation maps ``f32[K, Hp, Wp]`` of the padded pz³ field with the
     scan (``points f32[B, 2]`` in the base frame, ``beam_mask bool[B]``):
-    masked beams contribute nothing; shifts wrap around."""
+    masked beams contribute nothing; shifts wrap around.  On the card one
+    launch, the tables built in the kernel's prologue; ``halo`` is the
+    padding of :func:`~beluga_tpu_torch.models.sensor.likelihood_field_lut.
+    scan_lut_padded`, which bounds the scan's offsets (None: as large as
+    fits)."""
+    global launches
+    if sampling not in SAMPLINGS:
+        raise ValueError(f"unknown sampling: {sampling!r}")
     hp, wp = padded.shape
-    shifts, weights = scan_lut_tables(points, beam_mask, resolution, n_theta, hp, wp, sampling)
-    return correlate(padded.contiguous(), shifts, weights, sampling)
+    if padded.device.type == "cpu":
+        shifts, weights = scan_lut_tables(points, beam_mask, resolution, n_theta, hp, wp,
+                                          sampling)
+        return correlate(padded.contiguous(), shifts, weights, sampling)
+    if padded.device.type != "cuda":
+        raise ValueError(f"unsupported device {padded.device}")
+    padded, points, beam_mask = padded.contiguous(), points.contiguous(), beam_mask.contiguous()
+    nb = points.shape[0]
+    if padded.dtype != torch.float32 or padded.dim() != 2:
+        raise ValueError(f"padded must be float32[Hp, Wp], got {padded.dtype}{list(padded.shape)}")
+    if padded.numel() > MAX_CELLS:
+        raise ValueError(f"{padded.numel()} field cells; the kernel takes at most {MAX_CELLS}")
+    if points.dtype != torch.float32 or tuple(points.shape) != (nb, 2):
+        raise ValueError(f"points must be float32[B, 2], got {points.dtype}{list(points.shape)}")
+    if beam_mask.dtype != torch.bool or tuple(beam_mask.shape) != (nb,):
+        raise ValueError(f"beam_mask must be bool[{nb}], got "
+                         f"{beam_mask.dtype}{list(beam_mask.shape)}")
+    for name, t in (("points", points), ("beam_mask", beam_mask)):
+        if t.device != padded.device:
+            raise ValueError(f"{name} is on {t.device}, padded on {padded.device}")
+    trig = bin_trig(n_theta, padded.device)
+    out = torch.empty((n_theta, hp, wp), dtype=torch.float32, device=padded.device)
+    stream = torch.cuda.current_stream(padded.device).cuda_stream
+    err = _kernels()[1](padded.data_ptr(), hp, wp, points.data_ptr(), beam_mask.data_ptr(),
+                        trig.data_ptr(), float(resolution), n_theta, nb,
+                        int(sampling == "bilinear"), _halo(halo), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"scan_lut kernel launch failed: cudaError {err}")
+    launches += 1
+    return out

@@ -2,8 +2,8 @@
 workloads under ``torch.profiler``.
 
     python -m beluga_tpu_torch.tools.profile_update [--scans 20] [--trace-dir DIR]
-        [--workloads node,large,fleet,mega,windowed,beam_node,long_range,beam_fleet,
-                     prob_node,shared_scan,prob_fleet,windowed_int8,
+        [--workloads node,large,fleet,mega,windowed,beam_node,beam_node_windowed,
+                     long_range,beam_fleet,prob_node,shared_scan,prob_fleet,windowed_int8,
                      ndt_node,ndt_fleet,ndt3d_node,vdb]
 
 Workloads, the configurations of ``tools/workloads.py`` (which
@@ -24,7 +24,8 @@ Workloads, the configurations of ``tools/workloads.py`` (which
 * ``windowed``: the coverage-gated windowed filter, 262144 particles, kernel
   B6 with kernel B1 for the exact tail and the fallback;
 * ``beam_node``: ``AmclNode`` with the beam model at nav2 defaults (100 m)
-  through the sphere trace, kernel B8;
+  through the sphere trace, kernel B8; ``beam_node_windowed`` the same node
+  through the windowed range LUT (kernel B7 with its window origins);
 * ``long_range``: the long-range sphere-trace filter, 2048 particles x 60
   beams on the 1024² map at 60 m (kernel B8), forced updates;
 * ``beam_fleet``: 64 filters x 4096 particles x 60 beams through the
@@ -88,7 +89,8 @@ HAND_KERNELS = {
     "reweight_values3_kernel": "B4/B4-log fused_reweight values3",
     "resample_take_kernel": "B2 resample_take", "pool_take_kernel": "B3 pool_take",
     "fused_step_kernel": "B5 fused_propagate_winlut", "winlut_kernel": "B6/B6-int8 winlut_lookup",
-    "beam_lut_kernel": "B7 beam_lut_windowed", "sphere_trace_kernel": "B8 sphere_trace",
+    "beam_lut_kernel": "B7 beam_lut_windowed", "window_origins_kernel": "B7 window origins",
+    "sphere_trace_kernel": "B8 sphere_trace",
     "scan_lut_kernel": "B9 scan_lut_correlate", "ndt_probe_kernel": "B10 ndt_probe",
     "ndt_weights_kernel": "B10-fused ndt_weights", "codebook_lookup_kernel": "B11 codebook_lookup",
     "standard_kernel": "R1 cast_rays", "supercover_kernel": "R1 cast_rays",
@@ -261,6 +263,8 @@ WORKLOADS = {"node": _node, "large": _large, "fleet": _fleet,
              "windowed": _forced(workloads.windowed, None),
              "beam_node": lambda scans: _node(scans, laser_model_type="beam",
                                               beam_fast_path="sphere_trace"),
+             "beam_node_windowed": lambda scans: _node(scans, laser_model_type="beam",
+                                                       beam_fast_path="windowed"),
              "long_range": _forced(workloads.long_range, None),
              "beam_fleet": lambda scans: _fleet(scans, workloads.beam_fleet),
              "prob_node": lambda scans: _node(scans, laser_model_type="likelihood_field_prob"),

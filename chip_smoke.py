@@ -43,15 +43,16 @@ Phases, each of which exits non-zero when it fails:
    defaults (100 m range) in each ``beam_fast_path`` for 30 scans, same
    gate; R1 on every update in ``exact``, R1 once (the range-LUT build) in
    ``lut`` and ``windowed``, B8 on every update in ``sphere_trace``, B7 on
-   every update in ``windowed``, B2 in all four;
+   every update in ``windowed`` (with its window-origins kernel), B2 in
+   all four;
 10. long range: the JAX package's long-range beam row (1024² map at 0.1 m,
    2048 particles x 60 beams, 60 m, sphere trace), 40 forced updates along
    the arc of ``tests/test_system_long_range.py``; every scan after the 2
    warm-up scans within the gate; B8 once per update;
 11. beam fleet: 64 filters x 4096 particles x 60 beams through the
    windowed range LUT (``bench.py:678-720``) for 40 scans, every filter
-   within the gate; B7 once per update, B1 and B4 never, R1 during the
-   build (its time printed);
+   within the gate; B7 and its window-origins kernel once per update, B1
+   and B4 never, R1 during the build (its time printed);
 12. prob node: ``AmclNode`` with nav2's probability model
    (``laser_model_type="likelihood_field_prob"``) at nav2 defaults for 50
    scans, same gate; B1-log on every update, the cube B1 never;
@@ -99,7 +100,14 @@ likelihood in one launch) at the NDT node's 2000 particles x 360 slots
 (2D map), the NDT fleet's 64 x 4096 x 60 slots and the NDT-3D node's 2000
 x 3600 slots (3D map), every particle's weight within rtol 1e-4 of its
 plain version, two launches bit-equal; each prints its live cells, hit
-share and bound.
+share and bound; and slice 8's redesigns: B9 from the scan (its tables
+built in the kernel's prologue, the main path's call) and from tables, at
+both B9 shapes, bit-equal to its plain version and two launches bit-equal,
+with ``conv2d``'s device time (its calls queued behind a spin kernel, or
+the reason for none); B7 also at the beam node's 2000 x 60 ``windowed``
+shape (K = 128 at 100 m), two launches bit-equal, and its window-origins
+kernel (B7's first launch of two) equal to ``window_origins`` at both
+shapes.
 
 Phases 4 to 19 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
 
@@ -152,18 +160,21 @@ FLEET_B, FLEET_N, FLEET_SCANS = 64, 4096, 40  # bench.py:46-49
 MEGA_SCANS, MEGA_LAST, MEGA_LAST_GATE_M = 64, 32, 0.35  # bench.py:364-377
 WINDOWED_SCANS = 40
 BEAM_NODE_SCANS, LONG_RANGE_SCANS, LONG_RANGE_WARMUP, BEAM_FLEET_SCANS = 30, 40, 2, 40
+BEAM_NODE_RANGE = 100.0  # nav2's laser_max_range: the beam node's range LUT
 SHARED_SCAN_SCANS, PROB_FLEET_SCANS, WINDOWED_INT8_SCANS = 40, 20, 20
 NDT_NODE_SCANS, NDT_FLEET_SCANS, NDT3D_SCANS, VDB_SCANS = 50, 20, 30, 20
 NDT_CHUNK = 512  # the NDT plain version's particle chunk: B10's check shape
 LIBRARY_LIMIT_MS = 1000.0  # a library yardstick slower than this per call is not timed
-# float32 operations per (particle, unmasked beam) of the beam mixture, with
-# exp counted as 10: two A&S erfs of ~28, eta_hit 6, the Gaussian 17, the
-# short term 26, the rest 6; kernel B7 adds the bin and the blend (12),
-# kernel B8 the ray direction (6) and 8 per trace step; kernel R1 takes ~10
-# integer operations per visited cell
-MIXTURE_OPS = 110
-B7_OPS_PER_BEAM = MIXTURE_OPS + 12
-B8_OPS_PER_BEAM, B8_OPS_PER_STEP = MIXTURE_OPS + 6, 8
+# float32 operations of the beam mixture, with exp counted as 10: per
+# (particle, unmasked beam) two A&S erfs of ~28, eta_hit 6, the Gaussian 17,
+# the short term's eta_short and its product 15, the rest 5; per (filter,
+# unmasked beam), since it depends on the beam alone, exp(-lam z) and its
+# product (11) and the z_rand or z_max tail (1).  Kernel B7 adds the bin and
+# the blend (12) a ray, kernel B8 the ray direction (6) and 8 per trace
+# step; kernel R1 takes ~10 integer operations per visited cell
+MIXTURE_RAY_OPS, MIXTURE_BEAM_OPS = 99, 12
+B7_OPS_PER_RAY = MIXTURE_RAY_OPS + 12
+B8_OPS_PER_RAY, B8_OPS_PER_STEP = MIXTURE_RAY_OPS + 6, 8
 R1_OPS_PER_CELL = 10
 # operations that the NDT stencil likelihood needs, by dimension: per
 # (particle, live cell) the rotated mean (2D 8, 3D 18), the rotated
@@ -224,6 +235,27 @@ def device_ms(fn, iters: int) -> float | None:
     busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
     return 1e-3 * busy_us / iters if busy_us > 0 else None
+
+
+def queued_device_ms(fn, calls: int, spin_cycles: int = 50_000_000) -> float | None:
+    """Device time per call of ``fn`` without the profiler: ``calls``
+    calls queued behind a spin kernel of ``spin_cycles`` clocks (~25 ms),
+    so that the card runs them back to back whatever the host's cost of
+    issuing them, between two CUDA events.  None when the spin ended
+    before the host had queued them.  For calls of a millisecond or more,
+    whose gaps on the device are a negligible share."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    queued = not start.query()  # the card is still in the spin
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls if queued else None
 
 
 def timings(kernel, plain, iters: int, library=None, plain_iters: int | None = None) -> dict:
@@ -655,10 +687,13 @@ def scan_lut_conv_weight(ox, oy, mask, sampling: str, radius: int) -> torch.Tens
 def check_scan_lut(dev, iters: int, sampling: str, downsample: int) -> dict:
     """Kernel B9 on the arena's padded pz³ field and first scan: the
     shared-scan filter's shape (nearest, downsample 2: K 128 x 280 x 384)
-    or full resolution (bilinear: 128 x 552 x 640); bit-equal to its plain
-    version, timed beside it and beside ``conv2d`` on the circularly padded
-    field (TF32 off), the library yardstick the port never calls, when one
-    call of it takes under LIBRARY_LIMIT_MS."""
+    or full resolution (bilinear: 128 x 552 x 640).  The main path's call
+    (``scan_lut_correlate`` from the scan, the tables built in the
+    kernel's prologue, the halo the field's pad) and the call from the
+    tables are bit-equal to the plain version, two launches bit-equal;
+    timed beside the plain version (tables and sums) and beside ``conv2d``
+    on the circularly padded field (TF32 off), the library yardstick the
+    port never calls, when one call of it takes under LIBRARY_LIMIT_MS."""
     import torch.nn.functional as F
 
     from beluga_tpu_torch.filters.builders import make_likelihood_field_filter
@@ -672,20 +707,31 @@ def check_scan_lut(dev, iters: int, sampling: str, downsample: int) -> dict:
     _, ctx = make_likelihood_field_filter(make_grid(s.data, workloads.RES, device=dev),
                                           lookup_mode="gather", device=dev)
     field = ctx["field"]
-    padded, _ = scan_lut_padded(field, cfg["max_point_radius"], "pallas", downsample)
+    padded, pad = scan_lut_padded(field, cfg["max_point_radius"], "pallas", downsample)
     res = field.resolution * downsample
     points = torch.as_tensor(s.points[0]).to(dev)
     mask = torch.as_tensor(s.mask[0]).to(dev)
     k = cfg["n_theta"]
     hp, wp = padded.shape
+
+    def kernel():
+        return b9.scan_lut_correlate(padded, points, mask, res, k, sampling, halo=pad)
+
+    def plain():
+        tables = b9.scan_lut_tables(points, mask, res, k, hp, wp, sampling)
+        return b9.correlate_reference(padded, *tables, sampling)
+
     shifts, weights = b9.scan_lut_tables(points, mask, res, k, hp, wp, sampling)
-    got = b9.correlate(padded, shifts, weights, sampling)
-    want = b9.correlate_reference(padded, shifts, weights, sampling)
+    got, again, want = kernel(), kernel(), plain()
+    from_tables = b9.correlate(padded, shifts, weights, sampling, halo=pad)
     torch.cuda.synchronize()
     label = f"K {k} x {hp} x {wp}, {points.shape[0]} beams ({int(mask.sum())} unmasked), {sampling}"
     check(bool(torch.isfinite(got).all()), f"B9 {label}: not finite")
     check(torch.equal(got, want),
           f"B9 {label}: {int((got != want).sum())} cells differ from the plain version")
+    check(torch.equal(got, again), f"B9 {label}: two launches differ")
+    check(torch.equal(from_tables, want),
+          f"B9 {label}: from the tables, {int((from_tables != want).sum())} cells differ")
     # the library yardstick: cross-correlation with the scattered footprint
     ox, oy = b9.beam_offsets(points, res, k)
     radius = int(torch.ceil(torch.maximum(ox.abs().max(), oy.abs().max())).item()) + 1
@@ -696,9 +742,7 @@ def check_scan_lut(dev, iters: int, sampling: str, downsample: int) -> dict:
         return F.conv2d(src, conv_w)
 
     plain_iters = 2 if sampling == "bilinear" and downsample == 1 else 5
-    times = timings(lambda: b9.correlate(padded, shifts, weights, sampling),
-                    lambda: b9.correlate_reference(padded, shifts, weights, sampling), iters,
-                    plain_iters=plain_iters)
+    times = timings(kernel, plain, iters, plain_iters=plain_iters)
     extra = {}
     try:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -716,7 +760,13 @@ def check_scan_lut(dev, iters: int, sampling: str, downsample: int) -> dict:
             extra["library_note"] = f"conv2d differs by {lib_err:.3g} of the maximum: not timed"
         elif once < LIBRARY_LIMIT_MS:
             times["library_ms"] = cuda_ms(library, max(2, min(iters, int(200 / max(once, 1e-3)))))
-            times["library_device_ms"] = device_ms(library, 3)
+            # torch.profiler has reported conv2d's kernels for one call of
+            # three, or for none, even with one call a profiler run: time
+            # it queued
+            times["library_device_ms"] = queued_device_ms(library, 3)
+            if times["library_device_ms"] is None:
+                extra["library_note"] = ("conv2d device time not measured: the host did not "
+                                         "queue its calls within the spin")
         else:
             extra["library_note"] = f"conv2d took {once:.0f} ms on its first call: not timed"
     nb = points.shape[0]
@@ -957,7 +1007,8 @@ def check_sphere_trace(dev, iters: int, long_range: bool, n_beams: int | None = 
                     plain_iters=2 if n_beams else 5)
     n, unmasked = poses[0].numel(), int(beams.sum())
     bms, by = bound_ms(20 * n + 13 * beams.numel() + dist.numel(),
-                       B8_OPS_PER_BEAM * n * unmasked + B8_OPS_PER_STEP * traced)
+                       B8_OPS_PER_RAY * n * unmasked + MIXTURE_BEAM_OPS * unmasked
+                       + B8_OPS_PER_STEP * traced)
     return dict(
         name="B8 sphere_trace_beam_weights", route="cuda", source="beluga_tpu_torch/csrc/beam.cu",
         replaces="beluga_tpu/ops/pallas_beam.py:188", max_abs_err=float((got - want).abs().max()),
@@ -965,11 +1016,14 @@ def check_sphere_trace(dev, iters: int, long_range: bool, n_beams: int | None = 
     )
 
 
-def check_beam_lut(dev, iters: int) -> dict:
-    """Kernel B7 at the beam fleet's geometry: 64 filters x 4096 θ-sorted
-    particles x 60 beams, K = 128 at 4 m, every 50th slot a stray 5 m off
-    (all-miss): weights bit-equal to its plain version, the strays scoring
-    the LUT's max range in every bin."""
+def check_beam_lut(dev, iters: int, which: str) -> tuple[dict, dict]:
+    """Kernel B7 at the beam fleet's geometry (``which="fleet"``: 64 filters
+    x 4096 θ-sorted particles x 60 beams, K = 128 at 4 m) or the beam
+    node's ``windowed`` mode (``"node"``: 2000 particles, K = 128 at nav2's
+    100 m), every 50th slot a stray 5 m off (all-miss): weights bit-equal to
+    its plain version and two launches bit-equal, the strays scoring the
+    LUT's max range in every bin; and its origins kernel equal to
+    ``window_origins``.  Returns the weights' entry and the origins'."""
     from beluga_tpu_torch.maps.occupancy import make_grid
     from beluga_tpu_torch.models.sensor.beam import BeamModelParams
     from beluga_tpu_torch.models.sensor.beam_lut import build_range_lut, lut_cells
@@ -977,27 +1031,37 @@ def check_beam_lut(dev, iters: int) -> dict:
     from beluga_tpu_torch.tools import workloads
 
     cfg = workloads.BEAM_FLEET
-    states, s = arena_cloud(FLEET_N, dev, seed=14, batch=FLEET_B, stray_every=50)
-    lut = build_range_lut(make_grid(s.data, workloads.RES, device=dev), cfg["beam_max_range"],
+    batch, n, max_range = ((FLEET_B, FLEET_N, cfg["beam_max_range"]) if which == "fleet"
+                           else (1, 2000, BEAM_NODE_RANGE))
+    states, s = arena_cloud(n, dev, seed=14, batch=batch, stray_every=50)
+    lut = build_range_lut(make_grid(s.data, workloads.RES, device=dev), max_range,
                           cfg["n_bearings"])
     table = b7.build_lut_bf16(lut.ranges)
     local, xi, yi = lut_cells(lut, states)
     z, _, beta = beam_scan(torch.as_tensor(s.points[0]).to(dev))
     beams = torch.as_tensor(s.mask[0]).to(dev)
-    p = BeamModelParams(beam_max_range=cfg["beam_max_range"])
+    p = BeamModelParams(beam_max_range=max_range)
     mix = (p.z_hit, p.z_short, p.z_rand, p.z_max, p.sigma_hit, p.lambda_short, p.beam_max_range)
-    lead = (FLEET_B, workloads.BEAMS)
+    lead = (batch, workloads.BEAMS)
     args = (table, local.theta.contiguous(), xi, yi, z.expand(lead).contiguous(),
             beta.expand(lead).contiguous(), beams.expand(lead).contiguous(), lut.max_range, mix)
     got, want = b7.beam_lut_windowed(*args), b7.beam_lut_windowed_reference(*args)
+    again = b7.beam_lut_windowed(*args)
     torch.cuda.synchronize()
-    label = f"{FLEET_B}x{FLEET_N}x{workloads.BEAMS}, K={cfg['n_bearings']}, bf16{list(table.shape)}"
+    label = (f"{which}: {batch}x{n}x{workloads.BEAMS}, K={cfg['n_bearings']} at {max_range} m, "
+             f"bf16{list(table.shape)}")
     check(bool(torch.isfinite(got).all()), f"B7 {label}: weights not finite")
     check(torch.equal(got, want),
           f"B7 {label}: {int((got != want).sum())} weights differ from the plain version")
+    check(torch.equal(got, again), f"B7 {label}: two launches differ")
     hq, wq, k = table.shape
     origins = b7.window_origins(xi, yi, hq, wq)
-    slot = torch.arange(FLEET_N, device=dev)
+    on_card = b7.device_window_origins(xi, yi, hq, wq)
+    torch.cuda.synchronize()
+    check(torch.equal(on_card, origins),
+          f"B7 {label}: {int((on_card != origins).sum())} window origins differ from "
+          "window_origins")
+    slot = torch.arange(n, device=dev)
     o = origins[:, slot // b7.TILE, (slot % b7.TILE >= b7.BLOCKS[1][0]).long()]
     covered = ((xi >= o[..., 0]) & (xi < o[..., 0] + b7.CWX) & (yi >= o[..., 1])
                & (yi < o[..., 1] + b7.CWY))
@@ -1010,15 +1074,27 @@ def check_beam_lut(dev, iters: int) -> dict:
     times = timings(lambda: b7.beam_lut_windowed(*args),
                     lambda: b7.beam_lut_windowed_reference(*args), iters, plain_iters=5)
     cells = int(torch.unique((yi * wq + xi)[covered]).numel())
-    total, unmasked = xi.numel(), int(beams.sum()) * FLEET_B
-    bms, by = bound_ms(16 * total + 9 * FLEET_B * workloads.BEAMS + 2 * k * cells,
-                       B7_OPS_PER_BEAM * FLEET_N * unmasked)
-    return dict(
+    total, unmasked = xi.numel(), int(beams.sum()) * batch
+    bms, by = bound_ms(16 * total + 9 * batch * workloads.BEAMS + 2 * k * cells,
+                       B7_OPS_PER_RAY * n * unmasked + MIXTURE_BEAM_OPS * unmasked)
+    weights = dict(
         name="B7 beam_lut_windowed", route="cuda", source="beluga_tpu_torch/csrc/beam_lut.cu",
-        replaces="beluga_tpu/ops/pallas_beam_lut.py:342", max_abs_err=float((got - want).abs().max()),
-        bound_ms=bms, bound_by=by, shape=label, strays=int(strays.sum()), lut_cells_read=cells,
+        replaces="beluga_tpu/ops/pallas_beam_lut.py:342",
+        max_abs_err=float((got - want).abs().max()), bound_ms=bms, bound_by=by, shape=label,
+        strays=int(strays.sum()), lut_cells_read=cells,
         **times,
     )
+    times = timings(lambda: b7.device_window_origins(xi, yi, hq, wq),
+                    lambda: b7.window_origins(xi, yi, hq, wq), iters, plain_iters=20)
+    tiles = origins.shape[1]
+    bms, by = bound_ms(8 * total + 16 * batch * tiles, 2 * total)
+    window = dict(
+        name="B7-origins window_origins", route="cuda", source="beluga_tpu_torch/csrc/beam_lut.cu",
+        replaces="beluga_tpu/ops/pallas_beam_lut.py:256 (_beam_lut_call's block means; no Pallas)",
+        max_abs_err=float((on_card - origins).abs().max()), bound_ms=bms, bound_by=by,
+        shape=f"{which}: {batch}x{n} cells, {tiles} tile(s) of 4096", **times,
+    )
+    return weights, window
 
 
 def ndt_queries(ndt_map, states, points, mask):
@@ -1295,6 +1371,7 @@ def reset_counts() -> None:
     cuda_winlut.int8_launches = 0
     cuda_fused_step.launches = 0
     cuda_beam_lut.launches = 0
+    cuda_beam_lut.origins_launches = 0
     cuda_beam.launches = 0
     raycast.launches = 0
     cuda_scan_lut.launches = 0
@@ -1325,6 +1402,7 @@ def read_counts() -> dict:
             "B6 winlut_lookup": cuda_winlut.launches,
             "B6-int8 winlut_lookup": cuda_winlut.int8_launches,
             "B7 beam_lut_windowed": cuda_beam_lut.launches,
+            "B7-origins window_origins": cuda_beam_lut.origins_launches,
             "B8 sphere_trace_beam_weights": cuda_beam.launches,
             "B9 scan_lut_correlate": cuda_scan_lut.launches,
             "B10 ndt_probe": cuda_ndt.launches,
@@ -1597,6 +1675,8 @@ def run_beam_node(dev, mode: str) -> tuple[dict, dict]:
         "sphere_trace": {"R1 cast_rays": 0, "B7 beam_lut_windowed": 0,
                          "B8 sphere_trace_beam_weights": updates},
     }[mode]
+    # B7's window origins: its own kernel, once per B7 launch
+    expected["B7-origins window_origins"] = expected["B7 beam_lut_windowed"]
     for name, want in {**expected, "B1 fused_reweight": 0}.items():
         check(counts[name] == want,
               f"beam node {mode}: {name} launched {counts[name]} times, expected {want}")
@@ -1632,7 +1712,8 @@ def run_long_range(dev, scans: int = LONG_RANGE_SCANS) -> tuple[dict, dict]:
     check(counts["B8 sphere_trace_beam_weights"] == scans,
           f"long range: B8 launched {counts['B8 sphere_trace_beam_weights']} times in "
           f"{scans} updates")
-    for name in ("B1 fused_reweight", "R1 cast_rays", "B7 beam_lut_windowed"):
+    for name in ("B1 fused_reweight", "R1 cast_rays", "B7 beam_lut_windowed",
+                 "B7-origins window_origins"):
         check(counts[name] == 0, f"long range: {name} launched {counts[name]} times")
     hits = s.mask[LONG_RANGE_WARMUP:]
     ranges = np.hypot(s.points[..., 0], s.points[..., 1])[LONG_RANGE_WARMUP:][hits]
@@ -1680,8 +1761,9 @@ def run_beam_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
               f"beam fleet scan {t}: worst filter {e_pos.max():.3f} m / "
               f"{math.degrees(e_yaw.max()):.1f} deg")
     counts = read_counts()
-    check(counts["B7 beam_lut_windowed"] == scans,
-          f"beam fleet: B7 launched {counts['B7 beam_lut_windowed']} times in {scans} updates")
+    for name in ("B7 beam_lut_windowed", "B7-origins window_origins"):
+        check(counts[name] == scans,
+              f"beam fleet: {name} launched {counts[name]} times in {scans} updates")
     check(counts["R1 cast_rays"] >= 1, "beam fleet: R1 was not launched by the LUT build")
     for name in ("B1 fused_reweight", "B4 fused_reweight values3"):
         check(counts[name] == 0, f"beam fleet: {name} launched {counts[name]} times")
@@ -1934,7 +2016,8 @@ def main() -> int:
     s_node = check_sphere_trace(dev, iters=100, long_range=False)
     s_long = check_sphere_trace(dev, iters=100, long_range=True)
     s_wide = check_sphere_trace(dev, iters=20, long_range=False, n_beams=1000)
-    l_fleet = check_beam_lut(dev, iters=50)
+    l_fleet, o_fleet = check_beam_lut(dev, iters=50, which="fleet")
+    l_node, o_node = check_beam_lut(dev, iters=100, which="node")
     c_node = check_raycast(dev, iters=100, lut_build=False)
     c_build = check_raycast(dev, iters=10, lut_build=True)
     g_shared = check_scan_lut(dev, iters=20, sampling="nearest", downsample=2)
@@ -1953,7 +2036,8 @@ def main() -> int:
     v_floor = check_codebook_lookup(dev, iters=20, volume="floor")
     torch.cuda.empty_cache()
     checked = (k_main, r_main, k_big, r_big, c_big, k_fleet, r_fleet, c_fleet, p_fleet, p_big,
-               p_mega, r_mega, w_big, f_mega, f_ragged, s_node, s_long, s_wide, l_fleet, c_node,
+               p_mega, r_mega, w_big, f_mega, f_ragged, s_node, s_long, s_wide, l_fleet, l_node,
+               o_fleet, o_node, c_node,
                c_build, g_shared, g_full, k_log_node, k_log_fleet, c_log_fleet, i_big, n_fleet,
                n_3d, f_node, f_fleet, f_3d, v_bench, v_floor)
     ms = lambda v: "not measured" if v is None else f"{v:.5f} ms"  # noqa: E731
@@ -1961,7 +2045,8 @@ def main() -> int:
         lib = "" if k["library_ms"] is None else (
             f", library {ms(k['library_ms'])} (device {ms(k['library_device_ms'])})")
         extra = "".join(f", {key} {k[key]}" for key in (
-            "max_rel_err", "outside_rtol_share", "live_cells", "hit_share") if key in k)
+            "max_rel_err", "outside_rtol_share", "live_cells", "hit_share", "library_note")
+            if key in k)
         print(f"kernel {k['name']} {k['shape']}: {ms(k['ms'])} (device {ms(k['device_ms'])};"
               f" plain {ms(k['plain_ms'])}, device {ms(k['plain_device_ms'])};"
               f" bound {ms(k['bound_ms'])} by {k['bound_by']}{lib}),"
@@ -2039,7 +2124,8 @@ def main() -> int:
     # path that runs it: B1 the windowed filter's (tail and fallback), B2
     # and B3 the mega filter's where its selective resampling fired, else
     # the windowed filter's, B4 the fleet's, B5 the mega filter's, B6 the
-    # windowed filter's, B7 and R1 the beam fleet's (R1 in its LUT build),
+    # windowed filter's, B7 and R1 the beam fleet's (R1 in its LUT build;
+    # B7 and its window origins also the beam node's windowed mode's),
     # B8 the long-range filter's and the beam node's (the beam node's entry
     # also holds, under "other_shapes", a 1000-beam scan that no main path
     # gives it), B1-log the prob node's, B4-log the prob fleet's, B6-int8
@@ -2066,7 +2152,8 @@ def main() -> int:
                     (p_mega if mega_counts["B3 pool_take"] else p_big,
                      "mega" if mega_counts["B3 pool_take"] else "windowed"),
                     (c_fleet, "fleet"), (f_mega, "mega"), (w_big, "windowed"),
-                    (l_fleet, "beam_fleet"), (s_long, "long_range"),
+                    (l_fleet, "beam_fleet"), (l_node, "beam_node_windowed"),
+                    (o_fleet, "beam_fleet"), (o_node, "beam_node_windowed"), (s_long, "long_range"),
                     (s_node, "beam_node_sphere_trace"), (c_build, "beam_fleet"),
                     (k_log_node, "prob_node"), (c_log_fleet, "prob_fleet"),
                     (i_big, "windowed_int8"), (g_shared, "shared_scan"),

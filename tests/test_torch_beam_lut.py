@@ -334,3 +334,23 @@ def test_windowed_wrapper_checks_and_counts():
     with pytest.raises(ValueError, match="xi"):
         cuda_beam_lut.beam_lut_windowed(lut, theta, cells.long(), cells, beams, beams, mask, 4.0,
                                         MIX)
+
+
+def test_device_window_origins_checks_and_plain_version_on_cpu(luts):
+    """``device_window_origins`` (B7's origins kernel) takes the plain
+    ``window_origins`` on CPU tensors, counts no launch there, and refuses
+    what its kernel does not take."""
+    rng = np.random.default_rng(21)
+    xs, ys, ths = uniform_cloud(rng, 5000, 2.0, 3.5, f=2)
+    lut, twin = port_tables(*luts[16])
+    _, xi, yi = lut_cells(lut, SE2.from_xytheta(xs, ys, ths))
+    hq, wq, _ = twin.shape
+    before = cuda_beam_lut.origins_launches
+    got = cuda_beam_lut.device_window_origins(xi, yi, hq, wq)
+    assert cuda_beam_lut.origins_launches == before
+    assert torch.equal(got, cuda_beam_lut.window_origins(xi, yi, hq, wq))
+    assert got.shape == (2, 2, 2, 2) and got.dtype == torch.int32
+    with pytest.raises(ValueError, match="xi"):
+        cuda_beam_lut.device_window_origins(xi.long(), yi, hq, wq)
+    with pytest.raises(ValueError, match="padded"):
+        cuda_beam_lut.device_window_origins(xi, yi, hq + 1, wq)

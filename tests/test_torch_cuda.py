@@ -9,6 +9,8 @@ runs without the repository's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -383,25 +385,97 @@ def test_b8_masked_nan_beam_on_card(dev):
     assert torch.isfinite(got).all() and torch.equal(got, clean)
 
 
-@pytest.mark.parametrize("batch,n,k", [(64, 4096, 128), (3, 5000, 32), (1, 777, 16)])
-def test_b7_kernel_matches_plain_version(dev, batch, n, k):
+def beam_lut_case(dev, batch, n, k, seed=3, beams=BEAMS):
+    """B7's arguments at the arena: ``batch`` filters of ``n`` particles,
+    the 256 slots of the first tile's second block moved 4 m off the
+    cloud (a block of nothing but the cloud's strays).  A scan of more
+    than BEAMS beams has every beam but each seventh unmasked, the misses
+    at range 0 included, so that the kernel stages many chunks of them.
+    Every third heading is shifted by 2 pi and every third by -5 pi, so
+    that theta + beta takes each branch of the kernel's mod 2 pi."""
+    from beluga_tpu_torch.lie import SE2
     from beluga_tpu_torch.models.sensor.beam_lut import build_range_lut, lut_cells
     from beluga_tpu_torch.ops import cuda_beam_lut as b7
 
-    grid, states, points, z, mask = beam_arena(dev, n, 3, batch)
+    grid, states, points, z, mask = beam_arena(dev, n, seed, batch, beams=beams)
+    if beams > BEAMS:
+        mask = torch.ones_like(mask)
+        mask[::7] = False
+    if n > 3840:
+        xy = states.xy.clone()
+        xy[..., 3840:4096, :] += 4.0
+        states = SE2(xy, states.rot)
     lut = build_range_lut(grid, 4.0, k)
     table = b7.build_lut_bf16(lut.ranges)
     local, xi, yi = lut_cells(lut, states)
+    # headings that wrap once or twice: theta + beta beyond 2 pi and 4 pi
+    theta = local.theta.clone()
+    theta[..., 1::3] += 2.0 * math.pi
+    theta[..., 2::3] -= 5.0 * math.pi
     beta = torch.atan2(points[:, 1], points[:, 0])
-    lead = (batch, BEAMS)
+    lead = (batch, beams)
     mix = (0.5, 0.05, 0.05, 0.05, 0.2, 0.1, 4.0)
-    args = (table, local.theta.contiguous(), xi, yi, z.expand(lead).contiguous(),
+    return (table, theta.contiguous(), xi, yi, z.expand(lead).contiguous(),
             beta.expand(lead).contiguous(), mask.expand(lead).contiguous(), lut.max_range, mix)
-    before = b7.launches
+
+
+@pytest.mark.parametrize("batch,n,k,beams", [(64, 4096, 128, BEAMS), (3, 5000, 32, BEAMS),
+                                             (1, 777, 16, BEAMS), (1, 2000, 128, BEAMS),
+                                             (2, 3000, 32, 361), (1, 2000, 128, 1000)])
+def test_b7_kernel_matches_plain_version(dev, batch, n, k, beams):
+    """B7 bit-equal to its plain version at the fleet's 64 x 4096, a ragged
+    last tile (5000: its second block empty), one short tile and the beam
+    node's 2000 particles, and at scans of 361 and 1000 beams, most of
+    them unmasked (several chunks of staged beams, each particle's sum
+    carried across them); two launches bit-equal; one call is two
+    launches, the origins and the weights."""
+    from beluga_tpu_torch.ops import cuda_beam_lut as b7
+
+    args = beam_lut_case(dev, batch, n, k, beams=beams)
+    before = b7.launches, b7.origins_launches
     got, want = b7.beam_lut_windowed(*args), b7.beam_lut_windowed_reference(*args)
+    again = b7.beam_lut_windowed(*args)
     torch.cuda.synchronize()
-    assert b7.launches == before + 1
-    assert torch.isfinite(got).all() and torch.equal(got, want)
+    assert (b7.launches, b7.origins_launches) == (before[0] + 2, before[1] + 2)
+    assert torch.isfinite(got).all() and torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("batch,n", [(64, 4096), (3, 5000), (1, 777), (1, 2000), (2, 3840),
+                                     (2, 8192 + 3841)])
+def test_b7_origins_kernel_matches_window_origins(dev, batch, n):
+    """The origins kernel equals window_origins exactly: a block of strays
+    (slots 3840-4095 4 m off), ragged last tiles (an empty second block at
+    5000 and 3840, one slot of it at 12033), cells clipped at the map's
+    edge."""
+    from beluga_tpu_torch.ops import cuda_beam_lut as b7
+
+    table, _, xi, yi, *_ = beam_lut_case(dev, batch, n, 16, seed=4)
+    hq, wq, _ = table.shape
+    before = b7.origins_launches
+    got = b7.device_window_origins(xi, yi, hq, wq)
+    want = b7.window_origins(xi, yi, hq, wq)
+    torch.cuda.synchronize()
+    assert b7.origins_launches == before + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+    if n > 3840:
+        assert not torch.equal(got[:, 0, 0], got[:, 0, 1])  # the strays' block moved
+
+
+def test_b7_masked_nan_beam_on_card(dev):
+    """A masked beam whose range and bearing are NaN leaves every weight
+    finite and equal to the weights without it."""
+    from beluga_tpu_torch.ops import cuda_beam_lut as b7
+
+    args = list(beam_lut_case(dev, 2, 3000, 32))
+    z, beta, mask = (args[i].clone() for i in (4, 5, 6))
+    first = int(torch.nonzero(mask[0])[0])
+    mask[:, first] = False
+    clean = b7.beam_lut_windowed(*args[:4], z, beta, mask, *args[7:])
+    z[:, first], beta[:, first] = float("nan"), float("nan")
+    got = b7.beam_lut_windowed(*args[:4], z, beta, mask, *args[7:])
+    want = b7.beam_lut_windowed_reference(*args[:4], z, beta, mask, *args[7:])
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, clean) and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("mode", ["exact", "lut", "sphere_trace", "windowed"])
@@ -448,26 +522,65 @@ def scan_lut_case(dev, downsample):
     pts, mask = synthetic.simulate_scans(data, 0.05, xs, ys, yaws, BEAMS)
     _, ctx, _ = make_shared_scan_filter(make_grid(data, 0.05, device=dev), device=dev)
     field = ctx["field"]
-    padded, _ = scan_lut_padded(field, 4.0, "pallas", downsample)
+    padded, pad = scan_lut_padded(field, 4.0, "pallas", downsample)
     mask[0, 3] = False  # a masked beam
     return (padded, torch.as_tensor(pts[0]).to(dev), torch.as_tensor(mask[0]).to(dev),
-            field.resolution * downsample)
+            field.resolution * downsample, pad)
 
 
 @pytest.mark.parametrize("sampling,downsample,k", [("nearest", 2, 128), ("bilinear", 1, 128),
-                                                   ("bilinear", 2, 7), ("nearest", 1, 33)])
+                                                   ("bilinear", 2, 7), ("nearest", 1, 33),
+                                                   ("nearest", 2, 1), ("bilinear", 2, 1)])
 def test_b9_kernel_matches_plain_version(dev, sampling, downsample, k):
+    """B9 from the reference's tables and from the scan (the prologue
+    path, the main path's) bit-equal to the plain version, with the
+    window's halo the field's pad, as large as fits, and 0 (every beam
+    through L2); two launches bit-equal."""
     from beluga_tpu_torch.ops import cuda_scan_lut as b9
 
-    padded, pts, mask, res = scan_lut_case(dev, downsample)
+    padded, pts, mask, res, pad = scan_lut_case(dev, downsample)
     shifts, weights = b9.scan_lut_tables(pts, mask, res, k, *padded.shape, sampling)
-    before = b9.launches
-    got = b9.correlate(padded, shifts, weights, sampling)
     want = b9.correlate_reference(padded, shifts, weights, sampling)
+    before = b9.launches
+    got = b9.correlate(padded, shifts, weights, sampling, halo=pad)
+    points = [b9.scan_lut_correlate(padded, pts, mask, res, k, sampling, halo=h)
+              for h in (pad, None, 0, pad)]
     torch.cuda.synchronize()
-    assert b9.launches == before + 1
+    assert b9.launches == before + 5
     assert got.shape == (k, *padded.shape) and torch.isfinite(got).all()
     assert torch.equal(got, want)
+    for p in points:
+        assert torch.equal(p, want)
+
+
+@pytest.mark.parametrize("nb", [45, 200])
+@pytest.mark.parametrize("sampling", ["nearest", "bilinear"])
+@pytest.mark.parametrize("hp,wp,k,halo", [(280, 384, 128, 42), (101, 77, 33, 10),
+                                          (17, 40, 1, 3), (50, 300, 9, None)])
+def test_b9_kernel_any_shift(dev, sampling, hp, wp, k, halo, nb):
+    """Tables with shifts drawn anywhere in [0, Hp) x [0, Wp), most of them
+    outside the window (read through L2), on fields whose dims are no
+    multiple of the 32 x 96 tile, with 45 beams or 200 (about 140 live a
+    bin: more than a staged batch's 64 slots): bit-equal to the plain
+    version, and the same with a halo as large as fits; two launches
+    bit-equal."""
+    from beluga_tpu_torch.ops import cuda_scan_lut as b9
+
+    gen = torch.Generator(device=dev).manual_seed(hp + k + nb)
+    padded = torch.rand((hp, wp), generator=gen, device=dev)
+    shifts = torch.stack([torch.randint(0, hp, (k, nb), generator=gen, device=dev),
+                          torch.randint(0, wp, (k, nb), generator=gen, device=dev)], -1)
+    shifts = shifts.to(torch.int32).contiguous()
+    weights = torch.rand((k, nb, 3), generator=gen, device=dev)
+    weights[..., 0] *= torch.rand((k, nb), generator=gen, device=dev) < 0.7
+    if sampling == "nearest":
+        weights[..., 1:] = 0.0
+    want = b9.correlate_reference(padded, shifts, weights, sampling)
+    got = b9.correlate(padded, shifts, weights, sampling, halo=halo)
+    again = b9.correlate(padded, shifts, weights, sampling, halo=halo)
+    wide = b9.correlate(padded, shifts, weights, sampling)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want) and torch.equal(wide, want)
 
 
 @pytest.mark.parametrize("sampling", ["nearest", "bilinear"])
@@ -477,7 +590,7 @@ def test_b9_kernel_leaves_out_masked_beams(dev, sampling):
     version's sums bit for bit, and a bin with every beam masked is 0."""
     from beluga_tpu_torch.ops import cuda_scan_lut as b9
 
-    padded, pts, mask, res = scan_lut_case(dev, 2)
+    padded, pts, mask, res, _ = scan_lut_case(dev, 2)
     k = 9
     shifts, weights = b9.scan_lut_tables(pts, mask, res, k, *padded.shape, sampling)
     gen = torch.Generator(device=dev).manual_seed(5)

@@ -361,3 +361,34 @@ def test_correlate_rejects_bad_inputs(setup):
         b9.correlate(padded, shifts.long(), weights)
     with pytest.raises(ValueError, match="padded"):
         b9.correlate(padded.double(), shifts, weights)
+
+
+@pytest.mark.parametrize("n_theta", [7, 33, 128])
+def test_bin_trig_matches_reference_tables(n_theta):
+    """The bins' cos and sin that the plain tables and the kernel's prologue
+    share (``bin_trig``, kept per K and device): the headings bit-equal to
+    the reference's, cos and sin those of ``torch.cos``/``torch.sin`` and
+    within one ulp of XLA's (``scan_lut_correlate``, pallas_scan_lut.py:98)."""
+    thetas = jnp.arange(n_theta, dtype=jnp.float32) * (2.0 * jnp.pi / n_theta)
+    trig = b9.bin_trig(n_theta, "cpu")
+    assert b9.bin_trig(n_theta, torch.device("cpu")) is trig
+    np.testing.assert_array_equal(b9.theta_bins(n_theta, "cpu").numpy(), np.asarray(thetas))
+    th = b9.theta_bins(n_theta, "cpu")
+    assert torch.equal(trig, torch.stack([torch.cos(th), torch.sin(th)], -1))
+    np.testing.assert_array_max_ulp(trig[:, 0].numpy(), np.asarray(jnp.cos(thetas)), maxulp=1)
+    np.testing.assert_array_max_ulp(trig[:, 1].numpy(), np.asarray(jnp.sin(thetas)), maxulp=1)
+    print(f"K {n_theta}: bit-equal cos {np.mean(trig[:, 0].numpy() == np.asarray(jnp.cos(thetas)))}"
+          f", sin {np.mean(trig[:, 1].numpy() == np.asarray(jnp.sin(thetas)))}")
+
+
+@pytest.mark.parametrize("halo", [None, 0, 3, 40])
+def test_scan_lut_correlate_any_halo_on_cpu(setup, halo):
+    """On the CPU ``scan_lut_correlate`` is the plain tables and sums,
+    whatever halo the caller names (a window size of the kernel only)."""
+    jpad, _ = J._pad_field_cubed(setup["jfield"], RADIUS, RES, align=(8, 128))
+    padded = t(jpad)
+    pts, mask = t(setup["points"]), t(setup["mask"])
+    want = b9.correlate_reference(padded, *b9.scan_lut_tables(pts, mask, RES, 8, *padded.shape,
+                                                               "nearest"), "nearest")
+    got = b9.scan_lut_correlate(padded, pts, mask, RES, 8, "nearest", halo=halo)
+    assert torch.equal(got, want)
