@@ -45,15 +45,25 @@
 // What bounds them on an H100: bytes.  B6 reads 12 B and writes 4 B per
 // particle, B5 reads 24 B and writes 20 B, and both read the table (160 KB
 // at the mega geometry 20x32x128, 2 MB at 64x128x128) once; the ~40 float32
-// operations per particle are far below the byte time.  Design, simple
-// first: one block per tile (min(tile, 1024) threads rounded up to whole
-// warps, each walking
-// tile / blockDim slots), a block-wide minimum by warp shuffles and shared
-// memory, then eight table reads per valid particle straight from global
-// memory (the table stays in L2).  A bf16 entry widens to float32 by a
-// 16-bit shift, which is exact.  B5 writes its four state outputs and t (in
-// the log-likelihood slot) in the first pass and reads them back in the
-// second, so the sincos is computed once.
+// operations per particle (B5: ~120 with the motion sample) are below the
+// byte time.  B6, simple first: one block per tile (min(tile, 1024)
+// threads rounded up to whole warps, each walking tile / blockDim slots), a
+// block-wide minimum by warp shuffles and shared memory, then eight table
+// reads per valid particle straight from global memory (the table stays in
+// L2).  A bf16 entry widens to float32 by a 16-bit shift, which is exact.
+// B5 crosses global memory once a particle: a persistent grid (as many
+// blocks as fit on the card, each walking tiles blockIdx.x, + gridDim.x,
+// ...) whose threads keep their kSlots = tile / blockDim slots' window
+// coordinates and heading bins in registers across the block minimum and
+// write each output once; the table goes into dynamic shared memory once
+// per block when it fits (the mega's 160 KB, copied by cp.async during the
+// first tile's motion sample; a larger one, such as B6's 2 MB, is read
+// through L2 by the same kernel); the inputs of the block's next tile are
+// loaded after the slab minimum, in flight during the lookups; sin and cos
+// of a heading come from one sincosf.  On an H100 it stays ~1.7x its byte
+// bound: a 1024-thread block an SM (64 registers) runs its phases in step,
+// and the random table reads conflict in shared memory's banks (PERF.md,
+// section 6).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -79,9 +89,10 @@ __device__ __forceinline__ float tent(float c, float i) {
   return fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(c, i))), 0.0f);
 }
 
-// The minimum of v over the block, returned to every thread.
-__device__ float block_min(float v) {
-  __shared__ float warp_min[kMaxThreads / 32];
+// The minimum of v over the block, returned to every thread; `warp_min`
+// is kMaxThreads / 32 floats of shared memory, not read again until after
+// the block's next barrier.
+__device__ float block_min(float v, float* warp_min) {
   for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) warp_min[warp] = v;
@@ -102,8 +113,16 @@ __device__ __forceinline__ float slab_base(float tmin, int k, int tblk) {
   return fminf(fmaxf(floorf(tmin), 0.0f), static_cast<float>(k - tblk));
 }
 
+// One bf16 table entry as float32, from shared memory (kShared) or through
+// the read-only path.
+template <bool kShared>
+__device__ __forceinline__ float table_at(const uint16_t* p) {
+  return bf16_to_float(kShared ? *p : __ldg(p));
+}
+
 // base + trilinear lookup, or miss outside the window or the tile's slab
 // (bf16 table; `inv_step` is unused).
+template <bool kShared = false>
 __device__ float trilinear(const uint16_t* __restrict__ vals, int wx, int wy, int tblk,
                            float t_lo, float xf, float yf, float t, float miss, float base,
                            float /*inv_step*/ = 0.0f) {
@@ -127,8 +146,8 @@ __device__ float trilinear(const uint16_t* __restrict__ vals, int wx, int wy, in
     float byj[2];
     for (int dj = 0; dj < 2; ++dj) {
       const uint16_t* row = vals + (static_cast<size_t>(jt + dj) * wx + x) * wy;
-      byj[dj] = __fadd_rn(__fmul_rn(ty0, bf16_to_float(__ldg(row + iy))),
-                          __fmul_rn(ty1, bf16_to_float(__ldg(row + iy1))));
+      byj[dj] = __fadd_rn(__fmul_rn(ty0, table_at<kShared>(row + iy)),
+                          __fmul_rn(ty1, table_at<kShared>(row + iy1)));
     }
     byx[dx] = __fadd_rn(__fmul_rn(tt0, byj[0]), __fmul_rn(tt1, byj[1]));
   }
@@ -175,13 +194,14 @@ __global__ void winlut_kernel(const T* __restrict__ vals, int k, int wx, int wy,
                               int n, int tile, const float* __restrict__ miss_ptr, float base,
                               const float* __restrict__ scale_ptr, float inv127,
                               float* __restrict__ out) {
+  __shared__ float warp_min[kMaxThreads / 32];
   const size_t first = static_cast<size_t>(blockIdx.x) * tile;
   float tmin = CUDART_INF_F;
   for (int s = threadIdx.x; s < tile; s += blockDim.x) {
     const size_t i = first + s;
     if (i < static_cast<size_t>(n)) tmin = fminf(tmin, slab_candidate(t[i], k));
   }
-  const float t_lo = slab_base(block_min(tmin), k, tblk);
+  const float t_lo = slab_base(block_min(tmin, warp_min), k, tblk);
   const float miss = *miss_ptr;
   const float step = scale_ptr ? __fmul_rn(*scale_ptr, inv127) : 0.0f;
   for (int s = threadIdx.x; s < tile; s += blockDim.x) {
@@ -204,10 +224,11 @@ __device__ __forceinline__ Moved propagate(const float* sc, float x, float y, fl
   const float th1 = __fadd_rn(th, rot1);
   const float th2 = __fadd_rn(th1, rot2);
   Moved m;
-  m.x = __fadd_rn(x, __fmul_rn(trans, cosf(th1)));
-  m.y = __fadd_rn(y, __fmul_rn(trans, sinf(th1)));
-  m.c = cosf(th2);
-  m.s = sinf(th2);
+  float s1, c1;
+  sincosf(th1, &s1, &c1);
+  m.x = __fadd_rn(x, __fmul_rn(trans, c1));
+  m.y = __fadd_rn(y, __fmul_rn(trans, s1));
+  sincosf(th2, &m.s, &m.c);
   // jnp.mod(a, 2 pi): fmod, plus the divisor where the remainder is negative
   float r = fmodf(__fadd_rn(__fadd_rn(th2, sc[kTAng]), kPi), k2Pi);
   if (r < 0.0f) r = __fadd_rn(r, k2Pi);
@@ -224,41 +245,106 @@ __device__ __forceinline__ void window_xy(const float* sc, float x, float y, flo
   *yf = __fadd_rn(__fmul_rn(fy, sc[kInvRes]), sc[kOffY]);
 }
 
-__global__ void fused_step_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                                  const float* __restrict__ th, const float* __restrict__ z,
-                                  int n, const uint16_t* __restrict__ vals, int k, int wx,
-                                  int wy, int tblk, int tile, const float* __restrict__ scalars,
-                                  float* __restrict__ xo, float* __restrict__ yo,
-                                  float* __restrict__ co, float* __restrict__ so,
-                                  float* __restrict__ lw) {
+// The inputs of slot j of tile `tile_id` of this thread: x, y, theta and
+// the three normals; padded lanes (past n) read 1.0, as the reference pads.
+template <int kSlots>
+__device__ __forceinline__ void load_slot(const float* __restrict__ x,
+                                          const float* __restrict__ y,
+                                          const float* __restrict__ th,
+                                          const float* __restrict__ z, int n, int tile,
+                                          int tile_id, int j, float (&in)[6][kSlots]) {
+  const int s = j * blockDim.x + threadIdx.x;
+  const size_t i = static_cast<size_t>(tile_id) * tile + s;
+  const bool live = s < tile && i < static_cast<size_t>(n);
+  in[0][j] = live ? __ldg(x + i) : 1.0f;
+  in[1][j] = live ? __ldg(y + i) : 1.0f;
+  in[2][j] = live ? __ldg(th + i) : 1.0f;
+  in[3][j] = live ? __ldg(z + i) : 1.0f;
+  in[4][j] = live ? __ldg(z + n + i) : 1.0f;
+  in[5][j] = live ? __ldg(z + 2 * static_cast<size_t>(n) + i) : 1.0f;
+}
+
+// Starts copying the table into shared memory without staging it in
+// registers (cp.async, 16 bytes a thread a step, or 2 where `vals` is not
+// 16-byte aligned); cp_async_wait() before reading it.
+__device__ __forceinline__ void copy_table_async(uint16_t* dst, const uint16_t* vals,
+                                                 int entries) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(vals) & 15) == 0) {
+    for (int v = threadIdx.x; v < entries / 8; v += blockDim.x) {
+      const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst + 8 * v));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to), "l"(vals + 8 * v));
+    }
+    done = entries / 8 * 8;
+  }
+  for (int e = done + threadIdx.x; e < entries; e += blockDim.x) dst[e] = __ldg(vals + e);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// B5: a persistent block walks tiles blockIdx.x, + gridDim.x, ...; each of
+// its threads holds kSlots slots of a tile (slot j * blockDim + threadIdx).
+template <int kSlots, bool kSharedTable>
+__global__ void __launch_bounds__(kMaxThreads, 1) fused_step_kernel(
+    const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ th,
+    const float* __restrict__ z, int n, const uint16_t* __restrict__ vals, int k, int wx,
+    int wy, int tblk, int tile, int tiles, const float* __restrict__ scalars,
+    float* __restrict__ xo, float* __restrict__ yo, float* __restrict__ co,
+    float* __restrict__ so, float* __restrict__ lw) {
+  extern __shared__ uint4 table_smem[];
   __shared__ float sc[kNumScalars];
+  __shared__ float warp_min[2][kMaxThreads / 32];  // by the tile's parity
+  int tile_id = blockIdx.x;
+  float in[6][kSlots];
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) load_slot<kSlots>(x, y, th, z, n, tile, tile_id, j, in);
+  const uint16_t* table = vals;
+  if (kSharedTable) {  // in flight during the first tile's motion sample
+    table = reinterpret_cast<const uint16_t*>(table_smem);
+    copy_table_async(reinterpret_cast<uint16_t*>(table_smem), vals, k * wx * wy);
+  }
   if (threadIdx.x < kNumScalars) sc[threadIdx.x] = scalars[threadIdx.x];
   __syncthreads();
-  const size_t first = static_cast<size_t>(blockIdx.x) * tile;
-  float tmin = CUDART_INF_F;
-  for (int s = threadIdx.x; s < tile; s += blockDim.x) {
-    const size_t i = first + s;
-    const bool live = i < static_cast<size_t>(n);
-    // padded lanes read 1.0 everywhere and take part in the minimum
-    const Moved m = live ? propagate(sc, x[i], y[i], th[i], z[i], z[n + i], z[2 * static_cast<size_t>(n) + i])
-                         : propagate(sc, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f);
-    tmin = fminf(tmin, slab_candidate(m.t, k));
-    if (live) {
-      xo[i] = m.x;
-      yo[i] = m.y;
-      co[i] = m.c;
-      so[i] = m.s;
-      lw[i] = m.t;  // the heading bin, until the second pass
+  for (int parity = 0; tile_id < tiles; tile_id += gridDim.x, parity ^= 1) {
+    const size_t first = static_cast<size_t>(tile_id) * tile;
+    const int next = tile_id + gridDim.x;
+    float xf[kSlots], yf[kSlots], tf[kSlots];
+    float tmin = CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const int s = j * blockDim.x + threadIdx.x;
+      const size_t i = first + s;
+      // padded lanes carry 1.0 everywhere and take part in the minimum
+      const Moved m = propagate(sc, in[0][j], in[1][j], in[2][j], in[3][j], in[4][j], in[5][j]);
+      if (s < tile) tmin = fminf(tmin, slab_candidate(m.t, k));
+      if (s < tile && i < static_cast<size_t>(n)) {
+        xo[i] = m.x;
+        yo[i] = m.y;
+        co[i] = m.c;
+        so[i] = m.s;
+      }
+      window_xy(sc, m.x, m.y, &xf[j], &yf[j]);
+      tf[j] = m.t;
     }
-  }
-  const float t_lo = slab_base(block_min(tmin), k, tblk);
-  for (int s = threadIdx.x; s < tile; s += blockDim.x) {
-    const size_t i = first + s;
-    if (i >= static_cast<size_t>(n)) break;
-    float xf, yf;
-    window_xy(sc, xo[i], yo[i], &xf, &yf);
-    const float w = trilinear(vals, wx, wy, tblk, t_lo, xf, yf, lw[i], sc[kMiss], sc[kBase]);
-    lw[i] = logf(fmaxf(w, 1e-30f));
+    if (kSharedTable) cp_async_wait();  // the table, before the barrier below
+    const float t_lo = slab_base(block_min(tmin, warp_min[parity]), k, tblk);
+    if (next < tiles) {  // in flight during the lookups
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) load_slot<kSlots>(x, y, th, z, n, tile, next, j, in);
+    }
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const int s = j * blockDim.x + threadIdx.x;
+      const size_t i = first + s;
+      if (s < tile && i < static_cast<size_t>(n)) {
+        const float w = trilinear<kSharedTable>(table, wx, wy, tblk, t_lo, xf[j], yf[j], tf[j],
+                                                sc[kMiss], sc[kBase]);
+        lw[i] = logf(fmaxf(w, 1e-30f));
+      }
+    }
   }
 }
 
@@ -266,6 +352,53 @@ __global__ void fused_step_kernel(const float* __restrict__ x, const float* __re
 int threads_for(int tile) {
   const int warps = (tile + 31) / 32;
   return warps * 32 < kMaxThreads ? warps * 32 : kMaxThreads;
+}
+
+// Dynamic shared memory B5 gives a table (of the 227 KB a block may hold,
+// less its static arrays); a larger table is read through L2.
+constexpr int kMaxTableSmem = 225 * 1024;
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int device = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
+  }
+  return count;
+}
+
+template <int kSlots, bool kSharedTable>
+int launch_fused_step(const float* x, const float* y, const float* th, const float* z, int n,
+                      const uint16_t* vals, int k, int wx, int wy, int tblk, int tile,
+                      const float* scalars, float* xo, float* yo, float* co, float* so,
+                      float* lw, cudaStream_t stream) {
+  auto kernel = fused_step_kernel<kSlots, kSharedTable>;
+  const int threads = threads_for(tile);
+  const size_t smem = kSharedTable ? static_cast<size_t>(k) * wx * wy * 2 : 0;
+  static bool configured = false;  // per instantiation
+  if (kSharedTable && !configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxTableSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  static int cached_threads = 0, cached_per_sm = 0;
+  static size_t cached_smem = 0;
+  if (threads != cached_threads || smem != cached_smem) {
+    int per_sm = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cached_threads = threads;
+    cached_smem = smem;
+    cached_per_sm = per_sm > 0 ? per_sm : 1;
+  }
+  const int tiles = (n + tile - 1) / tile;
+  const int grid = tiles < sm_count() * cached_per_sm ? tiles : sm_count() * cached_per_sm;
+  kernel<<<grid, threads, smem, stream>>>(x, y, th, z, n, vals, k, wx, wy, tblk, tile, tiles,
+                                          scalars, xo, yo, co, so, lw);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -305,17 +438,40 @@ extern "C" int beluga_winlut_lookup_int8(const void* vals, int k, int wx, int wy
 
 // B5 over n particles: z is [3, n]; `scalars` the 18 device floats of
 // pack_scalars; outputs x', y', cos', sin', log-likelihood, each [n].
+// `tile` at most 8192 (eight slots a thread of 1024).
 extern "C" int beluga_fused_step(const void* x, const void* y, const void* th, const void* z,
                                  int n, const void* vals, int k, int wx, int wy, int tblk,
                                  int tile, const void* scalars, void* xo, void* yo, void* co,
                                  void* so, void* lw, void* stream) {
   if (n == 0) return 0;
-  const int blocks = (n + tile - 1) / tile;
-  fused_step_kernel<<<blocks, threads_for(tile), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<const float*>(th), static_cast<const float*>(z), n,
-      static_cast<const uint16_t*>(vals), k, wx, wy, tblk, tile,
-      static_cast<const float*>(scalars), static_cast<float*>(xo), static_cast<float*>(yo),
-      static_cast<float*>(co), static_cast<float*>(so), static_cast<float*>(lw));
-  return static_cast<int>(cudaGetLastError());
+  const int threads = threads_for(tile);
+  const int slots = (tile + threads - 1) / threads;
+  if (slots > 8) return static_cast<int>(cudaErrorInvalidValue);
+  const bool shared = static_cast<size_t>(k) * wx * wy * 2 <= kMaxTableSmem;
+  const auto* args_x = static_cast<const float*>(x);
+  const auto* args_y = static_cast<const float*>(y);
+  const auto* args_th = static_cast<const float*>(th);
+  const auto* args_z = static_cast<const float*>(z);
+  const auto* table = static_cast<const uint16_t*>(vals);
+  const auto* sc = static_cast<const float*>(scalars);
+  auto* o0 = static_cast<float*>(xo);
+  auto* o1 = static_cast<float*>(yo);
+  auto* o2 = static_cast<float*>(co);
+  auto* o3 = static_cast<float*>(so);
+  auto* o4 = static_cast<float*>(lw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define BELUGA_FUSED_STEP(SLOTS, SHARED)                                                     \
+  return launch_fused_step<SLOTS, SHARED>(args_x, args_y, args_th, args_z, n, table, k, wx,  \
+                                          wy, tblk, tile, sc, o0, o1, o2, o3, o4, s)
+  if (shared) {
+    if (slots == 1) BELUGA_FUSED_STEP(1, true);
+    if (slots == 2) BELUGA_FUSED_STEP(2, true);
+    if (slots <= 4) BELUGA_FUSED_STEP(4, true);
+    BELUGA_FUSED_STEP(8, true);
+  }
+  if (slots == 1) BELUGA_FUSED_STEP(1, false);
+  if (slots == 2) BELUGA_FUSED_STEP(2, false);
+  if (slots <= 4) BELUGA_FUSED_STEP(4, false);
+  BELUGA_FUSED_STEP(8, false);
+#undef BELUGA_FUSED_STEP
 }

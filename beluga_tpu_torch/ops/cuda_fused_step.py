@@ -3,9 +3,14 @@ coordinates + θ-slab trilinear lookup + log.
 
 Port of ``beluga_tpu/ops/pallas_fused_step.py:fused_propagate_winlut`` and
 ``pack_scalars`` (``csrc/winlut.cu``, beside kernel B6, whose slab minimum
-and lookup it shares).  :func:`fused_propagate_winlut` launches the kernel
-on CUDA tensors and runs :func:`fused_propagate_winlut_reference`, the
-plain PyTorch version, on CPU tensors.
+and lookup it shares).  The kernel crosses global memory once a particle:
+a persistent grid whose threads keep their slots in registers across each
+tile's slab minimum, the table in shared memory when it fits (the mega
+filter's 160 KB; a larger one is read through L2), the next tile's inputs
+in flight while the current tile finishes.  :func:`fused_propagate_winlut`
+launches the kernel on CUDA tensors and runs
+:func:`fused_propagate_winlut_reference`, the plain PyTorch version, on CPU
+tensors.
 
 Per particle: ``rot1/trans/rot2 = mean + sd·z``; ``th1 = θ + rot1``,
 ``x' = x + trans·cos th1``, ``y' = y + trans·sin th1``, ``th2 = th1 +
@@ -51,6 +56,8 @@ NUM_SCALARS = 18
 (R1_MU, R1_SD, T_MU, T_SD, R2_MU, R2_SD,
  WF_C, WF_S, WF_X, WF_Y, INV_RES, OFF_X, OFF_Y,
  T_ANG, INV_DTH, T_BIAS, MISS, BASE) = range(NUM_SCALARS)
+
+MAX_TILE = 8192  # slots a tile: eight a thread of a 1024-thread block
 
 # kernel launches since the count was last set to 0
 launches = 0
@@ -142,8 +149,9 @@ def _check(x, y, theta, z, values_t, scalars, tile, tblk):
                              f"got {v.dtype}{list(v.shape)}")
     if n > MAX_PARTICLES:
         raise ValueError(f"{n} particles; the kernel takes at most {MAX_PARTICLES}")
-    if tile < 1 or tblk < 1:
-        raise ValueError(f"tile and tblk must be positive, got {tile}, {tblk}")
+    if tile < 1 or tblk < 1 or tile > MAX_TILE:
+        raise ValueError(f"tile must be in [1, {MAX_TILE}] and tblk positive, "
+                         f"got {tile}, {tblk}")
 
 
 def fused_propagate_winlut(x: Tensor, y: Tensor, theta: Tensor, z: Tensor, values_t: Tensor,
@@ -156,7 +164,8 @@ def fused_propagate_winlut(x: Tensor, y: Tensor, theta: Tensor, z: Tensor, value
       values_t: ``bf16[K, Wx, Wy]`` x-major windowed LUT.
       scalars: ``f32[18]`` from :func:`pack_scalars`, on the particles'
         device.
-      tile: slots per tile; tblk: θ-slab depth (clipped to K).
+      tile: slots per tile (at most ``MAX_TILE``); tblk: θ-slab depth
+        (clipped to K).
     """
     global launches
     _check(x, y, theta, z, values_t, scalars, tile, tblk)

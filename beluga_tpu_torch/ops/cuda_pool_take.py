@@ -14,6 +14,7 @@ of the reference selects nothing for its ``-1`` padding).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -54,36 +55,43 @@ def pool_take_reference(pool: Tensor, idx: Tensor) -> Tensor:
     return torch.where(valid[..., None], rows, 0.0)
 
 
-def _check(pool: Tensor, idx: Tensor) -> None:
-    if idx.device != pool.device:
-        raise ValueError(f"idx is on {idx.device}, pool on {pool.device}")
-    for name, t in (("pool", pool), ("idx", idx)):
-        if not t.is_contiguous():
+@functools.lru_cache(maxsize=64)
+def _plan(pool, idx) -> tuple[int, int, int, int]:
+    """The wrapper's checks on ``(shape, dtype, device, contiguous)`` of
+    ``pool`` and ``idx`` (raising on what the kernel does not take), cached
+    by them: ``(P, C, n, filters)``."""
+    (pshape, pdtype, pdev, pcontig), (ishape, idtype, idev, icontig) = pool, idx
+    if idev != pdev:
+        raise ValueError(f"idx is on {idev}, pool on {pdev}")
+    for name, contiguous in (("pool", pcontig), ("idx", icontig)):
+        if not contiguous:
             raise ValueError(f"{name} must be contiguous")
-    if pool.dtype != torch.float32 or pool.dim() < 2:
-        raise ValueError(f"pool must be float32[..., P, C], got {pool.dtype}{list(pool.shape)}")
-    p, c = pool.shape[-2:]
+    if pdtype != torch.float32 or len(pshape) < 2:
+        raise ValueError(f"pool must be float32[..., P, C], got {pdtype}{list(pshape)}")
+    p, c = pshape[-2:]
     if not (0 < p <= MAX_POOL and 0 < c <= MAX_COLS):
         raise ValueError(f"pool is [{p}, {c}]; the kernel takes P <= {MAX_POOL}, C <= {MAX_COLS}")
-    if idx.dtype != torch.int32 or idx.shape[:-1] != pool.shape[:-2]:
+    if idtype != torch.int32 or ishape[:-1] != pshape[:-2]:
         raise ValueError(f"idx must be int32 with the pool's filter axes "
-                         f"{list(pool.shape[:-2])} then n, got {idx.dtype}{list(idx.shape)}")
+                         f"{list(pshape[:-2])} then n, got {idtype}{list(ishape)}")
+    if pdev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {pdev}")
+    batch = math.prod(ishape[:-1])
+    if pdev.type == "cuda" and batch > 65535:
+        raise ValueError(f"{batch} filters; the kernel takes at most 65535")
+    return p, c, ishape[-1], batch
 
 
 def pool_take(pool: Tensor, idx: Tensor) -> Tensor:
     """``pool[..., idx, :]``: ``f32[..., n, C]`` from ``pool`` ``f32[..., P, C]``
-    and ``idx`` ``int32[..., n]`` (the leading filter axes agree)."""
+    and ``idx`` ``int32[..., n]`` (the leading filter axes agree).  The
+    checks are cached by the tensors' shapes, dtypes, devices and
+    contiguity."""
     global launches
-    _check(pool, idx)
-    if pool.device.type == "cpu":
+    p, c, n, batch = _plan((pool.shape, pool.dtype, pool.device, pool.is_contiguous()),
+                           (idx.shape, idx.dtype, idx.device, idx.is_contiguous()))
+    if not pool.is_cuda:
         return pool_take_reference(pool, idx)
-    if pool.device.type != "cuda":
-        raise ValueError(f"unsupported device {pool.device}")
-    p, c = pool.shape[-2:]
-    n = idx.shape[-1]
-    batch = math.prod(idx.shape[:-1])
-    if batch > 65535:
-        raise ValueError(f"{batch} filters; the kernel takes at most 65535")
     out = torch.empty((*idx.shape, c), dtype=torch.float32, device=pool.device)
     stream = torch.cuda.current_stream(pool.device).cuda_stream
     err = _kernel()(pool.data_ptr(), p, c, idx.data_ptr(), n, batch, out.data_ptr(), stream)

@@ -1,18 +1,28 @@
-"""Kernel B2: fused resampling search and donor copy.
+"""Kernel B2: the whole resample, from the weights to the donor rows.
 
 Port of ``beluga_tpu/ops/pallas_resample.py``: :func:`resample_take`, its
-tree form and the sorted-multinomial form.  The kernel is
-``csrc/resample.cu``.  :func:`resample_take` builds the CDF outside the
-kernel, as in JAX, and hands it to :func:`search_take`, which launches the
-kernel on CUDA tensors and runs :func:`resample_take_reference`, the plain
-PyTorch version, on CPU tensors.
+tree form and the sorted-multinomial form.  The kernels are
+``csrc/resample.cu``, in two stages that are each callable alone:
+:func:`monotone_cdf` builds the CDF from the weights (one launch, or two
+past one tile of 4096 weights) and :func:`search_take` searches it and
+copies the donors (one launch).  On CUDA tensors each launches its kernels,
+and no PyTorch operation runs between them; on CPU tensors each runs its
+plain PyTorch version (:func:`monotone_cdf_reference`,
+:func:`search_take_reference`; :func:`resample_take_reference` is the
+whole function's).
 
-Contract: donor ``k`` of position ``u`` is the first slot with
-``cdf[k] > u``; zero-weight slots are never chosen; a position at or above
-the last CDF entry (padding ``u = 1.5``) gets a zero row; donor rows are
-bit-exact copies.  Every input may carry leading filter axes: a fleet
-passes weights ``[B, N]``, positions ``[B, M]`` and planes ``[B, D, N]``,
-and each filter searches its own CDF.
+Contract: the CDF is ``m / T``, ``m`` the running maximum of the float32
+prefix sums over the slots of positive weight (0 before the first) and
+``T`` its last entry, so a zero-weight slot's interval is empty however
+the sum was associated; donor ``k`` of position ``u`` is the first slot
+with ``cdf[k] > u``; a position at or above the last CDF entry (padding
+``u = 1.5``) gets a zero row; donor rows are bit-exact copies.  Every input
+may carry leading filter axes: a fleet passes weights ``[B, N]``,
+positions ``[B, M]`` and planes ``[B, D, N]``, and each filter has its own
+CDF.  The kernel's sums are associated in another order than
+``torch.cumsum``'s, so its CDF and the plain version's differ by a few ulp
+(within ``64 · 2^-24`` of a float64 prefix sum at N ≤ 2^21), and a position
+between the two values of one entry takes the neighbouring donor.
 """
 
 from __future__ import annotations
@@ -28,45 +38,87 @@ from beluga_tpu_torch.ops.resample import interleave_slots, sorted_multinomial_p
 
 Tensor = torch.Tensor
 
-# kernel launches since the count was last set to 0
+MAX_FILTERS = 65535  # grid.y
+
+# kernel launches since the counts were last set to 0: the search and donor
+# copy, and the CDF builds (one or two kernels each)
 launches = 0
+cdf_launches = 0
 
-_fn = None
+_fns = None
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernels():
+    """``(cdf, search, tile)``: the library's two C entries and the number
+    of weights a block of the CDF kernel scans."""
+    global _fns
+    if _fns is None:
         from beluga_tpu_torch.ops._build import load_library
 
-        fn = load_library("resample").beluga_resample_take
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        lib = load_library("resample")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.beluga_cdf.argtypes = [p, i, i, p, p, p]
+        lib.beluga_resample_take.argtypes = [p, i, p, i, p, i, p, i, p]
+        for fn in (lib.beluga_cdf, lib.beluga_resample_take, lib.beluga_cdf_tile):
+            fn.restype = ctypes.c_int
+        _fns = lib.beluga_cdf, lib.beluga_resample_take, lib.beluga_cdf_tile()
+    return _fns
+
+
+def monotone_cdf_reference(weights: Tensor) -> Tensor:
+    """Plain PyTorch version of the CDF kernel: ``cumsum``, the running
+    maximum over slots with ``w > 0`` (0 before the first), divided by its
+    last entry (at least 1e-38), one CDF per filter along the last axis."""
+    c = torch.cumsum(weights, dim=-1)
+    m = torch.cummax(torch.where(weights > 0, c, 0.0), dim=-1).values
+    return m / torch.clamp_min(m[..., -1:], 1e-38)
 
 
 def monotone_cdf(weights: Tensor) -> Tensor:
-    """``cummax(cumsum(w) / Σw)`` along the last axis, one CDF per filter
-    (pallas_resample.py:405-412): a parallel cumsum can dip by an ulp, and
-    the interval search needs a monotone CDF."""
-    c = torch.cumsum(weights, dim=-1)
-    cdf = c / torch.clamp_min(c[..., -1:], 1e-38)
-    return torch.cummax(cdf, dim=-1).values
+    """The monotone CDF ``f32[..., N]`` of weights ``f32[..., N]``, one per
+    filter (pallas_resample.py:405-412, zero-weight intervals empty):
+    the CDF kernel on CUDA tensors, the plain version on CPU tensors."""
+    global cdf_launches
+    if weights.dtype != torch.float32 or weights.dim() < 1 or weights.shape[-1] == 0:
+        raise ValueError(f"weights must be float32[..., N], N > 0, got "
+                         f"{weights.dtype}{list(weights.shape)}")
+    if not weights.is_contiguous():
+        raise ValueError("weights must be contiguous")
+    filters, n = math.prod(weights.shape[:-1]), weights.shape[-1]
+    if filters > MAX_FILTERS:
+        raise ValueError(f"{filters} filters; the kernel takes at most {MAX_FILTERS}")
+    if weights.device.type == "cpu":
+        return monotone_cdf_reference(weights)
+    if weights.device.type != "cuda":
+        raise ValueError(f"unsupported device {weights.device}")
+    build, _, tile = _kernels()
+    cdf = torch.empty_like(weights)
+    tiles = -(-n // tile)
+    partials = (torch.empty((filters, tiles, 2), dtype=torch.float32, device=weights.device)
+                if tiles > 1 else cdf)  # unused by one-tile filters
+    stream = torch.cuda.current_stream(weights.device).cuda_stream
+    err = build(weights.data_ptr(), n, filters, partials.data_ptr(), cdf.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"CDF kernel launch failed: cudaError {err}")
+    cdf_launches += 1
+    return cdf
 
 
-def resample_take_reference(cdf: Tensor, positions: Tensor, values: Tensor) -> Tensor:
-    """Plain PyTorch version of the kernel: ``searchsorted`` (side right)
-    and a gather; ``f32[..., M, D]``."""
+def search_take_reference(cdf: Tensor, positions: Tensor, values: Tensor) -> Tensor:
+    """Plain PyTorch version of the search kernel: ``searchsorted`` (side
+    right) and a gather; ``f32[..., M, D]``."""
     n, d = cdf.shape[-1], values.shape[-2]
     idx = torch.searchsorted(cdf, positions, right=True)
     found = idx < n
     safe = torch.clamp_max(idx, n - 1)[..., None, :].expand(*idx.shape[:-1], d, idx.shape[-1])
     rows = torch.take_along_dim(values, safe, dim=-1).transpose(-1, -2)
     return torch.where(found[..., None], rows, 0.0)
+
+
+def resample_take_reference(weights: Tensor, positions: Tensor, values: Tensor) -> Tensor:
+    """Plain PyTorch version of the whole function: the CDF, ``searchsorted``
+    and the gather."""
+    return search_take_reference(monotone_cdf_reference(weights), positions, values)
 
 
 def _check(cdf: Tensor, positions: Tensor, values: Tensor) -> None:
@@ -86,27 +138,27 @@ def _check(cdf: Tensor, positions: Tensor, values: Tensor) -> None:
                          f"got {list(positions.shape)}")
     if values.dim() != cdf.dim() + 1 or values.shape[:-2] != lead or values.shape[-1] != n:
         raise ValueError(f"values must be float32{list(lead) + ['D', n]}, got {list(values.shape)}")
-    if math.prod(lead) > 65535:
-        raise ValueError(f"{math.prod(lead)} filters; the kernel takes at most 65535")
+    if math.prod(lead) > MAX_FILTERS:
+        raise ValueError(f"{math.prod(lead)} filters; the kernel takes at most {MAX_FILTERS}")
 
 
 def search_take(cdf: Tensor, positions: Tensor, values: Tensor) -> Tensor:
-    """The kernel's function on a monotone ``cdf`` f32[..., N]: donor rows
-    ``f32[..., M, D]`` for ``positions`` f32[..., M] from ``values``
+    """The search kernel's function on a monotone ``cdf`` f32[..., N]: donor
+    rows ``f32[..., M, D]`` for ``positions`` f32[..., M] from ``values``
     f32[..., D, N].  Launches the kernel on CUDA tensors, runs the plain
     version on CPU tensors."""
     global launches
     _check(cdf, positions, values)
     if cdf.device.type == "cpu":
-        return resample_take_reference(cdf, positions, values)
+        return search_take_reference(cdf, positions, values)
     if cdf.device.type != "cuda":
         raise ValueError(f"unsupported device {cdf.device}")
     d, n = values.shape[-2:]
     m = positions.shape[-1]
     out = torch.empty((*positions.shape, d), dtype=torch.float32, device=cdf.device)
     stream = torch.cuda.current_stream(cdf.device).cuda_stream
-    err = _kernel()(cdf.data_ptr(), n, positions.data_ptr(), m, values.data_ptr(), d,
-                    out.data_ptr(), math.prod(positions.shape[:-1]), stream)
+    err = _kernels()[1](cdf.data_ptr(), n, positions.data_ptr(), m, values.data_ptr(), d,
+                        out.data_ptr(), math.prod(positions.shape[:-1]), stream)
     if err != 0:
         raise RuntimeError(f"resample kernel launch failed: cudaError {err}")
     launches += 1
@@ -114,7 +166,8 @@ def search_take(cdf: Tensor, positions: Tensor, values: Tensor) -> Tensor:
 
 
 def resample_take(weights: Tensor, positions: Tensor, values: Tensor) -> Tensor:
-    """Donor states for every position.
+    """Donor states for every position: :func:`monotone_cdf`, then
+    :func:`search_take`.
 
     Args:
       weights: ``f32[..., N]`` linear weights (zero on dead slots).
@@ -126,7 +179,7 @@ def resample_take(weights: Tensor, positions: Tensor, values: Tensor) -> Tensor:
             or weights.shape[:-1] != positions.shape[:-1]):
         raise ValueError(f"weights must be float32 with the positions' filter axes, "
                          f"got {weights.dtype}{list(weights.shape)}")
-    return search_take(monotone_cdf(weights), positions, values)
+    return search_take(monotone_cdf(weights.contiguous()), positions, values)
 
 
 def pack_state(states: Any, batch_dims: int = 0) -> tuple[Tensor, Any]:

@@ -32,6 +32,7 @@ order and agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -168,24 +169,55 @@ def winlut_lookup_reference(values_t: Tensor, xi: Tensor, yi: Tensor, t: Tensor,
     return trilinear_reference(values_t, xi, yi, t, t_lo, tblk, miss, base)
 
 
-def _check(values_t, xi, yi, t, tile, tblk, scale):
-    if values_t.dtype not in (torch.bfloat16, torch.int8) or values_t.dim() != 3:
+def _meta(t: Tensor) -> tuple:
+    """What the checks read of a tensor: shape, dtype, device, contiguity."""
+    return t.shape, t.dtype, t.device, t.is_contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(values_t, xi, yi, t, tile, tblk, has_scale) -> tuple:
+    """The wrapper's checks on its tensors' :func:`_meta` (raising on what
+    the kernel does not take), cached by them: ``(K, Wx, Wy, tblk)``."""
+    (vshape, vdtype, device, _), n = values_t, xi[0][0] if len(xi[0]) == 1 else -1
+    if vdtype not in (torch.bfloat16, torch.int8) or len(vshape) != 3:
         raise ValueError(f"values_t must be bfloat16 or int8 [K, Wx, Wy], got "
-                         f"{values_t.dtype}{list(values_t.shape)}")
-    if (values_t.dtype == torch.int8) != (scale is not None):
+                         f"{vdtype}{list(vshape)}")
+    if (vdtype == torch.int8) != has_scale:
         raise ValueError("an int8 table needs its scale, and only an int8 table takes one")
-    n = xi.shape[0] if xi.dim() == 1 else -1
-    for name, v in (("values_t", values_t), ("xi", xi), ("yi", yi), ("t", t)):
-        if v.device != values_t.device:
-            raise ValueError(f"{name} is on {v.device}, values_t on {values_t.device}")
-        if not v.is_contiguous():
+    for name, (shape, dtype, dev, contiguous) in (("values_t", values_t), ("xi", xi), ("yi", yi),
+                                                 ("t", t)):
+        if dev != device:
+            raise ValueError(f"{name} is on {dev}, values_t on {device}")
+        if not contiguous:
             raise ValueError(f"{name} must be contiguous")
-        if name != "values_t" and (v.dtype != torch.float32 or v.shape != (n,)):
-            raise ValueError(f"{name} must be float32[N] like xi, got {v.dtype}{list(v.shape)}")
+        if name != "values_t" and (dtype != torch.float32 or tuple(shape) != (n,)):
+            raise ValueError(f"{name} must be float32[N] like xi, got {dtype}{list(shape)}")
     if n > MAX_PARTICLES:
         raise ValueError(f"{n} particles; the kernel takes at most {MAX_PARTICLES}")
     if tile < 1 or tblk < 1:
         raise ValueError(f"tile and tblk must be positive, got {tile}, {tblk}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    k, wx, wy = vshape
+    return k, wx, wy, min(tblk, k)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_float(value: float, device: torch.device) -> Tensor:
+    """A host float as a float32 [1] on the device, made once."""
+    return torch.tensor([value], dtype=torch.float32, device=device)
+
+
+def _float_ptr(v, device: torch.device) -> tuple[int, Tensor]:
+    """The device address of a float32 scalar ``v`` (a float or a 0-d or
+    one-element tensor) and the tensor that holds it: ``v`` itself when it
+    already lies on the device as float32, else a copy."""
+    if isinstance(v, Tensor):
+        if v.device != device or v.dtype != torch.float32 or v.numel() != 1:
+            v = torch.as_tensor(v, dtype=torch.float32, device=device).reshape(1)
+    else:
+        v = _device_float(float(v), device)
+    return v.data_ptr(), v
 
 
 def winlut_lookup(values_t: Tensor, xi: Tensor, yi: Tensor, t: Tensor, miss,
@@ -203,30 +235,30 @@ def winlut_lookup(values_t: Tensor, xi: Tensor, yi: Tensor, t: Tensor, miss,
       tile: slots per tile; tblk: θ-slab depth (clipped to K).
       scale: an int8 table's quantization step (a float or a 0-d tensor,
         which may live on the device); None for a bf16 table.
+
+    The checks and the launch geometry are cached by the tensors' shapes,
+    dtypes, devices and contiguity; a device scalar is passed by address.
     """
     global launches, int8_launches
-    _check(values_t, xi, yi, t, tile, tblk, scale)
-    if values_t.device.type == "cpu":
+    k, wx, wy, tb = _plan(_meta(values_t), _meta(xi), _meta(yi), _meta(t), tile, tblk,
+                          scale is not None)
+    if not values_t.is_cuda:
         return winlut_lookup_reference(values_t, xi, yi, t, miss, base, tile, tblk, scale)
-    if values_t.device.type != "cuda":
-        raise ValueError(f"unsupported device {values_t.device}")
-    k, wx, wy = values_t.shape
-    n = xi.shape[0]
     dev = values_t.device
-    miss_t = torch.as_tensor(miss, dtype=torch.float32, device=dev).reshape(1)
+    n = xi.shape[0]
+    miss_ptr, _miss = _float_ptr(miss, dev)
     out = torch.empty(n, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    head = (values_t.data_ptr(), k, wx, wy, min(tblk, k), xi.data_ptr(), yi.data_ptr(),
-            t.data_ptr(), n, tile, miss_t.data_ptr(), float(base))
-    int8 = values_t.dtype == torch.int8
-    if int8:
-        scale_t = torch.as_tensor(scale, dtype=torch.float32, device=dev).reshape(1)
-        err = _kernel(True)(*head, scale_t.data_ptr(), INV127, out.data_ptr(), stream)
+    head = (values_t.data_ptr(), k, wx, wy, tb, xi.data_ptr(), yi.data_ptr(), t.data_ptr(), n,
+            tile, miss_ptr, float(base))
+    if scale is not None:
+        scale_ptr, _scale = _float_ptr(scale, dev)
+        err = _kernel(True)(*head, scale_ptr, INV127, out.data_ptr(), stream)
     else:
         err = _kernel()(*head, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"winlut kernel launch failed: cudaError {err}")
-    if int8:
+    if scale is not None:
         int8_launches += 1
     else:
         launches += 1

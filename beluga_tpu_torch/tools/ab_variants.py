@@ -1,0 +1,215 @@
+"""A/B of kernel designs on one card: ``profile_update`` over package
+variants, run in turns.
+
+    python -m beluga_tpu_torch.tools.ab_variants [--variants NAME,...]
+        [--parent DIR] [--workloads mega,large] [--scans 16] [--out FILE]
+
+Each variant is a copy of this package under ``build/variants/<name>/``
+with the named source edits of :data:`VARIANTS` applied (each edit must
+match its source exactly once), so that one design element is taken out
+of a kernel at a time (leave-one-out); ``current`` is this package as it
+is, and ``--parent DIR`` adds another checkout (its root holds
+``beluga_tpu_torch/``) as ``parent``.  Each variant builds its kernels into
+its own ``build/``.  The variants' ``tools/profile_update.py`` run in
+turns, in the order given and then reversed (A B C, C B A), each in a
+process of its own with the variant first on the path; every line they
+print is kept (``--out``, JSON lines tagged with the variant and the
+turn), and one line per run and workload gives the wall and busy ms per
+update and each hand-written kernel's device ms per update.  Variants
+named ``*_probe_*`` are not designs but probes: they drop or cheapen one
+part of a kernel to show what it costs.  A run without a CUDA device
+exits 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+PACKAGE = Path(__file__).resolve().parents[1]
+ROOT = PACKAGE.parent
+VARIANT_DIR = ROOT / "build" / "variants"
+
+# name -> [(file under the package, text, replacement)]
+VARIANTS: dict[str, list[tuple[str, str, str]]] = {
+    # B5: the heading bin through the log-likelihood slot and x', y' read
+    # back after the slab minimum, as the first port of B5 did (L2 loads the compiler
+    # cannot forward from the stores)
+    "b5_two_pass": [
+        ("csrc/winlut.cu",
+         "      window_xy(sc, m.x, m.y, &xf[j], &yf[j]);\n      tf[j] = m.t;\n",
+         "      if (s < tile && i < static_cast<size_t>(n)) lw[i] = m.t;\n"),
+        ("csrc/winlut.cu",
+         "        const float w = trilinear<kSharedTable>(table, wx, wy, tblk, t_lo, xf[j], yf[j],"
+         " tf[j],\n",
+         "        window_xy(sc, __ldcg(xo + i), __ldcg(yo + i), &xf[j], &yf[j]);\n"
+         "        const float w = trilinear<kSharedTable>(table, wx, wy, tblk, t_lo, xf[j], yf[j],"
+         " __ldcg(lw + i),\n"),
+    ],
+    # B5: every table read through L2, none staged in shared memory
+    "b5_l2_table": [
+        ("csrc/winlut.cu",
+         "  const bool shared = static_cast<size_t>(k) * wx * wy * 2 <= kMaxTableSmem;\n",
+         "  const bool shared = false;\n"),
+    ],
+    # B5: the table copied through registers before the first tile's motion
+    # sample can use them, not by cp.async beside it
+    "b5_sync_table_copy": [
+        ("csrc/winlut.cu",
+         "      asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(to), "
+         "\"l\"(vals + 8 * v));\n",
+         "      reinterpret_cast<uint4*>(dst)[v] = "
+         "__ldg(reinterpret_cast<const uint4*>(vals) + v);\n"),
+    ],
+    # B5: each slot's inputs of the next tile loaded as soon as its motion
+    # sample has used the registers, not after the slab minimum
+    "b5_prefetch_per_slot": [
+        ("csrc/winlut.cu",
+         "    if (next < tiles) {  // in flight during the lookups\n#pragma unroll\n"
+         "      for (int j = 0; j < kSlots; ++j) load_slot<kSlots>(x, y, th, z, n, tile, next, j, "
+         "in);\n    }\n",
+         ""),
+        ("csrc/winlut.cu",
+         "      const Moved m = propagate(sc, in[0][j], in[1][j], in[2][j], in[3][j], in[4][j], "
+         "in[5][j]);\n",
+         "      const Moved m = propagate(sc, in[0][j], in[1][j], in[2][j], in[3][j], in[4][j], "
+         "in[5][j]);\n"
+         "      if (next < tiles) load_slot<kSlots>(x, y, th, z, n, tile, next, j, in);\n"),
+    ],
+    # B5: each tile's inputs loaded at the top of its iteration, none in
+    # flight across tiles
+    "b5_no_prefetch": [
+        ("csrc/winlut.cu",
+         "    if (next < tiles) {  // in flight during the lookups\n#pragma unroll\n"
+         "      for (int j = 0; j < kSlots; ++j) load_slot<kSlots>(x, y, th, z, n, tile, next, j, "
+         "in);\n    }\n",
+         ""),
+        ("csrc/winlut.cu",
+         "#pragma unroll\n"
+         "  for (int j = 0; j < kSlots; ++j) "
+         "load_slot<kSlots>(x, y, th, z, n, tile, tile_id, j, in);\n",
+         ""),
+        ("csrc/winlut.cu",
+         "    float xf[kSlots], yf[kSlots], tf[kSlots];\n",
+         "#pragma unroll\n"
+         "    for (int j = 0; j < kSlots; ++j) "
+         "load_slot<kSlots>(x, y, th, z, n, tile, tile_id, j, in);\n"
+         "    float xf[kSlots], yf[kSlots], tf[kSlots];\n"),
+    ],
+    # B5: sin and cos of each heading by sinf and cosf, not one sincosf
+    "b5_sin_cos": [
+        ("csrc/winlut.cu",
+         "  float s1, c1;\n  sincosf(th1, &s1, &c1);\n"
+         "  m.x = __fadd_rn(x, __fmul_rn(trans, c1));\n"
+         "  m.y = __fadd_rn(y, __fmul_rn(trans, s1));\n"
+         "  sincosf(th2, &m.s, &m.c);\n",
+         "  m.x = __fadd_rn(x, __fmul_rn(trans, cosf(th1)));\n"
+         "  m.y = __fadd_rn(y, __fmul_rn(trans, sinf(th1)));\n"
+         "  m.c = cosf(th2);\n  m.s = sinf(th2);\n"),
+    ],
+    # probe: B5 with the hardware's approximate sin and cos (wrong results)
+    "b5_probe_fast_trig": [
+        ("csrc/winlut.cu",
+         "  float s1, c1;\n  sincosf(th1, &s1, &c1);\n"
+         "  m.x = __fadd_rn(x, __fmul_rn(trans, c1));\n"
+         "  m.y = __fadd_rn(y, __fmul_rn(trans, s1));\n"
+         "  sincosf(th2, &m.s, &m.c);\n",
+         "  m.x = __fadd_rn(x, __fmul_rn(trans, __cosf(th1)));\n"
+         "  m.y = __fadd_rn(y, __fmul_rn(trans, __sinf(th1)));\n"
+         "  m.c = __cosf(th2);\n  m.s = __sinf(th2);\n"),
+    ],
+    # probe: B5 without its table lookups (wrong results)
+    "b5_probe_no_lookup": [
+        ("csrc/winlut.cu",
+         "        const float w = trilinear<kSharedTable>(table, wx, wy, tblk, t_lo, xf[j], yf[j],"
+         " tf[j],\n                                                sc[kMiss], sc[kBase]);\n",
+         "        const float w = __fadd_rn(xf[j], __fadd_rn(yf[j], __fadd_rn(tf[j], t_lo)));\n"),
+    ],
+    # B2: the search within the bracket through L2, nothing staged
+    "b2_no_window": [
+        ("csrc/resample.cu",
+         "  const bool staged = len <= kWindow;\n",
+         "  const bool staged = false;\n"),
+    ],
+}
+
+
+def make_variant(name: str) -> Path:
+    """``build/variants/<name>/``: a copy of the package with the edits of
+    ``VARIANTS[name]``; returns the copy's root."""
+    root = VARIANT_DIR / name
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(PACKAGE, root / PACKAGE.name,
+                    ignore=shutil.ignore_patterns("__pycache__", "*.pyc"))
+    for rel, text, replacement in VARIANTS[name]:
+        path = root / PACKAGE.name / rel
+        source = path.read_text()
+        if source.count(text) != 1:
+            raise ValueError(f"variant {name}: the edit of {rel} matches "
+                             f"{source.count(text)} times, not once")
+        path.write_text(source.replace(text, replacement))
+    return root
+
+
+def run_profile(root: Path, workloads: str, scans: int) -> list[dict]:
+    """``tools/profile_update.py`` of the package under ``root``, in a
+    process of its own; its JSON lines."""
+    env = dict(os.environ, PYTHONPATH=str(root))
+    out = subprocess.run(
+        [sys.executable, str(root / PACKAGE.name / "tools" / "profile_update.py"),
+         "--scans", str(scans), "--workloads", workloads],
+        env=env, capture_output=True, text=True, check=True,
+    ).stdout
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variants", default="current",
+                    help="comma-separated, in turn order: current, parent or any of "
+                         + ",".join(VARIANTS))
+    ap.add_argument("--parent", default=None, help="a parent checkout's root")
+    ap.add_argument("--workloads", default="mega")
+    ap.add_argument("--scans", type=int, default=16)
+    ap.add_argument("--out", default=None, help="write every profile line here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("ab_variants: no CUDA device", file=sys.stderr)
+        return 2
+    names = args.variants.split(",")
+    roots = {}
+    for name in names:
+        if name == "current":
+            roots[name] = ROOT
+        elif name == "parent":
+            if not args.parent:
+                raise SystemExit("the parent variant needs --parent")
+            roots[name] = Path(args.parent).resolve()
+        else:
+            roots[name] = make_variant(name)
+    records = []
+    for turn, name in enumerate(names + names[::-1]):
+        for line in run_profile(roots[name], args.workloads, args.scans):
+            records.append({"variant": name, "turn": turn, **line})
+            print(json.dumps({"variant": name, "turn": turn, "workload": line["workload"],
+                              "wall": line["wall_ms_per_update"],
+                              "busy": line["device_busy_ms_per_update"],
+                              "kernels": {k: v["device_ms"] for k, v in
+                                          line["hand_kernels_per_update"].items()}}))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.out, "w") as f:
+            for r in records:
+                f.write(json.dumps(r) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

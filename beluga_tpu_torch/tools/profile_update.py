@@ -87,7 +87,8 @@ OPS = ("aten::cummax", "aten::sort", "aten::cumsum", "aten::matmul", "aten::inde
 HAND_KERNELS = {
     "reweight_kernel": "B1/B1-log fused_reweight",
     "reweight_values3_kernel": "B4/B4-log fused_reweight values3",
-    "resample_take_kernel": "B2 resample_take", "pool_take_kernel": "B3 pool_take",
+    "cdf_partials_kernel": "B2 CDF build", "cdf_scan_kernel": "B2 CDF build",
+    "resample_take_kernel": "B2 search", "pool_take_kernel": "B3 pool_take",
     "fused_step_kernel": "B5 fused_propagate_winlut", "winlut_kernel": "B6/B6-int8 winlut_lookup",
     "beam_lut_kernel": "B7 beam_lut_windowed", "window_origins_kernel": "B7 window origins",
     "sphere_trace_kernel": "B8 sphere_trace",

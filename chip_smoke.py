@@ -14,17 +14,23 @@ Phases, each of which exits non-zero when it fails:
    filters x 4096 particles x 60 beams, the large and windowed filters'
    262144, the mega filter's 2097152), held against its plain PyTorch
    version on the same inputs and timed beside it: B1 (exact reweight), B4
-   (codebook16 reweight), B2 (resample take), B3 (pool take), B6 (windowed
-   LUT lookup, beside ``grid_sample`` as the library yardstick) and B5
-   (fused propagate + lookup).  ``ms`` is the time per call of calls
-   issued back to back, the wrapper's host cost included; ``device_ms`` is
-   the device's own time per call under ``torch.profiler``;
+   (codebook16 reweight), B2 (the whole resample take from the weights: its
+   CDF kernel held exactly where it must be exact and within CDF_ULP of a
+   float64 prefix sum, the donors bit-equal to the search on that CDF; the
+   CDF build and the search timed apart and beside the old path,
+   ``torch.cumsum`` and ``torch.cummax`` before the search), B3 (pool take),
+   B6 (windowed LUT lookup, beside ``grid_sample`` as the library yardstick)
+   and B5 (fused propagate + lookup, its table in shared memory at the mega
+   geometry and through L2 at the windowed filter's). ``ms`` is the time per
+   call of calls issued back to back, the wrapper's host cost included;
+   ``device_ms`` is the device's own time per call under ``torch.profiler``;
 4. node: ``AmclNode`` at nav2 defaults tracks the synthetic arena's circle
    for 50 scans; every valid estimate must lie within 0.9 m / 30 degrees
    of the truth, and B1 and B2 must have been launched;
 5. large filter: one 262144-particle filter (systematic resampling, KLD
    down to 65536, pooled recovery) through ``filters.amcl.update`` for 12
-   scans, same gate; B1, B2 and B3 launched;
+   scans, same gate; B1, B2 and B3 launched, and B2's path calls no
+   ``aten::cummax`` (here and in phases 7 and 8);
 6. fleet: 64 filters x 4096 particles in codebook16 mode with theta-sorted
    slots and pooled recovery through ``parallel.fleet.make_fleet_update``
    for 40 scans, same gate on every filter; B4, B2 and B3 launched once per
@@ -112,7 +118,8 @@ shapes.
 Phases 4 to 19 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
 
 Each path's launch counts are set to 0 just before it runs and read just
-after.  The line before the last two is the ``kernels`` JSON; the line
+after; on every path B2's CDF kernel ("B2-cdf monotone_cdf") runs once
+per search.  The line before the last two is the ``kernels`` JSON; the line
 before the last is ``nvidia-smi``'s name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -150,6 +157,9 @@ B9_OPS = {"nearest": 2, "bilinear": 7}
 B6_OPS_PER_PARTICLE = 40
 B5_OPS_PER_PARTICLE = 120
 EDGE = 1e-4  # window coordinates this close to an edge may flip validity
+# the CDF kernel's bound against a float64 prefix sum over its total, N <= 2^21:
+# each float32 sum is associated to a depth of ~30 additions
+CDF_ULP = 64 * 2.0**-24
 
 GATE_POS_M = 0.9  # tests/test_system.py:44-45
 GATE_YAW_RAD = math.radians(30.0)
@@ -446,7 +456,53 @@ def check_codebook16(n: int, w: dict, iters: int, log_space: bool = False) -> di
     )
 
 
-def check_resample(n: int, w: dict, dev, iters: int) -> dict:
+def old_monotone_cdf(weights: torch.Tensor) -> torch.Tensor:
+    """The port's CDF before the CDF kernel: ``torch.cumsum``, a division by
+    the last entry and ``torch.cummax`` (as pallas_resample.py:405-412).
+    Timed here beside the kernel; the port no longer runs it."""
+    c = torch.cumsum(weights, dim=-1)
+    return torch.cummax(c / torch.clamp_min(c[..., -1:], 1e-38), dim=-1).values
+
+
+def check_cdf(weights: torch.Tensor, label: str) -> tuple[torch.Tensor, float, float]:
+    """The CDF kernel on ``weights``: monotone, each zero-weight slot's entry
+    equal to the one before it (0 before the first live slot), the last
+    live slot's entry exactly 1, all checked exactly; every entry within
+    CDF_ULP of the float64 prefix sum over its total.  Returns the CDF, its
+    largest distance from float64 and from the plain version's CDF."""
+    from beluga_tpu_torch.ops import cuda_resample as b2
+
+    cdf = b2.monotone_cdf(weights)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(cdf).all()), f"B2 CDF {label}: not finite")
+    check(bool((cdf[..., 1:] >= cdf[..., :-1]).all()), f"B2 CDF {label}: not monotone")
+    prev = torch.cat([torch.zeros_like(cdf[..., :1]), cdf[..., :-1]], dim=-1)
+    dead = weights == 0
+    check(bool(dead.any()) and torch.equal(cdf[dead], prev[dead]),
+          f"B2 CDF {label}: {int((cdf[dead] != prev[dead]).sum())} zero-weight intervals "
+          f"not empty")
+    n = weights.shape[-1]
+    last = n - 1 - torch.argmax(torch.flip(weights > 0, [-1]).to(torch.int8), dim=-1)
+    at_last = torch.take_along_dim(cdf, last[..., None], dim=-1)[..., 0]
+    check(bool((at_last[(weights > 0).any(-1)] == 1.0).all()),
+          f"B2 CDF {label}: the last live slot's entry is not 1")
+    exact = torch.cumsum(weights.double(), dim=-1)
+    exact = exact / torch.clamp_min(exact[..., -1:], 1e-38)
+    err64 = float((cdf.double() - exact).abs().max())
+    check(err64 <= CDF_ULP, f"B2 CDF {label}: {err64:.3g} from float64 > {CDF_ULP:.3g}")
+    err_plain = float((cdf - b2.monotone_cdf_reference(weights)).abs().max())
+    return cdf, err64, err_plain
+
+
+def check_resample(n: int, w: dict, dev, iters: int) -> tuple[dict, dict]:
+    """Kernel B2, the whole function from the weights: its CDF (held by
+    ``check_cdf``), donors bit-equal to ``search_take`` and to its plain
+    version on the kernel's own CDF, no zero-weight donor, padding at 1.5
+    selecting nothing, and rows apart from the plain whole function only
+    where a position lies between the two CDFs' values of one entry.  Timed
+    as a whole, beside the CDF build and the search alone (device) and the
+    old path (``torch.cumsum`` + ``torch.cummax``, then the search).
+    Returns B2's entry and the CDF kernel's."""
     from beluga_tpu_torch.ops import cuda_resample as b2
     from beluga_tpu_torch.ops.resample import sorted_multinomial_positions, systematic_positions
 
@@ -456,41 +512,73 @@ def check_resample(n: int, w: dict, dev, iters: int) -> dict:
     weights[block][n // 4 : n // 4 + n // 16] = 0.0
     st = w["states"]
     values = torch.stack([st.x, st.y, st.rot.cos, st.rot.sin], dim=-2).contiguous()  # D = 4
-    cdf = b2.monotone_cdf(weights)
+    label = f"{lead} N={n}"
+    cdf, cdf_err64, cdf_err_plain = check_cdf(weights, label)
+    check(torch.equal(cdf, b2.monotone_cdf(weights)), f"B2 CDF {label}: two calls differ")
+    plain_cdf = b2.monotone_cdf_reference(weights)
     gen = torch.Generator(device=dev)
     gen.manual_seed(n)
     pad = max(n // 32, 1)
-    results = []
-    for label, pos in (("sorted multinomial", sorted_multinomial_positions(gen, n, lead)),
-                       ("systematic", systematic_positions(gen, n, lead))):
+    results, moved_rows = [], 0
+    for kind, pos in (("sorted multinomial", sorted_multinomial_positions(gen, n, lead)),
+                      ("systematic", systematic_positions(gen, n, lead))):
         pos = pos.clone()
         pos[..., -pad:] = 1.5  # padding selects nothing
-        got = b2.search_take(cdf, pos, values)
-        want = b2.resample_take_reference(cdf, pos, values)
+        got = b2.resample_take(weights, pos, values)
+        want = b2.search_take_reference(cdf, pos, values)
         torch.cuda.synchronize()
+        check(torch.equal(got, b2.search_take(cdf, pos, values)),
+              f"B2 {kind} {label}: the whole function differs from search_take on its CDF")
         check(torch.equal(got, want),
-              f"B2 {label} {lead} N=M={n}: {int((got != want).any(-1).sum())} rows differ")
+              f"B2 {kind} {label} M={n}: {int((got != want).any(-1).sum())} rows differ")
         idx = torch.searchsorted(cdf, pos, right=True)
         found = idx < n
         chosen = torch.take_along_dim(weights, torch.clamp_max(idx, n - 1), dim=-1)
         check(bool((chosen[found] > 0).all()), "B2 chose a zero-weight slot")
         check(not bool(found[..., -pad:].any()) and bool((got[..., -pad:, :] == 0).all()),
               "B2 padded positions selected a donor")
+        # plain_cdf once: torch.cumsum's multi-block scan on the card need not
+        # associate alike from one call to the next
+        moved = torch.searchsorted(plain_cdf, pos, right=True) != idx
+        differs = (got != b2.search_take_reference(plain_cdf, pos, values)).any(-1)
+        check(torch.equal(differs, moved),
+              f"B2 {kind} {label}: rows differ from the plain version where the CDFs agree")
+        moved_rows += int(moved.sum())
         results.append((pos, got, want))
     pos = results[0][0]  # time the main path's positions (sorted multinomial)
     err = max(float((g - x).abs().max()) for _, g, x in results)
-    times = timings(lambda: b2.search_take(cdf, pos, values),
-                    lambda: b2.resample_take_reference(cdf, pos, values), iters)
+    times = timings(lambda: b2.resample_take(weights, pos, values),
+                    lambda: b2.resample_take_reference(weights, pos, values), iters)
+    cdf_times = timings(lambda: b2.monotone_cdf(weights),
+                        lambda: b2.monotone_cdf_reference(weights), iters)
+    calls = min(iters, 20)
     filters = lead[0] if lead else 1
     d, m = values.shape[-2], pos.shape[-1]
     nbytes = filters * (4 * n + 4 * m + 4 * d * n + 4 * m * d)
-    bms, by = bound_ms(nbytes, filters * m * math.ceil(math.log2(n + 1)))
-    return dict(
+    bms, by = bound_ms(nbytes, filters * (3 * n + m * math.ceil(math.log2(n + 1))))
+    cbms, cby = bound_ms(filters * 8 * n, filters * 3 * n)
+    shape = f"{filters}x N=M={n} D={d}"
+    whole = dict(
         name="B2 resample_take", route="cuda", source="beluga_tpu_torch/csrc/resample.cu",
         replaces="beluga_tpu/ops/pallas_resample.py:369", max_abs_err=err,
-        bound_ms=bms, bound_by=by, **times,
-        shape=f"{filters}x N=M={n} D={d}",
+        bound_ms=bms, bound_by=by, **times, shape=shape,
+        cdf_device_ms=cdf_times["device_ms"],
+        search_device_ms=device_ms(lambda: b2.search_take(cdf, pos, values), calls),
+        old_path_ms=cuda_ms(lambda: b2.search_take(old_monotone_cdf(weights), pos, values),
+                            iters),
+        old_path_device_ms=device_ms(
+            lambda: b2.search_take(old_monotone_cdf(weights), pos, values), calls),
+        old_cdf_device_ms=device_ms(lambda: old_monotone_cdf(weights), calls),
+        rows_moved_from_plain=moved_rows,
     )
+    cdf_entry = dict(
+        name="B2-cdf monotone_cdf", route="cuda", source="beluga_tpu_torch/csrc/resample.cu",
+        replaces="beluga_tpu/ops/pallas_resample.py:405 (resample_take's CDF, before the "
+                 "pallas_call at :495)",
+        max_abs_err=cdf_err_plain, max_abs_err_float64=cdf_err64, bound_ms=cbms, bound_by=cby,
+        **cdf_times, shape=f"{filters}x N={n}",
+    )
+    return whole, cdf_entry
 
 
 def check_pool_take(batch: int | None, p: int, n: int, dev, iters: int) -> dict:
@@ -804,12 +892,14 @@ def near_edge(xo, yo, co, so, scalars, k: int, wx: int, wy: int, tile: int):
     return near | tile_near.expand(-1, tile).reshape(-1)[:n]
 
 
-def check_fused_step(n: int, dev, iters: int) -> dict:
+def check_fused_step(n: int, dev, iters: int, table: str = "mega") -> dict:
     """Kernel B5 at the mega geometry (2097152 particles, 20 bins, a 32x128
-    window, tile 4096, tblk 20) on the workload's cloud with strays, the
-    motion of its first step, fresh normals: states within 1e-5 of its
-    plain version, log-likelihoods within 1e-5, miss sets equal except
-    within EDGE of an edge (counted)."""
+    window, tile 4096, tblk 20: its 160 KB table in shared memory) or, with
+    ``table="windowed"``, at the windowed filter's (262144 particles, 64
+    bins, 128x128, tile 512, tblk 16: its 2 MB table read through L2), on
+    the workload's cloud with strays, the motion of its first step, fresh
+    normals: states within 1e-5 of its plain version, log-likelihoods
+    within 1e-5, miss sets equal except within EDGE of an edge (counted)."""
     from beluga_tpu_torch.filters.amcl import host_pose
     from beluga_tpu_torch.filters.builders import fused_step_scalars
     from beluga_tpu_torch.ops import cuda_fused_step as b5
@@ -817,8 +907,10 @@ def check_fused_step(n: int, dev, iters: int) -> dict:
 
     from beluga_tpu_torch.models.motion.differential_drive import DifferentialDriveParams
 
-    cfg = workloads.MEGA_FILTER
-    w = workloads.mega(2, dev)
+    if table == "mega":
+        cfg, w = workloads.MEGA_FILTER, workloads.mega(2, dev)
+    else:
+        cfg, w = workloads.WINDOWED_FILTER, workloads.windowed(2, dev)
     states, lut = window_inputs(w, cfg)
     s = w.scans
     scalars = fused_step_scalars(lut, DifferentialDriveParams(),
@@ -834,7 +926,8 @@ def check_fused_step(n: int, dev, iters: int) -> dict:
     want = b5.fused_propagate_winlut_reference(*args, tile=tile, tblk=tblk)
     torch.cuda.synchronize()
     k, wx, wy = lut.values_t.shape
-    label = f"{n} particles, [{k}, {wx}, {wy}] bf16, tile {tile}, tblk {tblk}"
+    where = "shared memory" if 2 * lut.values_t.numel() <= 225 * 1024 else "L2"
+    label = f"{n} particles, [{k}, {wx}, {wy}] bf16 ({where}), tile {tile}, tblk {tblk}"
     for g, x, what in zip(got, want, ("x'", "y'", "cos'", "sin'", "log_lik")):
         check(bool(torch.isfinite(g).all()), f"B5 {label}: {what} not finite")
     state_err = max(float((g - x).abs().max()) for g, x in zip(got[:4], want[:4]))
@@ -1366,6 +1459,7 @@ def reset_counts() -> None:
     cuda_reweight.log_launches = 0
     cuda_reweight.values3_log_launches = 0
     cuda_resample.launches = 0
+    cuda_resample.cdf_launches = 0
     cuda_pool_take.launches = 0
     cuda_winlut.launches = 0
     cuda_winlut.int8_launches = 0
@@ -1395,6 +1489,7 @@ def read_counts() -> dict:
     return {"B1 fused_reweight": cuda_reweight.launches,
             "B1-log fused_reweight": cuda_reweight.log_launches,
             "B2 resample_take": cuda_resample.launches,
+            "B2-cdf monotone_cdf": cuda_resample.cdf_launches,
             "B3 pool_take": cuda_pool_take.launches,
             "B4 fused_reweight values3": cuda_reweight.values3_launches,
             "B4-log fused_reweight values3": cuda_reweight.values3_log_launches,
@@ -1409,6 +1504,57 @@ def read_counts() -> dict:
             "B10-fused ndt_weights": cuda_ndt.weights_launches,
             "B11 codebook_lookup": cuda_codebook.launches,
             "R1 cast_rays": raycast.launches}
+
+
+class B2Cummax:
+    """While active, counts the calls of ``torch.cummax`` and
+    ``Tensor.cummax`` (each an ``aten::cummax``) made inside
+    ``cuda_resample.resample_take``, B2's path from the weights to the donor
+    rows, and the calls of that path."""
+
+    def __enter__(self):
+        from beluga_tpu_torch.ops import cuda_resample
+
+        self.calls, self.b2_calls, inside = 0, 0, [0]
+        self._saved = torch.cummax, torch.Tensor.cummax, cuda_resample.resample_take
+        take = cuda_resample.resample_take
+
+        def counted(fn):
+            def inner(*args, **kwargs):
+                self.calls += inside[0] > 0
+                return fn(*args, **kwargs)
+            return inner
+
+        def scoped(*args, **kwargs):
+            inside[0] += 1
+            self.b2_calls += 1
+            try:
+                return take(*args, **kwargs)
+            finally:
+                inside[0] -= 1
+
+        torch.cummax, torch.Tensor.cummax = (counted(f) for f in self._saved[:2])
+        cuda_resample.resample_take = scoped
+        return self
+
+    def __exit__(self, *exc):
+        from beluga_tpu_torch.ops import cuda_resample
+
+        torch.cummax, torch.Tensor.cummax, cuda_resample.resample_take = self._saved
+        return False
+
+
+def no_cummax_on_b2(run, what: str, *args, **kwargs) -> tuple[dict, dict]:
+    """``run(*args, **kwargs)`` with ``torch.cummax`` counted on B2's path
+    (the CDF kernel, then the search), which must call none; the path's
+    calls and cummax calls go into the phase's result."""
+    with B2Cummax() as cm:
+        counts, out = run(*args, **kwargs)
+    check(cm.b2_calls == counts["B2 resample_take"],
+          f"{what}: {cm.b2_calls} calls of B2's path for {counts['B2 resample_take']} searches")
+    check(cm.calls == 0, f"{what}: aten::cummax called {cm.calls} times on B2's path")
+    out.update(b2_path_calls=cm.b2_calls, b2_path_cummax_calls=cm.calls)
+    return counts, out
 
 
 def run_node(dev, scans: int = NODE_SCANS, what: str = "node",
@@ -1998,21 +2144,22 @@ def main() -> int:
     # 3. kernels against their plain versions, on the card
     dev = torch.device("cuda")
     k_main, w = check_reweight(2000, dev, iters=200)
-    r_main = check_resample(2000, w, dev, iters=200)
+    r_main, rc_main = check_resample(2000, w, dev, iters=200)
     k_big, w = check_reweight(LARGE_N, dev, iters=50)
-    r_big = check_resample(LARGE_N, w, dev, iters=50)
+    r_big, rc_big = check_resample(LARGE_N, w, dev, iters=50)
     c_big = check_codebook16(LARGE_N, w, iters=50)
     k_fleet, w = check_reweight(FLEET_N, dev, iters=50, batch=FLEET_B)
-    r_fleet = check_resample(FLEET_N, w, dev, iters=50)
+    r_fleet, rc_fleet = check_resample(FLEET_N, w, dev, iters=50)
     c_fleet = check_codebook16(FLEET_N, w, iters=50)
     del w
     p_fleet = check_pool_take(FLEET_B, 512, FLEET_N, dev, iters=200)
     p_big = check_pool_take(None, 4096, LARGE_N, dev, iters=50)
     p_mega = check_pool_take(None, 512, 4096, dev, iters=200)
-    r_mega = check_resample(MEGA_N, resample_inputs(MEGA_N, dev), dev, iters=20)
+    r_mega, rc_mega = check_resample(MEGA_N, resample_inputs(MEGA_N, dev), dev, iters=20)
     w_big = check_winlut(dev, iters=50)
     f_mega = check_fused_step(MEGA_N, dev, iters=20)
     f_ragged = check_fused_step(MEGA_N - 1000, dev, iters=5)
+    f_l2 = check_fused_step(workloads.WINDOWED_N, dev, iters=20, table="windowed")
     s_node = check_sphere_trace(dev, iters=100, long_range=False)
     s_long = check_sphere_trace(dev, iters=100, long_range=True)
     s_wide = check_sphere_trace(dev, iters=20, long_range=False, n_beams=1000)
@@ -2035,8 +2182,9 @@ def main() -> int:
     v_bench = check_codebook_lookup(dev, iters=20, volume="bench")
     v_floor = check_codebook_lookup(dev, iters=20, volume="floor")
     torch.cuda.empty_cache()
-    checked = (k_main, r_main, k_big, r_big, c_big, k_fleet, r_fleet, c_fleet, p_fleet, p_big,
-               p_mega, r_mega, w_big, f_mega, f_ragged, s_node, s_long, s_wide, l_fleet, l_node,
+    checked = (k_main, r_main, rc_main, k_big, r_big, rc_big, c_big, k_fleet, r_fleet, rc_fleet,
+               c_fleet, p_fleet, p_big, p_mega, r_mega, rc_mega, w_big, f_mega, f_ragged, f_l2,
+               s_node, s_long, s_wide, l_fleet, l_node,
                o_fleet, o_node, c_node,
                c_build, g_shared, g_full, k_log_node, k_log_fleet, c_log_fleet, i_big, n_fleet,
                n_3d, f_node, f_fleet, f_3d, v_bench, v_floor)
@@ -2045,8 +2193,14 @@ def main() -> int:
         lib = "" if k["library_ms"] is None else (
             f", library {ms(k['library_ms'])} (device {ms(k['library_device_ms'])})")
         extra = "".join(f", {key} {k[key]}" for key in (
-            "max_rel_err", "outside_rtol_share", "live_cells", "hit_share", "library_note")
-            if key in k)
+            "max_rel_err", "outside_rtol_share", "live_cells", "hit_share", "library_note",
+            "max_abs_err_float64", "rows_moved_from_plain") if key in k)
+        if "cdf_device_ms" in k:
+            extra += (f"; device: CDF build {ms(k['cdf_device_ms'])}, search "
+                      f"{ms(k['search_device_ms'])}, whole {ms(k['device_ms'])}; old path "
+                      f"(torch.cumsum + torch.cummax, then the search) {ms(k['old_path_ms'])}"
+                      f" (device {ms(k['old_path_device_ms'])}, its CDF "
+                      f"{ms(k['old_cdf_device_ms'])})")
         print(f"kernel {k['name']} {k['shape']}: {ms(k['ms'])} (device {ms(k['device_ms'])};"
               f" plain {ms(k['plain_ms'])}, device {ms(k['plain_device_ms'])};"
               f" bound {ms(k['bound_ms'])} by {k['bound_by']}{lib}),"
@@ -2058,7 +2212,7 @@ def main() -> int:
     print("node: " + json.dumps(node) + " launches " + json.dumps(node_counts))
 
     # 5. the large single filter, with its pooled recovery
-    large_counts, large = run_large_filter(dev)
+    large_counts, large = no_cummax_on_b2(run_large_filter, "large filter", dev)
     print("large filter: " + json.dumps(large) + " launches " + json.dumps(large_counts))
 
     # 6. the fleet (slice 2's main path)
@@ -2066,11 +2220,11 @@ def main() -> int:
     print("fleet: " + json.dumps(fleet) + " launches " + json.dumps(fleet_counts))
 
     # 7. the mega filter (slice 3's headline path)
-    mega_counts, mega = run_mega(dev)
+    mega_counts, mega = no_cummax_on_b2(run_mega, "mega", dev)
     print("mega: " + json.dumps(mega) + " launches " + json.dumps(mega_counts))
 
     # 8. the windowed filter (slice 3's gated path)
-    win_counts, windowed = run_windowed(dev)
+    win_counts, windowed = no_cummax_on_b2(run_windowed, "windowed", dev)
     print("windowed: " + json.dumps(windowed) + " launches " + json.dumps(win_counts))
 
     # 9. the beam node in each of its four modes (slice 4)
@@ -2143,12 +2297,17 @@ def main() -> int:
                "prob_fleet": pfleet_counts, "windowed_int8": int8_counts,
                "ndt_node": ndt_counts, "ndt_fleet": nfleet_counts, "ndt3d_node": ndt3_counts,
                "vdb": vdb_counts}
+    for path, c in by_path.items():  # B2's two stages, once each a resample
+        check(c["B2-cdf monotone_cdf"] == c["B2 resample_take"],
+              f"{path}: {c['B2-cdf monotone_cdf']} CDF builds for {c['B2 resample_take']} "
+              f"searches")
     resampled = mega_counts["B2 resample_take"] > 0
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
              "plain_device_ms", "library_device_ms", "shape")
     kernels = []
     for k, path in ((k_big, "windowed"), (r_mega if resampled else r_big,
                                           "mega" if resampled else "windowed"),
+                    (rc_mega if resampled else rc_big, "mega" if resampled else "windowed"),
                     (p_mega if mega_counts["B3 pool_take"] else p_big,
                      "mega" if mega_counts["B3 pool_take"] else "windowed"),
                     (c_fleet, "fleet"), (f_mega, "mega"), (w_big, "windowed"),
@@ -2165,6 +2324,12 @@ def main() -> int:
         entry.update({key: k[key] for key in timed})
         if k is s_node:
             entry["other_shapes"] = [{key: s_wide[key] for key in timed}]
+        if k is f_mega:  # the L2 branch of the same kernel
+            entry["other_shapes"] = [{key: f_l2[key] for key in timed}]
+        if k in (r_mega, r_big):
+            entry.update({key: k[key] for key in (
+                "cdf_device_ms", "search_device_ms", "old_path_ms", "old_path_device_ms",
+                "old_cdf_device_ms")})
         entry["path"] = path
         entry["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         kernels.append(entry)

@@ -115,10 +115,106 @@ def test_b2_kernel_matches_plain_version(dev, n, m, lead, d):
     for pos in (sorted_multinomial_positions(gen, m, lead), systematic_positions(gen, m, lead)):
         pos[..., -7:] = 1.5
         got = b2.search_take(cdf, pos, values)
-        want = b2.resample_take_reference(cdf, pos, values)
+        want = b2.search_take_reference(cdf, pos, values)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         assert not got[..., -7:, :].any()
+
+
+CDF_ULP = 64 * 2.0**-24  # the CDF kernel's bound against a float64 prefix sum, N <= 2^21
+
+
+def cdf_weights(dev, lead, n, seed):
+    """Gamma weights with a block of zero-weight slots, scattered zeros, a
+    dead first slot and, for fleets, an all-zero filter last."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.rand((*lead, n), generator=gen, device=dev) ** 4
+    w[..., n // 5 : n // 5 + n // 7] = 0.0
+    w[torch.rand(w.shape, generator=gen, device=dev) < 0.1] = 0.0
+    w[..., 0] = 0.0
+    if lead:
+        w.view(-1, n)[-1] = 0.0
+    return w
+
+
+@pytest.mark.parametrize("lead,n", [((), 2000), ((64,), 4096), ((), 262144), ((), 2097152),
+                                    ((3,), 4099), ((2,), 8193), ((), 1)])
+def test_b2_cdf_kernel_monotone_exact_intervals_and_ulp_bound(dev, lead, n):
+    """The CDF kernel: monotone, each zero-weight slot's entry equal to the
+    one before it (0 before the first live slot; an all-zero filter all 0),
+    the last live slot's entry exactly 1, and every entry within CDF_ULP of
+    a float64 prefix sum divided by its total; one launch a call, two calls
+    bit-equal."""
+    from beluga_tpu_torch.ops import cuda_resample as b2
+
+    w = cdf_weights(dev, lead, n, n)
+    before = b2.cdf_launches
+    cdf = b2.monotone_cdf(w)
+    torch.cuda.synchronize()
+    assert b2.cdf_launches == before + 1
+    assert torch.equal(cdf, b2.monotone_cdf(w))  # one association, every call
+    assert cdf.shape == w.shape and torch.isfinite(cdf).all()
+    assert (cdf[..., 1:] >= cdf[..., :-1]).all()
+    prev = torch.cat([torch.zeros_like(cdf[..., :1]), cdf[..., :-1]], dim=-1)
+    dead = w == 0
+    assert torch.equal(cdf[dead], prev[dead])
+    exact = torch.cumsum(w.double(), dim=-1)
+    exact = exact / torch.clamp_min(exact[..., -1:], 1e-38)
+    assert float((cdf.double() - exact).abs().max()) <= CDF_ULP
+    flat_w, flat_c = w.reshape(-1, n), cdf.reshape(-1, n)
+    for f in range(flat_w.shape[0]):
+        live = torch.nonzero(flat_w[f] > 0).flatten()
+        if live.numel():
+            assert float(flat_c[f, live[-1]]) == 1.0
+        else:
+            assert not flat_c[f].any()
+
+
+@pytest.mark.parametrize("lead,n,strategy", [((), 2000, "sorted"), ((64,), 4096, "sorted"),
+                                             ((), 262144, "systematic"),
+                                             ((), 2097152, "systematic"),
+                                             ((), 262144, "uniform"), ((3,), 4099, "uniform")])
+def test_b2_whole_function_is_cdf_kernel_then_search(dev, lead, n, strategy):
+    """``resample_take`` from the weights on the card: one CDF build and one
+    search, donors bit-equal to ``search_take`` on the kernel's own CDF and
+    to its plain version there, no donor with zero weight, padding at 1.5
+    and the all-zero filter zero rows, and rows apart from the plain whole
+    function only where a position lies between the two CDFs' values of
+    one entry.  Uniform positions take the kernel's global-memory search."""
+    from beluga_tpu_torch.ops import cuda_resample as b2
+    from beluga_tpu_torch.ops.resample import (
+        multinomial_positions,
+        sorted_multinomial_positions,
+        systematic_positions,
+    )
+
+    w = cdf_weights(dev, lead, n, n + 1)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    draw = {"sorted": sorted_multinomial_positions, "systematic": systematic_positions,
+            "uniform": multinomial_positions}[strategy]
+    pos = draw(gen, n, lead).contiguous()
+    pos[..., -5:] = 1.5
+    values = torch.randn((*lead, 4, n), generator=gen, device=dev)
+    counts = b2.cdf_launches, b2.launches
+    got = b2.resample_take(w, pos, values)
+    torch.cuda.synchronize()
+    assert (b2.cdf_launches, b2.launches) == (counts[0] + 1, counts[1] + 1)
+    cdf = b2.monotone_cdf(w)
+    assert torch.equal(got, b2.search_take(cdf, pos, values))
+    assert torch.equal(got, b2.search_take_reference(cdf, pos, values))
+    idx = torch.searchsorted(cdf, pos, right=True)
+    found = idx < n
+    chosen = torch.take_along_dim(w, torch.clamp_max(idx, n - 1), dim=-1)
+    assert (chosen[found] > 0).all()
+    assert not got[..., -5:, :].any()
+    if lead:
+        assert not got.reshape(-1, n, 4)[-1].any()
+    # the plain CDF once: torch.cumsum's multi-block scan on the card need
+    # not associate alike from one call to the next
+    plain_cdf = b2.monotone_cdf_reference(w)
+    moved = (torch.searchsorted(plain_cdf, pos, right=True) != idx)
+    differs = (got != b2.search_take_reference(plain_cdf, pos, values)).any(-1)
+    assert torch.equal(differs, moved)
 
 
 @pytest.mark.parametrize("lead,p,c,n", [((64,), 512, 2, 4096), ((), 4096, 2, 262144),
@@ -237,15 +333,25 @@ def test_b6_kernel_matches_plain_version(dev, n, tile, tblk):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("n,tile", [(2097152, 4096), (2097152 - 1000, 4096), (777, 128)])
-def test_b5_kernel_matches_plain_version(dev, n, tile):
+@pytest.mark.parametrize("n,tile,tblk,table", [
+    (2097152, 4096, 20, "mega"), (2097152 - 1000, 4096, 20, "mega"), (777, 128, 20, "mega"),
+    (2097152, 4096, 8, "mega"), (100000, 3000, 20, "mega"), (50000, 8192, 12, "mega"),
+    (262144 + 300, 4096, 16, "windowed"), (5000, 512, 16, "windowed")])
+def test_b5_kernel_matches_plain_version(dev, n, tile, tblk, table):
+    """B5 against its plain version: the mega's 160 KB table in shared
+    memory, the windowed filter's 2 MB table through L2, a slab shallower
+    than K, N not a multiple of the tile, tiles that are not a multiple of
+    the block (3000) and eight slots a thread (8192)."""
     from beluga_tpu_torch.filters.amcl import host_pose
     from beluga_tpu_torch.filters.builders import fused_step_scalars
     from beluga_tpu_torch.models.motion.differential_drive import DifferentialDriveParams
     from beluga_tpu_torch.ops import cuda_fused_step as b5
     from beluga_tpu_torch.tools import workloads
 
-    w, states, lut = window_case(dev, max(n, 4096), workloads.MEGA_FILTER, workloads.mega)
+    cfg, make = {"mega": (workloads.MEGA_FILTER, workloads.mega),
+                 "windowed": (workloads.WINDOWED_FILTER, workloads.windowed)}[table]
+    w, states, lut = window_case(dev, max(n, 4096), cfg, make)
+    assert (lut.values_t.numel() * 2 <= 225 * 1024) == (table == "mega")
     s = w.scans
     scalars = fused_step_scalars(lut, DifferentialDriveParams(), host_pose(0.3, 0.1, 0.2),
                                  host_pose(s.xs[0], s.ys[0], s.yaws[0]), dev)
@@ -253,16 +359,19 @@ def test_b5_kernel_matches_plain_version(dev, n, tile):
     args = (*(v[:n].contiguous() for v in (states.x, states.y, states.theta)), z,
             lut.values_t, scalars)
     before = b5.launches
-    got = b5.fused_propagate_winlut(*args, tile=tile, tblk=20)
-    want = b5.fused_propagate_winlut_reference(*args, tile=tile, tblk=20)
+    got = b5.fused_propagate_winlut(*args, tile=tile, tblk=tblk)
+    want = b5.fused_propagate_winlut_reference(*args, tile=tile, tblk=tblk)
     torch.cuda.synchronize()
     assert b5.launches == before + 1
     for g, x in zip(got[:4], want[:4]):
         torch.testing.assert_close(g, x, rtol=0, atol=1e-5)
     miss = torch.log(lut.miss)
     both = (got[4] != miss) & (want[4] != miss)
+    assert 0 < int(both.sum()) < n
     assert int(((got[4] == miss) != (want[4] == miss)).sum()) <= n // 10000
     torch.testing.assert_close(got[4][both], want[4][both], rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="tile"):
+        b5.fused_propagate_winlut(*args, tile=b5.MAX_TILE + 1, tblk=tblk)
 
 
 def test_mega_update_on_card(dev):
