@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from beluga_tpu_torch.lie import SE2
+from beluga_tpu_torch.lie import SE2, SO2
 from beluga_tpu_torch.maps.occupancy import OccupancyGrid
 from beluga_tpu_torch.ops.distance_transform import squared_distance_transform
 
@@ -158,14 +158,7 @@ def likelihood_field_prob_weights(field: LikelihoodField, states: SE2, points: T
     of :func:`ops.cuda_reweight.build_values3` with ``log_space=True``),
     their plain versions on a CPU tensor; without it the float table."""
     if codes_book is not None:
-        from beluga_tpu_torch.ops.cuda_reweight import fused_reweight
-
-        codes, book = codes_book
-        tf = field.world_to_field @ states
-        return fused_reweight(
-            codes, book, tf.x.contiguous(), tf.y.contiguous(), tf.rot.cos.contiguous(),
-            tf.rot.sin.contiguous(), points, beam_mask, field.resolution, field.unknown_prob,
-            values3=values3, log_space=True)
+        return _reweight(field, codes_book, states, points, beam_mask, values3, log_space=True)
     pz, m = _field_lookup(field, states, points, beam_mask)
     return torch.sum(torch.where(m, torch.log(pz), 0.0), dim=-1)
 
@@ -184,12 +177,18 @@ def likelihood_field_weights_codebook(
     codebook16 table of ``build_values3``) kernel B4 instead, within 5e-3
     of B1.  States ``[..., N]`` take points ``[..., nb, 2]`` and masks
     ``[..., nb]`` with the same filter axes."""
-    from beluga_tpu_torch.ops.cuda_reweight import fused_reweight
+    return _reweight(field, codes_book, states, points, beam_mask, values3)
+
+
+def _reweight(field: LikelihoodField, codes_book: tuple[Tensor, Tensor], states: SE2,
+              points: Tensor, beam_mask: Tensor, values3: Tensor | None,
+              log_space: bool = False) -> Tensor:
+    """Kernel B1 or B4 through its states entry: the field-frame transform
+    is composed in the kernel, so no PyTorch operation runs before it."""
+    from beluga_tpu_torch.ops.cuda_reweight import fused_reweight_states
 
     codes, book = codes_book
-    tf = field.world_to_field @ states
-    return fused_reweight(
-        codes, book, tf.x.contiguous(), tf.y.contiguous(),
-        tf.rot.cos.contiguous(), tf.rot.sin.contiguous(),
-        points, beam_mask, field.resolution, field.unknown_prob, values3=values3,
-    )
+    states = SE2(states.xy.contiguous(), SO2(states.rot.z.contiguous()))
+    return fused_reweight_states(codes, book, field.world_to_field, states, points, beam_mask,
+                                 field.resolution, field.unknown_prob, values3=values3,
+                                 log_space=log_space)

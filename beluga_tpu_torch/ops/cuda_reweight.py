@@ -6,56 +6,69 @@ path (``values3=None``, kernel B1) and on its codebook16 path
 with and without ``log_space``: the likelihood-field model's ``1 + Σ pz³``
 or, for nav2's ``likelihood_field_prob`` model, ``Σ log pz`` (B1-log and
 B4-log; B4-log reads a ``bf16(log pz)`` table and ``log(unknown)`` off the
-map).  Both kernels are in ``csrc/reweight.cu``.  :func:`fused_reweight`
-launches them on CUDA tensors and runs :func:`fused_reweight_reference` or
-:func:`fused_reweight_values3_reference`, the plain PyTorch versions, on
-CPU tensors.  Every input may carry leading filter axes (a fleet of B
-filters passes ``f32[B, N]`` particles, ``f32[B, nb, 2]`` points and
-``bool[B, nb]`` masks); the tables are shared, as under JAX's ``vmap``.
+map).  Both kernels are in ``csrc/reweight.cu``, with two entries:
+:func:`fused_reweight` takes each particle's field-frame transform
+``(tx, ty, cos, sin)`` as the Pallas function does, and
+:func:`fused_reweight_states` takes the particle states and the field's
+``world_to_field`` and composes them in the kernel, in ``lie.py``'s
+operation order, so that the models run no PyTorch operation before the
+launch.  On CUDA tensors each launches the kernel; on CPU tensors each runs
+its plain PyTorch version (:func:`fused_reweight_reference`,
+:func:`fused_reweight_values3_reference`; for the states entry ``lie.py``'s
+composition, then those).  Every input may carry leading filter axes (a
+fleet of B filters passes ``[B, N]`` particles, ``f32[B, nb, 2]`` points
+and ``bool[B, nb]`` masks); the tables are shared, as under JAX's
+``vmap``.
 
 Contract: every cell ``floor(x / res)`` matches the plain version bit for
-bit; B1 reads the codebook value, B4 the bf16 table entry of the cell; the
-beam sum runs in another order, so weights agree to ~1e-5 relative, and
-B4's weights lie within 5e-3 of B1's (bf16 keeps 8 significant bits: an
-entry may be off by 2^-8 relative; a log entry by 2^-9 of its magnitude).
+bit; B1 reads the codebook value, B4 the bf16 table entry of the cell;
+masked beams are skipped and an off-map endpoint reads ``unknown_prob``
+(B4: ``unknown³`` or ``log unknown``); the beam sum runs in another order,
+so weights agree to ~1e-5 relative, and B4's weights lie within 5e-3 of
+B1's (bf16 keeps 8 significant bits: an entry may be off by 2^-8 relative;
+a log entry by 2^-9 of its magnitude); two launches on the same inputs are
+bit-equal.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
+from beluga_tpu_torch.lie import SE2
 from beluga_tpu_torch.ops.gather2d import codebook_lookup
 
 Tensor = torch.Tensor
 
-MAX_BEAMS = 16384  # shared memory: (256 + 3 * beams) floats per block
+MAX_BEAMS = 16384  # shared memory: 8 bytes a beam beside 1 KB of decoded values
 MAX_CODES = 256
-MAX_FILTERS = 65535  # grid.y
+MAX_FILTERS = 65535
 
-# kernel launches since the count was last set to 0: B1, B4, B1-log, B4-log
+# kernel launches since the counts were last set to 0: B1, B4, B1-log,
+# B4-log; and those of them made through the states entry
 launches = 0
 values3_launches = 0
 log_launches = 0
 values3_log_launches = 0
+states_launches = 0
 
-_fns: dict = {}
+_fn = None
 
 
-def _kernel(name: str):
-    fn = _fns.get(name)
-    if fn is None:
+def _kernel():
+    global _fn
+    if _fn is None:
         from beluga_tpu_torch.ops._build import load_library
 
-        fn = getattr(load_library("reweight"), name)
+        fn = load_library("reweight").beluga_reweight
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        table = [p, i, i, p, i] if name == "beluga_reweight" else [p, i, i]
-        fn.argtypes = table + [p, p, p, p, i, p, p, i, f, f, p, i, i, p]
+        fn.argtypes = [p, i, i, i, p, i, p, p, p, p, i, i, p, p, i, f, f, p, i, i, p]
         fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
+        _fn = fn
+    return _fn
 
 
 def build_values3(codes: Tensor, codebook: Tensor, log_space: bool = False) -> Tensor:
@@ -126,44 +139,111 @@ def fused_reweight_values3_reference(
     return total if log_space else 1.0 + total
 
 
-def _check(codes, codebook, tx, ty, cos, sin, points, beam_mask, values3):
-    device = codes.device
-    tensors = {"codes": codes, "codebook": codebook, "tx": tx, "ty": ty, "cos": cos,
-               "sin": sin, "points": points, "beam_mask": beam_mask}
+def fused_reweight_states_reference(
+    codes: Tensor, codebook: Tensor, world_to_field: SE2, states: SE2, points: Tensor,
+    beam_mask: Tensor, resolution: float, unknown_prob: float, values3: Tensor | None = None,
+    log_space: bool = False,
+) -> Tensor:
+    """Plain PyTorch version of the states entry: ``world_to_field @
+    states`` (``lie.py``), then :func:`fused_reweight_reference` or, with
+    ``values3``, :func:`fused_reweight_values3_reference`."""
+    tf = world_to_field @ states
+    particles = (tf.x, tf.y, tf.rot.cos, tf.rot.sin)
+    if values3 is not None:
+        return fused_reweight_values3_reference(values3, *particles, points, beam_mask,
+                                                resolution, unknown_prob, log_space)
+    return fused_reweight_reference(codes, codebook, *particles, points, beam_mask, resolution,
+                                    unknown_prob, log_space)
+
+
+def _meta(t: Tensor | None) -> tuple | None:
+    """What the checks read of a tensor: shape, dtype, device, contiguity."""
+    return None if t is None else (t.shape, t.dtype, t.device, t.is_contiguous())
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(codes, codebook, particles, states: bool, points, beam_mask, values3) -> tuple:
+    """The wrapper's checks on its tensors' :func:`_meta` (raising on what
+    the kernel does not take), cached by them: ``(H, W, K, n, nb,
+    filters)``.  ``particles`` holds tx, ty, cos and sin ``[..., N]``, or
+    with ``states`` the states' xy and rot ``[..., N, 2]`` and
+    world_to_field's xy and rot ``[2]``."""
+    names = (("xy", "rot", "world_to_field.xy", "world_to_field.rot") if states
+             else ("tx", "ty", "cos", "sin"))
+    tensors = {"codes": codes, "codebook": codebook, **dict(zip(names, particles)),
+               "points": points, "beam_mask": beam_mask}
     if values3 is not None:
         tensors["values3"] = values3
-    for name, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, codes on {device}")
-        if not t.is_contiguous():
+    device = codes[2]
+    for name, (_, _, dev, contiguous) in tensors.items():
+        if dev != device:
+            raise ValueError(f"{name} is on {dev}, codes on {device}")
+        if not contiguous:
             raise ValueError(f"{name} must be contiguous")
-    if codes.dtype != torch.uint8 or codes.dim() != 2:
-        raise ValueError(f"codes must be uint8[H, W], got {codes.dtype}{list(codes.shape)}")
-    if codebook.dtype != torch.float32 or codebook.dim() != 1 or not (
-        0 < codebook.shape[0] <= MAX_CODES
-    ):
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    (cshape, cdtype, _, _), (bshape, bdtype, _, _) = codes, codebook
+    if cdtype != torch.uint8 or len(cshape) != 2:
+        raise ValueError(f"codes must be uint8[H, W], got {cdtype}{list(cshape)}")
+    if bdtype != torch.float32 or len(bshape) != 1 or not 0 < bshape[0] <= MAX_CODES:
         raise ValueError(f"codebook must be float32[K], 0 < K <= {MAX_CODES}")
-    if values3 is not None and (values3.dtype != torch.bfloat16 or values3.shape != codes.shape):
-        raise ValueError(f"values3 must be bfloat16{list(codes.shape)}, "
-                         f"got {values3.dtype}{list(values3.shape)}")
-    shape = tx.shape
-    if tx.dim() < 1:
-        raise ValueError("tx must be float32[..., N]")
-    for name in ("tx", "ty", "cos", "sin"):
-        t = tensors[name]
-        if t.dtype != torch.float32 or t.shape != shape:
-            raise ValueError(f"{name} must be float32{list(shape)}, got {t.dtype}{list(t.shape)}")
-    lead = tuple(shape[:-1])
-    nb = points.shape[-2] if points.dim() >= 2 else 0
-    if points.dtype != torch.float32 or points.shape != (*lead, nb, 2):
+    if values3 is not None and (values3[1] != torch.bfloat16 or values3[0] != cshape):
+        raise ValueError(f"values3 must be bfloat16{list(cshape)}, "
+                         f"got {values3[1]}{list(values3[0])}")
+    shape = tuple(particles[0][0])
+    if states:
+        if len(shape) < 2 or shape[-1] != 2:
+            raise ValueError(f"xy must be float32[..., N, 2], got {list(shape)}")
+        lead, n = shape[:-2], shape[-2]
+    else:
+        if len(shape) < 1:
+            raise ValueError("tx must be float32[..., N]")
+        lead, n = shape[:-1], shape[-1]
+    for i, name in enumerate(names):
+        pshape, pdtype = particles[i][:2]
+        expected = (2,) if states and i >= 2 else shape
+        if pdtype != torch.float32 or tuple(pshape) != expected:
+            raise ValueError(f"{name} must be float32{list(expected)}, "
+                             f"got {pdtype}{list(pshape)}")
+    pshape, pdtype = points[:2]
+    nb = pshape[-2] if len(pshape) >= 2 else 0
+    if pdtype != torch.float32 or tuple(pshape) != (*lead, nb, 2):
         raise ValueError(f"points must be float32[..., nb, 2] with the particles' filter "
-                         f"axes {list(lead)}, got {points.dtype}{list(points.shape)}")
-    if beam_mask.dtype != torch.bool or beam_mask.shape != (*lead, nb):
+                         f"axes {list(lead)}, got {pdtype}{list(pshape)}")
+    if beam_mask[1] != torch.bool or tuple(beam_mask[0]) != (*lead, nb):
         raise ValueError(f"beam_mask must be bool{list((*lead, nb))}")
     if nb > MAX_BEAMS:
         raise ValueError(f"{nb} beams; the kernel takes at most {MAX_BEAMS}")
-    if math.prod(lead) > MAX_FILTERS:
-        raise ValueError(f"{math.prod(lead)} filters; the kernel takes at most {MAX_FILTERS}")
+    filters = math.prod(lead)
+    if filters > MAX_FILTERS:
+        raise ValueError(f"{filters} filters; the kernel takes at most {MAX_FILTERS}")
+    return cshape[0], cshape[1], bshape[0], n, nb, filters
+
+
+def _launch(plan, codes, codebook, particles, states: bool, points, beam_mask, resolution,
+            unknown_prob, values3, log_space) -> Tensor:
+    global launches, values3_launches, log_launches, values3_log_launches, states_launches
+    h, w, k, n, nb, filters = plan
+    shape = particles[0].shape[:-1] if states else particles[0].shape
+    out = torch.empty(shape, dtype=torch.float32, device=codes.device)
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    table = codes if values3 is None else values3
+    err = _kernel()(table.data_ptr(), int(values3 is not None), h, w, codebook.data_ptr(), k,
+                    *(t.data_ptr() for t in particles), int(states), n, points.data_ptr(),
+                    beam_mask.data_ptr(), nb, resolution, unknown_prob, out.data_ptr(), filters,
+                    int(log_space), stream)
+    if err != 0:
+        raise RuntimeError(f"reweight kernel launch failed: cudaError {err}")
+    if values3 is None and log_space:
+        log_launches += 1
+    elif values3 is None:
+        launches += 1
+    elif log_space:
+        values3_log_launches += 1
+    else:
+        values3_launches += 1
+    states_launches += states
+    return out
 
 
 def fused_reweight(
@@ -183,10 +263,14 @@ def fused_reweight(
       values3: ``bf16[H, W]`` from :func:`build_values3` (built with the
         same ``log_space``): kernel B4 (the codebook16 mode) instead of B1.
       log_space: the probability model's sum of logs, base 0.
+
+    The checks are cached by the tensors' shapes, dtypes, devices and
+    contiguity.
     """
-    global launches, values3_launches, log_launches, values3_log_launches
-    _check(codes, codebook, tx, ty, cos, sin, points, beam_mask, values3)
-    if codes.device.type == "cpu":
+    particles = (tx, ty, cos, sin)
+    plan = _plan(_meta(codes), _meta(codebook), tuple(map(_meta, particles)), False,
+                 _meta(points), _meta(beam_mask), _meta(values3))
+    if not codes.is_cuda:
         if values3 is not None:
             return fused_reweight_values3_reference(
                 values3, tx, ty, cos, sin, points, beam_mask, resolution, unknown_prob,
@@ -194,29 +278,32 @@ def fused_reweight(
         return fused_reweight_reference(
             codes, codebook, tx, ty, cos, sin, points, beam_mask, resolution, unknown_prob,
             log_space)
-    if codes.device.type != "cuda":
-        raise ValueError(f"unsupported device {codes.device}")
-    h, w = codes.shape
-    n, nb = tx.shape[-1], points.shape[-2]
-    batch = math.prod(tx.shape[:-1])
-    out = torch.empty(tx.shape, dtype=torch.float32, device=codes.device)
-    stream = torch.cuda.current_stream(codes.device).cuda_stream
-    particles = (tx.data_ptr(), ty.data_ptr(), cos.data_ptr(), sin.data_ptr(), n,
-                 points.data_ptr(), beam_mask.data_ptr(), nb, resolution, unknown_prob,
-                 out.data_ptr(), batch, int(log_space), stream)
-    if values3 is None:
-        err = _kernel("beluga_reweight")(
-            codes.data_ptr(), h, w, codebook.data_ptr(), codebook.shape[0], *particles)
-    else:
-        err = _kernel("beluga_reweight_values3")(values3.data_ptr(), h, w, *particles)
-    if err != 0:
-        raise RuntimeError(f"reweight kernel launch failed: cudaError {err}")
-    if values3 is None and log_space:
-        log_launches += 1
-    elif values3 is None:
-        launches += 1
-    elif log_space:
-        values3_log_launches += 1
-    else:
-        values3_launches += 1
-    return out
+    return _launch(plan, codes, codebook, particles, False, points, beam_mask, resolution,
+                   unknown_prob, values3, log_space)
+
+
+def fused_reweight_states(
+    codes: Tensor, codebook: Tensor, world_to_field: SE2, states: SE2, points: Tensor,
+    beam_mask: Tensor, resolution: float, unknown_prob: float, values3: Tensor | None = None,
+    log_space: bool = False,
+) -> Tensor:
+    """:func:`fused_reweight` of ``world_to_field @ states``, the transform
+    composed in the kernel in ``lie.py``'s operation order (so its cells
+    equal the plain composition's bit for bit), ``f32[..., N]``.
+
+    Args:
+      world_to_field: the field's ``SE2`` of one pose, ``xy`` and ``rot.z``
+        ``f32[2]`` on the tables' device.
+      states: ``SE2`` particles, ``xy`` and ``rot.z`` ``f32[..., N, 2]``,
+        contiguous.
+      the rest: as :func:`fused_reweight`.
+    """
+    particles = (states.xy, states.rot.z, world_to_field.xy, world_to_field.rot.z)
+    plan = _plan(_meta(codes), _meta(codebook), tuple(map(_meta, particles)), True,
+                 _meta(points), _meta(beam_mask), _meta(values3))
+    if not codes.is_cuda:
+        return fused_reweight_states_reference(codes, codebook, world_to_field, states, points,
+                                               beam_mask, resolution, unknown_prob, values3,
+                                               log_space)
+    return _launch(plan, codes, codebook, particles, True, points, beam_mask, resolution,
+                   unknown_prob, values3, log_space)

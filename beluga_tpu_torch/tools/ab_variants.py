@@ -138,6 +138,71 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
          "  const bool staged = len <= kWindow;\n",
          "  const bool staged = false;\n"),
     ],
+    # B1/B4: the models compose world_to_field @ states in PyTorch (15
+    # elementwise kernels and 4 copies) and call the transform entry
+    "reweight_transform_outside": [
+        ("models/sensor/likelihood_field.py",
+         "    from beluga_tpu_torch.ops.cuda_reweight import fused_reweight_states\n\n"
+         "    codes, book = codes_book\n"
+         "    states = SE2(states.xy.contiguous(), SO2(states.rot.z.contiguous()))\n"
+         "    return fused_reweight_states(codes, book, field.world_to_field, states, points, "
+         "beam_mask,\n",
+         "    from beluga_tpu_torch.ops.cuda_reweight import fused_reweight\n\n"
+         "    codes, book = codes_book\n"
+         "    tf = field.world_to_field @ states\n"
+         "    return fused_reweight(codes, book, tf.x.contiguous(), tf.y.contiguous(),\n"
+         "                          tf.rot.cos.contiguous(), tf.rot.sin.contiguous(), points, "
+         "beam_mask,\n"),
+    ],
+    # B1/B4: one lane a particle (a thread per particle, the first form)
+    "reweight_one_lane": [
+        ("csrc/reweight.cu",
+         "  a.lanes_log2 = lanes_log2_for(static_cast<long long>(n) * batch, nb);\n",
+         "  a.lanes_log2 = 0;\n"),
+    ],
+    # B1/B4: every beam in shared memory and a mask branch in the beam loop
+    "reweight_mask_branch": [
+        ("csrc/reweight.cu",
+         "    const bool on = b < nb && mask[b];\n",
+         "    const bool on = b < nb;\n"),
+        ("csrc/reweight.cu",
+         "      const float2 pt = s_beam[j];\n",
+         "      if (!a.beam_mask[f * a.nb + j]) continue;\n"
+         "      const float2 pt = s_beam[j];\n"),
+    ],
+    # B1: the codebook's raw values in shared memory, the cube or logf on
+    # every beam
+    "reweight_decode_in_loop": [
+        ("csrc/reweight.cu",
+         "      s_val[j] = decode<kLog>(j < a.k ? a.codebook[j] : 0.0f);\n",
+         "      s_val[j] = j < a.k ? a.codebook[j] : 0.0f;\n"),
+        ("csrc/reweight.cu",
+         "          v = s_val[__ldg(static_cast<const uint8_t*>(a.table) + cell)];\n",
+         "          v = decode<kLog>(s_val[__ldg(static_cast<const uint8_t*>(a.table) + cell)]);\n"),
+    ],
+    # B1/B4: the IEEE divisions on every endpoint
+    "reweight_divide": [
+        ("csrc/reweight.cu",
+         "  if (fabsf(__fsub_rn(qx, rintf(qx))) > tol && fabsf(__fsub_rn(qy, rintf(qy))) > tol) {\n",
+         "  if (false) {\n"),
+    ],
+    # probe: B1 and B4 without their table gather (wrong results): the
+    # decoded value of the cell index's low byte, or the index's bits
+    "reweight_probe_no_gather": [
+        ("csrc/reweight.cu",
+         "          v = s_val[__ldg(static_cast<const uint8_t*>(a.table) + cell)];\n",
+         "          v = s_val[cell & (kCodes - 1)];\n"),
+        ("csrc/reweight.cu",
+         "          v = __uint_as_float(\n"
+         "              static_cast<uint32_t>(__ldg(static_cast<const uint16_t*>(a.table) + cell)) "
+         "<< 16);\n",
+         "          v = __int_as_float(cell & 0x3fff0000);\n"),
+    ],
+    **{f"reweight_lanes_{1 << g}": [
+        ("csrc/reweight.cu",
+         "  a.lanes_log2 = lanes_log2_for(static_cast<long long>(n) * batch, nb);\n",
+         f"  a.lanes_log2 = {g};\n"),
+    ] for g in (1, 2, 3, 4)},
 }
 
 
@@ -156,6 +221,14 @@ def make_variant(name: str) -> Path:
                              f"{source.count(text)} times, not once")
         path.write_text(source.replace(text, replacement))
     return root
+
+
+def build_kernels(root: Path) -> None:
+    """Every kernel of the package under ``root``, built before the turns
+    (one nvcc a source, started together), so that no turn times a build."""
+    subprocess.run([sys.executable, "-c",
+                    "from beluga_tpu_torch.ops import _build; _build.build_all()"],
+                   env=dict(os.environ, PYTHONPATH=str(root)), check=True)
 
 
 def run_profile(root: Path, workloads: str, scans: int) -> list[dict]:
@@ -194,6 +267,8 @@ def main(argv=None) -> int:
             roots[name] = Path(args.parent).resolve()
         else:
             roots[name] = make_variant(name)
+    for root in dict.fromkeys(roots.values()):
+        build_kernels(root)
     records = []
     for turn, name in enumerate(names + names[::-1]):
         for line in run_profile(roots[name], args.workloads, args.scans):

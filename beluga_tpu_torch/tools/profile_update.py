@@ -83,7 +83,9 @@ OPS = ("aten::cummax", "aten::sort", "aten::cumsum", "aten::matmul", "aten::inde
        "aten::linalg_inv_ex")
 # the port's hand-written kernels (``csrc/*.cu``) by the names of their
 # ``__global__`` functions, reported by name with their device time and
-# launches per update
+# launches per update (B1's and B4's names cover both their entries; the
+# labels stay those of earlier trees, so that ``ab_variants`` lines up a
+# parent's profile with this one)
 HAND_KERNELS = {
     "reweight_kernel": "B1/B1-log fused_reweight",
     "reweight_values3_kernel": "B4/B4-log fused_reweight values3",

@@ -14,7 +14,11 @@ Phases, each of which exits non-zero when it fails:
    filters x 4096 particles x 60 beams, the large and windowed filters'
    262144, the mega filter's 2097152), held against its plain PyTorch
    version on the same inputs and timed beside it: B1 (exact reweight), B4
-   (codebook16 reweight), B2 (the whole resample take from the weights: its
+   (codebook16 reweight), each through both its entries (the states entry,
+   which composes ``world_to_field @ states`` in the kernel and is the main
+   paths' call, and the transform entry): one unmasked beam bit-equal, the
+   full beam sum within rtol 1e-5, two launches bit-equal and the entries
+   bit-equal to each other; B2 (the whole resample take from the weights: its
    CDF kernel held exactly where it must be exact and within CDF_ULP of a
    float64 prefix sum, the donors bit-equal to the search on that CDF; the
    CDF build and the search timed apart and beside the old path,
@@ -119,7 +123,8 @@ Phases 4 to 19 run the configurations of ``beluga_tpu_torch/tools/workloads.py``
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; on every path B2's CDF kernel ("B2-cdf monotone_cdf") runs once
-per search.  The line before the last two is the ``kernels`` JSON; the line
+per search and every B1, B1-log, B4 and B4-log launch goes through the
+states entry (no PyTorch operation composes the transform first).  The line before the last two is the ``kernels`` JSON; the line
 before the last is ``nvidia-smi``'s name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -147,6 +152,13 @@ B4_OPS_PER_BEAM = 11
 # B1-log: the transform and divisions (10), a log counted as 10, the sum;
 # B4-log reads the log from its table, as B4
 B1_LOG_OPS_PER_BEAM = 21
+# the states entry composes world_to_field @ state once a particle: 8
+# products and 6 sums, counted as 8 (the transform entry's inputs hold it)
+SE2_COMPOSE_OPS = 8
+# the launches of B1, B1-log, B4 and B4-log made through the states entry
+REWEIGHT_STATES = "B1/B4 states entry"
+REWEIGHT_KERNELS = ("B1 fused_reweight", "B1-log fused_reweight", "B4 fused_reweight values3",
+                    "B4-log fused_reweight values3")
 # float32 operations per (output cell, unmasked beam) of kernel B9: nearest
 # a multiply and an add; bilinear the x lerp (3), two products and two sums
 B9_OPS = {"nearest": 2, "bilinear": 7}
@@ -351,108 +363,128 @@ def single_beam(mask: torch.Tensor) -> torch.Tensor:
     return one
 
 
+def reweight_entries(b1, w: dict, mask, values3=None, log_space: bool = False):
+    """The two entries of kernel B1 or B4 (with ``values3``) and their plain
+    versions on ``workload``'s inputs with ``mask``: ``(states, states
+    plain, transform, transform plain)`` as callables.  The states entry
+    (the main paths' call) composes ``world_to_field @ states`` in the
+    kernel; the transform entry takes the composed transform."""
+    codes, book = w["ctx"]["field_codes"]
+    field = w["ctx"]["field"]
+    s_args = (codes, book, field.world_to_field, w["states"], w["points"], mask,
+              field.resolution, field.unknown_prob)
+    t_args = (codes, book, *w["tf"], w["points"], mask, field.resolution, field.unknown_prob)
+    kw = dict(values3=values3, log_space=log_space)
+    if values3 is None:
+        t_plain = lambda: b1.fused_reweight_reference(*t_args, log_space=log_space)  # noqa: E731
+    else:
+        t_plain = lambda: b1.fused_reweight_values3_reference(  # noqa: E731
+            values3, *t_args[2:], log_space=log_space)
+    return (lambda: b1.fused_reweight_states(*s_args, **kw),
+            lambda: b1.fused_reweight_states_reference(*s_args, **kw),
+            lambda: b1.fused_reweight(*t_args, **kw), t_plain)
+
+
+def check_entries(b1, w: dict, name: str, label: str, values3=None,
+                  log_space: bool = False) -> tuple[torch.Tensor, float, dict]:
+    """Both entries of one kernel against their plain versions: with one
+    unmasked beam bit-equal (every cell exact), the full beam sum within
+    rtol 1e-5 (and atol 1e-5 in log space), two launches bit-equal, and the
+    two entries bit-equal to each other (the same cells, lanes and sums).
+    Returns the states entry's weights, its largest error and the
+    transform entry's times."""
+    atol = 1e-5 if log_space else 0.0
+    for which, mask in (("single beam", single_beam(w["mask"])), ("all beams", w["mask"])):
+        s_fn, s_plain, t_fn, t_plain = reweight_entries(b1, w, mask, values3, log_space)
+        got, again, via = s_fn(), s_fn(), t_fn()
+        want, t_want = s_plain(), t_plain()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{name} {label} {which}: weights not finite")
+        check(torch.equal(got, again) and torch.equal(via, t_fn()),
+              f"{name} {label} {which}: two launches differ")
+        check(torch.equal(got, via), f"{name} {label} {which}: the entries differ")
+        if which == "single beam":
+            for entry, g, p in (("states", got, want), ("transform", via, t_want)):
+                check(torch.equal(g, p),
+                      f"{name} {label} single beam, {entry} entry: "
+                      f"{int((g != p).sum())} weights differ")
+        else:
+            for entry, g, p in (("states", got, want), ("transform", via, t_want)):
+                check(torch.allclose(g, p, rtol=1e-5, atol=atol),
+                      f"{name} {label}, {entry} entry: max err "
+                      f"{float((g - p).abs().max()):.3g} > rtol 1e-5")
+    iters = w["iters"]
+    t_times = timings(t_fn, t_plain, iters)
+    tf_entry = {"tf_entry_" + key: value for key, value in t_times.items()
+                if not key.startswith("library")}
+    return got, float((got - want).abs().max()), tf_entry
+
+
 def check_reweight(n: int, dev, iters: int, batch: int | None = None,
                    log_space: bool = False) -> tuple[dict, dict]:
     """Kernel B1, or with ``log_space`` B1-log (the probability model's
-    ``Σ log pz``): single-beam weights equal to the plain version's, the
-    full beam sum within rtol 1e-5 (and atol 1e-5 in log space)."""
+    ``Σ log pz``), through both entries (``check_entries``); ``ms`` and
+    ``device_ms`` are the states entry's, the main paths' call, and
+    ``tf_entry_ms`` the transform entry's."""
     from beluga_tpu_torch.ops import cuda_reweight as b1
 
     w = workload(n, dev, batch)
+    w["iters"] = iters
     codes, book = w["ctx"]["field_codes"]
-    field = w["ctx"]["field"]
-    args = lambda mask: (codes, book, *w["tf"], w["points"], mask,  # noqa: E731
-                         field.resolution, field.unknown_prob)
     name = "B1-log" if log_space else "B1"
-
-    # cell exactness: one unmasked beam, so the beam-sum order cannot
-    # matter; any cell index that moved reads another codebook value
-    one = single_beam(w["mask"])
-    got1 = b1.fused_reweight(*args(one), log_space=log_space)
-    want1 = b1.fused_reweight_reference(*args(one), log_space=log_space)
-    torch.cuda.synchronize()
     label = shape_label(w, n)
-    check(torch.equal(got1, want1),
-          f"{name} {label} single beam: {int((got1 != want1).sum())} weights differ")
-
-    got = b1.fused_reweight(*args(w["mask"]), log_space=log_space)
-    want = b1.fused_reweight_reference(*args(w["mask"]), log_space=log_space)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), f"{name} weights not finite")
-    atol = 1e-5 if log_space else 0.0
-    check(torch.allclose(got, want, rtol=1e-5, atol=atol),
-          f"{name} {label}: max err {float((got - want).abs().max()):.3g} > rtol 1e-5")
-    err = float((got - want).abs().max())
+    got, err, tf_entry = check_entries(b1, w, name, label, log_space=log_space)
     w["log_weights" if log_space else "b1_weights"] = got
-
-    times = timings(lambda: b1.fused_reweight(*args(w["mask"]), log_space=log_space),
-                    lambda: b1.fused_reweight_reference(*args(w["mask"]), log_space=log_space),
-                    iters)
+    s_fn, s_plain, _, _ = reweight_entries(b1, w, w["mask"], log_space=log_space)
+    times = timings(s_fn, s_plain, iters)
     h, wd = codes.shape
-    total, filters = w["tf"][0].numel(), batch or 1
+    total, filters = w["states"].x.numel(), batch or 1
     nb = w["points"].shape[-2]
     unmasked = int(w["mask"].sum())  # over every filter
-    nbytes = h * wd + 4 * book.numel() + 16 * total + 9 * nb * filters + 4 * total
+    nbytes = h * wd + 4 * book.numel() + 16 * total + 16 + 9 * nb * filters + 4 * total
     ops = B1_LOG_OPS_PER_BEAM if log_space else B1_OPS_PER_BEAM
-    bms, by = bound_ms(nbytes, ops * n * unmasked)
+    bms, by = bound_ms(nbytes, ops * n * unmasked + SE2_COMPOSE_OPS * total)
     replaces = "beluga_tpu/ops/pallas_reweight.py:390" + (" (log_space=True)" if log_space else "")
     return dict(
         name=f"{name} fused_reweight", route="cuda", source="beluga_tpu_torch/csrc/reweight.cu",
         replaces=replaces, max_abs_err=err, bound_ms=bms, bound_by=by, shape=label, **times,
+        **tf_entry,
     ), w
 
 
 def check_codebook16(n: int, w: dict, iters: int, log_space: bool = False) -> dict:
-    """Kernel B4 on ``check_reweight``'s inputs: single-beam weights equal,
-    60-beam weights within rtol 1e-5 of its plain version and within 5e-3
-    of B1's exact weights.  With ``log_space``, B4-log on its ``bf16(log
-    pz)`` table against B1-log: within 2^-7 of the log-weight's magnitude
-    (bf16 keeps 8 significant bits)."""
+    """Kernel B4 on ``check_reweight``'s inputs, through both entries
+    (``check_entries``), and within 5e-3 of B1's exact weights.  With
+    ``log_space``, B4-log on its ``bf16(log pz)`` table against B1-log:
+    within 2^-7 of the log-weight's magnitude (bf16 keeps 8 significant
+    bits)."""
     from beluga_tpu_torch.ops import cuda_reweight as b1
 
     codes, book = w["ctx"]["field_codes"]
-    field = w["ctx"]["field"]
     v3 = b1.build_values3(codes, book, log_space=log_space)
     name = "B4-log" if log_space else "B4"
-
-    def kernel(mask):
-        return b1.fused_reweight(codes, book, *w["tf"], w["points"], mask, field.resolution,
-                                 field.unknown_prob, values3=v3, log_space=log_space)
-
-    def plain(mask):
-        return b1.fused_reweight_values3_reference(v3, *w["tf"], w["points"], mask,
-                                                   field.resolution, field.unknown_prob,
-                                                   log_space=log_space)
-
     label = shape_label(w, n)
-    one = single_beam(w["mask"])
-    got1, want1 = kernel(one), plain(one)
-    torch.cuda.synchronize()
-    check(torch.equal(got1, want1),
-          f"{name} {label} single beam: {int((got1 != want1).sum())} weights differ")
-    got, want = kernel(w["mask"]), plain(w["mask"])
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), f"{name} weights not finite")
-    atol = 1e-5 if log_space else 0.0
-    check(torch.allclose(got, want, rtol=1e-5, atol=atol),
-          f"{name} {label}: max err {float((got - want).abs().max()):.3g} > rtol 1e-5")
+    w["iters"] = iters
+    got, err, tf_entry = check_entries(b1, w, name, label, values3=v3, log_space=log_space)
     exact = w["log_weights" if log_space else "b1_weights"]
     rel_b1 = float(((got - exact).abs() / exact.abs()).max())
     limit = 2.0**-7 if log_space else 5e-3
     check(rel_b1 < limit, f"{name} {label}: {rel_b1:.3g} relative to the exact weights")
-    times = timings(lambda: kernel(w["mask"]), lambda: plain(w["mask"]), iters)
+    s_fn, s_plain, _, _ = reweight_entries(b1, w, w["mask"], v3, log_space)
+    times = timings(s_fn, s_plain, iters)
     h, wd = codes.shape
-    total, filters = w["tf"][0].numel(), (w["lead"][0] if w["lead"] else 1)
+    total, filters = w["states"].x.numel(), (w["lead"][0] if w["lead"] else 1)
     nb = w["points"].shape[-2]
-    nbytes = 2 * h * wd + 16 * total + 9 * nb * filters + 4 * total
-    bms, by = bound_ms(nbytes, B4_OPS_PER_BEAM * n * int(w["mask"].sum()))
+    nbytes = 2 * h * wd + 16 * total + 16 + 9 * nb * filters + 4 * total
+    bms, by = bound_ms(nbytes, B4_OPS_PER_BEAM * n * int(w["mask"].sum())
+                       + SE2_COMPOSE_OPS * total)
     replaces = "beluga_tpu/ops/pallas_reweight.py:390 (values3=, build_values3:364" + (
         ", log_space=True)" if log_space else ")")
     return dict(
         name=f"{name} fused_reweight values3", route="cuda",
         source="beluga_tpu_torch/csrc/reweight.cu", replaces=replaces,
-        max_abs_err=float((got - want).abs().max()), rel_to_b1=rel_b1,
-        bound_ms=bms, bound_by=by, shape=label, **times,
+        max_abs_err=err, rel_to_b1=rel_b1, bound_ms=bms, bound_by=by, shape=label, **times,
+        **tf_entry,
     )
 
 
@@ -1458,6 +1490,7 @@ def reset_counts() -> None:
     cuda_reweight.values3_launches = 0
     cuda_reweight.log_launches = 0
     cuda_reweight.values3_log_launches = 0
+    cuda_reweight.states_launches = 0
     cuda_resample.launches = 0
     cuda_resample.cdf_launches = 0
     cuda_pool_take.launches = 0
@@ -1503,7 +1536,8 @@ def read_counts() -> dict:
             "B10 ndt_probe": cuda_ndt.launches,
             "B10-fused ndt_weights": cuda_ndt.weights_launches,
             "B11 codebook_lookup": cuda_codebook.launches,
-            "R1 cast_rays": raycast.launches}
+            "R1 cast_rays": raycast.launches,
+            REWEIGHT_STATES: cuda_reweight.states_launches}
 
 
 class B2Cummax:
@@ -2195,6 +2229,9 @@ def main() -> int:
         extra = "".join(f", {key} {k[key]}" for key in (
             "max_rel_err", "outside_rtol_share", "live_cells", "hit_share", "library_note",
             "max_abs_err_float64", "rows_moved_from_plain") if key in k)
+        if "tf_entry_ms" in k:
+            extra += (f"; transform entry {ms(k['tf_entry_ms'])} (device "
+                      f"{ms(k['tf_entry_device_ms'])}; plain {ms(k['tf_entry_plain_ms'])})")
         if "cdf_device_ms" in k:
             extra += (f"; device: CDF build {ms(k['cdf_device_ms'])}, search "
                       f"{ms(k['search_device_ms'])}, whole {ms(k['device_ms'])}; old path "
@@ -2301,6 +2338,10 @@ def main() -> int:
         check(c["B2-cdf monotone_cdf"] == c["B2 resample_take"],
               f"{path}: {c['B2-cdf monotone_cdf']} CDF builds for {c['B2 resample_take']} "
               f"searches")
+        # every reweight of a main path composes its transform in the kernel
+        reweights = sum(c[name] for name in REWEIGHT_KERNELS)
+        check(c[REWEIGHT_STATES] == reweights,
+              f"{path}: {c[REWEIGHT_STATES]} of {reweights} reweights through the states entry")
     resampled = mega_counts["B2 resample_take"] > 0
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
              "plain_device_ms", "library_device_ms", "shape")
@@ -2326,6 +2367,8 @@ def main() -> int:
             entry["other_shapes"] = [{key: s_wide[key] for key in timed}]
         if k is f_mega:  # the L2 branch of the same kernel
             entry["other_shapes"] = [{key: f_l2[key] for key in timed}]
+        if "tf_entry_ms" in k:
+            entry.update({key: k[key] for key in k if key.startswith("tf_entry_")})
         if k in (r_mega, r_big):
             entry.update({key: k[key] for key in (
                 "cdf_device_ms", "search_device_ms", "old_path_ms", "old_path_device_ms",

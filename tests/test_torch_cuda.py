@@ -1,5 +1,6 @@
-"""Kernels B1-B11 (with B1-log, B4-log and B6-int8) and R1 of the PyTorch
-port on the card, against their plain versions on the same card tensors,
+"""Kernels B1-B11 (with B1-log, B4-log and B6-int8, and B1 and B4 through
+their states entry) and R1 of the PyTorch port on the card, against their
+plain versions on the same card tensors,
 and fleet, mega, beam, prob-model, shared-scan, NDT and VDB updates on the
 card.
 Every test here needs an NVIDIA GPU and skips without one.  The module
@@ -256,6 +257,7 @@ def test_fleet_on_card(dev):
     assert state.particles.log_weight.is_cuda and state.particles.log_weight.shape == (4, 4096)
     counts = (cuda_reweight.launches, cuda_reweight.values3_launches, cuda_resample.launches,
               cuda_pool_take.launches)
+    states_launches = cuda_reweight.states_launches
     state, est = make_fleet_update(params, models)(
         ctx, state, SE2.from_xytheta(np.full(4, xs[0]), np.full(4, ys[0]), np.full(4, yaws[0]),
                                      device="cpu"),
@@ -264,6 +266,7 @@ def test_fleet_on_card(dev):
     assert est.valid.all() and torch.isfinite(est.pose.xy).all()
     assert (cuda_reweight.launches, cuda_reweight.values3_launches, cuda_resample.launches,
             cuda_pool_take.launches) == (counts[0], counts[1] + 1, counts[2] + 1, counts[3] + 1)
+    assert cuda_reweight.states_launches == states_launches + 1
 
 
 def test_node_on_card(dev):
@@ -282,10 +285,12 @@ def test_node_on_card(dev):
     node.set_map(make_grid(data, 0.1))
     assert node._state.particles.log_weight.is_cuda
     b1, b2 = cuda_reweight.launches, cuda_resample.launches
+    b1_states = cuda_reweight.states_launches
     pts = np.random.default_rng(0).uniform(0.5, 2.0, (30, 2)).astype(np.float32)
     res = node.handle_scan((0.0, 0.0, 0.0), pts)
     assert res.valid and np.isfinite(res.pose).all()
     assert (cuda_reweight.launches, cuda_resample.launches) == (b1 + 1, b2 + 1)
+    assert cuda_reweight.states_launches == b1_states + 1
     assert not node.handle_scan((0.01, 0.0, 0.0), pts).valid
     node.global_localization()
     xyt, w = node.particle_cloud()
@@ -752,6 +757,172 @@ def test_b4_log_kernel_matches_plain_version(dev, n, batch):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     exact = b1.fused_reweight(*args, log_space=True)
     assert float((got - exact).abs().max()) < float(exact.abs().max()) * 2.0**-7
+
+
+def states_case(dev, n, batch=None, nb=BEAMS, seed=0, codes_book=None):
+    """The states entry's inputs: the arena's field (its code table, or
+    ``codes_book``), states spread over the table and 10% beyond each edge
+    (some endpoints off the map), and per filter ``nb`` beams within 3.5 m,
+    80% unmasked (beam 0 always)."""
+    from beluga_tpu_torch.filters.builders import make_likelihood_field_filter
+    from beluga_tpu_torch.io import synthetic
+    from beluga_tpu_torch.io.config import AmclNodeConfig
+    from beluga_tpu_torch.lie import SE2
+    from beluga_tpu_torch.maps.occupancy import make_grid
+
+    _, ctx = make_likelihood_field_filter(
+        make_grid(synthetic.tracking_arena(384, 0.05), 0.05, device=dev),
+        AmclNodeConfig().likelihood_field_params(), device=dev)
+    field = ctx["field"]
+    codes, book = codes_book or ctx["field_codes"]
+    lead = () if batch is None else (batch,)
+    rng = np.random.default_rng(seed)
+    h, w = codes.shape
+    x = rng.uniform(-0.1, 1.1, (*lead, n)) * w * field.resolution
+    y = rng.uniform(-0.1, 1.1, (*lead, n)) * h * field.resolution
+    th = rng.uniform(-np.pi, np.pi, (*lead, n))
+    states = SE2.from_xytheta(*(v.astype(np.float32) for v in (x, y, th)), device=dev)
+    ang, r = rng.uniform(-np.pi, np.pi, (*lead, nb)), rng.uniform(0.1, 3.5, (*lead, nb))
+    points = np.stack([r * np.cos(ang), r * np.sin(ang)], -1).astype(np.float32)
+    mask = rng.random((*lead, nb)) < 0.8
+    mask[..., 0] = True
+    return (codes, book, field, states, torch.as_tensor(points, device=dev),
+            torch.as_tensor(mask, device=dev))
+
+
+def states_both(case, mask, values3, log_space):
+    """The states entry and its plain version on ``case`` with ``mask``."""
+    from beluga_tpu_torch.ops import cuda_reweight as b1
+
+    codes, book, field, states, points, _ = case
+    args = (codes, book, field.world_to_field, states, points, mask, field.resolution,
+            field.unknown_prob)
+    return (b1.fused_reweight_states(*args, values3=values3, log_space=log_space),
+            b1.fused_reweight_states_reference(*args, values3=values3, log_space=log_space))
+
+
+MODES = [("codes", False), ("codes", True), ("values3", False), ("values3", True)]
+
+
+# (n, filters, beams): on 132 SMs with 60 beams the lanes a particle are 16
+# below 16896 particles, then 8, 4 and 2, and 1 from 135168; 5 beams allow
+# 2, one beam 1
+@pytest.mark.parametrize("table,log_space", MODES)
+@pytest.mark.parametrize("n,batch,nb", [(1, None, BEAMS), (2000, None, BEAMS), (3, None, 200),
+                                        (2000, None, 5), (2000, None, 1), (1000, 3, BEAMS),
+                                        (4096, 64, BEAMS), (20000, None, BEAMS),
+                                        (65537, None, BEAMS), (100000, None, BEAMS),
+                                        (262144, None, BEAMS), (300000, None, BEAMS)])
+def test_b1_b4_states_entry_matches_plain_version(dev, n, batch, nb, table, log_space):
+    """The states entry (the transform composed in the kernel) against its
+    plain version (lie.py's composition, then the plain kernel): one beam
+    bit-equal, the full sum within rtol 1e-5 (atol 1e-5 in log space), two
+    launches bit-equal, and bit-equal to the transform entry on the plain
+    composition (the same cells, lanes and sums)."""
+    from beluga_tpu_torch.ops import cuda_reweight as b1
+
+    case = states_case(dev, n, batch, nb, seed=n + nb)
+    codes, book, field, states, points, mask = case
+    v3 = b1.build_values3(codes, book, log_space) if table == "values3" else None
+    before = b1.states_launches
+    got1, want1 = states_both(case, one_beam(mask), v3, log_space)
+    assert torch.equal(got1, want1)
+    got, want = states_both(case, mask, v3, log_space)
+    again, _ = states_both(case, mask, v3, log_space)
+    torch.cuda.synchronize()
+    assert b1.states_launches == before + 3
+    assert got.shape == states.x.shape and torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 if log_space else 0.0)
+    tf = field.world_to_field @ states
+    via = b1.fused_reweight(codes, book, tf.x.contiguous(), tf.y.contiguous(),
+                            tf.rot.cos.contiguous(), tf.rot.sin.contiguous(), points, mask,
+                            field.resolution, field.unknown_prob, values3=v3,
+                            log_space=log_space)
+    assert torch.equal(got, via)
+
+
+@pytest.mark.parametrize("table", ["codes", "values3"])
+@pytest.mark.parametrize("n", [2000, 300000])  # 8 blocks, and more than the card holds at once
+def test_b1_b4_cells_on_and_beside_cell_edges(dev, table, n):
+    """Endpoints on cell edges (x = k * res in float32) and one and two
+    ulps to either side, zeros and tiny negatives, on a table whose
+    neighbouring cells read different values: each single-beam weight
+    equal to the plain version's, through both entries."""
+    from beluga_tpu_torch.lie import SE2
+    from beluga_tpu_torch.ops import cuda_reweight as b1
+
+    rng = np.random.default_rng(n)
+    res, unknown = 0.05, 0.5
+    codes = torch.as_tensor(rng.integers(0, 200, (384, 384), dtype=np.uint8), device=dev)
+    book = torch.as_tensor(rng.uniform(0.05, 1.0, 200).astype(np.float32), device=dev)
+    v3 = b1.build_values3(codes, book) if table == "values3" else None
+    edges = (np.arange(-3, 388, dtype=np.float32) * np.float32(res)).astype(np.float32)
+    near = np.concatenate([edges, *(np.nextafter(edges, np.float32(s * np.inf)) for s in (-1, 1)),
+                           *(np.nextafter(np.nextafter(edges, np.float32(s * np.inf)),
+                                          np.float32(s * np.inf)) for s in (-1, 1)),
+                           np.array([0.0, -0.0, -1e-45, 1e-45, -1e-30, -1e-7], np.float32)])
+    x, y = rng.choice(near, n), rng.choice(near, n)
+    states = SE2.from_xytheta(x, y, np.zeros(n, np.float32), device=dev)
+    world_to_field = SE2.identity(device=dev)
+    points = torch.zeros((1, 2), device=dev)  # the endpoint is the state's (x, y)
+    mask = torch.ones(1, dtype=torch.bool, device=dev)
+    args = (codes, book, world_to_field, states, points, mask, res, unknown)
+    got = b1.fused_reweight_states(*args, values3=v3)
+    want = b1.fused_reweight_states_reference(*args, values3=v3)
+    tf = world_to_field @ states
+    particles = [t.contiguous() for t in (tf.x, tf.y, tf.rot.cos, tf.rot.sin)]
+    via = b1.fused_reweight(codes, book, *particles, points, mask, res, unknown, values3=v3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(via, want)
+    fx, _ = b1.endpoint_cells(*particles, points, res)
+    assert 0 < int((fx == 384).sum()) and 0 < int((fx == -1).sum())  # both map edges met
+
+
+@pytest.mark.parametrize("table,log_space", MODES)
+def test_b1_b4_states_entry_all_or_no_beams_masked_and_off_map(dev, table, log_space):
+    """Every beam masked (the base alone), none masked, and a particle of
+    each filter whose every endpoint lies off the map (the off-map value on
+    every beam)."""
+    from beluga_tpu_torch.lie import SE2, SO2
+    from beluga_tpu_torch.ops import cuda_reweight as b1
+
+    codes, book, field, states, points, mask = states_case(dev, 3000, 2, BEAMS, seed=5)
+    xy = states.xy.clone()
+    xy[:, 7] = torch.tensor([-100.0, 250.0], device=dev)
+    case = (codes, book, field, SE2(xy, SO2(states.rot.z)), points, mask)
+    v3 = b1.build_values3(codes, book, log_space) if table == "values3" else None
+    base = 0.0 if log_space else 1.0
+    none, want_none = states_both(case, torch.zeros_like(mask), v3, log_space)
+    every, want_every = states_both(case, torch.ones_like(mask), v3, log_space)
+    torch.cuda.synchronize()
+    assert torch.equal(none, want_none) and bool((none == base).all())
+    torch.testing.assert_close(every, want_every, rtol=1e-5, atol=1e-5 if log_space else 0.0)
+    u = torch.tensor(field.unknown_prob, device=dev)
+    off = torch.log(u) if log_space else u * u * u
+    torch.testing.assert_close(every[:, 7], (base + BEAMS * off).expand(2), rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("log_space", [False, True])
+def test_b1_states_entry_large_code_table(dev, log_space):
+    """A 512 x 512 code table (256 KB, more than an SM's L1 holds beside
+    the block's shared memory) at 300000 particles, with codes beyond the
+    codebook."""
+    from beluga_tpu_torch.ops import cuda_reweight as b1
+
+    rng = np.random.default_rng(11)
+    codes = torch.as_tensor(rng.integers(0, 256, (512, 512), dtype=np.uint8), device=dev)
+    book = torch.as_tensor(rng.uniform(0.05, 1.0, 230).astype(np.float32), device=dev)
+    case = states_case(dev, 300000, nb=BEAMS, seed=11, codes_book=(codes, book))
+    got1, want1 = states_both(case, one_beam(case[5]), None, log_space)
+    got, want = states_both(case, case[5], None, log_space)
+    torch.cuda.synchronize()
+    assert torch.equal(got1, want1)
+    if log_space:  # codes >= 230 read 0: log 0 = -inf in both
+        assert bool(torch.isinf(got).any()) and torch.equal(torch.isinf(got), torch.isinf(want))
+        finite = torch.isfinite(want)
+        torch.testing.assert_close(got[finite], want[finite], rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
 
 
 @pytest.mark.parametrize("n,tile,tblk", [(262144, 512, 16), (5000, 128, 8)])
