@@ -1,5 +1,6 @@
 // The beam model's Thrun table 6.2 mixture (beam_model.hpp:125-147), shared
-// by kernels B7 (beam_lut.cu) and B8 (beam.cu).
+// by kernels B7 (beam_lut.cu), B8 (beam.cu) and R1's exact beam-weights entry
+// (raycast.cu).
 //
 // Per beam with measured range z and expected range z_mean:
 //   eta_hit   = 2 / (erf((bmr - z_mean) / (sqrt2 sigma)) - erf(-z_mean / (sqrt2 sigma)))
@@ -7,8 +8,11 @@
 //   eta_short = 1 / (1 - exp(-lam z_mean))
 //   pz       += z < z_mean ? z_short lam eta_short exp(-lam z) : 0
 //   pz       += z < bmr ? z_rand / bmr : z_max
-// and the weight adds pz^3.  erf is the Abramowitz & Stegun 7.1.26
-// polynomial of beluga_tpu/ops/pallas_beam.py:_erf, not CUDA's erff.
+// and the weight adds pz^3.  The erf is a template argument: B7 and B8 take
+// PolyErf, the Abramowitz & Stegun 7.1.26 polynomial of
+// beluga_tpu/ops/pallas_beam.py:_erf; the exact path takes CudaErf, CUDA's
+// erff, which is what jax.lax.erf is to the reference and torch.erf calls
+// on the card.
 // Every product, sum and division is a round-to-nearest intrinsic in the
 // reference's order, so nvcc contracts nothing and the plain PyTorch
 // version (same operations, same order, expf) gives the same bits.
@@ -45,12 +49,22 @@ __device__ __forceinline__ float poly_erf(float x) {
   return __fmul_rn(sign, y);
 }
 
+struct PolyErf {
+  __device__ __forceinline__ float operator()(float x) const { return poly_erf(x); }
+};
+
+struct CudaErf {
+  __device__ __forceinline__ float operator()(float x) const { return erff(x); }
+};
+
 // pz^3 of one beam
+template <typename Erf = PolyErf>
 __device__ __forceinline__ float pz3(const Mixture& m, float z, float z_mean) {
+  const Erf erf_fn{};
   const float* s = m.v;
   const float eta_hit =
-      __fdiv_rn(2.0f, __fsub_rn(poly_erf(__fdiv_rn(__fsub_rn(s[kBmr], z_mean), s[kS2Sig])),
-                                poly_erf(__fdiv_rn(-z_mean, s[kS2Sig]))));
+      __fdiv_rn(2.0f, __fsub_rn(erf_fn(__fdiv_rn(__fsub_rn(s[kBmr], z_mean), s[kS2Sig])),
+                                erf_fn(__fdiv_rn(-z_mean, s[kS2Sig]))));
   const float d = __fdiv_rn(__fsub_rn(z, z_mean), s[kSigma]);
   float pz = __fmul_rn(__fmul_rn(__fmul_rn(s[kZHit], eta_hit), s[kNConst]),
                        expf(__fmul_rn(__fmul_rn(-0.5f, d), d)));

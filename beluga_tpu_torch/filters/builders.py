@@ -76,7 +76,7 @@ from beluga_tpu_torch.ops.cuda_beam_lut import build_lut_bf16
 from beluga_tpu_torch.ops.cuda_fused_step import fused_propagate_winlut, pack_scalars
 from beluga_tpu_torch.ops.cuda_reweight import build_values3
 from beluga_tpu_torch.ops.gather2d import build_device_codebook, encode_table, factorize_table
-from beluga_tpu_torch.ops.raycast import VARIANTS
+from beluga_tpu_torch.ops.raycast import VARIANTS, free_plane
 
 LOOKUP_MODES = ("auto", "gather", "onehot", "codebook", "codebook16", "lowrank")
 SCAN_LUT_BUILDS = {"roll": build_scan_lut, "pallas": build_scan_lut_pallas,
@@ -504,8 +504,10 @@ def make_beam_filter(
 
     Paths, one filter or a fleet of ``[B, N]`` each:
       * default: the exact Bresenham march of every (particle, beam) ray,
-        kernel R1 (``raycast_variant`` ``"standard"`` or ``"supercover"``);
-        ``ctx = {'grid'}``;
+        the whole model in one launch of kernel R1's exact entry
+        (``raycast_variant`` ``"standard"`` or ``"supercover"``);
+        ``ctx = {'grid'}``, the grid's packed free mask
+        (``ops.raycast.free_plane``) made here, once a map;
       * ``use_range_lut=True``: the per-map CDDT range LUT of ``n_bearings``
         bins, built by R1 and read by a gather (bearing-quantization
         error); ``ctx = {'grid', 'range_lut'}``;
@@ -549,6 +551,7 @@ def make_beam_filter(
             return beam_log_weights(beam_params, ctx["grid"], states, points, beam_mask,
                                     variant=raycast_variant)
 
+        free_plane(grid)  # packed once a map, kept on the grid
         ctx = {"grid": grid}
 
     models = AmclModels(

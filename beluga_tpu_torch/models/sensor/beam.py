@@ -4,10 +4,11 @@
 The four-component mixture (erf-normalized Gaussian hit, truncated
 exponential short, max return, uniform random) is evaluated for every
 (particle, beam) against the expected range from a ray cast of the
-particle's pose through the occupancy grid: the exact Bresenham march of
-``ops/raycast.py`` (kernel R1) or, opt-in, the sphere trace over the
-distance table (kernel B8).  The ``Σ pz³`` accumulation (seed 0) is the
-reference's nav2/AMCL parity quirk (beam_model.hpp:104-148).
+particle's pose through the occupancy grid: the exact Bresenham march, in
+one launch of kernel R1's exact entry (``ops/raycast.py:exact_beam_weights``)
+or, opt-in, the sphere trace over the distance table (kernel B8).  The ``Σ
+pz³`` accumulation (seed 0) is the reference's nav2/AMCL parity quirk
+(beam_model.hpp:104-148).
 
 Every function takes leading filter axes: ``states`` ``[..., N]``,
 ``points`` ``f32[..., nb, 2]`` and ``beam_mask`` ``bool[..., nb]``.
@@ -21,13 +22,8 @@ import torch
 
 from beluga_tpu_torch.lie import SE2
 from beluga_tpu_torch.maps.occupancy import OccupancyGrid
-from beluga_tpu_torch.ops.cuda_beam import (
-    STEPS,
-    mixture,
-    mixture_pz3,
-    sphere_trace_beam_weights,
-)
-from beluga_tpu_torch.ops.raycast import cast_rays
+from beluga_tpu_torch.ops.cuda_beam import STEPS, mixture, sphere_trace_beam_weights
+from beluga_tpu_torch.ops.raycast import exact_beam_weights, ranges_and_bearings
 
 Tensor = torch.Tensor
 
@@ -52,14 +48,6 @@ def exact_mixture(params: BeamModelParams):
                    params.lambda_short, params.beam_max_range, host_products=True)
 
 
-def ranges_and_bearings(points: Tensor) -> tuple[Tensor, Tensor]:
-    """Measured range ``|p|`` and unit bearing ``p / max(|p|, 1e-12)`` of
-    each beam (beam_model.hpp:116-121)."""
-    px, py = points[..., 0], points[..., 1]
-    z = torch.sqrt(px * px + py * py)
-    return z, points / torch.clamp_min(z, 1e-12)[..., None]
-
-
 def beam_weights(params: BeamModelParams, grid: OccupancyGrid, states: SE2, points: Tensor,
                  beam_mask: Tensor, variant: str = "standard") -> Tensor:
     """AMCL-parity weights ``Σ_beams pz³`` per particle, ``f32[..., N]``.
@@ -67,24 +55,14 @@ def beam_weights(params: BeamModelParams, grid: OccupancyGrid, states: SE2, poin
     ``points`` are 2D hits in the base frame; ``variant`` selects the
     Bresenham variant of the ray march (``"standard"`` or
     ``"supercover"``)."""
-    z, bearing = ranges_and_bearings(points)
-    # ray sources and directions in the grid-local frame
-    # (raycasting.hpp:62-71, 79-84)
-    local = grid.origin.inverse() @ states  # [..., N]
-    src = local.xy[..., :, None, :]  # [..., N, 1, 2]
-    c, s = local.rot.cos[..., :, None], local.rot.sin[..., :, None]
-    bx, by = bearing[..., None, :, 0], bearing[..., None, :, 1]
-    direction = torch.stack([c * bx - s * by, s * bx + c * by], dim=-1)  # [..., N, nb, 2]
-    dist, hit = cast_rays(grid, src, direction, params.beam_max_range, variant=variant)
-    z_mean = torch.where(hit, dist, params.beam_max_range)
-    pz3 = mixture_pz3(z[..., None, :], z_mean, exact_mixture(params), erf=torch.erf)
-    return torch.sum(torch.where(beam_mask[..., None, :], pz3, 0.0), dim=-1)
+    return exact_beam_weights(grid, states, points, beam_mask, exact_mixture(params),
+                              params.beam_max_range, variant)
 
 
 def beam_log_weights(params, grid, states, points, beam_mask, variant="standard") -> Tensor:
-    """Log of :func:`beam_weights`, clamped away from zero."""
-    return torch.log(torch.clamp_min(
-        beam_weights(params, grid, states, points, beam_mask, variant), 1e-30))
+    """Log of :func:`beam_weights`, clamped away from zero, in the same launch."""
+    return exact_beam_weights(grid, states, points, beam_mask, exact_mixture(params),
+                              params.beam_max_range, variant, log_space=True)
 
 
 def beam_sphere_trace_log_weights(params: BeamModelParams, dist_cells: Tensor,

@@ -15,7 +15,10 @@ turns, in the order given and then reversed (A B C, C B A), each in a
 process of its own with the variant first on the path; every line they
 print is kept (``--out``, JSON lines tagged with the variant and the
 turn), and one line per run and workload gives the wall and busy ms per
-update and each hand-written kernel's device ms per update.  Variants
+update, the kernel launches per update and each hand-written kernel's
+device ms per update.  Every variant runs this checkout's
+``tools/profile_update.py`` with its own package first on the path, so
+that a parent tree is profiled on the workloads defined here.  Variants
 named ``*_probe_*`` are not designs but probes: they drop or cheapen one
 part of a kernel to show what it costs.  A run without a CUDA device
 exits 2.
@@ -198,6 +201,68 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
          "<< 16);\n",
          "          v = __int_as_float(cell & 0x3fff0000);\n"),
     ],
+    # R1: the bit plane through L1/L2 in both entries, never staged in
+    # shared memory
+    "r1_plane_l2": [
+        ("csrc/raycast.cu", "  const bool shared = plane_bytes(h, wpr) <= kMaxSmem;\n",
+         "  const bool shared = false;\n"),
+        ("csrc/raycast.cu", "  if (plane + rest <= kMaxSmem) {\n", "  if (false) {\n"),
+    ],
+    # R1: the uint8 free mask through L1/L2, a byte a cell (the first form's
+    # read), in both entries
+    "r1_bytes_l2": [
+        ("csrc/raycast.cu", "  const bool shared = plane_bytes(h, wpr) <= kMaxSmem;\n",
+         "  const bool shared = false;\n"),
+        ("csrc/raycast.cu", "  if (plane + rest <= kMaxSmem) {\n", "  if (false) {\n"),
+        ("csrc/raycast.cu",
+         "    const int i = y * pl.wpr + (x >> 5);\n"
+         "    word = kShared ? pl.bits[i] : __ldg(pl.bits + i);\n"
+         "  }\n  return __funnelshift_r(word, word, x) & 1u;  // bit x & 31\n",
+         "    word = __ldg(reinterpret_cast<const uint8_t*>(pl.bits) + y * pl.wpr + x);\n"
+         "  }\n  return word != 0;\n"),
+        ("ops/raycast.py",
+         "        plane = FreePlane(pack_free_bits(grid.free_mask).contiguous(), world)\n",
+         "        plane = FreePlane(grid.free_mask.to(torch.uint8).contiguous(), world)\n"),
+    ],
+    # R1: a branchy step, as the first form: four signed compares for the
+    # inside test and a branch for each stop and each Bresenham move
+    "r1_branchy_step": [
+        ("csrc/raycast.cu",
+         "  const bool in = (static_cast<unsigned>(x) < static_cast<unsigned>(pl.w)) &\n"
+         "                  (static_cast<unsigned>(y) < static_cast<unsigned>(pl.h));\n",
+         "  const bool in = x >= 0 && x < pl.w && y >= 0 && y < pl.h;\n"),
+        ("csrc/raycast.cu",
+         "    const bool stop = !fr | (--left == 0);\n"
+         "    *hit = in & !fr;\n"
+         "    const int e2 = 2 * err;\n"
+         "    const bool step_x = e2 > -dy, step_y = e2 < dx;\n"
+         "    if (!stop) {\n"
+         "      err += (step_y ? dx : 0) - (step_x ? dy : 0);\n"
+         "      x += step_x ? sx : 0;\n"
+         "      y += step_y ? sy : 0;\n"
+         "    }\n"
+         "    return stop;\n",
+         "    if (!in) {\n      *hit = false;\n      return true;\n    }\n"
+         "    if (!fr) {\n      *hit = true;\n      return true;\n    }\n"
+         "    if (--left == 0) {\n      *hit = false;\n      return true;\n    }\n"
+         "    const int e2 = 2 * err;\n"
+         "    if (e2 > -dy) {\n      err -= dy;\n      x += sx;\n    }\n"
+         "    if (e2 < dx) {\n      err += dx;\n      y += sy;\n    }\n"
+         "    return false;\n"),
+    ],
+    # R1: the standard line's steps not pinned in registers (nvcc then
+    # rebuilds sy from the far cell at every step)
+    "r1_no_step_pin": [
+        ("csrc/raycast.cu", '    asm("" : "+r"(sx), "+r"(sy));\n', ""),
+    ],
+    # R1: no occupancy bound, the registers the compiler wants (the first
+    # build's 46-49 a thread in the ray entry: two blocks of 512 an SM)
+    "r1_no_min_blocks": [
+        ("csrc/raycast.cu", "constexpr int kCastMinBlocks = 4;",
+         "constexpr int kCastMinBlocks = 1;"),
+        ("csrc/raycast.cu", "constexpr int kExactMinBlocks = 4;",
+         "constexpr int kExactMinBlocks = 1;"),
+    ],
     **{f"reweight_lanes_{1 << g}": [
         ("csrc/reweight.cu",
          "  a.lanes_log2 = lanes_log2_for(static_cast<long long>(n) * batch, nb);\n",
@@ -232,11 +297,11 @@ def build_kernels(root: Path) -> None:
 
 
 def run_profile(root: Path, workloads: str, scans: int) -> list[dict]:
-    """``tools/profile_update.py`` of the package under ``root``, in a
-    process of its own; its JSON lines."""
+    """This checkout's ``tools/profile_update.py`` on the package under
+    ``root``, in a process of its own; its JSON lines."""
     env = dict(os.environ, PYTHONPATH=str(root))
     out = subprocess.run(
-        [sys.executable, str(root / PACKAGE.name / "tools" / "profile_update.py"),
+        [sys.executable, str(PACKAGE / "tools" / "profile_update.py"),
          "--scans", str(scans), "--workloads", workloads],
         env=env, capture_output=True, text=True, check=True,
     ).stdout
@@ -276,6 +341,7 @@ def main(argv=None) -> int:
             print(json.dumps({"variant": name, "turn": turn, "workload": line["workload"],
                               "wall": line["wall_ms_per_update"],
                               "busy": line["device_busy_ms_per_update"],
+                              "launches": line["kernel_launches_per_update"],
                               "kernels": {k: v["device_ms"] for k, v in
                                           line["hand_kernels_per_update"].items()}}))
     if args.out:

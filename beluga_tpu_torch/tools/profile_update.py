@@ -3,8 +3,8 @@ workloads under ``torch.profiler``.
 
     python -m beluga_tpu_torch.tools.profile_update [--scans 20] [--trace-dir DIR]
         [--workloads node,large,fleet,mega,windowed,beam_node,beam_node_windowed,
-                     long_range,beam_fleet,prob_node,shared_scan,prob_fleet,windowed_int8,
-                     ndt_node,ndt_fleet,ndt3d_node,vdb]
+                     beam_node_exact,range_lut,long_range,beam_fleet,prob_node,shared_scan,
+                     prob_fleet,windowed_int8,ndt_node,ndt_fleet,ndt3d_node,vdb]
 
 Workloads, the configurations of ``tools/workloads.py`` (which
 ``chip_smoke.py`` drives too):
@@ -26,6 +26,11 @@ Workloads, the configurations of ``tools/workloads.py`` (which
 * ``beam_node``: ``AmclNode`` with the beam model at nav2 defaults (100 m)
   through the sphere trace, kernel B8; ``beam_node_windowed`` the same node
   through the windowed range LUT (kernel B7 with its window origins);
+  ``beam_node_exact`` the same node on its default path, the exact
+  Bresenham march (kernel R1's exact beam-weights entry);
+* ``range_lut``: the beam fleet's range-LUT build (128 bins at 4 m on the
+  384² arena, R1's ray entry), once per "scan": a map load's set-up work,
+  profiled so that R1's designs can be compared at that shape;
 * ``long_range``: the long-range sphere-trace filter, 2048 particles x 60
   beams on the 1024² map at 60 m (kernel B8), forced updates;
 * ``beam_fleet``: 64 filters x 4096 particles x 60 beams through the
@@ -56,7 +61,10 @@ copies' device times under the profiler), the device's idle share
 (wrapped in profiler ranges here, not in the port), a few PyTorch
 operators by name (device time and calls per update), the kernels that
 take the most time, and the port's hand-written kernels by name (device
-time and launches per update).  A run without a CUDA device exits 2.
+time and launches per update, and each launch's least and greatest device
+time in µs).  The tool runs any checkout's package: put its
+root first on ``PYTHONPATH`` (``ab_variants`` does, for a parent tree too).
+A run without a CUDA device exits 2.
 """
 
 from __future__ import annotations
@@ -97,6 +105,7 @@ HAND_KERNELS = {
     "scan_lut_kernel": "B9 scan_lut_correlate", "ndt_probe_kernel": "B10 ndt_probe",
     "ndt_weights_kernel": "B10-fused ndt_weights", "codebook_lookup_kernel": "B11 codebook_lookup",
     "standard_kernel": "R1 cast_rays", "supercover_kernel": "R1 cast_rays",
+    "cast_rays_kernel": "R1 cast_rays", "beam_exact_kernel": "R1-exact beam_weights",
 }
 _SYMBOL = re.compile(r"(\w+_kernel)\b")
 
@@ -130,6 +139,22 @@ def _node(scans: int, **overrides):
         r = node.handle_scan((s.xs[t], s.ys[t], s.yaws[t]), s.points[t], s.mask[t])
         if not r.valid:
             raise RuntimeError(f"node scan {t} was gated out")
+
+    return step
+
+
+def _range_lut(scans: int):
+    """The beam fleet's range-LUT build, once a step."""
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.models.sensor.beam_lut import build_range_lut
+
+    s = workloads.arena_scans(1)
+    grid = make_grid(s.data, workloads.RES)
+    cfg = workloads.BEAM_FLEET
+
+    def step(t):
+        lut = build_range_lut(grid, cfg["beam_max_range"], cfg["n_bearings"])
+        lut.ranges[0, 0, :1].cpu()
 
     return step
 
@@ -268,6 +293,9 @@ WORKLOADS = {"node": _node, "large": _large, "fleet": _fleet,
                                               beam_fast_path="sphere_trace"),
              "beam_node_windowed": lambda scans: _node(scans, laser_model_type="beam",
                                                        beam_fast_path="windowed"),
+             "beam_node_exact": lambda scans: _node(scans, laser_model_type="beam",
+                                                    beam_fast_path="exact"),
+             "range_lut": _range_lut,
              "long_range": _forced(workloads.long_range, None),
              "beam_fleet": lambda scans: _fleet(scans, workloads.beam_fleet),
              "prob_node": lambda scans: _node(scans, laser_model_type="likelihood_field_prob"),
@@ -304,14 +332,16 @@ def profile_workload(name: str, make, scans: int, warmup: int, trace_dir: str | 
     for e in kernels:  # kernel names cut to 90 characters, times summed
         by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
-    hand: dict[str, list[float]] = {}
+    hand: dict[str, list] = {}
     for e in kernels:
         symbol = _SYMBOL.search(e.name)
         label = HAND_KERNELS.get(symbol.group(1)) if symbol else None
         if label:
-            entry = hand.setdefault(label, [0.0, 0])
-            entry[0] += e.time_range.elapsed_us()
+            us = e.time_range.elapsed_us()
+            entry = hand.setdefault(label, [0.0, 0, us, us])
+            entry[0] += us
             entry[1] += 1
+            entry[2], entry[3] = min(entry[2], us), max(entry[3], us)
     stages: dict[str, list[float]] = {s: [0.0, 0.0] for s in STAGES}
     ops, calls = dict.fromkeys(OPS, 0.0), dict.fromkeys(OPS, 0)
     for e in events:
@@ -339,8 +369,10 @@ def profile_workload(name: str, make, scans: int, warmup: int, trace_dir: str | 
         "ops_device_ms_per_update": {k: 1e-3 * v / scans for k, v in ops.items()},
         "ops_calls_per_update": {k: v / scans for k, v in calls.items()},
         "top_device_ms_per_update": {k: 1e-3 * v / scans for k, v in top},
-        "hand_kernels_per_update": {k: {"device_ms": 1e-3 * us / scans, "launches": c / scans}
-                                    for k, (us, c) in sorted(hand.items())},
+        "hand_kernels_per_update": {
+            k: {"device_ms": 1e-3 * us / scans, "launches": c / scans, "launch_us_min": lo,
+                "launch_us_max": hi}
+            for k, (us, c, lo, hi) in sorted(hand.items())},
     }
 
 

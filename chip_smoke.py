@@ -51,10 +51,11 @@ Phases, each of which exits non-zero when it fails:
    fallback); prints how many updates took each branch;
 9. beam node: ``AmclNode`` with ``laser_model_type="beam"`` at nav2
    defaults (100 m range) in each ``beam_fast_path`` for 30 scans, same
-   gate; R1 on every update in ``exact``, R1 once (the range-LUT build) in
-   ``lut`` and ``windowed``, B8 on every update in ``sphere_trace``, B7 on
-   every update in ``windowed`` (with its window-origins kernel), B2 in
-   all four;
+   gate; R1's exact beam-weights entry once per update in ``exact`` (the
+   model's weights in one launch, R1's ray entry never), R1's ray entry once
+   (the range-LUT build) in ``lut`` and ``windowed``, B8 on every update in
+   ``sphere_trace``, B7 on every update in ``windowed`` (with its
+   window-origins kernel), B2 in all four;
 10. long range: the JAX package's long-range beam row (1024² map at 0.1 m,
    2048 particles x 60 beams, 60 m, sphere trace), 40 forced updates along
    the arc of ``tests/test_system_long_range.py``; every scan after the 2
@@ -94,8 +95,18 @@ Phases, each of which exits non-zero when it fails:
 Phase 3 also holds kernels B8 (the node's 2000 x 60 at 100 m, the
 long-range 2048 x 60 at 60 m and the node's 2000 particles with a
 1000-beam scan), B7 (64 x 4096 x 60, K = 128, θ-sorted slots
-with strays) and R1 (the node's 2000 x 60 rays at 100 m and the LUT
-build's 128 x 384 x 384 rays at 4 m) against their plain versions, and
+with strays) and R1 against their plain versions: R1's ray entry bit-equal
+in both Bresenham variants on three maps (the arena: the node's 2000 x 60
+rays at 100 m and the LUT build's 128 x 384 x 384 rays at 4 m, their
+inputs broadcast as the build passes them; the long-range 1024² map, whose
+128 KB bit plane a block stages in shared memory: 2048 x 60 rays at 60 m;
+a 2048² map, whose 512 KB plane is read through L2: 2000 x 60 at 60 m),
+and R1's exact beam-weights entry (the beam model's weights
+in one launch) at the beam node's 2000 x 60 at 100 m and on the 2048² map
+in both variants and both spaces, each beam's pz³ and the sums within
+EXACT_RTOL of its plain version, the bit-equal shares printed, two
+launches bit-equal; each R1 shape also prints one call's time alone over
+50 calls (min, median, max), and
 slice 5's: B9 (nearest at the shared-scan shape, 128 x 280 x 384, and
 bilinear at full resolution, 128 x 552 x 640, beside ``conv2d``), B1-log
 (2000 x 60 and 64 x 4096 x 60), B4-log (64 x 4096 x 60) and B6-int8
@@ -193,11 +204,17 @@ LIBRARY_LIMIT_MS = 1000.0  # a library yardstick slower than this per call is no
 # unmasked beam), since it depends on the beam alone, exp(-lam z) and its
 # product (11) and the z_rand or z_max tail (1).  Kernel B7 adds the bin and
 # the blend (12) a ray, kernel B8 the ray direction (6) and 8 per trace
-# step; kernel R1 takes ~10 integer operations per visited cell
+# step; kernel R1 takes ~10 integer operations per visited cell, and its
+# exact entry adds B8's per-ray count (the direction and the mixture), the
+# per-beam terms and the pose's composition
 MIXTURE_RAY_OPS, MIXTURE_BEAM_OPS = 99, 12
 B7_OPS_PER_RAY = MIXTURE_RAY_OPS + 12
 B8_OPS_PER_RAY, B8_OPS_PER_STEP = MIXTURE_RAY_OPS + 6, 8
 R1_OPS_PER_CELL = 10
+# the exact entry against its plain version: pz³ and the sums within rtol
+# 1e-5 (the sums' bound, as B1's); the same float32 operations in the same
+# order, so bit-equal is the aim and each check prints the bit-equal share
+EXACT_RTOL = 1e-5
 # operations that the NDT stencil likelihood needs, by dimension: per
 # (particle, live cell) the rotated mean (2D 8, 3D 18), the rotated
 # covariance (24, 90), the cell (3 a axis) and the clamped sum (2); per
@@ -259,17 +276,37 @@ def device_ms(fn, iters: int) -> float | None:
     return 1e-3 * busy_us / iters if busy_us > 0 else None
 
 
-def queued_device_ms(fn, calls: int, spin_cycles: int = 50_000_000) -> float | None:
+def queued_device_ms(fn, calls: int, spin_cycles: int = 50_000_000, each: bool = False):
     """Device time per call of ``fn`` without the profiler: ``calls``
     calls queued behind a spin kernel of ``spin_cycles`` clocks (~25 ms),
     so that the card runs them back to back whatever the host's cost of
     issuing them, between two CUDA events.  None when the spin ended
     before the host had queued them.  For calls of a millisecond or more,
-    whose gaps on the device are a negligible share."""
+    whose gaps on the device are a negligible share.
+
+    With ``each``, every call is queued alone behind a spin of
+    ``spin_cycles // 25`` clocks (~1 ms) between two events of its own, for
+    calls of microseconds and to see one call's spread: ``{"min",
+    "median", "max", "calls"}`` ms over the calls queued in time, None
+    when none was."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if each:
+        times = []
+        for _ in range(calls):
+            torch.cuda._sleep(spin_cycles // 25)
+            start.record()
+            fn()
+            end.record()
+            queued = not start.query()
+            end.synchronize()
+            if queued:
+                times.append(start.elapsed_time(end))
+        times.sort()
+        return dict(min=times[0], median=times[len(times) // 2], max=times[-1],
+                    calls=len(times)) if times else None
     torch.cuda._sleep(spin_cycles)
     start.record()
     for _ in range(calls):
@@ -1012,16 +1049,53 @@ def arena_cloud(n: int, dev, seed: int, batch: int | None = None, stray_every: i
                               for i in range(3)), device=dev), s
 
 
-def check_raycast(dev, iters: int, lut_build: bool) -> dict:
-    """Kernel R1 at the beam node's 2000 x 60 rays at 100 m (the exact
-    path), or at the range-LUT build's 128 x 384 x 384 rays at 4 m: hit
-    flags and distances bit-equal to its plain version, both variants."""
+def r1_device_ms(times: dict, fn, calls: int = 30) -> None:
+    """R1's device time in ``times`` (from ``timings``): each call queued
+    alone behind a spin (``queued_device_ms(each=True)``), its median as
+    ``device_ms`` and the spread as ``device_ms_each``, in place of the
+    profiler's figure, which at times counts only part of R1's launches."""
+    spread = queued_device_ms(fn, calls, each=True)
+    times["device_ms"] = None if spread is None else spread["median"]
+    times["device_ms_each"] = spread
+
+
+def raycast_map(which: str, dev):
+    """The grid of a ray-cast check: the 384² arena at 5 cm (``node``,
+    ``lut_build``), the long-range 1024² map at 0.1 m (a bit plane of 128
+    KB, staged in shared memory) or a 2048² map of the same kind (512 KB,
+    past what a block's shared memory holds: read through L2), with its
+    first pose and scan."""
+    from beluga_tpu_torch.io import synthetic
     from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.tools import workloads
+
+    if which in ("node", "lut_build"):
+        s = workloads.arena_scans(1)
+        return (make_grid(s.data, workloads.RES, device=dev), (s.xs[0], s.ys[0], s.yaws[0]),
+                s.points[0], s.mask[0])
+    cfg = workloads.LONG_RANGE
+    cells = cfg["cells"] if which == "long_range" else 2 * cfg["cells"]
+    data = synthetic.long_range_world(cells)
+    xs, ys, yaws = synthetic.arc_trajectory(1, cells, cfg["res"])
+    pts, mask = synthetic.simulate_scans(data, cfg["res"], xs, ys, yaws, workloads.BEAMS,
+                                         max_range=cfg["beam_max_range"])
+    return make_grid(data, cfg["res"], device=dev), (xs[0], ys[0], yaws[0]), pts[0], mask[0]
+
+
+def check_raycast(dev, iters: int, which: str) -> dict:
+    """Kernel R1's ray entry: at the beam node's 2000 x 60 rays at 100 m on
+    the arena (``which="node"``), the range-LUT build's 128 x 384 x 384
+    rays at 4 m (``"lut_build"``, its sources and directions broadcast as
+    ``build_range_lut`` passes them), 2048 x 60 rays at 60 m on the
+    long-range 1024² map (``"long_range"``: its 128 KB plane in shared
+    memory) or 2000 x 60 at 60 m on a 2048² map (``"l2"``: the plane read
+    through L2): hit flags and distances bit-equal to its plain version,
+    both variants.  The bound counts the cells the plain version probes."""
     from beluga_tpu_torch.ops import raycast as r1
     from beluga_tpu_torch.tools import workloads
 
-    grid = make_grid(workloads.arena_scans(1).data, workloads.RES, device=dev)
-    if lut_build:
+    grid, pose, points, _ = raycast_map(which, dev)
+    if which == "lut_build":
         k, h, w = workloads.BEAM_FLEET["n_bearings"], grid.height, grid.width
         max_range = workloads.BEAM_FLEET["beam_max_range"]
         res = torch.tensor(grid.resolution, dtype=torch.float32, device=dev)
@@ -1030,49 +1104,144 @@ def check_raycast(dev, iters: int, lut_build: bool) -> dict:
         src = torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w)], -1)[None]
         th = torch.arange(k, dtype=torch.float32, device=dev) * (2.0 * math.pi / k)
         dirs = torch.stack([torch.cos(th), torch.sin(th)], -1)[:, None, None, :]
-        label = f"{k}x{h}x{w} rays (range-LUT build, {max_range} m)"
+        label = f"{k}x{h}x{w} rays (range-LUT build, {max_range} m, broadcast inputs)"
         plain_iters = 2
+        in_bytes = src.numel() * 4 + dirs.numel() * 4
     else:
-        states, s = arena_cloud(2000, dev, seed=11)
-        _, bearing, _ = beam_scan(torch.as_tensor(s.points[0]).to(dev))
-        c, sn = states.rot.cos[:, None], states.rot.sin[:, None]
+        n = workloads.LONG_RANGE["n"] if which == "long_range" else 2000
+        max_range = BEAM_NODE_RANGE if which == "node" else workloads.LONG_RANGE["beam_max_range"]
+        rng = np.random.default_rng(11)
+        xyt = rng.normal(pose, [0.3, 0.3, 0.2], (n, 3)).astype(np.float32)
+        c, sn = (torch.as_tensor(f(xyt[:, 2:])).to(dev) for f in (np.cos, np.sin))
+        _, bearing, _ = beam_scan(torch.as_tensor(points).to(dev))
         bx, by = bearing[None, :, 0], bearing[None, :, 1]
-        src = states.xy[:, None, :]
+        src = torch.as_tensor(xyt[:, None, :2]).to(dev)
         dirs = torch.stack([c * bx - sn * by, sn * bx + c * by], -1)
-        max_range = 100.0
-        label = f"2000x{bearing.shape[0]} rays (beam node, {max_range} m)"
+        src, dirs = (v.contiguous() for v in torch.broadcast_tensors(src, dirs))
+        label = (f"{n}x{bearing.shape[0]} rays ({which}, {grid.height}² at {grid.resolution:g} m, "
+                 f"{max_range} m)")
         plain_iters = 3
-    src, dirs = (v.contiguous() for v in torch.broadcast_tensors(src, dirs))
+        in_bytes = 16 * src.shape[0] * src.shape[1]
+    plane_kb = r1.free_plane(grid).bits.numel() * 4 / 1024
+    label += f", plane {plane_kb:g} KB"
     steps = r1.num_steps(max_range, grid.resolution)
-    err, casts = 0.0, {}
+    err, cells = 0.0, 0
     for variant in r1.VARIANTS:
-        got = casts[variant] = r1.cast_rays(grid, src, dirs, max_range, variant=variant)
+        got = r1.cast_rays(grid, src, dirs, max_range, variant=variant)
         want = r1.cast_rays_reference(grid.free_mask, src, dirs, max_range, grid.resolution,
-                                      steps, variant)
+                                      steps, variant, count_cells=True)
         torch.cuda.synchronize()
         check(torch.equal(got[1], want[1]),
               f"R1 {variant} {label}: {int((got[1] != want[1]).sum())} hit flags differ")
         check(torch.equal(got[0], want[0]),
               f"R1 {variant} {label}: {int((got[0] != want[0]).sum())} distances differ")
         err = max(err, float((got[0] - want[0]).abs().max()))
-    dist, hit = casts["standard"]
-    check(0 < int(hit.sum()) < hit.numel() or lut_build, f"R1 {label}: no hits or no misses")
-    # cells visited: up to the hit cell, else to the far cell
-    x0, y0, x1, y1 = r1.line_ends(src, dirs, max_range, grid.resolution)
-    span = torch.maximum((x1 - x0).abs(), (y1 - y0).abs()).float()
-    cells = float(torch.where(hit, torch.round(dist / grid.resolution), span).sum() + hit.numel())
+        if variant == "standard":
+            hit, cells = got[1], int(want[2].sum())
+    check(0 < int(hit.sum()) < hit.numel() or which == "lut_build",
+          f"R1 {label}: no hits or no misses")
     times = timings(lambda: r1.cast_rays(grid, src, dirs, max_range),
                     lambda: r1.cast_rays_reference(grid.free_mask, src, dirs, max_range,
                                                    grid.resolution, steps, "standard"),
                     iters, plain_iters=plain_iters)
+    r1_device_ms(times, lambda: r1.cast_rays(grid, src, dirs, max_range),
+                 10 if which == "lut_build" else 30)
     n = hit.numel()
-    bms, by = bound_ms(21 * n + grid.height * grid.width, R1_OPS_PER_CELL * cells)
+    bms, by = bound_ms(in_bytes + 5 * n + r1.free_plane(grid).bits.numel() * 4,
+                       R1_OPS_PER_CELL * cells)
     return dict(
         name="R1 cast_rays", route="cuda", source="beluga_tpu_torch/csrc/raycast.cu",
         replaces="beluga_tpu/ops/raycast.py:33 (no Pallas kernel)", max_abs_err=err,
         bound_ms=bms, bound_by=by, shape=label, cells_visited=cells, hits=int(hit.sum()),
         **times,
     )
+
+
+def check_beam_exact(dev, iters: int, which: str) -> dict:
+    """Kernel R1's exact beam-weights entry at the beam node's shape (2000
+    particles x 60 beams at 100 m on the arena, ``which="node"``) or at
+    2000 x 60 at 60 m on the 2048² map whose plane is read through L2
+    (``"l2"``), one beam masked, both variants: each beam's pz³ (the
+    weight of that beam alone) and the full sums within EXACT_RTOL of the
+    plain version (and how many are bit-equal), log space within
+    EXACT_RTOL, two launches bit-equal."""
+    from beluga_tpu_torch.lie import SE2
+    from beluga_tpu_torch.models.sensor.beam import BeamModelParams, exact_mixture
+    from beluga_tpu_torch.ops import raycast as r1
+    from beluga_tpu_torch.tools import workloads
+
+    grid, pose, points, mask = raycast_map(which, dev)
+    bmr = BEAM_NODE_RANGE if which == "node" else workloads.LONG_RANGE["beam_max_range"]
+    params = BeamModelParams(beam_max_range=bmr)
+    mix = exact_mixture(params)
+    rng = np.random.default_rng(15)
+    xyt = rng.normal(pose, [0.3, 0.3, 0.2], (2000, 3))
+    states = SE2.from_xytheta(*(torch.as_tensor(xyt[:, i], dtype=torch.float32)
+                                for i in range(3)), device=dev)
+    pts = torch.as_tensor(points).to(dev)
+    beams = torch.as_tensor(mask).to(dev)
+    beams[3] = False  # a masked beam
+    label = (f"2000x{pts.shape[0]} ({which}, {grid.height}² at {grid.resolution:g} m, {bmr} m, "
+             f"plane {r1.free_plane(grid).bits.numel() * 4 / 1024:g} KB)")
+    out = dict(name="R1-exact beam_weights", route="cuda",
+               source="beluga_tpu_torch/csrc/raycast.cu",
+               replaces="beluga_tpu/models/sensor/beam.py:38 beam_weights (with "
+                        "beluga_tpu/ops/raycast.py:33; no Pallas kernel)",
+               shape=label, variants={})
+    err = 0.0
+    for variant in r1.VARIANTS:
+        args = (grid, states, pts, beams, mix, bmr, variant)
+        got, again = r1.exact_beam_weights(*args), r1.exact_beam_weights(*args)
+        want = r1.exact_beam_weights_reference(*args)
+        got_log = r1.exact_beam_weights(*args, log_space=True)
+        want_log = r1.exact_beam_weights_reference(*args, log_space=True)
+        # each unmasked beam alone: its pz³
+        on = torch.nonzero(beams).flatten().tolist()
+        pz3_got = torch.stack([
+            r1.exact_beam_weights(grid, states, pts, torch.arange(beams.numel(), device=dev) == b,
+                                  mix, bmr, variant) for b in on], -1)
+        pz3_want = r1.exact_pz3_reference(grid, states, pts, mix, bmr, variant)[:, on]
+        torch.cuda.synchronize()
+        tag = f"R1-exact {variant} {label}"
+        check(bool(torch.isfinite(got).all()), f"{tag}: weights not finite")
+        check(torch.equal(got, again), f"{tag}: two launches differ")
+        for what, g, w in (("pz³", pz3_got, pz3_want), ("sums", got, want)):
+            bad = int((~torch.isclose(g, w, rtol=EXACT_RTOL, atol=0.0)).sum())
+            check(bad == 0, f"{tag}: {bad} {what} outside rtol {EXACT_RTOL} of the plain version")
+        bad = int((~torch.isclose(got_log, want_log, rtol=0.0, atol=EXACT_RTOL)).sum())
+        check(bad == 0, f"{tag}: {bad} log weights beyond {EXACT_RTOL} of the plain version")
+        check(float(want.std()) > 0, f"{tag}: the weights do not discriminate")
+        rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max()
+        out["variants"][variant] = dict(
+            pz3_bit_equal_share=float((pz3_got == pz3_want).float().mean()),
+            sums_bit_equal_share=float((got == want).float().mean()),
+            log_bit_equal_share=float((got_log == want_log).float().mean()),
+            max_rel_err=float(rel))
+        err = max(err, float((got - want).abs().max()))
+    args = (grid, states, pts, beams, mix, bmr, "standard")
+    times = timings(lambda: r1.exact_beam_weights(*args, log_space=True),
+                    lambda: r1.exact_beam_weights_reference(*args, log_space=True), iters,
+                    plain_iters=3)
+    r1_device_ms(times, lambda: r1.exact_beam_weights(*args, log_space=True))
+    # the work these inputs need: the unmasked rays' cells, as the plain
+    # version probes them, and the mixture
+    local = grid.origin.inverse() @ states
+    _, bearing = r1.ranges_and_bearings(pts[beams])
+    c, sn = local.rot.cos[:, None], local.rot.sin[:, None]
+    dirs = torch.stack([c * bearing[None, :, 0] - sn * bearing[None, :, 1],
+                        sn * bearing[None, :, 0] + c * bearing[None, :, 1]], -1)
+    src, dirs = torch.broadcast_tensors(local.xy[:, None, :], dirs)
+    _, _, cells = r1.cast_rays_reference(grid.free_mask, src, dirs, bmr, grid.resolution,
+                                         r1.num_steps(bmr, grid.resolution), "standard",
+                                         count_cells=True)
+    n, unmasked = states.shape[0], int(beams.sum())
+    plane_bytes = r1.free_plane(grid).bits.numel() * 4
+    bms, by = bound_ms(16 * n + 9 * beams.numel() + 4 * n + plane_bytes,
+                       R1_OPS_PER_CELL * int(cells.sum()) + B8_OPS_PER_RAY * n * unmasked
+                       + MIXTURE_BEAM_OPS * unmasked + SE2_COMPOSE_OPS * n)
+    out.update(max_abs_err=err, bound_ms=bms, bound_by=by, cells_visited=int(cells.sum()),
+               **times)
+    return out
 
 
 def check_sphere_trace(dev, iters: int, long_range: bool, n_beams: int | None = None) -> dict:
@@ -1501,6 +1670,7 @@ def reset_counts() -> None:
     cuda_beam_lut.origins_launches = 0
     cuda_beam.launches = 0
     raycast.launches = 0
+    raycast.exact_launches = 0
     cuda_scan_lut.launches = 0
 
 
@@ -1537,6 +1707,7 @@ def read_counts() -> dict:
             "B10-fused ndt_weights": cuda_ndt.weights_launches,
             "B11 codebook_lookup": cuda_codebook.launches,
             "R1 cast_rays": raycast.launches,
+            "R1-exact beam_weights": raycast.exact_launches,
             REWEIGHT_STATES: cuda_reweight.states_launches}
 
 
@@ -1847,13 +2018,14 @@ def run_beam_node(dev, mode: str) -> tuple[dict, dict]:
                            laser_model_type="beam", beam_fast_path=mode)
     updates = out["valid"]
     expected = {  # launches of each beam kernel: the map load and every update
-        "exact": {"R1 cast_rays": updates, "B7 beam_lut_windowed": 0,
-                  "B8 sphere_trace_beam_weights": 0},
-        "lut": {"R1 cast_rays": 1, "B7 beam_lut_windowed": 0, "B8 sphere_trace_beam_weights": 0},
-        "windowed": {"R1 cast_rays": 1, "B7 beam_lut_windowed": updates,
-                     "B8 sphere_trace_beam_weights": 0},
-        "sphere_trace": {"R1 cast_rays": 0, "B7 beam_lut_windowed": 0,
-                         "B8 sphere_trace_beam_weights": updates},
+        "exact": {"R1-exact beam_weights": updates, "R1 cast_rays": 0,
+                  "B7 beam_lut_windowed": 0, "B8 sphere_trace_beam_weights": 0},
+        "lut": {"R1-exact beam_weights": 0, "R1 cast_rays": 1, "B7 beam_lut_windowed": 0,
+                "B8 sphere_trace_beam_weights": 0},
+        "windowed": {"R1-exact beam_weights": 0, "R1 cast_rays": 1,
+                     "B7 beam_lut_windowed": updates, "B8 sphere_trace_beam_weights": 0},
+        "sphere_trace": {"R1-exact beam_weights": 0, "R1 cast_rays": 0,
+                         "B7 beam_lut_windowed": 0, "B8 sphere_trace_beam_weights": updates},
     }[mode]
     # B7's window origins: its own kernel, once per B7 launch
     expected["B7-origins window_origins"] = expected["B7 beam_lut_windowed"]
@@ -2199,8 +2371,12 @@ def main() -> int:
     s_wide = check_sphere_trace(dev, iters=20, long_range=False, n_beams=1000)
     l_fleet, o_fleet = check_beam_lut(dev, iters=50, which="fleet")
     l_node, o_node = check_beam_lut(dev, iters=100, which="node")
-    c_node = check_raycast(dev, iters=100, lut_build=False)
-    c_build = check_raycast(dev, iters=10, lut_build=True)
+    c_node = check_raycast(dev, iters=100, which="node")
+    c_build = check_raycast(dev, iters=10, which="lut_build")
+    c_long = check_raycast(dev, iters=50, which="long_range")
+    c_l2 = check_raycast(dev, iters=50, which="l2")
+    e_node = check_beam_exact(dev, iters=100, which="node")
+    e_l2 = check_beam_exact(dev, iters=50, which="l2")
     g_shared = check_scan_lut(dev, iters=20, sampling="nearest", downsample=2)
     g_full = check_scan_lut(dev, iters=10, sampling="bilinear", downsample=1)
     k_log_node, _ = check_reweight(2000, dev, iters=200, log_space=True)
@@ -2219,8 +2395,8 @@ def main() -> int:
     checked = (k_main, r_main, rc_main, k_big, r_big, rc_big, c_big, k_fleet, r_fleet, rc_fleet,
                c_fleet, p_fleet, p_big, p_mega, r_mega, rc_mega, w_big, f_mega, f_ragged, f_l2,
                s_node, s_long, s_wide, l_fleet, l_node,
-               o_fleet, o_node, c_node,
-               c_build, g_shared, g_full, k_log_node, k_log_fleet, c_log_fleet, i_big, n_fleet,
+               o_fleet, o_node, c_node, c_build, c_long, c_l2, e_node, e_l2,
+               g_shared, g_full, k_log_node, k_log_fleet, c_log_fleet, i_big, n_fleet,
                n_3d, f_node, f_fleet, f_3d, v_bench, v_floor)
     ms = lambda v: "not measured" if v is None else f"{v:.5f} ms"  # noqa: E731
     for k in checked:
@@ -2229,6 +2405,10 @@ def main() -> int:
         extra = "".join(f", {key} {k[key]}" for key in (
             "max_rel_err", "outside_rtol_share", "live_cells", "hit_share", "library_note",
             "max_abs_err_float64", "rows_moved_from_plain") if key in k)
+        if "device_ms_each" in k:
+            extra += "; device, one call alone (ms) " + json.dumps(k["device_ms_each"])
+        if "variants" in k:
+            extra += "; by variant " + json.dumps(k["variants"])
         if "tf_entry_ms" in k:
             extra += (f"; transform entry {ms(k['tf_entry_ms'])} (device "
                       f"{ms(k['tf_entry_device_ms'])}; plain {ms(k['tf_entry_plain_ms'])})")
@@ -2355,6 +2535,7 @@ def main() -> int:
                     (l_fleet, "beam_fleet"), (l_node, "beam_node_windowed"),
                     (o_fleet, "beam_fleet"), (o_node, "beam_node_windowed"), (s_long, "long_range"),
                     (s_node, "beam_node_sphere_trace"), (c_build, "beam_fleet"),
+                    (e_node, "beam_node_exact"),
                     (k_log_node, "prob_node"), (c_log_fleet, "prob_fleet"),
                     (i_big, "windowed_int8"), (g_shared, "shared_scan"),
                     (n_fleet, None), (n_3d, None), (f_node, "ndt_node"),
@@ -2367,6 +2548,14 @@ def main() -> int:
             entry["other_shapes"] = [{key: s_wide[key] for key in timed}]
         if k is f_mega:  # the L2 branch of the same kernel
             entry["other_shapes"] = [{key: f_l2[key] for key in timed}]
+        if k is c_build:  # the ray entry's other maps, the last through L2
+            entry["device_ms_each"] = c_build["device_ms_each"]
+            entry["other_shapes"] = [{key: c[key] for key in (*timed, "device_ms_each")}
+                                     for c in (c_node, c_long, c_l2)]
+        if k is e_node:
+            entry.update(variants=e_node["variants"], device_ms_each=e_node["device_ms_each"],
+                         other_shapes=[{key: e_l2[key] for key in
+                                        (*timed, "variants", "device_ms_each")}])
         if "tf_entry_ms" in k:
             entry.update({key: k[key] for key in k if key.startswith("tf_entry_")})
         if k in (r_mega, r_big):

@@ -455,6 +455,201 @@ def test_r1_range_lut_build_matches_plain_version(dev):
     assert torch.equal(lut.ranges.cpu(), cpu.ranges)
 
 
+def r1_map(dev, which):
+    """A grid for R1's two branches: the arena (an 18 KB bit plane, staged
+    in shared memory), the long-range 1024² map at 0.1 m (128 KB, staged)
+    or a 2048² map of the same kind (512 KB, read through L2); and poses
+    about a point of it."""
+    from beluga_tpu_torch.io import synthetic
+    from beluga_tpu_torch.maps.occupancy import make_grid
+
+    if which == "arena":
+        xs, ys, yaws = synthetic.circle_trajectory(1)
+        return make_grid(synthetic.tracking_arena(384, 0.05), 0.05, device=dev), (xs[0], ys[0])
+    cells = 1024 if which == "long_range" else 2048
+    xs, ys, _ = synthetic.arc_trajectory(1, cells, 0.1)
+    return make_grid(synthetic.long_range_world(cells), 0.1, device=dev), (xs[0], ys[0])
+
+
+def r1_states(dev, center, n, seed, batch=None):
+    from beluga_tpu_torch.lie import SE2
+
+    lead = () if batch is None else (batch,)
+    rng = np.random.default_rng(seed)
+    xyt = rng.normal([*center, 0.0], [0.5, 0.5, 3.0], (*lead, n, 3)).astype(np.float32)
+    xyt[..., ::25, :2] += 8.0  # some far off, some off the map
+    xyt[..., 1::50, :2] = -1.0
+    return SE2.from_xytheta(xyt[..., 0], xyt[..., 1], xyt[..., 2], device=dev)
+
+
+def r1_scan(dev, nb, seed, masked=(3,)):
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(-np.pi, np.pi, nb, endpoint=False)
+    r = rng.uniform(0.3, 12.0, nb)
+    pts = np.stack([r * np.cos(ang), r * np.sin(ang)], -1).astype(np.float32)
+    mask = np.ones(nb, bool)
+    mask[[m for m in masked if m < nb]] = False
+    return torch.as_tensor(pts).to(dev), torch.as_tensor(mask).to(dev)
+
+
+@pytest.mark.parametrize("variant", ["standard", "supercover"])
+@pytest.mark.parametrize("which,max_range", [("arena", 100.0), ("long_range", 60.0),
+                                             ("l2", 60.0)])
+def test_r1_ray_entry_bit_equal_in_shared_memory_and_through_l2(dev, variant, which,
+                                                                  max_range):
+    """The ray entry with its plane staged in shared memory (the arena,
+    the 1024² map) and read through L2 (the 2048² map): bit-equal."""
+    from beluga_tpu_torch.ops import raycast as r1
+
+    grid, center = r1_map(dev, which)
+    states = r1_states(dev, center, 1500, 1)
+    points, _ = r1_scan(dev, BEAMS, 2)
+    bearing = points / torch.linalg.vector_norm(points, dim=-1, keepdim=True)
+    c, s = states.rot.cos[:, None], states.rot.sin[:, None]
+    dirs = torch.stack([c * bearing[None, :, 0] - s * bearing[None, :, 1],
+                        s * bearing[None, :, 0] + c * bearing[None, :, 1]], -1)
+    src = states.xy[:, None, :]
+    got = r1.cast_rays(grid, src, dirs, max_range, variant=variant)
+    want = r1.cast_rays_reference(grid.free_mask, *torch.broadcast_tensors(src, dirs), max_range,
+                                  grid.resolution, r1.num_steps(max_range, grid.resolution),
+                                  variant)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert 0 < int(got[1].sum()) < got[1].numel()
+
+
+def test_r1_ray_entry_reads_broadcast_inputs_through_strides(dev):
+    """Sources ``[1, H, W, 2]`` against directions ``[K, 1, 1, 2]`` (the
+    range-LUT build), a transposed view, and six broadcast axes (more than
+    the kernel's four: copied first): each equal to the same rays made
+    contiguous."""
+    from beluga_tpu_torch.ops import raycast as r1
+
+    grid, _ = r1_map(dev, "arena")
+    res = grid.resolution
+    xs = (torch.arange(96, dtype=torch.float32, device=dev) + 0.5) * res * 4
+    src = torch.stack([xs[None, :].expand(80, 96), xs[:80, None].expand(80, 96)], -1)[None]
+    th = torch.arange(16, dtype=torch.float32, device=dev) * (2.0 * math.pi / 16)
+    dirs = torch.stack([torch.cos(th), torch.sin(th)], -1)[:, None, None, :]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    six = (torch.rand(2, 3, 2, 3, 2, 3, 2, generator=gen, device=dev) * 15.0).permute(
+        1, 0, 3, 2, 5, 4, 6)  # six axes whose strides do not merge
+    cases = [(src, dirs), (src.transpose(1, 2), dirs), (six, dirs[:2, 0, 0])]
+    for s_in, d_in in cases:
+        got = r1.cast_rays(grid, s_in, d_in, 4.0)
+        flat = [t.contiguous() for t in torch.broadcast_tensors(s_in, d_in)]
+        want = r1.cast_rays(grid, *flat, 4.0)
+        torch.cuda.synchronize()
+        assert got[0].shape == flat[0].shape[:-1]
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("variant", ["standard", "supercover"])
+@pytest.mark.parametrize("log_space", [False, True])
+@pytest.mark.parametrize("which", ["arena", "l2"])
+def test_r1_exact_entry_matches_plain_version(dev, variant, log_space, which):
+    """The exact beam-weights entry against its plain version: every
+    weight within rtol 1e-5 (log: abs 1e-5), two launches bit-equal, with
+    a masked beam and a masked NaN beam; plane in shared memory (the
+    arena) and through L2 (the 2048² map)."""
+    from beluga_tpu_torch.models.sensor.beam import BeamModelParams, exact_mixture
+    from beluga_tpu_torch.ops import raycast as r1
+
+    grid, center = r1_map(dev, which)
+    states = r1_states(dev, center, 2000, 3)
+    points, mask = r1_scan(dev, BEAMS, 4, masked=(3, 7))
+    points[7] = float("nan")
+    bmr = 100.0 if which == "arena" else 60.0
+    args = (grid, states, points, mask, exact_mixture(BeamModelParams(beam_max_range=bmr)),
+            bmr, variant, log_space)
+    before = r1.exact_launches
+    got, again = r1.exact_beam_weights(*args), r1.exact_beam_weights(*args)
+    want = r1.exact_beam_weights_reference(*args)
+    torch.cuda.synchronize()
+    assert r1.exact_launches == before + 2
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    if log_space:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    assert float(want.std()) > 0
+
+
+@pytest.mark.parametrize("batch,n,nb", [(3, 777, BEAMS), (None, 300, 1000), (None, 5, 1),
+                                        (2, 100, 33)])
+def test_r1_exact_entry_fleets_wide_scans_and_masks(dev, batch, n, nb):
+    """Fleets (a scan for each filter), a scan of 1000 beams (one
+    particle a block, beams in several rounds), one beam, and a filter
+    whose beams are all masked (weight 0, log 1e-30's), against the plain
+    version."""
+    from beluga_tpu_torch.models.sensor.beam import BeamModelParams, exact_mixture
+    from beluga_tpu_torch.ops import raycast as r1
+
+    grid, center = r1_map(dev, "arena")
+    states = r1_states(dev, center, n, 5, batch)
+    lead = () if batch is None else (batch,)
+    scans = [r1_scan(dev, nb, 6 + f) for f in range(batch or 1)]
+    points = torch.stack([p for p, _ in scans]).reshape(*lead, nb, 2)
+    mask = torch.stack([m for _, m in scans]).reshape(*lead, nb)
+    if batch:
+        mask[-1] = False
+    mix = exact_mixture(BeamModelParams(beam_max_range=100.0))
+    for log_space in (False, True):
+        args = (grid, states, points, mask, mix, 100.0, "standard", log_space)
+        got = r1.exact_beam_weights(*args)
+        want = r1.exact_beam_weights_reference(*args)
+        torch.cuda.synchronize()
+        assert got.shape == (*lead, n)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 if log_space else 0)
+    if batch:
+        assert torch.equal(got[-1], torch.full_like(got[-1], math.log(1e-30)))
+
+
+def test_r1_exact_grid_plane_follows_a_map_swap(dev):
+    """``update_map_ctx`` gives the ctx a new grid, and the exact filter's
+    weights follow it: the new grid packs its own plane."""
+    from beluga_tpu_torch.filters.builders import make_beam_filter, update_map_ctx
+    from beluga_tpu_torch.io.config import AmclNodeConfig
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.ops import raycast as r1
+
+    grid, center = r1_map(dev, "arena")
+    models, ctx = make_beam_filter(grid, device=dev)
+    states = r1_states(dev, center, 500, 7)
+    points, mask = r1_scan(dev, BEAMS, 8)
+    before = models.log_weight(ctx, states, points, mask)
+    data = grid.data.cpu().numpy().copy()
+    data[100:300, 100:300] = 100
+    other = make_grid(data, grid.resolution, device=dev)
+    swapped = update_map_ctx(ctx, other, AmclNodeConfig().likelihood_field_params())
+    after = models.log_weight(swapped, states, points, mask)
+    fresh = models.log_weight(make_beam_filter(other, device=dev)[1], states, points, mask)
+    torch.cuda.synchronize()
+    assert r1.free_plane(swapped["grid"]) is not r1.free_plane(ctx["grid"])
+    assert torch.equal(after, fresh) and not torch.equal(after, before)
+
+
+def test_beam_node_exact_weights_one_launch_per_update(dev):
+    """The beam node on its default path: each update's weights are one
+    launch of R1's exact entry, and the ray entry is never launched."""
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.node import AmclNode
+    from beluga_tpu_torch.ops import raycast
+    from beluga_tpu_torch.tools import workloads
+
+    s = workloads.arena_scans(6)
+    node = AmclNode(workloads.node_config(s, laser_model_type="beam", beam_fast_path="exact"),
+                    seed=0, device=dev)
+    node.set_map(make_grid(s.data, workloads.RES, device=dev))
+    before = (raycast.launches, raycast.exact_launches)
+    valid = sum(node.handle_scan((s.xs[t], s.ys[t], s.yaws[t]), s.points[t],
+                                 s.mask[t]).valid for t in range(6))
+    torch.cuda.synchronize()
+    assert valid >= 5
+    assert (raycast.launches - before[0], raycast.exact_launches - before[1]) == (0, valid)
+
+
 @pytest.mark.parametrize("n,batch,max_range,nb", [
     (2000, None, 100.0, BEAMS), (2048, None, 60.0, BEAMS), (777, 3, 8.0, BEAMS),
     (500, 2, 100.0, 361), (300, None, 8.0, 1000)])
@@ -611,13 +806,16 @@ def test_beam_node_on_card(dev, mode):
     node.set_map(make_grid(data, 0.1))
     assert node._state.particles.log_weight.is_cuda
     before = (raycast.launches, cuda_beam.launches, cuda_beam_lut.launches)
+    before_exact = raycast.exact_launches
     pts = np.random.default_rng(0).uniform(0.5, 2.0, (30, 2)).astype(np.float32)
     res = node.handle_scan((0.0, 0.0, 0.0), pts)
     assert res.valid and np.isfinite(res.pose).all()
     after = (raycast.launches, cuda_beam.launches, cuda_beam_lut.launches)
-    want = {"exact": (1, 0, 0), "lut": (0, 0, 0), "sphere_trace": (0, 1, 0),
+    want = {"exact": (0, 0, 0), "lut": (0, 0, 0), "sphere_trace": (0, 1, 0),
             "windowed": (0, 0, 1)}[mode]
     assert tuple(a - b for a, b in zip(after, before)) == want
+    # the exact path's weights: one launch of R1's exact entry
+    assert raycast.exact_launches - before_exact == (mode == "exact")
 
 
 # -- slice 5: B9, B1-log, B4-log, B6-int8 ---------------------------------------------
