@@ -137,12 +137,12 @@ def uniform_free_cells_pooled_from_draws(
     cand: Tensor, idx: Tensor, theta: Tensor, free_xy: Tensor
 ) -> SE2:
     """Free-cell states through a candidate pool (random.py:97-134): the
-    pool ``free_xy[cand]`` (``cand`` ``[..., P]``, plain indexing, as the
-    reference's XLA gather), then slot ``i`` takes pool row ``idx[..., i]``
-    through kernel B3 (ops/cuda_pool_take.py), headings ``theta``."""
-    from beluga_tpu_torch.ops.cuda_pool_take import pool_take
+    pool ``free_xy[cand]`` (``cand`` ``[..., P]``), then slot ``i`` takes
+    pool row ``idx[..., i]``, headings ``theta``: the whole draw in one
+    launch of kernel B3's draw entry (ops/cuda_pool_take.py)."""
+    from beluga_tpu_torch.ops.cuda_pool_take import pooled_free_cells
 
-    return SE2(pool_take(free_xy[cand], idx), SO2.exp(theta))
+    return pooled_free_cells(free_xy, cand, idx, theta)
 
 
 def sample_uniform_free_cells_pooled(

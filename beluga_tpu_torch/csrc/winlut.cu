@@ -22,6 +22,22 @@
 // valid when 0 <= xi <= Wx-1, 0 <= yi <= Wy-1 and 0 <= floor(t) - t_lo <=
 // tblk - 2.  Slots past n are padding (t = -1) and never enter the minimum.
 //
+// B6 has two more entries, which take the SE2 states and compute their
+// window coordinates in the kernel (the chain of _coords in
+// models/sensor/likelihood_field_winlut.py: world_to_field @ state in
+// lie.py's order, the cell offsets, atan2, jnp.mod, the bin), with the
+// divisions of the plain version as IEEE divisions, so that their cells
+// and miss sets are the plain version's bit for bit: the states entry is
+// the windowed lookup (windowed_scan_lut_weights) in one launch, the
+// window's origin read from the LUT's device scalars; the coverage entry is
+// the windowed filter's gate (windowed_coverage_tiled_from_center) in one
+// launch: the origin about the cloud's centre (window_geometry's floor,
+// clamp and heading quantisation, once a block), the coordinates and slab
+// rule, the slots that B6 would score counted by ballot and one atomic a
+// block, count * f32(1/n) written by the last block.  Both read 16 B a
+// particle and keep each slot's coordinates in registers across the slab
+// minimum.
+//
 // B5 replaces beluga_tpu/ops/pallas_fused_step.py:fused_propagate_winlut
 // (kernel_prng=False).  Per particle it samples rot1/trans/rot2 from the
 // normals z[3, N] and the per-update (mean, sd) pairs, moves the pose
@@ -51,6 +67,14 @@
 // block-wide minimum by warp shuffles and shared memory, then eight table
 // reads per valid particle straight from global memory (the table stays in
 // L2).  A bf16 entry widens to float32 by a 16-bit shift, which is exact.
+// The states and coverage entries add the chain (~40 operations with atan2f,
+// fmodf and two IEEE divisions) and read 16 B in place of 12; the eight
+// reads are 2-byte gathers of the table through L2, four to six 32-byte
+// sectors a scored particle.  Staging each tile's box of the table (its slab
+// rows x its x range x its y range, up to 24 KB) in shared memory before the
+// reads measured 3.4x slower, and re-reading a slot's state after the slab
+// minimum in place of keeping its coordinates in registers 12-17% slower
+// (PERF.md, section 6).
 // B5 crosses global memory once a particle: a persistent grid (as many
 // blocks as fit on the card, each walking tiles blockIdx.x, + gridDim.x,
 // ...) whose threads keep their kSlots = tile / blockDim slots' window
@@ -113,6 +137,22 @@ __device__ __forceinline__ float slab_base(float tmin, int k, int tblk) {
   return fminf(fmaxf(floorf(tmin), 0.0f), static_cast<float>(k - tblk));
 }
 
+// Whether the kernel scores a slot: inside the window and inside its tile's
+// slab (k0rel = floor(t) - t_lo), the plain versions' rule.
+__device__ __forceinline__ bool in_slab(float xf, float yf, float k0rel, int wx, int wy,
+                                        int tblk) {
+  return xf >= 0.0f && xf <= static_cast<float>(wx - 1) && yf >= 0.0f &&
+         yf <= static_cast<float>(wy - 1) && k0rel >= 0.0f &&
+         k0rel <= static_cast<float>(tblk - 2);
+}
+
+// jnp.mod(a, 2 pi) in float32: fmod, plus the divisor where the remainder
+// is negative (fmod keeps the dividend's sign)
+__device__ __forceinline__ float wrap_2pi(float a) {
+  const float r = fmodf(a, k2Pi);
+  return r < 0.0f ? __fadd_rn(r, k2Pi) : r;
+}
+
 // One bf16 table entry as float32, from shared memory (kShared) or through
 // the read-only path.
 template <bool kShared>
@@ -127,10 +167,7 @@ __device__ float trilinear(const uint16_t* __restrict__ vals, int wx, int wy, in
                            float t_lo, float xf, float yf, float t, float miss, float base,
                            float /*inv_step*/ = 0.0f) {
   const float k0rel = __fsub_rn(floorf(t), t_lo);
-  const bool valid = xf >= 0.0f && xf <= static_cast<float>(wx - 1) && yf >= 0.0f &&
-                     yf <= static_cast<float>(wy - 1) && k0rel >= 0.0f &&
-                     k0rel <= static_cast<float>(tblk - 2);
-  if (!valid) return miss;
+  if (!in_slab(xf, yf, k0rel, wx, wy, tblk)) return miss;
   const float u = __fsub_rn(t, t_lo);
   const float x0f = floorf(xf), y0f = floorf(yf);
   const int ix = static_cast<int>(x0f), iy = static_cast<int>(y0f);
@@ -160,10 +197,7 @@ __device__ float trilinear(const int8_t* __restrict__ vals, int wx, int wy, int 
                            float t_lo, float xf, float yf, float t, float miss, float base,
                            float step) {
   const float k0rel = __fsub_rn(floorf(t), t_lo);
-  const bool valid = xf >= 0.0f && xf <= static_cast<float>(wx - 1) && yf >= 0.0f &&
-                     yf <= static_cast<float>(wy - 1) && k0rel >= 0.0f &&
-                     k0rel <= static_cast<float>(tblk - 2);
-  if (!valid) return miss;
+  if (!in_slab(xf, yf, k0rel, wx, wy, tblk)) return miss;
   const float u = __fsub_rn(t, t_lo);
   const float x0f = floorf(xf), y0f = floorf(yf);
   const int ix = static_cast<int>(x0f), iy = static_cast<int>(y0f);
@@ -229,9 +263,7 @@ __device__ __forceinline__ Moved propagate(const float* sc, float x, float y, fl
   m.x = __fadd_rn(x, __fmul_rn(trans, c1));
   m.y = __fadd_rn(y, __fmul_rn(trans, s1));
   sincosf(th2, &m.s, &m.c);
-  // jnp.mod(a, 2 pi): fmod, plus the divisor where the remainder is negative
-  float r = fmodf(__fadd_rn(__fadd_rn(th2, sc[kTAng]), kPi), k2Pi);
-  if (r < 0.0f) r = __fadd_rn(r, k2Pi);
+  const float r = wrap_2pi(__fadd_rn(__fadd_rn(th2, sc[kTAng]), kPi));
   m.t = __fadd_rn(__fmul_rn(__fsub_rn(r, kPi), sc[kInvDth]), sc[kTBias]);
   return m;
 }
@@ -401,6 +433,275 @@ int launch_fused_step(const float* x, const float* y, const float* th, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- B6's states entry and coverage entry -------------------------------------
+
+// The frame of the window coordinates (_coords in
+// models/sensor/likelihood_field_winlut.py): world_to_field's (x, y, cos,
+// sin), the resolution, the cell offsets f32(pad - x0) and f32(pad - y0),
+// the heading of the window's centre (theta0 + f32((K / 2) dth)), the bin
+// width and f32(K / 2).
+struct Frame {
+  float wx, wy, wc, ws, res, offx, offy, center, dth, half;
+};
+
+// What both entries take besides their own: the states (xy and rot [n, 2],
+// read as float2 where both are 8-byte aligned), world_to_field's xy and
+// rot [2] on the device, and the host floats of the frame.
+struct StatesIn {
+  const float* xy;
+  const float* rot;
+  int n, tile, paired;
+  const float* field_xy;
+  const float* field_rot;
+  float res, half_span, dth, half;
+  int pad;
+};
+
+__device__ __forceinline__ float2 load_pair(const float* p, size_t i, int paired) {
+  return paired ? __ldg(reinterpret_cast<const float2*>(p) + i)
+                : make_float2(__ldg(p + 2 * i), __ldg(p + 2 * i + 1));
+}
+
+// Window coordinates of one state: world_to_field @ state in lie.py's
+// order, then _coords' chain.  The kernel divides where the plain version
+// divides by a device tensor (__fdiv_rn), so its cells, and so its miss
+// set, are the plain version's.
+__device__ __forceinline__ void window_coords(const Frame& w, float2 xy, float2 rot, float* xi,
+                                              float* yi, float* t) {
+  const float tx = __fadd_rn(w.wx, __fsub_rn(__fmul_rn(w.wc, xy.x), __fmul_rn(w.ws, xy.y)));
+  const float ty = __fadd_rn(w.wy, __fadd_rn(__fmul_rn(w.ws, xy.x), __fmul_rn(w.wc, xy.y)));
+  const float c = __fsub_rn(__fmul_rn(w.wc, rot.x), __fmul_rn(w.ws, rot.y));
+  const float s = __fadd_rn(__fmul_rn(w.ws, rot.x), __fmul_rn(w.wc, rot.y));
+  *xi = __fadd_rn(__fsub_rn(__fdiv_rn(tx, w.res), 0.5f), w.offx);
+  *yi = __fadd_rn(__fsub_rn(__fdiv_rn(ty, w.res), 0.5f), w.offy);
+  const float rel = __fsub_rn(wrap_2pi(__fadd_rn(__fsub_rn(atan2f(s, c), w.center), kPi)), kPi);
+  *t = __fadd_rn(__fdiv_rn(rel, w.dth), w.half);
+}
+
+__device__ __forceinline__ Frame frame_of(const StatesIn& in, long long x0, long long y0,
+                                          float theta0) {
+  Frame w;
+  w.wx = __ldg(in.field_xy);
+  w.wy = __ldg(in.field_xy + 1);
+  w.wc = __ldg(in.field_rot);
+  w.ws = __ldg(in.field_rot + 1);
+  w.res = in.res;
+  w.offx = __ll2float_rn(in.pad - x0);
+  w.offy = __ll2float_rn(in.pad - y0);
+  w.center = __fadd_rn(theta0, in.half_span);
+  w.dth = in.dth;
+  w.half = in.half;
+  return w;
+}
+
+// torch.clamp(v, lo, hi) of an int64: min(max(v, lo), hi)
+__device__ __forceinline__ long long clamp_origin(long long v, long long lo, long long hi) {
+  v = v > lo ? v : lo;
+  return v < hi ? v : hi;
+}
+
+// window_geometry's origin for a cloud centre (cx, cy, ct), then the frame:
+// world_to_field @ SE2(cx, cy, ct) in lie.py's order, the cell floor(x /
+// res) through int32 plus the pad, the origin clamped to [pad, wp - win_x -
+// pad] (y likewise), theta0 = (floor(theta / dth) - K / 2) dth.
+__device__ Frame centre_frame(const StatesIn& in, const float* centre_x,
+                              const float* centre_y, const float* centre_theta, int win_x,
+                              int win_y, int wp, int hp) {
+  const Frame f = frame_of(in, in.pad, in.pad, 0.0f);  // world_to_field and the floats
+  const float cx = __ldg(centre_x), cy = __ldg(centre_y), ct = __ldg(centre_theta);
+  const float cc = cosf(ct), cs = sinf(ct);
+  const float tx = __fadd_rn(f.wx, __fsub_rn(__fmul_rn(f.wc, cx), __fmul_rn(f.ws, cy)));
+  const float ty = __fadd_rn(f.wy, __fadd_rn(__fmul_rn(f.ws, cx), __fmul_rn(f.wc, cy)));
+  const float c = __fsub_rn(__fmul_rn(f.wc, cc), __fmul_rn(f.ws, cs));
+  const float s = __fadd_rn(__fmul_rn(f.ws, cc), __fmul_rn(f.wc, cs));
+  const long long ix = static_cast<long long>(__float2int_rz(floorf(__fdiv_rn(tx, in.res)))) + in.pad;
+  const long long iy = static_cast<long long>(__float2int_rz(floorf(__fdiv_rn(ty, in.res)))) + in.pad;
+  const long long x0 = clamp_origin(ix - win_x / 2, in.pad, wp - win_x - in.pad);
+  const long long y0 = clamp_origin(iy - win_y / 2, in.pad, hp - win_y - in.pad);
+  const float theta0 =
+      __fmul_rn(__fsub_rn(floorf(__fdiv_rn(atan2f(s, c), in.dth)), in.half), in.dth);
+  return frame_of(in, x0, y0, theta0);
+}
+
+// Slot j of this thread in the block's tile: live, and its coordinates.
+template <int kSlots>
+__device__ __forceinline__ float tile_coords(const Frame& w, const StatesIn& in, int k,
+                                             float (&xf)[kSlots], float (&yf)[kSlots],
+                                             float (&tf)[kSlots]) {
+  const size_t first = static_cast<size_t>(blockIdx.x) * in.tile;
+  float tmin = CUDART_INF_F;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int s = j * blockDim.x + threadIdx.x;
+    const size_t i = first + s;
+    xf[j] = yf[j] = tf[j] = -1.0f;
+    if (s < in.tile && i < static_cast<size_t>(in.n)) {
+      window_coords(w, load_pair(in.xy, i, in.paired), load_pair(in.rot, i, in.paired), &xf[j],
+                    &yf[j], &tf[j]);
+      tmin = fminf(tmin, slab_candidate(tf[j], k));
+    }
+  }
+  return tmin;
+}
+
+template <typename T>
+struct LookupArgs {
+  StatesIn in;
+  const T* vals;
+  int k, wx, wy, tblk;
+  const long long* x0;
+  const long long* y0;
+  const float* theta0;
+  const float* miss;
+  float base;
+  const float* scale;
+  float inv127;
+  float* out;
+};
+
+// B6 from the states: each thread keeps its kSlots slots' coordinates in
+// registers across the tile's slab minimum, then reads the table through
+// L2 (staging a tile's box of the table in shared memory measured slower).
+template <typename T, int kSlots>
+__global__ void __launch_bounds__(kMaxThreads) winlut_states_kernel(LookupArgs<T> a) {
+  __shared__ float warp_min[kMaxThreads / 32];
+  const Frame w = frame_of(a.in, __ldg(a.x0), __ldg(a.y0), __ldg(a.theta0));
+  float xf[kSlots], yf[kSlots], tf[kSlots];
+  const float tmin = tile_coords<kSlots>(w, a.in, a.k, xf, yf, tf);
+  const float t_lo = slab_base(block_min(tmin, warp_min), a.k, a.tblk);
+  const float miss = __ldg(a.miss);
+  const float step = a.scale ? __fmul_rn(__ldg(a.scale), a.inv127) : 0.0f;
+  const size_t first = static_cast<size_t>(blockIdx.x) * a.in.tile;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int s = j * blockDim.x + threadIdx.x;
+    const size_t i = first + s;
+    if (s < a.in.tile && i < static_cast<size_t>(a.in.n)) {
+      a.out[i] = trilinear(a.vals, a.wx, a.wy, a.tblk, t_lo, xf[j], yf[j], tf[j], miss, a.base,
+                           step);
+    }
+  }
+}
+
+struct CoverageArgs {
+  StatesIn in;
+  const float* centre_x;
+  const float* centre_y;
+  const float* centre_theta;
+  int k, wx, wy, tblk, wp, hp;
+  float inv_n;
+  int* scratch;  // [2]: the count and the blocks done; zero between calls
+  float* out;
+};
+
+// The kernel-exact coverage: the slots that B6 would score with a window
+// built about the centre, counted a warp at a time by ballot, a block's
+// count added by one atomic; the last block to finish writes count * inv_n
+// and sets the scratch back to zero.
+template <int kSlots>
+__global__ void __launch_bounds__(kMaxThreads) winlut_coverage_kernel(CoverageArgs a) {
+  __shared__ float warp_min[kMaxThreads / 32];
+  __shared__ int warp_count[kMaxThreads / 32];
+  __shared__ Frame frame;
+  if (threadIdx.x == 0) {
+    frame = centre_frame(a.in, a.centre_x, a.centre_y, a.centre_theta, a.wx, a.wy, a.wp, a.hp);
+  }
+  __syncthreads();
+  const Frame w = frame;
+  float xf[kSlots], yf[kSlots], tf[kSlots];
+  const float tmin = tile_coords<kSlots>(w, a.in, a.k, xf, yf, tf);
+  const float t_lo = slab_base(block_min(tmin, warp_min), a.k, a.tblk);
+  const size_t first = static_cast<size_t>(blockIdx.x) * a.in.tile;
+  int count = 0;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int s = j * blockDim.x + threadIdx.x;
+    const bool live = s < a.in.tile && first + s < static_cast<size_t>(a.in.n);
+    const bool ok = live && in_slab(xf[j], yf[j], __fsub_rn(floorf(tf[j]), t_lo), a.wx, a.wy,
+                                    a.tblk);
+    count += __popc(__ballot_sync(0xffffffffu, ok));
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) warp_count[warp] = count;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int v = 0; v < static_cast<int>((blockDim.x + 31) >> 5); ++v) total += warp_count[v];
+    atomicAdd(a.scratch, total);
+    __threadfence();
+    if (atomicAdd(a.scratch + 1, 1) == static_cast<int>(gridDim.x) - 1) {
+      const int all = atomicExch(a.scratch, 0);
+      atomicExch(a.scratch + 1, 0);
+      *a.out = __fmul_rn(static_cast<float>(all), a.inv_n);
+    }
+  }
+}
+
+// Slots a thread for a tile: 1, 2, 4 or 8 (a tile of at most 8192); 0 past.
+int slots_for(int tile) {
+  const int slots = (tile + threads_for(tile) - 1) / threads_for(tile);
+  return slots == 1 ? 1 : slots == 2 ? 2 : slots <= 4 ? 4 : slots <= 8 ? 8 : 0;
+}
+
+template <typename T>
+int launch_states(const LookupArgs<T>& a, cudaStream_t stream) {
+  const int blocks = (a.in.n + a.in.tile - 1) / a.in.tile;
+  const int threads = threads_for(a.in.tile);
+  switch (slots_for(a.in.tile)) {
+    case 1: winlut_states_kernel<T, 1><<<blocks, threads, 0, stream>>>(a); break;
+    case 2: winlut_states_kernel<T, 2><<<blocks, threads, 0, stream>>>(a); break;
+    case 4: winlut_states_kernel<T, 4><<<blocks, threads, 0, stream>>>(a); break;
+    case 8: winlut_states_kernel<T, 8><<<blocks, threads, 0, stream>>>(a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+StatesIn states_in(const void* xy, const void* rot, int n, int tile, const void* field_xy,
+                   const void* field_rot, float res, int pad, float half_span, float dth,
+                   float half) {
+  StatesIn in;
+  in.xy = static_cast<const float*>(xy);
+  in.rot = static_cast<const float*>(rot);
+  in.n = n;
+  in.tile = tile;
+  in.paired = reinterpret_cast<uintptr_t>(xy) % 8 == 0 && reinterpret_cast<uintptr_t>(rot) % 8 == 0;
+  in.field_xy = static_cast<const float*>(field_xy);
+  in.field_rot = static_cast<const float*>(field_rot);
+  in.res = res;
+  in.half_span = half_span;
+  in.dth = dth;
+  in.half = half;
+  in.pad = pad;
+  return in;
+}
+
+template <typename T>
+int winlut_lookup_states(const void* vals, int k, int wx, int wy, int tblk, const void* xy,
+                         const void* rot, int n, int tile, const void* field_xy,
+                         const void* field_rot, float res, int pad, const void* x0,
+                         const void* y0, const void* theta0, float half_span, float dth,
+                         float half, const void* miss, float base, const void* scale,
+                         float inv127, void* out, void* stream) {
+  if (n == 0) return 0;
+  LookupArgs<T> a;
+  a.in = states_in(xy, rot, n, tile, field_xy, field_rot, res, pad, half_span, dth, half);
+  a.vals = static_cast<const T*>(vals);
+  a.k = k;
+  a.wx = wx;
+  a.wy = wy;
+  a.tblk = tblk;
+  a.x0 = static_cast<const long long*>(x0);
+  a.y0 = static_cast<const long long*>(y0);
+  a.theta0 = static_cast<const float*>(theta0);
+  a.miss = static_cast<const float*>(miss);
+  a.base = base;
+  a.scale = static_cast<const float*>(scale);
+  a.inv127 = inv127;
+  a.out = static_cast<float*>(out);
+  return launch_states(a, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 // B6 over n particles in tiles of `tile` slots; `vals` is the bf16 table
@@ -474,4 +775,62 @@ extern "C" int beluga_fused_step(const void* x, const void* y, const void* th, c
   if (slots <= 4) BELUGA_FUSED_STEP(4, false);
   BELUGA_FUSED_STEP(8, false);
 #undef BELUGA_FUSED_STEP
+}
+
+// B6's states entry: the lookup of world_to_field @ states (xy and rot
+// [n, 2]) in the window of a LUT whose origin x0, y0 (int64) and theta0
+// (float) lie on the device; `half_span` is f32((K / 2) dth) and `half`
+// f32(K / 2).  bf16 table (`scale` null) or int8 (`scale` a device float).
+// Returns cudaGetLastError() of the launch.
+extern "C" int beluga_winlut_lookup_states(
+    const void* vals, int int8, int k, int wx, int wy, int tblk, const void* xy,
+    const void* rot, int n, int tile, const void* field_xy, const void* field_rot, float res,
+    int pad, const void* x0, const void* y0, const void* theta0, float half_span, float dth,
+    float half, const void* miss, float base, const void* scale, float inv127, void* out,
+    void* stream) {
+  if (int8) {
+    return winlut_lookup_states<int8_t>(vals, k, wx, wy, tblk, xy, rot, n, tile, field_xy,
+                                        field_rot, res, pad, x0, y0, theta0, half_span, dth,
+                                        half, miss, base, scale, inv127, out, stream);
+  }
+  return winlut_lookup_states<uint16_t>(vals, k, wx, wy, tblk, xy, rot, n, tile, field_xy,
+                                        field_rot, res, pad, x0, y0, theta0, half_span, dth,
+                                        half, miss, base, nullptr, 0.0f, out, stream);
+}
+
+// B6's coverage entry: the share of the n states that B6 would score in a
+// window of K x win_x x win_y built about the centre (three device floats),
+// as count * inv_n into `out` (a device float).  `scratch` is two device
+// int32 that are zero before the call and are left zero after it.
+extern "C" int beluga_winlut_coverage_states(
+    int k, int win_x, int win_y, int tblk, const void* xy, const void* rot, int n, int tile,
+    const void* field_xy, const void* field_rot, float res, int pad, int wp, int hp,
+    const void* centre_x, const void* centre_y, const void* centre_theta, float half_span,
+    float dth, float half, float inv_n, void* scratch, void* out, void* stream) {
+  if (n == 0) return 0;
+  CoverageArgs a;
+  a.in = states_in(xy, rot, n, tile, field_xy, field_rot, res, pad, half_span, dth, half);
+  a.centre_x = static_cast<const float*>(centre_x);
+  a.centre_y = static_cast<const float*>(centre_y);
+  a.centre_theta = static_cast<const float*>(centre_theta);
+  a.k = k;
+  a.wx = win_x;
+  a.wy = win_y;
+  a.tblk = tblk;
+  a.wp = wp;
+  a.hp = hp;
+  a.inv_n = inv_n;
+  a.scratch = static_cast<int*>(scratch);
+  a.out = static_cast<float*>(out);
+  const int blocks = (n + tile - 1) / tile;
+  const int threads = threads_for(tile);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (slots_for(tile)) {
+    case 1: winlut_coverage_kernel<1><<<blocks, threads, 0, s>>>(a); break;
+    case 2: winlut_coverage_kernel<2><<<blocks, threads, 0, s>>>(a); break;
+    case 4: winlut_coverage_kernel<4><<<blocks, threads, 0, s>>>(a); break;
+    case 8: winlut_coverage_kernel<8><<<blocks, threads, 0, s>>>(a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

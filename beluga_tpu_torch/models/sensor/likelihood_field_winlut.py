@@ -45,10 +45,17 @@ import math
 import numpy as np
 import torch
 
-from beluga_tpu_torch.lie import SE2
+from beluga_tpu_torch.lie import SE2, SO2
 from beluga_tpu_torch.models.sensor.likelihood_field import LikelihoodField
 from beluga_tpu_torch.models.sensor.likelihood_field_lut import _pad_field_cubed
-from beluga_tpu_torch.ops.cuda_winlut import floor_mod, winlut_lookup
+from beluga_tpu_torch.ops.cuda_winlut import (
+    WindowGeometry,
+    tiled_coverage,
+    window_coords,
+    window_origin,
+    winlut_coverage_states,
+    winlut_lookup_states,
+)
 
 Tensor = torch.Tensor
 F32 = torch.float32
@@ -124,34 +131,30 @@ def precompute_padded_field(field: LikelihoodField, win, max_point_radius: float
     return _grow_padded(padded, pad, field, win_x, win_y)
 
 
+def field_window(field: LikelihoodField, k_bins: int, win, dth: float,
+                 max_point_radius: float, resolution_hint: float | None) -> WindowGeometry:
+    """What placing a window reads of ``field``: the pad band and the padded
+    image's extent (grown to the window for a small map)."""
+    if resolution_hint is None:
+        resolution_hint = field.resolution
+    win_x, win_y = _win_xy(win)
+    pad = _pad_cells(max_point_radius, resolution_hint)
+    h, w = field.values.shape
+    return WindowGeometry(
+        world_to_field=field.world_to_field, resolution=field.resolution, pad=pad,
+        hp=max(h + 2 * pad, win_y + 2 * pad), wp=max(w + 2 * pad, win_x + 2 * pad),
+        k_bins=k_bins, win_x=win_x, win_y=win_y, dth=dth)
+
+
 def window_geometry(field: LikelihoodField, center_x, center_y, center_theta,
                     k_bins: int = 64, win=128, dth: float = 2.0 * np.pi / 128.0,
                     max_point_radius: float = 4.0, resolution_hint: float | None = None):
     """Window origin ``(x0, y0, theta0, pad)`` for a cloud center (world
     frame, 0-d tensors on the field's device), without the correlation
     build, so that a gate can run first.  ``x0``/``y0`` are int64 and
-    ``theta0`` float32 0-d device tensors."""
-    if resolution_hint is None:
-        resolution_hint = field.resolution
-    win_x, win_y = _win_xy(win)
-    dev = field.values.device
-    pad = _pad_cells(max_point_radius, resolution_hint)
-    h, w = field.values.shape
-    hp = max(h + 2 * pad, win_y + 2 * pad)
-    wp = max(w + 2 * pad, win_x + 2 * pad)
-    res = _f32(field.resolution, dev)
-    tf = field.world_to_field @ SE2.from_xytheta(center_x, center_y, center_theta, device=dev)
-    cx = torch.floor(tf.x / res).to(torch.int32).to(torch.int64) + pad
-    cy = torch.floor(tf.y / res).to(torch.int32).to(torch.int64) + pad
-    # clamped so that the scan-radius ring around the window stays inside
-    # the padded image
-    x0 = torch.clamp(cx - win_x // 2, pad, wp - win_x - pad)
-    y0 = torch.clamp(cy - win_y // 2, pad, hp - win_y - pad)
-    # the θ grid is anchored absolutely (quantized to dth), like the xy
-    # origin (likelihood_field_winlut.py:175-181)
-    dth_t = _f32(dth, dev)
-    theta0 = (torch.floor(tf.theta / dth_t) - (k_bins // 2)) * dth_t
-    return x0, y0, theta0, pad
+    ``theta0`` float32 0-d device tensors (``ops/cuda_winlut.py:window_origin``)."""
+    geo = field_window(field, k_bins, win, dth, max_point_radius, resolution_hint)
+    return (*window_origin(geo, center_x, center_y, center_theta), geo.pad)
 
 
 def windowed_dft(win, pad: int, device=None) -> dict:
@@ -268,21 +271,9 @@ def build_windowed_scan_lut(
     )
 
 
-def _coords(world_to_field: SE2, resolution: float, pad: int, x0: Tensor, y0: Tensor,
-            theta0: Tensor, k_bins: int, dth: float, states: SE2):
-    """Fractional ``(xi, yi, t)`` window coordinates (winlut.py:293-304): the
-    -0.5 aligns the sinc-built point samples with the exact model's
-    floor-cell convention."""
-    dev = states.xy.device
-    tf = world_to_field @ states
-    res = _f32(resolution, dev)
-    xi = tf.x / res - 0.5 + (pad - x0).to(F32)
-    yi = tf.y / res - 0.5 + (pad - y0).to(F32)
-    center = theta0 + _f32((k_bins // 2) * dth, dev)
-    pi = _f32(math.pi, dev)
-    rel = floor_mod(tf.theta - center + pi, _f32(2.0 * math.pi, dev)) - pi
-    t = rel / _f32(dth, dev) + (k_bins // 2)
-    return xi, yi, t
+# the fractional window coordinates of states (winlut.py:293-304), the
+# plain chain of kernel B6's states entry
+_coords = window_coords
 
 
 def windowed_coords(lut: WindowedScanLut, states: SE2):
@@ -318,26 +309,9 @@ def windowed_coverage_from_center(field: LikelihoodField, states: SE2, center_x,
 def coverage_tiled_from_coords(xi: Tensor, yi: Tensor, t: Tensor, k_bins: int, win,
                                tile: int, tblk: int) -> Tensor:
     """Fraction of particles the winlut kernel scores, the per-tile θ slab
-    included (winlut.py:350-385): each ``tile`` of slots gets a slab of
-    ``tblk`` bins based at the clamped floor of its min valid ``t``, and
-    particles above the slab score miss."""
+    included (winlut.py:350-385; ``ops/cuda_winlut.py:tiled_coverage``)."""
     win_x, win_y = _win_xy(win)
-    tblk = min(tblk, k_bins)
-    n = xi.shape[0]
-    n_pad = -(-n // tile) * tile
-
-    def pad(v):
-        return torch.nn.functional.pad(v, (0, n_pad - n), value=-1.0)
-
-    xi_p, yi_p, t_p = pad(xi), pad(yi), pad(t)
-    tt = t_p.reshape(-1, tile)
-    t_in = torch.where((tt >= 0.0) & (tt < k_bins), tt, torch.inf)
-    t_lo = torch.clamp(torch.floor(torch.amin(t_in, dim=1)), 0.0, max(k_bins - tblk, 0))
-    k0rel = torch.floor(tt) - t_lo[:, None]
-    ok = (((xi_p >= 0) & (xi_p <= win_x - 1) & (yi_p >= 0)
-           & (yi_p <= win_y - 1)).reshape(-1, tile)
-          & (k0rel >= 0.0) & (k0rel <= tblk - 2))
-    return torch.sum(ok.to(F32)) / n
+    return tiled_coverage(xi, yi, t, k_bins, win_x, win_y, tile, tblk)
 
 
 def windowed_coverage_tiled_from_center(field: LikelihoodField, states: SE2, center_x,
@@ -347,13 +321,11 @@ def windowed_coverage_tiled_from_center(field: LikelihoodField, states: SE2, cen
                                         max_point_radius: float = 4.0,
                                         resolution_hint: float | None = None) -> Tensor:
     """Kernel-exact coverage (θ slab included) of the window that would be
-    built around ``center_*``: the fast-path gate."""
-    x0, y0, theta0, pad = window_geometry(
-        field, center_x, center_y, center_theta, k_bins=k_bins, win=win, dth=dth,
-        max_point_radius=max_point_radius, resolution_hint=resolution_hint)
-    xi, yi, t = _coords(field.world_to_field, field.resolution, pad, x0, y0, theta0,
-                        k_bins, dth, states)
-    return coverage_tiled_from_coords(xi, yi, t, k_bins, win, tile, tblk)
+    built around ``center_*``: the fast-path gate, one launch of kernel B6's
+    coverage entry on the card (its plain version on the CPU)."""
+    geo = field_window(field, k_bins, win, dth, max_point_radius, resolution_hint)
+    states = SE2(states.xy.contiguous(), SO2(states.rot.z.contiguous()))
+    return winlut_coverage_states(geo, states, center_x, center_y, center_theta, tile, tblk)
 
 
 def windowed_coverage(lut: WindowedScanLut, states: SE2, stride: int = 8) -> Tensor:
@@ -367,10 +339,10 @@ def windowed_coverage(lut: WindowedScanLut, states: SE2, stride: int = 8) -> Ten
 def windowed_scan_lut_weights(lut: WindowedScanLut, states: SE2, tile: int = 512,
                               tblk: int = 16) -> Tensor:
     """AMCL-parity weights ``1 + Σ_b pz³`` from the windowed LUT, ``f32[N]``:
-    one trilinear lookup per particle (kernel B6, or B6-int8 for an int8
-    table, on a CUDA tensor, the plain version on a CPU tensor); strays
-    score ``lut.miss``.  Slots should be θ-sorted so that each ``tile``
-    spans at most ``tblk - 1`` bins."""
-    xi, yi, t = windowed_coords(lut, states)
-    return winlut_lookup(lut.values_t, xi.contiguous(), yi.contiguous(), t.contiguous(),
-                         lut.miss, base=1.0, tile=tile, tblk=tblk, scale=lut.scale)
+    one trilinear lookup per particle, its window coordinates composed in
+    the same launch (kernel B6's states entry, bf16 or int8 table, on a
+    CUDA tensor; the plain version on a CPU tensor); strays score
+    ``lut.miss``.  Slots should be θ-sorted so that each ``tile`` spans at
+    most ``tblk - 1`` bins."""
+    states = SE2(states.xy.contiguous(), SO2(states.rot.z.contiguous()))
+    return winlut_lookup_states(lut, states, lut.miss, base=1.0, tile=tile, tblk=tblk)

@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "beluga_tpu_torch"
 NVCC_FLAGS = (
@@ -99,3 +101,11 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def stream_ptr(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream, for a launch: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without making
+    a ``Stream`` object (a few µs of host time a call)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from beluga_tpu_torch.ops._build import stream_ptr
 from beluga_tpu_torch.ops.distance_transform import squared_distance_transform
 
 Tensor = torch.Tensor
@@ -275,7 +276,7 @@ def sphere_trace_beam_weights(dist_cells: Tensor, tx: Tensor, ty: Tensor, cos: T
     filters = math.prod(tx.shape[:-1])
     out = torch.empty(tx.shape, dtype=torch.float32, device=tx.device)
     host = (ctypes.c_float * len(m))(*m)
-    stream = torch.cuda.current_stream(tx.device).cuda_stream
+    stream = stream_ptr(tx.device)
     err = _kernel()(dist_cells.data_ptr(), h, w, tx.data_ptr(), ty.data_ptr(), cos.data_ptr(),
                     sin.data_ptr(), n, bearings.data_ptr(), ranges.data_ptr(),
                     beam_mask.data_ptr(), nb, filters, float(resolution), max_cells,

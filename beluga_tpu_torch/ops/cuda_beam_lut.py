@@ -41,6 +41,7 @@ import math
 
 import torch
 
+from beluga_tpu_torch.ops._build import stream_ptr
 from beluga_tpu_torch.ops.cuda_beam import Mixture, masked_beam_sum, mixture, mixture_pz3
 from beluga_tpu_torch.ops.cuda_winlut import floor_mod
 
@@ -157,7 +158,7 @@ def device_window_origins(xi: Tensor, yi: Tensor, hq: int, wq: int) -> Tensor:
     if xi.device.type != "cuda":
         raise ValueError(f"unsupported device {xi.device}")
     out = torch.empty((f, -(-n // TILE), 2, 2), dtype=torch.int32, device=xi.device)
-    stream = torch.cuda.current_stream(xi.device).cuda_stream
+    stream = stream_ptr(xi.device)
     err = _kernels()[1](xi.data_ptr(), yi.data_ptr(), n, f, hq, wq, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"beam LUT origins kernel launch failed: cudaError {err}")
@@ -255,7 +256,7 @@ def beam_lut_windowed(lut_bf16: Tensor, theta: Tensor, xi: Tensor, yi: Tensor, z
     host = _host_mixture(tuple(float(v) for v in mix))
     origins = torch.empty((f, -(-n // TILE), 2, 2), dtype=torch.int32, device=theta.device)
     out = torch.empty((f, n), dtype=torch.float32, device=theta.device)
-    stream = torch.cuda.current_stream(theta.device).cuda_stream
+    stream = stream_ptr(theta.device)
     err = _kernels()[0](lut_bf16.data_ptr(), hq, wq, k, float(max_range), theta2.data_ptr(),
                         xi2.data_ptr(), yi2.data_ptr(), n, origins.data_ptr(), z2.data_ptr(),
                         bearing2.data_ptr(), mask2.data_ptr(), nb, f, host, out.data_ptr(),

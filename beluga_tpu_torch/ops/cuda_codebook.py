@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from beluga_tpu_torch.ops._build import stream_ptr
 from beluga_tpu_torch.ops.gather2d import codebook_lookup as codebook_lookup_reference
 
 Tensor = torch.Tensor
@@ -74,7 +75,7 @@ def codebook_lookup(codes: Tensor, codebook: Tensor, yi: Tensor, xi: Tensor) -> 
         table = table.clone()  # the kernel stages the table in 16-byte words
     y, x = yi.contiguous(), xi.contiguous()
     out = torch.empty(yi.shape, dtype=torch.float32, device=codes.device)
-    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    stream = stream_ptr(codes.device)
     err = _kernel()(table.data_ptr(), h, w, codebook.contiguous().data_ptr(),
                     codebook.shape[0], y.data_ptr(), x.data_ptr(), y.numel(), out.data_ptr(),
                     stream)

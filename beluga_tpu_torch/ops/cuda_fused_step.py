@@ -42,6 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from beluga_tpu_torch.ops._build import stream_ptr
 from beluga_tpu_torch.ops.cuda_winlut import (
     MAX_PARTICLES,
     floor_mod,
@@ -176,7 +177,7 @@ def fused_propagate_winlut(x: Tensor, y: Tensor, theta: Tensor, z: Tensor, value
     k, wx, wy = values_t.shape
     n = x.shape[0]
     outs = torch.empty((5, n), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = stream_ptr(x.device)
     err = _kernel()(x.data_ptr(), y.data_ptr(), theta.data_ptr(), z.data_ptr(), n,
                     values_t.data_ptr(), k, wx, wy, min(tblk, k), tile, scalars.data_ptr(),
                     *(o.data_ptr() for o in outs), stream)

@@ -39,6 +39,8 @@ import math
 import numpy as np
 import torch
 
+from beluga_tpu_torch.ops._build import stream_ptr
+
 Tensor = torch.Tensor
 
 MAX_OFFSETS = 32  # stencil cells, passed by value
@@ -117,7 +119,7 @@ def ndt_probe(keys: Tensor, values: Tensor, num_cells: int,
     vals = values.contiguous()
     out = torch.empty((*queries.shape, p), dtype=torch.float32, device=keys.device)
     found = torch.empty(queries.shape, dtype=torch.uint8, device=keys.device)
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    stream = stream_ptr(keys.device)
     err = _kernel()(k32.data_ptr(), num_cells, vals.data_ptr(), p, q32.data_ptr(),
                     q32.numel(), out.data_ptr(), found.data_ptr(), stream)
     if err != 0:
@@ -341,7 +343,7 @@ def ndt_weights(keys: Tensor, values: Tensor, num_cells: int, resolution: float,
     k32 = keys.to(torch.int32)  # the low 32 bits, read as uint32_t
     vals, r, t = values.contiguous(), rot.contiguous(), trans.contiguous()
     out = torch.empty((*lead, n), dtype=torch.float32, device=keys.device)
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    stream = stream_ptr(keys.device)
     err = _weights_kernel()(k32.data_ptr(), num_cells, vals.data_ptr(), r.data_ptr(),
                             t.data_ptr(), means.data_ptr(), covs.data_ptr(), mask.data_ptr(),
                             filters, n, c, d, host_off, off.shape[0], float(resolution),

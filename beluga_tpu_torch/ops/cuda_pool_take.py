@@ -1,10 +1,15 @@
-"""Kernel B3: row take from a small per-filter pool.
+"""Kernel B3: row take from a small per-filter pool, and the pooled
+recovery sampler's whole draw.
 
 Port of ``beluga_tpu/ops/pallas_lookup.py:pallas_pool_take``; the kernel
-is ``csrc/pool_take.cu``.  :func:`pool_take` launches it on CUDA tensors
-and runs :func:`pool_take_reference`, the plain PyTorch version, on CPU
-tensors.  It serves the pooled recovery sampler
-(``core/random.py:sample_uniform_free_cells_pooled``).
+is ``csrc/pool_take.cu``, with two entries that share its device code.
+:func:`pool_take` (the row entry, the counterpart of ``pallas_pool_take``)
+and :func:`pooled_free_cells` (the draw entry, the pooled sampler's whole
+draw, ``beluga_tpu/core/random.py:97-134``, which
+``core/random.py:uniform_free_cells_pooled_from_draws`` calls) launch it on
+CUDA tensors and run their plain PyTorch versions,
+:func:`pool_take_reference` and :func:`pooled_free_cells_reference`, on CPU
+tensors.
 
 Contract: ``out[..., i, :] = pool[..., idx[..., i], :]`` as bit-exact
 float32 copies; an index outside ``[0, P)`` gives a zero row (the one-hot
@@ -19,22 +24,26 @@ import math
 
 import torch
 
+from beluga_tpu_torch.lie import SE2, SO2
+from beluga_tpu_torch.ops._build import load_library, stream_ptr
+
 Tensor = torch.Tensor
 
 MAX_POOL = 4096  # rows; the reference's one-hot budget, kept as the contract
 MAX_COLS = 8
 
-# kernel launches since the count was last set to 0
+# kernel launches since the count was last set to 0: the row entry, the
+# draw entry
 launches = 0
+draw_launches = 0
 
 _fn = None
+_draw_fn = None
 
 
 def _kernel():
     global _fn
     if _fn is None:
-        from beluga_tpu_torch.ops._build import load_library
-
         fn = load_library("pool_take").beluga_pool_take
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -43,6 +52,17 @@ def _kernel():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _draw_kernel():
+    global _draw_fn
+    if _draw_fn is None:
+        fn = load_library("pool_take").beluga_pooled_free_cells
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, ctypes.c_longlong, p, i, p, p, i, i, p, p, p]
+        fn.restype = ctypes.c_int
+        _draw_fn = fn
+    return _draw_fn
 
 
 def pool_take_reference(pool: Tensor, idx: Tensor) -> Tensor:
@@ -93,9 +113,85 @@ def pool_take(pool: Tensor, idx: Tensor) -> Tensor:
     if not pool.is_cuda:
         return pool_take_reference(pool, idx)
     out = torch.empty((*idx.shape, c), dtype=torch.float32, device=pool.device)
-    stream = torch.cuda.current_stream(pool.device).cuda_stream
+    stream = stream_ptr(pool.device)
     err = _kernel()(pool.data_ptr(), p, c, idx.data_ptr(), n, batch, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"pool_take kernel launch failed: cudaError {err}")
     launches += 1
     return out
+
+
+def pooled_free_cells_reference(free_xy: Tensor, cand: Tensor, idx: Tensor,
+                                theta: Tensor) -> SE2:
+    """Plain PyTorch version of the draw entry: the pool ``free_xy[cand]``
+    (plain indexing, which wraps a negative ``cand`` and raises past the
+    rows), :func:`pool_take_reference` on it and ``SO2.exp(theta)``."""
+    return SE2(pool_take_reference(free_xy[cand], idx), SO2.exp(theta))
+
+
+@functools.lru_cache(maxsize=64)
+def _draw_plan(free_xy, cand, idx, theta) -> tuple[int, int, int, int]:
+    """The draw entry's checks on its tensors' ``(shape, dtype, device,
+    contiguous)`` (raising on what the kernel does not take), cached by
+    them: ``(rows, P, n, filters)``."""
+    tensors = {"free_xy": free_xy, "cand": cand, "idx": idx, "theta": theta}
+    device = free_xy[2]
+    for name, (_, _, dev, contiguous) in tensors.items():
+        if dev != device:
+            raise ValueError(f"{name} is on {dev}, free_xy on {device}")
+        if not contiguous:
+            raise ValueError(f"{name} must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    (fshape, fdtype, _, _), (cshape, cdtype, _, _) = free_xy, cand
+    (ishape, idtype, _, _), (tshape, tdtype, _, _) = idx, theta
+    if fdtype != torch.float32 or len(fshape) != 2 or fshape[1] != 2:
+        raise ValueError(f"free_xy must be float32[rows, 2], got {fdtype}{list(fshape)}")
+    if cdtype != torch.int64 or len(cshape) < 1 or not 0 < cshape[-1] <= MAX_POOL:
+        raise ValueError(f"cand must be int64[..., P] with 0 < P <= {MAX_POOL}, "
+                         f"got {cdtype}{list(cshape)}")
+    lead = tuple(cshape[:-1])
+    if idtype != torch.int32 or len(ishape) < 1 or tuple(ishape[:-1]) != lead:
+        raise ValueError(f"idx must be int32 with cand's filter axes {list(lead)} then n, "
+                         f"got {idtype}{list(ishape)}")
+    if tdtype != torch.float32 or tuple(tshape) != tuple(ishape):
+        raise ValueError(f"theta must be float32{list(ishape)}, got {tdtype}{list(tshape)}")
+    batch = math.prod(lead)
+    if device.type == "cuda" and batch > 65535:
+        raise ValueError(f"{batch} filters; the kernel takes at most 65535")
+    return fshape[0], cshape[-1], ishape[-1], batch
+
+
+def pooled_free_cells(free_xy: Tensor, cand: Tensor, idx: Tensor, theta: Tensor) -> SE2:
+    """The pooled recovery draw in one launch: SE2 states
+    ``free_xy[cand][..., idx, :]`` with rotation ``(cos θ, sin θ)``.
+
+    Args:
+      free_xy: ``f32[rows, 2]`` free-cell centroids.
+      cand: ``int64[..., P]`` pool rows of ``free_xy`` per filter, as
+        ``torch.randint`` makes them (P <= 4096).
+      idx: ``int32[..., n]`` pool entries, the same filter axes.
+      theta: ``f32[..., n]`` headings.
+
+    Returns ``SE2`` with ``xy`` and ``rot.z`` ``f32[..., n, 2]``, the two
+    outputs of the kernel.  An ``idx`` outside ``[0, P)`` gives a zero
+    translation row (the row entry's contract); the kernel reads no
+    ``cand`` outside ``[0, rows)`` and gives a zero translation where such a
+    pool entry is taken (the plain version's indexing wraps a negative
+    ``cand`` and raises past the rows instead).  The checks are cached by
+    the tensors' shapes, dtypes, devices and contiguity.
+    """
+    global draw_launches
+    rows, p, n, batch = _draw_plan(*((t.shape, t.dtype, t.device, t.is_contiguous())
+                                     for t in (free_xy, cand, idx, theta)))
+    if not free_xy.is_cuda:
+        return pooled_free_cells_reference(free_xy, cand, idx, theta)
+    xy = torch.empty((*idx.shape, 2), dtype=torch.float32, device=free_xy.device)
+    z = torch.empty_like(xy)
+    stream = stream_ptr(free_xy.device)
+    err = _draw_kernel()(free_xy.data_ptr(), rows, cand.data_ptr(), p, idx.data_ptr(),
+                         theta.data_ptr(), n, batch, xy.data_ptr(), z.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"pooled_free_cells kernel launch failed: cudaError {err}")
+    draw_launches += 1
+    return SE2(xy, SO2(z))

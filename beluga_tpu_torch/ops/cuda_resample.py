@@ -34,6 +34,7 @@ from typing import Any
 import torch
 
 from beluga_tpu_torch.core.particles import tree_leaves, tree_map
+from beluga_tpu_torch.ops._build import stream_ptr
 from beluga_tpu_torch.ops.resample import interleave_slots, sorted_multinomial_positions
 
 Tensor = torch.Tensor
@@ -96,7 +97,7 @@ def monotone_cdf(weights: Tensor) -> Tensor:
     tiles = -(-n // tile)
     partials = (torch.empty((filters, tiles, 2), dtype=torch.float32, device=weights.device)
                 if tiles > 1 else cdf)  # unused by one-tile filters
-    stream = torch.cuda.current_stream(weights.device).cuda_stream
+    stream = stream_ptr(weights.device)
     err = build(weights.data_ptr(), n, filters, partials.data_ptr(), cdf.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"CDF kernel launch failed: cudaError {err}")
@@ -156,7 +157,7 @@ def search_take(cdf: Tensor, positions: Tensor, values: Tensor) -> Tensor:
     d, n = values.shape[-2:]
     m = positions.shape[-1]
     out = torch.empty((*positions.shape, d), dtype=torch.float32, device=cdf.device)
-    stream = torch.cuda.current_stream(cdf.device).cuda_stream
+    stream = stream_ptr(cdf.device)
     err = _kernels()[1](cdf.data_ptr(), n, positions.data_ptr(), m, values.data_ptr(), d,
                         out.data_ptr(), math.prod(positions.shape[:-1]), stream)
     if err != 0:

@@ -39,6 +39,7 @@ import math
 import torch
 
 from beluga_tpu_torch.lie import SE2
+from beluga_tpu_torch.ops._build import stream_ptr
 from beluga_tpu_torch.ops.gather2d import codebook_lookup
 
 Tensor = torch.Tensor
@@ -226,7 +227,7 @@ def _launch(plan, codes, codebook, particles, states: bool, points, beam_mask, r
     h, w, k, n, nb, filters = plan
     shape = particles[0].shape[:-1] if states else particles[0].shape
     out = torch.empty(shape, dtype=torch.float32, device=codes.device)
-    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    stream = stream_ptr(codes.device)
     table = codes if values3 is None else values3
     err = _kernel()(table.data_ptr(), int(values3 is not None), h, w, codebook.data_ptr(), k,
                     *(t.data_ptr() for t in particles), int(states), n, points.data_ptr(),

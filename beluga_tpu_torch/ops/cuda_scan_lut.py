@@ -37,6 +37,8 @@ import math
 
 import torch
 
+from beluga_tpu_torch.ops._build import stream_ptr
+
 Tensor = torch.Tensor
 
 SAMPLINGS = ("bilinear", "nearest")
@@ -187,7 +189,7 @@ def correlate(padded: Tensor, shifts: Tensor, weights: Tensor, sampling: str = "
     hp, wp = padded.shape
     k, nb, _ = shifts.shape
     out = torch.empty((k, hp, wp), dtype=torch.float32, device=padded.device)
-    stream = torch.cuda.current_stream(padded.device).cuda_stream
+    stream = stream_ptr(padded.device)
     err = _kernels()[0](padded.data_ptr(), hp, wp, shifts.data_ptr(), weights.data_ptr(), k, nb,
                         int(sampling == "bilinear"), _halo(halo), out.data_ptr(), stream)
     if err != 0:
@@ -232,7 +234,7 @@ def scan_lut_correlate(padded: Tensor, points: Tensor, beam_mask: Tensor, resolu
             raise ValueError(f"{name} is on {t.device}, padded on {padded.device}")
     trig = bin_trig(n_theta, padded.device)
     out = torch.empty((n_theta, hp, wp), dtype=torch.float32, device=padded.device)
-    stream = torch.cuda.current_stream(padded.device).cuda_stream
+    stream = stream_ptr(padded.device)
     err = _kernels()[1](padded.data_ptr(), hp, wp, points.data_ptr(), beam_mask.data_ptr(),
                         trig.data_ptr(), float(resolution), n_theta, nb,
                         int(sampling == "bilinear"), _halo(halo), out.data_ptr(), stream)

@@ -50,6 +50,7 @@ import math
 import torch
 
 from beluga_tpu_torch.lie import SE2, SO2
+from beluga_tpu_torch.ops._build import stream_ptr
 from beluga_tpu_torch.ops.cuda_beam import Mixture, masked_beam_sum, mixture_pz3
 
 Tensor = torch.Tensor
@@ -341,7 +342,7 @@ def cast_rays(grid, source_xy_local: Tensor, dir_xy_local: Tensor, max_range: fl
     bits = free_plane(grid).bits
     dist = torch.empty(shape, dtype=torch.float32, device=device)
     hit = torch.empty(shape, dtype=torch.bool, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
+    stream = stream_ptr(device)
     err = _kernel("beluga_cast_rays")(
         bits.data_ptr(), grid.height, grid.width, bits.shape[1], source.data_ptr(),
         direction.data_ptr(), len(axes), sizes, src_strides, dir_strides, n, float(max_range),
@@ -448,7 +449,7 @@ def exact_beam_weights(grid, states: SE2, points: Tensor, beam_mask: Tensor, mix
     plane = free_plane(grid)
     world = (ctypes.c_float * 4)(*plane.world_to_grid)
     scalars = (ctypes.c_float * len(mix))(*mix)
-    stream = torch.cuda.current_stream(device).cuda_stream
+    stream = stream_ptr(device)
     err = _kernel("beluga_beam_exact")(
         plane.bits.data_ptr(), grid.height, grid.width, plane.bits.shape[1], xy.data_ptr(),
         rot.data_ptr(), n, filters, world, pts.data_ptr(), mask.data_ptr(), nb,

@@ -20,8 +20,12 @@ device ms per update.  Every variant runs this checkout's
 ``tools/profile_update.py`` with its own package first on the path, so
 that a parent tree is profiled on the workloads defined here.  Variants
 named ``*_probe_*`` are not designs but probes: they drop or cheapen one
-part of a kernel to show what it costs.  A run without a CUDA device
-exits 2.
+part of a kernel to show what it costs.  With ``--checks``, each turn
+runs ``chip_smoke.py``'s named kernel checks (:data:`CHECKS`) on the
+variant's package instead of the profile, one JSON line per check and
+shape: its time back to back and its device time a call, and those of
+the model-level call it serves with its launches.  A run without
+a CUDA device exits 2.
 """
 
 from __future__ import annotations
@@ -263,12 +267,90 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
         ("csrc/raycast.cu", "constexpr int kExactMinBlocks = 4;",
          "constexpr int kExactMinBlocks = 1;"),
     ],
+    # B3: the sampler's parent path: the pool by PyTorch indexing, the row
+    # entry, SO2.exp (cos, sin, stack)
+    "b3_draw_outside": [
+        ("core/random.py",
+         "    from beluga_tpu_torch.ops.cuda_pool_take import pooled_free_cells\n\n"
+         "    return pooled_free_cells(free_xy, cand, idx, theta)\n",
+         "    from beluga_tpu_torch.ops.cuda_pool_take import pool_take\n\n"
+         "    return SE2(pool_take(free_xy[cand], idx), SO2.exp(theta))\n"),
+    ],
+    # B6: the lookup's window coordinates by PyTorch (the parent's chain of
+    # launches) and the coordinates entry
+    "b6_coords_outside": [
+        ("models/sensor/likelihood_field_winlut.py",
+         "    return winlut_lookup_states(lut, states, lut.miss, base=1.0, tile=tile, tblk=tblk)\n",
+         "    from beluga_tpu_torch.ops.cuda_winlut import winlut_lookup\n\n"
+         "    xi, yi, t = windowed_coords(lut, states)\n"
+         "    return winlut_lookup(lut.values_t, xi.contiguous(), yi.contiguous(), "
+         "t.contiguous(),\n"
+         "                         lut.miss, base=1.0, tile=tile, tblk=tblk, scale=lut.scale)\n"),
+    ],
+    # B6: the windowed gate by PyTorch (the window origin, the coordinates
+    # and the tiled share: the parent's ~120 launches)
+    "b6_gate_outside": [
+        ("models/sensor/likelihood_field_winlut.py",
+         "    return winlut_coverage_states(geo, states, center_x, center_y, center_theta, "
+         "tile, tblk)\n",
+         "    from beluga_tpu_torch.ops.cuda_winlut import winlut_coverage_states_reference\n\n"
+         "    return winlut_coverage_states_reference(geo, states, center_x, center_y, "
+         "center_theta,\n"
+         "                                            tile, tblk)\n"),
+    ],
+    # B6's states entry: each slot's state read again and its coordinates
+    # computed again after the slab minimum, not kept in registers
+    "b6_coords_twice": [
+        ("csrc/winlut.cu",
+         "      a.out[i] = trilinear(a.vals, a.wx, a.wy, a.tblk, t_lo, xf[j], yf[j], tf[j], miss, "
+         "a.base,\n",
+         "      window_coords(w, load_pair(a.in.xy, i, a.in.paired), "
+         "load_pair(a.in.rot, i, a.in.paired), &xf[j], &yf[j], &tf[j]);\n"
+         "      a.out[i] = trilinear(a.vals, a.wx, a.wy, a.tblk, t_lo, xf[j], yf[j], tf[j], miss, "
+         "a.base,\n"),
+    ],
     **{f"reweight_lanes_{1 << g}": [
         ("csrc/reweight.cu",
          "  a.lanes_log2 = lanes_log2_for(static_cast<long long>(n) * batch, nb);\n",
          f"  a.lanes_log2 = {g};\n"),
     ] for g in (1, 2, 3, 4)},
 }
+
+
+# --checks: chip_smoke.py's kernel checks by name, as calls on ``cs`` (the
+# module) and ``dev``
+CHECKS = {
+    "pool_draw": ["cs.check_pool_draw(64, 512, 4096, dev, 200)",
+                  "cs.check_pool_draw(None, 4096, 262144, dev, 50)",
+                  "cs.check_pool_draw(None, 512, 4096, dev, 200)"],
+    "pool_take": ["cs.check_pool_take(64, 512, 4096, dev, 200)",
+                  "cs.check_pool_take(None, 4096, 262144, dev, 50)"],
+    "winlut_states": ["cs.check_winlut_states(dev, 50)",
+                      "cs.check_winlut_states(dev, 50, table_dtype='int8')"],
+    "winlut_coverage": ["cs.check_winlut_coverage(dev, 50)"],
+    "winlut": ["cs.check_winlut(dev, 50)", "cs.check_winlut_int8(dev, 50)"],
+}
+
+
+def run_checks(root: Path, checks: str) -> list[dict]:
+    """``chip_smoke.py``'s checks of ``checks`` on the package under
+    ``root``, in a process of its own; one record per check."""
+    calls = [c for name in checks.split(",") for c in CHECKS[name]]
+    code = "\n".join([
+        "import json, sys",
+        f"sys.path[:0] = [{str(root)!r}, {str(ROOT)!r}]",
+        "import torch",
+        "import chip_smoke as cs",
+        "dev = torch.device('cuda')",
+        f"for call in {calls!r}:",
+        "    r = eval(call)",
+        "    print(json.dumps({'check': call, **{k: r.get(k) for k in ('name', 'shape', 'ms',"
+        " 'device_ms', 'plain_ms', 'bound_ms', 'model_ms', 'model_device_ms',"
+        " 'model_launches', 'model_copies')}}))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True).stdout
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
 
 
 def make_variant(name: str) -> Path:
@@ -317,6 +399,9 @@ def main(argv=None) -> int:
     ap.add_argument("--workloads", default="mega")
     ap.add_argument("--scans", type=int, default=16)
     ap.add_argument("--out", default=None, help="write every profile line here")
+    ap.add_argument("--checks", default=None,
+                    help="run these chip_smoke checks instead of the profile: "
+                         + ",".join(CHECKS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_variants: no CUDA device", file=sys.stderr)
@@ -336,6 +421,11 @@ def main(argv=None) -> int:
         build_kernels(root)
     records = []
     for turn, name in enumerate(names + names[::-1]):
+        if args.checks:
+            for line in run_checks(roots[name], args.checks):
+                records.append({"variant": name, "turn": turn, **line})
+                print(json.dumps({"variant": name, "turn": turn, **line}))
+            continue
         for line in run_profile(roots[name], args.workloads, args.scans):
             records.append({"variant": name, "turn": turn, **line})
             print(json.dumps({"variant": name, "turn": turn, "workload": line["workload"],

@@ -98,8 +98,11 @@ HAND_KERNELS = {
     "reweight_kernel": "B1/B1-log fused_reweight",
     "reweight_values3_kernel": "B4/B4-log fused_reweight values3",
     "cdf_partials_kernel": "B2 CDF build", "cdf_scan_kernel": "B2 CDF build",
-    "resample_take_kernel": "B2 search", "pool_take_kernel": "B3 pool_take",
+    "resample_take_kernel": "B2 search",
+    "pool_take_kernel": "B3 pool_take",  # the row entry and the pooled draw
     "fused_step_kernel": "B5 fused_propagate_winlut", "winlut_kernel": "B6/B6-int8 winlut_lookup",
+    "winlut_states_kernel": "B6/B6-int8 winlut_lookup",  # the states entry
+    "winlut_coverage_kernel": "B6 coverage (the windowed gate)",
     "beam_lut_kernel": "B7 beam_lut_windowed", "window_origins_kernel": "B7 window origins",
     "sphere_trace_kernel": "B8 sphere_trace",
     "scan_lut_kernel": "B9 scan_lut_correlate", "ndt_probe_kernel": "B10 ndt_probe",

@@ -22,8 +22,17 @@ Phases, each of which exits non-zero when it fails:
    CDF kernel held exactly where it must be exact and within CDF_ULP of a
    float64 prefix sum, the donors bit-equal to the search on that CDF; the
    CDF build and the search timed apart and beside the old path,
-   ``torch.cumsum`` and ``torch.cummax`` before the search), B3 (pool take),
-   B6 (windowed LUT lookup, beside ``grid_sample`` as the library yardstick)
+   ``torch.cumsum`` and ``torch.cummax`` before the search), B3 (pool take:
+   the row entry, and the draw entry, the pooled recovery sampler's whole
+   draw in one launch, at the fleet's 64 pools of 512 x 4096 draws, the large
+   filter's 4096 x 262144 and the mega filter's 512 x 4096, translations and
+   headings bit-equal), B6 (windowed LUT lookup, beside ``grid_sample`` as
+   the library yardstick: the coordinates entry; the states entry, the
+   lookup's coordinates composed in the kernel, bf16 within rtol 1e-6 and
+   int8 bit-equal with an equal miss set and bit-equal to the coordinates
+   entry at the plain chain's coordinates; the coverage entry, the windowed
+   gate in one launch, equal to its plain version, also with its window's
+   origin clamped at the map's edge)
    and B5 (fused propagate + lookup, its table in shared memory at the mega
    geometry and through L2 at the windowed filter's). ``ms`` is the time per
    call of calls issued back to back, the wrapper's host cost included;
@@ -33,11 +42,11 @@ Phases, each of which exits non-zero when it fails:
    of the truth, and B1 and B2 must have been launched;
 5. large filter: one 262144-particle filter (systematic resampling, KLD
    down to 65536, pooled recovery) through ``filters.amcl.update`` for 12
-   scans, same gate; B1, B2 and B3 launched, and B2's path calls no
+   scans, same gate; B1, B2 and B3's draw entry launched, and B2's path calls no
    ``aten::cummax`` (here and in phases 7 and 8);
 6. fleet: 64 filters x 4096 particles in codebook16 mode with theta-sorted
    slots and pooled recovery through ``parallel.fleet.make_fleet_update``
-   for 40 scans, same gate on every filter; B4, B2 and B3 launched once per
+   for 40 scans, same gate on every filter; B4, B2 and B3's draw entry launched once per
    update, B1 never;
 7. mega: the JAX benchmark's headline filter, 1 x 2097152 particles x 60
    beams through the fused windowed kernel B5 (``bench.py:247-386``), 64
@@ -47,7 +56,8 @@ Phases, each of which exits non-zero when it fails:
    update, B1, B4 and B6 never;
 8. windowed: the coverage-gated windowed filter, 262144 particles
    (``bench.py:880-900``), 40 forced updates, same 0.9 m / 30 degree gate;
-   B6 launched at least once, B1 on every update (the exact tail, or the
+   B6's coverage entry (the gate) once per update, B6's states entry at
+   least once, B1 on every update (the exact tail, or the
    fallback); prints how many updates took each branch;
 9. beam node: ``AmclNode`` with ``laser_model_type="beam"`` at nav2
    defaults (100 m range) in each ``beam_fast_path`` for 30 scans, same
@@ -75,7 +85,8 @@ Phases, each of which exits non-zero when it fails:
 14. prob fleet: the fleet in the probability model's codebook16 mode for
    20 scans, every filter within the gate; B4-log once per update;
 15. windowed int8: the windowed filter on int8 window tables for 20
-   forced updates, same gate; B6-int8 at least once, B1 on every update;
+   forced updates, same gate; B6-int8's states entry at least once, the
+   coverage entry once per update, B1 on every update;
 16. NDT node: ``NdtAmclNode`` at nav2 defaults on the 2D NDT map (the
    arena fitted at 0.4 m, 287 rows) for 50 scans of 360 beams at 3.5 m,
    same gate; the fused NDT kernel once per update, B10 never;
@@ -134,8 +145,11 @@ Phases 4 to 19 run the configurations of ``beluga_tpu_torch/tools/workloads.py``
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; on every path B2's CDF kernel ("B2-cdf monotone_cdf") runs once
-per search and every B1, B1-log, B4 and B4-log launch goes through the
-states entry (no PyTorch operation composes the transform first).  The line before the last two is the ``kernels`` JSON; the line
+per search, every B1, B1-log, B4 and B4-log launch goes through the
+states entry (no PyTorch operation composes the transform first), and B3's
+row entry and B6's coordinates entries are never launched (the pooled draw
+and the windowed lookup and gate go through their new entries).  The line
+before the last two is the ``kernels`` JSON; the line
 before the last is ``nvidia-smi``'s name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -166,6 +180,13 @@ B1_LOG_OPS_PER_BEAM = 21
 # the states entry composes world_to_field @ state once a particle: 8
 # products and 6 sums, counted as 8 (the transform entry's inputs hold it)
 SE2_COMPOSE_OPS = 8
+# the main paths' entries of kernels B3 and B6, and the entries that no
+# main path launches since they came (the counterparts of the reference's
+# pallas_pool_take and winlut_lookup)
+POOL_DRAW = "B3-draw pooled_free_cells"
+WINLUT_STATES = {"bf16": "B6 winlut_lookup_states", "int8": "B6-int8 winlut_lookup_states"}
+WINLUT_COVERAGE = "B6-coverage winlut_coverage_states"
+OFF_MAIN_PATHS = ("B3 pool_take", "B6 winlut_lookup", "B6-int8 winlut_lookup")
 # the launches of B1, B1-log, B4 and B4-log made through the states entry
 REWEIGHT_STATES = "B1/B4 states entry"
 REWEIGHT_KERNELS = ("B1 fused_reweight", "B1-log fused_reweight", "B4 fused_reweight values3",
@@ -178,6 +199,11 @@ B9_OPS = {"nearest": 2, "bilinear": 7}
 # sample, the window affine and the heading bin (~40 with sincos counted
 # as 8 each) and the log
 B6_OPS_PER_PARTICLE = 40
+# float32 operations per particle of B6's coordinate chain (its states and
+# coverage entries): the composition (SE2_COMPOSE_OPS), two divisions and
+# four sums for the window cell, atan2 and fmod counted as 10 each, and the
+# wrap, the division and the sums of the heading bin (5)
+B6_CHAIN_OPS = 8 + 6 + 10 + 10 + 5
 B5_OPS_PER_PARTICLE = 120
 EDGE = 1e-4  # window coordinates this close to an edge may flip validity
 # the CDF kernel's bound against a float64 prefix sum over its total, N <= 2^21:
@@ -258,10 +284,16 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
 def device_ms(fn, iters: int) -> float | None:
     """Mean device time per call of ``fn``: the summed durations of the
     kernels and copies it ran under ``torch.profiler``, which leaves the
-    host's cost out; None when the profiler saw no device work."""
+    host's cost out.  None when the profiler saw no device work, or fewer
+    kernels on the card than the host launched: it at times records only
+    part of a run's launches (late in this script), and a total over part
+    of them reads low, even below the bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -271,9 +303,12 @@ def device_ms(fn, iters: int) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    return 1e-3 * busy_us / iters if busy_us > 0 else None
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    launched = sum(e.name in LAUNCH_CALLS for e in events)
+    kernels_seen = sum(not e.name.startswith(("Memcpy", "Memset")) for e in device)
+    busy_us = sum(e.time_range.elapsed_us() for e in device)
+    return 1e-3 * busy_us / iters if busy_us > 0 and kernels_seen >= launched else None
 
 
 def queued_device_ms(fn, calls: int, spin_cycles: int = 50_000_000, each: bool = False):
@@ -328,6 +363,56 @@ def timings(kernel, plain, iters: int, library=None, plain_iters: int | None = N
         out[key] = None if fn is None else cuda_ms(fn, n)
         out[key.replace("ms", "device_ms")] = None if fn is None else device_ms(fn, min(n, 20))
     return out
+
+
+def launch_device_ms(times: dict, fn, kernel: str, calls: int = 20) -> None:
+    """The device time of a wrapper that launches the one kernel ``kernel``
+    (its ``__global__`` name) in ``times`` (from ``timings``): the median of
+    the durations of its launches that ``torch.profiler`` recorded, and how
+    many of ``calls`` it recorded.  Late in this script the profiler records
+    only part of a run's launches, so a total over the calls reads low (B6's
+    states entry below its bound); a call queued alone behind a spin adds
+    ~4 µs of events and launch to a kernel of a few µs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sorted(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA and kernel in e.name)
+    times["device_ms"] = 1e-3 * us[len(us) // 2] if us else None
+    times["device_launches_seen"] = f"{len(us)} of {calls}"
+
+
+def call_launches(fn, calls: int = 5) -> dict:
+    """Kernel launches and memory copies a call of ``fn`` issues: the CUDA
+    runtime's launch and ``cudaMemcpy*`` calls that ``torch.profiler`` sees
+    on the host (which does not depend on its tracing of the card); a copy
+    of a pageable host value syncs the stream."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    return dict(launches=sum(n in LAUNCH_CALLS for n in names) / calls,
+                copies=sum(n.startswith("cudaMemcpy") for n in names) / calls)
+
+
+def model_timings(fn, iters: int) -> dict:
+    """``model_ms`` (back to back), ``model_device_ms`` and the launches and
+    memory copies a call of the model-level function ``fn`` that a kernel
+    entry serves."""
+    counts = call_launches(fn)
+    return dict(model_ms=cuda_ms(fn, iters), model_device_ms=device_ms(fn, min(iters, 20)),
+                model_launches=counts["launches"], model_copies=counts["copies"])
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -816,6 +901,195 @@ def check_winlut_int8(dev, iters: int) -> dict:
         replaces="beluga_tpu/ops/pallas_winlut.py:157 (int8 table, :109-142)",
         max_abs_err=float((got - want).abs().max()), bound_ms=bms, bound_by=by, shape=label,
         misses=int(miss.sum()), **times,
+    )
+
+
+def check_pool_draw(batch: int | None, p: int, n: int, dev, iters: int) -> dict:
+    """Kernel B3's draw entry (the pooled recovery sampler's whole draw) on
+    the arena's free cells, ``batch`` pools of ``p`` candidates and ``n``
+    slots: translations and headings bit-equal to its plain version
+    (``free_xy[cand]``, the row take, ``SO2.exp``) with some indices out of
+    range (zero rows), timed on the sampler's in-range draws beside the plain
+    version and ``torch.gather`` of the pooled rows (the translations only:
+    no one PyTorch call computes the whole draw)."""
+    from beluga_tpu_torch.core.random import uniform_free_cells_pooled_from_draws
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.ops import cuda_pool_take as b3
+    from beluga_tpu_torch.tools import workloads
+
+    grid = make_grid(workloads.arena_scans(1).data, workloads.RES, device=dev)
+    free, rows = grid.free_xy, int(grid.num_free)
+    lead = () if batch is None else (batch,)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(p + n + 1)
+    cand = torch.randint(0, rows, (*lead, p), generator=gen, device=dev)
+    theta = torch.rand((*lead, n), generator=gen, device=dev) * (2.0 * math.pi) - math.pi
+    wild = torch.randint(-8, p + 8, (*lead, n), generator=gen, device=dev, dtype=torch.int32)
+    got = b3.pooled_free_cells(free, cand, wild, theta)
+    want = b3.pooled_free_cells_reference(free, cand, wild, theta)
+    torch.cuda.synchronize()
+    label = f"[{', '.join(map(str, (*lead, p)))}] cells x {n} draws, {rows} free cells"
+    check(torch.equal(got.xy, want.xy),
+          f"B3 draw {label}: {int((got.xy != want.xy).any(-1).sum())} translations differ")
+    outside = (wild < 0) | (wild >= p)
+    check(bool(outside.any()) and not bool(got.xy[outside].any()),
+          "B3 draw: out-of-range indices did not give zero rows")
+    rot_err = float((got.rot.z - want.rot.z).abs().max())
+    check(torch.equal(got.rot.z, want.rot.z),
+          f"B3 draw {label}: cos and sin differ from torch.cos and torch.sin by {rot_err:.3g}")
+    idx = torch.randint(0, p, (*lead, n), generator=gen, device=dev, dtype=torch.int32)
+    pool = free[cand]
+    gather_idx = idx.long()[..., None].expand(*idx.shape, 2).contiguous()
+    times = timings(lambda: b3.pooled_free_cells(free, cand, idx, theta),
+                    lambda: b3.pooled_free_cells_reference(free, cand, idx, theta), iters,
+                    library=lambda: torch.gather(pool, -2, gather_idx))
+    launch_device_ms(times, lambda: b3.pooled_free_cells(free, cand, idx, theta),
+                     "pool_take_kernel<true>")
+    times.update(model_timings(lambda: uniform_free_cells_pooled_from_draws(cand, idx, theta,
+                                                                            free), iters))
+    bms, by = bound_ms((batch or 1) * (24 * n + 16 * p), 0)
+    return dict(
+        name="B3-draw pooled_free_cells", route="cuda", source="beluga_tpu_torch/csrc/pool_take.cu",
+        replaces="beluga_tpu/ops/pallas_lookup.py:153 (with beluga_tpu/core/random.py:97-134)",
+        max_abs_err=max(float((got.xy - want.xy).abs().max()), rot_err), bound_ms=bms,
+        bound_by=by, shape=label, library_note="torch.gather of the pooled rows, no headings",
+        **times,
+    )
+
+
+def window_library(lut, xi, yi, t):
+    """``grid_sample`` (trilinear, ``align_corners=True``) of the window
+    table at the coordinates, no slab rule: the library yardstick of B6's
+    entries, which the port never calls."""
+    import torch.nn.functional as F
+
+    k, wx, wy = lut.values_t.shape
+    table = lut.values_t.float() * (lut.scale if lut.scale is not None else 1.0)
+    vol = table[None, None].contiguous()  # [1, 1, K, Wx, Wy]
+    grid = torch.stack([2 * yi / (wy - 1) - 1, 2 * xi / (wx - 1) - 1, 2 * t / (k - 1) - 1],
+                       -1)[None, None, None].contiguous()  # (W, H, D) = (y, x, θ)
+    return lambda: F.grid_sample(vol, grid, mode="bilinear", align_corners=True)
+
+
+def check_winlut_states(dev, iters: int, table_dtype: str = "bf16") -> dict:
+    """Kernel B6's states entry (``windowed_scan_lut_weights`` in one
+    launch) at the windowed filter's geometry, on the cloud and scan of
+    ``check_winlut``: an equal miss set with its plain version (the
+    coordinate chain, then the lookup), bf16 within rtol 1e-6 and int8
+    bit-equal, and bit-equal to the coordinates entry at the plain chain's
+    coordinates; timed beside the plain version and ``grid_sample``."""
+    from beluga_tpu_torch.lie import SE2, SO2
+    from beluga_tpu_torch.models.sensor.likelihood_field_winlut import (
+        windowed_coords,
+        windowed_scan_lut_weights,
+    )
+    from beluga_tpu_torch.ops import cuda_winlut as b6
+    from beluga_tpu_torch.tools import workloads
+
+    cfg = workloads.WINDOWED_FILTER
+    states, lut = window_inputs(workloads.windowed(1, dev, table_dtype=table_dtype), cfg,
+                                table_dtype=table_dtype)
+    states = SE2(states.xy.contiguous(), SO2(states.rot.z.contiguous()))
+    tile, tblk = cfg["tile"], cfg["tblk"]
+    args = (lut, states, lut.miss, 1.0, tile, tblk)
+    got = b6.winlut_lookup_states(*args)
+    want = b6.winlut_lookup_states_reference(*args)
+    xi, yi, t = (v.contiguous() for v in windowed_coords(lut, states))
+    by_coords = b6.winlut_lookup(lut.values_t, xi, yi, t, lut.miss, 1.0, tile, tblk,
+                                 scale=lut.scale)
+    torch.cuda.synchronize()
+    n = states.xy.shape[0]
+    k, wx, wy = lut.values_t.shape
+    name = "B6" if table_dtype == "bf16" else "B6-int8"
+    label = f"{n} particles (states), [{k}, {wx}, {wy}] {table_dtype}, tile {tile}, tblk {tblk}"
+    miss_got, miss_want = got == lut.miss, want == lut.miss
+    check(torch.equal(miss_got, miss_want),
+          f"{name} states {label}: {int((miss_got != miss_want).sum())} particles differ in the "
+          f"miss set")
+    check(bool(torch.isfinite(got).all()), f"{name} states: weights not finite")
+    if table_dtype == "bf16":
+        check(torch.allclose(got, want, rtol=1e-6, atol=0),
+              f"{name} states {label}: max rel err "
+              f"{float(((got - want).abs() / want).max()):.3g} > 1e-6")
+    else:
+        check(torch.equal(got, want),
+              f"{name} states {label}: {int((got != want).sum())} weights differ")
+    check(torch.equal(got, by_coords),
+          f"{name} states {label}: {int((got != by_coords).sum())} weights differ from the "
+          f"coordinates entry at the plain chain's coordinates")
+    hit = ~miss_got
+    check(0 < int(miss_got.sum()) < n // 10, f"{name} states {label}: {int(miss_got.sum())} misses")
+    times = timings(lambda: b6.winlut_lookup_states(*args),
+                    lambda: b6.winlut_lookup_states_reference(*args), iters,
+                    library=window_library(lut, xi, yi, t))
+    launch_device_ms(times, lambda: b6.winlut_lookup_states(*args), "winlut_states_kernel")
+    times.update(model_timings(lambda: windowed_scan_lut_weights(lut, states, tile, tblk), iters))
+    bms, by = bound_ms(20 * n + lut.values_t.element_size() * lut.values_t.numel(),
+                       B6_CHAIN_OPS * n + B6_OPS_PER_PARTICLE * int(hit.sum()))
+    return dict(
+        name=f"{name} winlut_lookup_states", route="cuda", source="beluga_tpu_torch/csrc/winlut.cu",
+        replaces="beluga_tpu/ops/pallas_winlut.py:157" + (
+            "" if table_dtype == "bf16" else " (int8 table, :109-142)")
+        + " (with beluga_tpu/models/sensor/likelihood_field_winlut.py:293-304, 428)",
+        max_abs_err=float((got - want).abs().max()), bound_ms=bms, bound_by=by, shape=label,
+        misses=int(miss_got.sum()), **times,
+    )
+
+
+def check_winlut_coverage(dev, iters: int, shift: float = 0.0) -> dict:
+    """Kernel B6's coverage entry (the windowed filter's gate,
+    ``windowed_coverage_tiled_from_center``, in one launch) at the windowed
+    filter's geometry on ``check_winlut``'s cloud, the centre its mean
+    moved by ``shift`` m in x and -``shift`` in y (so that the window's
+    origin clamps): equal to its plain version (the window origin, the
+    coordinates, the slab rule, the share) in two calls in a row, its count
+    printed; timed beside the plain version (no library call computes it)."""
+    from beluga_tpu_torch.lie import SE2, SO2
+    from beluga_tpu_torch.models.sensor.likelihood_field_winlut import (
+        field_window,
+        windowed_coverage_tiled_from_center,
+    )
+    from beluga_tpu_torch.ops import cuda_winlut as b6
+    from beluga_tpu_torch.tools import workloads
+
+    cfg = workloads.WINDOWED_FILTER
+    w = workloads.windowed(1, dev)
+    states, _ = window_inputs(w, cfg)
+    states = SE2(states.xy.contiguous(), SO2(states.rot.z.contiguous()))
+    st = w.state.particles.state
+    centre = (torch.mean(st.x) + shift, torch.mean(st.y) - shift,
+              torch.atan2(torch.mean(st.rot.sin), torch.mean(st.rot.cos)))
+    geo = field_window(w.ctx["field"], cfg["k_bins"], cfg["win"], cfg["dth"],
+                       cfg["max_point_radius"], None)
+    tile, tblk = cfg["tile"], cfg["tblk"]
+    args = (geo, states, *centre, tile, tblk)
+    got, again = b6.winlut_coverage_states(*args), b6.winlut_coverage_states(*args)
+    want = b6.winlut_coverage_states_reference(*args)
+    torch.cuda.synchronize()
+    n = states.xy.shape[0]
+    label = (f"{n} particles, window [{geo.k_bins}, {geo.win_x}, {geo.win_y}], tile {tile}, "
+             f"tblk {tblk}, centre moved {shift} m")
+    check(got.shape == () and got.dtype == torch.float32, "B6 coverage: not a 0-d float32")
+    check(torch.equal(got, want) and torch.equal(again, want),
+          f"B6 coverage {label}: {float(got)}, {float(again)} against {float(want)}")
+    count = round(float(want) * n)
+    if shift == 0.0:
+        check(n // 2 < count < n, f"B6 coverage {label}: {count} of {n} covered")
+    times = timings(lambda: b6.winlut_coverage_states(*args),
+                    lambda: b6.winlut_coverage_states_reference(*args), iters)
+    launch_device_ms(times, lambda: b6.winlut_coverage_states(*args), "winlut_coverage_kernel")
+    geo_kw = {k: cfg[k] for k in ("k_bins", "win", "dth", "max_point_radius")}
+    times.update(model_timings(lambda: windowed_coverage_tiled_from_center(
+        w.ctx["field"], states, *centre, tile=tile, tblk=tblk, **geo_kw), iters))
+    bms, by = bound_ms(16 * n + 4, B6_CHAIN_OPS * n)
+    return dict(
+        name="B6-coverage winlut_coverage_states", route="cuda",
+        source="beluga_tpu_torch/csrc/winlut.cu",
+        replaces="beluga_tpu/models/sensor/likelihood_field_winlut.py:388 "
+                 "windowed_coverage_tiled_from_center (B6's slab rule, "
+                 "beluga_tpu/ops/pallas_winlut.py:157)",
+        max_abs_err=abs(float(got) - float(want)), bound_ms=bms, bound_by=by, shape=label,
+        covered=count, **times,
     )
 
 
@@ -1663,8 +1937,12 @@ def reset_counts() -> None:
     cuda_resample.launches = 0
     cuda_resample.cdf_launches = 0
     cuda_pool_take.launches = 0
+    cuda_pool_take.draw_launches = 0
     cuda_winlut.launches = 0
     cuda_winlut.int8_launches = 0
+    cuda_winlut.states_launches = 0
+    cuda_winlut.int8_states_launches = 0
+    cuda_winlut.coverage_launches = 0
     cuda_fused_step.launches = 0
     cuda_beam_lut.launches = 0
     cuda_beam_lut.origins_launches = 0
@@ -1694,11 +1972,15 @@ def read_counts() -> dict:
             "B2 resample_take": cuda_resample.launches,
             "B2-cdf monotone_cdf": cuda_resample.cdf_launches,
             "B3 pool_take": cuda_pool_take.launches,
+            "B3-draw pooled_free_cells": cuda_pool_take.draw_launches,
             "B4 fused_reweight values3": cuda_reweight.values3_launches,
             "B4-log fused_reweight values3": cuda_reweight.values3_log_launches,
             "B5 fused_propagate_winlut": cuda_fused_step.launches,
             "B6 winlut_lookup": cuda_winlut.launches,
             "B6-int8 winlut_lookup": cuda_winlut.int8_launches,
+            "B6 winlut_lookup_states": cuda_winlut.states_launches,
+            "B6-int8 winlut_lookup_states": cuda_winlut.int8_states_launches,
+            "B6-coverage winlut_coverage_states": cuda_winlut.coverage_launches,
             "B7 beam_lut_windowed": cuda_beam_lut.launches,
             "B7-origins window_origins": cuda_beam_lut.origins_launches,
             "B8 sphere_trace_beam_weights": cuda_beam.launches,
@@ -1835,7 +2117,7 @@ def run_large_filter(dev, n: int = LARGE_N, n_min: int = LARGE_MIN,
               f"large filter scan {t}: error {e_pos:.3f} m / {math.degrees(e_yaw):.1f} deg")
         active.append(int(state.particles.active))
     counts = read_counts()
-    for name in ("B1 fused_reweight", "B2 resample_take", "B3 pool_take"):
+    for name in ("B1 fused_reweight", "B2 resample_take", POOL_DRAW):
         check(counts[name] > 0, f"large filter: {name} was never launched")
     steady = times[2:]
     mean_s = sum(steady) / len(steady)
@@ -1878,7 +2160,7 @@ def run_fleet(dev, b: int = FLEET_B, n: int = FLEET_N, scans: int = FLEET_SCANS,
               f"{what} scan {t}: worst filter {e_pos.max():.3f} m / "
               f"{math.degrees(e_yaw.max()):.1f} deg")
     counts = read_counts()
-    for name in ("B2 resample_take", "B3 pool_take", reweight):
+    for name in ("B2 resample_take", POOL_DRAW, reweight):
         check(counts[name] == scans,
               f"{what}: {name} launched {counts[name]} times in {scans} updates")
     others = {"B1 fused_reweight", "B1-log fused_reweight", "B4 fused_reweight values3",
@@ -1953,7 +2235,8 @@ def run_mega(dev, scans: int = MEGA_SCANS, n: int | None = None) -> tuple[dict, 
           f"{MEGA_LAST_GATE_M} m")
     check(counts["B5 fused_propagate_winlut"] == scans,
           f"mega: B5 launched {counts['B5 fused_propagate_winlut']} times in {scans} updates")
-    for name in ("B1 fused_reweight", "B4 fused_reweight values3", "B6 winlut_lookup"):
+    for name in ("B1 fused_reweight", "B4 fused_reweight values3", WINLUT_STATES["bf16"],
+                 WINLUT_COVERAGE):
         check(counts[name] == 0, f"mega: {name} launched {counts[name]} times")
     return counts, out
 
@@ -1961,20 +2244,23 @@ def run_mega(dev, scans: int = MEGA_SCANS, n: int | None = None) -> tuple[dict, 
 def run_windowed(dev, scans: int = WINDOWED_SCANS,
                  table_dtype: str = "bf16") -> tuple[dict, dict]:
     """The coverage-gated windowed filter (bench.py:880-900) on bf16 window
-    tables (B6) or int8 ones (B6-int8): the lookup kernel at least once, B1
-    on every update (the exact tail, or the fallback), the other lookup
-    never."""
+    tables (B6) or int8 ones (B6-int8): the gate one launch of B6's
+    coverage entry every update, the lookup through B6's states entry at
+    least once, B1 on every update (the exact tail, or the fallback), the
+    other table type's lookup never."""
     from beluga_tpu_torch.tools import workloads
 
     what = "windowed" if table_dtype == "bf16" else f"windowed {table_dtype}"
-    lookup, other = "B6 winlut_lookup", "B6-int8 winlut_lookup"
-    if table_dtype == "int8":
-        lookup, other = other, lookup
+    lookup = WINLUT_STATES[table_dtype]
+    other = WINLUT_STATES["int8" if table_dtype == "bf16" else "bf16"]
     w = workloads.windowed(scans, dev, table_dtype=table_dtype)
     counts, _, out = run_forced(w, scans, what)
     fast = counts[lookup]
     check(fast >= 1, f"{what}: {lookup} was never launched")
     check(counts[other] == 0, f"{what}: {other} launched {counts[other]} times")
+    check(counts[WINLUT_COVERAGE] == scans,
+          f"{what}: the gate launched {WINLUT_COVERAGE} {counts[WINLUT_COVERAGE]} times in "
+          f"{scans} updates")
     check(counts["B1 fused_reweight"] == scans,
           f"{what}: B1 launched {counts['B1 fused_reweight']} times in {scans} updates")
     out.update(fast_updates=fast, exact_updates=scans - fast)
@@ -2361,6 +2647,9 @@ def main() -> int:
     p_fleet = check_pool_take(FLEET_B, 512, FLEET_N, dev, iters=200)
     p_big = check_pool_take(None, 4096, LARGE_N, dev, iters=50)
     p_mega = check_pool_take(None, 512, 4096, dev, iters=200)
+    d_fleet = check_pool_draw(FLEET_B, 512, FLEET_N, dev, iters=200)
+    d_big = check_pool_draw(None, 4096, LARGE_N, dev, iters=50)
+    d_mega = check_pool_draw(None, 512, 4096, dev, iters=200)
     r_mega, rc_mega = check_resample(MEGA_N, resample_inputs(MEGA_N, dev), dev, iters=20)
     w_big = check_winlut(dev, iters=50)
     f_mega = check_fused_step(MEGA_N, dev, iters=20)
@@ -2384,6 +2673,10 @@ def main() -> int:
     c_log_fleet = check_codebook16(FLEET_N, w, iters=50, log_space=True)
     del w
     i_big = check_winlut_int8(dev, iters=50)
+    ws_big = check_winlut_states(dev, iters=50)
+    ws_int8 = check_winlut_states(dev, iters=50, table_dtype="int8")
+    wc_big = check_winlut_coverage(dev, iters=50)
+    wc_edge = check_winlut_coverage(dev, iters=20, shift=12.0)
     n_fleet = check_ndt_probe(dev, iters=20, dim=2)
     n_3d = check_ndt_probe(dev, iters=20, dim=3)
     f_node = check_ndt_weights(dev, iters=50, which="node")
@@ -2393,7 +2686,8 @@ def main() -> int:
     v_floor = check_codebook_lookup(dev, iters=20, volume="floor")
     torch.cuda.empty_cache()
     checked = (k_main, r_main, rc_main, k_big, r_big, rc_big, c_big, k_fleet, r_fleet, rc_fleet,
-               c_fleet, p_fleet, p_big, p_mega, r_mega, rc_mega, w_big, f_mega, f_ragged, f_l2,
+               c_fleet, p_fleet, p_big, p_mega, d_fleet, d_big, d_mega, r_mega, rc_mega, w_big,
+               ws_big, ws_int8, wc_big, wc_edge, f_mega, f_ragged, f_l2,
                s_node, s_long, s_wide, l_fleet, l_node,
                o_fleet, o_node, c_node, c_build, c_long, c_l2, e_node, e_l2,
                g_shared, g_full, k_log_node, k_log_fleet, c_log_fleet, i_big, n_fleet,
@@ -2404,11 +2698,17 @@ def main() -> int:
             f", library {ms(k['library_ms'])} (device {ms(k['library_device_ms'])})")
         extra = "".join(f", {key} {k[key]}" for key in (
             "max_rel_err", "outside_rtol_share", "live_cells", "hit_share", "library_note",
-            "max_abs_err_float64", "rows_moved_from_plain") if key in k)
+            "max_abs_err_float64", "rows_moved_from_plain", "misses", "covered") if key in k)
         if "device_ms_each" in k:
             extra += "; device, one call alone (ms) " + json.dumps(k["device_ms_each"])
+        if "device_launches_seen" in k:
+            extra += f"; device: median of the {k['device_launches_seen']} launches recorded"
         if "variants" in k:
             extra += "; by variant " + json.dumps(k["variants"])
+        if "model_ms" in k:
+            extra += (f"; the model's call {ms(k['model_ms'])} (device "
+                      f"{ms(k['model_device_ms'])}, {k['model_launches']} launches and "
+                      f"{k['model_copies']} copies a call)")
         if "tf_entry_ms" in k:
             extra += (f"; transform entry {ms(k['tf_entry_ms'])} (device "
                       f"{ms(k['tf_entry_device_ms'])}; plain {ms(k['tf_entry_plain_ms'])})")
@@ -2493,14 +2793,18 @@ def main() -> int:
 
     # each kernel at the shapes and with the launches of the newest main
     # path that runs it: B1 the windowed filter's (tail and fallback), B2
-    # and B3 the mega filter's where its selective resampling fired, else
-    # the windowed filter's, B4 the fleet's, B5 the mega filter's, B6 the
-    # windowed filter's, B7 and R1 the beam fleet's (R1 in its LUT build;
+    # and B3's draw entry the mega filter's where its selective resampling
+    # fired, else the windowed filter's (the draw entry's other shapes under
+    # "other_shapes"), B4 the fleet's, B5 the mega filter's, B6's states
+    # and coverage entries the windowed filter's (B6-int8's states entry the
+    # int8 windowed filter's); B3's row entry and B6's coordinates entries,
+    # on no main path since their new entries came, show their launches
+    # summed over every main path (0); B7 and R1 the beam fleet's (R1 in its LUT build;
     # B7 and its window origins also the beam node's windowed mode's),
     # B8 the long-range filter's and the beam node's (the beam node's entry
     # also holds, under "other_shapes", a 1000-beam scan that no main path
-    # gives it), B1-log the prob node's, B4-log the prob fleet's, B6-int8
-    # the int8 windowed filter's, B9 the shared-scan filter's, the fused
+    # gives it), B1-log the prob node's, B4-log the prob fleet's, B9 the
+    # shared-scan filter's, the fused
     # NDT kernel the NDT node's, the NDT fleet's and the NDT-3D node's,
     # B11 the VDB filter's; B10, the standalone probe
     # (``NdtMap.lookup_gaussians``), is on no main path since the fused
@@ -2514,7 +2818,10 @@ def main() -> int:
                "prob_fleet": pfleet_counts, "windowed_int8": int8_counts,
                "ndt_node": ndt_counts, "ndt_fleet": nfleet_counts, "ndt3d_node": ndt3_counts,
                "vdb": vdb_counts}
-    for path, c in by_path.items():  # B2's two stages, once each a resample
+    for path, c in by_path.items():
+        for name in OFF_MAIN_PATHS:  # B3 and B6 go through their new entries
+            check(c[name] == 0, f"{path}: {name} launched {c[name]} times")
+        # B2's two stages, once each a resample
         check(c["B2-cdf monotone_cdf"] == c["B2 resample_take"],
               f"{path}: {c['B2-cdf monotone_cdf']} CDF builds for {c['B2 resample_take']} "
               f"searches")
@@ -2525,19 +2832,21 @@ def main() -> int:
     resampled = mega_counts["B2 resample_take"] > 0
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
              "plain_device_ms", "library_device_ms", "shape")
+    mega_drew = mega_counts[POOL_DRAW] > 0
+    d_main = d_mega if mega_drew else d_big
     kernels = []
     for k, path in ((k_big, "windowed"), (r_mega if resampled else r_big,
                                           "mega" if resampled else "windowed"),
                     (rc_mega if resampled else rc_big, "mega" if resampled else "windowed"),
-                    (p_mega if mega_counts["B3 pool_take"] else p_big,
-                     "mega" if mega_counts["B3 pool_take"] else "windowed"),
-                    (c_fleet, "fleet"), (f_mega, "mega"), (w_big, "windowed"),
+                    (d_main, "mega" if mega_drew else "windowed"), (p_big, None),
+                    (c_fleet, "fleet"), (f_mega, "mega"), (w_big, None), (ws_big, "windowed"),
+                    (wc_big, "windowed"), (i_big, None), (ws_int8, "windowed_int8"),
                     (l_fleet, "beam_fleet"), (l_node, "beam_node_windowed"),
                     (o_fleet, "beam_fleet"), (o_node, "beam_node_windowed"), (s_long, "long_range"),
                     (s_node, "beam_node_sphere_trace"), (c_build, "beam_fleet"),
                     (e_node, "beam_node_exact"),
                     (k_log_node, "prob_node"), (c_log_fleet, "prob_fleet"),
-                    (i_big, "windowed_int8"), (g_shared, "shared_scan"),
+                    (g_shared, "shared_scan"),
                     (n_fleet, None), (n_3d, None), (f_node, "ndt_node"),
                     (f_fleet, "ndt_fleet"), (f_3d, "ndt3d_node"), (v_bench, "vdb")):
         entry = {key: k[key] for key in ("name", "route", "source", "replaces")}
@@ -2546,6 +2855,13 @@ def main() -> int:
         entry.update({key: k[key] for key in timed})
         if k is s_node:
             entry["other_shapes"] = [{key: s_wide[key] for key in timed}]
+        if k is wc_big:  # the origin clamped at the map's edge
+            entry["other_shapes"] = [{key: wc_edge[key] for key in timed}]
+        if k is d_main:  # the fleet's pools and the other single filter's
+            entry["other_shapes"] = [{key: d[key] for key in timed}
+                                     for d in (d_fleet, d_big if mega_drew else d_mega)]
+        if k is p_big:
+            entry["other_shapes"] = [{key: p[key] for key in timed} for p in (p_fleet, p_mega)]
         if k is f_mega:  # the L2 branch of the same kernel
             entry["other_shapes"] = [{key: f_l2[key] for key in timed}]
         if k is c_build:  # the ray entry's other maps, the last through L2
@@ -2558,6 +2874,9 @@ def main() -> int:
                                         (*timed, "variants", "device_ms_each")}])
         if "tf_entry_ms" in k:
             entry.update({key: k[key] for key in k if key.startswith("tf_entry_")})
+        entry.update({key: k[key] for key in k if key.startswith("model_")})
+        if any(k is x for x in (d_main, ws_big, ws_int8, wc_big)):
+            entry["device_launches_seen"] = k["device_launches_seen"]
         if k in (r_mega, r_big):
             entry.update({key: k[key] for key in (
                 "cdf_device_ms", "search_device_ms", "old_path_ms", "old_path_device_ms",

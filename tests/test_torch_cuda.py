@@ -234,10 +234,144 @@ def test_b3_kernel_matches_plain_version(dev, lead, p, c, n):
     assert not got[(idx < 0) | (idx >= p)].any()
 
 
+@pytest.mark.parametrize("lead,p,n", [((64,), 512, 4096), ((), 4096, 262144), ((), 512, 4096),
+                                      ((3,), 100, 999), ((2,), 7, 1001)])
+def test_b3_draw_matches_plain_version(dev, lead, p, n):
+    """B3's draw entry against its plain version (``free_xy[cand]``, the row
+    take, ``SO2.exp``): translations bit-equal, zero rows where ``idx`` is
+    out of range, and cos and sin bit-equal (``sincosf`` against
+    ``torch.cos`` and ``torch.sin``, which are ``cosf`` and ``sinf``); at
+    the fleet's, the large filter's and the mega filter's shapes and at
+    ragged sizes (a partial block, a pool of 7)."""
+    from beluga_tpu_torch.ops import cuda_pool_take as b3
+
+    gen = torch.Generator(device=dev).manual_seed(p + n)
+    rows = 5000
+    free = torch.randn((rows, 2), generator=gen, device=dev) * 10
+    cand = torch.randint(0, rows, (*lead, p), generator=gen, device=dev)
+    idx = torch.randint(-5, p + 5, (*lead, n), generator=gen, device=dev, dtype=torch.int32)
+    theta = (torch.rand((*lead, n), generator=gen, device=dev) * 2 - 1) * math.pi
+    before = (b3.launches, b3.draw_launches)
+    got = b3.pooled_free_cells(free, cand, idx, theta)
+    want = b3.pooled_free_cells_reference(free, cand, idx, theta)
+    torch.cuda.synchronize()
+    assert (b3.launches, b3.draw_launches) == (before[0], before[1] + 1)
+    assert got.xy.shape == got.rot.z.shape == (*lead, n, 2)
+    assert torch.equal(got.xy, want.xy)
+    assert not got.xy[(idx < 0) | (idx >= p)].any()
+    assert torch.equal(got.rot.z, want.rot.z)
+
+
+def test_b3_draw_reads_no_cand_outside_free_xy(dev):
+    """A ``cand`` outside the rows of ``free_xy`` is never read: the slots
+    that take such a pool entry get a zero translation (the others their
+    row), the launch faults nowhere."""
+    from beluga_tpu_torch.ops import cuda_pool_take as b3
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows, p, n = 100, 64, 4096
+    free = torch.randn((rows, 2), generator=gen, device=dev) + 3.0  # no zero row
+    cand = torch.randint(0, rows, (p,), generator=gen, device=dev)
+    cand[:4] = torch.tensor([-1, rows, 10**12, -(10**12)], device=dev)
+    idx = torch.randint(0, p, (n,), generator=gen, device=dev, dtype=torch.int32)
+    idx[:8] = torch.tensor([0, 1, 2, 3, 4, 5, -1, p], device=dev, dtype=torch.int32)
+    theta = torch.rand(n, generator=gen, device=dev)
+    got = b3.pooled_free_cells(free, cand, idx, theta)
+    torch.cuda.synchronize()
+    inside = (cand >= 0) & (cand < rows)
+    taken = (idx >= 0) & (idx < p)
+    rows_of = free[torch.where(inside, cand, 0)][torch.where(taken, idx, 0).long()]
+    want = torch.where((taken & inside[torch.where(taken, idx, 0).long()])[:, None], rows_of, 0.0)
+    assert torch.equal(got.xy, want)
+    assert not got.xy[:4].any() and got.xy[4:6].all() and not got.xy[6:8].any()
+
+
+@pytest.mark.parametrize("entry", ["rows", "draw"])
+def test_b3_unaligned_rows_take_the_scalar_path(dev, entry):
+    """B3's one kernel takes its vector loads only where both base pointers
+    are 16-byte aligned: a pool (or ``free_xy``) that starts 8 bytes into
+    its storage goes through the scalar path, with the same result."""
+    from beluga_tpu_torch.ops import cuda_pool_take as b3
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    p, n = 300, 5000
+    idx = torch.randint(-5, p + 5, (n,), generator=gen, device=dev, dtype=torch.int32)
+    if entry == "rows":
+        pool = torch.randn((p + 1, 2), generator=gen, device=dev)[1:]
+        assert pool.is_contiguous() and pool.data_ptr() % 16 == 8
+        assert torch.equal(b3.pool_take(pool, idx), b3.pool_take_reference(pool, idx))
+        return
+    free = torch.randn((1001, 2), generator=gen, device=dev)[1:]
+    assert free.is_contiguous() and free.data_ptr() % 16 == 8
+    cand = torch.randint(0, 1000, (p,), generator=gen, device=dev)
+    theta = torch.rand(n, generator=gen, device=dev)
+    got = b3.pooled_free_cells(free, cand, idx, theta)
+    want = b3.pooled_free_cells_reference(free, cand, idx, theta)
+    assert torch.equal(got.xy, want.xy) and torch.equal(got.rot.z, want.rot.z)
+
+
+def aten_ops(fn) -> set:
+    """The names of the ``aten::`` operators that ``fn()`` runs (CPU-side
+    profiler events, which do not depend on the card's tracing)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.name.startswith("aten::")}
+
+
+ALLOCATIONS = {"aten::empty", "aten::empty_like", "aten::empty_strided"}
+
+
+def test_pooled_draw_and_windowed_gate_one_launch_each(dev):
+    """One pooled draw (``core/random.py``) is one launch of B3's draw entry
+    and no other operator: no index, cos, sin or stack, and the row entry
+    never; the windowed filter's gate (``windowed_coverage_tiled_from_center``)
+    is one launch of B6's coverage entry and no other operator (no
+    coordinates, no host-to-device copy); the states lookup one launch."""
+    from beluga_tpu_torch.core.random import uniform_free_cells_pooled_from_draws
+    from beluga_tpu_torch.models.sensor.likelihood_field_winlut import (
+        windowed_coverage_tiled_from_center,
+        windowed_scan_lut_weights,
+    )
+    from beluga_tpu_torch.ops import cuda_pool_take as b3
+    from beluga_tpu_torch.ops import cuda_winlut as b6
+    from beluga_tpu_torch.tools import workloads
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    free = torch.randn((3000, 2), generator=gen, device=dev)
+    cand = torch.randint(0, 3000, (64, 512), generator=gen, device=dev)
+    idx = torch.randint(0, 512, (64, 4096), generator=gen, device=dev, dtype=torch.int32)
+    theta = torch.rand((64, 4096), generator=gen, device=dev)
+    before = (b3.launches, b3.draw_launches)
+    ops = aten_ops(lambda: uniform_free_cells_pooled_from_draws(cand, idx, theta, free))
+    assert ops <= ALLOCATIONS, ops
+    assert (b3.launches, b3.draw_launches) == (before[0], before[1] + 2)
+
+    cfg = workloads.WINDOWED_FILTER
+    w, states, lut = window_case(dev, 65536, cfg, workloads.windowed)
+    st = w.state.particles.state
+    centre = (torch.mean(st.x), torch.mean(st.y),
+              torch.atan2(torch.mean(st.rot.sin), torch.mean(st.rot.cos)))
+    geo = {k: cfg[k] for k in ("k_bins", "win", "dth", "max_point_radius")}
+    before = (b6.launches, b6.states_launches, b6.coverage_launches)
+    ops = aten_ops(lambda: windowed_coverage_tiled_from_center(
+        w.ctx["field"], states, *centre, tile=cfg["tile"], tblk=cfg["tblk"], **geo))
+    assert ops <= ALLOCATIONS, ops
+    ops = aten_ops(lambda: windowed_scan_lut_weights(lut, states, cfg["tile"], cfg["tblk"]))
+    assert ops <= ALLOCATIONS, ops
+    assert (b6.launches, b6.states_launches, b6.coverage_launches) == (
+        before[0], before[1] + 2, before[2] + 2)
+
+
 def test_fleet_on_card(dev):
     """The fleet entry points with their default device: four filters in
     codebook16 mode with theta-sorted slots and pooled recovery, one
-    update, launching B4, B2 and B3 once each and B1 never."""
+    update, launching B4, B2 and B3's draw entry once each, B1 and B3's row
+    entry never."""
     from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_fleet_state
     from beluga_tpu_torch.filters.builders import make_likelihood_field_filter
     from beluga_tpu_torch.io import synthetic
@@ -256,7 +390,7 @@ def test_fleet_on_card(dev):
                              np.diag([0.25, 0.25, 0.068]), params)
     assert state.particles.log_weight.is_cuda and state.particles.log_weight.shape == (4, 4096)
     counts = (cuda_reweight.launches, cuda_reweight.values3_launches, cuda_resample.launches,
-              cuda_pool_take.launches)
+              cuda_pool_take.draw_launches, cuda_pool_take.launches)
     states_launches = cuda_reweight.states_launches
     state, est = make_fleet_update(params, models)(
         ctx, state, SE2.from_xytheta(np.full(4, xs[0]), np.full(4, ys[0]), np.full(4, yaws[0]),
@@ -265,7 +399,8 @@ def test_fleet_on_card(dev):
         torch.as_tensor(mask[0]).to(dev).expand(4, BEAMS).contiguous())
     assert est.valid.all() and torch.isfinite(est.pose.xy).all()
     assert (cuda_reweight.launches, cuda_reweight.values3_launches, cuda_resample.launches,
-            cuda_pool_take.launches) == (counts[0], counts[1] + 1, counts[2] + 1, counts[3] + 1)
+            cuda_pool_take.draw_launches, cuda_pool_take.launches) == (
+        counts[0], counts[1] + 1, counts[2] + 1, counts[3] + 1, counts[4])
     assert cuda_reweight.states_launches == states_launches + 1
 
 
@@ -1150,6 +1285,138 @@ def test_b6_int8_kernel_matches_plain_version(dev, n, tile, tblk):
     assert (b6.int8_launches, b6.launches) == (before[0] + 1, before[1])
     assert 0 < int((got == lut.miss).sum()) < n
     assert torch.equal(got, want)
+
+
+def int8_window_case(dev, n, stray_every=20):
+    """``window_case`` of the windowed filter with an int8 table."""
+    from beluga_tpu_torch.models.sensor.likelihood_field_winlut import build_windowed_scan_lut
+    from beluga_tpu_torch.tools import workloads
+
+    cfg = workloads.WINDOWED_FILTER
+    w, states, _ = window_case(dev, n, cfg, workloads.windowed, stray_every)
+    st = w.state.particles.state
+    geo = {k: cfg[k] for k in ("k_bins", "win", "dth", "max_point_radius")}
+    lut = build_windowed_scan_lut(w.ctx["field"], w.points[0], w.mask[0], torch.mean(st.x),
+                                  torch.mean(st.y), torch.atan2(torch.mean(st.rot.sin),
+                                                                torch.mean(st.rot.cos)),
+                                  table_dtype="int8", padded_cubed=w.ctx["field_pad3"],
+                                  dft=w.ctx["winlut_dft"], **geo)
+    return w, states, lut
+
+
+@pytest.mark.parametrize("n,tile,tblk,dtype", [
+    (262144, 512, 16, "bf16"), (5000, 128, 8, "bf16"), (3000, 2048, 16, "bf16"),
+    (20000, 8192, 16, "bf16"), (262144, 512, 16, "int8"), (5001, 128, 8, "int8")])
+def test_b6_states_matches_plain_version(dev, n, tile, tblk, dtype):
+    """B6's states entry against its plain version (the coordinate chain,
+    then the lookup): an equal miss set, bf16 within rtol 1e-6 and int8
+    bit-equal; and bit-equal to the coordinates entry at the plain chain's
+    coordinates (the kernel's chain is the plain one, bit for bit)."""
+    from beluga_tpu_torch.lie import SE2, SO2
+    from beluga_tpu_torch.models.sensor.likelihood_field_winlut import windowed_coords
+    from beluga_tpu_torch.ops import cuda_winlut as b6
+    from beluga_tpu_torch.tools import workloads
+
+    if dtype == "int8":
+        _, states, lut = int8_window_case(dev, n)
+    else:
+        _, states, lut = window_case(dev, n, workloads.WINDOWED_FILTER, workloads.windowed)
+    states = SE2(states.xy.contiguous(), SO2(states.rot.z.contiguous()))
+    before = (b6.launches, b6.int8_launches, b6.states_launches, b6.int8_states_launches)
+    got = b6.winlut_lookup_states(lut, states, lut.miss, 1.0, tile, tblk)
+    want = b6.winlut_lookup_states_reference(lut, states, lut.miss, 1.0, tile, tblk)
+    torch.cuda.synchronize()
+    int8 = dtype == "int8"
+    assert (b6.launches, b6.int8_launches, b6.states_launches, b6.int8_states_launches) == (
+        before[0], before[1], before[2] + (not int8), before[3] + int8)
+    assert torch.equal(got == lut.miss, want == lut.miss)
+    assert 0 < int((got == lut.miss).sum()) < n
+    if int8:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    xi, yi, t = (v.contiguous() for v in windowed_coords(lut, states))
+    old = b6.winlut_lookup(lut.values_t, xi, yi, t, lut.miss, 1.0, tile, tblk, scale=lut.scale)
+    assert torch.equal(got, old)
+
+
+@pytest.mark.parametrize("n,tile,tblk,stray_every,shift", [
+    (262144, 512, 16, 20, 0.0), (5000, 128, 8, 7, 0.0), (3001, 64, 16, 3, 0.0),
+    (100000, 4096, 16, 50, 0.0), (4096, 512, 16, 20, -30.0), (4096, 512, 16, 20, 1.3)])
+def test_b6_coverage_matches_plain_version(dev, n, tile, tblk, stray_every, shift):
+    """B6's coverage entry equals its plain version (the window origin about
+    the cloud's centre, shifted by ``shift`` m so that the origin clamps at
+    the map's edge, the coordinates, the slab rule, the share), twice in a
+    row (its scratch is left zero)."""
+    from beluga_tpu_torch.models.sensor.likelihood_field_winlut import field_window
+    from beluga_tpu_torch.ops import cuda_winlut as b6
+    from beluga_tpu_torch.tools import workloads
+
+    cfg = workloads.WINDOWED_FILTER
+    w, states, _ = window_case(dev, n, cfg, workloads.windowed, stray_every)
+    st = w.state.particles.state
+    centre = (torch.mean(st.x) + shift, torch.mean(st.y) - shift,
+              torch.atan2(torch.mean(st.rot.sin), torch.mean(st.rot.cos)))
+    geo = field_window(w.ctx["field"], cfg["k_bins"], cfg["win"], cfg["dth"],
+                       cfg["max_point_radius"], None)
+    before = b6.coverage_launches
+    got = b6.winlut_coverage_states(geo, states, *centre, tile, tblk)
+    again = b6.winlut_coverage_states(geo, states, *centre, tile, tblk)
+    want = b6.winlut_coverage_states_reference(geo, states, *centre, tile, tblk)
+    torch.cuda.synchronize()
+    assert b6.coverage_launches == before + 2
+    assert got.shape == () and got.dtype == torch.float32
+    assert torch.equal(got, want) and torch.equal(again, want)
+    if shift == 0.0:
+        assert 0.5 < float(got) < 1.0
+
+
+def test_b6_coverage_on_two_streams(dev):
+    """B6's coverage entry keeps its count a (device, stream): gates queued
+    on a side stream and on the default stream, each behind a spin so that
+    they overlap on the card, each equal the plain version."""
+    from beluga_tpu_torch.models.sensor.likelihood_field_winlut import field_window
+    from beluga_tpu_torch.ops import cuda_winlut as b6
+    from beluga_tpu_torch.tools import workloads
+
+    cfg = workloads.WINDOWED_FILTER
+    w, states, _ = window_case(dev, 65536, cfg, workloads.windowed, 20)
+    st = w.state.particles.state
+    centre = (torch.mean(st.x), torch.mean(st.y),
+              torch.atan2(torch.mean(st.rot.sin), torch.mean(st.rot.cos)))
+    geo = field_window(w.ctx["field"], cfg["k_bins"], cfg["win"], cfg["dth"],
+                       cfg["max_point_radius"], None)
+    want = b6.winlut_coverage_states_reference(geo, states, *centre, 512, 16)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    outs = []
+    for _ in range(4):
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(1_000_000)
+            outs.append(b6.winlut_coverage_states(geo, states, *centre, 512, 16))
+        outs.append(b6.winlut_coverage_states(geo, states, *centre, 512, 16))
+    torch.cuda.synchronize()
+    for got in outs:
+        assert torch.equal(got, want)
+
+
+def test_windowed_update_on_card(dev):
+    """One forced update of the windowed filter: its gate is one launch of
+    B6's coverage entry; a gate that passes scores through the states entry
+    (the coordinates entry never), B1 scores the exact tail."""
+    from beluga_tpu_torch.filters.amcl import host_pose, update
+    from beluga_tpu_torch.ops import cuda_reweight, cuda_winlut
+    from beluga_tpu_torch.tools import workloads
+
+    w = workloads.windowed(2, dev, 65536)
+    before = (cuda_winlut.coverage_launches, cuda_winlut.states_launches, cuda_winlut.launches,
+              cuda_reweight.launches)
+    state, est = update(w.params, w.models, w.ctx, w.state._replace(force_update=True),
+                        host_pose(w.scans.xs[0], w.scans.ys[0], w.scans.yaws[0]), w.points[0],
+                        w.mask[0])
+    assert est.valid and torch.isfinite(est.pose.xy).all()
+    assert (cuda_winlut.coverage_launches, cuda_winlut.states_launches, cuda_winlut.launches,
+            cuda_reweight.launches) == (before[0] + 1, before[1] + 1, before[2], before[3] + 1)
 
 
 def test_prob_node_on_card(dev):
