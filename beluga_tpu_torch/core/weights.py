@@ -16,11 +16,12 @@ Tensor = torch.Tensor
 
 
 def masked_logsumexp(log_w: Tensor, mask: Tensor, dim: int = -1) -> Tensor:
-    """logsumexp over alive slots only; safe when everything is masked."""
-    neg = torch.tensor(DEAD_LOG_WEIGHT, dtype=log_w.dtype, device=log_w.device)
-    masked = torch.where(mask, log_w, neg)
+    """logsumexp over alive slots only; safe when everything is masked.
+    The floor enters as a Python scalar: a tensor made on the card from a
+    host value is a blocking copy, a wait for the stream on every update."""
+    masked = torch.where(mask, log_w, DEAD_LOG_WEIGHT)
     m = torch.amax(masked, dim=dim, keepdim=True)
-    m = torch.maximum(m, neg)
+    m = torch.clamp_min(m, DEAD_LOG_WEIGHT)
     s = torch.sum(torch.where(mask, torch.exp(masked - m), 0.0), dim=dim)
     return m.squeeze(dim) + torch.log(torch.clamp_min(s, 1e-38))
 

@@ -2,7 +2,8 @@
 trajectory and the DDA scan simulator of the JAX package's ``bench.py``
 (``build``), and the long-range world and arc of
 ``tests/test_system_long_range.py:27-37, 62-69``, so that the port's tests
-and ``chip_smoke.py`` need neither ``bench.py`` nor JAX.
+and ``chip_smoke.py`` need neither ``bench.py`` nor JAX; and a writer of
+such data as a map_server map (PGM and YAML), for the replay tools.
 
 The arena is a free disk of radius 2.6 m inside a walled square with
 random clutter outside, an irregular ring of obstacles at ~3.2 m and three
@@ -103,3 +104,25 @@ def simulate_scans(data: np.ndarray, res: float, xs, ys, yaws, num_beams: int,
         pts_all.append(np.nan_to_num(pts).astype(np.float32))
         mask_all.append(hit)
     return np.stack(pts_all), np.stack(mask_all)
+
+
+def write_map_yaml(directory, data: np.ndarray, res: float, name: str = "arena") -> str:
+    """Write occupancy ``data`` (ROS trinary, row 0 the bottom) as a
+    map_server map, ``name.pgm`` and ``name.yaml`` in ``directory`` with the
+    origin at (0, 0, 0); returns the YAML's path.  Free cells are written
+    254, occupied 0 and unknown 205, which map_server's thresholds (0.65,
+    0.196) read back as the same values."""
+    import os
+
+    pix = np.full(data.shape, 205, np.uint8)
+    pix[data == 0] = 254
+    pix[data == OCCUPIED_VALUE] = 0
+    pix = np.flipud(pix)  # PGM row 0 is the top
+    h, w = data.shape
+    with open(os.path.join(directory, f"{name}.pgm"), "wb") as f:
+        f.write(f"P5\n# {name}\n{w} {h}\n255\n".encode() + pix.tobytes())
+    path = os.path.join(directory, f"{name}.yaml")
+    with open(path, "w") as f:
+        f.write(f"image: {name}.pgm\nresolution: {res}\norigin: [0.0, 0.0, 0.0]\n"
+                "negate: 0\noccupied_thresh: 0.65\nfree_thresh: 0.196\n")
+    return path

@@ -10,15 +10,20 @@ The same behaviour as a plain object driven by explicit calls:
   * ``request_nomotion_update`` — force an update (amcl_node.cpp:669-680)
   * ``handle_scan`` — one filter update from (odom pose, scan points),
     returning the estimate and the map→odom correction (amcl_node.cpp:581-647)
+  * ``handle_laser_scan`` / ``handle_point_cloud`` — the same from a raw
+    ``sensor_msgs/LaserScan`` or ``PointCloud2`` (the adapters of
+    beluga_ros/laser_scan.hpp and beluga_ros/src/amcl.cpp:54-80), through
+    ``prepare_scan`` / ``prepare_point_cloud``
+  * ``pipelined=True`` and ``flush`` — each scan returns the previous
+    scan's estimate, so the host's next scan overlaps the card's update.
 
 The node runs on the card unless it is given ``device="cpu"``.  Each scan
-costs one host-to-device copy of the points and one device-to-host copy
-of the packed estimate; nothing else is read back.  All three laser models
-of nav2 are ported: the likelihood field, its probability model
+costs one host-to-device copy of the packed input and one device-to-host
+copy of the packed estimate (:class:`ScanStaging`, pinned buffers and an
+event on the card); nothing else is read back.  All three laser models of
+nav2 are ported: the likelihood field, its probability model
 (``laser_model_type="likelihood_field_prob"``, kernel B1-log) and the beam
-model (``"beam"``, each of its four ``beam_fast_path`` modes); the raw
-laser-scan and point-cloud adapters and the pipelined mode wait for a later
-slice (ROADMAP A13).
+model (``"beam"``, each of its four ``beam_fast_path`` modes).
 """
 
 from __future__ import annotations
@@ -33,9 +38,10 @@ from beluga_tpu_torch import resolve_device
 from beluga_tpu_torch.core.random import sample_normal_se2, sample_uniform_free_cells
 from beluga_tpu_torch.filters import amcl as amcl_filter
 from beluga_tpu_torch.filters.builders import make_beam_filter, make_likelihood_field_filter
+from beluga_tpu_torch.io import native
 from beluga_tpu_torch.io.config import AmclNodeConfig
 from beluga_tpu_torch.lifecycle import BaseLifecycleNode
-from beluga_tpu_torch.lie import SE2, SO2
+from beluga_tpu_torch.lie import SE2
 from beluga_tpu_torch.maps.occupancy import OccupancyGrid
 
 # -- packed per-scan IO (SE2 nodes) -------------------------------------------
@@ -70,15 +76,17 @@ def pack_scan_input(odom_pose_xytheta, points, point_mask=None) -> np.ndarray:
 
 def make_packed_step_se2(params, models, device):
     """The packed-IO update for SE2 nodes: ``step(ctx, state, packed) ->
-    (state, f32[13] estimate on the device)``."""
+    (state, f32[13] estimate on the device)``.  ``packed`` is a numpy
+    vector or a host tensor (the node's staging buffer, pinned on the
+    card); the points and mask go to the device in one non-blocking copy,
+    the odometry stays on the host."""
     device = torch.device(device)
 
-    def packed_step(ctx, state, packed: np.ndarray):
-        beams = (packed.shape[0] - 3) // 3
-        host = torch.from_numpy(packed)
-        yaw = host[2]
-        odom = SE2(host[0:2], SO2(torch.stack([torch.cos(yaw), torch.sin(yaw)])))
-        scan = host[3:].to(device, non_blocking=True)
+    def packed_step(ctx, state, packed):
+        host = packed if isinstance(packed, torch.Tensor) else torch.from_numpy(packed)
+        beams = (host.shape[0] - 3) // 3
+        odom = SE2.from_xytheta(host[0:3])
+        scan = host[3:].to(device, non_blocking=True, copy=True)
         pts = scan[: 2 * beams].reshape(beams, 2)
         mask = scan[2 * beams :] > 0.5
         state, est = amcl_filter.update(params, models, ctx, state, odom, pts, mask)
@@ -94,6 +102,71 @@ def make_packed_step_se2(params, models, device):
     return packed_step
 
 
+class ScanStaging:
+    """The node's per-scan host buffers: two for the packed input and two
+    for the packed estimate, used in turn (scan t takes slot t mod 2).
+
+    On the card the buffers are pinned: the input goes to the device by a
+    non-blocking copy, the estimate comes back by a non-blocking copy into
+    its output buffer, and an event is recorded after it.  Reading an
+    estimate (:meth:`harvest`) waits on that scan's event only, never on
+    the stream or the device.  On the CPU there is no pinning and no event;
+    the logic is the same.
+
+    Invariant that makes the reuse safe: slot t mod 2 is written again at
+    scan t + 2, and by then scan t's event has been waited on (at scan t in
+    the synchronous mode, at scan t + 1 in the pipelined one), so both of
+    scan t's copies are done.  :meth:`stage` checks it and raises rather
+    than overwrite a buffer whose copies may still be in flight.
+    """
+
+    def __init__(self, length: int, device: torch.device):
+        self.pin = device.type == "cuda"
+        self.resize(length)
+        self.outputs = [torch.empty(EST2_LEN, dtype=torch.float32, pin_memory=self.pin)
+                        for _ in range(2)]
+        self.events = [torch.cuda.Event() if self.pin else None for _ in range(2)]
+        self.in_flight = [False, False]  # recorded and not yet waited on
+        self.count = 0
+
+    @property
+    def length(self) -> int:
+        return self.inputs[0].shape[0]
+
+    def resize(self, length: int) -> None:
+        """New input buffers for a new beam capacity.  The old ones may
+        still feed an in-flight copy; PyTorch's pinned allocator keeps such
+        a block until the copy is done."""
+        self.inputs = [torch.empty(length, dtype=torch.float32, pin_memory=self.pin)
+                       for _ in range(2)]
+
+    def stage(self, packed: np.ndarray) -> tuple[int, torch.Tensor]:
+        """Write scan ``count``'s packed input into its slot; returns the
+        slot and the host buffer for the packed step."""
+        slot = self.count % 2
+        if self.in_flight[slot]:
+            raise RuntimeError(
+                f"staging slot {slot} reused before scan {self.count - 2}'s event was waited on")
+        self.inputs[slot].numpy()[:] = packed
+        return slot, self.inputs[slot]
+
+    def finish(self, slot: int, est: torch.Tensor) -> None:
+        """Queue the estimate's copy into the slot's output buffer and
+        record the slot's event after it."""
+        self.outputs[slot].copy_(est, non_blocking=True)
+        if self.events[slot] is not None:
+            self.events[slot].record()
+        self.in_flight[slot] = True
+        self.count += 1
+
+    def harvest(self, slot: int) -> np.ndarray:
+        """The slot's estimate, after waiting on its event."""
+        if self.events[slot] is not None:
+            self.events[slot].synchronize()
+        self.in_flight[slot] = False
+        return self.outputs[slot].numpy().copy()
+
+
 @dataclasses.dataclass
 class ScanResult:
     valid: bool
@@ -107,11 +180,21 @@ class AmclNode(BaseLifecycleNode):
     """2D AMCL node over occupancy-grid maps (managed lifecycle)."""
 
     def __init__(self, config: AmclNodeConfig | None = None, seed: int = 0,
-                 device=None, verbose: bool = False, autostart: bool = True):
-        """``device`` defaults to ``"cuda"`` and raises when CUDA is absent."""
+                 device=None, verbose: bool = False, autostart: bool = True,
+                 pipelined: bool = False):
+        """``device`` defaults to ``"cuda"`` and raises when CUDA is absent.
+
+        ``pipelined=True`` defers each estimate's readback by one scan:
+        ``handle_scan`` queues scan t's update and returns scan t-1's
+        estimate, which the card computed while the host prepared scan t.
+        The first call returns an invalid result, each result carries its
+        own scan's odometry for the map→odom correction, and :meth:`flush`
+        returns the last scan's.  The reference node publishes
+        synchronously (amcl_node.cpp:581-647), the default here too."""
         self.config = config or AmclNodeConfig()
         self.device = resolve_device(device)
         self.verbose = verbose
+        self.pipelined = pipelined
         self._seed = seed
         self.latest_viz: tuple[np.ndarray, np.ndarray] | None = None
         self.dropped_scans = 0
@@ -129,6 +212,8 @@ class AmclNode(BaseLifecycleNode):
         self._grid: OccupancyGrid | None = None
         self._step = None
         self._first_map_set = False
+        self._staging: ScanStaging | None = None
+        self._pending = None  # (staging slot, odom (x, y, yaw)) of the scan in flight
 
     # -- lifecycle hooks (ros2_common.hpp do_* virtuals) --------------------
 
@@ -237,6 +322,9 @@ class AmclNode(BaseLifecycleNode):
           odom_pose_xytheta: base pose in the odom frame, (x, y, yaw).
           points: ``f32[B, 2]`` scan points in the base frame.
           point_mask: ``bool[B]`` valid-beam mask (default all valid).
+
+        In the pipelined mode the result is the previous scan's (invalid on
+        the first call).
         """
         if not self.is_active:
             # scans are only subscribed while ACTIVE in the reference
@@ -246,9 +334,30 @@ class AmclNode(BaseLifecycleNode):
             raise RuntimeError("node not initialized (set_map first)")
         t0 = time.perf_counter()
         packed = pack_scan_input(odom_pose_xytheta, points, point_mask)
-        self._state, est = self._step(self._ctx, self._state, packed)
-        est = est.cpu().numpy()  # the one readback per scan
-        return self._finalize(est, odom_pose_xytheta, t0, packed)
+        if self._staging is None:
+            self._staging = ScanStaging(packed.shape[0], self.device)
+        elif self._staging.length != packed.shape[0]:
+            self._staging.resize(packed.shape[0])  # a new beam capacity
+        slot, host = self._staging.stage(packed)
+        self._state, est = self._step(self._ctx, self._state, host)
+        self._staging.finish(slot, est)
+        if self.pipelined:
+            # queue this scan, return the previous one's estimate
+            prev, self._pending = self._pending, (slot, odom_pose_xytheta)
+            if prev is None:
+                return ScanResult(False, None, None, None, time.perf_counter() - t0)
+            prev_slot, prev_odom = prev
+            return self._finalize(self._staging.harvest(prev_slot), prev_odom, t0, packed)
+        return self._finalize(self._staging.harvest(slot), odom_pose_xytheta, t0, packed)
+
+    def flush(self) -> ScanResult | None:
+        """The estimate of the scan still in flight (pipelined mode), or
+        None when there is none."""
+        if self._pending is None:
+            return None
+        t0 = time.perf_counter()
+        (slot, odom), self._pending = self._pending, None
+        return self._finalize(self._staging.harvest(slot), odom, t0, None)
 
     def _finalize(self, est_vec, odom_pose_xytheta, t0, packed) -> ScanResult:
         latency = time.perf_counter() - t0
@@ -257,7 +366,7 @@ class AmclNode(BaseLifecycleNode):
         pose = np.asarray(est_vec[EST2_POSE], np.float64)
         cov = np.asarray(est_vec[EST2_COV], np.float64).reshape(3, 3)
         self.last_known_estimate = (pose, cov)
-        if self.verbose:
+        if self.verbose and packed is not None:
             n = int(self._state.particles.active)
             b = int(packed[3 + 2 * ((packed.shape[0] - 3) // 3):].sum())
             print(f"[amcl] {n} particles {b} points - {latency*1e3:.3f}ms")
@@ -272,6 +381,82 @@ class AmclNode(BaseLifecycleNode):
         my = pose[1] + (s * inv_t[0] + c * inv_t[1])
         myaw = np.arctan2(np.sin(pose[2] + inv_yaw), np.cos(pose[2] + inv_yaw))
         return ScanResult(True, pose, cov, np.array([mx, my, myaw]), latency)
+
+    # -- raw sensor input (beluga_ros adapters, amcl_node.cpp:236-239, 537-551)
+
+    def handle_laser_scan(self, odom_pose_xytheta, ranges, angle_min: float,
+                          angle_increment: float, range_min: float | None = None,
+                          range_max: float | None = None,
+                          sensor_pose=(0.0, 0.0, 0.0)) -> ScanResult:
+        """Process a raw laser scan (the ``sensor_msgs/LaserScan`` path):
+        :meth:`prepare_scan`, then :meth:`handle_scan`."""
+        pts, mask = self.prepare_scan(ranges, angle_min, angle_increment, range_min,
+                                      range_max, sensor_pose)
+        return self.handle_scan(odom_pose_xytheta, pts, mask)
+
+    def handle_point_cloud(self, odom_pose_xytheta, points_xyz, sensor_pose=(0.0, 0.0, 0.0),
+                           max_beams: int | None = None) -> ScanResult:
+        """Process a 3D point cloud through the 2D filter (the reference
+        node's ``sensor_msgs/PointCloud2`` alternative to laser scans,
+        amcl_node.cpp:236-239, flattened to base-frame (x, y) pairs as
+        beluga_ros/src/amcl.cpp:64-80 does): :meth:`prepare_point_cloud`,
+        then :meth:`handle_scan`.  ``points_xyz`` is ``[P, 3]`` (or
+        ``[P, 2]``) in the sensor frame, e.g. from
+        ``io.native.decode_pointcloud2_cdr``.
+
+        Capacity: non-finite points are masked and the cloud is decimated
+        evenly to ``config.max_beams`` slots, so a cloud wider than that
+        loses points against the reference adapters, which feed every point
+        to the sensor model.  ``max_beams`` overrides the capacity for the
+        call (e.g. the bag's widest cloud, which
+        ``io.rosbag.read_bag_cloud_stream`` reports); a new capacity
+        re-sizes the node's staging buffers.
+        """
+        pts, mask = self.prepare_point_cloud(points_xyz, sensor_pose, max_beams=max_beams)
+        return self.handle_scan(odom_pose_xytheta, pts, mask)
+
+    def prepare_point_cloud(self, points_xyz, sensor_pose=(0.0, 0.0, 0.0),
+                            max_beams: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+        """The point-cloud adapter's work alone: the planar projection,
+        the sensor-frame transform, the finiteness mask and the even
+        decimation, padded to the beam capacity."""
+        cap = self.config.max_beams if max_beams is None else int(max_beams)
+        p = np.asarray(points_xyz, np.float32)
+        ok = np.isfinite(p[:, :2]).all(axis=-1)
+        sx, sy, syaw = (float(v) for v in sensor_pose)
+        c, s = np.cos(syaw), np.sin(syaw)
+        with np.errstate(invalid="ignore"):  # inf * 0 in masked points
+            bx = c * p[:, 0] - s * p[:, 1] + sx
+            by = s * p[:, 0] + c * p[:, 1] + sy
+        full = np.where(ok[:, None], np.stack([bx, by], -1), 0.0).astype(np.float32)
+        idx = native.take_evenly_indices(len(p), cap)
+        pts = np.zeros((cap, 2), np.float32)
+        mask = np.zeros(cap, bool)
+        pts[: len(idx)] = full[idx]
+        mask[: len(idx)] = ok[idx]
+        return pts, mask
+
+    def prepare_scan(self, ranges, angle_min: float, angle_increment: float,
+                     range_min: float | None = None, range_max: float | None = None,
+                     sensor_pose=(0.0, 0.0, 0.0)) -> tuple[np.ndarray, np.ndarray]:
+        """The laser-scan adapter's work alone: polar to cartesian, the
+        sensor-frame transform, range filtering and the even decimation to
+        ``max_beams`` (beluga_ros/laser_scan.hpp, amcl_node.cpp:537-551),
+        padded to the beam capacity.  Shared by :meth:`handle_laser_scan`
+        and the scan-driven replay (``tools/localize.py``)."""
+        cfg = self.config
+        range_min = cfg.laser_min_range if range_min is None else range_min
+        range_max = min(cfg.laser_max_range, 1e9) if range_max is None else range_max
+        ranges = np.asarray(ranges, np.float32)
+        pts_full, mask_full = native.scan_to_points(ranges, angle_min, angle_increment,
+                                                    range_min, range_max, sensor_pose)
+        idx = native.take_evenly_indices(len(ranges), cfg.max_beams)
+        # pad a scan with fewer beams than max_beams: the capacity stays
+        pts = np.zeros((cfg.max_beams, 2), np.float32)
+        mask = np.zeros(cfg.max_beams, bool)
+        pts[: len(idx)] = pts_full[idx]
+        mask[: len(idx)] = mask_full[idx]
+        return pts, mask
 
     # -- introspection (particle_cloud publishers analog) -------------------
 

@@ -2,9 +2,10 @@
 workloads under ``torch.profiler``.
 
     python -m beluga_tpu_torch.tools.profile_update [--scans 20] [--trace-dir DIR]
-        [--workloads node,large,fleet,mega,windowed,beam_node,beam_node_windowed,
-                     beam_node_exact,range_lut,long_range,beam_fleet,prob_node,shared_scan,
-                     prob_fleet,windowed_int8,ndt_node,ndt_fleet,ndt3d_node,vdb]
+        [--workloads node,node_raw,node_raw_pipelined,large,fleet,mega,windowed,beam_node,
+                     beam_node_windowed,beam_node_exact,range_lut,long_range,beam_fleet,
+                     prob_node,shared_scan,prob_fleet,windowed_int8,ndt_node,ndt_fleet,
+                     ndt3d_node,vdb]
 
 Workloads, the configurations of ``tools/workloads.py`` (which
 ``chip_smoke.py`` drives too):
@@ -28,6 +29,11 @@ Workloads, the configurations of ``tools/workloads.py`` (which
   through the windowed range LUT (kernel B7 with its window origins);
   ``beam_node_exact`` the same node on its default path, the exact
   Bresenham march (kernel R1's exact beam-weights entry);
+* ``node_raw``, ``node_raw_pipelined``: the ``node`` configuration on the
+  arena read from PGM and YAML, fed raw 360-beam LDS-01 ranges through
+  ``handle_laser_scan``, synchronous and pipelined (each call returns the
+  previous scan's estimate; the synchronize after the window's last scan
+  waits for the one in flight);
 * ``range_lut``: the beam fleet's range-LUT build (128 bins at 4 m on the
   384² arena, R1's ray entry), once per "scan": a map load's set-up work,
   profiled so that R1's designs can be compared at that shape;
@@ -141,6 +147,31 @@ def _node(scans: int, **overrides):
     def step(t):
         r = node.handle_scan((s.xs[t], s.ys[t], s.yaws[t]), s.points[t], s.mask[t])
         if not r.valid:
+            raise RuntimeError(f"node scan {t} was gated out")
+
+    return step
+
+
+def _raw_node(scans: int, pipelined: bool = False):
+    """The nav2-default node on the arena read from PGM and YAML, fed raw
+    LDS-01 ranges through ``handle_laser_scan``."""
+    import tempfile
+
+    from beluga_tpu_torch.maps.occupancy import load_pgm_yaml
+    from beluga_tpu_torch.node import AmclNode, make_packed_step_se2
+
+    raw = workloads.arena_ranges(scans)
+    s = raw.scans
+    node = AmclNode(workloads.node_config(s), seed=0, pipelined=pipelined)
+    with tempfile.TemporaryDirectory() as d:
+        node.set_map(load_pgm_yaml(workloads.arena_map_yaml(d)))
+    node._models = _ranged(node._models)
+    node._step = make_packed_step_se2(node.params, node._models, node.device)
+
+    def step(t):
+        r = node.handle_laser_scan((s.xs[t], s.ys[t], s.yaws[t]), raw.ranges[t], raw.angle_min,
+                                   raw.angle_increment, workloads.LDS_MIN, workloads.LDS_MAX)
+        if not r.valid and (t > 0 or not pipelined):
             raise RuntimeError(f"node scan {t} was gated out")
 
     return step
@@ -298,6 +329,8 @@ WORKLOADS = {"node": _node, "large": _large, "fleet": _fleet,
                                                        beam_fast_path="windowed"),
              "beam_node_exact": lambda scans: _node(scans, laser_model_type="beam",
                                                     beam_fast_path="exact"),
+             "node_raw": _raw_node,
+             "node_raw_pipelined": lambda scans: _raw_node(scans, pipelined=True),
              "range_lut": _range_lut,
              "long_range": _forced(workloads.long_range, None),
              "beam_fleet": lambda scans: _fleet(scans, workloads.beam_fleet),

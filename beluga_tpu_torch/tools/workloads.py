@@ -58,6 +58,11 @@ beams per scan:
   (kernel B11), KLD down to 32768, forced updates at the identity
   odometry.
 
+:func:`arena_ranges` gives the node's raw input for the same circle: LDS-01
+ranges (360 beams over 2π, 0.12-3.5 m) and the same returns as 3D clouds;
+:func:`arena_map_yaml` writes the arena as a map_server map, for
+``load_pgm_yaml`` and the replay tools.
+
 :func:`long_range` runs elsewhere: the JAX package's long-range beam row
 (``benchmarks/REPORT.md:175-185``, ``tests/test_system_long_range.py``), a
 1024² map at 0.1 m with sparse blocks, its arc trajectory and 60 m scans,
@@ -310,6 +315,48 @@ def fleet_odometry(s: Scans, t: int, batch: int):
 
     return SE2.from_xytheta(np.full(batch, s.xs[t]), np.full(batch, s.ys[t]),
                             np.full(batch, s.yaws[t]), device="cpu")
+
+
+# -- slice 13: the node's raw input and the replay tools ---------------------------
+
+LDS_BEAMS, LDS_MIN, LDS_MAX = 360, 0.12, 3.5  # the turtlebot3 LDS-01 (io/replay.py:ScanSpec)
+CLOUD_HEIGHT = 0.15  # the sensor's height when a scan is sent as a 3D cloud
+REPLAY_START = (GRID * RES / 2 + 1.2, GRID * RES / 2)  # on the arena's circle
+
+
+class RawScans(NamedTuple):
+    """The arena's circle as the node's raw inputs: LaserScan ranges (NaN
+    for no return) and the same returns as 3D clouds."""
+
+    scans: Scans
+    ranges: np.ndarray  # f32[T, LDS_BEAMS]
+    clouds: np.ndarray  # f32[T, LDS_BEAMS, 3], NaN rows for no return
+    angle_min: float
+    angle_increment: float
+
+
+def arena_ranges(scans: int) -> RawScans:
+    """``scans`` LDS-01 scans of the arena's circle (the DDA simulator of
+    ``io/synthetic.py`` at 360 beams)."""
+    from beluga_tpu_torch.io import synthetic
+
+    data = synthetic.tracking_arena(GRID, RES)
+    xs, ys, yaws = synthetic.circle_trajectory(scans, GRID, RES)
+    pts, mask = synthetic.simulate_scans(data, RES, xs, ys, yaws, LDS_BEAMS, LDS_MAX)
+    ranges = np.where(mask, np.hypot(pts[..., 0], pts[..., 1]), np.nan).astype(np.float32)
+    angles = np.linspace(-np.pi, np.pi, LDS_BEAMS, endpoint=False)
+    clouds = np.stack([ranges * np.cos(angles), ranges * np.sin(angles),
+                       np.full_like(ranges, CLOUD_HEIGHT)], -1).astype(np.float32)
+    return RawScans(Scans(data, xs, ys, yaws, pts, mask), ranges, clouds, -np.pi,
+                    2 * np.pi / LDS_BEAMS)
+
+
+def arena_map_yaml(directory) -> str:
+    """The arena written as a map_server map (PGM and YAML) in
+    ``directory``; returns the YAML's path."""
+    from beluga_tpu_torch.io import synthetic
+
+    return synthetic.write_map_yaml(directory, synthetic.tracking_arena(GRID, RES), RES)
 
 
 # -- slice 6: the NDT and VDB filters --------------------------------------------

@@ -1,0 +1,86 @@
+"""Timing and profiling (port of ``beluga_tpu/utils/profiling.py``; the
+beluga_benchmark analog).
+
+  * :class:`LatencyRecorder`: per-update wall-clock statistics (p50, p90,
+    p99), the node log's equivalent;
+  * :func:`time_compiled`: steady-state time of a call, on CUDA events on
+    the card;
+  * :func:`trace`: a ``torch.profiler`` trace written as a Chrome trace.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+
+@dataclass
+class LatencyRecorder:
+    samples_s: list = field(default_factory=list)
+
+    def record(self, seconds: float) -> None:
+        self.samples_s.append(seconds)
+
+    @contextlib.contextmanager
+    def measure(self):
+        t0 = time.perf_counter()
+        yield
+        self.record(time.perf_counter() - t0)
+
+    def summary(self) -> dict:
+        if not self.samples_s:
+            return {"count": 0}
+        arr = np.asarray(self.samples_s) * 1e3
+        return {
+            "count": len(arr),
+            "mean_ms": float(arr.mean()),
+            "p50_ms": float(np.percentile(arr, 50)),
+            "p90_ms": float(np.percentile(arr, 90)),
+            "p99_ms": float(np.percentile(arr, 99)),
+            "max_ms": float(arr.max()),
+        }
+
+
+def time_compiled(fn, *args, iters: int = 20, warmup: int = 3, device=None) -> float:
+    """Steady-state seconds a call of ``fn(*args)``, after ``warmup`` calls.
+
+    On a CUDA ``device`` (the default ``"cuda"``) the time is taken by CUDA
+    events around ``iters`` calls issued back to back, so it is the
+    device's time for the calls (the host's cost included where it is the
+    larger); on ``"cpu"`` by the host clock."""
+    device = torch.device("cuda" if device is None else device)
+    for _ in range(warmup):
+        fn(*args)
+    if device.type == "cuda":
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(device)
+        start.record()
+        for _ in range(iters):
+            fn(*args)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e-3 / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args)
+    return (time.perf_counter() - t0) / iters
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block with ``torch.profiler`` (the CPU, and CUDA where
+    it is available) and write ``log_dir/trace.json``, a Chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

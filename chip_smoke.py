@@ -101,7 +101,31 @@ Phases, each of which exits non-zero when it fails:
 19. VDB filter: BASELINE config #4 (``bench.py:722-778``), 131072 SE3
    particles x 80 points with ``voxel_size_hint=0.2``, 20 forced updates,
    each within 0.9 m / 30 degrees of (3, 3, 0, yaw 0.3); B11 once per
-   update.
+   update;
+20. raw node: ``AmclNode`` at nav2 defaults on the arena written as a
+   map_server map (PGM and YAML, in a temporary directory under ``build/``)
+   and read by ``load_pgm_yaml``, fed the raw input of 62 scans of its
+   circle: 360-beam LDS-01 ranges through ``handle_laser_scan`` (decimated
+   to nav2's 60 beams by ``io/native.py``, whose form, native or numpy, is
+   printed), synchronous and then pipelined, and the same returns as 3D
+   clouds through ``handle_point_cloud``; per mode 40 scans on the host
+   clock (ms an update, median and mean), 16 under the profiler (device
+   busy and launches an update; the idle share is 1 - busy / the host
+   clock's mean; the card's name and power limit beside them) and 6 with ``torch.cuda.set_sync_debug_mode("warn")``
+   listing every line that made the host wait for the card, none of them
+   in ``node.py`` in the pipelined mode (its harvest waits on the scan's
+   event only); every valid estimate within the gate, B1 and B2 launched,
+   and the largest difference of the pipelined estimates from the
+   synchronous ones a scan earlier printed;
+21. replay: ``tools/record.py`` records 60 steps on that map (R1's ray entry
+   once a scan), then ``tools/localize.py`` replays the stream at nav2
+   defaults host-driven and scan-driven, from the ``.npz`` and from a
+   ``.db3`` bag of it (``io/rosbag.py:write_scan_bag``): the same updates in
+   both modes, APE rmse within 0.9 m in each, B1 and B2 launched; the wall
+   of each run printed.
+
+Phases 20 and 21 run right after phase 4, while ``torch.profiler`` still
+records every launch of a window.
 
 Phase 3 also holds kernels B8 (the node's 2000 x 60 at 100 m, the
 long-range 2048 x 60 at 60 m and the node's 2000 particles with a
@@ -109,7 +133,8 @@ long-range 2048 x 60 at 60 m and the node's 2000 particles with a
 with strays) and R1 against their plain versions: R1's ray entry bit-equal
 in both Bresenham variants on three maps (the arena: the node's 2000 x 60
 rays at 100 m and the LUT build's 128 x 384 x 384 rays at 4 m, their
-inputs broadcast as the build passes them; the long-range 1024² map, whose
+inputs broadcast as the build passes them, and ``tools/record.py``'s 360 rays at
+3.5 m from one broadcast source; the long-range 1024² map, whose
 128 KB bit plane a block stages in shared memory: 2048 x 60 rays at 60 m;
 a 2048² map, whose 512 KB plane is read through L2: 2000 x 60 at 60 m),
 and R1's exact beam-weights entry (the beam model's weights
@@ -141,7 +166,7 @@ shape (K = 128 at 100 m), two launches bit-equal, and its window-origins
 kernel (B7's first launch of two) equal to ``window_origins`` at both
 shapes.
 
-Phases 4 to 19 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
+Phases 4 to 21 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; on every path B2's CDF kernel ("B2-cdf monotone_cdf") runs once
@@ -158,6 +183,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1343,7 +1369,7 @@ def raycast_map(which: str, dev):
     from beluga_tpu_torch.maps.occupancy import make_grid
     from beluga_tpu_torch.tools import workloads
 
-    if which in ("node", "lut_build"):
+    if which in ("node", "lut_build", "record"):
         s = workloads.arena_scans(1)
         return (make_grid(s.data, workloads.RES, device=dev), (s.xs[0], s.ys[0], s.yaws[0]),
                 s.points[0], s.mask[0])
@@ -1360,7 +1386,9 @@ def check_raycast(dev, iters: int, which: str) -> dict:
     """Kernel R1's ray entry: at the beam node's 2000 x 60 rays at 100 m on
     the arena (``which="node"``), the range-LUT build's 128 x 384 x 384
     rays at 4 m (``"lut_build"``, its sources and directions broadcast as
-    ``build_range_lut`` passes them), 2048 x 60 rays at 60 m on the
+    ``build_range_lut`` passes them), ``tools/record.py``'s 360 rays at
+    3.5 m from one source (``"record"``, as ``ScanSimulator.cast`` passes
+    them), 2048 x 60 rays at 60 m on the
     long-range 1024² map (``"long_range"``: its 128 KB plane in shared
     memory) or 2000 x 60 at 60 m on a 2048² map (``"l2"``: the plane read
     through L2): hit flags and distances bit-equal to its plain version,
@@ -1381,6 +1409,19 @@ def check_raycast(dev, iters: int, which: str) -> dict:
         label = f"{k}x{h}x{w} rays (range-LUT build, {max_range} m, broadcast inputs)"
         plain_iters = 2
         in_bytes = src.numel() * 4 + dirs.numel() * 4
+    elif which == "record":
+        from beluga_tpu_torch.io.replay import ScanSimulator
+        from beluga_tpu_torch.lie import SE2
+
+        sim = ScanSimulator(grid)  # the LDS-01 spec: 360 beams at 3.5 m
+        local = grid.origin.inverse() @ SE2.from_xytheta(*pose, device=dev)
+        n, max_range = sim.spec.num_beams, sim.spec.max_range
+        src = local.xy.expand(n, 2)
+        world = local.theta + sim._angles
+        dirs = torch.stack([torch.cos(world), torch.sin(world)], -1)
+        label = f"{n} rays (record's scan, {max_range} m, the source broadcast)"
+        plain_iters = 20
+        in_bytes = 8 + dirs.numel() * 4
     else:
         n = workloads.LONG_RANGE["n"] if which == "long_range" else 2000
         max_range = BEAM_NODE_RANGE if which == "node" else workloads.LONG_RANGE["beam_max_range"]
@@ -2603,6 +2644,187 @@ def run_vdb(dev, scans: int = VDB_SCANS) -> tuple[dict, dict]:
     )
 
 
+# -- phases 20 and 21: the node's raw input and the replay tools (slice 13) --------
+
+RAW_SCANS, RAW_PROFILED, RAW_SYNC_CHECKED = 40, 16, 6
+RECORD_STEPS = 60
+
+
+def profiled_window(step, t0: int, t1: int) -> dict:
+    """Scans ``t0`` to ``t1`` of ``step(t)`` under ``torch.profiler``: the
+    device busy ms an update (the kernels' and copies' durations summed)
+    and the kernel launches an update.  Busy is None where the profiler
+    missed more than one in a hundred of the kernels the host launched (it
+    at times records only part of a run's launches, more of them late in
+    this script); how many it recorded is printed beside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in range(t0, t1):
+            step(t)
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    launched = sum(e.name in LAUNCH_CALLS for e in events)
+    seen = sum(not e.name.startswith(("Memcpy", "Memset")) for e in device)
+    n = t1 - t0
+    busy_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in device) / n
+    return dict(profiled_scans=n,
+                device_busy_ms_per_update=busy_ms if seen >= launched - launched // 100 else None,
+                launches_per_update=launched / n, kernels_recorded=f"{seen} of {launched}")
+
+
+def sync_sites(step, t0: int, t1: int) -> dict:
+    """Where scans ``t0`` to ``t1`` of ``step(t)`` made the host wait for
+    the card: ``torch.cuda.set_sync_debug_mode("warn")`` turns each
+    synchronizing call (a stream or device synchronize, a blocking copy)
+    into a warning, counted here by the Python line that made it.  An
+    event's ``synchronize`` is not such a call."""
+    import warnings
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for t in range(t0, t1):
+                step(t)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sites: dict[str, int] = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return sites
+
+
+def run_raw_node(dev, map_yaml: str, raw, mode: str, smi: str) -> tuple[dict, dict, dict]:
+    """The nav2-default node on the arena loaded from PGM and YAML, fed the
+    raw LDS-01 input: ``mode`` "sync" and "pipelined" through
+    ``handle_laser_scan``, "cloud" through ``handle_point_cloud`` (the same
+    returns as 3D points, synchronous).  RAW_SCANS scans on the host clock
+    (ms an update, the first two left out), RAW_PROFILED more under the
+    profiler (busy and launches; the idle share is 1 - busy / the host
+    clock's mean, as ``tools/profile_update.py`` takes it, since the
+    profiler slows the host), RAW_SYNC_CHECKED more with the syncs listed;
+    every valid estimate within the gate.  Returns the launch
+    counts, the phase's numbers and the estimates by scan."""
+    from beluga_tpu_torch.maps.occupancy import load_pgm_yaml
+    from beluga_tpu_torch.node import AmclNode
+    from beluga_tpu_torch.tools import workloads
+
+    s = raw.scans
+    what = f"raw node {mode}"
+    reset_counts()
+    node = AmclNode(workloads.node_config(s), seed=0, device=dev, pipelined=mode == "pipelined")
+    node.set_map(load_pgm_yaml(map_yaml, device=dev))
+    estimates: dict[int, np.ndarray] = {}
+    worst = [0.0, 0.0]
+
+    def take(t: int, r) -> None:
+        if not r.valid:
+            return
+        check(bool(np.isfinite(r.pose).all()), f"{what} scan {t}: estimate not finite")
+        e_pos = math.hypot(r.pose[0] - s.xs[t], r.pose[1] - s.ys[t])
+        e_yaw = yaw_error(r.pose[2], s.yaws[t])
+        check(e_pos < GATE_POS_M and e_yaw < GATE_YAW_RAD,
+              f"{what} scan {t}: error {e_pos:.3f} m / {math.degrees(e_yaw):.1f} deg")
+        worst[0], worst[1] = max(worst[0], e_pos), max(worst[1], e_yaw)
+        estimates[t] = r.pose
+
+    def step(t: int) -> None:
+        odom = (s.xs[t], s.ys[t], s.yaws[t])
+        if mode == "cloud":
+            r = node.handle_point_cloud(odom, raw.clouds[t])
+        else:
+            r = node.handle_laser_scan(odom, raw.ranges[t], raw.angle_min, raw.angle_increment,
+                                       workloads.LDS_MIN, workloads.LDS_MAX)
+        take(t - 1 if mode == "pipelined" else t, r)
+
+    times = []
+    for t in range(RAW_SCANS):
+        t0 = time.perf_counter()
+        step(t)
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    prof = profiled_window(step, RAW_SCANS, RAW_SCANS + RAW_PROFILED)
+    end = RAW_SCANS + RAW_PROFILED + RAW_SYNC_CHECKED
+    sites = sync_sites(step, RAW_SCANS + RAW_PROFILED, end)
+    if mode == "pipelined":
+        take(end - 1, node.flush())
+        check(node.flush() is None, f"{what}: a second flush returned a result")
+        # the harvest waits on its scan's event and nothing else in node.py
+        check(not any(k.startswith("beluga_tpu_torch/node.py") for k in sites),
+              f"{what}: the node waited on the stream: {sites}")
+    counts = read_counts()
+    check(len(estimates) >= end - 1, f"{what}: only {len(estimates)} valid updates of {end}")
+    for name in ("B1 fused_reweight", "B2 resample_take"):
+        check(counts[name] > 0, f"{what}: {name} was never launched")
+    steady = sorted(times[2:])
+    mean_ms = 1e3 * sum(steady) / len(steady)
+    busy = prof["device_busy_ms_per_update"]
+    out = dict(mode=mode, device=smi, scans=end, valid=len(estimates),
+               ms_per_update_median=1e3 * steady[len(steady) // 2], ms_per_update_mean=mean_ms,
+               worst_pos_m=worst[0], worst_yaw_deg=math.degrees(worst[1]), **prof,
+               device_idle_share=None if busy is None else 1.0 - busy / mean_ms,
+               sync_sites=sites)
+    return counts, out, estimates
+
+
+def run_replay(dev, map_yaml: str, workdir: str) -> tuple[dict, dict]:
+    """``tools/record.py`` on the arena (R1's ray entry casts every scan),
+    then ``tools/localize.py`` host-driven and scan-driven on the ``.npz``
+    stream and on a ``.db3`` bag of the same stream, at nav2 defaults: the
+    same updates in both modes, APE rmse within the gate in each.  Returns
+    the launch counts by run and the phase's numbers."""
+    from beluga_tpu_torch.io import rosbag
+    from beluga_tpu_torch.tools import localize, workloads
+    from beluga_tpu_torch.tools.record import record
+
+    counts: dict[str, dict] = {}
+    out: dict = {}
+    stream = os.path.join(workdir, "stream.npz")
+    reset_counts()
+    t0 = time.perf_counter()
+    traj, scans = record(map_yaml, stream, steps=RECORD_STEPS, start=workloads.REPLAY_START,
+                         device=dev)
+    out["record_s"] = time.perf_counter() - t0
+    counts["record"] = read_counts()
+    check(counts["record"]["R1 cast_rays"] == RECORD_STEPS,
+          f"record: R1 launched {counts['record']['R1 cast_rays']} times for {RECORD_STEPS} scans")
+    check(bool(np.isfinite(scans[np.isfinite(scans)]).all()) and np.isfinite(scans).mean() > 0.2,
+          "record: too few returns")
+    bag = os.path.join(workdir, "stream.db3")
+    rosbag.write_scan_bag(bag, traj, scans, -np.pi, 2 * np.pi / scans.shape[1], 0.12, 3.5)
+    for source, path in (("npz", stream), ("bag", bag)):
+        saved = {}
+        for driven in (False, True):
+            name = f"localize_{source}_{'scan_driven' if driven else 'host'}"
+            result = os.path.join(workdir, f"{name}.npz")
+            reset_counts()
+            t0 = time.perf_counter()
+            summary = localize.run(map_yaml, path, result, device=dev, scan_driven=driven)
+            wall = time.perf_counter() - t0
+            counts[name] = read_counts()
+            check(summary["updates"] >= 5, f"{name}: only {summary['updates']} updates")
+            check(summary["ape"]["rmse"] <= GATE_POS_M,
+                  f"{name}: APE rmse {summary['ape']['rmse']:.3f} m")
+            for kernel in ("B1 fused_reweight", "B2 resample_take"):
+                check(counts[name][kernel] > 0, f"{name}: {kernel} was never launched")
+            saved[driven] = np.load(result)
+            out[name] = dict(wall_s=wall, updates=summary["updates"], ape=summary["ape"],
+                             latency=summary["latency"])
+        check(np.array_equal(saved[True]["estimate_indices"], saved[False]["estimate_indices"]),
+              f"localize {source}: the modes updated at different scans")
+        out[f"localize_{source}_max_pose_diff"] = float(np.abs(
+            saved[True]["estimates"] - saved[False]["estimates"]).max())
+    return counts, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -2664,6 +2886,7 @@ def main() -> int:
     c_build = check_raycast(dev, iters=10, which="lut_build")
     c_long = check_raycast(dev, iters=50, which="long_range")
     c_l2 = check_raycast(dev, iters=50, which="l2")
+    c_record = check_raycast(dev, iters=100, which="record")
     e_node = check_beam_exact(dev, iters=100, which="node")
     e_l2 = check_beam_exact(dev, iters=50, which="l2")
     g_shared = check_scan_lut(dev, iters=20, sampling="nearest", downsample=2)
@@ -2689,7 +2912,7 @@ def main() -> int:
                c_fleet, p_fleet, p_big, p_mega, d_fleet, d_big, d_mega, r_mega, rc_mega, w_big,
                ws_big, ws_int8, wc_big, wc_edge, f_mega, f_ragged, f_l2,
                s_node, s_long, s_wide, l_fleet, l_node,
-               o_fleet, o_node, c_node, c_build, c_long, c_l2, e_node, e_l2,
+               o_fleet, o_node, c_node, c_build, c_long, c_l2, c_record, e_node, e_l2,
                g_shared, g_full, k_log_node, k_log_fleet, c_log_fleet, i_big, n_fleet,
                n_3d, f_node, f_fleet, f_3d, v_bench, v_floor)
     ms = lambda v: "not measured" if v is None else f"{v:.5f} ms"  # noqa: E731
@@ -2727,6 +2950,34 @@ def main() -> int:
     # 4. the node at nav2 defaults (slice 1's main path)
     node_counts, node = run_node(dev)
     print("node: " + json.dumps(node) + " launches " + json.dumps(node_counts))
+
+    # 20. the node's raw input: synchronous, pipelined, point clouds (slice 13);
+    # 21. record -> localize; both run here, while the profiler still records
+    # every launch of a window
+    import tempfile
+
+    from beluga_tpu_torch.io import native
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    print(f"host IO: native forms {native.native_available()} ({native.library_path().name})")
+    raw_counts, raw_est = {}, {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
+        map_yaml = workloads.arena_map_yaml(workdir)
+        raw = workloads.arena_ranges(RAW_SCANS + RAW_PROFILED + RAW_SYNC_CHECKED)
+        for mode in ("sync", "pipelined", "cloud"):
+            raw_counts[mode], raw_node, raw_est[mode] = run_raw_node(dev, map_yaml, raw, mode,
+                                                                     smi)
+            print(f"raw node {mode}: " + json.dumps(raw_node) + " launches "
+                  + json.dumps(raw_counts[mode]))
+        both = sorted(set(raw_est["sync"]) & set(raw_est["pipelined"]))
+        check(len(both) >= len(raw_est["sync"]) - 1, "raw node: the modes updated apart")
+        diff = max(float(np.abs(raw_est["pipelined"][t] - raw_est["sync"][t]).max())
+                   for t in both)
+        print(f"raw node: pipelined estimates against the synchronous ones shifted by one scan,"
+              f" largest difference {diff} over {len(both)} scans")
+        replay_counts, replay = run_replay(dev, map_yaml, workdir)
+        print("replay: " + json.dumps(replay) + " launches " + json.dumps(replay_counts))
 
     # 5. the large single filter, with its pooled recovery
     large_counts, large = no_cummax_on_b2(run_large_filter, "large filter", dev)
@@ -2817,7 +3068,8 @@ def main() -> int:
                "prob_node": prob_counts, "shared_scan": shared_counts,
                "prob_fleet": pfleet_counts, "windowed_int8": int8_counts,
                "ndt_node": ndt_counts, "ndt_fleet": nfleet_counts, "ndt3d_node": ndt3_counts,
-               "vdb": vdb_counts}
+               "vdb": vdb_counts, **{f"raw_node_{m}": c for m, c in raw_counts.items()},
+               **replay_counts}
     for path, c in by_path.items():
         for name in OFF_MAIN_PATHS:  # B3 and B6 go through their new entries
             check(c[name] == 0, f"{path}: {name} launched {c[name]} times")
@@ -2867,7 +3119,7 @@ def main() -> int:
         if k is c_build:  # the ray entry's other maps, the last through L2
             entry["device_ms_each"] = c_build["device_ms_each"]
             entry["other_shapes"] = [{key: c[key] for key in (*timed, "device_ms_each")}
-                                     for c in (c_node, c_long, c_l2)]
+                                     for c in (c_node, c_long, c_l2, c_record)]
         if k is e_node:
             entry.update(variants=e_node["variants"], device_ms_each=e_node["device_ms_each"],
                          other_shapes=[{key: e_l2[key] for key in

@@ -2,6 +2,7 @@
 their states entry) and R1 of the PyTorch port on the card, against their
 plain versions on the same card tensors,
 and fleet, mega, beam, prob-model, shared-scan, NDT and VDB updates on the
+card; the node's pinned staging, its pipelined mode and the replay on the
 card.
 Every test here needs an NVIDIA GPU and skips without one.  The module
 imports neither JAX nor the JAX package, so on a machine with the card it
@@ -1681,3 +1682,131 @@ def test_vdb_filter_on_card(dev):
     assert b11.launches == before + 2
     err = est.pose.xyz.cpu() - torch.tensor(workloads.VDB_TRUTH[:3], dtype=torch.float32)
     assert float(torch.linalg.vector_norm(err)) < 0.9
+
+
+# -- the node's host plane: pinned staging, the pipelined mode, the replay ----------
+
+
+def raw_node(dev, raw, pipelined, tmp_path):
+    """The nav2-default node on the arena loaded from PGM and YAML."""
+    from beluga_tpu_torch.maps.occupancy import load_pgm_yaml
+    from beluga_tpu_torch.node import AmclNode
+    from beluga_tpu_torch.tools import workloads
+
+    node = AmclNode(workloads.node_config(raw.scans), seed=0, device=dev, pipelined=pipelined)
+    node.set_map(load_pgm_yaml(workloads.arena_map_yaml(tmp_path), device=dev))
+    return node
+
+
+def drive_raw(node, raw, t0, t1):
+    from beluga_tpu_torch.tools import workloads
+
+    s = raw.scans
+    return [node.handle_laser_scan((s.xs[t], s.ys[t], s.yaws[t]), raw.ranges[t], raw.angle_min,
+                                   raw.angle_increment, workloads.LDS_MIN, workloads.LDS_MAX)
+            for t in range(t0, t1)]
+
+
+def assert_gate(results, raw, offset=0):
+    s = raw.scans
+    for t, r in enumerate(results, offset):
+        if r.valid:
+            assert math.hypot(r.pose[0] - s.xs[t], r.pose[1] - s.ys[t]) < 0.9
+            d = (r.pose[2] - s.yaws[t] + math.pi) % (2 * math.pi) - math.pi
+            assert abs(d) < math.radians(30.0)
+
+
+def test_pipelined_node_on_card_is_the_synchronous_node_shifted(dev, tmp_path):
+    """The pipelined node on the card against the synchronous node on the
+    card, 20 raw scans each: the same estimates a scan later (both run the
+    same kernels in the same order; none of the update's operations is
+    run-to-run non-deterministic at 2000 particles), every valid one
+    within the 0.9 m / 30 degree gate; its staging buffers pinned."""
+    from beluga_tpu_torch.tools import workloads
+
+    raw = workloads.arena_ranges(20)
+    sync_node, pipe_node = (raw_node(dev, raw, p, tmp_path) for p in (False, True))
+    sync_res = drive_raw(sync_node, raw, 0, 20)
+    pipe_res = drive_raw(pipe_node, raw, 0, 20)
+    assert not pipe_res[0].valid
+    pipe_res = pipe_res[1:] + [pipe_node.flush()]
+    assert pipe_node.flush() is None
+    assert sum(r.valid for r in sync_res) >= 19
+    assert_gate(sync_res, raw)
+    assert_gate(pipe_res, raw)
+    for s, p in zip(sync_res, pipe_res):
+        assert s.valid == p.valid
+        if s.valid:
+            np.testing.assert_array_equal(s.pose, p.pose)
+            np.testing.assert_array_equal(s.map_to_odom, p.map_to_odom)
+    st = pipe_node._staging
+    assert all(b.is_pinned() for b in st.inputs + st.outputs)
+
+
+def test_pinned_staging_buffers_are_written_only_after_their_event(dev, tmp_path, monkeypatch):
+    """With the card held behind a spin before each update, so that the
+    host runs ahead: every write of a staging slot finds the event of the
+    scan that used the slot before complete, and each harvest inside
+    ``handle_scan`` returns while the stream is still busy with the scan
+    just queued (it waited on the previous scan's event, not on the
+    stream); the results stay the synchronous node's a scan later."""
+    from beluga_tpu_torch.node import ScanStaging
+    from beluga_tpu_torch.tools import workloads
+
+    raw = workloads.arena_ranges(10)
+    node = raw_node(dev, raw, True, tmp_path)
+    seen, busy, stage, harvest = [], [], ScanStaging.stage, ScanStaging.harvest
+
+    def checked_stage(self, packed):
+        slot = self.count % 2
+        if self.count >= 2:
+            seen.append(self.events[slot].query())
+        torch.cuda._sleep(50_000_000)  # hold the card behind this scan's inputs
+        return stage(self, packed)
+
+    def checked_harvest(self, slot):
+        out = harvest(self, slot)
+        assert self.events[slot].query()
+        busy.append(not torch.cuda.current_stream().query())
+        return out
+
+    monkeypatch.setattr(ScanStaging, "stage", checked_stage)
+    monkeypatch.setattr(ScanStaging, "harvest", checked_harvest)
+    res = drive_raw(node, raw, 0, 10)
+    assert len(seen) == 8 and all(seen)
+    assert busy == [True] * 9
+    tail = node.flush()
+    assert_gate(res[1:] + [tail], raw)
+    sync = raw_node(dev, raw, False, tmp_path)
+    monkeypatch.setattr(ScanStaging, "stage", stage)
+    monkeypatch.setattr(ScanStaging, "harvest", harvest)
+    for s, p in zip(drive_raw(sync, raw, 0, 10), res[1:] + [tail]):
+        assert s.valid == p.valid
+        if s.valid:
+            np.testing.assert_array_equal(s.pose, p.pose)
+
+
+def test_replay_on_device_on_card_is_the_per_scan_loop(dev, tmp_path):
+    """``replay_on_device`` on the card against the node's per-scan loop
+    from the same state: the same updates and the same estimates."""
+    from beluga_tpu_torch.io.replay import replay_on_device
+    from beluga_tpu_torch.tools import workloads
+
+    raw = workloads.arena_ranges(16)
+    args = (raw.angle_min, raw.angle_increment, workloads.LDS_MIN, workloads.LDS_MAX)
+    host = raw_node(dev, raw, False, tmp_path)
+    results = drive_raw(host, raw, 0, 16)
+    node = raw_node(dev, raw, False, tmp_path)
+    prepared = [node.prepare_scan(r, *args) for r in raw.ranges]
+    s = raw.scans
+    odoms = np.stack([s.xs, s.ys, s.yaws], -1).astype(np.float32)
+    _, ests = replay_on_device(node.params, node._models, node._ctx, node._state, odoms,
+                               np.stack([p for p, _ in prepared]),
+                               np.stack([m for _, m in prepared]))
+    np.testing.assert_array_equal(ests.valid, [r.valid for r in results])
+    z = ests.pose.rot.z
+    xyt = torch.cat([ests.pose.xy, torch.atan2(z[:, 1], z[:, 0])[:, None]], -1).cpu().numpy()
+    for t, r in enumerate(results):
+        if r.valid:
+            np.testing.assert_array_equal(xyt[t].astype(np.float64), r.pose)
+    assert_gate(results, raw)
