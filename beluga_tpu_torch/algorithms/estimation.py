@@ -1,5 +1,8 @@
-"""Weighted SE2 and SE3 means and covariances (port of
-``beluga_tpu/algorithms/estimation.py``).
+"""Weighted means and covariances of scalars, vectors, SE2 and SE3 states
+(port of ``beluga_tpu/algorithms/estimation.py``).
+
+Scalars and vectors (estimation.hpp:230-307): the weighted mean and the
+covariance with the ``1 / (1 - Σw²)`` correction.
 
 SE2 (estimation.hpp:436-475): coefficient average of (cos, sin, x, y);
 translation covariance with the ``1 / (1 - Σw²)`` correction; yaw variance
@@ -26,6 +29,27 @@ def _normalize_weights(weights: Tensor, mask: Tensor | None) -> Tensor:
     if mask is not None:
         w = torch.where(mask, w, 0.0)
     return w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1e-38)
+
+
+def estimate_scalar(values: Tensor, weights: Tensor, mask: Tensor | None = None):
+    """Weighted mean and bias-corrected variance of ``f32[..., N]`` values."""
+    w = _normalize_weights(weights, mask)
+    mean = torch.sum(w * values, dim=-1)
+    sq_sum = torch.sum(w * w, dim=-1)
+    d = values - mean[..., None]
+    var = torch.sum(w * (d * d), dim=-1) / torch.clamp_min(1.0 - sq_sum, 1e-9)
+    return mean, var
+
+
+def estimate_vector(values: Tensor, weights: Tensor, mask: Tensor | None = None):
+    """Weighted mean ``[..., D]`` and covariance ``[..., D, D]`` of
+    ``f32[..., N, D]`` vectors."""
+    w = _normalize_weights(weights, mask)
+    mean = torch.sum(w[..., None] * values, dim=-2)
+    centered = values - mean[..., None, :]
+    sq_sum = torch.sum(w * w, dim=-1)
+    cov = (centered.transpose(-1, -2) * w[..., None, :]) @ centered
+    return mean, cov / torch.clamp_min(1.0 - sq_sum, 1e-9)[..., None, None]
 
 
 def estimate_se2(states: SE2, weights: Tensor, mask: Tensor | None = None):

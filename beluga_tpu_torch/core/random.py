@@ -86,6 +86,30 @@ def sample_normal_se3(
     return normal_se3_from_draws(z, mean, cov)
 
 
+def uniform_box_se2_from_draws(u: Tensor, u_theta: Tensor, lo, hi) -> SE2:
+    """SE2 states uniform in the box ``[lo, hi)`` with a uniform heading
+    (random.py:64-69): ``u`` f32[..., n, 2] uniforms in [0, 1) place the
+    translation as ``jax.random.uniform`` does (``lo + u·(hi − lo)``, then
+    at least ``lo``), ``u_theta`` f32[..., n] the heading in [-π, π) the
+    same way."""
+    lo = torch.as_tensor(np.asarray(lo, np.float32), device=u.device)
+    hi = torch.as_tensor(np.asarray(hi, np.float32), device=u.device)
+    xy = torch.maximum(lo, u * (hi - lo) + lo)
+    pi = torch.tensor(math.pi, dtype=torch.float32, device=u.device)
+    theta = torch.maximum(-pi, u_theta * (pi - -pi) + -pi)
+    return SE2(xy, SO2.exp(theta))
+
+
+def sample_uniform_box_se2(generator: torch.Generator, n: int, lo, hi, lead=()) -> SE2:
+    """Draw ``[*lead, n]`` SE2 states uniform in the axis-aligned box
+    ``[lo, hi)`` with a uniform heading
+    (multivariate_uniform_distribution.hpp:44-79)."""
+    dev = generator.device
+    u = torch.rand((*lead, n, 2), generator=generator, dtype=torch.float32, device=dev)
+    u_theta = torch.rand((*lead, n), generator=generator, dtype=torch.float32, device=dev)
+    return uniform_box_se2_from_draws(u, u_theta, lo, hi)
+
+
 def uniform_box_se3_from_draws(u: Tensor, q: Tensor, lo, hi) -> SE3:
     """SE3 states uniform in the box ``[lo, hi)`` with uniform orientation
     (random.py:71-79): ``u`` f32[..., n, 3] uniforms in [0, 1) place the

@@ -34,7 +34,9 @@
 // launch: the origin about the cloud's centre (window_geometry's floor,
 // clamp and heading quantisation, once a block), the coordinates and slab
 // rule, the slots that B6 would score counted by ballot and one atomic a
-// block, count * f32(1/n) written by the last block.  Both read 16 B a
+// block, count * f32(1/n) written by the last block; for a fleet of
+// filters (the winlut fleet's gate, one window for all), one counter and
+// one share a filter, still one launch.  Both read 16 B a
 // particle and keep each slot's coordinates in registers across the slab
 // minimum.
 //
@@ -524,10 +526,12 @@ __device__ Frame centre_frame(const StatesIn& in, const float* centre_x,
 }
 
 // Slot j of this thread in the block's tile: live, and its coordinates.
+// The tile is blockIdx.x of the n states that start at state `base` (a
+// filter's first state in the coverage entry's fleet form; 0 otherwise).
 template <int kSlots>
 __device__ __forceinline__ float tile_coords(const Frame& w, const StatesIn& in, int k,
-                                             float (&xf)[kSlots], float (&yf)[kSlots],
-                                             float (&tf)[kSlots]) {
+                                             size_t base, float (&xf)[kSlots],
+                                             float (&yf)[kSlots], float (&tf)[kSlots]) {
   const size_t first = static_cast<size_t>(blockIdx.x) * in.tile;
   float tmin = CUDART_INF_F;
 #pragma unroll
@@ -536,8 +540,8 @@ __device__ __forceinline__ float tile_coords(const Frame& w, const StatesIn& in,
     const size_t i = first + s;
     xf[j] = yf[j] = tf[j] = -1.0f;
     if (s < in.tile && i < static_cast<size_t>(in.n)) {
-      window_coords(w, load_pair(in.xy, i, in.paired), load_pair(in.rot, i, in.paired), &xf[j],
-                    &yf[j], &tf[j]);
+      window_coords(w, load_pair(in.xy, base + i, in.paired),
+                    load_pair(in.rot, base + i, in.paired), &xf[j], &yf[j], &tf[j]);
       tmin = fminf(tmin, slab_candidate(tf[j], k));
     }
   }
@@ -567,7 +571,7 @@ __global__ void __launch_bounds__(kMaxThreads) winlut_states_kernel(LookupArgs<T
   __shared__ float warp_min[kMaxThreads / 32];
   const Frame w = frame_of(a.in, __ldg(a.x0), __ldg(a.y0), __ldg(a.theta0));
   float xf[kSlots], yf[kSlots], tf[kSlots];
-  const float tmin = tile_coords<kSlots>(w, a.in, a.k, xf, yf, tf);
+  const float tmin = tile_coords<kSlots>(w, a.in, a.k, 0, xf, yf, tf);
   const float t_lo = slab_base(block_min(tmin, warp_min), a.k, a.tblk);
   const float miss = __ldg(a.miss);
   const float step = a.scale ? __fmul_rn(__ldg(a.scale), a.inv127) : 0.0f;
@@ -590,26 +594,32 @@ struct CoverageArgs {
   const float* centre_theta;
   int k, wx, wy, tblk, wp, hp;
   float inv_n;
-  int* scratch;  // [2]: the count and the blocks done; zero between calls
-  float* out;
+  // [filters + 1]: each filter's count, then the blocks done; zero between
+  // calls
+  int* scratch;
+  float* out;  // [filters]
 };
 
 // The kernel-exact coverage: the slots that B6 would score with a window
 // built about the centre, counted a warp at a time by ballot, a block's
-// count added by one atomic; the last block to finish writes count * inv_n
-// and sets the scratch back to zero.
+// count added by one atomic to its filter's counter (blockIdx.y is the
+// filter, blockIdx.x the tile within it, so that no tile straddles two
+// filters); the last block to finish writes each filter's count * inv_n
+// and sets the scratch back to zero.  One filter is the grid of one row.
 template <int kSlots>
 __global__ void __launch_bounds__(kMaxThreads) winlut_coverage_kernel(CoverageArgs a) {
   __shared__ float warp_min[kMaxThreads / 32];
   __shared__ int warp_count[kMaxThreads / 32];
   __shared__ Frame frame;
+  __shared__ bool last;
   if (threadIdx.x == 0) {
     frame = centre_frame(a.in, a.centre_x, a.centre_y, a.centre_theta, a.wx, a.wy, a.wp, a.hp);
   }
   __syncthreads();
   const Frame w = frame;
   float xf[kSlots], yf[kSlots], tf[kSlots];
-  const float tmin = tile_coords<kSlots>(w, a.in, a.k, xf, yf, tf);
+  const size_t base = static_cast<size_t>(blockIdx.y) * a.in.n;
+  const float tmin = tile_coords<kSlots>(w, a.in, a.k, base, xf, yf, tf);
   const float t_lo = slab_base(block_min(tmin, warp_min), a.k, a.tblk);
   const size_t first = static_cast<size_t>(blockIdx.x) * a.in.tile;
   int count = 0;
@@ -627,13 +637,18 @@ __global__ void __launch_bounds__(kMaxThreads) winlut_coverage_kernel(CoverageAr
   if (threadIdx.x == 0) {
     int total = 0;
     for (int v = 0; v < static_cast<int>((blockDim.x + 31) >> 5); ++v) total += warp_count[v];
-    atomicAdd(a.scratch, total);
+    atomicAdd(a.scratch + blockIdx.y, total);
     __threadfence();
-    if (atomicAdd(a.scratch + 1, 1) == static_cast<int>(gridDim.x) - 1) {
-      const int all = atomicExch(a.scratch, 0);
-      atomicExch(a.scratch + 1, 0);
-      *a.out = __fmul_rn(static_cast<float>(all), a.inv_n);
+    last = atomicAdd(a.scratch + gridDim.y, 1) ==
+           static_cast<int>(gridDim.x * gridDim.y) - 1;
+  }
+  __syncthreads();
+  if (last) {
+    for (int f = threadIdx.x; f < static_cast<int>(gridDim.y); f += blockDim.x) {
+      const int all = atomicExch(a.scratch + f, 0);
+      a.out[f] = __fmul_rn(static_cast<float>(all), a.inv_n);
     }
+    if (threadIdx.x == 0) atomicExch(a.scratch + gridDim.y, 0);
   }
 }
 
@@ -798,16 +813,17 @@ extern "C" int beluga_winlut_lookup_states(
                                         half, miss, base, nullptr, 0.0f, out, stream);
 }
 
-// B6's coverage entry: the share of the n states that B6 would score in a
-// window of K x win_x x win_y built about the centre (three device floats),
-// as count * inv_n into `out` (a device float).  `scratch` is two device
+// B6's coverage entry: for each of `filters` filters of n states (xy and
+// rot [filters, n, 2]), the share that B6 would score in one window of K x
+// win_x x win_y built about the centre (three device floats), as count *
+// inv_n into out[filter] (device floats).  `scratch` is filters + 1 device
 // int32 that are zero before the call and are left zero after it.
 extern "C" int beluga_winlut_coverage_states(
-    int k, int win_x, int win_y, int tblk, const void* xy, const void* rot, int n, int tile,
-    const void* field_xy, const void* field_rot, float res, int pad, int wp, int hp,
+    int k, int win_x, int win_y, int tblk, const void* xy, const void* rot, int filters, int n,
+    int tile, const void* field_xy, const void* field_rot, float res, int pad, int wp, int hp,
     const void* centre_x, const void* centre_y, const void* centre_theta, float half_span,
     float dth, float half, float inv_n, void* scratch, void* out, void* stream) {
-  if (n == 0) return 0;
+  if (n == 0 || filters == 0) return 0;
   CoverageArgs a;
   a.in = states_in(xy, rot, n, tile, field_xy, field_rot, res, pad, half_span, dth, half);
   a.centre_x = static_cast<const float*>(centre_x);
@@ -822,7 +838,7 @@ extern "C" int beluga_winlut_coverage_states(
   a.inv_n = inv_n;
   a.scratch = static_cast<int*>(scratch);
   a.out = static_cast<float*>(out);
-  const int blocks = (n + tile - 1) / tile;
+  const dim3 blocks((n + tile - 1) / tile, filters);
   const int threads = threads_for(tile);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (slots_for(tile)) {

@@ -32,16 +32,16 @@ stage when no filter is due, runs it for every filter otherwise, and
 particles, Thrun state, counters and control window bit for bit.
 
 Resampling always takes the accelerator branch of the reference
-(amcl.py:399-423): positions, then kernel B2 (ops/cuda_resample.py), on
-the CPU through its plain version.  Random draws come from the state's
-``torch.Generator`` (one for a whole fleet, drawing ``[B, ...]``), which
+(amcl.py:369-423): positions, then kernel B2 (ops/cuda_resample.py), on
+the CPU through its plain version; residual resampling is two passes of
+B2, the floor copies and then the residual draws.  Random draws come from
+the state's ``torch.Generator`` (one for a whole fleet, drawing ``[B, ...]``), which
 the update advances in place, or from ``draws`` (:class:`UpdateDraws`),
 which lets a test feed the reference's own draws.  With
 ``recovery_pool`` the injection draws a binomial count and ``pool`` target
 slots instead of one uniform per slot (amcl.py:436-458).  A model table
 with ``fused_propagate_reweight`` (the windowed mega filter's kernel B5)
-replaces the separate propagate and reweight.  Residual resampling and the
-sparse cluster estimate wait for ROADMAP A8.
+replaces the separate propagate and reweight.
 """
 
 from __future__ import annotations
@@ -71,6 +71,7 @@ from beluga_tpu_torch.lie import SE2, SE3
 from beluga_tpu_torch.ops.cuda_resample import (
     resample_take_tree,
     resample_take_tree_multinomial,
+    resample_take_tree_residual,
 )
 from beluga_tpu_torch.ops.resample import (
     POSITIONERS,
@@ -80,6 +81,8 @@ from beluga_tpu_torch.ops.resample import (
 from beluga_tpu_torch.ops.spatial_hash import spatial_hash_se2
 
 Tensor = torch.Tensor
+
+RESAMPLING = (*POSITIONERS, "residual")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +103,9 @@ class AmclParams:
     spatial_resolution_x: float = 0.5
     spatial_resolution_y: float = 0.5
     spatial_resolution_theta: float = 10.0 * 3.141592653589793 / 180.0
-    resampling: str = "multinomial"  # reference default (views/sample.hpp)
+    # reference default (views/sample.hpp); also systematic, stratified,
+    # residual
+    resampling: str = "multinomial"
     # recovery-injection pool: 0 draws max_particles random states per
     # resample; K > 0 draws K and scatters the first n_inj ~ Binomial(m, p),
     # clamped to K, onto uniform slots (amcl.py:80-87, 436-458)
@@ -112,10 +117,9 @@ class AmclParams:
     sort_interval: int = 1
 
     def __post_init__(self):
-        if self.resampling not in POSITIONERS:
-            raise NotImplementedError(
-                f"resampling {self.resampling!r} is not ported; the port has "
-                f"{sorted(POSITIONERS)} (residual waits for ROADMAP A8)"
+        if self.resampling not in RESAMPLING:
+            raise ValueError(
+                f"unknown resampling {self.resampling!r}; expected one of {RESAMPLING}"
             )
         if self.sort_interval > 1 and self.min_particles < self.max_particles:
             raise ValueError(
@@ -185,7 +189,9 @@ class Estimate(NamedTuple):
 class UpdateDraws(NamedTuple):
     """Every random draw of one update, in place of the generator's, with
     the state's filter axes ``[...]`` first: ``motion_normals``
-    f32[..., 3, N]; ``positions`` f32[..., M] for the resampler;
+    f32[..., 3, N]; ``positions`` f32[..., M] for the resampler (residual
+    resampling reads ``residual_uniforms`` f32[..., M + 1] instead, the
+    spacings of its residual draws);
     ``inject_uniform`` f32[..., M] (slot m is replaced by a recovery state
     when it is below the random-state probability); ``random_states`` the
     ``[..., M]`` recovery states.  With a ``recovery_pool`` P instead:
@@ -199,6 +205,7 @@ class UpdateDraws(NamedTuple):
     random_states: Any
     inject_count: Tensor | None = None
     inject_slots: Tensor | None = None
+    residual_uniforms: Tensor | None = None
 
 
 def se2_sort_key(states: SE2) -> Tensor:
@@ -497,9 +504,18 @@ def _resample(params: AmclParams, models: AmclModels, ctx: Any, gen: torch.Gener
             interleave=adaptive or not params.sorted_slots,
         )
     else:
-        positions = (POSITIONERS[params.resampling](gen, m, lead) if draws is None
-                     else draws.positions)
-        donors = resample_take_tree(weights, positions, particles.state)
+        if params.resampling == "residual":
+            # floor copies, then the residual draws: two passes of B2
+            # (amcl.py:369-397)
+            if draws is None:
+                u = torch.rand((*lead, m + 1), generator=gen, dtype=torch.float32, device=dev)
+            else:
+                u = draws.residual_uniforms
+            donors = resample_take_tree_residual(weights, particles.state, u)
+        else:
+            positions = (POSITIONERS[params.resampling](gen, m, lead) if draws is None
+                         else draws.positions)
+            donors = resample_take_tree(weights, positions, particles.state)
         if adaptive:
             # CDF-ordered donors: spread them so any slot prefix (the KLD
             # active prefix) covers the whole CDF

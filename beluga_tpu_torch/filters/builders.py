@@ -13,7 +13,8 @@ every particle from one correlation LUT per scan, built by kernel B9.
 :func:`make_windowed_scan_filter` is the single (mega) filter's tracking
 path through the windowed pose LUT: kernel B6 (B6-int8 for int8 tables),
 or kernel B5 fused with the motion sample, with kernel B1 for the exact
-tail and the fallback.
+tail and the fallback; :func:`make_winlut_fleet_update` is its fleet form
+(one shared LUT, B6, with kernel B4 for the tails and the fallback).
 :func:`make_beam_filter` is the beam model's four evaluation paths: the
 exact Bresenham march (kernel R1), the range LUT by gather (built by R1),
 the range LUT through kernel B7, and the sphere trace (kernel B8).
@@ -32,8 +33,13 @@ from beluga_tpu_torch.core.random import (
     sample_uniform_free_cells,
     sample_uniform_free_cells_pooled,
 )
-from beluga_tpu_torch.core.particles import tree_map
-from beluga_tpu_torch.filters.amcl import AmclModels, default_estimate, default_hash_state
+from beluga_tpu_torch.core.particles import tree_map, tree_where
+from beluga_tpu_torch.filters.amcl import (
+    AmclModels,
+    default_estimate,
+    default_hash_state,
+    update,
+)
 from beluga_tpu_torch.lie import SE2, SO2
 from beluga_tpu_torch.maps.codebook import likelihood_field_codebook
 from beluga_tpu_torch.maps.occupancy import OccupancyGrid
@@ -42,6 +48,11 @@ from beluga_tpu_torch.models.motion.differential_drive import (
     diff_drive_decompose,
     diff_drive_propagate,
 )
+from beluga_tpu_torch.models.motion.omnidirectional import (
+    OmnidirectionalDriveParams,
+    omni_drive_propagate,
+)
+from beluga_tpu_torch.models.motion.stationary import stationary_propagate
 from beluga_tpu_torch.models.sensor.beam import (
     BeamModelParams,
     beam_log_weights,
@@ -85,16 +96,24 @@ POOL_CAP = 4096  # rows of kernel B3's pool
 
 
 def make_motion_fn(motion_params):
-    """The propagate function of a motion-params dataclass."""
+    """The propagate function of a motion model (builders.py:40-56):
+    ``DifferentialDriveParams``, ``OmnidirectionalDriveParams`` or
+    ``"stationary"``; anything else raises ``ValueError``."""
     if isinstance(motion_params, DifferentialDriveParams):
         def propagate(ctx, z, states, pose, prev):
             del ctx
             return diff_drive_propagate(motion_params, z, states, pose, prev)
-
-        return propagate
-    raise NotImplementedError(
-        f"motion model {motion_params!r} is not ported (ROADMAP A12)"
-    )
+    elif isinstance(motion_params, OmnidirectionalDriveParams):
+        def propagate(ctx, z, states, pose, prev):
+            del ctx
+            return omni_drive_propagate(motion_params, z, states, pose, prev)
+    elif isinstance(motion_params, str) and motion_params == "stationary":
+        def propagate(ctx, z, states, pose, prev):
+            del ctx, pose, prev
+            return stationary_propagate(z, states)
+    else:
+        raise ValueError(f"unknown motion model: {motion_params!r}")
+    return propagate
 
 
 def make_grid_random_state_fn(recovery_candidates: int = 0):
@@ -478,6 +497,118 @@ def make_windowed_scan_filter(
     ctx = {"grid": grid, "field": field, "field_codes": make_field_codes(field, lf_params, grid),
            **_winlut_ctx(field, win, max_point_radius)}
     return models, ctx
+
+
+def make_winlut_fleet_update(
+    params,
+    grid: OccupancyGrid,
+    lf_params: LikelihoodFieldParams = LikelihoodFieldParams(),
+    motion_params: Any = DifferentialDriveParams(),
+    k_bins: int = 64,
+    win=128,
+    dth: float = 2.0 * 3.141592653589793 / 128.0,
+    max_point_radius: float = 4.0,
+    tile: int = 512,
+    tblk: int = 16,
+    coverage_threshold: float = 0.98,
+    recovery_candidates: int = 256,
+    exact_tail_frac: float = 0.125,
+    device=None,
+):
+    """Fleet AMCL through one shared windowed pose LUT an update, for B
+    filters that score the same scan (builders.py:576-737): ``(step, ctx)``
+    on ``device`` (default ``"cuda"``), with ``step(ctx, state, odoms,
+    points, masks, draws=None) -> (state, estimate)`` shaped like
+    ``parallel.fleet.make_fleet_update``'s, ``state`` a ``[B, N]`` fleet.
+
+    Per update:
+
+      1. each filter's particles composed with its noiseless odometry
+         delta (the deterministic part of the motion), and the fleet-global
+         mean of those predicted poses as the window's centre;
+      2. each filter's kernel-exact coverage of the window (its exact tail
+         left out), all filters in one launch of kernel B6's coverage
+         entry, and the gate on their minimum: one diverged filter trips
+         the exact branch;
+      3. the fast branch: one windowed LUT build for the fleet (the scan of
+         filter 0), then every filter's prefix through one launch of B6's
+         states entry and its exact tail through the codebook16 model
+         (kernel B4); the exact branch: the codebook16 fleet step (B4).
+
+    The reference's ``lax.cond`` (taken outside its fleet ``vmap``) is one
+    host branch here on one readback of the minimum coverage, as the
+    windowed filter takes its gate; ``coverage_threshold <= 0`` removes the
+    gate and the readback.  The reference runs the codebook16 model on its
+    accelerator and the float table elsewhere; the port runs B4 on every
+    device (its plain version on the CPU).  The JAX package's measurement
+    that this path does not beat the codebook16 fleet at 64 x 4096 is a
+    TPU one.
+
+    Contracts: every filter carries the same scan (``points[0]`` and
+    ``masks[0]`` feed the build); ``params.sorted_slots`` (per-tile θ
+    slabs); each filter's prefix ``N - s_tail`` a whole number of tiles,
+    so that the flat ``[B·(N - s_tail)]`` lookup has no tile across two
+    filters."""
+    if not params.sorted_slots:
+        raise ValueError(
+            "make_winlut_fleet_update requires AmclParams(sorted_slots=True): "
+            "the winlut kernel windows each lane tile to a theta slab"
+        )
+    n = params.max_particles
+    s_tail = _exact_tail_slots(n, tile, exact_tail_frac)
+    if (n - s_tail) % tile:
+        raise ValueError(
+            f"{n - s_tail} prefix slots a filter is not a multiple of tile={tile}: a tile of "
+            f"the fleet's flat lookup would straddle two filters"
+        )
+    geo = dict(k_bins=k_bins, win=win, dth=dth, max_point_radius=max_point_radius)
+    # the exact branch: the codebook16 fleet configuration
+    models_exact, ctx = make_likelihood_field_filter(
+        grid, lf_params, motion_params, lookup_mode="codebook16",
+        recovery_candidates=recovery_candidates, device=device)
+    ctx.update(_winlut_ctx(ctx["field"], win, max_point_radius))
+
+    def log_weight_fast(fctx, states, points, beam_mask):
+        lead = tuple(states.x.shape[:-1])
+        prefix = tree_map(lambda leaf: leaf[..., : n - s_tail, :], states)
+        flat = SE2(prefix.xy.reshape(-1, 2), SO2(prefix.rot.z.reshape(-1, 2)))
+        w = windowed_scan_lut_weights(fctx["winlut"], flat, tile=tile, tblk=tblk)
+        log_w = torch.log(torch.clamp_min(w.reshape(*lead, n - s_tail), 1e-30))
+        if s_tail:
+            tail = tree_map(lambda leaf: leaf[..., n - s_tail:, :], states)
+            log_w = torch.cat([log_w, models_exact.log_weight(fctx, tail, points, beam_mask)],
+                              dim=-1)
+        return log_w
+
+    models_fast = models_exact._replace(log_weight=log_weight_fast)
+
+    def step(ctx, state, odoms, points, masks, draws=None):
+        field = ctx["field"]
+        # noiseless motion prediction: state ∘ (prev⁻¹ ∘ odom) per filter;
+        # the host deltas cross in one copy from pinned memory, which does
+        # not wait on the stream
+        seeded = torch.as_tensor(np.asarray(state.control_seeded))
+        delta = tree_where(seeded, state.control_prev, odoms).inverse() @ odoms
+        packed = torch.cat([delta.xy, delta.rot.z], dim=-1)[..., None, :]
+        if field.values.is_cuda:
+            packed = packed.pin_memory().to(field.values.device, non_blocking=True)
+        predicted = state.particles.state @ SE2(packed[..., :2], SO2(packed[..., 2:]))
+        cx, cy = torch.mean(predicted.x), torch.mean(predicted.y)
+        ct = torch.atan2(torch.mean(predicted.rot.sin), torch.mean(predicted.rot.cos))
+        if coverage_threshold > 0.0:
+            prefix = tree_map(lambda leaf: leaf[..., : n - s_tail, :], predicted)
+            cov = windowed_coverage_tiled_from_center(field, prefix, cx, cy, ct, tile=tile,
+                                                      tblk=tblk, **geo)
+            if float(torch.amin(cov)) < coverage_threshold:  # the gate's one readback
+                return update(params, models_exact, ctx, state, odoms, points, masks, draws)
+        lut = build_windowed_scan_lut(field, points[0], masks[0], cx, cy, ct,
+                                      padded_cubed=ctx["field_pad3"], dft=ctx["winlut_dft"],
+                                      **geo)
+        return update(params, models_fast, {**ctx, "winlut": lut}, state, odoms, points,
+                      masks, draws)
+
+    step.models_fast, step.models_exact = models_fast, models_exact  # the two branches' tables
+    return step, ctx
 
 
 def sphere_trace_steps(max_range: float, resolution: float) -> int:

@@ -17,6 +17,7 @@ import numpy as np
 
 from beluga_tpu_torch.filters.amcl import AmclParams
 from beluga_tpu_torch.models.motion.differential_drive import DifferentialDriveParams
+from beluga_tpu_torch.models.motion.omnidirectional import OmnidirectionalDriveParams
 from beluga_tpu_torch.models.sensor.beam import BeamModelParams
 from beluga_tpu_torch.models.sensor.likelihood_field import LikelihoodFieldParams
 
@@ -148,18 +149,27 @@ class AmclNodeConfig:
             spatial_resolution_theta=self.spatial_resolution_theta,
         )
 
-    def motion_params(self) -> DifferentialDriveParams:
+    def motion_params(self):
+        """The motion model of ``robot_model_type`` (config.py:164-181):
+        ``DifferentialDriveParams`` (alpha1-alpha4),
+        ``OmnidirectionalDriveParams`` (alpha1-alpha5) or ``"stationary"``."""
         kind = MOTION_MODELS[self.robot_model_type]
-        if kind != "differential_drive":
-            raise NotImplementedError(
-                f"motion model {kind!r} is not ported (ROADMAP A12)"
+        if kind == "differential_drive":
+            return DifferentialDriveParams(
+                rotation_noise_from_rotation=self.alpha1,
+                rotation_noise_from_translation=self.alpha2,
+                translation_noise_from_translation=self.alpha3,
+                translation_noise_from_rotation=self.alpha4,
             )
-        return DifferentialDriveParams(
-            rotation_noise_from_rotation=self.alpha1,
-            rotation_noise_from_translation=self.alpha2,
-            translation_noise_from_translation=self.alpha3,
-            translation_noise_from_rotation=self.alpha4,
-        )
+        if kind == "omnidirectional_drive":
+            return OmnidirectionalDriveParams(
+                rotation_noise_from_rotation=self.alpha1,
+                rotation_noise_from_translation=self.alpha2,
+                translation_noise_from_translation=self.alpha3,
+                translation_noise_from_rotation=self.alpha4,
+                strafe_noise_from_translation=self.alpha5,
+            )
+        return "stationary"
 
     def likelihood_field_params(self) -> LikelihoodFieldParams:
         return LikelihoodFieldParams(

@@ -97,12 +97,15 @@ def _win_xy(win) -> tuple[int, int]:
     return int(win), int(win)
 
 
-def _pad_cells(max_point_radius: float, resolution_hint: float) -> int:
-    return int(np.ceil(max_point_radius / resolution_hint)) + 2
+def _pad_cells(max_point_radius: float, resolution: float) -> int:
+    return int(np.ceil(max_point_radius / resolution)) + 2
 
 
 def _f32(v, device) -> Tensor:
-    return torch.tensor(v, dtype=F32, device=device)
+    """``v`` as a float32 0-d tensor on ``device``, made by a fill on the
+    card (``torch.tensor(v, device=cuda)`` would be a copy that waits on
+    the stream)."""
+    return torch.full((), v, dtype=F32, device=device)
 
 
 def _grow_padded(padded: Tensor, pad: int, field: LikelihoodField,
@@ -120,25 +123,24 @@ def _grow_padded(padded: Tensor, pad: int, field: LikelihoodField,
     return padded
 
 
-def precompute_padded_field(field: LikelihoodField, win, max_point_radius: float = 4.0,
-                            resolution_hint: float | None = None) -> Tensor:
+def precompute_padded_field(field: LikelihoodField, win,
+                            max_point_radius: float = 4.0) -> Tensor:
     """Map-static padded pz³ image for :func:`build_windowed_scan_lut`
-    (``ctx["field_pad3"]``), so the per-scan build skips the cube and pad."""
-    if resolution_hint is None:
-        resolution_hint = field.resolution
+    (``ctx["field_pad3"]``), so the per-scan build skips the cube and pad.
+    The pad band is ``ceil(r / res) + 2`` cells at the field's own float32
+    resolution (the reference's ``resolution_hint``, which no caller set
+    apart from the grid's resolution, is not taken)."""
     win_x, win_y = _win_xy(win)
-    padded, pad = _pad_field_cubed(field, max_point_radius, resolution_hint)
+    padded, pad = _pad_field_cubed(field, max_point_radius, field.resolution)
     return _grow_padded(padded, pad, field, win_x, win_y)
 
 
 def field_window(field: LikelihoodField, k_bins: int, win, dth: float,
-                 max_point_radius: float, resolution_hint: float | None) -> WindowGeometry:
+                 max_point_radius: float) -> WindowGeometry:
     """What placing a window reads of ``field``: the pad band and the padded
     image's extent (grown to the window for a small map)."""
-    if resolution_hint is None:
-        resolution_hint = field.resolution
     win_x, win_y = _win_xy(win)
-    pad = _pad_cells(max_point_radius, resolution_hint)
+    pad = _pad_cells(max_point_radius, field.resolution)
     h, w = field.values.shape
     return WindowGeometry(
         world_to_field=field.world_to_field, resolution=field.resolution, pad=pad,
@@ -148,12 +150,12 @@ def field_window(field: LikelihoodField, k_bins: int, win, dth: float,
 
 def window_geometry(field: LikelihoodField, center_x, center_y, center_theta,
                     k_bins: int = 64, win=128, dth: float = 2.0 * np.pi / 128.0,
-                    max_point_radius: float = 4.0, resolution_hint: float | None = None):
+                    max_point_radius: float = 4.0):
     """Window origin ``(x0, y0, theta0, pad)`` for a cloud center (world
     frame, 0-d tensors on the field's device), without the correlation
     build, so that a gate can run first.  ``x0``/``y0`` are int64 and
     ``theta0`` float32 0-d device tensors (``ops/cuda_winlut.py:window_origin``)."""
-    geo = field_window(field, k_bins, win, dth, max_point_radius, resolution_hint)
+    geo = field_window(field, k_bins, win, dth, max_point_radius)
     return (*window_origin(geo, center_x, center_y, center_theta), geo.pad)
 
 
@@ -201,7 +203,6 @@ def build_windowed_scan_lut(
     win=128,
     dth: float = 2.0 * np.pi / 128.0,
     max_point_radius: float = 4.0,
-    resolution_hint: float | None = None,
     table_dtype: str = "bf16",
     padded_cubed: Tensor | None = None,
     dft: dict | None = None,
@@ -217,13 +218,11 @@ def build_windowed_scan_lut(
     ``"bf16"`` or ``"int8"`` (likelihood_field_winlut.py:267-275)."""
     if table_dtype not in ("bf16", "int8"):
         raise ValueError(f"unknown table_dtype {table_dtype!r}")
-    if resolution_hint is None:
-        resolution_hint = field.resolution
     win_x, win_y = _win_xy(win)
     dev = field.values.device
-    pad = _pad_cells(max_point_radius, resolution_hint)
+    pad = _pad_cells(max_point_radius, field.resolution)
     if padded_cubed is None:
-        padded_cubed = precompute_padded_field(field, win, max_point_radius, resolution_hint)
+        padded_cubed = precompute_padded_field(field, win, max_point_radius)
     if dft is None:
         dft = windowed_dft(win, pad, dev)
     hr, wr = dft["hr"], dft["wr"]
@@ -233,7 +232,7 @@ def build_windowed_scan_lut(
 
     x0, y0, theta0, _ = window_geometry(
         field, center_x, center_y, center_theta, k_bins=k_bins, win=win, dth=dth,
-        max_point_radius=max_point_radius, resolution_hint=resolution_hint,
+        max_point_radius=max_point_radius,
     )
     rows = (y0 - pad) + torch.arange(hr, device=dev)
     cols = (x0 - pad) + torch.arange(wr, device=dev)
@@ -292,14 +291,13 @@ def windowed_coverage_from_center(field: LikelihoodField, states: SE2, center_x,
                                   center_theta, k_bins: int = 64, win=128,
                                   dth: float = 2.0 * np.pi / 128.0,
                                   max_point_radius: float = 4.0,
-                                  resolution_hint: float | None = None,
                                   stride: int = 8) -> Tensor:
     """Coverage fraction (every ``stride``-th particle) of the window that
     would be built around ``center_*``, without building it."""
     win_x, win_y = _win_xy(win)
     x0, y0, theta0, pad = window_geometry(
         field, center_x, center_y, center_theta, k_bins=k_bins, win=win, dth=dth,
-        max_point_radius=max_point_radius, resolution_hint=resolution_hint)
+        max_point_radius=max_point_radius)
     xi, yi, t = _coords(field.world_to_field, field.resolution, pad, x0, y0, theta0,
                         k_bins, dth, states)
     ok = _in_window(xi[::stride], yi[::stride], t[::stride], win_x, win_y, k_bins)
@@ -318,12 +316,12 @@ def windowed_coverage_tiled_from_center(field: LikelihoodField, states: SE2, cen
                                         center_y, center_theta, tile: int = 512,
                                         tblk: int = 16, k_bins: int = 64, win=128,
                                         dth: float = 2.0 * np.pi / 128.0,
-                                        max_point_radius: float = 4.0,
-                                        resolution_hint: float | None = None) -> Tensor:
+                                        max_point_radius: float = 4.0) -> Tensor:
     """Kernel-exact coverage (θ slab included) of the window that would be
     built around ``center_*``: the fast-path gate, one launch of kernel B6's
-    coverage entry on the card (its plain version on the CPU)."""
-    geo = field_window(field, k_bins, win, dth, max_point_radius, resolution_hint)
+    coverage entry on the card (its plain version on the CPU); states
+    ``[B, N]`` give each filter's coverage ``f32[B]`` in the same launch."""
+    geo = field_window(field, k_bins, win, dth, max_point_radius)
     states = SE2(states.xy.contiguous(), SO2(states.rot.z.contiguous()))
     return winlut_coverage_states(geo, states, center_x, center_y, center_theta, tile, tblk)
 

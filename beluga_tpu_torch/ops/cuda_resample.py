@@ -1,7 +1,8 @@
 """Kernel B2: the whole resample, from the weights to the donor rows.
 
 Port of ``beluga_tpu/ops/pallas_resample.py``: :func:`resample_take`, its
-tree form and the sorted-multinomial form.  The kernels are
+tree form, the sorted-multinomial form and the residual form (two passes,
+``beluga_tpu/filters/amcl.py:369-397``).  The kernels are
 ``csrc/resample.cu``, in two stages that are each callable alone:
 :func:`monotone_cdf` builds the CDF from the weights (one launch, or two
 past one tile of 4096 weights) and :func:`search_take` searches it and
@@ -33,9 +34,13 @@ from typing import Any
 
 import torch
 
-from beluga_tpu_torch.core.particles import tree_leaves, tree_map
+from beluga_tpu_torch.core.particles import tree_leaves, tree_map, tree_where
 from beluga_tpu_torch.ops._build import stream_ptr
-from beluga_tpu_torch.ops.resample import interleave_slots, sorted_multinomial_positions
+from beluga_tpu_torch.ops.resample import (
+    interleave_slots,
+    sorted_multinomial_positions,
+    sorted_residual_from_uniform,
+)
 
 Tensor = torch.Tensor
 
@@ -236,3 +241,36 @@ def resample_take_tree_multinomial(
     if not interleave:
         return donors
     return tree_map(lambda leaf: interleave_slots(leaf, axis=len(lead)), donors)
+
+
+def residual_positions(weights: Tensor, uniforms: Tensor):
+    """The two passes' inputs of residual resampling for ``num`` donors a
+    filter (amcl.py:369-397): ``(counts, u_det, residual, u_res, det)``.
+
+    ``counts = floor(num·w)`` (``w`` normalized) are searched at the exact
+    stratified positions ``u_det = (j + 0.5) / max(r0, 1)`` for the slots
+    ``j < r0 = Σ counts`` (``det``), which find particle i exactly
+    ``counts_i`` times, and at the padding ``1.5`` (no donor) from ``r0``
+    on; ``residual = num·w - counts`` at ``u_res``,
+    :func:`sorted_residual_from_uniform` of ``uniforms`` f32[..., num + 1].
+    ``r0`` stays a device tensor per filter (the division is by it, not by
+    a host number), so nothing is read back."""
+    num = uniforms.shape[-1] - 1
+    w = weights / torch.clamp_min(torch.sum(weights, dim=-1, keepdim=True), 1e-38)
+    counts = torch.floor(w * num)
+    r0 = torch.sum(counts, dim=-1)
+    slots = torch.arange(num, dtype=torch.float32, device=weights.device)
+    det = slots < r0[..., None]
+    u_det = torch.where(det, (slots + 0.5) / torch.clamp_min(r0, 1.0)[..., None], 1.5)
+    return counts, u_det, w * num - counts, sorted_residual_from_uniform(uniforms, r0), det
+
+
+def resample_take_tree_residual(weights: Tensor, states: Any, uniforms: Tensor) -> Any:
+    """Residual resampling through two passes of the kernel, the JAX
+    package's accelerator branch (amcl.py:369-397): ``num`` donors a filter
+    for ``uniforms`` f32[..., num + 1], the floor copies in the slots below
+    ``r0`` and the residual draws from there on (:func:`residual_positions`),
+    in CDF order, both passes ascending."""
+    counts, u_det, residual, u_res, det = residual_positions(weights, uniforms)
+    return tree_where(det, resample_take_tree(counts, u_det, states),
+                      resample_take_tree(residual, u_res, states))

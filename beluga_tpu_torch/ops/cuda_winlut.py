@@ -12,7 +12,8 @@ Port of ``beluga_tpu/ops/pallas_winlut.py:winlut_lookup``
   in one launch: the window origin about a cloud centre
   (:func:`window_origin`), the same coordinates and slab rule, and the share
   of the slots the lookup would score (:func:`tiled_coverage`), read no
-  table.
+  table; for one filter ``[N]`` or a fleet ``[B, N]`` (one share a filter,
+  the winlut fleet's gate, still one launch).
 
 Each launches its kernel on CUDA tensors and runs its plain PyTorch version
 (:func:`winlut_lookup_reference`, :func:`winlut_lookup_states_reference`,
@@ -61,6 +62,7 @@ F32 = torch.float32
 
 MAX_PARTICLES = 2**31 - 1
 MAX_STATES_TILE = 8192  # the states and coverage entries: eight slots a thread of 1024
+MAX_FILTERS = 65535  # the coverage entry's filters: grid.y
 INV127 = float(np.float32(1.0 / 127.0))  # the reference's scale * (1.0 / 127.0) in float32
 
 # kernel launches since the count was last set to 0: the coordinates entry
@@ -82,8 +84,8 @@ _ARGTYPES = {
                                   _P],
     "beluga_winlut_lookup_states": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _F, _I, _P,
                                     _P, _P, _F, _F, _F, _P, _F, _P, _F, _P, _P],
-    "beluga_winlut_coverage_states": [_I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _F, _I, _I, _I,
-                                      _P, _P, _P, _F, _F, _F, _F, _P, _P, _P],
+    "beluga_winlut_coverage_states": [_I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _F, _I, _I,
+                                      _I, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P],
 }
 
 
@@ -106,12 +108,13 @@ def floor_mod(a: Tensor, b: Tensor) -> Tensor:
 
 
 def slab_bases(t: Tensor, k_bins: int, tblk: int, tile: int) -> Tensor:
-    """Per-slot θ-slab base ``t_lo`` (float32) of slots ``t`` padded to
-    whole tiles: the clamped floor of each tile's min ``t`` in ``[0, K)``."""
+    """Per-slot θ-slab base ``t_lo`` (float32) of slots ``t`` ``[..., N]``
+    padded to whole tiles of each filter: the clamped floor of each tile's
+    min ``t`` in ``[0, K)``."""
     tt = t.reshape(-1, tile)
     t_in = torch.where((tt >= 0.0) & (tt < k_bins), tt, torch.inf)
     t_lo = torch.clamp(torch.floor(torch.amin(t_in, dim=1)), 0.0, max(k_bins - tblk, 0))
-    return t_lo[:, None].expand(-1, tile).reshape(-1)
+    return t_lo[:, None].expand(-1, tile).reshape(t.shape)
 
 
 def _tent(c: Tensor, i: Tensor) -> Tensor:
@@ -304,7 +307,10 @@ def winlut_lookup(values_t: Tensor, xi: Tensor, yi: Tensor, t: Tensor, miss,
 
 
 def _f32(v, device) -> Tensor:
-    return torch.tensor(v, dtype=F32, device=device)
+    """``v`` as a float32 0-d tensor on ``device``, made by a fill on the
+    card (``torch.tensor(v, device=cuda)`` would be a copy that waits on
+    the stream)."""
+    return torch.full((), v, dtype=F32, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -367,15 +373,17 @@ def tiled_coverage(xi: Tensor, yi: Tensor, t: Tensor, k_bins: int, win_x: int, w
     """Fraction of particles the lookup scores, the per-tile θ slab
     included (winlut.py:350-385): each ``tile`` of slots gets a slab of
     ``tblk`` bins based at the clamped floor of its min valid ``t``, and
-    particles above the slab score miss."""
+    particles above the slab score miss.  Coordinates ``[..., N]`` give
+    one fraction a filter, ``[...]``, each filter's slots in tiles of its
+    own."""
     tblk = min(tblk, k_bins)
-    n = xi.shape[0]
+    n = xi.shape[-1]
     n_pad = -(-n // tile) * tile
     xi_p, yi_p, t_p = (F.pad(v, (0, n_pad - n), value=-1.0) for v in (xi, yi, t))
     k0rel = torch.floor(t_p) - slab_bases(t_p, k_bins, tblk, tile)
     ok = ((xi_p >= 0) & (xi_p <= win_x - 1) & (yi_p >= 0) & (yi_p <= win_y - 1)
           & (k0rel >= 0.0) & (k0rel <= tblk - 2))
-    return torch.sum(ok.to(F32)) / n
+    return torch.sum(ok.to(F32), dim=-1) / n
 
 
 # -- the states entry and the coverage entry -----------------------------------
@@ -401,21 +409,25 @@ def winlut_coverage_states_reference(geo: WindowGeometry, states: SE2, center_x,
 
 
 @functools.lru_cache(maxsize=64)
-def _states_plan(states, field, scalars, tile: int, tblk: int) -> int:
+def _states_plan(states, field, scalars, tile: int, tblk: int, fleet: bool = False) -> int:
     """The states and coverage entries' checks on their tensors' ``_meta``
-    (raising on what the kernels do not take), cached by them: ``n``.
-    ``states`` holds the states' xy and rot, ``field`` world_to_field's xy
+    (raising on what the kernels do not take), cached by them: ``n``, the
+    states a filter.  ``states`` holds the states' xy and rot (``[N, 2]``,
+    or with ``fleet`` also ``[B, N, 2]``), ``field`` world_to_field's xy
     and rot, ``scalars`` the device scalars each entry reads by address
     (name, meta, dtype)."""
     (xshape, _, device, _), _ = states
+    dims = (2, 3) if fleet else (2,)
     for name, (shape, dtype, dev, contiguous) in zip(("states.xy", "states.rot"), states):
         if dev != device:
             raise ValueError(f"{name} is on {dev}, states.xy on {device}")
         if not contiguous:
             raise ValueError(f"{name} must be contiguous")
-        if dtype != torch.float32 or len(shape) != 2 or shape[1] != 2 or shape != xshape:
-            raise ValueError(f"{name} must be float32[N, 2] like states.xy, "
-                             f"got {dtype}{list(shape)}")
+        if dtype != torch.float32 or len(shape) not in dims or shape[-1] != 2 or shape != xshape:
+            raise ValueError(f"{name} must be float32[N, 2]{' or [B, N, 2]' if fleet else ''}"
+                             f" like states.xy, got {dtype}{list(shape)}")
+    if len(xshape) == 3 and not 0 < xshape[0] <= MAX_FILTERS:
+        raise ValueError(f"{xshape[0]} filters; the kernel takes 1 to {MAX_FILTERS}")
     for name, (shape, dtype, dev, _) in zip(("world_to_field.xy", "world_to_field.rot"), field):
         if dev != device or dtype != torch.float32 or tuple(shape) != (2,):
             raise ValueError(f"{name} must be float32[2] on {device}, got {dtype}{list(shape)} "
@@ -426,8 +438,8 @@ def _states_plan(states, field, scalars, tile: int, tblk: int) -> int:
                              f"on {dev}")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
-    n = xshape[0]
-    if n > MAX_PARTICLES:
+    n = xshape[-2]
+    if math.prod(xshape[:-1]) > MAX_PARTICLES:
         raise ValueError(f"{n} particles; the kernel takes at most {MAX_PARTICLES}")
     if tile < 1 or tblk < 1:
         raise ValueError(f"tile and tblk must be positive, got {tile}, {tblk}")
@@ -516,7 +528,9 @@ def winlut_coverage_states(geo: WindowGeometry, states: SE2, center_x, center_y,
                            center_theta, tile: int = 512, tblk: int = 16) -> Tensor:
     """``windowed_coverage_tiled_from_center`` in one launch: the share of
     ``states`` that :func:`winlut_lookup_states` would score in the window
-    that would be built about the centre, a 0-d float32 tensor.
+    that would be built about the centre, a 0-d float32 tensor; for a
+    fleet's states ``[B, N]``, each filter's share ``f32[B]`` (its slots in
+    tiles of its own) in the same launch.
 
     The kernel places the window as :func:`window_origin` does (the
     geometry computed once a block from the centre's device scalars), takes
@@ -525,15 +539,15 @@ def winlut_coverage_states(geo: WindowGeometry, states: SE2, center_x, center_y,
     last block writes ``count · f32(1/n)``, which is the plain version's
     ``sum / n`` on the card (PyTorch's CUDA division by a number multiplies
     by its reciprocal; the float32 sum of the 0/1 flags is the exact count
-    below 2²⁴).  The count lives in two int32 of device scratch a
+    below 2²⁴).  The counts live in ``B + 1`` int32 of device scratch a
     (device, stream), zero between calls: the calls on one stream run one
     after another.  (A launch that faults part way leaves it wrong, but
     such a fault leaves the device's context unusable for every later call.)
 
     Args:
       geo: the field's :class:`WindowGeometry`.
-      states: ``SE2`` particles, ``xy`` and ``rot.z`` ``f32[N, 2]``,
-        contiguous.
+      states: ``SE2`` particles, ``xy`` and ``rot.z`` ``f32[N, 2]`` or
+        ``f32[B, N, 2]``, contiguous.
       center_x, center_y, center_theta: the centre, one float32 each on the
         states' device (read by address on the card).
       tile, tblk: as :func:`winlut_lookup` (tile at most 8192 on the card).
@@ -542,7 +556,7 @@ def winlut_coverage_states(geo: WindowGeometry, states: SE2, center_x, center_y,
     wf = geo.world_to_field
     if not states.xy.is_cuda:
         _states_plan((_meta(states.xy), _meta(states.rot.z)), (_meta(wf.xy), _meta(wf.rot.z)),
-                     (), tile, tblk)
+                     (), tile, tblk, True)
         return winlut_coverage_states_reference(geo, states, center_x, center_y, center_theta,
                                                 tile, tblk)
     scalars = tuple((name, _meta(v) if isinstance(v, Tensor) else ((), type(v), None, True),
@@ -550,20 +564,23 @@ def winlut_coverage_states(geo: WindowGeometry, states: SE2, center_x, center_y,
                     for name, v in (("center_x", center_x), ("center_y", center_y),
                                     ("center_theta", center_theta)))
     n = _states_plan((_meta(states.xy), _meta(states.rot.z)), (_meta(wf.xy), _meta(wf.rot.z)),
-                     scalars, tile, tblk)
+                     scalars, tile, tblk, True)
     dev = states.xy.device
+    lead = tuple(states.xy.shape[:-2])
+    filters = math.prod(lead)
     stream = stream_ptr(dev)
     scratch = _scratch.get((dev, stream))
-    if scratch is None:
-        scratch = _scratch[dev, stream] = torch.zeros(2, dtype=torch.int32, device=dev)
+    if scratch is None or scratch.numel() < filters + 1:
+        scratch = _scratch[dev, stream] = torch.zeros(filters + 1, dtype=torch.int32,
+                                                      device=dev)
     res, half_span, dth, half = _frame_floats(geo.k_bins, geo.dth, geo.resolution)
-    out = torch.empty((), dtype=torch.float32, device=dev)
+    out = torch.empty(lead, dtype=torch.float32, device=dev)
     err = _entry("beluga_winlut_coverage_states")(
         geo.k_bins, geo.win_x, geo.win_y, min(tblk, geo.k_bins), states.xy.data_ptr(),
-        states.rot.z.data_ptr(), n, tile, wf.xy.data_ptr(), wf.rot.z.data_ptr(), res, geo.pad,
-        geo.wp, geo.hp, center_x.data_ptr(), center_y.data_ptr(), center_theta.data_ptr(),
-        half_span, dth, half, float(np.float32(1.0) / np.float32(n)), scratch.data_ptr(),
-        out.data_ptr(), stream)
+        states.rot.z.data_ptr(), filters, n, tile, wf.xy.data_ptr(), wf.rot.z.data_ptr(), res,
+        geo.pad, geo.wp, geo.hp, center_x.data_ptr(), center_y.data_ptr(),
+        center_theta.data_ptr(), half_span, dth, half, float(np.float32(1.0) / np.float32(n)),
+        scratch.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"winlut coverage kernel launch failed: cudaError {err}")
     coverage_launches += 1

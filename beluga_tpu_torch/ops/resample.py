@@ -1,5 +1,5 @@
-"""Resampling positions and the slot interleave (port of
-``beluga_tpu/ops/resample.py``).
+"""Resampling positions, the index-form resamplers and the slot
+interleave (port of ``beluga_tpu/ops/resample.py``).
 
 Every strategy is inversion by CDF: positions in [0, 1) searched in the
 normalized cumulative weights.  The strategies differ only in how the
@@ -73,10 +73,108 @@ def sorted_multinomial_positions(generator: torch.Generator, num: int, lead=()) 
     return sorted_multinomial_from_uniform(_uniform(generator, (*lead, num + 1)))
 
 
+def sorted_residual_from_uniform(u: Tensor, r0: Tensor) -> Tensor:
+    """Positions for the residual slots of residual resampling
+    (resample.py:108-133), from ``num + 1`` iid uniforms ``u`` f32[..., num
+    + 1] and the floor-copy count ``r0`` (f32[...], a device tensor).
+
+    Slot ``j >= r0`` takes the ``(j - r0 + 1)``-th order statistic of ``num
+    - r0`` uniforms (the spacings construction with the denominator at
+    ``num - r0``), slots ``j < r0`` take 0.0: searched in the residual CDF,
+    the slots from ``r0`` on get exactly ``num - r0`` multinomial draws of
+    the residual distribution, in ascending order.  The reference shifts
+    with ``jnp.roll(s, r0)``; ``torch.roll`` takes a host int, so each
+    filter reads ``s[max(j - r0, 0)]`` by a gather and nothing is read
+    back."""
+    num = u.shape[-1] - 1
+    e = -torch.log1p(-u)
+    s = torch.cummax(torch.cumsum(e, dim=-1), dim=-1).values
+    r0i = torch.clamp(r0.to(torch.int64), 0, num)[..., None]
+    denom = torch.clamp_min(torch.gather(s, -1, num - r0i), 1e-38)
+    j = torch.arange(num, device=u.device)
+    shifted = torch.gather(s, -1, torch.clamp_min(j - r0i, 0))
+    out = torch.clamp_max(shifted / denom, _BELOW_ONE)
+    return torch.where(j.to(torch.float32) < r0[..., None], 0.0, out)
+
+
+def sorted_residual_multinomial_positions(generator: torch.Generator, r0: Tensor, num: int,
+                                          lead=()) -> Tensor:
+    """:func:`sorted_residual_from_uniform` of ``num + 1`` uniforms drawn
+    from ``generator``."""
+    return sorted_residual_from_uniform(_uniform(generator, (*lead, num + 1)), r0)
+
+
 POSITIONERS = {
     "multinomial": multinomial_positions,
     "systematic": systematic_positions,
     "stratified": stratified_positions,
+}
+
+
+# -- index-form resamplers (resample.py:192-241): cumsum + searchsorted, plain
+# torch; the filter resamples through kernel B2 (ops/cuda_resample.py)
+
+
+def _cdf(weights: Tensor) -> Tensor:
+    c = torch.cumsum(weights.float(), dim=-1)
+    return c / torch.clamp_min(c[..., -1:], 1e-38)
+
+
+def _search(sorted_seq: Tensor, values: Tensor) -> Tensor:
+    """``searchsorted`` (side right) of ``values`` f32[..., M] in
+    ``sorted_seq`` f32[..., N], clipped to ``[0, N - 1]``, int32."""
+    values = values.expand(*sorted_seq.shape[:-1], values.shape[-1]).contiguous()
+    idx = torch.searchsorted(sorted_seq.contiguous(), values, right=True)
+    return torch.clamp(idx, 0, sorted_seq.shape[-1] - 1).to(torch.int32)
+
+
+def search_indices(weights: Tensor, positions: Tensor) -> Tensor:
+    """Donor indices of ``positions`` f32[..., M] in the normalized CDF of
+    ``weights`` f32[..., N]: what each strategy below searches."""
+    return _search(_cdf(weights), positions)
+
+
+def multinomial_indices(generator: torch.Generator, weights: Tensor, num: int) -> Tensor:
+    return search_indices(weights, multinomial_positions(generator, num, weights.shape[:-1]))
+
+
+def systematic_indices(generator: torch.Generator, weights: Tensor, num: int) -> Tensor:
+    return search_indices(weights, systematic_positions(generator, num, weights.shape[:-1]))
+
+
+def stratified_indices(generator: torch.Generator, weights: Tensor, num: int) -> Tensor:
+    return search_indices(weights, stratified_positions(generator, num, weights.shape[:-1]))
+
+
+def residual_indices_from_uniform(weights: Tensor, u: Tensor) -> Tensor:
+    """Residual resampling's donors from ``num`` iid uniforms ``u``
+    f32[..., num] (resample.py:208-234): slots below the floor-copy count
+    ``r0`` repeat particle i ``floor(num·w_i)`` times (a search of the
+    integer count prefix sums), the rest are multinomial draws of the
+    residual weights."""
+    num = u.shape[-1]
+    w = weights.float()
+    w = w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1e-38)
+    counts = torch.floor(w * num)
+    residual = w * num - counts
+    cum_counts = torch.cumsum(counts, dim=-1)
+    slots = torch.arange(num, dtype=torch.float32, device=w.device)
+    det_idx = _search(cum_counts, slots)
+    res_cdf = torch.cumsum(residual, dim=-1)
+    res_cdf = res_cdf / torch.clamp_min(res_cdf[..., -1:], 1e-38)
+    return torch.where(slots < cum_counts[..., -1:], det_idx, _search(res_cdf, u))
+
+
+def residual_indices(generator: torch.Generator, weights: Tensor, num: int) -> Tensor:
+    return residual_indices_from_uniform(weights,
+                                         _uniform(generator, (*weights.shape[:-1], num)))
+
+
+RESAMPLERS = {
+    "multinomial": multinomial_indices,
+    "systematic": systematic_indices,
+    "stratified": stratified_indices,
+    "residual": residual_indices,
 }
 
 

@@ -11,7 +11,7 @@ state, counters and control window bit for bit.  One ``torch.Generator``
 serves the fleet and draws ``[B, ...]``, so filters draw independently.
 
 ``fleet_state_sharding``, ``shard_fleet`` and ``replicate`` place a fleet
-on a device mesh; they wait for the multi-GPU item, ROADMAP A14.
+on a device mesh; they wait for the multi-GPU slice, ROADMAP A6.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ workloads under ``torch.profiler``.
         [--workloads node,node_raw,node_raw_pipelined,large,fleet,mega,windowed,beam_node,
                      beam_node_windowed,beam_node_exact,range_lut,long_range,beam_fleet,
                      prob_node,shared_scan,prob_fleet,windowed_int8,ndt_node,ndt_fleet,
-                     ndt3d_node,vdb]
+                     ndt3d_node,vdb,omni_node,stationary_node,large_residual,
+                     fleet_residual,node_raw_sparse,winlut_fleet]
 
 Workloads, the configurations of ``tools/workloads.py`` (which
 ``chip_smoke.py`` drives too):
@@ -56,7 +57,18 @@ Workloads, the configurations of ``tools/workloads.py`` (which
 * ``ndt3d_node``: ``NdtAmclNode3D`` at nav2 defaults on the 3D NDT map,
   3600-point clouds (the fused NDT kernel);
 * ``vdb``: BASELINE config #4, 131072 SE3 particles x 80 points, forced
-  updates (kernel B11).
+  updates (kernel B11);
+* ``omni_node``: the ``node`` with nav2's omni motion model, the circle
+  strafed (facing outward); ``stationary_node``: the ``node`` with the
+  stationary model at one pose, every update forced by
+  ``request_nomotion_update``;
+* ``large_residual``, ``fleet_residual``: ``large`` and ``fleet`` with
+  residual resampling (two passes of kernel B2 a resample);
+* ``node_raw_sparse``: ``node_raw`` with ``max_particles=10000``, so that
+  the node's cluster estimate takes its sparse form;
+* ``winlut_fleet``: 64 filters x 4096 particles through one shared windowed
+  LUT an update (kernel B6's coverage and states entries, kernel B4 on the
+  exact tails or the fallback), from a tight cloud.
 
 After a warm-up each workload runs ``--scans`` scans on the host clock
 (wall ms per update, a synchronize after the last), then ``--scans`` more
@@ -134,17 +146,21 @@ def _ranged(models):
                               if getattr(models, s, None) is not None})
 
 
-def _node(scans: int, **overrides):
+def _node(scans: int, scans_fn=workloads.arena_scans, forced: bool = False, **overrides):
+    """The node on ``scans_fn(scans)``; ``forced`` asks for each update with
+    ``request_nomotion_update`` (a robot that does not move)."""
     from beluga_tpu_torch.maps.occupancy import make_grid
     from beluga_tpu_torch.node import AmclNode, make_packed_step_se2
 
-    s = workloads.arena_scans(scans)
+    s = scans_fn(scans)
     node = AmclNode(workloads.node_config(s, **overrides), seed=0)
     node.set_map(make_grid(s.data, workloads.RES))
     node._models = _ranged(node._models)
     node._step = make_packed_step_se2(node.params, node._models, node.device)
 
     def step(t):
+        if forced:
+            node.request_nomotion_update()
         r = node.handle_scan((s.xs[t], s.ys[t], s.yaws[t]), s.points[t], s.mask[t])
         if not r.valid:
             raise RuntimeError(f"node scan {t} was gated out")
@@ -152,9 +168,10 @@ def _node(scans: int, **overrides):
     return step
 
 
-def _raw_node(scans: int, pipelined: bool = False):
-    """The nav2-default node on the arena read from PGM and YAML, fed raw
-    LDS-01 ranges through ``handle_laser_scan``."""
+def _raw_node(scans: int, pipelined: bool = False, **overrides):
+    """The nav2-default node (``overrides`` of its config fields) on the
+    arena read from PGM and YAML, fed raw LDS-01 ranges through
+    ``handle_laser_scan``."""
     import tempfile
 
     from beluga_tpu_torch.maps.occupancy import load_pgm_yaml
@@ -162,7 +179,7 @@ def _raw_node(scans: int, pipelined: bool = False):
 
     raw = workloads.arena_ranges(scans)
     s = raw.scans
-    node = AmclNode(workloads.node_config(s), seed=0, pipelined=pipelined)
+    node = AmclNode(workloads.node_config(s, **overrides), seed=0, pipelined=pipelined)
     with tempfile.TemporaryDirectory() as d:
         node.set_map(load_pgm_yaml(workloads.arena_map_yaml(d)))
     node._models = _ranged(node._models)
@@ -193,10 +210,10 @@ def _range_lut(scans: int):
     return step
 
 
-def _large(scans: int):
+def _large(scans: int, resampling: str = "systematic"):
     from beluga_tpu_torch.filters.amcl import host_pose, update
 
-    w = workloads.large_filter(scans, torch.device("cuda"))
+    w = workloads.large_filter(scans, torch.device("cuda"), resampling=resampling)
     models, s = _ranged(w.models), w.scans
     box = {"state": w.state}
 
@@ -209,11 +226,13 @@ def _large(scans: int):
 
 
 def _fleet(scans: int, make_workload=workloads.fleet):
+    """A fleet through ``parallel.fleet.make_fleet_update``, or through the
+    workload's own ``step`` (the winlut fleet's, its stages unranged)."""
     from beluga_tpu_torch.parallel.fleet import make_fleet_update
 
     w = make_workload(scans, torch.device("cuda"))
     batch = w.points.shape[1]
-    fleet_update = make_fleet_update(w.params, _ranged(w.models))
+    fleet_update = w.step or make_fleet_update(w.params, _ranged(w.models))
     box = {"state": w.state}
 
     def step(t):
@@ -341,7 +360,17 @@ WORKLOADS = {"node": _node, "large": _large, "fleet": _fleet,
              "windowed_int8": _forced(
                  lambda n, dev: workloads.windowed(n, dev, table_dtype="int8"), None),
              "ndt_node": _ndt_node, "ndt_fleet": _ndt_fleet,
-             "ndt3d_node": lambda scans: _ndt_node(scans, dim=3), "vdb": _vdb}
+             "ndt3d_node": lambda scans: _ndt_node(scans, dim=3), "vdb": _vdb,
+             "omni_node": lambda scans: _node(
+                 scans, lambda n: workloads.arena_scans(n, yaw_offset=math.pi / 2),
+                 robot_model_type="nav2_amcl::OmniMotionModel"),
+             "stationary_node": lambda scans: _node(scans, workloads.still_scans, forced=True,
+                                                    robot_model_type="stationary"),
+             "large_residual": lambda scans: _large(scans, resampling="residual"),
+             "fleet_residual": lambda scans: _fleet(
+                 scans, lambda n, dev: workloads.fleet(n, dev, resampling="residual")),
+             "node_raw_sparse": lambda scans: _raw_node(scans, max_particles=10000),
+             "winlut_fleet": lambda scans: _fleet(scans, workloads.winlut_fleet)}
 
 
 def profile_workload(name: str, make, scans: int, warmup: int, trace_dir: str | None) -> dict:

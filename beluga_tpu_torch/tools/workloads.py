@@ -58,6 +58,16 @@ beams per scan:
   (kernel B11), KLD down to 32768, forced updates at the identity
   odometry.
 
+* slice 14's cells: :func:`node_config` with nav2's omni model
+  (``robot_model_type="nav2_amcl::OmniMotionModel"``) on
+  ``arena_scans(n, yaw_offset=π/2)``, the circle strafed; with
+  ``robot_model_type="stationary"`` on :func:`still_scans`, forced
+  updates at one pose; :func:`large_filter` and :func:`fleet` with
+  ``resampling="residual"``; the raw node with ``max_particles=10000``
+  (the sparse cluster estimate); :func:`winlut_fleet`
+  (``benchmarks/report.py:289-318``), 64 x 4096 through one shared
+  windowed LUT.
+
 :func:`arena_ranges` gives the node's raw input for the same circle: LDS-01
 ranges (360 beams over 2π, 0.12-3.5 m) and the same returns as 3D clouds;
 :func:`arena_map_yaml` writes the arena as a map_server map, for
@@ -123,6 +133,9 @@ class Workload(NamedTuple):
     ctx: dict
     state: Any  # AmclState
     prepare: Any = None  # the shared-scan filter's per-scan LUT build
+    # a fleet step in place of filters.amcl.update (the winlut fleet's
+    # ``step(ctx, state, odoms, points, masks)``)
+    step: Any = None
 
 
 # tests/test_system_long_range.py:40-57, benchmarks/REPORT.md:175-185
@@ -132,13 +145,25 @@ LONG_RANGE = dict(cells=1024, res=0.1, n=2048, beam_max_range=60.0, sigma_hit=0.
 BEAM_FLEET = dict(beam_max_range=4.0, n_bearings=128)  # bench.py:694-699
 
 
-def arena_scans(scans: int) -> Scans:
+def arena_scans(scans: int, yaw_offset: float = 0.0) -> Scans:
+    """The arena's circle; ``yaw_offset`` turns the robot's heading away
+    from the tangent (``π/2``: it faces outward and strafes the circle)."""
     from beluga_tpu_torch.io import synthetic
 
     data = synthetic.tracking_arena(GRID, RES)
     xs, ys, yaws = synthetic.circle_trajectory(scans, GRID, RES)
+    if yaw_offset:
+        yaws = np.arctan2(np.sin(yaws + yaw_offset), np.cos(yaws + yaw_offset))
     pts, mask = synthetic.simulate_scans(data, RES, xs, ys, yaws, BEAMS)
     return Scans(data, xs, ys, yaws, pts, mask)
+
+
+def still_scans(scans: int) -> Scans:
+    """``scans`` copies of the circle's first pose and scan: a robot that
+    stands still (the stationary node's cell)."""
+    s = arena_scans(1)
+    rep = lambda a: np.repeat(a, scans, axis=0)  # noqa: E731
+    return Scans(s.data, rep(s.xs), rep(s.ys), rep(s.yaws), rep(s.points), rep(s.mask))
 
 
 def node_config(s: Scans, **overrides):
@@ -155,7 +180,8 @@ def node_config(s: Scans, **overrides):
     )
 
 
-def large_filter(scans: int, device, n: int = 262144, n_min: int = 65536) -> Workload:
+def large_filter(scans: int, device, n: int = 262144, n_min: int = 65536,
+                 resampling: str = "systematic") -> Workload:
     from beluga_tpu_torch.core.random import sample_normal_se2
     from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_state
     from beluga_tpu_torch.filters.builders import make_likelihood_field_filter
@@ -165,7 +191,7 @@ def large_filter(scans: int, device, n: int = 262144, n_min: int = 65536) -> Wor
     models, ctx = make_likelihood_field_filter(make_grid(s.data, RES, device=device),
                                                recovery_candidates=RECOVERY_CANDIDATES,
                                                device=device)
-    params = AmclParams(max_particles=n, min_particles=n_min, resampling="systematic")
+    params = AmclParams(max_particles=n, min_particles=n_min, resampling=resampling)
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     states = sample_normal_se2(gen, n, host_pose(s.xs[0], s.ys[0], s.yaws[0]), INITIAL_COV)
@@ -195,9 +221,10 @@ def shared_scan(scans: int, device, n: int = SHARED_SCAN_N,
 
 
 def fleet(scans: int, device, batch: int = 64, n: int = 4096,
-          prob_model: bool = False) -> Workload:
+          prob_model: bool = False, resampling: str = "multinomial") -> Workload:
     """The codebook16 fleet; ``prob_model`` scores it with the probability
-    model (its ``bf16(log pz)`` table, kernel B4-log)."""
+    model (its ``bf16(log pz)`` table, kernel B4-log); ``resampling``
+    another strategy (``"residual"``: two passes of kernel B2)."""
     from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_fleet_state
     from beluga_tpu_torch.filters.builders import make_likelihood_field_filter
     from beluga_tpu_torch.maps.occupancy import make_grid
@@ -209,7 +236,8 @@ def fleet(scans: int, device, batch: int = 64, n: int = 4096,
                                                prob_model=prob_model, lookup_mode="codebook16",
                                                recovery_candidates=RECOVERY_CANDIDATES,
                                                device=device)
-    params = AmclParams(max_particles=n, min_particles=n, sorted_slots=True)
+    params = AmclParams(max_particles=n, min_particles=n, sorted_slots=True,
+                        resampling=resampling)
     gen = torch.Generator(device=device)
     gen.manual_seed(2)
     state = init_fleet_state(gen, batch, host_pose(s.xs[0], s.ys[0], s.yaws[0]), INITIAL_COV,
@@ -306,6 +334,43 @@ def beam_fleet(scans: int, device, batch: int = 64, n: int = 4096) -> Workload:
     state = init_fleet_state(gen, batch, host_pose(s.xs[0], s.ys[0], s.yaws[0]), INITIAL_COV,
                              params, device=device)
     return Workload(s, pts.contiguous(), mask.contiguous(), params, models, ctx, state)
+
+
+# benchmarks/report.py:289-318 (config_5_fleet): the winlut fleet at the
+# fleet's shape; the rest make_winlut_fleet_update's defaults
+WINLUT_FLEET = dict(k_bins=64, win=128, dth=2.0 * np.pi / 128.0, max_point_radius=3.6,
+                    tile=512, tblk=16, coverage_threshold=0.98,
+                    recovery_candidates=RECOVERY_CANDIDATES, exact_tail_frac=0.125)
+# a cloud tight enough that each 512-slot tile fits its 16-bin θ slab, so
+# that the gate takes the fast branch (the nav2 posterior's spread does not,
+# the reference's own finding, builders.py:593-603)
+WINLUT_FLEET_COV = np.diag([0.01, 0.01, 0.002])
+
+
+def winlut_fleet(scans: int, device, batch: int = 64, n: int = 4096) -> Workload:
+    """The winlut fleet (``filters/builders.py:make_winlut_fleet_update``):
+    ``batch`` filters of ``n`` particles that score one shared scan through
+    one windowed LUT (kernel B6), the exact tails and the fallback through
+    codebook16 (kernel B4); θ-sorted slots, a fixed count, multinomial
+    resampling, pooled recovery; every filter from its own cloud of
+    :data:`WINLUT_FLEET_COV` about the first pose.  Step it with
+    ``Workload.step(ctx, state, odoms, points[t], mask[t])``."""
+    from beluga_tpu_torch.filters.amcl import AmclParams, host_pose, init_fleet_state
+    from beluga_tpu_torch.filters.builders import make_winlut_fleet_update
+    from beluga_tpu_torch.maps.occupancy import make_grid
+
+    s = arena_scans(scans)
+    pts = torch.as_tensor(s.points).to(device)[:, None].expand(scans, batch, BEAMS, 2)
+    mask = torch.as_tensor(s.mask).to(device)[:, None].expand(scans, batch, BEAMS)
+    params = AmclParams(max_particles=n, min_particles=n, sorted_slots=True)
+    step, ctx = make_winlut_fleet_update(params, make_grid(s.data, RES, device=device),
+                                         device=device, **WINLUT_FLEET)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    state = init_fleet_state(gen, batch, host_pose(s.xs[0], s.ys[0], s.yaws[0]),
+                             WINLUT_FLEET_COV, params, device=device)
+    return Workload(s, pts.contiguous(), mask.contiguous(), params, step.models_fast, ctx,
+                    state, step=step)
 
 
 def fleet_odometry(s: Scans, t: int, batch: int):

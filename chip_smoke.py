@@ -122,9 +122,43 @@ Phases, each of which exits non-zero when it fails:
    defaults host-driven and scan-driven, from the ``.npz`` and from a
    ``.db3`` bag of it (``io/rosbag.py:write_scan_bag``): the same updates in
    both modes, APE rmse within 0.9 m in each, B1 and B2 launched; the wall
-   of each run printed.
+   of each run printed;
+22. omni node: ``AmclNode`` at nav2 defaults with
+   ``robot_model_type="nav2_amcl::OmniMotionModel"`` (2000 particles) on
+   the circle strafed (the robot faces outward) for 50 scans, same gate; B1
+   and B2 launched;
+23. stationary node: ``robot_model_type="stationary"``, 30 updates forced by
+   ``request_nomotion_update`` at the circle's first pose, every one valid
+   and within the gate;
+24. residual: the large filter (262144, KLD down to 65536) for 12 scans and
+   the fleet (64 x 4096, codebook16) for 20 with ``resampling="residual"``,
+   every filter within the gate; B2 twice a resample (its CDF kernel as
+   often, no ``aten::cummax`` on its path); the last weights resampled once
+   more, every particle at least ``floor(M·w)`` times; the last 3 scans with
+   ``set_sync_debug_mode("warn")``, no wait in ``ops/resample.py`` or
+   ``ops/cuda_resample.py``;
+25. sparse estimate: phase 20's raw node (synchronous) with ``max_particles:
+   10000``, so that the cluster estimate takes its sparse form: its numbers
+   and waits as phase 20's, none in ``algorithms/cluster.py``; the sparse
+   form against the dense one at 4096 particles on the card (the same
+   cluster, the first and second moments within 1e-5 of their scale) and
+   bit-equal on two calls at 262144;
+26. winlut fleet: 64 x 4096 through one shared windowed LUT an update
+   (``benchmarks/report.py:289-318``: k_bins 64, a 128-cell window, tile
+   512), from a tight cloud, for 20 scans, every filter within the gate:
+   B6's coverage entry (the gate over the filter axis) once an update, B6's
+   states entry and B4 (the tails) once a fast update, B4 once an exact
+   one, the fast branch at least once; then filter 0 moved 5 m off, which
+   trips the exact branch; the last 3 scans with the waits listed, one line
+   of ``filters/builders.py`` among them (the gate's readback);
+and the landmark and bearing models at 2000 SE2 and 2000 SE3 particles x
+32 detections x 256 landmarks against the CPU's run of the same inputs,
+and one unscented transform on the card.  Phase 3 also holds B6's coverage
+entry at the winlut fleet's shape (64 filters x 3584 prefix slots, one
+filter out of the window), each filter's share equal to its plain
+version's, one launch, under the coverage entry's ``other_shapes``.
 
-Phases 20 and 21 run right after phase 4, while ``torch.profiler`` still
+Phases 20, 21 and 25 run right after phase 4, while ``torch.profiler`` still
 records every launch of a window.
 
 Phase 3 also holds kernels B8 (the node's 2000 x 60 at 100 m, the
@@ -166,7 +200,7 @@ shape (K = 128 at 100 m), two launches bit-equal, and its window-origins
 kernel (B7's first launch of two) equal to ``window_origins`` at both
 shapes.
 
-Phases 4 to 21 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
+Phases 4 to 26 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; on every path B2's CDF kernel ("B2-cdf monotone_cdf") runs once
@@ -1086,7 +1120,7 @@ def check_winlut_coverage(dev, iters: int, shift: float = 0.0) -> dict:
     centre = (torch.mean(st.x) + shift, torch.mean(st.y) - shift,
               torch.atan2(torch.mean(st.rot.sin), torch.mean(st.rot.cos)))
     geo = field_window(w.ctx["field"], cfg["k_bins"], cfg["win"], cfg["dth"],
-                       cfg["max_point_radius"], None)
+                       cfg["max_point_radius"])
     tile, tblk = cfg["tile"], cfg["tblk"]
     args = (geo, states, *centre, tile, tblk)
     got, again = b6.winlut_coverage_states(*args), b6.winlut_coverage_states(*args)
@@ -2087,16 +2121,18 @@ def no_cummax_on_b2(run, what: str, *args, **kwargs) -> tuple[dict, dict]:
 
 def run_node(dev, scans: int = NODE_SCANS, what: str = "node",
              must_launch=("B1 fused_reweight", "B2 resample_take"),
-             **overrides) -> tuple[dict, dict]:
+             scans_fn=None, forced: bool = False, **overrides) -> tuple[dict, dict]:
     """The node at nav2 defaults (``overrides`` of ``AmclNodeConfig``
-    fields select the beam node) for ``scans`` scans; the launch counts
-    cover the map load and every scan, and each kernel of ``must_launch``
-    must have been launched."""
+    fields select the beam node or another motion model) for ``scans``
+    scans of ``scans_fn`` (default the arena's circle); ``forced`` calls
+    ``request_nomotion_update`` before each scan.  The launch counts cover
+    the map load and every scan, and each kernel of ``must_launch`` must
+    have been launched."""
     from beluga_tpu_torch.maps.occupancy import make_grid
     from beluga_tpu_torch.node import AmclNode
     from beluga_tpu_torch.tools import workloads
 
-    s = workloads.arena_scans(scans)
+    s = (scans_fn or workloads.arena_scans)(scans)
     reset_counts()
     t0 = time.perf_counter()
     node = AmclNode(workloads.node_config(s, **overrides), seed=0, device=dev)
@@ -2106,6 +2142,8 @@ def run_node(dev, scans: int = NODE_SCANS, what: str = "node",
     times, worst_pos, worst_yaw, valid = [], 0.0, 0.0, 0
     for t in range(scans):
         t0 = time.perf_counter()
+        if forced:
+            node.request_nomotion_update()
         r = node.handle_scan((s.xs[t], s.ys[t], s.yaws[t]), s.points[t], s.mask[t])
         times.append(time.perf_counter() - t0)
         if not r.valid:
@@ -2134,75 +2172,136 @@ def run_node(dev, scans: int = NODE_SCANS, what: str = "node",
 
 
 def run_large_filter(dev, n: int = LARGE_N, n_min: int = LARGE_MIN,
-                     scans: int = LARGE_SCANS) -> tuple[dict, dict]:
+                     scans: int = LARGE_SCANS, resampling: str = "systematic",
+                     sync_tail: int = 0, keep: dict | None = None) -> tuple[dict, dict]:
+    """The large filter (``resampling`` its strategy); its last
+    ``sync_tail`` scans run with the waits on the stream listed (not
+    timed).  With residual resampling B2 runs twice a resample.  ``keep``
+    receives the last particle weights."""
     from beluga_tpu_torch.filters.amcl import host_pose, update
     from beluga_tpu_torch.tools import workloads
 
-    w = workloads.large_filter(scans, dev, n, n_min)
-    s, state = w.scans, w.state
+    what = "large filter" if resampling == "systematic" else f"large filter {resampling}"
+    w = workloads.large_filter(scans, dev, n, n_min, resampling=resampling)
+    s = w.scans
+    box = {"state": w.state}
     reset_counts()
-    times, worst_pos, worst_yaw, active = [], 0.0, 0.0, []
-    for t in range(scans):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, est = update(w.params, w.models, w.ctx, state,
-                            host_pose(s.xs[t], s.ys[t], s.yaws[t]), w.points[t], w.mask[t])
+    times, worst, active = [], [0.0, 0.0], []
+
+    def step(t: int) -> None:
+        box["state"], est = update(w.params, w.models, w.ctx, box["state"],
+                                   host_pose(s.xs[t], s.ys[t], s.yaws[t]), w.points[t],
+                                   w.mask[t])
         pose = est.pose.as_xytheta().cpu().numpy()
-        times.append(time.perf_counter() - t0)
-        check(est.valid, f"large filter scan {t}: update gated out")
-        check(bool(np.isfinite(pose).all()), f"large filter scan {t}: estimate not finite")
+        check(est.valid, f"{what} scan {t}: update gated out")
+        check(bool(np.isfinite(pose).all()), f"{what} scan {t}: estimate not finite")
         e_pos = math.hypot(pose[0] - s.xs[t], pose[1] - s.ys[t])
         e_yaw = yaw_error(float(pose[2]), s.yaws[t])
-        worst_pos, worst_yaw = max(worst_pos, e_pos), max(worst_yaw, e_yaw)
+        worst[0], worst[1] = max(worst[0], e_pos), max(worst[1], e_yaw)
         check(e_pos < GATE_POS_M and e_yaw < GATE_YAW_RAD,
-              f"large filter scan {t}: error {e_pos:.3f} m / {math.degrees(e_yaw):.1f} deg")
-        active.append(int(state.particles.active))
+              f"{what} scan {t}: error {e_pos:.3f} m / {math.degrees(e_yaw):.1f} deg")
+        active.append(int(box["state"].particles.active))
+
+    for t in range(scans - sync_tail):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(t)
+        times.append(time.perf_counter() - t0)
+    sites = sync_sites(step, scans - sync_tail, scans) if sync_tail else None
     counts = read_counts()
     for name in ("B1 fused_reweight", "B2 resample_take", POOL_DRAW):
-        check(counts[name] > 0, f"large filter: {name} was never launched")
+        check(counts[name] > 0, f"{what}: {name} was never launched")
     steady = times[2:]
     mean_s = sum(steady) / len(steady)
-    return counts, dict(
-        particles=n, scans=scans, worst_pos_m=worst_pos,
-        worst_yaw_deg=math.degrees(worst_yaw), ms_per_update_mean=1e3 * mean_s,
-        particle_updates_per_s=n / mean_s, active_last=active[-1],
-    )
+    out = dict(particles=n, scans=scans, resampling=resampling, worst_pos_m=worst[0],
+               worst_yaw_deg=math.degrees(worst[1]), ms_per_update_mean=1e3 * mean_s,
+               particle_updates_per_s=n / mean_s, active_last=active[-1])
+    if resampling == "residual":
+        check(counts["B2 resample_take"] == 2 * scans,
+              f"{what}: B2 launched {counts['B2 resample_take']} times in {scans} resamples")
+        out.update(sync_sites=sites)
+    if keep is not None:
+        keep["weights"] = box["state"].particles.weight
+    return counts, out
+
+
+def residual_floor_check(weights: torch.Tensor, what: str) -> int:
+    """Resample ``weights`` ``[..., N]`` once through the two passes with an
+    identity payload: every particle appears at least ``floor(N·w)`` times,
+    no zero-weight one appears, each filter gets N donors; returns the
+    least slack (copies beyond the floor)."""
+    from beluga_tpu_torch.ops.cuda_resample import resample_take_tree_residual
+
+    n = weights.shape[-1]
+    lead = tuple(weights.shape[:-1])
+    gen = torch.Generator(device=weights.device)
+    gen.manual_seed(11)
+    u = torch.rand((*lead, n + 1), generator=gen, device=weights.device)
+    ident = torch.arange(n, dtype=torch.float32, device=weights.device).expand(*lead, n)
+    donors = resample_take_tree_residual(weights, ident.contiguous(), u).long()
+    floor = torch.floor(weights / weights.sum(-1, keepdim=True) * n).long()
+    copies = torch.zeros((*lead, n), dtype=torch.long, device=weights.device)
+    copies.scatter_add_(-1, donors, torch.ones_like(donors))
+    slack = copies - floor
+    check(bool((slack >= 0).all()), f"{what}: a particle below its floor(M·w) copies")
+    check(bool((copies[weights == 0] == 0).all()), f"{what}: a zero-weight particle drawn")
+    return int(slack.min())
+
+
+def fleet_errors(pose: np.ndarray, s, t: int, what: str, filters=slice(None)):
+    """Position and heading errors ``[b]`` of a fleet's estimates at scan
+    ``t``; the ``filters`` chosen must lie within the gate."""
+    e_pos = np.hypot(pose[:, 0] - s.xs[t], pose[:, 1] - s.ys[t])
+    e_yaw = np.abs(np.arctan2(np.sin(pose[:, 2] - s.yaws[t]), np.cos(pose[:, 2] - s.yaws[t])))
+    check(bool(np.isfinite(pose).all()), f"{what} scan {t}: estimate not finite")
+    check(bool((e_pos[filters] < GATE_POS_M).all() and (e_yaw[filters] < GATE_YAW_RAD).all()),
+          f"{what} scan {t}: worst filter {e_pos[filters].max():.3f} m / "
+          f"{math.degrees(e_yaw[filters].max()):.1f} deg")
+    return e_pos, e_yaw
 
 
 def run_fleet(dev, b: int = FLEET_B, n: int = FLEET_N, scans: int = FLEET_SCANS,
-              prob_model: bool = False) -> tuple[dict, dict]:
+              prob_model: bool = False, resampling: str = "multinomial",
+              sync_tail: int = 0, keep: dict | None = None) -> tuple[dict, dict]:
     """The JAX benchmark's fleet (bench.py:46-49, :180-220): B filters of N
     particles, codebook16, theta-sorted slots, fixed count, multinomial
     resampling, pooled recovery; every filter scores the same scan.  With
-    ``prob_model`` the fleet scores the probability model through B4-log."""
+    ``prob_model`` the fleet scores the probability model through B4-log;
+    with ``resampling="residual"`` each resample is two launches of B2.
+    The last ``sync_tail`` scans run with the waits on the stream listed
+    (not timed); ``keep`` receives the last particle weights."""
     from beluga_tpu_torch.parallel.fleet import make_fleet_update
     from beluga_tpu_torch.tools import workloads
 
-    what = "prob fleet" if prob_model else "fleet"
+    what = ("prob fleet" if prob_model else "fleet") + (
+        "" if resampling == "multinomial" else f" {resampling}")
     reweight = "B4-log fused_reweight values3" if prob_model else "B4 fused_reweight values3"
-    w = workloads.fleet(scans, dev, b, n, prob_model=prob_model)
-    s, state = w.scans, w.state
+    w = workloads.fleet(scans, dev, b, n, prob_model=prob_model, resampling=resampling)
+    s = w.scans
+    box = {"state": w.state}
     fleet_update = make_fleet_update(w.params, w.models)
     reset_counts()
-    times, worst_pos, worst_yaw = [], 0.0, 0.0
-    for t in range(scans):
+    times, worst = [], [0.0, 0.0]
+
+    def step(t: int) -> None:
         odoms = workloads.fleet_odometry(s, t, b)
+        box["state"], est = fleet_update(w.ctx, box["state"], odoms, w.points[t], w.mask[t])
+        pose = est.pose.as_xytheta().cpu().numpy()  # [b, 3], the one readback
+        check(bool(np.all(est.valid)), f"{what} scan {t}: a filter was gated out")
+        e_pos, e_yaw = fleet_errors(pose, s, t, what)
+        worst[0], worst[1] = max(worst[0], float(e_pos.max())), max(worst[1], float(e_yaw.max()))
+
+    for t in range(scans - sync_tail):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, est = fleet_update(w.ctx, state, odoms, w.points[t], w.mask[t])
-        pose = est.pose.as_xytheta().cpu().numpy()  # [b, 3], the one readback
+        step(t)
         times.append(time.perf_counter() - t0)
-        check(bool(np.all(est.valid)), f"{what} scan {t}: a filter was gated out")
-        check(bool(np.isfinite(pose).all()), f"{what} scan {t}: estimate not finite")
-        e_pos = np.hypot(pose[:, 0] - s.xs[t], pose[:, 1] - s.ys[t])
-        e_yaw = np.abs(np.arctan2(np.sin(pose[:, 2] - s.yaws[t]), np.cos(pose[:, 2] - s.yaws[t])))
-        worst_pos, worst_yaw = max(worst_pos, float(e_pos.max())), max(worst_yaw, float(e_yaw.max()))
-        check(bool((e_pos < GATE_POS_M).all() and (e_yaw < GATE_YAW_RAD).all()),
-              f"{what} scan {t}: worst filter {e_pos.max():.3f} m / "
-              f"{math.degrees(e_yaw.max()):.1f} deg")
+    sites = sync_sites(step, scans - sync_tail, scans) if sync_tail else None
+    worst_pos, worst_yaw = worst
     counts = read_counts()
-    for name in ("B2 resample_take", POOL_DRAW, reweight):
-        check(counts[name] == scans,
+    passes = 2 if resampling == "residual" else 1
+    for name, per_update in (("B2 resample_take", passes), (POOL_DRAW, 1), (reweight, 1)):
+        check(counts[name] == scans * per_update,
               f"{what}: {name} launched {counts[name]} times in {scans} updates")
     others = {"B1 fused_reweight", "B1-log fused_reweight", "B4 fused_reweight values3",
               "B4-log fused_reweight values3"} - {reweight}
@@ -2210,12 +2309,17 @@ def run_fleet(dev, b: int = FLEET_B, n: int = FLEET_N, scans: int = FLEET_SCANS,
         check(counts[name] == 0, f"{what}: {name} launched {counts[name]} times")
     steady = sorted(times[2:])
     mean_s = sum(steady) / len(steady)
-    return counts, dict(
+    out = dict(
         filters=b, particles=n, scans=scans, worst_pos_m=worst_pos,
         worst_yaw_deg=math.degrees(worst_yaw), ms_per_update_mean=1e3 * mean_s,
         ms_per_update_median=1e3 * steady[len(steady) // 2],
         ms_first_update=1e3 * times[0], particle_updates_per_s=b * n / mean_s,
     )
+    if resampling == "residual":
+        out.update(sync_sites=sites)
+    if keep is not None:
+        keep["weights"] = box["state"].particles.weight
+    return counts, out
 
 
 def run_forced(w, scans: int, what: str, sort_every: int | None = None):
@@ -2702,7 +2806,8 @@ def sync_sites(step, t0: int, t1: int) -> dict:
     return sites
 
 
-def run_raw_node(dev, map_yaml: str, raw, mode: str, smi: str) -> tuple[dict, dict, dict]:
+def run_raw_node(dev, map_yaml: str, raw, mode: str, smi: str,
+                 **overrides) -> tuple[dict, dict, dict]:
     """The nav2-default node on the arena loaded from PGM and YAML, fed the
     raw LDS-01 input: ``mode`` "sync" and "pipelined" through
     ``handle_laser_scan``, "cloud" through ``handle_point_cloud`` (the same
@@ -2711,16 +2816,19 @@ def run_raw_node(dev, map_yaml: str, raw, mode: str, smi: str) -> tuple[dict, di
     profiler (busy and launches; the idle share is 1 - busy / the host
     clock's mean, as ``tools/profile_update.py`` takes it, since the
     profiler slows the host), RAW_SYNC_CHECKED more with the syncs listed;
-    every valid estimate within the gate.  Returns the launch
-    counts, the phase's numbers and the estimates by scan."""
+    every valid estimate within the gate.  ``overrides`` of the node's
+    config fields (``max_particles=10000``: the sparse cluster estimate)
+    name the run.  Returns the launch counts, the phase's numbers and the
+    estimates by scan."""
     from beluga_tpu_torch.maps.occupancy import load_pgm_yaml
     from beluga_tpu_torch.node import AmclNode
     from beluga_tpu_torch.tools import workloads
 
     s = raw.scans
-    what = f"raw node {mode}"
+    what = f"raw node {mode}" + "".join(f" {k}={v}" for k, v in overrides.items())
     reset_counts()
-    node = AmclNode(workloads.node_config(s), seed=0, device=dev, pipelined=mode == "pipelined")
+    node = AmclNode(workloads.node_config(s, **overrides), seed=0, device=dev,
+                    pipelined=mode == "pipelined")
     node.set_map(load_pgm_yaml(map_yaml, device=dev))
     estimates: dict[int, np.ndarray] = {}
     worst = [0.0, 0.0]
@@ -2825,6 +2933,282 @@ def run_replay(dev, map_yaml: str, workdir: str) -> tuple[dict, dict]:
     return counts, out
 
 
+# -- slice 14: omni and stationary nodes, residual resampling, the sparse cluster
+# estimate, the winlut fleet, the landmark models ---------------------------------
+
+OMNI_SCANS, STATIONARY_SCANS = 50, 30
+RESIDUAL_FLEET_SCANS, RESIDUAL_SYNC_CHECKED = 20, 3
+WINLUT_FLEET_SCANS, WINLUT_FLEET_SYNC_CHECKED = 20, 3
+SPARSE_NODE_PARTICLES = 10000
+LANDMARK_N, LANDMARK_D, LANDMARK_L = 2000, 32, 256
+LANDMARK_RTOL = 1e-4  # products of 32 float32 Gaussian terms, card against CPU
+# the port's modules of the residual resample and the sparse estimate: no
+# line of theirs may wait on the stream
+RESIDUAL_FILES = ("beluga_tpu_torch/ops/resample.py", "beluga_tpu_torch/ops/cuda_resample.py")
+SPARSE_FILES = ("beluga_tpu_torch/algorithms/cluster.py",)
+WINLUT_FILES = ("beluga_tpu_torch/models/sensor/likelihood_field_winlut.py",
+                "beluga_tpu_torch/ops/cuda_winlut.py")
+
+
+def no_waits_in(sites: dict, files, what: str) -> None:
+    """``sites`` (``sync_sites``'s lines) name none of ``files``."""
+    bad = {k: v for k, v in sites.items() if k.startswith(files)}
+    check(not bad, f"{what}: waited on the stream at {bad}")
+
+
+def check_winlut_coverage_fleet(dev, iters: int, b: int = FLEET_B, n: int = FLEET_N) -> dict:
+    """Kernel B6's coverage entry over a fleet (the winlut fleet's gate):
+    ``b`` filters of the fleet's prefix slots (``n`` less the exact tail,
+    the predicted poses of the phase's tight clouds, one filter shifted
+    out of the window), one launch, each filter's share equal to its plain
+    version's; timed beside the plain version (no library call computes
+    it), its bound from this run's states."""
+    from beluga_tpu_torch.filters.builders import _exact_tail_slots
+    from beluga_tpu_torch.lie import SE2, SO2
+    from beluga_tpu_torch.models.sensor.likelihood_field_winlut import field_window
+    from beluga_tpu_torch.ops import cuda_winlut as b6
+    from beluga_tpu_torch.tools import workloads
+
+    cfg = workloads.WINLUT_FLEET
+    w = workloads.winlut_fleet(1, dev, b, n)
+    prefix = n - _exact_tail_slots(n, cfg["tile"], cfg["exact_tail_frac"])
+    st = w.state.particles.state
+    xy = st.xy[:, :prefix].clone()
+    xy[0] += 5.0  # one filter off the window
+    states = SE2(xy.contiguous(), SO2(st.rot.z[:, :prefix].contiguous()))
+    centre = (torch.mean(states.x), torch.mean(states.y),
+              torch.atan2(torch.mean(states.rot.sin), torch.mean(states.rot.cos)))
+    geo = field_window(w.ctx["field"], cfg["k_bins"], cfg["win"], cfg["dth"],
+                       cfg["max_point_radius"])
+    tile, tblk = cfg["tile"], cfg["tblk"]
+    args = (geo, states, *centre, tile, tblk)
+    before = b6.coverage_launches
+    got = b6.winlut_coverage_states(*args)
+    torch.cuda.synchronize()
+    check(b6.coverage_launches == before + 1, "B6 coverage fleet: not one launch")
+    want = b6.winlut_coverage_states_reference(*args)
+    again = b6.winlut_coverage_states(*args)
+    label = (f"{b} filters x {prefix} particles (the winlut fleet's prefix), window "
+             f"[{geo.k_bins}, {geo.win_x}, {geo.win_y}], tile {tile}, tblk {tblk}")
+    check(got.shape == (b,) and got.dtype == torch.float32, "B6 coverage fleet: not f32[B]")
+    check(torch.equal(got, want) and torch.equal(again, want),
+          f"B6 coverage fleet {label}: {got.tolist()} against {want.tolist()}")
+    check(float(got[0]) < 0.98 <= float(got[1:].min()),
+          f"B6 coverage fleet {label}: shares {got.tolist()}")
+    times = timings(lambda: b6.winlut_coverage_states(*args),
+                    lambda: b6.winlut_coverage_states_reference(*args), iters)
+    launch_device_ms(times, lambda: b6.winlut_coverage_states(*args), "winlut_coverage_kernel")
+    bms, by = bound_ms(16 * b * prefix + 4 * b, B6_CHAIN_OPS * b * prefix)
+    return dict(
+        name=WINLUT_COVERAGE, route="cuda", source="beluga_tpu_torch/csrc/winlut.cu",
+        replaces="beluga_tpu/filters/builders.py:717-725 (the fleet gate's vmapped "
+                 "windowed_coverage_tiled_from_center; B6's slab rule, "
+                 "beluga_tpu/ops/pallas_winlut.py:157)",
+        max_abs_err=float((got - want).abs().max()), bound_ms=bms, bound_by=by, shape=label,
+        covered=[round(float(v) * prefix) for v in want], **times,
+    )
+
+
+def check_cluster_sparse(dev) -> dict:
+    """The sparse cluster estimate on the card: at 4096 particles (the dense
+    form's largest) the cluster of the dense form, the first and second
+    moments within 1e-5 of their scale (``|mean|``; ``|mean|² + max|cov|``);
+    at 262144 two calls bit-equal; each form's time a call (back to back and
+    on the device) and its launches."""
+    from beluga_tpu_torch.algorithms.cluster import cluster_based_estimate
+
+    out = {}
+    for n in (4096, LARGE_N):
+        states, _ = arena_cloud(n, dev, seed=n, stray_every=7)  # a second, lighter cloud
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(n)
+        w = torch.rand(n, generator=gen, device=dev)
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+        mask[-n // 10:] = False  # a dead tail, as after a KLD cut
+        args = (states, w, mask)
+        a = cluster_based_estimate(*args, method="sparse")
+        b = cluster_based_estimate(*args, method="sparse")
+        torch.cuda.synchronize()
+        check(torch.equal(a[0].xy, b[0].xy) and torch.equal(a[0].rot.z, b[0].rot.z)
+              and torch.equal(a[1], b[1]), f"sparse cluster {n}: two calls differ")
+        sparse = lambda: cluster_based_estimate(*args, method="sparse")  # noqa: E731
+        row = dict(sparse_ms=cuda_ms(sparse, 10), sparse_device_ms=device_ms(sparse, 5),
+                   sparse_launches=call_launches(sparse)["launches"])
+        if n <= 4096:
+            d = cluster_based_estimate(*args, method="dense")
+            # relative to each moment's scale: the first moment's |mean|, the
+            # second's |mean|² + max |cov| (the covariance is E[x²] - mean²
+            # from raw sums, whose cancellation the two forms share)
+            scale = d[0].xy.abs().max()
+            rel = max(float((a[0].xy - d[0].xy).abs().max() / scale),
+                      float((a[0].rot.z - d[0].rot.z).abs().max()),
+                      float((a[1] - d[1]).abs().max() / (scale * scale + d[1].abs().max())))
+            check(rel < 1e-5, f"sparse cluster {n}: {rel} from the dense form")
+            dense = lambda: cluster_based_estimate(*args, method="dense")  # noqa: E731
+            row.update(dense_ms=cuda_ms(dense, 10), dense_device_ms=device_ms(dense, 5),
+                       dense_launches=call_launches(dense)["launches"],
+                       max_rel_err_vs_dense=rel)
+        out[str(n)] = row
+    return out
+
+
+def run_winlut_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
+                     scans: int = WINLUT_FLEET_SCANS) -> tuple[dict, dict]:
+    """The winlut fleet (benchmarks/report.py:289-318), ``b`` filters of
+    ``n`` from a tight cloud along the circle: every filter within the gate
+    at every scan; the gate (B6's coverage entry) once an update; on the
+    fast branch B6's states entry once and B4 once (the tails), on the
+    exact one B4 once; the fast branch at least once.  Then filter 0 is
+    moved 5 m off its cloud: that update takes the exact branch (the other
+    filters still within the gate).  The last scans run with the waits on
+    the stream listed: the gate's readback (``filters/builders.py``) is the
+    step's one, by design."""
+    from beluga_tpu_torch.lie import SE2
+    from beluga_tpu_torch.ops import cuda_winlut
+    from beluga_tpu_torch.tools import workloads
+
+    w = workloads.winlut_fleet(scans + 1, dev, b, n)
+    s = w.scans
+    box = {"state": w.state}
+    lookups = WINLUT_STATES["bf16"]
+    reset_counts()
+    times, worst, branch = [], [0.0, 0.0], []
+
+    def step(t: int, filters=slice(None)) -> None:
+        before = cuda_winlut.states_launches
+        box["state"], est = w.step(w.ctx, box["state"], workloads.fleet_odometry(s, t, b),
+                                   w.points[t], w.mask[t])
+        pose = est.pose.as_xytheta().cpu().numpy()
+        branch.append(cuda_winlut.states_launches - before)
+        check(bool(np.all(est.valid)), f"winlut fleet scan {t}: a filter was gated out")
+        e_pos, e_yaw = fleet_errors(pose, s, t, "winlut fleet", filters)
+        worst[0] = max(worst[0], float(e_pos[filters].max()))
+        worst[1] = max(worst[1], float(e_yaw[filters].max()))
+
+    tail = scans - WINLUT_FLEET_SYNC_CHECKED
+    for t in range(tail):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(t)
+        times.append(time.perf_counter() - t0)
+    sites = sync_sites(step, tail, scans)
+    counts = read_counts()
+    fast = sum(branch)
+    check(fast >= 1, "winlut fleet: the fast branch never ran")
+    check(counts[lookups] == fast and counts[WINLUT_COVERAGE] == scans,
+          f"winlut fleet: {counts[lookups]} lookups, {counts[WINLUT_COVERAGE]} gates in "
+          f"{scans} updates")
+    check(counts["B4 fused_reweight values3"] == scans,
+          f"winlut fleet: B4 launched {counts['B4 fused_reweight values3']} times in {scans}")
+    # the gate's readback is the step's one wait of its own: none in the LUT
+    # build or the lookups
+    builder_sites = {k: v for k, v in sites.items() if "filters/builders.py" in k}
+    check(len(builder_sites) == 1, f"winlut fleet: waits in the step {builder_sites}")
+    no_waits_in(sites, WINLUT_FILES, "winlut fleet")
+    # one filter diverges: the gate's minimum trips the exact branch
+    p = box["state"].particles
+    moved = SE2(p.state.xy.clone(), p.state.rot)
+    moved.xy[0] += 5.0
+    box["state"] = box["state"]._replace(particles=p.replace(state=moved))
+    before = read_counts()
+    step(scans, filters=slice(1, None))
+    after = read_counts()
+    check(after[lookups] == before[lookups] and after[WINLUT_COVERAGE] == before[WINLUT_COVERAGE] + 1
+          and after["B4 fused_reweight values3"] == before["B4 fused_reweight values3"] + 1,
+          "winlut fleet: the diverged filter did not send the fleet down the exact branch")
+    steady = sorted(times[2:])
+    mean_s = sum(steady) / len(steady)
+    return after, dict(
+        filters=b, particles=n, scans=scans + 1, fast_updates=fast,
+        exact_updates=scans - fast + 1, branch_by_scan=branch, worst_pos_m=worst[0],
+        worst_yaw_deg=math.degrees(worst[1]), ms_per_update_mean=1e3 * mean_s,
+        ms_per_update_median=1e3 * steady[len(steady) // 2], ms_first_update=1e3 * times[0],
+        particle_updates_per_s=b * n / mean_s, sync_sites=sites,
+        gate_readback_site=builder_sites,
+    )
+
+
+def run_landmarks(dev) -> dict:
+    """The landmark and bearing models at LANDMARK_N SE2 and SE3 particles x
+    LANDMARK_D detections x LANDMARK_L landmarks (one detection of a
+    category with no landmark), on the card and on the CPU from the same
+    inputs: every weight within LANDMARK_RTOL of the CPU's but where a
+    nearest or best-aligned landmark ties within rounding (their share
+    printed, at most 1 in 1000); one unscented transform on the card
+    against the CPU's."""
+    from beluga_tpu_torch.algorithms.unscented import unscented_transform
+    from beluga_tpu_torch.lie import SE2, SE3, SO3
+    from beluga_tpu_torch.models.sensor import landmark as lm
+
+    rng = np.random.default_rng(14)
+    n, d, nl = LANDMARK_N, LANDMARK_D, LANDMARK_L
+    pos = rng.uniform(-8, 8, (nl, 3)).astype(np.float32)
+    pos[:, 2] *= 0.1
+    cats = rng.integers(0, 8, nl)
+    seen = rng.choice(nl, d, replace=False)
+    dcats = cats[seen].copy()
+    no_landmark = dcats.copy()
+    no_landmark[0] = 8  # a category with no landmark: random_prob (landmark), 0 (bearing)
+    mask = np.ones(d, bool)
+    mask[-2:] = False
+    xyt = rng.normal(0.0, [0.3, 0.3, 0.1], (n, 3)).astype(np.float32)
+    xyz = rng.normal(0.0, 0.3, (n, 3)).astype(np.float32)
+    rot = rng.normal(0.0, 0.05, (n, 3)).astype(np.float32)
+    sensor = (np.float32([0.1, 0.0, 0.2]), np.float32([0.0, 0.0, 0.3]))
+    # detections as seen from the origin: ranges and bearings of the chosen landmarks
+    det = pos[seen] + rng.normal(0, 0.05, (d, 3)).astype(np.float32)
+    bearings = det / np.linalg.norm(det, axis=-1, keepdims=True)
+    out = {}
+
+    def run(device):
+        lmap = lm.make_landmark_map(pos, cats, device=device)
+        t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        se2 = SE2.from_xytheta(*(xyt[:, i] for i in range(3)), device=device)
+        se3 = SE3(t(xyz), SO3.exp(t(rot)))
+        sp = SE3(t(sensor[0]), SO3.exp(t(sensor[1])))
+        res = {}
+        for space, st in (("se2", se2), ("se3", se3)):
+            res[f"landmark_{space}"] = lm.landmark_weights(
+                lm.LandmarkModelParams(0.5, 0.3, 1e-3), lmap, st, t(det), t(no_landmark),
+                t(mask))
+            res[f"bearing_{space}"] = lm.bearing_weights(
+                lm.BearingModelParams(0.3), lmap, st, t(bearings), t(dcats), t(mask), sp)
+            res[f"bearing_{space}_unmatched"] = lm.bearing_weights(
+                lm.BearingModelParams(0.3), lmap, st, t(bearings), t(no_landmark), t(mask), sp)
+        return {k: v.cpu().numpy() for k, v in res.items()}
+
+    card, cpu = run(dev), run(torch.device("cpu"))
+    for space in ("se2", "se3"):
+        check(not card.pop(f"bearing_{space}_unmatched").any(),
+              f"bearing {space}: an unmatched detection did not weigh 0")
+        cpu.pop(f"bearing_{space}_unmatched")
+        check(bool((cpu[f"bearing_{space}"] > 0).mean() > 0.5),
+              f"bearing {space}: the detections score 0 at most particles")
+    for key in card:
+        got, want = card[key], cpu[key]
+        check(got.shape == (n,) and bool(np.isfinite(got).all()), f"{key}: not finite f32[N]")
+        off = ~np.isclose(got, want, rtol=LANDMARK_RTOL, atol=1e-30)
+        check(off.mean() <= 1e-3, f"{key}: {int(off.sum())} of {n} weights off the CPU's")
+        inside = ~off
+        out[key] = dict(shape=f"{n} x {d} x {nl}", positive_share=float((want > 0).mean()),
+                        max_rel_err=float(np.max(np.abs(got[inside] - want[inside])
+                                                 / np.maximum(np.abs(want[inside]), 1e-30))),
+                        off_share=float(off.mean()))
+    cov = torch.tensor([[0.2, 0.05, 0.0], [0.05, 0.1, 0.01], [0.0, 0.01, 0.05]])
+
+    def transfer(p):
+        return torch.stack([p[:, 0] + torch.cos(p[:, 2]), p[:, 1] * p[:, 0],
+                            torch.sin(p[:, 2])], -1)
+
+    mean = torch.tensor([1.0, 2.0, 0.3])
+    got = unscented_transform(mean.to(dev), cov.to(dev), transfer)
+    want = unscented_transform(mean, cov, transfer)
+    err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    check(err < 1e-5, f"unscented transform: {err} from the CPU's")
+    out["unscented_max_abs_err"] = err
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -2900,6 +3284,7 @@ def main() -> int:
     ws_int8 = check_winlut_states(dev, iters=50, table_dtype="int8")
     wc_big = check_winlut_coverage(dev, iters=50)
     wc_edge = check_winlut_coverage(dev, iters=20, shift=12.0)
+    wc_fleet = check_winlut_coverage_fleet(dev, iters=50)
     n_fleet = check_ndt_probe(dev, iters=20, dim=2)
     n_3d = check_ndt_probe(dev, iters=20, dim=3)
     f_node = check_ndt_weights(dev, iters=50, which="node")
@@ -2910,7 +3295,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     checked = (k_main, r_main, rc_main, k_big, r_big, rc_big, c_big, k_fleet, r_fleet, rc_fleet,
                c_fleet, p_fleet, p_big, p_mega, d_fleet, d_big, d_mega, r_mega, rc_mega, w_big,
-               ws_big, ws_int8, wc_big, wc_edge, f_mega, f_ragged, f_l2,
+               ws_big, ws_int8, wc_big, wc_edge, wc_fleet, f_mega, f_ragged, f_l2,
                s_node, s_long, s_wide, l_fleet, l_node,
                o_fleet, o_node, c_node, c_build, c_long, c_l2, c_record, e_node, e_l2,
                g_shared, g_full, k_log_node, k_log_fleet, c_log_fleet, i_big, n_fleet,
@@ -2979,6 +3364,15 @@ def main() -> int:
         replay_counts, replay = run_replay(dev, map_yaml, workdir)
         print("replay: " + json.dumps(replay) + " launches " + json.dumps(replay_counts))
 
+        # 25. the raw node at max_particles 10000: the sparse cluster estimate
+        # (slice 14), while the profiler still records every launch
+        sparse_counts, sparse_node, _ = run_raw_node(dev, map_yaml, raw, "sync", smi,
+                                                     max_particles=SPARSE_NODE_PARTICLES)
+        no_waits_in(sparse_node["sync_sites"], SPARSE_FILES, "sparse-estimate node")
+        sparse_node["cluster"] = check_cluster_sparse(dev)
+        print("sparse-estimate node: " + json.dumps(sparse_node) + " launches "
+              + json.dumps(sparse_counts))
+
     # 5. the large single filter, with its pooled recovery
     large_counts, large = no_cummax_on_b2(run_large_filter, "large filter", dev)
     print("large filter: " + json.dumps(large) + " launches " + json.dumps(large_counts))
@@ -3042,6 +3436,45 @@ def main() -> int:
     vdb_counts, vdb = run_vdb(dev)
     print("VDB filter: " + json.dumps(vdb) + " launches " + json.dumps(vdb_counts))
 
+    # 22. the node with nav2's omni motion model, strafing the circle (slice 14)
+    omni_counts, omni = run_node(
+        dev, OMNI_SCANS, "omni node",
+        scans_fn=lambda n: workloads.arena_scans(n, yaw_offset=math.pi / 2),
+        robot_model_type="nav2_amcl::OmniMotionModel")
+    print("omni node: " + json.dumps(omni) + " launches " + json.dumps(omni_counts))
+
+    # 23. the stationary node, every update forced at one pose (slice 14)
+    still_counts, still = run_node(dev, STATIONARY_SCANS, "stationary node",
+                                   scans_fn=workloads.still_scans, forced=True,
+                                   robot_model_type="stationary")
+    check(still["valid"] == STATIONARY_SCANS, "stationary node: a forced update gated out")
+    print("stationary node: " + json.dumps(still) + " launches " + json.dumps(still_counts))
+
+    # 24. residual resampling: the large filter and the fleet (slice 14)
+    last = {}
+    rlarge_counts, rlarge = no_cummax_on_b2(run_large_filter, "large filter residual", dev,
+                                            resampling="residual",
+                                            sync_tail=RESIDUAL_SYNC_CHECKED, keep=last)
+    no_waits_in(rlarge["sync_sites"], RESIDUAL_FILES, "large filter residual")
+    # the last weights resampled once more: every particle at least floor(M·w) times
+    rlarge["floor_copies_min_slack"] = residual_floor_check(last["weights"],
+                                                            "large filter residual")
+    print("large filter residual: " + json.dumps(rlarge) + " launches "
+          + json.dumps(rlarge_counts))
+    rfleet_counts, rfleet = no_cummax_on_b2(run_fleet, "fleet residual", dev,
+                                            scans=RESIDUAL_FLEET_SCANS, resampling="residual",
+                                            sync_tail=RESIDUAL_SYNC_CHECKED, keep=last)
+    no_waits_in(rfleet["sync_sites"], RESIDUAL_FILES, "fleet residual")
+    rfleet["floor_copies_min_slack"] = residual_floor_check(last["weights"], "fleet residual")
+    print("fleet residual: " + json.dumps(rfleet) + " launches " + json.dumps(rfleet_counts))
+
+    # 26. the winlut fleet: one shared windowed LUT for 64 filters (slice 14)
+    wfleet_counts, wfleet = no_cummax_on_b2(run_winlut_fleet, "winlut fleet", dev)
+    print("winlut fleet: " + json.dumps(wfleet) + " launches " + json.dumps(wfleet_counts))
+
+    # the landmark and bearing models and the unscented transform (slice 14)
+    print("landmarks: " + json.dumps(run_landmarks(dev)))
+
     # each kernel at the shapes and with the launches of the newest main
     # path that runs it: B1 the windowed filter's (tail and fallback), B2
     # and B3's draw entry the mega filter's where its selective resampling
@@ -3069,7 +3502,9 @@ def main() -> int:
                "prob_fleet": pfleet_counts, "windowed_int8": int8_counts,
                "ndt_node": ndt_counts, "ndt_fleet": nfleet_counts, "ndt3d_node": ndt3_counts,
                "vdb": vdb_counts, **{f"raw_node_{m}": c for m, c in raw_counts.items()},
-               **replay_counts}
+               **replay_counts, "omni_node": omni_counts, "stationary_node": still_counts,
+               "large_residual": rlarge_counts, "fleet_residual": rfleet_counts,
+               "sparse_node": sparse_counts, "winlut_fleet": wfleet_counts}
     for path, c in by_path.items():
         for name in OFF_MAIN_PATHS:  # B3 and B6 go through their new entries
             check(c[name] == 0, f"{path}: {name} launched {c[name]} times")
@@ -3107,8 +3542,12 @@ def main() -> int:
         entry.update({key: k[key] for key in timed})
         if k is s_node:
             entry["other_shapes"] = [{key: s_wide[key] for key in timed}]
-        if k is wc_big:  # the origin clamped at the map's edge
-            entry["other_shapes"] = [{key: wc_edge[key] for key in timed}]
+        if k is wc_big:  # the origin clamped at the map's edge; the winlut fleet's gate
+            entry["other_shapes"] = [{key: wc_edge[key] for key in timed},
+                                     {**{key: wc_fleet[key] for key in timed},
+                                      "path": "winlut_fleet",
+                                      "launches": by_path["winlut_fleet"][wc_fleet["name"]],
+                                      "device_launches_seen": wc_fleet["device_launches_seen"]}]
         if k is d_main:  # the fleet's pools and the other single filter's
             entry["other_shapes"] = [{key: d[key] for key in timed}
                                      for d in (d_fleet, d_big if mega_drew else d_mega)]

@@ -347,5 +347,6 @@ def test_cluster_falls_back_to_plain_estimate():
     m, c = cluster_based_estimate(st, w)
     pm, pc = estimate_se2(st, w)
     assert torch.equal(m.xy, pm.xy) and torch.equal(c, pc)
-    with pytest.raises(NotImplementedError, match="sparse"):
-        cluster_based_estimate(st, w, method="sparse")
+    # the sparse form: the same plain estimate on the same input
+    m, c = cluster_based_estimate(st, w, method="sparse")
+    assert torch.equal(m.xy, pm.xy) and torch.equal(c, pc)

@@ -1359,7 +1359,7 @@ def test_b6_coverage_matches_plain_version(dev, n, tile, tblk, stray_every, shif
     centre = (torch.mean(st.x) + shift, torch.mean(st.y) - shift,
               torch.atan2(torch.mean(st.rot.sin), torch.mean(st.rot.cos)))
     geo = field_window(w.ctx["field"], cfg["k_bins"], cfg["win"], cfg["dth"],
-                       cfg["max_point_radius"], None)
+                       cfg["max_point_radius"])
     before = b6.coverage_launches
     got = b6.winlut_coverage_states(geo, states, *centre, tile, tblk)
     again = b6.winlut_coverage_states(geo, states, *centre, tile, tblk)
@@ -1386,7 +1386,7 @@ def test_b6_coverage_on_two_streams(dev):
     centre = (torch.mean(st.x), torch.mean(st.y),
               torch.atan2(torch.mean(st.rot.sin), torch.mean(st.rot.cos)))
     geo = field_window(w.ctx["field"], cfg["k_bins"], cfg["win"], cfg["dth"],
-                       cfg["max_point_radius"], None)
+                       cfg["max_point_radius"])
     want = b6.winlut_coverage_states_reference(geo, states, *centre, 512, 16)
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
@@ -1810,3 +1810,146 @@ def test_replay_on_device_on_card_is_the_per_scan_loop(dev, tmp_path):
         if r.valid:
             np.testing.assert_array_equal(xyt[t].astype(np.float64), r.pose)
     assert_gate(results, raw)
+
+
+# -- slice 14: residual resampling, the sparse cluster estimate, the winlut fleet ----
+
+
+@pytest.mark.parametrize("lead,n", [((), 262144), ((64,), 4096), ((3,), 1000)])
+def test_residual_on_card_matches_plain_version(dev, lead, n):
+    """Residual resampling on the card: two B2 passes a resample; each
+    particle at least ``floor(M·w)`` times, none of zero weight; and each
+    pass, at the positions of ``residual_positions``, against B2's plain
+    version on the same card tensors: the floor copies bit-equal, the
+    residual rows equal but where a position lies between the kernel's and
+    the plain CDF's values of one entry (the kernel's sums are associated
+    in another order)."""
+    from beluga_tpu_torch.ops import cuda_resample as b2
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    w = torch.rand((*lead, n), generator=gen, device=dev) ** 4
+    w[..., n // 3 : n // 3 + n // 20] = 0.0
+    u = torch.rand((*lead, n + 1), generator=gen, device=dev)
+    ident = torch.arange(n, dtype=torch.float32, device=dev).expand(*lead, n).contiguous()
+    before = b2.launches, b2.cdf_launches
+    got = b2.resample_take_tree_residual(w, ident, u)
+    torch.cuda.synchronize()
+    assert (b2.launches, b2.cdf_launches) == (before[0] + 2, before[1] + 2)
+    counts, u_det, residual, u_res, det = b2.residual_positions(w, u)
+    for i in np.ndindex(lead):
+        c = torch.bincount(got[i].long(), minlength=n)
+        assert int(c.sum()) == n and bool((c >= counts[i].long()).all())
+        assert not c[w[i] == 0].any()
+    planes = ident[..., None, :]
+    for weights, pos, mine in ((counts, u_det, det), (residual, u_res, ~det)):
+        # each CDF made once: torch.cumsum on the card is not run-to-run
+        # deterministic past one CUB tile
+        k_cdf, p_cdf = b2.monotone_cdf(weights.contiguous()), b2.monotone_cdf_reference(weights)
+        kernel = b2.search_take(k_cdf, pos, planes)[..., 0]
+        plain = b2.search_take_reference(p_cdf, pos, planes)[..., 0]
+        moved = (torch.searchsorted(k_cdf, pos, right=True)
+                 != torch.searchsorted(p_cdf, pos, right=True))
+        assert torch.equal((kernel != plain) & mine, moved & mine)
+        if mine is det:  # integer prefix sums: the floor copies' CDF is exact
+            assert not (moved & det).any()
+
+
+def test_sparse_cluster_on_card(dev):
+    """The sparse cluster estimate on the card: two calls give the same bits
+    at 262144 particles, and at 4096 it picks the dense form's cluster (the
+    mean within 1e-5 of its norm, the covariance within 1e-5 of the second
+    moment's scale: both forms take E[x²] - mean² from raw sums)."""
+    from beluga_tpu_torch.algorithms.cluster import cluster_based_estimate
+    from beluga_tpu_torch.lie import SE2
+
+    rng = np.random.default_rng(0)
+    for n in (262144, 4096):
+        xyt = np.concatenate([rng.normal([5, 5, 0.3], [0.4, 0.4, 0.2], (n // 2, 3)),
+                              rng.normal([7, 6, -1], [0.5, 0.5, 0.3], (n - n // 2, 3))])
+        st = SE2.from_xytheta(*(xyt[:, i].astype(np.float32) for i in range(3)), device=dev)
+        w = torch.as_tensor(rng.random(n).astype(np.float32), device=dev)
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+        mask[-n // 10:] = False
+        a = cluster_based_estimate(st, w, mask, method="sparse")
+        b = cluster_based_estimate(st, w, mask, method="sparse")
+        assert torch.equal(a[0].xy, b[0].xy) and torch.equal(a[0].rot.z, b[0].rot.z)
+        assert torch.equal(a[1], b[1])
+        if n == 4096:  # moments within 1e-5 of their scale, as chip_smoke holds them
+            d = cluster_based_estimate(st, w, mask, method="dense")
+            scale = float(d[0].xy.abs().max())
+            torch.testing.assert_close(a[0].xy, d[0].xy, rtol=0, atol=1e-5 * scale)
+            torch.testing.assert_close(a[1], d[1], rtol=0,
+                                       atol=1e-5 * (scale**2 + float(d[1].abs().max())))
+
+
+@pytest.mark.parametrize("batch,n,tile", [(64, 3584, 512), (5, 1000, 128), (1, 65536, 512)])
+def test_b6_coverage_per_filter_matches_plain_version(dev, batch, n, tile):
+    """B6's coverage entry over a fleet ``[B, N]``: one launch, each
+    filter's share equal to its plain version's and to the single-filter
+    call on that filter; one filter moved off the window covers less."""
+    from beluga_tpu_torch.lie import SE2, SO2
+    from beluga_tpu_torch.models.sensor.likelihood_field_winlut import field_window
+    from beluga_tpu_torch.ops import cuda_winlut as b6
+    from beluga_tpu_torch.tools import workloads
+
+    cfg = workloads.WINLUT_FLEET
+    w = workloads.winlut_fleet(1, dev, batch=2, n=1024)  # the field and the first pose
+    geo = field_window(w.ctx["field"], cfg["k_bins"], cfg["win"], cfg["dth"],
+                       cfg["max_point_radius"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(batch)
+    xy = (torch.randn((batch, n, 2), generator=gen, device=dev) * 0.3
+          + torch.tensor([w.scans.xs[0], w.scans.ys[0]], dtype=torch.float32, device=dev))
+    th = torch.sort(torch.randn((batch, n), generator=gen, device=dev) * 0.05
+                    + float(w.scans.yaws[0])).values
+    if batch > 1:
+        xy[0] += 4.0
+    states = SE2(xy.contiguous(), SO2.exp(th))
+    states = SE2(states.xy, SO2(states.rot.z.contiguous()))
+    centre = (torch.mean(xy[..., 0]), torch.mean(xy[..., 1]),
+              torch.atan2(torch.mean(states.rot.sin), torch.mean(states.rot.cos)))
+    before = b6.coverage_launches
+    got = b6.winlut_coverage_states(geo, states, *centre, tile, 16)
+    torch.cuda.synchronize()
+    assert b6.coverage_launches == before + 1 and got.shape == (batch,)
+    want = b6.winlut_coverage_states_reference(geo, states, *centre, tile, 16)
+    assert torch.equal(got, want)
+    for i in range(batch):
+        one = SE2(states.xy[i].contiguous(), SO2(states.rot.z[i].contiguous()))
+        assert torch.equal(b6.winlut_coverage_states(geo, one, *centre, tile, 16), got[i])
+    if batch > 1:
+        assert float(got[0]) < float(got[1:].min())
+
+
+def test_winlut_fleet_on_card(dev):
+    """The winlut fleet on the card: a tight fleet takes the fast branch
+    (B6's states entry once, B4 once for the tails), a diverged filter the
+    exact one (B4 once, B6's states entry never); the coverage entry once
+    an update either way."""
+    from beluga_tpu_torch.lie import SE2
+    from beluga_tpu_torch.ops import cuda_reweight as b1, cuda_winlut as b6
+    from beluga_tpu_torch.tools import workloads
+
+    w = workloads.winlut_fleet(4, dev, batch=8, n=2048)
+    state = w.state
+    for t in range(2):
+        odoms = workloads.fleet_odometry(w.scans, t, 8)
+        before = b6.states_launches, b6.coverage_launches, b1.values3_launches
+        state, est = w.step(w.ctx, state._replace(force_update=np.ones(8, bool)), odoms,
+                            w.points[t], w.mask[t])
+        torch.cuda.synchronize()
+        assert (b6.states_launches, b6.coverage_launches, b1.values3_launches) == (
+            before[0] + 1, before[1] + 1, before[2] + 1)
+        pose = est.pose.as_xytheta().cpu().numpy()
+        assert np.hypot(pose[:, 0] - w.scans.xs[t], pose[:, 1] - w.scans.ys[t]).max() < 0.9
+    p = state.particles
+    moved = SE2(p.state.xy.clone(), p.state.rot)
+    moved.xy[0] += 5.0
+    state = state._replace(particles=p.replace(state=moved))
+    before = b6.states_launches, b6.coverage_launches, b1.values3_launches
+    state, est = w.step(w.ctx, state._replace(force_update=np.ones(8, bool)),
+                        workloads.fleet_odometry(w.scans, 2, 8), w.points[2], w.mask[2])
+    torch.cuda.synchronize()
+    assert (b6.states_launches, b6.coverage_launches, b1.values3_launches) == (
+        before[0], before[1] + 1, before[2] + 1)

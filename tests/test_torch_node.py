@@ -99,8 +99,23 @@ def test_models_not_ported_raise(kw, match):
 
 
 def test_other_motion_models_raise():
-    with pytest.raises(NotImplementedError, match="motion model"):
-        AmclNodeConfig(robot_model_type="nav2_amcl::OmniMotionModel").motion_params()
+    """nav2's omni model and ``stationary`` give their params, as the
+    reference's config does (alpha5 to the strafe noise), and a motion
+    model the builder does not know raises."""
+    from beluga_tpu_torch.filters.builders import make_motion_fn
+    from beluga_tpu_torch.models.motion.omnidirectional import OmnidirectionalDriveParams
+
+    for name in ("nav2_amcl::OmniMotionModel", "omnidirectional_drive", "stationary"):
+        got = AmclNodeConfig(robot_model_type=name, alpha5=0.3).motion_params()
+        want = JAmclNodeConfig(robot_model_type=name, alpha5=0.3).motion_params()
+        if name == "stationary":
+            assert got == want == "stationary"
+        else:
+            assert isinstance(got, OmnidirectionalDriveParams)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        make_motion_fn(got)
+    with pytest.raises(ValueError, match="unknown motion model"):
+        make_motion_fn("ackermann")
 
 
 # -- node behaviour -----------------------------------------------------------------

@@ -51,8 +51,10 @@ from beluga_tpu_torch.ops import cuda_winlut
 torch.set_num_threads(1)
 
 CENTER = (3.2, 3.2, 0.7)
-GEO = dict(k_bins=32, win=64, dth=2.0 * np.pi / 128.0, max_point_radius=2.5,
-           resolution_hint=0.1)
+GEO = dict(k_bins=32, win=64, dth=2.0 * np.pi / 128.0, max_point_radius=2.5)
+# the reference's calls set its resolution_hint to the grid's resolution, as
+# its builders do; the port takes the field's own
+JGEO = {**GEO, "resolution_hint": 0.1}
 ABS_FLOOR = 2e-3
 
 
@@ -81,7 +83,7 @@ def setup():
     mask = np.ones(24, bool)
     mask[5] = False
     jlut = J.build_windowed_scan_lut(jfield, jnp.asarray(points), jnp.asarray(mask),
-                                     *map(jnp.float32, CENTER), **GEO)
+                                     *map(jnp.float32, CENTER), **JGEO)
     lut = P.build_windowed_scan_lut(field, torch.as_tensor(points), torch.as_tensor(mask),
                                     *map(torch.tensor, CENTER), **GEO)
     return dict(jfield=jfield, field=field, points=points, mask=mask, jlut=jlut, lut=lut)
@@ -115,7 +117,7 @@ def test_padded_image_bit_equal(which):
     assert pad == jpad
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     want = J.precompute_padded_field(jfield, 64, 3.6, resolution_hint=res)
-    got = P.precompute_padded_field(field, 64, 3.6, resolution_hint=res)
+    got = P.precompute_padded_field(field, 64, 3.6)
     assert got.shape == want.shape
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -125,7 +127,8 @@ def test_padded_image_bit_equal(which):
 def test_window_geometry_equal(setup, center, win, k_bins):
     """Origin and θ anchor equal the reference's, clamped centers included."""
     geo = {**GEO, "win": win, "k_bins": k_bins}
-    want = J.window_geometry(setup["jfield"], *map(jnp.float32, center), **geo)
+    want = J.window_geometry(setup["jfield"], *map(jnp.float32, center), **geo,
+                             resolution_hint=JGEO["resolution_hint"])
     got = P.window_geometry(setup["field"], *map(torch.tensor, center), **geo)
     assert (int(got[0]), int(got[1]), got[3]) == (int(want[0]), int(want[1]), want[3])
     assert float(got[2]) == float(want[2])
@@ -136,7 +139,8 @@ def test_build_matches_reference_table(setup, win, k_bins):
     geo = {**GEO, "win": win, "k_bins": k_bins}
     center = map(jnp.float32, CENTER)
     jlut = J.build_windowed_scan_lut(setup["jfield"], jnp.asarray(setup["points"]),
-                                     jnp.asarray(setup["mask"]), *center, **geo)
+                                     jnp.asarray(setup["mask"]), *center, **geo,
+                                     resolution_hint=JGEO["resolution_hint"])
     lut = P.build_windowed_scan_lut(setup["field"], torch.as_tensor(setup["points"]),
                                     torch.as_tensor(setup["mask"]),
                                     *map(torch.tensor, CENTER), **geo)
@@ -159,7 +163,7 @@ def test_build_matches_reference_table(setup, win, k_bins):
 def int8_luts(setup):
     jlut = J.build_windowed_scan_lut(setup["jfield"], jnp.asarray(setup["points"]),
                                      jnp.asarray(setup["mask"]), *map(jnp.float32, CENTER),
-                                     table_dtype="int8", **GEO)
+                                     table_dtype="int8", **JGEO)
     lut = P.build_windowed_scan_lut(setup["field"], torch.as_tensor(setup["points"]),
                                     torch.as_tensor(setup["mask"]), *map(torch.tensor, CENTER),
                                     table_dtype="int8", **GEO)
@@ -253,10 +257,10 @@ def test_coverage_functions_equal(setup):
             assert float(P.windowed_coverage(lut, st, stride)) == float(
                 J.windowed_coverage(jlut, jst, stride))
             assert float(P.windowed_coverage_from_center(field, st, *ct, stride=stride, **GEO)) \
-                == float(J.windowed_coverage_from_center(jfield, jst, *cj, stride=stride, **GEO))
+                == float(J.windowed_coverage_from_center(jfield, jst, *cj, stride=stride, **JGEO))
         for tile, tblk in ((128, 8), (64, 16)):
             want = float(J.windowed_coverage_tiled_from_center(jfield, jst, *cj, tile=tile,
-                                                                tblk=tblk, **GEO))
+                                                                tblk=tblk, **JGEO))
             got = float(P.windowed_coverage_tiled_from_center(field, st, *ct, tile=tile,
                                                                tblk=tblk, **GEO))
             assert got == want

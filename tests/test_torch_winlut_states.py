@@ -36,8 +36,10 @@ from beluga_tpu_torch.ops import cuda_winlut
 torch.set_num_threads(1)
 
 CENTER = (3.2, 3.2, 0.7)
-GEO = dict(k_bins=32, win=64, dth=2.0 * np.pi / 128.0, max_point_radius=2.5,
-           resolution_hint=0.1)
+GEO = dict(k_bins=32, win=64, dth=2.0 * np.pi / 128.0, max_point_radius=2.5)
+# the reference's calls set its resolution_hint to the grid's resolution, as
+# its builders do; the port takes the field's own
+JGEO = {**GEO, "resolution_hint": 0.1}
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +60,7 @@ def setup():
     mask[5] = False
     jluts = {dtype: J.build_windowed_scan_lut(jfield, points, jnp.asarray(mask),
                                               *map(jnp.float32, CENTER), table_dtype=dtype,
-                                              **GEO)
+                                              **JGEO)
              for dtype in ("bf16", "int8")}
     return dict(jfield=jfield, field=field, jluts=jluts)
 
@@ -123,10 +125,10 @@ def test_coverage_states_equals_reference(setup, which, tile, tblk):
     equals the reference's ``windowed_coverage_tiled_from_center``."""
     jst, st = coverage_clouds()[which]
     want = float(J.windowed_coverage_tiled_from_center(
-        setup["jfield"], jst, *map(jnp.float32, CENTER), tile=tile, tblk=tblk, **GEO))
+        setup["jfield"], jst, *map(jnp.float32, CENTER), tile=tile, tblk=tblk, **JGEO))
     center = [torch.tensor(c) for c in CENTER]
     geo = P.field_window(setup["field"], GEO["k_bins"], GEO["win"], GEO["dth"],
-                         GEO["max_point_radius"], GEO["resolution_hint"])
+                         GEO["max_point_radius"])
     got = cuda_winlut.winlut_coverage_states(geo, st, *center, tile=tile, tblk=tblk)
     assert got.dtype == torch.float32 and got.shape == ()
     assert float(got) == want
@@ -142,7 +144,7 @@ def test_states_wrappers_reject_bad_inputs(setup):
     cuda_winlut.winlut_lookup_states(lut, st, lut.miss)  # accepted
     xy, z = st.xy, st.rot.z
     geo = P.field_window(setup["field"], GEO["k_bins"], GEO["win"], GEO["dth"],
-                         GEO["max_point_radius"], GEO["resolution_hint"])
+                         GEO["max_point_radius"])
     center = [torch.tensor(c) for c in CENTER]
     bad_states = [
         (SE2(xy.double(), SO2(z)), "states.xy must be float32"),
