@@ -62,7 +62,13 @@ def estimate_se2(states: SE2, weights: Tensor, mask: Tensor | None = None):
 
     centered = states.xy - mean_xy[..., None, :]
     cov_t = (centered.transpose(-1, -2) * w[..., None, :]) @ centered / corr[..., None, None]
+    return se2_from_moments(mean_xy, mean_z, cov_t)
 
+
+def se2_from_moments(mean_xy: Tensor, mean_z: Tensor, cov_t: Tensor):
+    """The SE2 estimate from its weighted moments: the mean translation
+    ``[..., 2]``, the unnormalized mean complex ``[..., 2]`` and the
+    corrected translation covariance ``[..., 2, 2]``."""
     norm = torch.sqrt(mean_z[..., 0] * mean_z[..., 0] + mean_z[..., 1] * mean_z[..., 1])
     degenerate = norm < 1e-7
     yaw_var = torch.where(
@@ -73,7 +79,7 @@ def estimate_se2(states: SE2, weights: Tensor, mask: Tensor | None = None):
     mean_rot = SO2(torch.where(degenerate[..., None], identity_z,
                                mean_z / torch.clamp_min(norm, 1e-38)[..., None]))
 
-    cov = torch.zeros((*norm.shape, 3, 3), dtype=torch.float32, device=w.device)
+    cov = torch.zeros((*norm.shape, 3, 3), dtype=torch.float32, device=norm.device)
     cov[..., :2, :2] = cov_t
     cov[..., 2, 2] = yaw_var
     return SE2(mean_xy, mean_rot), cov

@@ -127,15 +127,24 @@ def tree_scatter(base: Any, indices: Tensor, updates: Any) -> Any:
     axis of every leaf, with the filter axes ``[...]`` of ``indices``
     first; indices outside ``[0, N)`` are dropped (callers mask invalid
     slots with ``N``).  Nothing is read back: dropped entries land in a
-    spare slot that is cut off.  Duplicate indices keep one of their
-    updates, in no specified order (as JAX's scatter)."""
+    spare slot that is cut off.  Of entries with the same index the last
+    one is written, on every device and in every run (JAX's scatter leaves
+    the order unspecified, and so does a CUDA ``index_copy_``: the filter's
+    result would depend on the run)."""
     lead = tuple(indices.shape[:-1])
     rows = math.prod(lead)
+    n = tree_leaves(base)[0].shape[len(lead)]
+    idx = torch.where((indices >= 0) & (indices < n), indices, n).long().reshape(rows, -1)
+    # an entry followed by another of its index (a stable sort keeps their
+    # order) goes to the spare slot
+    ordered, perm = torch.sort(idx, dim=-1, stable=True)
+    later = torch.zeros_like(ordered, dtype=torch.bool)
+    later[:, :-1] = ordered[:, 1:] == ordered[:, :-1]
+    idx = torch.where(torch.zeros_like(later).scatter_(-1, perm, later), n, idx)
+    idx = idx + (n + 1) * torch.arange(rows, device=idx.device)[:, None]
 
     def scatter(b: Tensor, u: Tensor) -> Tensor:
-        n, tail = b.shape[len(lead)], b.shape[len(lead) + 1:]
-        idx = torch.where((indices >= 0) & (indices < n), indices, n).long().reshape(rows, -1)
-        idx = idx + (n + 1) * torch.arange(rows, device=idx.device)[:, None]
+        tail = b.shape[len(lead) + 1:]
         out = torch.cat([b.reshape(rows, n, *tail), b.reshape(rows, n, *tail)[:, :1]], dim=1)
         out.view(rows * (n + 1), *tail).index_copy_(0, idx.reshape(-1),
                                                     u.reshape(-1, *tail))

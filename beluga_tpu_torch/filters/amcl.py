@@ -11,6 +11,9 @@ particles restart with weight 1; ``every_n`` counts gated-in updates.
 One update body serves one filter and a fleet (port of
 ``parallel/fleet.py:make_fleet_update``, which ``vmap``s this update): every
 stage takes leading filter axes and reduces over the particle axis only.
+:func:`step` runs that body with the particle-axis steps of a
+:class:`ParticleOps` table: :data:`DENSE` here, collectives over ranks in
+``parallel/mega.py`` for a particle axis split across them.
 Where the JAX package branches with ``lax.cond``, the port decides on the
 host without reading the particles back:
 
@@ -208,6 +211,54 @@ class UpdateDraws(NamedTuple):
     residual_uniforms: Tensor | None = None
 
 
+def draw_update(params: AmclParams, models: AmclModels, ctx: Any, particles: ParticleSet,
+                generator: torch.Generator, p_random=0.01) -> UpdateDraws:
+    """Every draw of one update of ``particles`` (one filter or a fleet)
+    from ``generator``, in the update's own order, as :class:`UpdateDraws`:
+    for feeding two updates (the dense one and the sharded one of
+    ``parallel/mega.py``) the same draws.  A pooled injection's binomial
+    count is drawn with ``p_random`` (a float, or ``f32[...]``), which the
+    update itself would take from its Thrun filters."""
+    lead = tuple(particles.log_weight.shape[:-1])
+    m, dev = params.max_particles, particles.log_weight.device
+    z = torch.randn((*lead, 3, particles.capacity), generator=generator, dtype=torch.float32,
+                    device=dev)
+    drawn = _draw_positions(params, generator, lead, dev)
+    p = torch.as_tensor(p_random, dtype=torch.float32, device=dev).expand(lead).contiguous()
+    randoms, count, slots, inject_u = _draw_injection(models, ctx, generator, particles, p, m,
+                                                      params.recovery_pool)
+    residual = params.resampling == "residual"
+    return UpdateDraws(z, None if residual else drawn, inject_u, randoms, count, slots,
+                       drawn if residual else None)
+
+
+def _draw_positions(params: AmclParams, gen: torch.Generator, lead: tuple, dev) -> Tensor:
+    """The resampler's draws for ``max_particles`` slots: the positions, or
+    residual resampling's ``m + 1`` uniforms."""
+    m = params.max_particles
+    if params.resampling == "multinomial":
+        return sorted_multinomial_positions(gen, m, lead)
+    if params.resampling == "residual":
+        return torch.rand((*lead, m + 1), generator=gen, dtype=torch.float32, device=dev)
+    return POSITIONERS[params.resampling](gen, m, lead)
+
+
+def _draw_injection(models: AmclModels, ctx: Any, gen: torch.Generator,
+                    particles: ParticleSet, p_random: Tensor, n: int, pool: int):
+    """The injection's draws for ``n`` slots, as ``(random_states,
+    inject_count, inject_slots, inject_uniform)`` of :class:`UpdateDraws`:
+    with a ``pool`` below ``n`` the pool, the binomial count and the target
+    slots, else a recovery state and a uniform for every slot."""
+    lead, dev = tuple(particles.log_weight.shape[:-1]), particles.log_weight.device
+    if pool and pool < n:
+        randoms = models.random_state(ctx, gen, pool, particles)
+        count = torch.binomial(torch.full_like(p_random, float(n)), p_random, generator=gen)
+        slots = torch.randint(0, n, (*lead, pool), generator=gen, device=dev)
+        return randoms, count, slots, None
+    inject_u = torch.rand((*lead, n), generator=gen, dtype=torch.float32, device=dev)
+    return models.random_state(ctx, gen, n, particles), None, None, inject_u
+
+
 def se2_sort_key(states: SE2) -> Tensor:
     """Slot-sort key of ``sorted_slots`` SE2 filters (amcl.py:179-201):
     theta, plus 100 for stray particles beyond 3.5 sigma of their filter's
@@ -374,6 +425,16 @@ def update(
       sort_now: override of the ``sorted_slots`` sort schedule: ``True``
         sorts, ``False`` does not, ``None`` follows ``sort_interval``.
     """
+    return step(DENSE, params, models, ctx, state, odom_pose, points, beam_mask, draws,
+                sort_now)
+
+
+def step(ops: "ParticleOps", params: AmclParams, models: AmclModels, ctx: Any,
+         state: AmclState, odom_pose, points: Tensor, beam_mask: Tensor,
+         draws: UpdateDraws | None = None,
+         sort_now: bool | None = None) -> tuple[AmclState, Estimate]:
+    """:func:`update` with the particle-axis steps of ``ops``: :data:`DENSE`,
+    or the sharded update's (``parallel/mega.py``)."""
     moved, motion_latest = _on_motion(
         params, models, state.motion_latest, state.motion_seeded, odom_pose
     )
@@ -381,11 +442,11 @@ def update(
     state = state._replace(motion_latest=motion_latest,
                            motion_seeded=_host(np.ones_like(due)))
     if due.all():
-        state = _gated_in(params, models, ctx, state, odom_pose, points, beam_mask,
+        state = _gated_in(ops, params, models, ctx, state, odom_pose, points, beam_mask,
                           draws, sort_now)
     elif due.any():
         # filters that gate apart: step them all, keep the gated-out ones
-        new = _gated_in(params, models, ctx, state, odom_pose, points, beam_mask,
+        new = _gated_in(ops, params, models, ctx, state, odom_pose, points, beam_mask,
                         draws, sort_now)
         keep = torch.as_tensor(due, device=state.particles.log_weight.device)
         state = new._replace(
@@ -396,11 +457,12 @@ def update(
             control_seeded=state.control_seeded | due,
             force_update=state.force_update & ~due,
         )
-    mean, cov = models.estimate(params, state.particles)
+    mean, cov = ops.estimate(params, models, state.particles)
     return state, Estimate(mean, cov, _host(due))
 
 
-def _gated_in(params: AmclParams, models: AmclModels, ctx: Any, state: AmclState,
+def _gated_in(ops: "ParticleOps", params: AmclParams, models: AmclModels, ctx: Any,
+              state: AmclState,
               odom_pose: SE2, points: Tensor, beam_mask: Tensor,
               draws: UpdateDraws | None, sort_now: bool | None) -> AmclState:
     """The update of every filter of ``state`` (amcl.py:314-536)."""
@@ -414,7 +476,8 @@ def _gated_in(params: AmclParams, models: AmclModels, ctx: Any, state: AmclState
 
     # -- propagate | reweight | normalize -----------------------------------
     if draws is None:
-        z = torch.randn((*lead, 3, n), generator=gen, dtype=torch.float32, device=dev)
+        z = torch.randn((*lead, 3, n), generator=ops.slot_generator(gen), dtype=torch.float32,
+                        device=dev)
     else:
         z = draws.motion_normals
     if models.fused_propagate_reweight is not None:
@@ -423,8 +486,8 @@ def _gated_in(params: AmclParams, models: AmclModels, ctx: Any, state: AmclState
     else:
         new_states = models.propagate(ctx, z, particles.state, odom_pose, prev_pose)
         log_lik = models.log_weight(ctx, new_states, points, beam_mask)
-    log_w = torch.where(particles.mask, particles.log_weight + log_lik, DEAD_LOG_WEIGHT)
-    particles = normalize(ParticleSet(new_states, log_w, particles.active))
+    log_w = torch.where(ops.mask(particles), particles.log_weight + log_lik, DEAD_LOG_WEIGHT)
+    particles = ops.normalize(ParticleSet(new_states, log_w, particles.active))
 
     # -- Thrun recovery probability (post-normalize, amcl_core.hpp:179) -----
     avg_weight = 1.0 / torch.clamp_min(particles.active.float(), 1.0)
@@ -438,7 +501,7 @@ def _gated_in(params: AmclParams, models: AmclModels, ctx: Any, state: AmclState
     do_resample = resample_count % params.resample_interval == 0
     select = None  # device bool[B] of the filters that resample; None: all
     if do_resample.any() and params.selective_resampling:
-        ess_low = effective_sample_size(particles) < 0.5 * particles.active.float()
+        ess_low = ops.ess(particles) < 0.5 * particles.active.float()
         if lead:
             select = torch.as_tensor(do_resample, device=dev) & ess_low  # no readback
         else:
@@ -447,8 +510,10 @@ def _gated_in(params: AmclParams, models: AmclModels, ctx: Any, state: AmclState
         select = torch.as_tensor(do_resample, device=dev)
 
     if do_resample.any():
-        resampled, thrun_r = _resample(params, models, ctx, gen, particles, thrun,
-                                       p_random, draws)
+        resampled = ops.resample(params, models, ctx, gen, particles, p_random, draws)
+        # reset the estimator after injecting randomness (amcl_core.hpp:184-186)
+        fresh = ThrunState.init(dev, lead)
+        thrun_r = tree_map(lambda a, b: torch.where(p_random > 0.0, a, b), fresh, thrun)
         if select is None:
             particles, thrun = resampled, thrun_r
         else:
@@ -465,10 +530,10 @@ def _gated_in(params: AmclParams, models: AmclModels, ctx: Any, state: AmclState
         else:
             sort_due = np.ones(lead, bool)
         if sort_due.all():
-            particles = _sort_slots(models, particles)
+            particles = ops.sort_slots(models, particles)
         elif sort_due.any():
             particles = _select(torch.as_tensor(sort_due, device=dev),
-                                _sort_slots(models, particles), particles)
+                                ops.sort_slots(models, particles), particles)
 
     return state._replace(
         particles=particles,
@@ -481,24 +546,24 @@ def _gated_in(params: AmclParams, models: AmclModels, ctx: Any, state: AmclState
 
 
 def _resample(params: AmclParams, models: AmclModels, ctx: Any, gen: torch.Generator,
-              particles: ParticleSet, thrun: ThrunState, p_random: Tensor,
-              draws: UpdateDraws | None) -> tuple[ParticleSet, ThrunState]:
+              particles: ParticleSet, p_random: Tensor,
+              draws: UpdateDraws | None) -> ParticleSet:
     """The resample branch for every filter (amcl.py:354-477)."""
     lead = tuple(particles.log_weight.shape[:-1])
     m = params.max_particles
     dev = particles.log_weight.device
-    # reset the estimator after injecting randomness (amcl_core.hpp:184-186)
-    fresh = ThrunState.init(dev, lead)
-    thrun = tree_map(lambda a, b: torch.where(p_random > 0.0, a, b), fresh, thrun)
     adaptive = params.min_particles < params.max_particles
     weights = particles.weight
+    if draws is None:
+        positions = _draw_positions(params, gen, lead, dev)
+    else:
+        positions = (draws.residual_uniforms if params.resampling == "residual"
+                     else draws.positions)
     if params.resampling == "multinomial":
         # sorted order statistics: the exact multinomial donor multiset
         # (pallas_resample.py:548-574), interleaved unless the slots keep
         # theta order with a fixed count; adaptive KLD needs the unbiased
         # prefix the interleave gives (amcl.py:414-417)
-        positions = (sorted_multinomial_positions(gen, m, lead) if draws is None
-                     else draws.positions)
         donors = resample_take_tree_multinomial(
             gen, weights, particles.state, m, positions=positions,
             interleave=adaptive or not params.sorted_slots,
@@ -507,58 +572,86 @@ def _resample(params: AmclParams, models: AmclModels, ctx: Any, gen: torch.Gener
         if params.resampling == "residual":
             # floor copies, then the residual draws: two passes of B2
             # (amcl.py:369-397)
-            if draws is None:
-                u = torch.rand((*lead, m + 1), generator=gen, dtype=torch.float32, device=dev)
-            else:
-                u = draws.residual_uniforms
-            donors = resample_take_tree_residual(weights, particles.state, u)
+            donors = resample_take_tree_residual(weights, particles.state, positions)
         else:
-            positions = (POSITIONERS[params.resampling](gen, m, lead) if draws is None
-                         else draws.positions)
             donors = resample_take_tree(weights, positions, particles.state)
         if adaptive:
             # CDF-ordered donors: spread them so any slot prefix (the KLD
             # active prefix) covers the whole CDF
             donors = tree_map(lambda leaf: interleave_slots(leaf, axis=len(lead)), donors)
-    pool = params.recovery_pool
-    if pool and pool < m:
-        # bounded pool: n_inj ~ Binomial(m, p), clamped to the pool, entries
-        # at iid uniform slots; colliding targets keep one of their entries
-        if draws is None:
-            randoms = models.random_state(ctx, gen, pool, particles)
-            count = torch.binomial(torch.full_like(p_random, float(m)), p_random,
-                                   generator=gen)
-            slots = torch.randint(0, m, (*lead, pool), generator=gen, device=dev)
-        else:
-            randoms, count, slots = draws.random_states, draws.inject_count, draws.inject_slots
+    candidates, active = inject_and_count(params, models, ctx, gen, particles, donors,
+                                          p_random, draws, m, params.recovery_pool)
+    return make_from_states(candidates, active=active, batch_dims=len(lead))
+
+
+def inject_and_count(params: AmclParams, models: AmclModels, ctx: Any, gen: torch.Generator,
+                     particles: ParticleSet, donors: Any, p_random: Tensor,
+                     draws: UpdateDraws | None, n: int, pool: int,
+                     gather: Callable | None = None) -> tuple[Any, Tensor]:
+    """The resample's tail over the ``n`` slots of ``donors`` (the whole
+    filter, or one rank's slice of it): the recovery injection, then the
+    KLD count; ``(candidates, active)``.  ``gather`` (identity by default)
+    puts the slices of every rank together along the particle axis, so
+    that every rank counts the same hashes."""
+    lead = tuple(particles.log_weight.shape[:-1])
+    dev = particles.log_weight.device
+    if draws is None:
+        randoms, count, slots, inject_u = _draw_injection(models, ctx, gen, particles,
+                                                          p_random, n, pool)
+    else:
+        randoms, count, slots, inject_u = (draws.random_states, draws.inject_count,
+                                           draws.inject_slots, draws.inject_uniform)
+    if pool and pool < n:
+        # bounded pool: n_inj ~ Binomial(n, p), clamped to the pool, entries
+        # at iid uniform slots; colliding targets keep the last of their entries
         n_inj = torch.clamp_max(count.to(dev), float(pool))
         target = torch.where(torch.arange(pool, device=dev) < n_inj[..., None],
-                             slots.to(dev), m)  # m: dropped
+                             slots.to(dev), n)  # n: dropped
         candidates = tree_scatter(donors, target, randoms)
     else:
-        if draws is None:
-            inject_u = torch.rand((*lead, m), generator=gen, dtype=torch.float32, device=dev)
-            randoms = models.random_state(ctx, gen, m, particles)
-        else:
-            inject_u, randoms = draws.inject_uniform, draws.random_states
         candidates = tree_where(inject_u < p_random[..., None], randoms, donors)
-    if adaptive:
+    m = params.max_particles
+    if params.min_particles < m:
         # KLD on the candidates in draw/CDF order, before any theta sort
         # (take_while_kld.hpp:72-88)
-        active = kld_active_count(
-            models.hash_state(params, candidates), params.min_particles, m,
-            params.kld_epsilon, params.kld_z,
-        )
+        hashes = models.hash_state(params, candidates)
+        active = kld_active_count(hashes if gather is None else gather(hashes),
+                                  params.min_particles, m, params.kld_epsilon, params.kld_z)
     else:
         # take_while_kld's `count <= min` clause keeps all of them
         active = torch.full(lead, m, dtype=torch.int32, device=dev)
-    return make_from_states(candidates, active=active, batch_dims=len(lead)), thrun
+    return candidates, active
 
 
-def _sort_slots(models: AmclModels, particles: ParticleSet) -> ParticleSet:
+def sort_slots(models: AmclModels, particles: ParticleSet, mask: Tensor) -> ParticleSet:
     """Theta-sort the slots: log-weights travel with their states, dead
-    slots sort last (``inf`` keys) so the live prefix holds."""
+    slots (``~mask``) sort last (``inf`` keys) so the live prefix holds."""
     key_fn = models.sort_key or se2_sort_key
-    keys = torch.where(particles.mask, key_fn(particles.state), torch.inf)
+    keys = torch.where(mask, key_fn(particles.state), torch.inf)
     state, log_w = tree_sort_by(keys, (particles.state, particles.log_weight))
     return ParticleSet(state, log_w, particles.active)
+
+
+class ParticleOps(NamedTuple):
+    """The steps of :func:`step` that see the whole particle axis, or draw
+    per slot: :data:`DENSE` reduces over the particle tensor, the sharded
+    update (``parallel/mega.py``) over the ranks that hold its slices."""
+
+    mask: Callable  # (particles) -> bool[..., N] of the live slots
+    normalize: Callable  # (particles) -> particles
+    ess: Callable  # (particles) -> f32[...]
+    resample: Callable  # as _resample; ``gen`` is the state's generator
+    sort_slots: Callable  # (models, particles) -> particles
+    estimate: Callable  # (params, models, particles) -> (mean, covariance)
+    slot_generator: Callable  # (state.generator) -> the motion normals' generator
+
+
+DENSE = ParticleOps(
+    mask=lambda particles: particles.mask,
+    normalize=normalize,
+    ess=effective_sample_size,
+    resample=_resample,
+    sort_slots=lambda models, particles: sort_slots(models, particles, particles.mask),
+    estimate=lambda params, models, particles: models.estimate(params, particles),
+    slot_generator=lambda gen: gen,
+)

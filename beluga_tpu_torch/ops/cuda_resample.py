@@ -243,7 +243,8 @@ def resample_take_tree_multinomial(
     return tree_map(lambda leaf: interleave_slots(leaf, axis=len(lead)), donors)
 
 
-def residual_positions(weights: Tensor, uniforms: Tensor):
+def residual_positions(weights: Tensor, uniforms: Tensor, ranks: Tensor | None = None,
+                       reduce=None):
     """The two passes' inputs of residual resampling for ``num`` donors a
     filter (amcl.py:369-397): ``(counts, u_det, residual, u_res, det)``.
 
@@ -254,15 +255,27 @@ def residual_positions(weights: Tensor, uniforms: Tensor):
     on; ``residual = num·w - counts`` at ``u_res``,
     :func:`sorted_residual_from_uniform` of ``uniforms`` f32[..., num + 1].
     ``r0`` stays a device tensor per filter (the division is by it, not by
-    a host number), so nothing is read back."""
+    a host number), so nothing is read back.
+
+    For weights split across ranks (``parallel/mega.py``), ``weights`` is
+    this rank's slice, ``reduce`` sums a per-filter total over the ranks
+    and ``ranks`` (int64) names the global slots whose positions are
+    wanted; ``counts`` and ``residual`` stay this rank's slices, to be
+    gathered into the two CDFs."""
     num = uniforms.shape[-1] - 1
-    w = weights / torch.clamp_min(torch.sum(weights, dim=-1, keepdim=True), 1e-38)
+    reduce = reduce or (lambda t: t)
+    total = reduce(torch.sum(weights, dim=-1, keepdim=True))
+    w = weights / torch.clamp_min(total, 1e-38)
     counts = torch.floor(w * num)
-    r0 = torch.sum(counts, dim=-1)
-    slots = torch.arange(num, dtype=torch.float32, device=weights.device)
+    r0 = reduce(torch.sum(counts, dim=-1))
+    slots = (torch.arange(num, dtype=torch.float32, device=weights.device) if ranks is None
+             else ranks.to(torch.float32))
     det = slots < r0[..., None]
     u_det = torch.where(det, (slots + 0.5) / torch.clamp_min(r0, 1.0)[..., None], 1.5)
-    return counts, u_det, w * num - counts, sorted_residual_from_uniform(uniforms, r0), det
+    u_res = sorted_residual_from_uniform(uniforms, r0)
+    if ranks is not None:
+        u_res = u_res.index_select(-1, ranks)
+    return counts, u_det, w * num - counts, u_res, det
 
 
 def resample_take_tree_residual(weights: Tensor, states: Any, uniforms: Tensor) -> Any:

@@ -151,6 +151,31 @@ Phases, each of which exits non-zero when it fails:
    one, the fast branch at least once; then filter 0 moved 5 m off, which
    trips the exact branch; the last 3 scans with the waits listed, one line
    of ``filters/builders.py`` among them (the gate's readback);
+27. mega sharded: phase 7's mega filter (2097152 x 60) with its particles
+   split over one ``torch.distributed`` rank a visible card (NCCL; world
+   size 1 on one card, in this process; past it one process a card,
+   rank 0 reporting), placed by ``shard_mega_state`` and stepped by
+   ``make_mega_update`` for 64 forced updates, the θ sort on every 8th:
+   phase 7's gate; B5 once an update, B2 (and its CDF) once a resample,
+   B3's draw entry, B1, B4 and B6 never; then 8 updates against the dense
+   update on the same ``UpdateDraws``, each from the sharded state
+   gathered: at one rank particles, log-weights and the active count
+   bit-equal and the estimate within 1e-5 (x, y) and 1e-4 (covariance),
+   past it the estimate within 0.05 m (``tests/test_mega.py:187-237``);
+   then 16 updates of each in turns (ms an update) and 4 sharded ones
+   under ``torch.profiler`` (NCCL's kernels and device ms apart from every
+   other kernel's), the peak device memory;
+28. fleet sharded: phase 6's fleet placed by ``shard_fleet`` on the ``("dp",
+   "tp")`` mesh of the ranks ((1, 1) on one card, ``tp`` 2 on an even
+   count), its map by ``replicate``, 20 updates within the gate, B4, B2
+   and B3's draw entry once an update, B1 never; then 4 updates against
+   the dense fleet on the same draws (bit-equal at one rank, the
+   estimates within 2e-4 past it); the sharded mega state through
+   ``save_state_sharded`` and ``load_state_sharded``, bit-equal with its
+   generators, and the next update from either the same; and ``python -m
+   beluga_tpu_torch.parallel.multihost --particles 4096
+   --filters-per-device 8`` as a subprocess, its rows parsed, filters/s
+   above 0;
 and the landmark and bearing models at 2000 SE2 and 2000 SE3 particles x
 32 detections x 256 landmarks against the CPU's run of the same inputs,
 and one unscented transform on the card.  Phase 3 also holds B6's coverage
@@ -200,7 +225,9 @@ shape (K = 128 at 100 m), two launches bit-equal, and its window-origins
 kernel (B7's first launch of two) equal to ``window_origins`` at both
 shapes.
 
-Phases 4 to 26 run the configurations of ``beluga_tpu_torch/tools/workloads.py``.
+Phases 4 to 28 run the configurations of ``beluga_tpu_torch/tools/workloads.py``;
+phases 27 and 28 run last, after the landmark check, and the process
+group is gone before the last three lines.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; on every path B2's CDF kernel ("B2-cdf monotone_cdf") runs once
@@ -215,6 +242,7 @@ before the last is ``nvidia-smi``'s name and power limit; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -3209,6 +3237,382 @@ def run_landmarks(dev) -> dict:
     return out
 
 
+# -- slice 15: the sharded mega filter and fleet over torch.distributed ----------
+
+SHARDED_COMPARE = 8  # updates held against the dense update on the same draws
+SHARDED_TIMED = 16  # updates of each timed in turns, sharded and dense
+SHARDED_PROFILED = 4  # sharded updates under torch.profiler: NCCL's kernels apart
+SHARDED_FLEET_SCANS, SHARDED_FLEET_COMPARE = 20, 4
+# past one rank, the estimates' gap to the dense update on the same draws:
+# tests/test_mega.py:187-237 (the flagship on 2 devices) and
+# tests/test_parallel.py:127-130 (the fleet)
+MEGA_SHARDED_ATOL, FLEET_SHARDED_ATOL = 0.05, 2e-4
+SHARDED_TIMEOUT = 600.0  # seconds the ranks of phases 27-28 may take past one card
+MULTIHOST_TIMEOUT = 300
+
+
+def whole_state(state, tp_mesh, seed: int):
+    """The filters of a sharded state with their particles gathered over the
+    ``tp`` group (the whole filter at one rank along ``tp``), and a plain
+    generator of ``seed``: the dense update's state."""
+    from beluga_tpu_torch.core.particles import ParticleSet
+    from beluga_tpu_torch.parallel.collectives import all_gather_last
+    from beluga_tpu_torch.parallel.mega import all_gather_states
+
+    group, p = tp_mesh.get_group("tp"), state.particles
+    gen = torch.Generator(device=p.log_weight.device)
+    gen.manual_seed(seed)
+    return state._replace(
+        particles=ParticleSet(all_gather_states(p.state, group, p.log_weight.dim() - 1),
+                              all_gather_last(p.log_weight, group), p.active),
+        generator=gen)
+
+
+def same_draws_gap(dense, sharded, dest, sest, tp_mesh) -> dict:
+    """How far a sharded update lies from the dense one on the same draws:
+    whether particles, log-weights and active counts are bit-equal, the
+    share of donor rows that differ, the largest relative log-weight gap,
+    and the estimates' largest x/y and 2 x 2 covariance gaps."""
+    whole = whole_state(sharded, tp_mesh, 0).particles
+    d, s = dense.particles, whole
+    rows = torch.any(d.state.xy != s.state.xy, -1) | torch.any(d.state.rot.z != s.state.rot.z, -1)
+    live = d.log_weight > -1e29
+    rel = torch.abs(d.log_weight - s.log_weight) / torch.clamp_min(torch.abs(d.log_weight), 1e-30)
+    same = (torch.equal(d.state.xy, s.state.xy), torch.equal(d.state.rot.z, s.state.rot.z),
+            torch.equal(d.log_weight, s.log_weight), torch.equal(d.active, s.active))
+    return dict(
+        bit_equal=all(same),
+        rows_differ_share=float(rows.float().mean()),
+        log_w_max_rel=float(torch.where(live, rel, 0.0).max()),
+        active_equal=bool(torch.equal(d.active, s.active)),
+        est_xy_gap=float(torch.abs(dest.pose.xy - sest.pose.xy).max()),
+        cov_gap=float(torch.abs(dest.covariance[..., :2, :2] - sest.covariance[..., :2, :2]).max()))
+
+
+def check_same_draws(gaps: list, world: int, what: str, est_atol: float, cov_atol) -> dict:
+    """At one rank every compared update bit-equal and the estimate within
+    1e-5 on x, y and 1e-4 on the 2 x 2 covariance (tests/test_mega.py:
+    66-93); past it the CPU tests' tolerance for the configuration: the
+    estimate's x and y within ``est_atol`` and its covariance within
+    ``cov_atol`` (unchecked when ``None``), the active counts equal.  Past
+    one rank each rank sorts its own slots and the windowed models centre
+    their window on the rank's own cloud, so slots and weights differ."""
+    for i, g in enumerate(gaps):
+        if world == 1:
+            check(g["bit_equal"] and g["est_xy_gap"] <= 1e-5 and g["cov_gap"] <= 1e-4,
+                  f"{what} update {i}: not bit-equal to the dense update on the same draws: {g}")
+        else:
+            check(g["active_equal"] and g["est_xy_gap"] <= est_atol
+                  and (cov_atol is None or g["cov_gap"] <= cov_atol),
+                  f"{what} update {i}: estimate apart from the dense one: {g}")
+    return {key: max(float(g[key]) for g in gaps) for key in
+            ("rows_differ_share", "log_w_max_rel", "est_xy_gap", "cov_gap")} | {
+        "compared_updates": len(gaps), "all_bit_equal": all(g["bit_equal"] for g in gaps)}
+
+
+def nccl_window(step, t0: int, t1: int) -> dict:
+    """Scans ``t0`` to ``t1`` of ``step(t)`` under ``torch.profiler``: NCCL's
+    kernels (names with ``nccl``) an update and their device ms, apart from
+    every other kernel's; the collective calls (``c10d::`` operators) an
+    update and the host ms inside them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in range(t0, t1):
+            step(t)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    nccl = [e for e in device if "nccl" in e.name.lower()]
+    other = [e for e in device if "nccl" not in e.name.lower()
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    calls = [e for e in prof.events()
+             if e.device_type == DeviceType.CPU and e.name.startswith("c10d::")]
+    n = t1 - t0
+
+    def ms(events):
+        return 1e-3 * sum(e.time_range.elapsed_us() for e in events) / n
+
+    return dict(profiled_updates=n, collective_calls_per_update=len(calls) / n,
+                collective_host_ms_per_update=ms(calls),
+                collective_names=sorted({e.name for e in calls}),
+                nccl_kernels_per_update=len(nccl) / n,
+                nccl_device_ms_per_update=ms(nccl), other_kernels_per_update=len(other) / n,
+                other_device_ms_per_update=ms(other),
+                nccl_kernel_names=sorted({e.name for e in nccl})[:8])
+
+
+def run_mega_sharded(dev, world: int, scans: int = MEGA_SCANS):
+    """Phase 27: the mega filter (phase 7's configuration, 2097152 x 60)
+    split over the ``tp`` axis of every rank, through ``make_mega_update``:
+    ``scans`` forced updates with the θ sort on every 8th and phase 7's
+    gate; then SHARDED_COMPARE updates against the dense update on the same
+    draws; then SHARDED_TIMED updates of each in turns.  Returns the main
+    run's launch counts, the result and the sharded state."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from beluga_tpu_torch.filters.amcl import draw_update, host_pose, update
+    from beluga_tpu_torch.parallel.mega import make_mega_update, shard_draws, shard_mega_state
+    from beluga_tpu_torch.tools import workloads
+
+    total = scans + SHARDED_COMPARE + SHARDED_TIMED + SHARDED_PROFILED
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    mesh = init_device_mesh(dev.type, (world,), mesh_dim_names=("tp",))
+    w = workloads.mega(total, dev)
+    s = w.scans
+    state = shard_mega_state(mesh, w.state)  # its broadcasts start NCCL, untimed
+    mega = make_mega_update(w.params, w.models, mesh)
+
+    def args(t):
+        return (host_pose(s.xs[t], s.ys[t], s.yaws[t]), w.points[t], w.mask[t])
+
+    def sort_now(t):
+        return t % workloads.MEGA_SORT_EVERY == 0
+
+    reset_counts()
+    times, errs, yaws = [], [], []
+    for t in range(scans):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, est = mega(w.ctx, state._replace(force_update=True), *args(t),
+                          sort_now=sort_now(t))
+        pose = est.pose.as_xytheta().cpu().numpy()
+        times.append(time.perf_counter() - t0)
+        check(est.valid and bool(np.isfinite(pose).all()), f"mega sharded scan {t}: no estimate")
+        errs.append(math.hypot(pose[0] - s.xs[t], pose[1] - s.ys[t]))
+        yaws.append(yaw_error(float(pose[2]), s.yaws[t]))
+        check(errs[-1] < GATE_POS_M and yaws[-1] < GATE_YAW_RAD,
+              f"mega sharded scan {t}: error {errs[-1]:.3f} m / "
+              f"{math.degrees(yaws[-1]):.1f} deg")
+    counts = read_counts()
+    last = errs[-MEGA_LAST:]
+    check(max(last) <= MEGA_LAST_GATE_M,
+          f"mega sharded: max error {max(last):.3f} m over the last {MEGA_LAST} scans")
+    check(counts["B5 fused_propagate_winlut"] == scans,
+          f"mega sharded: B5 launched {counts['B5 fused_propagate_winlut']} times in "
+          f"{scans} updates")
+    # a resample searches once through B2 and draws its pool once through B3
+    check(counts["B2 resample_take"] > 0, "mega sharded: B2 was never launched")
+    check(counts[POOL_DRAW] == counts["B2 resample_take"],
+          f"mega sharded: {POOL_DRAW} launched {counts[POOL_DRAW]} times in "
+          f"{counts['B2 resample_take']} resamples")
+    for name in ("B1 fused_reweight", "B4 fused_reweight values3", WINLUT_STATES["bf16"],
+                 WINLUT_COVERAGE):
+        check(counts[name] == 0, f"mega sharded: {name} launched {counts[name]} times")
+    steady = sorted(times[2:])
+    out = dict(world=world, particles=w.params.max_particles, particles_per_rank=
+               w.params.max_particles // world, scans=scans, err_mean_m=float(np.mean(errs)),
+               err_max_m=max(errs), err_max_last_m=max(last),
+               worst_yaw_deg=math.degrees(max(yaws)),
+               ms_per_update_mean=1e3 * sum(steady) / len(steady),
+               ms_per_update_median=1e3 * steady[len(steady) // 2],
+               ms_first_update=1e3 * times[0])
+
+    # the dense update and the sharded one on the same draws; past one rank
+    # a pooled injection's draws are each rank's own, so both inject nothing
+    params = w.params if world == 1 else dataclasses.replace(w.params, recovery_pool=0)
+    sharded = mega if world == 1 else make_mega_update(params, w.models, mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    gaps = []
+    for t in range(scans, scans + SHARDED_COMPARE):
+        # each compared update from the sharded filter's state, gathered
+        dense = whole_state(state, mesh, 15)
+        draws = draw_update(params, w.models, w.ctx, dense.particles, gen)
+        if world > 1:
+            draws = draws._replace(inject_uniform=torch.ones_like(draws.inject_uniform))
+        dense, dest = update(params, w.models, w.ctx, dense._replace(force_update=True),
+                             *args(t), draws=draws, sort_now=sort_now(t))
+        state, sest = sharded(w.ctx, state._replace(force_update=True), *args(t),
+                              draws=shard_draws(draws, params, mesh), sort_now=sort_now(t))
+        gaps.append(same_draws_gap(dense, state, dest, sest, mesh))
+    out["same_draws"] = check_same_draws(gaps, world, "mega sharded",
+                                         est_atol=MEGA_SHARDED_ATOL, cov_atol=None)
+
+    # ms an update of each, in turns (dense then sharded on even scans,
+    # sharded then dense on odd ones), both from their own generators
+    box = {"dense": dense, "sharded": state}
+    spent = {"dense": [], "sharded": []}
+
+    def one(which, t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if which == "dense":
+            box[which], est = update(w.params, w.models, w.ctx,
+                                     box[which]._replace(force_update=True), *args(t),
+                                     sort_now=sort_now(t))
+        else:
+            box[which], est = mega(w.ctx, box[which]._replace(force_update=True), *args(t),
+                                   sort_now=sort_now(t))
+        est.pose.as_xytheta().cpu()
+        spent[which].append(time.perf_counter() - t0)
+
+    first = scans + SHARDED_COMPARE
+    for t in range(first, first + SHARDED_TIMED):
+        for which in (("dense", "sharded") if t % 2 == 0 else ("sharded", "dense")):
+            one(which, t)
+    for which, ts in spent.items():
+        ts = sorted(ts)
+        out[f"{which}_ms_per_update_median"] = 1e3 * ts[len(ts) // 2]
+        out[f"{which}_ms_per_update_mean"] = 1e3 * sum(ts) / len(ts)
+    first += SHARDED_TIMED
+    out["nccl"] = nccl_window(lambda t: one("sharded", t), first, first + SHARDED_PROFILED)
+    if dev.type == "cuda":
+        out["peak_device_memory_mb"] = torch.cuda.max_memory_allocated(dev) / 2**20
+    return counts, out, box["sharded"], (mesh, w, mega)
+
+
+def run_fleet_sharded(dev, world: int, scans: int = SHARDED_FLEET_SCANS):
+    """Phase 28, first part: phase 6's fleet (64 x 4096, codebook16) placed
+    by ``shard_fleet`` on the ``("dp", "tp")`` mesh of every rank (``(1,
+    1)`` on one card, ``tp`` 2 on an even count), its map by ``replicate``,
+    for ``scans`` updates within the gate; then SHARDED_FLEET_COMPARE
+    updates against the dense fleet on the same draws."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from beluga_tpu_torch.filters.amcl import draw_update, update
+    from beluga_tpu_torch.parallel.fleet import make_fleet_update, replicate, shard_fleet
+    from beluga_tpu_torch.parallel.mega import axis_size, shard_draws
+    from beluga_tpu_torch.tools import workloads
+
+    tp = 2 if world % 2 == 0 else 1
+    mesh = init_device_mesh(dev.type, (world // tp, tp), mesh_dim_names=("dp", "tp"))
+    w = workloads.fleet(scans + SHARDED_FLEET_COMPARE, dev)
+    s = w.scans
+    b = FLEET_B // axis_size(mesh, "dp")
+    at = mesh.get_local_rank("dp")
+    block = slice(at * b, (at + 1) * b)
+    state = shard_fleet(mesh, w.state)
+    ctx = replicate(mesh, w.ctx)
+    fleet_update = make_fleet_update(w.params, w.models, mesh)
+    reset_counts()
+    times, worst = [], [0.0, 0.0]
+    for t in range(scans):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, est = fleet_update(ctx, state, workloads.fleet_odometry(s, t, b),
+                                  w.points[t][block].contiguous(), w.mask[t][block].contiguous())
+        pose = est.pose.as_xytheta().cpu().numpy()
+        times.append(time.perf_counter() - t0)
+        check(bool(np.all(est.valid)), f"fleet sharded scan {t}: a filter was gated out")
+        e_pos, e_yaw = fleet_errors(pose, s, t, "fleet sharded")
+        worst[0], worst[1] = max(worst[0], float(e_pos.max())), max(worst[1], float(e_yaw.max()))
+    counts = read_counts()
+    for name in ("B2 resample_take", POOL_DRAW, "B4 fused_reweight values3"):
+        check(counts[name] == scans,
+              f"fleet sharded: {name} launched {counts[name]} times in {scans} updates")
+    check(counts["B1 fused_reweight"] == 0, "fleet sharded: B1 launched")
+    steady = sorted(times[2:])
+    out = dict(world=world, mesh=list(mesh.shape), filters=FLEET_B, filters_per_rank=b,
+               particles=FLEET_N, scans=scans, worst_pos_m=worst[0],
+               worst_yaw_deg=math.degrees(worst[1]),
+               ms_per_update_mean=1e3 * sum(steady) / len(steady),
+               ms_per_update_median=1e3 * steady[len(steady) // 2])
+
+    tp_mesh = mesh["tp"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(28)
+    gaps = []
+    for t in range(scans, scans + SHARDED_FLEET_COMPARE):
+        dense = whole_state(state, tp_mesh, 28)
+        odoms = workloads.fleet_odometry(s, t, b)
+        pts, mask = w.points[t][block].contiguous(), w.mask[t][block].contiguous()
+        draws = draw_update(w.params, w.models, w.ctx, dense.particles, gen)
+        dense, dest = update(w.params, w.models, w.ctx, dense, odoms, pts, mask, draws=draws)
+        state, sest = fleet_update(ctx, state, odoms, pts, mask,
+                                   draws=shard_draws(draws, w.params, tp_mesh))
+        gaps.append(same_draws_gap(dense, state, dest, sest, tp_mesh))
+    out["same_draws"] = check_same_draws(gaps, world, "fleet sharded",
+                                         est_atol=FLEET_SHARDED_ATOL, cov_atol=FLEET_SHARDED_ATOL)
+    return counts, out
+
+
+def run_multihost() -> dict:
+    """Phase 28, second part: the pod run as a user starts it, one rank
+    on the card (``python -m beluga_tpu_torch.parallel.multihost``); its
+    rows must parse, with filters/s above 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "beluga_tpu_torch.parallel.multihost", "--particles", "4096",
+         "--filters-per-device", "8"], capture_output=True, text=True, cwd=root,
+        timeout=MULTIHOST_TIMEOUT)
+    check(run.returncode == 0, f"multihost exited {run.returncode}: {run.stderr[-2000:]}")
+    rows = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
+    check(bool(rows) and all(r["filters_per_s"] > 0 for r in rows),
+          f"multihost printed no rows with filters/s > 0: {run.stdout[-2000:]}")
+    return dict(rows=rows, seconds=time.perf_counter() - t0)
+
+
+def run_sharded_checkpoint(dev, state, mesh_run, workdir: str) -> dict:
+    """Phase 28, third part: the sharded mega state saved by
+    ``save_state_sharded`` and loaded by ``load_state_sharded`` must come
+    back bit-equal, generators included, and the next update from the
+    restored state must equal the next update from the saved one."""
+    from beluga_tpu_torch.filters.amcl import host_pose
+    from beluga_tpu_torch.parallel.mega import shard_mega_state
+    from beluga_tpu_torch.utils.checkpoint import (
+        _leaves,
+        load_state_sharded,
+        save_state_sharded,
+    )
+
+    mesh, w, mega = mesh_run
+    path = os.path.join(workdir, "mega_ckpt")
+    t0 = time.perf_counter()
+    save_state_sharded(path, state, mesh)
+    template = shard_mega_state(mesh, w.state)
+    back = load_state_sharded(path, template, mesh)
+    seconds = time.perf_counter() - t0
+
+    def leaves(tree):
+        out: list = []
+        _leaves(tree, out)
+        return [x.get_state() if isinstance(x, torch.Generator) else x for x in out]
+
+    for i, (a, b) in enumerate(zip(leaves(state), leaves(back))):
+        same = (torch.equal(a.cpu(), b.cpu()) if isinstance(a, torch.Tensor)
+                else np.array_equal(np.asarray(a), np.asarray(b)))
+        check(same, f"sharded checkpoint: leaf {i} did not round-trip")
+    s = w.scans
+    t = len(s.xs) - 1
+    step = (host_pose(s.xs[t], s.ys[t], s.yaws[t]), w.points[t], w.mask[t])
+    after, _ = mega(w.ctx, state._replace(force_update=True), *step)
+    after_back, _ = mega(w.ctx, back._replace(force_update=True), *step)
+    for i, (a, b) in enumerate(zip(leaves(after), leaves(after_back))):
+        same = (torch.equal(a.cpu(), b.cpu()) if isinstance(a, torch.Tensor)
+                else np.array_equal(np.asarray(a), np.asarray(b)))
+        check(same, f"sharded checkpoint: the next update's leaf {i} differs")
+    files = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    return dict(leaves=len(leaves(state)), bytes_written=files, save_load_s=seconds)
+
+
+def sharded_phases(rank: int, world: int, dev) -> dict:
+    """Phases 27 and 28 on this rank of ``world`` (one a visible card);
+    rank 0's results are the report."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    mega_counts, mega, mega_state, mesh_run = run_mega_sharded(dev, world)
+    fleet_counts, fleet = run_fleet_sharded(dev, world)
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
+        # every rank saves into rank 0's directory: one host here
+        where = [workdir]
+        dist.broadcast_object_list(where, src=0)
+        fleet["checkpoint"] = run_sharded_checkpoint(dev, mega_state, mesh_run, where[0])
+        dist.barrier()
+    if rank == 0:
+        fleet["multihost"] = run_multihost()
+    dist.barrier()
+    return dict(mega_counts=mega_counts, mega=mega, fleet_counts=fleet_counts, fleet=fleet)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -3475,6 +3879,31 @@ def main() -> int:
     # the landmark and bearing models and the unscented transform (slice 14)
     print("landmarks: " + json.dumps(run_landmarks(dev)))
 
+    # 27-28. the sharded mega filter and fleet, the sharded checkpoint and
+    # the pod run over torch.distributed (slice 15): one rank a visible
+    # card, over NCCL; in this process at one card, else one process a card
+    import torch.distributed as dist
+
+    from beluga_tpu_torch.parallel import multihost
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    if world == 1:
+        with tempfile.TemporaryDirectory(dir=build_dir) as store:
+            rank_dev = multihost.start_process_group("cuda", 0, 1, f"file://{store}/store",
+                                                     SHARDED_TIMEOUT)
+            try:
+                sharded = sharded_phases(0, 1, rank_dev)
+            finally:
+                dist.destroy_process_group()
+    else:
+        sharded = multihost.spawn_ranks(sharded_phases, world, "cuda", timeout=SHARDED_TIMEOUT)
+    print(f"sharded phases: {world} rank(s) over NCCL in {time.perf_counter() - t0:.1f} s")
+    print(f"mega sharded ({smi}): " + json.dumps(sharded["mega"]) + " launches "
+          + json.dumps(sharded["mega_counts"]))
+    print(f"fleet sharded ({smi}): " + json.dumps(sharded["fleet"]) + " launches "
+          + json.dumps(sharded["fleet_counts"]))
+
     # each kernel at the shapes and with the launches of the newest main
     # path that runs it: B1 the windowed filter's (tail and fallback), B2
     # and B3's draw entry the mega filter's where its selective resampling
@@ -3504,7 +3933,8 @@ def main() -> int:
                "vdb": vdb_counts, **{f"raw_node_{m}": c for m, c in raw_counts.items()},
                **replay_counts, "omni_node": omni_counts, "stationary_node": still_counts,
                "large_residual": rlarge_counts, "fleet_residual": rfleet_counts,
-               "sparse_node": sparse_counts, "winlut_fleet": wfleet_counts}
+               "sparse_node": sparse_counts, "winlut_fleet": wfleet_counts,
+               "mega_sharded": sharded["mega_counts"], "fleet_sharded": sharded["fleet_counts"]}
     for path, c in by_path.items():
         for name in OFF_MAIN_PATHS:  # B3 and B6 go through their new entries
             check(c[name] == 0, f"{path}: {name} launched {c[name]} times")

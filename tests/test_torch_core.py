@@ -158,6 +158,18 @@ def test_tree_helpers():
     assert p.weight.tolist() == [1.0, 1.0, 1.0, 0.0, 0.0] and p.capacity == 5
 
 
+
+def test_tree_scatter_writes_the_last_of_duplicate_indices():
+    """Of entries with the same index the last is written, per filter, and
+    an out-of-range entry is dropped: the result does not depend on the
+    order a device runs the writes in."""
+    base = SE2.from_xytheta(torch.zeros(2, 6), torch.zeros(2, 6), torch.zeros(2, 6))
+    idx = torch.tensor([[1, 3, 1, 9, 3], [0, 0, 5, 5, 5]])
+    upd = SE2.from_xytheta(torch.arange(1.0, 11.0).reshape(2, 5), torch.zeros(2, 5),
+                           torch.zeros(2, 5))
+    out = tree_scatter(base, idx, upd)
+    assert out.x.tolist() == [[0.0, 3.0, 0.0, 5.0, 0.0, 0.0], [7.0, 0.0, 0.0, 0.0, 0.0, 10.0]]
+
 # -- samplers, from the reference's draws --------------------------------------
 
 

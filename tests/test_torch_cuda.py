@@ -3,7 +3,8 @@ their states entry) and R1 of the PyTorch port on the card, against their
 plain versions on the same card tensors,
 and fleet, mega, beam, prob-model, shared-scan, NDT and VDB updates on the
 card; the node's pinned staging, its pipelined mode and the replay on the
-card.
+card; the sharded mega filter, fleet and checkpoint over NCCL at world
+size 1.
 Every test here needs an NVIDIA GPU and skips without one.  The module
 imports neither JAX nor the JAX package, so on a machine with the card it
 runs without the repository's conftest:
@@ -1953,3 +1954,146 @@ def test_winlut_fleet_on_card(dev):
     torch.cuda.synchronize()
     assert (b6.states_launches, b6.coverage_launches, b1.values3_launches) == (
         before[0], before[1] + 1, before[2] + 1)
+
+
+# -- slice 15: the sharded mega filter and fleet over NCCL at world size 1 ---------
+
+
+@pytest.fixture
+def nccl_world(dev, tmp_path):
+    """This process as the one rank of an NCCL process group."""
+    import torch.distributed as dist
+
+    from beluga_tpu_torch.parallel.multihost import start_process_group
+
+    start_process_group("cuda", 0, 1, f"file://{tmp_path}/store")
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+def _tree_equal(a, b) -> bool:
+    from beluga_tpu_torch.utils.checkpoint import _leaves
+
+    la, lb = [], []
+    _leaves(a, la)
+    _leaves(b, lb)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Generator):
+            x, y = x.get_state(), y.get_state()
+        same = (torch.equal(x.cpu(), y.cpu()) if isinstance(x, torch.Tensor)
+                else np.array_equal(np.asarray(x), np.asarray(y)))
+        if not same:
+            return False
+    return True
+
+
+def _particles_equal(a, b) -> bool:
+    return (torch.equal(a.state.xy, b.state.xy) and torch.equal(a.state.rot.z, b.state.rot.z)
+            and torch.equal(a.log_weight, b.log_weight) and torch.equal(a.active, b.active))
+
+
+def test_mega_sharded_over_nccl_is_the_dense_update(nccl_world):
+    """The fused mega filter (65536 particles, pooled recovery) sharded over
+    one NCCL rank: three forced updates on the same draws are bit-equal to
+    the dense update's, B5 once an update."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from beluga_tpu_torch.filters.amcl import draw_update, host_pose, update
+    from beluga_tpu_torch.ops import cuda_fused_step
+    from beluga_tpu_torch.parallel.mega import make_mega_update, shard_draws, shard_mega_state
+    from beluga_tpu_torch.tools import workloads
+
+    dev = nccl_world
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("tp",))
+    w = workloads.mega(3, dev, 65536)
+    mega = make_mega_update(w.params, w.models, mesh)
+    sharded, dense = shard_mega_state(mesh, w.state), w.state
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    for t in range(3):
+        args = (host_pose(w.scans.xs[t], w.scans.ys[t], w.scans.yaws[t]), w.points[t], w.mask[t])
+        draws = draw_update(w.params, w.models, w.ctx, dense.particles, gen)
+        before = cuda_fused_step.launches
+        sharded, sest = mega(w.ctx, sharded._replace(force_update=True), *args,
+                             draws=shard_draws(draws, w.params, mesh), sort_now=t == 0)
+        assert cuda_fused_step.launches == before + 1
+        dense, dest = update(w.params, w.models, w.ctx, dense._replace(force_update=True), *args,
+                             draws=draws, sort_now=t == 0)
+        assert _particles_equal(sharded.particles, dense.particles)
+        assert float(torch.abs(sest.pose.xy - dest.pose.xy).max()) <= 1e-5
+
+
+def test_fleet_sharded_over_nccl_is_the_dense_fleet(nccl_world):
+    """An 8 x 4096 codebook16 fleet placed by ``shard_fleet`` on a (1, 1)
+    NCCL mesh, its map by ``replicate``: two updates on the same draws
+    bit-equal to the dense fleet's."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from beluga_tpu_torch.filters.amcl import draw_update, update
+    from beluga_tpu_torch.parallel.fleet import make_fleet_update, replicate, shard_fleet
+    from beluga_tpu_torch.parallel.mega import shard_draws
+    from beluga_tpu_torch.tools import workloads
+
+    dev = nccl_world
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("dp", "tp"))
+    w = workloads.fleet(2, dev, 8, 4096)
+    fleet_update = make_fleet_update(w.params, w.models, mesh)
+    sharded, ctx, dense = shard_fleet(mesh, w.state), replicate(mesh, w.ctx), w.state
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for t in range(2):
+        odoms = workloads.fleet_odometry(w.scans, t, 8)
+        draws = draw_update(w.params, w.models, w.ctx, dense.particles, gen)
+        sharded, sest = fleet_update(ctx, sharded, odoms, w.points[t], w.mask[t],
+                                     draws=shard_draws(draws, w.params, mesh))
+        dense, dest = update(w.params, w.models, w.ctx, dense, odoms, w.points[t], w.mask[t],
+                             draws=draws)
+        assert _particles_equal(sharded.particles, dense.particles)
+        assert torch.equal(sest.pose.xy, dest.pose.xy)
+
+
+def test_sharded_checkpoint_on_card(nccl_world, tmp_path):
+    """A sharded mega state on the card saved and loaded bit-equal,
+    generators included; the next update from either is the same."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from beluga_tpu_torch.filters.amcl import host_pose
+    from beluga_tpu_torch.parallel.mega import make_mega_update, shard_mega_state
+    from beluga_tpu_torch.tools import workloads
+    from beluga_tpu_torch.utils.checkpoint import load_state_sharded, save_state_sharded
+
+    dev = nccl_world
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("tp",))
+    w = workloads.mega(2, dev, 65536)
+    mega = make_mega_update(w.params, w.models, mesh)
+    args = (host_pose(w.scans.xs[0], w.scans.ys[0], w.scans.yaws[0]), w.points[0], w.mask[0])
+    state, _ = mega(w.ctx, shard_mega_state(mesh, w.state), *args, sort_now=True)
+    save_state_sharded(str(tmp_path / "ckpt"), state, mesh)
+    back = load_state_sharded(str(tmp_path / "ckpt"), shard_mega_state(mesh, w.state), mesh)
+    assert back.particles.log_weight.is_cuda
+    assert _tree_equal(state, back)
+    nxt = (host_pose(w.scans.xs[1], w.scans.ys[1], w.scans.yaws[1]), w.points[1], w.mask[1])
+    a, _ = mega(w.ctx, state._replace(force_update=True), *nxt)
+    b, _ = mega(w.ctx, back._replace(force_update=True), *nxt)
+    assert _tree_equal(a, b)
+
+
+def test_tree_scatter_on_card_writes_the_last_duplicate(dev):
+    """The pooled injection's scatter on the card: of 4096 entries aimed at
+    64 slots of 2097152, each slot holds its last entry, as on the CPU."""
+    from beluga_tpu_torch.core.particles import tree_scatter
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    n, p = 2097152, 4096
+    idx = torch.randint(0, 64, (p,), generator=gen, device=dev)
+    upd = torch.arange(2 * p, dtype=torch.float32, device=dev).reshape(p, 2)
+    got = tree_scatter(torch.zeros(n, 2, device=dev), idx, upd)
+    want = torch.zeros(n, 2)
+    for j, i in enumerate(idx.tolist()):
+        want[i] = upd[j].cpu()
+    assert torch.equal(got.cpu(), want)
