@@ -24,7 +24,11 @@
 //    A filter that fits one tile (the node's 2000, the fleet's 4096) takes
 //    one launch, its scan in shared memory.  A thread owns kItems
 //    consecutive weights and sums them in order; the threads' totals are
-//    scanned by warp shuffles, then across warps.
+//    scanned by warp shuffles, then across warps.  Every sum is taken in
+//    this fixed order, so equal inputs give equal bits on every launch.
+//    Without `normalize` the kernel writes m itself, the running sum that
+//    the sorted positions (the spacings of ops/resample.py) and the
+//    sharded CDF (parallel/collectives.py) divide themselves.
 // 2. The search and donor copy (beluga_resample_take): for each position u
 //    the donor is the first k with cdf[k] > u (searchsorted side='right'),
 //    so a zero-weight slot is never chosen; row q of out f32[M, D] gets a
@@ -221,7 +225,7 @@ __device__ Carry scan_partials(const float2* __restrict__ partials, int tiles, i
 // Pass 2 (the only pass when tiles == 1): the CDF of one tile of one filter.
 __global__ void __launch_bounds__(kScanThreads) cdf_scan_kernel(
     const float* __restrict__ w, int n, int tiles, const float2* __restrict__ partials,
-    float* __restrict__ cdf) {
+    bool normalize, float* __restrict__ cdf) {
   __shared__ ScanShared sh;
   const size_t f = blockIdx.y;
   const int start = blockIdx.x * kTile;
@@ -239,7 +243,7 @@ __global__ void __launch_bounds__(kScanThreads) cdf_scan_kernel(
   for (int i = 0; i < kItems; ++i) {
     if (v[i] > 0.0f) run = fmaxf(run, __fadd_rn(t.p, r[i]));
     const float m = run > 0.0f ? fmaxf(c.before, __fadd_rn(c.offset, run)) : c.before;
-    q[i] = __fdiv_rn(m, denom);
+    q[i] = normalize ? __fdiv_rn(m, denom) : m;
   }
   float* out = cdf + f * n + start + at;
   if (at + kItems <= n - start && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
@@ -385,12 +389,13 @@ __global__ void __launch_bounds__(kSearchThreads) resample_take_kernel(
 // partials of scratch.
 extern "C" int beluga_cdf_tile() { return kTile; }
 
-// The monotone CDF of `batch` filters of n weights into cdf; `partials`
+// The monotone CDF of `batch` filters of n weights into cdf (with
+// `normalize` 0, the running maximum m before the division); `partials`
 // (float2[batch][tiles], tiles = ceil(n / kTile)) is scratch, unused when
 // tiles == 1.  One launch, or two beyond one tile.  Returns
 // cudaGetLastError() after the launches.
-extern "C" int beluga_cdf(const void* w, int n, int batch, void* partials, void* cdf,
-                          void* stream) {
+extern "C" int beluga_cdf(const void* w, int n, int batch, void* partials, int normalize,
+                          void* cdf, void* stream) {
   if (n == 0 || batch == 0) return 0;
   const int tiles = (n + kTile - 1) / kTile;
   const dim3 grid(tiles, batch);
@@ -403,7 +408,7 @@ extern "C" int beluga_cdf(const void* w, int n, int batch, void* partials, void*
   }
   cdf_scan_kernel<<<grid, kScanThreads, 0, s>>>(static_cast<const float*>(w), n, tiles,
                                                 static_cast<const float2*>(partials),
-                                                static_cast<float*>(cdf));
+                                                normalize != 0, static_cast<float*>(cdf));
   return static_cast<int>(cudaGetLastError());
 }
 

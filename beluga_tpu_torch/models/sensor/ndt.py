@@ -66,12 +66,16 @@ class NdtModelParams:
     d2: float = 1.0
 
 
-def _segment_sum(values: Tensor, seg: Tensor) -> Tensor:
-    """``out[..., s, ...] = Σ_{i: seg[..., i] = s} values[..., i, ...]``
-    along the point axis of ``seg`` ``[..., n]``, with n segments."""
-    axis = seg.dim() - 1
-    idx = seg.reshape(seg.shape + (1,) * (values.dim() - seg.dim())).expand(values.shape)
-    return torch.zeros_like(values).scatter_add_(axis, idx, values)
+def _segment_sum(values: Tensor, order: Tensor, lengths: Tensor) -> Tensor:
+    """Sums of ``values`` ``[..., n, ...]`` over the point axis of ``order``
+    ``[..., n]`` (the points in segment order), segment ``s`` holding the
+    ``lengths[..., s]`` points that come after those of the segments
+    before it: ``n`` sums, one ordered pass a segment (empty ones 0), the
+    same bits on every call."""
+    axis = order.dim() - 1
+    idx = order.reshape(order.shape + (1,) * (values.dim() - order.dim()))
+    ordered = torch.take_along_dim(values, idx, dim=axis)
+    return torch.segment_reduce(ordered, "sum", lengths=lengths, axis=axis, unsafe=True)
 
 
 def fit_measurement_cells(points: Tensor, point_mask: Tensor, resolution: float):
@@ -85,8 +89,9 @@ def fit_measurement_cells(points: Tensor, point_mask: Tensor, resolution: float)
     padding); slots with fewer than 5 points are masked out.  The unique
     is a sort, so nothing is read back.  Voxels truncate toward zero, the
     covariance divides by count − 1 and its diagonal is floored at 1e-5.
-    The segment sums add in another order than the reference's (and, on
-    the card, in no fixed order).
+    The segment sums add each cell's points in sort order, one pass a
+    cell: another order than the reference's, but a fixed one, so equal
+    clouds give equal bits on every call (the counts are exact).
     """
     n, d = points.shape[-2:]
     res = torch.full((), resolution, dtype=torch.float32, device=points.device)
@@ -99,14 +104,20 @@ def fit_measurement_cells(points: Tensor, point_mask: Tensor, resolution: float)
     inv = torch.empty_like(seg).scatter_(-1, order, seg)
     uniq = torch.full_like(sorted_key, _NO_CELL).scatter_(-1, seg, sorted_key)
     valid_cell = uniq != _NO_CELL
+    # slot s holds the sorted points [start_s, start_{s+1}): its length
+    # from the slot boundaries
+    slots = torch.arange(n + 1, device=points.device).expand(*seg.shape[:-1], n + 1)
+    bounds = torch.searchsorted(seg, slots.contiguous())
+    lengths = bounds[..., 1:] - bounds[..., :-1]
 
     w = point_mask.to(torch.float32)
-    count = _segment_sum(w, inv)
+    count = _segment_sum(w, order, lengths)
     safe = torch.clamp_min(count, 1.0)
-    mean = _segment_sum(w[..., None] * points, inv) / safe[..., None]
+    mean = _segment_sum(w[..., None] * points, order, lengths) / safe[..., None]
     centered = points - torch.take_along_dim(mean, inv[..., None], dim=-2)
     outer = centered[..., :, None] * centered[..., None, :] * w[..., None, None]
-    cov = _segment_sum(outer, inv) / torch.clamp_min(count - 1.0, 1.0)[..., None, None]
+    cov = (_segment_sum(outer, order, lengths)
+           / torch.clamp_min(count - 1.0, 1.0)[..., None, None])
     eye = torch.eye(d, dtype=torch.float32, device=points.device)
     diag_clamped = torch.clamp_min(torch.diagonal(cov, dim1=-2, dim2=-1), MIN_VARIANCE)
     cov = cov * (1.0 - eye) + diag_clamped[..., None] * eye

@@ -10,7 +10,12 @@ copies the donors (one launch).  On CUDA tensors each launches its kernels,
 and no PyTorch operation runs between them; on CPU tensors each runs its
 plain PyTorch version (:func:`monotone_cdf_reference`,
 :func:`search_take_reference`; :func:`resample_take_reference` is the
-whole function's).
+whole function's).  :func:`running_sum` is the CDF kernel without its
+division: the running sums that the sorted positions
+(``ops/resample.py``) and the sharded CDF (``parallel/collectives.py``)
+divide themselves.  The kernel sums in a fixed order, so, unlike
+``torch.cumsum`` past one CUB tile on the card, it gives the same bits on
+every call.
 
 Contract: the CDF is ``m / T``, ``m`` the running maximum of the float32
 prefix sums over the slots of positive weight (0 before the first) and
@@ -47,9 +52,10 @@ Tensor = torch.Tensor
 MAX_FILTERS = 65535  # grid.y
 
 # kernel launches since the counts were last set to 0: the search and donor
-# copy, and the CDF builds (one or two kernels each)
+# copy, the CDF builds and the running sums (one or two kernels each)
 launches = 0
 cdf_launches = 0
+sum_launches = 0
 
 _fns = None
 
@@ -63,7 +69,7 @@ def _kernels():
 
         lib = load_library("resample")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.beluga_cdf.argtypes = [p, i, i, p, p, p]
+        lib.beluga_cdf.argtypes = [p, i, i, p, i, p, p]
         lib.beluga_resample_take.argtypes = [p, i, p, i, p, i, p, i, p]
         for fn in (lib.beluga_cdf, lib.beluga_resample_take, lib.beluga_cdf_tile):
             fn.restype = ctypes.c_int
@@ -71,13 +77,47 @@ def _kernels():
     return _fns
 
 
+def running_sum_reference(values: Tensor) -> Tensor:
+    """Plain PyTorch version of the CDF kernel without its division:
+    ``cumsum``, then the running maximum over slots with ``v > 0`` (0
+    before the first), one row per filter along the last axis.  For
+    nonnegative values on the CPU it is ``cumsum`` itself, bit for bit."""
+    c = torch.cumsum(values, dim=-1)
+    return torch.cummax(torch.where(values > 0, c, 0.0), dim=-1).values
+
+
 def monotone_cdf_reference(weights: Tensor) -> Tensor:
-    """Plain PyTorch version of the CDF kernel: ``cumsum``, the running
-    maximum over slots with ``w > 0`` (0 before the first), divided by its
-    last entry (at least 1e-38), one CDF per filter along the last axis."""
-    c = torch.cumsum(weights, dim=-1)
-    m = torch.cummax(torch.where(weights > 0, c, 0.0), dim=-1).values
+    """Plain PyTorch version of the CDF kernel: :func:`running_sum_reference`
+    divided by its last entry (at least 1e-38)."""
+    m = running_sum_reference(weights)
     return m / torch.clamp_min(m[..., -1:], 1e-38)
+
+
+def _scan(values: Tensor, normalize: bool) -> Tensor | None:
+    """The CDF kernel's launch on CUDA ``values``, ``None`` on CPU ones
+    (after the checks both devices share)."""
+    if values.dtype != torch.float32 or values.dim() < 1 or values.shape[-1] == 0:
+        raise ValueError(f"weights must be float32[..., N], N > 0, got "
+                         f"{values.dtype}{list(values.shape)}")
+    if not values.is_contiguous():
+        raise ValueError("weights must be contiguous")
+    filters, n = math.prod(values.shape[:-1]), values.shape[-1]
+    if filters > MAX_FILTERS:
+        raise ValueError(f"{filters} filters; the kernel takes at most {MAX_FILTERS}")
+    if values.device.type == "cpu":
+        return None
+    if values.device.type != "cuda":
+        raise ValueError(f"unsupported device {values.device}")
+    build, _, tile = _kernels()
+    out = torch.empty_like(values)
+    tiles = -(-n // tile)
+    partials = (torch.empty((filters, tiles, 2), dtype=torch.float32, device=values.device)
+                if tiles > 1 else out)  # unused by one-tile filters
+    err = build(values.data_ptr(), n, filters, partials.data_ptr(), int(normalize),
+                out.data_ptr(), stream_ptr(values.device))
+    if err != 0:
+        raise RuntimeError(f"CDF kernel launch failed: cudaError {err}")
+    return out
 
 
 def monotone_cdf(weights: Tensor) -> Tensor:
@@ -85,29 +125,24 @@ def monotone_cdf(weights: Tensor) -> Tensor:
     filter (pallas_resample.py:405-412, zero-weight intervals empty):
     the CDF kernel on CUDA tensors, the plain version on CPU tensors."""
     global cdf_launches
-    if weights.dtype != torch.float32 or weights.dim() < 1 or weights.shape[-1] == 0:
-        raise ValueError(f"weights must be float32[..., N], N > 0, got "
-                         f"{weights.dtype}{list(weights.shape)}")
-    if not weights.is_contiguous():
-        raise ValueError("weights must be contiguous")
-    filters, n = math.prod(weights.shape[:-1]), weights.shape[-1]
-    if filters > MAX_FILTERS:
-        raise ValueError(f"{filters} filters; the kernel takes at most {MAX_FILTERS}")
-    if weights.device.type == "cpu":
+    cdf = _scan(weights, normalize=True)
+    if cdf is None:
         return monotone_cdf_reference(weights)
-    if weights.device.type != "cuda":
-        raise ValueError(f"unsupported device {weights.device}")
-    build, _, tile = _kernels()
-    cdf = torch.empty_like(weights)
-    tiles = -(-n // tile)
-    partials = (torch.empty((filters, tiles, 2), dtype=torch.float32, device=weights.device)
-                if tiles > 1 else cdf)  # unused by one-tile filters
-    stream = stream_ptr(weights.device)
-    err = build(weights.data_ptr(), n, filters, partials.data_ptr(), cdf.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"CDF kernel launch failed: cudaError {err}")
     cdf_launches += 1
     return cdf
+
+
+def running_sum(values: Tensor) -> Tensor:
+    """The running sum ``f32[..., N]`` of nonnegative ``values`` ``f32[...,
+    N]``, one per filter, in the CDF kernel's fixed order (its running
+    maximum over positive slots, undivided): the CDF kernel on CUDA
+    tensors, the plain version (``torch.cumsum``'s bits) on CPU tensors."""
+    global sum_launches
+    m = _scan(values, normalize=False)
+    if m is None:
+        return running_sum_reference(values)
+    sum_launches += 1
+    return m
 
 
 def search_take_reference(cdf: Tensor, positions: Tensor, values: Tensor) -> Tensor:

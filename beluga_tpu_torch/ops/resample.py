@@ -6,7 +6,10 @@ normalized cumulative weights.  The strategies differ only in how the
 positions are drawn, so each is a core that takes its uniforms as inputs
 (``*_from_uniform``) plus a wrapper that draws them from a
 ``torch.Generator``.  The search and the donor copy are kernel B2
-(ops/cuda_resample.py).
+(ops/cuda_resample.py).  Every float running sum here (the spacings of the
+sorted positions, the index-form CDFs) is B2's CDF kernel on the card,
+which sums in a fixed order, so equal inputs give equal bits on every run;
+on the CPU it is ``torch.cumsum``'s plain order.
 
 Every positioner clamps below 1.0 (``1 - 2^-24``): the interval search maps
 a position at or above the last CDF entry to no donor.  Positions may carry
@@ -23,6 +26,22 @@ import torch
 Tensor = torch.Tensor
 
 _BELOW_ONE = 1.0 - 2.0**-24
+
+
+def _running_sum(values: Tensor) -> Tensor:
+    # ops/cuda_resample.py imports this module, so its wrapper is imported
+    # where it is called
+    from beluga_tpu_torch.ops.cuda_resample import running_sum
+
+    return running_sum(values.contiguous())
+
+
+def _cdf(weights: Tensor) -> Tensor:
+    """The normalized CDF of ``weights`` f32[..., N] (zero-weight
+    intervals empty): B2's CDF kernel on the card."""
+    from beluga_tpu_torch.ops.cuda_resample import monotone_cdf
+
+    return monotone_cdf(weights.float().contiguous())
 
 
 def _uniform(generator: torch.Generator, shape) -> Tensor:
@@ -48,10 +67,10 @@ def sorted_multinomial_from_uniform(u: Tensor) -> Tensor:
     spacings construction: ``E_i = -log1p(-u_i)``,
     ``U_(i) = (E_1 + ... + E_i) / (E_1 + ... + E_{num+1})``.  The donor
     interval counts are exactly multinomial; only the draw order is
-    sorted.  ``cummax`` keeps the sequence monotone where a parallel
-    cumsum dips by an ulp."""
+    sorted.  The running sum is B2's CDF kernel on the card (monotone by
+    construction, the same bits every call), ``cumsum`` on the CPU."""
     e = -torch.log1p(-u)
-    s = torch.cummax(torch.cumsum(e, dim=-1), dim=-1).values
+    s = _running_sum(e)
     out = s[..., :-1] / torch.clamp_min(s[..., -1:], 1e-38)
     return torch.clamp_max(out, _BELOW_ONE)
 
@@ -85,10 +104,11 @@ def sorted_residual_from_uniform(u: Tensor, r0: Tensor) -> Tensor:
     the residual distribution, in ascending order.  The reference shifts
     with ``jnp.roll(s, r0)``; ``torch.roll`` takes a host int, so each
     filter reads ``s[max(j - r0, 0)]`` by a gather and nothing is read
-    back."""
+    back.  The running sum is the one of
+    :func:`sorted_multinomial_from_uniform`."""
     num = u.shape[-1] - 1
     e = -torch.log1p(-u)
-    s = torch.cummax(torch.cumsum(e, dim=-1), dim=-1).values
+    s = _running_sum(e)
     r0i = torch.clamp(r0.to(torch.int64), 0, num)[..., None]
     denom = torch.clamp_min(torch.gather(s, -1, num - r0i), 1e-38)
     j = torch.arange(num, device=u.device)
@@ -111,13 +131,8 @@ POSITIONERS = {
 }
 
 
-# -- index-form resamplers (resample.py:192-241): cumsum + searchsorted, plain
-# torch; the filter resamples through kernel B2 (ops/cuda_resample.py)
-
-
-def _cdf(weights: Tensor) -> Tensor:
-    c = torch.cumsum(weights.float(), dim=-1)
-    return c / torch.clamp_min(c[..., -1:], 1e-38)
+# -- index-form resamplers (resample.py:192-241): the CDF + searchsorted; the
+# filter resamples through kernel B2 (ops/cuda_resample.py)
 
 
 def _search(sorted_seq: Tensor, values: Tensor) -> Tensor:
@@ -157,11 +172,10 @@ def residual_indices_from_uniform(weights: Tensor, u: Tensor) -> Tensor:
     w = w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1e-38)
     counts = torch.floor(w * num)
     residual = w * num - counts
-    cum_counts = torch.cumsum(counts, dim=-1)
+    cum_counts = torch.cumsum(counts, dim=-1)  # integers below 2^24: exact in any order
     slots = torch.arange(num, dtype=torch.float32, device=w.device)
     det_idx = _search(cum_counts, slots)
-    res_cdf = torch.cumsum(residual, dim=-1)
-    res_cdf = res_cdf / torch.clamp_min(res_cdf[..., -1:], 1e-38)
+    res_cdf = _cdf(residual)
     return torch.where(slots < cum_counts[..., -1:], det_idx, _search(res_cdf, u))
 
 

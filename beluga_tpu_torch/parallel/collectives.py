@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 from beluga_tpu_torch.core.particles import DEAD_LOG_WEIGHT
+from beluga_tpu_torch.ops.cuda_resample import running_sum
 
 Tensor = torch.Tensor
 
@@ -76,8 +77,10 @@ def sharded_cdf(weights: Tensor, group) -> tuple[Tensor, Tensor]:
     ``[..., N_local]``: the local cumulative sum and the exclusive sum of
     the totals of the ranks before this one (from an all-gather of the
     totals), both divided by the global total, so that ``local_cdf +
-    offset[..., None]`` is this rank's part of the normalized global CDF."""
-    local = torch.cumsum(weights.float(), dim=-1)
+    offset[..., None]`` is this rank's part of the normalized global CDF.
+    The local sums are B2's CDF kernel without its division on the card
+    (the same bits every call), ``cumsum`` on CPU ranks."""
+    local = running_sum(weights.float().contiguous())
     totals = all_gather_last(local[..., -1:], group)  # [..., S]
     rank = dist.get_rank(group)
     offset = torch.sum(totals[..., :rank], dim=-1)

@@ -5,13 +5,16 @@ beluga_benchmark analog).
     p99), the node log's equivalent;
   * :func:`time_compiled`: steady-state time of a call, on CUDA events on
     the card;
-  * :func:`trace`: a ``torch.profiler`` trace written as a Chrome trace.
+  * :func:`trace`: a ``torch.profiler`` trace written as a Chrome trace;
+  * :func:`card_label`: the card's name and power limit, to stand beside a
+    number measured on it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from dataclasses import dataclass, field
 
@@ -84,3 +87,15 @@ def trace(log_dir: str):
         yield prof
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def card_label(device) -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit`` gives them (a card set below its
+    maximum runs slower under load); ``"cpu"`` for a CPU device."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]

@@ -133,7 +133,8 @@ Phases, each of which exits non-zero when it fails:
 24. residual: the large filter (262144, KLD down to 65536) for 12 scans and
    the fleet (64 x 4096, codebook16) for 20 with ``resampling="residual"``,
    every filter within the gate; B2 twice a resample (its CDF kernel as
-   often, no ``aten::cummax`` on its path); the last weights resampled once
+   often, the positions' running sum once, no ``aten::cummax`` on its path
+   or in the residual positions); the last weights resampled once
    more, every particle at least ``floor(M·w)`` times; the last 3 scans with
    ``set_sync_debug_mode("warn")``, no wait in ``ops/resample.py`` or
    ``ops/cuda_resample.py``;
@@ -176,12 +177,31 @@ Phases, each of which exits non-zero when it fails:
    beluga_tpu_torch.parallel.multihost --particles 4096
    --filters-per-device 8`` as a subprocess, its rows parsed, filters/s
    above 0;
+29. repeatable: the large residual filter, the sparse node (10000
+   particles, multinomial), the multinomial fleet (64 x 4096) and the
+   NDT-3D node, each built and run twice from the same generators for 4
+   updates: particles (states, log-weights, active counts) and every
+   estimate bit-equal between the two runs, the sorted positions' running
+   sum (B2's CDF kernel without its division, "B2-sum running_sum")
+   launched;
+30. examples: ``examples/torch_tutorial_1d.py`` and
+   ``examples/torch_fleet_demo.py`` at their defaults and
+   ``examples/torch_mega_demo.py`` at 2^21 particles for 16 steps, each
+   through its ``main``, which raises when it misses its gate (the
+   tutorial's tail below 1.0; every filter and estimate within 0.9 m /
+   30 degrees); B2's CDF kernel in the tutorial, B2 and the reweight in
+   the fleet demo, B5 once a step and R1 in the mega demo;
 and the landmark and bearing models at 2000 SE2 and 2000 SE3 particles x
 32 detections x 256 landmarks against the CPU's run of the same inputs,
 and one unscented transform on the card.  Phase 3 also holds B6's coverage
 entry at the winlut fleet's shape (64 filters x 3584 prefix slots, one
 filter out of the window), each filter's share equal to its plain
 version's, one launch, under the coverage entry's ``other_shapes``.
+Phase 3 also holds B2's CDF kernel without its division (``running_sum``,
+the sorted positions' spacings) at the fleet's 64 x 4097, the node's 2001,
+the sparse node's 10001 and the large residual filter's 262145 uniforms:
+two calls bit-equal, monotone, within CDF_ULP of the total from float64,
+timed beside its plain version and ``torch.cumsum``.
 
 Phases 20, 21 and 25 run right after phase 4, while ``torch.profiler`` still
 records every launch of a window.
@@ -226,16 +246,17 @@ kernel (B7's first launch of two) equal to ``window_origins`` at both
 shapes.
 
 Phases 4 to 28 run the configurations of ``beluga_tpu_torch/tools/workloads.py``;
-phases 27 and 28 run last, after the landmark check, and the process
-group is gone before the last three lines.
+phases 29 and 30 run after the landmark check, phases 27 and 28 last, and
+the process group is gone before the last three lines.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; on every path B2's CDF kernel ("B2-cdf monotone_cdf") runs once
-per search, every B1, B1-log, B4 and B4-log launch goes through the
-states entry (no PyTorch operation composes the transform first), and B3's
-row entry and B6's coordinates entries are never launched (the pooled draw
-and the windowed lookup and gate go through their new entries).  The line
-before the last two is the ``kernels`` JSON; the line
+per search and its running sum ("B2-sum running_sum") at most once,
+every B1, B1-log, B4 and B4-log launch goes through the states entry (no
+PyTorch operation composes the transform first), and B3's row entry and
+B6's coordinates entries are never launched (the pooled draw and the
+windowed lookup and gate go through their new entries).  The line before
+the last two is the ``kernels`` JSON; the line
 before the last is ``nvidia-smi``'s name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -272,6 +293,8 @@ SE2_COMPOSE_OPS = 8
 # main path launches since they came (the counterparts of the reference's
 # pallas_pool_take and winlut_lookup)
 POOL_DRAW = "B3-draw pooled_free_cells"
+# B2's CDF kernel without its division: the sorted positions' spacings
+RUNNING_SUM = "B2-sum running_sum"
 WINLUT_STATES = {"bf16": "B6 winlut_lookup_states", "int8": "B6-int8 winlut_lookup_states"}
 WINLUT_COVERAGE = "B6-coverage winlut_coverage_states"
 OFF_MAIN_PATHS = ("B3 pool_take", "B6 winlut_lookup", "B6-int8 winlut_lookup")
@@ -821,6 +844,47 @@ def check_resample(n: int, w: dict, dev, iters: int) -> tuple[dict, dict]:
         **cdf_times, shape=f"{filters}x N={n}",
     )
     return whole, cdf_entry
+
+
+def check_running_sum(lead: tuple, n: int, dev, iters: int) -> dict:
+    """B2's CDF kernel without its division (``running_sum``) on the
+    spacings of ``n`` uniforms a filter, the sorted positions' running sum:
+    two calls bit-equal, monotone, each zero spacing's entry equal to the
+    one before it, the last entry the largest, every entry within CDF_ULP
+    of the total from a float64 prefix sum; timed beside its plain version
+    (``torch.cumsum``, then ``torch.cummax`` over live slots) and
+    ``torch.cumsum`` alone, the library call."""
+    from beluga_tpu_torch.ops import cuda_resample as b2
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    u = torch.rand((*lead, n), generator=gen, device=dev)
+    u[..., n // 2] = 0.0  # a zero spacing
+    e = -torch.log1p(-u)
+    label = f"{lead} N={n}"
+    got = b2.running_sum(e)
+    torch.cuda.synchronize()
+    check(torch.equal(got, b2.running_sum(e)), f"{RUNNING_SUM} {label}: two calls differ")
+    check(bool((got[..., 1:] >= got[..., :-1]).all()), f"{RUNNING_SUM} {label}: not monotone")
+    check(torch.equal(got[..., n // 2], got[..., n // 2 - 1]),
+          f"{RUNNING_SUM} {label}: a zero spacing moved the sum")
+    exact = torch.cumsum(e.double(), dim=-1)
+    total = exact[..., -1:]
+    err64 = float(((got.double() - exact) / total).abs().max())
+    check(err64 <= CDF_ULP, f"{RUNNING_SUM} {label}: {err64:.3g} of the total from float64")
+    plain = b2.running_sum_reference(e)  # once: torch.cumsum differs run to run on the card
+    times = timings(lambda: b2.running_sum(e), lambda: b2.running_sum_reference(e), iters,
+                    library=lambda: torch.cumsum(e, dim=-1))
+    filters = math.prod(lead)
+    bms, by = bound_ms(filters * 8 * n, filters * n)
+    return dict(
+        name=RUNNING_SUM, route="cuda", source="beluga_tpu_torch/csrc/resample.cu",
+        replaces="beluga_tpu/ops/resample.py:100 (sorted_multinomial_positions' cumsum, "
+                 "XLA; no Pallas)",
+        max_abs_err=float((got - plain).abs().max()),
+        max_rel_err=float(((got - plain) / plain[..., -1:]).abs().max()),
+        max_abs_err_float64=err64, bound_ms=bms, bound_by=by, **times,
+        shape=f"{filters}x N={n}")
 
 
 def check_pool_take(batch: int | None, p: int, n: int, dev, iters: int) -> dict:
@@ -2039,6 +2103,7 @@ def reset_counts() -> None:
     cuda_reweight.states_launches = 0
     cuda_resample.launches = 0
     cuda_resample.cdf_launches = 0
+    cuda_resample.sum_launches = 0
     cuda_pool_take.launches = 0
     cuda_pool_take.draw_launches = 0
     cuda_winlut.launches = 0
@@ -2074,6 +2139,7 @@ def read_counts() -> dict:
             "B1-log fused_reweight": cuda_reweight.log_launches,
             "B2 resample_take": cuda_resample.launches,
             "B2-cdf monotone_cdf": cuda_resample.cdf_launches,
+            RUNNING_SUM: cuda_resample.sum_launches,
             "B3 pool_take": cuda_pool_take.launches,
             "B3-draw pooled_free_cells": cuda_pool_take.draw_launches,
             "B4 fused_reweight values3": cuda_reweight.values3_launches,
@@ -2100,14 +2166,22 @@ class B2Cummax:
     """While active, counts the calls of ``torch.cummax`` and
     ``Tensor.cummax`` (each an ``aten::cummax``) made inside
     ``cuda_resample.resample_take``, B2's path from the weights to the donor
-    rows, and the calls of that path."""
+    rows, and inside the positions it searches (the sorted multinomial
+    positions the update draws, and residual resampling's), and the calls
+    of B2's path."""
 
-    def __enter__(self):
+    def _scopes(self):
+        from beluga_tpu_torch.filters import amcl
         from beluga_tpu_torch.ops import cuda_resample
 
+        return ((cuda_resample, "resample_take"), (cuda_resample, "residual_positions"),
+                (amcl, "sorted_multinomial_positions"))
+
+    def __enter__(self):
         self.calls, self.b2_calls, inside = 0, 0, [0]
-        self._saved = torch.cummax, torch.Tensor.cummax, cuda_resample.resample_take
-        take = cuda_resample.resample_take
+        self._saved = [(torch, "cummax", torch.cummax),
+                       (torch.Tensor, "cummax", torch.Tensor.cummax)]
+        self._saved += [(mod, name, getattr(mod, name)) for mod, name in self._scopes()]
 
         def counted(fn):
             def inner(*args, **kwargs):
@@ -2115,29 +2189,32 @@ class B2Cummax:
                 return fn(*args, **kwargs)
             return inner
 
-        def scoped(*args, **kwargs):
-            inside[0] += 1
-            self.b2_calls += 1
-            try:
-                return take(*args, **kwargs)
-            finally:
-                inside[0] -= 1
+        def scoped(fn, b2: bool):
+            def inner(*args, **kwargs):
+                inside[0] += 1
+                self.b2_calls += b2
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    inside[0] -= 1
+            return inner
 
-        torch.cummax, torch.Tensor.cummax = (counted(f) for f in self._saved[:2])
-        cuda_resample.resample_take = scoped
+        for owner, name, fn in self._saved:
+            setattr(owner, name, counted(fn) if name == "cummax"
+                    else scoped(fn, name == "resample_take"))
         return self
 
     def __exit__(self, *exc):
-        from beluga_tpu_torch.ops import cuda_resample
-
-        torch.cummax, torch.Tensor.cummax, cuda_resample.resample_take = self._saved
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
         return False
 
 
 def no_cummax_on_b2(run, what: str, *args, **kwargs) -> tuple[dict, dict]:
     """``run(*args, **kwargs)`` with ``torch.cummax`` counted on B2's path
-    (the CDF kernel, then the search), which must call none; the path's
-    calls and cummax calls go into the phase's result."""
+    (the CDF kernel, then the search) and in the sorted positions it
+    searches (their running sum: B2's CDF kernel), which must call none;
+    the path's calls and cummax calls go into the phase's result."""
     with B2Cummax() as cm:
         counts, out = run(*args, **kwargs)
     check(cm.b2_calls == counts["B2 resample_take"],
@@ -2244,6 +2321,9 @@ def run_large_filter(dev, n: int = LARGE_N, n_min: int = LARGE_MIN,
     out = dict(particles=n, scans=scans, resampling=resampling, worst_pos_m=worst[0],
                worst_yaw_deg=math.degrees(worst[1]), ms_per_update_mean=1e3 * mean_s,
                particle_updates_per_s=n / mean_s, active_last=active[-1])
+    sums = scans if resampling == "residual" else 0  # systematic draws no sorted positions
+    check(counts[RUNNING_SUM] == sums,
+          f"{what}: {RUNNING_SUM} launched {counts[RUNNING_SUM]} times in {scans} resamples")
     if resampling == "residual":
         check(counts["B2 resample_take"] == 2 * scans,
               f"{what}: B2 launched {counts['B2 resample_take']} times in {scans} resamples")
@@ -2328,7 +2408,8 @@ def run_fleet(dev, b: int = FLEET_B, n: int = FLEET_N, scans: int = FLEET_SCANS,
     worst_pos, worst_yaw = worst
     counts = read_counts()
     passes = 2 if resampling == "residual" else 1
-    for name, per_update in (("B2 resample_take", passes), (POOL_DRAW, 1), (reweight, 1)):
+    for name, per_update in (("B2 resample_take", passes), (POOL_DRAW, 1), (reweight, 1),
+                             (RUNNING_SUM, 1)):
         check(counts[name] == scans * per_update,
               f"{what}: {name} launched {counts[name]} times in {scans} updates")
     others = {"B1 fused_reweight", "B1-log fused_reweight", "B4 fused_reweight values3",
@@ -3237,6 +3318,179 @@ def run_landmarks(dev) -> dict:
     return out
 
 
+# -- phase 29: the same updates twice give the same bits ----------------------
+
+REPEAT_UPDATES = 4
+
+
+def same_bits(a, b) -> bool:
+    """Whether two lists of tensors and arrays hold the same bits."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+                return False
+        elif not np.array_equal(np.asarray(x), np.asarray(y)):
+            return False
+    return True
+
+
+def particle_bits(particles) -> list:
+    from beluga_tpu_torch.core.particles import tree_leaves
+
+    return [*tree_leaves(particles.state), particles.log_weight, particles.active]
+
+
+def repeat_large_residual(dev) -> list:
+    """The large filter with residual resampling (phase 24's), 4 updates."""
+    from beluga_tpu_torch.filters.amcl import host_pose, update
+    from beluga_tpu_torch.tools import workloads
+
+    w = workloads.large_filter(REPEAT_UPDATES, dev, resampling="residual")
+    s, state, out = w.scans, w.state, []
+    for t in range(REPEAT_UPDATES):
+        state, est = update(w.params, w.models, w.ctx, state,
+                            host_pose(s.xs[t], s.ys[t], s.yaws[t]), w.points[t], w.mask[t])
+        out += [est.pose.xy, est.pose.rot.z, est.covariance]
+    return out + particle_bits(state.particles)
+
+
+def repeat_sparse_node(dev) -> list:
+    """The node at nav2 defaults with ``max_particles: 10000`` (phase 25's,
+    multinomial, the sparse cluster estimate), 4 scans of the circle."""
+    from beluga_tpu_torch.maps.occupancy import make_grid
+    from beluga_tpu_torch.node import AmclNode
+    from beluga_tpu_torch.tools import workloads
+
+    s = workloads.arena_scans(REPEAT_UPDATES)
+    node = AmclNode(workloads.node_config(s, max_particles=SPARSE_NODE_PARTICLES), seed=0,
+                    device=dev)
+    node.set_map(make_grid(s.data, workloads.RES, device=dev))
+    out = []
+    for t in range(REPEAT_UPDATES):
+        r = node.handle_scan((s.xs[t], s.ys[t], s.yaws[t]), s.points[t], s.mask[t])
+        out += [r.pose, r.covariance, np.asarray(r.valid)]
+    return out + particle_bits(node._state.particles)
+
+
+def repeat_fleet(dev) -> list:
+    """Phase 6's fleet (64 x 4096, multinomial), 4 updates."""
+    from beluga_tpu_torch.parallel.fleet import make_fleet_update
+    from beluga_tpu_torch.tools import workloads
+
+    w = workloads.fleet(REPEAT_UPDATES, dev)
+    fleet_update = make_fleet_update(w.params, w.models)
+    state, out = w.state, []
+    for t in range(REPEAT_UPDATES):
+        state, est = fleet_update(w.ctx, state, workloads.fleet_odometry(w.scans, t, FLEET_B),
+                                  w.points[t], w.mask[t])
+        out += [est.pose.xy, est.pose.rot.z, est.covariance]
+    return out + particle_bits(state.particles)
+
+
+def repeat_ndt3d_node(dev) -> list:
+    """Phase 18's NDT-3D node (3600-point clouds: the measurement cells'
+    segment sums), 4 scans."""
+    from beluga_tpu_torch.io.config import AmclNodeConfig
+    from beluga_tpu_torch.ndt_node import NdtAmclNode3D
+    from beluga_tpu_torch.tools import workloads
+
+    s = workloads.ndt_scans(REPEAT_UPDATES)
+    clouds, cmask = workloads.ndt_clouds(s)
+    node = NdtAmclNode3D(AmclNodeConfig(), seed=0, device=dev)
+    node.set_map(workloads.ndt_map_3d(dev))
+    node.set_initial_pose((s.xs[0], s.ys[0], 0.0), (0.0, 0.0, s.yaws[0]),
+                          workloads.INITIAL_COV_3D)
+    out = []
+    for t in range(REPEAT_UPDATES):
+        r = node.handle_point_cloud((s.xs[t], s.ys[t], 0.0, 0.0, 0.0, s.yaws[t]), clouds[t],
+                                    cmask[t])
+        out += [r.pose, r.covariance, np.asarray(r.valid)]
+    return out + particle_bits(node._state.particles)
+
+
+def run_repeatable(dev) -> dict:
+    """Phase 29: each of four paths run twice from the same generators for
+    4 updates; particles (states, log-weights, active counts) and every
+    estimate must be bit-equal between the two runs.  The first run's
+    launch counts show which repaired sums it took (B2-sum: the sorted
+    positions)."""
+    out = {}
+    for what, run in (("large residual", repeat_large_residual),
+                      ("sparse node", repeat_sparse_node),
+                      ("fleet multinomial", repeat_fleet), ("NDT-3D node", repeat_ndt3d_node)):
+        t0 = time.perf_counter()
+        reset_counts()
+        first = run(dev)
+        counts = read_counts()
+        second = run(dev)
+        torch.cuda.synchronize()
+        equal = same_bits(first, second)
+        check(equal, f"repeatable {what}: two runs from the same generators differ")
+        check(counts[RUNNING_SUM] > 0, f"repeatable {what}: no {RUNNING_SUM}")
+        out[what] = dict(updates=REPEAT_UPDATES, bit_equal=equal, tensors=len(first),
+                         running_sums=counts[RUNNING_SUM], searches=counts["B2 resample_take"],
+                         seconds=time.perf_counter() - t0)
+    return out
+
+
+# -- phase 30: the three examples on the card ---------------------------------
+
+EXAMPLE_MEGA_N, EXAMPLE_MEGA_STEPS = 1 << 21, 16
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # its dataclasses look their module up
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_examples(dev) -> dict:
+    """Phase 30: the port's three examples through their ``main``: the
+    tutorial and the fleet demo at their defaults, the mega demo at 2^21
+    particles for 16 steps.  Each raises when it misses its gate (the
+    tutorial's tail below 1.0 is checked here); their launches show they
+    ran the kernels."""
+    out = {}
+    t0 = time.perf_counter()
+    reset_counts()
+    tail = load_example("torch_tutorial_1d").main(device=dev)
+    counts = read_counts()
+    check(tail < 1.0, f"tutorial: tail error {tail:.3f} >= 1.0")
+    check(counts["B2-cdf monotone_cdf"] > 0, "tutorial: B2's CDF kernel never launched")
+    out["tutorial"] = dict(tail_m=tail, seconds=time.perf_counter() - t0,
+                           cdf_launches=counts["B2-cdf monotone_cdf"])
+
+    t0 = time.perf_counter()
+    reset_counts()
+    fleet = load_example("torch_fleet_demo").main(device=dev)
+    counts = read_counts()
+    check(fleet["worst_pos_m"] < GATE_POS_M, "fleet demo: a filter left the gate")
+    for name in ("B2 resample_take", REWEIGHT_STATES):
+        check(counts[name] > 0, f"fleet demo: {name} never launched")
+    out["fleet_demo"] = dict(fleet, seconds=time.perf_counter() - t0,
+                             resamples=counts["B2 resample_take"])
+
+    t0 = time.perf_counter()
+    reset_counts()
+    mega = load_example("torch_mega_demo").main(EXAMPLE_MEGA_N, EXAMPLE_MEGA_STEPS, device=dev)
+    counts = read_counts()
+    check(mega["err_max_m"] < GATE_POS_M, "mega demo: an estimate left the gate")
+    check(counts["B5 fused_propagate_winlut"] == EXAMPLE_MEGA_STEPS,
+          f"mega demo: B5 launched {counts['B5 fused_propagate_winlut']} times")
+    check(counts["R1 cast_rays"] >= EXAMPLE_MEGA_STEPS, "mega demo: R1 did not cast the scans")
+    out["mega_demo"] = dict(mega, seconds=time.perf_counter() - t0,
+                            b5_launches=counts["B5 fused_propagate_winlut"])
+    return out
+
+
 # -- slice 15: the sharded mega filter and fleet over torch.distributed ----------
 
 SHARDED_COMPARE = 8  # updates held against the dense update on the same draws
@@ -3661,6 +3915,12 @@ def main() -> int:
     d_big = check_pool_draw(None, 4096, LARGE_N, dev, iters=50)
     d_mega = check_pool_draw(None, 512, 4096, dev, iters=200)
     r_mega, rc_mega = check_resample(MEGA_N, resample_inputs(MEGA_N, dev), dev, iters=20)
+    # the sorted positions' running sum at the fleet's, the node's, the sparse
+    # node's and the large residual filter's shapes (M + 1 uniforms a filter)
+    rs_fleet = check_running_sum((FLEET_B,), FLEET_N + 1, dev, iters=50)
+    rs_node = check_running_sum((), 2001, dev, iters=200)
+    rs_sparse = check_running_sum((), SPARSE_NODE_PARTICLES + 1, dev, iters=100)
+    rs_large = check_running_sum((), LARGE_N + 1, dev, iters=50)
     w_big = check_winlut(dev, iters=50)
     f_mega = check_fused_step(MEGA_N, dev, iters=20)
     f_ragged = check_fused_step(MEGA_N - 1000, dev, iters=5)
@@ -3698,7 +3958,8 @@ def main() -> int:
     v_floor = check_codebook_lookup(dev, iters=20, volume="floor")
     torch.cuda.empty_cache()
     checked = (k_main, r_main, rc_main, k_big, r_big, rc_big, c_big, k_fleet, r_fleet, rc_fleet,
-               c_fleet, p_fleet, p_big, p_mega, d_fleet, d_big, d_mega, r_mega, rc_mega, w_big,
+               c_fleet, p_fleet, p_big, p_mega, d_fleet, d_big, d_mega, r_mega, rc_mega,
+               rs_fleet, rs_node, rs_sparse, rs_large, w_big,
                ws_big, ws_int8, wc_big, wc_edge, wc_fleet, f_mega, f_ragged, f_l2,
                s_node, s_long, s_wide, l_fleet, l_node,
                o_fleet, o_node, c_node, c_build, c_long, c_l2, c_record, e_node, e_l2,
@@ -3879,6 +4140,16 @@ def main() -> int:
     # the landmark and bearing models and the unscented transform (slice 14)
     print("landmarks: " + json.dumps(run_landmarks(dev)))
 
+    # 29. four paths twice from the same generators: the same bits (slice 16)
+    t0 = time.perf_counter()
+    repeat = run_repeatable(dev)
+    print(f"repeatable ({time.perf_counter() - t0:.1f} s): " + json.dumps(repeat))
+
+    # 30. the three examples on the card (slice 16)
+    t0 = time.perf_counter()
+    examples = run_examples(dev)
+    print(f"examples ({smi}, {time.perf_counter() - t0:.1f} s): " + json.dumps(examples))
+
     # 27-28. the sharded mega filter and fleet, the sharded checkpoint and
     # the pod run over torch.distributed (slice 15): one rank a visible
     # card, over NCCL; in this process at one card, else one process a card
@@ -3938,10 +4209,14 @@ def main() -> int:
     for path, c in by_path.items():
         for name in OFF_MAIN_PATHS:  # B3 and B6 go through their new entries
             check(c[name] == 0, f"{path}: {name} launched {c[name]} times")
-        # B2's two stages, once each a resample
+        # B2's two stages, once each a resample; the sorted positions' running
+        # sum at most once a search (once a multinomial resample, once a
+        # residual one's two searches, never a systematic one)
         check(c["B2-cdf monotone_cdf"] == c["B2 resample_take"],
               f"{path}: {c['B2-cdf monotone_cdf']} CDF builds for {c['B2 resample_take']} "
               f"searches")
+        check(c[RUNNING_SUM] <= c["B2 resample_take"],
+              f"{path}: {c[RUNNING_SUM]} running sums for {c['B2 resample_take']} searches")
         # every reweight of a main path composes its transform in the kernel
         reweights = sum(c[name] for name in REWEIGHT_KERNELS)
         check(c[REWEIGHT_STATES] == reweights,
@@ -3955,6 +4230,7 @@ def main() -> int:
     for k, path in ((k_big, "windowed"), (r_mega if resampled else r_big,
                                           "mega" if resampled else "windowed"),
                     (rc_mega if resampled else rc_big, "mega" if resampled else "windowed"),
+                    (rs_fleet, "fleet"),
                     (d_main, "mega" if mega_drew else "windowed"), (p_big, None),
                     (c_fleet, "fleet"), (f_mega, "mega"), (w_big, None), (ws_big, "windowed"),
                     (wc_big, "windowed"), (i_big, None), (ws_int8, "windowed_int8"),
@@ -3983,6 +4259,12 @@ def main() -> int:
                                      for d in (d_fleet, d_big if mega_drew else d_mega)]
         if k is p_big:
             entry["other_shapes"] = [{key: p[key] for key in timed} for p in (p_fleet, p_mega)]
+        if k is rs_fleet:  # the node's, the sparse node's and the large residual filter's
+            entry["other_shapes"] = [
+                {**{key: r[key] for key in timed}, "path": path,
+                 "launches": by_path[path][RUNNING_SUM]}
+                for r, path in ((rs_node, "node"), (rs_sparse, "sparse_node"),
+                                (rs_large, "large_residual"))]
         if k is f_mega:  # the L2 branch of the same kernel
             entry["other_shapes"] = [{key: f_l2[key] for key in timed}]
         if k is c_build:  # the ray entry's other maps, the last through L2

@@ -4,7 +4,10 @@ plain versions on the same card tensors,
 and fleet, mega, beam, prob-model, shared-scan, NDT and VDB updates on the
 card; the node's pinned staging, its pipelined mode and the replay on the
 card; the sharded mega filter, fleet and checkpoint over NCCL at world
-size 1.
+size 1; and the running sums and segment sums that must repeat bit for
+bit (the sorted positions, ``search_indices``, ``sharded_cdf``, the NDT
+measurement cells), each also within its stated bound of its plain
+version.
 Every test here needs an NVIDIA GPU and skips without one.  The module
 imports neither JAX nor the JAX package, so on a machine with the card it
 runs without the repository's conftest:
@@ -2097,3 +2100,151 @@ def test_tree_scatter_on_card_writes_the_last_duplicate(dev):
     for j, i in enumerate(idx.tolist()):
         want[i] = upd[j].cpu()
     assert torch.equal(got.cpu(), want)
+
+
+# -- repeatable running sums and segment sums (the positions, the index-form
+# CDFs, the sharded CDF and the NDT cells sum in a fixed order on the card)
+
+POSITION_ULP = CDF_ULP  # positions in [0, 1): the running sum's bound, as B2's CDF
+
+
+def _spacings_float64(u):
+    s = torch.cumsum(-torch.log1p(-u.double()), dim=-1)
+    return s
+
+
+@pytest.mark.parametrize("lead,n", [((), 10002), ((64,), 4097), ((), 262145)])
+def test_sorted_multinomial_positions_repeat_on_card(dev, lead, n):
+    """Two calls on the same uniforms give equal bits (the running sum is
+    B2's CDF kernel, one launch a call), sorted and below 1; within
+    POSITION_ULP of the float64 construction and of the plain version on
+    the same card tensors (``torch.cumsum``); the largest gaps printed."""
+    from beluga_tpu_torch.ops import cuda_resample as b2
+    from beluga_tpu_torch.ops.resample import sorted_multinomial_from_uniform
+
+    gen = torch.Generator(device=dev).manual_seed(n)
+    u = torch.rand((*lead, n), generator=gen, device=dev)
+    u[..., 5] = 0.0  # a zero spacing
+    before = b2.sum_launches
+    a = sorted_multinomial_from_uniform(u)
+    b = sorted_multinomial_from_uniform(u)
+    torch.cuda.synchronize()
+    assert b2.sum_launches == before + 2
+    assert torch.equal(a, b)
+    assert (a[..., 1:] >= a[..., :-1]).all() and (a < 1.0).all()
+    s = _spacings_float64(u)
+    exact = s[..., :-1] / s[..., -1:]
+    e = -torch.log1p(-u)
+    plain = b2.running_sum_reference(e)
+    plain = torch.clamp_max(plain[..., :-1] / plain[..., -1:], 1.0 - 2.0**-24)
+    gap64, gap_plain = float((a.double() - exact).abs().max()), float((a - plain).abs().max())
+    print(f"sorted multinomial {lead} x {n}: largest gap to float64 {gap64}, "
+          f"to the plain version {gap_plain} (bound {POSITION_ULP})")
+    assert gap64 <= POSITION_ULP and gap_plain <= POSITION_ULP
+
+
+@pytest.mark.parametrize("r0", [0, 100000, 262143])
+def test_sorted_residual_positions_repeat_on_card(dev, r0):
+    """The residual positions at 262145 uniforms: two calls bit-equal, zeros
+    below ``r0``, within POSITION_ULP of the float64 construction and of
+    the plain version's."""
+    from beluga_tpu_torch.ops import cuda_resample as b2
+    from beluga_tpu_torch.ops.resample import sorted_residual_from_uniform
+
+    n = 262144
+    gen = torch.Generator(device=dev).manual_seed(r0)
+    u = torch.rand(n + 1, generator=gen, device=dev)
+    r = torch.tensor(float(r0), device=dev)
+    before = b2.sum_launches
+    a = sorted_residual_from_uniform(u, r)
+    b = sorted_residual_from_uniform(u, r)
+    torch.cuda.synchronize()
+    assert b2.sum_launches == before + 2
+    assert torch.equal(a, b)
+    assert not a[:r0].any() and (a[r0:][1:] >= a[r0:][:-1]).all() and (a < 1.0).all()
+    s = _spacings_float64(u)
+    exact = s[: n - r0] / s[n - r0]
+    e = -torch.log1p(-u)
+    m = b2.running_sum_reference(e)
+    plain = torch.clamp_max(m[: n - r0] / m[n - r0], 1.0 - 2.0**-24)
+    gap64 = float((a[r0:].double() - exact).abs().max()) if r0 < n else 0.0
+    gap_plain = float((a[r0:] - plain).abs().max()) if r0 < n else 0.0
+    print(f"residual r0={r0}: largest gap to float64 {gap64}, to the plain version "
+          f"{gap_plain} (bound {POSITION_ULP})")
+    assert gap64 <= POSITION_ULP and gap_plain <= POSITION_ULP
+
+
+def test_search_indices_repeat_on_card(dev):
+    """``search_indices`` at 262144 weights on B2's CDF kernel: two calls
+    bit-equal (one CDF launch each), and the donors of the CPU's plain
+    version but where a position lies between the two CDFs' values of one
+    entry: each position whose donors differ within the CDFs' largest gap
+    of the entry between them (the CPU's float32 cumsum runs in sequence,
+    so ~0.2% of the dense systematic positions fall there)."""
+    from beluga_tpu_torch.ops import cuda_resample as b2
+    from beluga_tpu_torch.ops.resample import search_indices, systematic_positions
+
+    n = 262144
+    w = cdf_weights(dev, (), n, 5)
+    pos = systematic_positions(torch.Generator(device=dev).manual_seed(5), n)
+    before = b2.cdf_launches
+    a, b = search_indices(w, pos), search_indices(w, pos)
+    torch.cuda.synchronize()
+    assert b2.cdf_launches == before + 2
+    assert torch.equal(a, b)
+    plain = search_indices(w.cpu(), pos.cpu())
+    cdf_k = b2.monotone_cdf(w).cpu().double()
+    cdf_p = b2.monotone_cdf_reference(w.cpu()).double()
+    gap = float((cdf_k - cdf_p).abs().max())
+    moved = a.cpu() != plain
+    edge = cdf_p[torch.minimum(a.cpu(), plain).long()[moved]]
+    print(f"search_indices 262144: share of donors apart from the CPU's plain version "
+          f"{float(moved.float().mean())}, the CDFs' largest gap {gap}")
+    assert ((pos.cpu().double()[moved] - edge).abs() <= gap).all()
+    assert not (w[a.long()] == 0).any()
+
+
+def test_sharded_cdf_repeats_over_nccl(nccl_world):
+    """``sharded_cdf`` at world size 1 over 2097152 weights: two calls
+    bit-equal, within CDF_ULP of the float64 CDF."""
+    import torch.distributed as dist
+
+    from beluga_tpu_torch.ops import cuda_resample as b2
+    from beluga_tpu_torch.parallel.collectives import sharded_cdf
+
+    dev = nccl_world
+    w = cdf_weights(dev, (), 2097152, 6)
+    before = b2.sum_launches
+    (la, oa), (lb, ob) = sharded_cdf(w, dist.group.WORLD), sharded_cdf(w, dist.group.WORLD)
+    torch.cuda.synchronize()
+    assert b2.sum_launches == before + 2
+    assert torch.equal(la, lb) and torch.equal(oa, ob) and float(oa) == 0.0
+    exact = torch.cumsum(w.double(), -1)
+    gap = float((la.double() - exact / exact[-1]).abs().max())
+    print(f"sharded_cdf 2097152: largest gap to float64 {gap} (bound {CDF_ULP})")
+    assert gap <= CDF_ULP
+
+
+def test_ndt_measurement_cells_repeat_on_card(dev):
+    """``fit_measurement_cells`` on the NDT-3D node's 3600-point cloud: two
+    calls bit-equal; the CPU's result's cell mask, its means within 4e-6
+    relative and covariances within 1e-7 absolute (the bounds
+    ``tests/test_torch_repeatable.py`` holds against the JAX package); the
+    largest gaps printed."""
+    from beluga_tpu_torch.models.sensor.ndt import fit_measurement_cells
+    from beluga_tpu_torch.tools import workloads
+
+    pts, mask = workloads.ndt_clouds(workloads.ndt_scans(1))
+    tp, tm = torch.as_tensor(pts[0]), torch.as_tensor(mask[0])
+    a = fit_measurement_cells(tp.to(dev), tm.to(dev), 0.5)
+    b = fit_measurement_cells(tp.to(dev), tm.to(dev), 0.5)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    cpu = fit_measurement_cells(tp, tm, 0.5)
+    live = cpu[2]
+    assert torch.equal(a[2].cpu(), live) and int(live.sum()) >= 10
+    gap_mean = float(((a[0].cpu() - cpu[0])[live].abs() / cpu[0][live].abs().clamp_min(1e-30))
+                     .max())
+    gap_cov = float((a[1].cpu() - cpu[1])[live].abs().max())
+    print(f"NDT cells: largest relative gap of the means {gap_mean}, of the covariances "
+          f"{gap_cov} (absolute), card against CPU")
+    assert gap_mean <= 4e-6 and gap_cov <= 1e-7
