@@ -3,19 +3,22 @@
 Port of ``beluga_tpu/ops/pallas_resample.py``: :func:`resample_take`, its
 tree form, the sorted-multinomial form and the residual form (two passes,
 ``beluga_tpu/filters/amcl.py:369-397``).  The kernels are
-``csrc/resample.cu``, in two stages that are each callable alone:
-:func:`monotone_cdf` builds the CDF from the weights (one launch, or two
-past one tile of 4096 weights) and :func:`search_take` searches it and
-copies the donors (one launch).  On CUDA tensors each launches its kernels,
-and no PyTorch operation runs between them; on CPU tensors each runs its
-plain PyTorch version (:func:`monotone_cdf_reference`,
-:func:`search_take_reference`; :func:`resample_take_reference` is the
-whole function's).  :func:`running_sum` is the CDF kernel without its
-division: the running sums that the sorted positions
-(``ops/resample.py``) and the sharded CDF (``parallel/collectives.py``)
-divide themselves.  The kernel sums in a fixed order, so, unlike
-``torch.cumsum`` past one CUB tile on the card, it gives the same bits on
-every call.
+``csrc/resample.cu``, one launch a call each: :func:`monotone_cdf` builds
+the CDF from the weights (at every length: past one tile of :data:`TILE`
+weights its blocks wait for each other inside the launch, see
+:func:`cdf_plan`), :func:`search_take` searches a CDF and copies the
+donors, and :func:`resample_take` is the whole function: where a filter
+fits one tile, one launch that scans the weights into shared memory and
+searches there; past it, :func:`monotone_cdf` then :func:`search_take`.
+On CUDA tensors each launches its kernel, and no PyTorch operation runs
+between them; on CPU tensors each runs its plain PyTorch version
+(:func:`monotone_cdf_reference`, :func:`search_take_reference`;
+:func:`resample_take_reference` is the whole function's).
+:func:`running_sum` is the CDF kernel without its division: the running
+sums that the sorted positions (``ops/resample.py``) and the sharded CDF
+(``parallel/collectives.py``) divide themselves.  The kernel sums in a
+fixed order, so, unlike ``torch.cumsum`` past one CUB tile on the card, it
+gives the same bits on every call.
 
 Contract: the CDF is ``m / T``, ``m`` the running maximum of the float32
 prefix sums over the slots of positive weight (0 before the first) and
@@ -28,12 +31,16 @@ positions ``[B, M]`` and planes ``[B, D, N]``, and each filter has its own
 CDF.  The kernel's sums are associated in another order than
 ``torch.cumsum``'s, so its CDF and the plain version's differ by a few ulp
 (within ``64 · 2^-24`` of a float64 prefix sum at N ≤ 2^21), and a position
-between the two values of one entry takes the neighbouring donor.
+between the two values of one entry takes the neighbouring donor.  The
+one-tile entry builds the CDF with the CDF kernel's code, so its donors
+are those of :func:`search_take` on :func:`monotone_cdf`'s CDF, bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -50,31 +57,120 @@ from beluga_tpu_torch.ops.resample import (
 Tensor = torch.Tensor
 
 MAX_FILTERS = 65535  # grid.y
+TILE = 4096  # weights a block of the CDF kernel scans (csrc/resample.cu kTile)
 
-# kernel launches since the counts were last set to 0: the search and donor
-# copy, the CDF builds and the running sums (one or two kernels each)
+# kernel launches since the counts were last set to 0, one a call: the
+# search and donor copy on a CDF, the one-tile whole function, the CDF
+# builds and the running sums
 launches = 0
+tile_launches = 0
 cdf_launches = 0
 sum_launches = 0
 
 _fns = None
 
 
-def _kernels():
-    """``(cdf, search, tile)``: the library's two C entries and the number
-    of weights a block of the CDF kernel scans."""
+@dataclasses.dataclass(frozen=True)
+class _Kernels:
+    cdf: Any  # beluga_cdf
+    search: Any  # beluga_resample_take
+    take_tile: Any  # beluga_resample_take_tile
+    blocks_per_sm: Any  # beluga_cdf_blocks_per_sm
+
+
+def _kernels() -> _Kernels:
+    """The library's C entries, its tile checked against :data:`TILE`."""
     global _fns
     if _fns is None:
         from beluga_tpu_torch.ops._build import load_library
 
         lib = load_library("resample")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.beluga_cdf.argtypes = [p, i, i, p, i, p, p]
+        lib.beluga_cdf.argtypes = [p, i, i, p, i, p, i, p]
         lib.beluga_resample_take.argtypes = [p, i, p, i, p, i, p, i, p]
-        for fn in (lib.beluga_cdf, lib.beluga_resample_take, lib.beluga_cdf_tile):
+        lib.beluga_resample_take_tile.argtypes = [p, i, p, i, p, i, p, i, p]
+        lib.beluga_cdf_blocks_per_sm.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        for fn in (lib.beluga_cdf, lib.beluga_resample_take, lib.beluga_resample_take_tile,
+                   lib.beluga_cdf_blocks_per_sm, lib.beluga_cdf_tile):
             fn.restype = ctypes.c_int
-        _fns = lib.beluga_cdf, lib.beluga_resample_take, lib.beluga_cdf_tile()
+        if lib.beluga_cdf_tile() != TILE:
+            raise RuntimeError(f"csrc/resample.cu scans tiles of {lib.beluga_cdf_tile()} "
+                               f"weights, the wrapper plans for {TILE}")
+        _fns = _Kernels(lib.beluga_cdf, lib.beluga_resample_take, lib.beluga_resample_take_tile,
+                        lib.beluga_cdf_blocks_per_sm)
     return _fns
+
+
+def _raise_on(err: int, what: str) -> None:
+    """Raises for a nonzero ``cudaError`` from a C entry: a launch that
+    the card refused (too large a cooperative grid: 720) never ran."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed: cudaError {err}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CdfPlan:
+    """One launch of the CDF kernel over ``filters`` filters of ``n``
+    weights: ``tiles`` of :data:`TILE` a filter and ``grid`` blocks.  A
+    filter of one tile is a block of its own (``wait`` False).  Past one
+    tile, a cooperative launch whose blocks wait for each other's partials
+    (``wait``), published in the words of a scratch of shape ``scratch``
+    (int64, zero when made, kept for later calls): the grid holds every
+    (filter, tile) item where the card holds that many blocks at once (each
+    block keeps its tile's weights across the wait), else as many blocks as
+    it holds, each looping over items."""
+
+    tiles: int
+    grid: int
+    wait: bool
+    scratch: tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=256)
+def cdf_plan(n: int, filters: int, sms: int, blocks_per_sm: int) -> CdfPlan:
+    """The launch of the CDF kernel for ``filters`` filters of ``n > 0``
+    weights on a card of ``sms`` SMs holding ``blocks_per_sm`` blocks of
+    its waiting form each."""
+    tiles = -(-n // TILE)
+    if tiles == 1:
+        return CdfPlan(tiles=1, grid=filters, wait=False, scratch=())
+    if sms < 1 or blocks_per_sm < 1:
+        raise RuntimeError(f"the CDF kernel's blocks do not fit the card ({blocks_per_sm} an "
+                           f"SM on {sms} SMs): no grid can wait for itself")
+    items = tiles * filters
+    grid = min(items, sms * blocks_per_sm)
+    return CdfPlan(tiles=tiles, grid=grid, wait=True, scratch=(filters, 2 + 2 * tiles))
+
+
+# the CDF kernel's words by (card, stream, tiles): kept between calls, so
+# that no call needs them reset (csrc/resample.cu), one set a stream, so
+# that no two launches share them at once
+_words: dict[tuple[int, int, int], Tensor] = {}
+
+
+def _scratch(device: torch.device, stream: int, plan: CdfPlan) -> Tensor:
+    key = (device.index, stream, plan.tiles)
+    words = _words.get(key)
+    if words is None or words.shape[0] < plan.scratch[0]:
+        words = torch.zeros(plan.scratch, dtype=torch.int64, device=device)
+        _words[key] = words
+    return words
+
+
+def one_launch_take(n: int) -> bool:
+    """Whether :func:`resample_take` of filters of ``n`` weights is the
+    one-tile entry (the CDF in shared memory, one launch) rather than the
+    CDF kernel then the search."""
+    return n <= TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int) -> tuple[int, int]:
+    """``(SMs, co-resident CDF blocks an SM)`` of card ``index``."""
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _raise_on(_kernels().blocks_per_sm(ctypes.byref(per_sm)), "the CDF kernel's occupancy")
+    return torch.cuda.get_device_properties(index).multi_processor_count, per_sm.value
 
 
 def running_sum_reference(values: Tensor) -> Tensor:
@@ -108,15 +204,16 @@ def _scan(values: Tensor, normalize: bool) -> Tensor | None:
         return None
     if values.device.type != "cuda":
         raise ValueError(f"unsupported device {values.device}")
-    build, _, tile = _kernels()
+    fns = _kernels()
+    device = values.device
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    plan = cdf_plan(n, filters, *_card(device.index))
+    stream = stream_ptr(device)
     out = torch.empty_like(values)
-    tiles = -(-n // tile)
-    partials = (torch.empty((filters, tiles, 2), dtype=torch.float32, device=values.device)
-                if tiles > 1 else out)  # unused by one-tile filters
-    err = build(values.data_ptr(), n, filters, partials.data_ptr(), int(normalize),
-                out.data_ptr(), stream_ptr(values.device))
-    if err != 0:
-        raise RuntimeError(f"CDF kernel launch failed: cudaError {err}")
+    words = _scratch(device, stream, plan) if plan.wait else out  # unused at one tile
+    _raise_on(fns.cdf(values.data_ptr(), n, filters, words.data_ptr(), int(normalize),
+                      out.data_ptr(), plan.grid, stream), "CDF kernel launch")
     return out
 
 
@@ -162,17 +259,17 @@ def resample_take_reference(weights: Tensor, positions: Tensor, values: Tensor) 
     return search_take_reference(monotone_cdf_reference(weights), positions, values)
 
 
-def _check(cdf: Tensor, positions: Tensor, values: Tensor) -> None:
+def _check(cdf: Tensor, positions: Tensor, values: Tensor, name: str = "cdf") -> None:
     device = cdf.device
-    for name, t in (("cdf", cdf), ("positions", positions), ("values", values)):
+    for label, t in ((name, cdf), ("positions", positions), ("values", values)):
         if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, cdf on {device}")
+            raise ValueError(f"{label} is on {t.device}, {name} on {device}")
         if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+            raise ValueError(f"{label} must be float32, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{label} must be contiguous")
     if cdf.dim() < 1 or cdf.shape[-1] == 0:
-        raise ValueError(f"cdf must be float32[..., N], N > 0, got {list(cdf.shape)}")
+        raise ValueError(f"{name} must be float32[..., N], N > 0, got {list(cdf.shape)}")
     lead, n = tuple(cdf.shape[:-1]), cdf.shape[-1]
     if positions.shape[:-1] != lead or positions.dim() != cdf.dim():
         raise ValueError(f"positions must be float32{list(lead) + ['M']}, "
@@ -181,6 +278,20 @@ def _check(cdf: Tensor, positions: Tensor, values: Tensor) -> None:
         raise ValueError(f"values must be float32{list(lead) + ['D', n]}, got {list(values.shape)}")
     if math.prod(lead) > MAX_FILTERS:
         raise ValueError(f"{math.prod(lead)} filters; the kernel takes at most {MAX_FILTERS}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+
+
+def _take(entry, first: Tensor, positions: Tensor, values: Tensor, what: str) -> Tensor:
+    """One launch of the search entry (``first`` a CDF) or the one-tile
+    entry (``first`` the weights): donor rows ``f32[..., M, D]``."""
+    d, n = values.shape[-2:]
+    m = positions.shape[-1]
+    out = torch.empty((*positions.shape, d), dtype=torch.float32, device=first.device)
+    _raise_on(entry(first.data_ptr(), n, positions.data_ptr(), m, values.data_ptr(), d,
+                    out.data_ptr(), math.prod(positions.shape[:-1]), stream_ptr(first.device)),
+              what)
+    return out
 
 
 def search_take(cdf: Tensor, positions: Tensor, values: Tensor) -> Tensor:
@@ -192,23 +303,16 @@ def search_take(cdf: Tensor, positions: Tensor, values: Tensor) -> Tensor:
     _check(cdf, positions, values)
     if cdf.device.type == "cpu":
         return search_take_reference(cdf, positions, values)
-    if cdf.device.type != "cuda":
-        raise ValueError(f"unsupported device {cdf.device}")
-    d, n = values.shape[-2:]
-    m = positions.shape[-1]
-    out = torch.empty((*positions.shape, d), dtype=torch.float32, device=cdf.device)
-    stream = stream_ptr(cdf.device)
-    err = _kernels()[1](cdf.data_ptr(), n, positions.data_ptr(), m, values.data_ptr(), d,
-                        out.data_ptr(), math.prod(positions.shape[:-1]), stream)
-    if err != 0:
-        raise RuntimeError(f"resample kernel launch failed: cudaError {err}")
+    out = _take(_kernels().search, cdf, positions, values, "resample kernel launch")
     launches += 1
     return out
 
 
 def resample_take(weights: Tensor, positions: Tensor, values: Tensor) -> Tensor:
-    """Donor states for every position: :func:`monotone_cdf`, then
-    :func:`search_take`.
+    """Donor states for every position: on the card, one launch of the
+    one-tile entry where a filter holds at most :data:`TILE` weights
+    (:func:`one_launch_take`), else :func:`monotone_cdf`, then
+    :func:`search_take`; the plain versions on the CPU.
 
     Args:
       weights: ``f32[..., N]`` linear weights (zero on dead slots).
@@ -216,11 +320,18 @@ def resample_take(weights: Tensor, positions: Tensor, values: Tensor) -> Tensor:
       values: ``f32[..., D, N]`` state planes.
     Returns ``f32[..., M, D]``.
     """
+    global tile_launches
     if (weights.dtype != torch.float32 or weights.dim() < 1
             or weights.shape[:-1] != positions.shape[:-1]):
         raise ValueError(f"weights must be float32 with the positions' filter axes, "
                          f"got {weights.dtype}{list(weights.shape)}")
-    return search_take(monotone_cdf(weights.contiguous()), positions, values)
+    weights = weights.contiguous()
+    if weights.device.type != "cuda" or not one_launch_take(weights.shape[-1]):
+        return search_take(monotone_cdf(weights), positions, values)
+    _check(weights, positions, values, "weights")
+    out = _take(_kernels().take_tile, weights, positions, values, "one-tile resample launch")
+    tile_launches += 1
+    return out
 
 
 def pack_state(states: Any, batch_dims: int = 0) -> tuple[Tensor, Any]:

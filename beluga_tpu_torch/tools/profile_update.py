@@ -116,7 +116,8 @@ HAND_KERNELS = {
     "reweight_kernel": "B1/B1-log fused_reweight",
     "reweight_values3_kernel": "B4/B4-log fused_reweight values3",
     "cdf_partials_kernel": "B2 CDF build", "cdf_scan_kernel": "B2 CDF build",
-    "resample_take_kernel": "B2 search",
+    "cdf_tile_kernel": "B2 CDF build", "cdf_grid_kernel": "B2 CDF build",
+    "resample_take_kernel": "B2 search", "resample_take_tile_kernel": "B2 one-tile take",
     "pool_take_kernel": "B3 pool_take",  # the row entry and the pooled draw
     "fused_step_kernel": "B5 fused_propagate_winlut", "winlut_kernel": "B6/B6-int8 winlut_lookup",
     "winlut_states_kernel": "B6/B6-int8 winlut_lookup",  # the states entry

@@ -18,11 +18,14 @@ Phases, each of which exits non-zero when it fails:
    which composes ``world_to_field @ states`` in the kernel and is the main
    paths' call, and the transform entry): one unmasked beam bit-equal, the
    full beam sum within rtol 1e-5, two launches bit-equal and the entries
-   bit-equal to each other; B2 (the whole resample take from the weights: its
-   CDF kernel held exactly where it must be exact and within CDF_ULP of a
+   bit-equal to each other; B2 (the whole resample take from the weights,
+   one launch of its one-tile entry up to 4096 weights a filter and past
+   that the CDF kernel then the search, each one launch a call: its CDF
+   kernel held exactly where it must be exact and within CDF_ULP of a
    float64 prefix sum, the donors bit-equal to the search on that CDF; the
    CDF build and the search timed apart and beside the old path,
-   ``torch.cumsum`` and ``torch.cummax`` before the search), B3 (pool take:
+   ``torch.cumsum`` and ``torch.cummax`` before the search, the CDF kernel
+   beside ``torch.cumsum``), B3 (pool take:
    the row entry, and the draw entry, the pooled recovery sampler's whole
    draw in one launch, at the fleet's 64 pools of 512 x 4096 draws, the large
    filter's 4096 x 262144 and the mega filter's 512 x 4096, translations and
@@ -39,15 +42,15 @@ Phases, each of which exits non-zero when it fails:
    ``device_ms`` is the device's own time per call under ``torch.profiler``;
 4. node: ``AmclNode`` at nav2 defaults tracks the synthetic arena's circle
    for 50 scans; every valid estimate must lie within 0.9 m / 30 degrees
-   of the truth, and B1 and B2 must have been launched;
+   of the truth, and B1 and B2 (its one-tile entry) must have been launched;
 5. large filter: one 262144-particle filter (systematic resampling, KLD
    down to 65536, pooled recovery) through ``filters.amcl.update`` for 12
    scans, same gate; B1, B2 and B3's draw entry launched, and B2's path calls no
    ``aten::cummax`` (here and in phases 7 and 8);
 6. fleet: 64 filters x 4096 particles in codebook16 mode with theta-sorted
    slots and pooled recovery through ``parallel.fleet.make_fleet_update``
-   for 40 scans, same gate on every filter; B4, B2 and B3's draw entry launched once per
-   update, B1 never;
+   for 40 scans, same gate on every filter; B4, B2 (its one-tile entry) and B3's draw
+   entry launched once per update, B1 never;
 7. mega: the JAX benchmark's headline filter, 1 x 2097152 particles x 60
    beams through the fused windowed kernel B5 (``bench.py:247-386``), 64
    forced updates with the theta sort on every 8th; every scan within
@@ -132,8 +135,9 @@ Phases, each of which exits non-zero when it fails:
    and within the gate;
 24. residual: the large filter (262144, KLD down to 65536) for 12 scans and
    the fleet (64 x 4096, codebook16) for 20 with ``resampling="residual"``,
-   every filter within the gate; B2 twice a resample (its CDF kernel as
-   often, the positions' running sum once, no ``aten::cummax`` on its path
+   every filter within the gate; B2 twice a resample (the large filter's
+   CDF kernel as often, the fleet's one-tile entry, the positions' running
+   sum once, no ``aten::cummax`` on its path
    or in the residual positions); the last weights resampled once
    more, every particle at least ``floor(M·w)`` times; the last 3 scans with
    ``set_sync_debug_mode("warn")``, no wait in ``ops/resample.py`` or
@@ -199,9 +203,11 @@ filter out of the window), each filter's share equal to its plain
 version's, one launch, under the coverage entry's ``other_shapes``.
 Phase 3 also holds B2's CDF kernel without its division (``running_sum``,
 the sorted positions' spacings) at the fleet's 64 x 4097, the node's 2001,
-the sparse node's 10001 and the large residual filter's 262145 uniforms:
-two calls bit-equal, monotone, within CDF_ULP of the total from float64,
-timed beside its plain version and ``torch.cumsum``.
+the sparse node's 10001 and the large residual filter's 262145 uniforms,
+and at the sharded CDF's 2097152 weights: two calls bit-equal, monotone,
+within CDF_ULP of the total from float64, the CDF its own division by its
+total, one launch a call, timed beside its plain version and
+``torch.cumsum``.
 
 Phases 20, 21 and 25 run right after phase 4, while ``torch.profiler`` still
 records every launch of a window.
@@ -250,8 +256,11 @@ phases 29 and 30 run after the landmark check, phases 27 and 28 last, and
 the process group is gone before the last three lines.
 
 Each path's launch counts are set to 0 just before it runs and read just
-after; on every path B2's CDF kernel ("B2-cdf monotone_cdf") runs once
-per search and its running sum ("B2-sum running_sum") at most once,
+after; on every path B2 runs once a resample, one launch: past 4096
+weights a filter its CDF kernel ("B2-cdf monotone_cdf") once a search
+("B2 resample_take"), up to 4096 its one-tile entry ("B2-tile
+resample_take") and no CDF kernel; its running sum ("B2-sum
+running_sum") at most once a resample,
 every B1, B1-log, B4 and B4-log launch goes through the states entry (no
 PyTorch operation composes the transform first), and B3's row entry and
 B6's coordinates entries are never launched (the pooled draw and the
@@ -293,8 +302,21 @@ SE2_COMPOSE_OPS = 8
 # main path launches since they came (the counterparts of the reference's
 # pallas_pool_take and winlut_lookup)
 POOL_DRAW = "B3-draw pooled_free_cells"
-# B2's CDF kernel without its division: the sorted positions' spacings
+# kernel B2's entries: the search on a CDF, the whole function in one
+# launch where a filter fits one tile, the CDF kernel, and the CDF kernel
+# without its division (the sorted positions' spacings); RESAMPLES, the
+# calls of resample_take, is the first two's launches together
+B2_SEARCH = "B2 resample_take"
+B2_TILE = "B2-tile resample_take"
+B2_CDF = "B2-cdf monotone_cdf"
 RUNNING_SUM = "B2-sum running_sum"
+RESAMPLES = "B2 resamples (search + one-tile)"
+B2_TILE_WEIGHTS = 4096  # csrc/resample.cu kTile
+
+
+def b2_entry(n: int) -> str:
+    """The entry of B2 that resample_take launches for filters of n weights."""
+    return B2_TILE if n <= B2_TILE_WEIGHTS else B2_SEARCH
 WINLUT_STATES = {"bf16": "B6 winlut_lookup_states", "int8": "B6-int8 winlut_lookup_states"}
 WINLUT_COVERAGE = "B6-coverage winlut_coverage_states"
 OFF_MAIN_PATHS = ("B3 pool_take", "B6 winlut_lookup", "B6-int8 winlut_lookup")
@@ -395,7 +417,8 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cudaLaunchCooperativeKernel")
 
 
 def device_ms(fn, iters: int) -> float | None:
@@ -759,15 +782,26 @@ def check_cdf(weights: torch.Tensor, label: str) -> tuple[torch.Tensor, float, f
     return cdf, err64, err_plain
 
 
+def launches_per_call(fn, what: str, want: int = 1) -> float:
+    """Checks that a call of ``fn`` launches exactly ``want`` kernels (the
+    launch calls the profiler sees on the host); returns the count."""
+    launches = call_launches(fn)["launches"]
+    check(launches == want, f"{what}: {launches} kernel launches a call, not {want}")
+    return launches
+
+
 def check_resample(n: int, w: dict, dev, iters: int) -> tuple[dict, dict]:
-    """Kernel B2, the whole function from the weights: its CDF (held by
-    ``check_cdf``), donors bit-equal to ``search_take`` and to its plain
-    version on the kernel's own CDF, no zero-weight donor, padding at 1.5
-    selecting nothing, and rows apart from the plain whole function only
-    where a position lies between the two CDFs' values of one entry.  Timed
-    as a whole, beside the CDF build and the search alone (device) and the
-    old path (``torch.cumsum`` + ``torch.cummax``, then the search).
-    Returns B2's entry and the CDF kernel's."""
+    """Kernel B2, the whole function from the weights (up to a tile a
+    filter the one-tile entry, past it the CDF kernel then the search, one
+    launch each): its CDF (held by ``check_cdf``), donors bit-equal to
+    ``search_take`` and to its plain version on the kernel's own CDF, no
+    zero-weight donor, padding at 1.5 selecting nothing, and rows apart
+    from the plain whole function only where a position lies between the
+    two CDFs' values of one entry.  Timed as a whole, beside the CDF build
+    and the search alone (device) and the old path (``torch.cumsum`` +
+    ``torch.cummax``, then the search); the CDF kernel beside
+    ``torch.cumsum``.  Returns B2's entry at this N (the one-tile entry's
+    or the search's) and the CDF kernel's."""
     from beluga_tpu_torch.ops import cuda_resample as b2
     from beluga_tpu_torch.ops.resample import sorted_multinomial_positions, systematic_positions
 
@@ -812,10 +846,15 @@ def check_resample(n: int, w: dict, dev, iters: int) -> tuple[dict, dict]:
         results.append((pos, got, want))
     pos = results[0][0]  # time the main path's positions (sorted multinomial)
     err = max(float((g - x).abs().max()) for _, g, x in results)
+    name = b2_entry(n)  # one launch up to a tile a filter, else the CDF's and the search's
+    whole_calls = launches_per_call(lambda: b2.resample_take(weights, pos, values),
+                                    f"{name} {label}", 1 if name == B2_TILE else 2)
+    cdf_calls = launches_per_call(lambda: b2.monotone_cdf(weights), f"{B2_CDF} {label}")
     times = timings(lambda: b2.resample_take(weights, pos, values),
                     lambda: b2.resample_take_reference(weights, pos, values), iters)
     cdf_times = timings(lambda: b2.monotone_cdf(weights),
-                        lambda: b2.monotone_cdf_reference(weights), iters)
+                        lambda: b2.monotone_cdf_reference(weights), iters,
+                        library=lambda: torch.cumsum(weights, dim=-1))
     calls = min(iters, 20)
     filters = lead[0] if lead else 1
     d, m = values.shape[-2], pos.shape[-1]
@@ -824,9 +863,9 @@ def check_resample(n: int, w: dict, dev, iters: int) -> tuple[dict, dict]:
     cbms, cby = bound_ms(filters * 8 * n, filters * 3 * n)
     shape = f"{filters}x N=M={n} D={d}"
     whole = dict(
-        name="B2 resample_take", route="cuda", source="beluga_tpu_torch/csrc/resample.cu",
+        name=name, route="cuda", source="beluga_tpu_torch/csrc/resample.cu",
         replaces="beluga_tpu/ops/pallas_resample.py:369", max_abs_err=err,
-        bound_ms=bms, bound_by=by, **times, shape=shape,
+        bound_ms=bms, bound_by=by, **times, shape=shape, launches_per_call=whole_calls,
         cdf_device_ms=cdf_times["device_ms"],
         search_device_ms=device_ms(lambda: b2.search_take(cdf, pos, values), calls),
         old_path_ms=cuda_ms(lambda: b2.search_take(old_monotone_cdf(weights), pos, values),
@@ -841,7 +880,9 @@ def check_resample(n: int, w: dict, dev, iters: int) -> tuple[dict, dict]:
         replaces="beluga_tpu/ops/pallas_resample.py:405 (resample_take's CDF, before the "
                  "pallas_call at :495)",
         max_abs_err=cdf_err_plain, max_abs_err_float64=cdf_err64, bound_ms=cbms, bound_by=cby,
-        **cdf_times, shape=f"{filters}x N={n}",
+        **cdf_times, shape=f"{filters}x N={n}", launches_per_call=cdf_calls,
+        library_note="torch.cumsum: the running sum alone, without the live maximum and the "
+                     "division",
     )
     return whole, cdf_entry
 
@@ -851,9 +892,11 @@ def check_running_sum(lead: tuple, n: int, dev, iters: int) -> dict:
     spacings of ``n`` uniforms a filter, the sorted positions' running sum:
     two calls bit-equal, monotone, each zero spacing's entry equal to the
     one before it, the last entry the largest, every entry within CDF_ULP
-    of the total from a float64 prefix sum; timed beside its plain version
-    (``torch.cumsum``, then ``torch.cummax`` over live slots) and
-    ``torch.cumsum`` alone, the library call."""
+    of the total from a float64 prefix sum, the CDF kernel's entries its
+    own division by its last entry (what the sharded CDF divides), one
+    launch a call; timed beside its plain version (``torch.cumsum``, then
+    ``torch.cummax`` over live slots) and ``torch.cumsum`` alone, the
+    library call."""
     from beluga_tpu_torch.ops import cuda_resample as b2
 
     gen = torch.Generator(device=dev)
@@ -872,6 +915,9 @@ def check_running_sum(lead: tuple, n: int, dev, iters: int) -> dict:
     total = exact[..., -1:]
     err64 = float(((got.double() - exact) / total).abs().max())
     check(err64 <= CDF_ULP, f"{RUNNING_SUM} {label}: {err64:.3g} of the total from float64")
+    check(torch.equal(b2.monotone_cdf(e), got / torch.clamp_min(got[..., -1:], 1e-38)),
+          f"{RUNNING_SUM} {label}: the CDF is not the running sum over its total")
+    calls = launches_per_call(lambda: b2.running_sum(e), f"{RUNNING_SUM} {label}")
     plain = b2.running_sum_reference(e)  # once: torch.cumsum differs run to run on the card
     times = timings(lambda: b2.running_sum(e), lambda: b2.running_sum_reference(e), iters,
                     library=lambda: torch.cumsum(e, dim=-1))
@@ -884,7 +930,7 @@ def check_running_sum(lead: tuple, n: int, dev, iters: int) -> dict:
         max_abs_err=float((got - plain).abs().max()),
         max_rel_err=float(((got - plain) / plain[..., -1:]).abs().max()),
         max_abs_err_float64=err64, bound_ms=bms, bound_by=by, **times,
-        shape=f"{filters}x N={n}")
+        shape=f"{filters}x N={n}", launches_per_call=calls)
 
 
 def check_pool_take(batch: int | None, p: int, n: int, dev, iters: int) -> dict:
@@ -2102,6 +2148,7 @@ def reset_counts() -> None:
     cuda_reweight.values3_log_launches = 0
     cuda_reweight.states_launches = 0
     cuda_resample.launches = 0
+    cuda_resample.tile_launches = 0
     cuda_resample.cdf_launches = 0
     cuda_resample.sum_launches = 0
     cuda_pool_take.launches = 0
@@ -2137,8 +2184,10 @@ def read_counts() -> dict:
 
     return {"B1 fused_reweight": cuda_reweight.launches,
             "B1-log fused_reweight": cuda_reweight.log_launches,
-            "B2 resample_take": cuda_resample.launches,
-            "B2-cdf monotone_cdf": cuda_resample.cdf_launches,
+            B2_SEARCH: cuda_resample.launches,
+            B2_TILE: cuda_resample.tile_launches,
+            RESAMPLES: cuda_resample.launches + cuda_resample.tile_launches,
+            B2_CDF: cuda_resample.cdf_launches,
             RUNNING_SUM: cuda_resample.sum_launches,
             "B3 pool_take": cuda_pool_take.launches,
             "B3-draw pooled_free_cells": cuda_pool_take.draw_launches,
@@ -2217,15 +2266,15 @@ def no_cummax_on_b2(run, what: str, *args, **kwargs) -> tuple[dict, dict]:
     the path's calls and cummax calls go into the phase's result."""
     with B2Cummax() as cm:
         counts, out = run(*args, **kwargs)
-    check(cm.b2_calls == counts["B2 resample_take"],
-          f"{what}: {cm.b2_calls} calls of B2's path for {counts['B2 resample_take']} searches")
+    check(cm.b2_calls == counts[RESAMPLES],
+          f"{what}: {cm.b2_calls} calls of B2's path for {counts[RESAMPLES]} launches")
     check(cm.calls == 0, f"{what}: aten::cummax called {cm.calls} times on B2's path")
     out.update(b2_path_calls=cm.b2_calls, b2_path_cummax_calls=cm.calls)
     return counts, out
 
 
 def run_node(dev, scans: int = NODE_SCANS, what: str = "node",
-             must_launch=("B1 fused_reweight", "B2 resample_take"),
+             must_launch=("B1 fused_reweight", B2_TILE),
              scans_fn=None, forced: bool = False, **overrides) -> tuple[dict, dict]:
     """The node at nav2 defaults (``overrides`` of ``AmclNodeConfig``
     fields select the beam node or another motion model) for ``scans``
@@ -2314,7 +2363,7 @@ def run_large_filter(dev, n: int = LARGE_N, n_min: int = LARGE_MIN,
         times.append(time.perf_counter() - t0)
     sites = sync_sites(step, scans - sync_tail, scans) if sync_tail else None
     counts = read_counts()
-    for name in ("B1 fused_reweight", "B2 resample_take", POOL_DRAW):
+    for name in ("B1 fused_reweight", b2_entry(n), POOL_DRAW):
         check(counts[name] > 0, f"{what}: {name} was never launched")
     steady = times[2:]
     mean_s = sum(steady) / len(steady)
@@ -2325,8 +2374,8 @@ def run_large_filter(dev, n: int = LARGE_N, n_min: int = LARGE_MIN,
     check(counts[RUNNING_SUM] == sums,
           f"{what}: {RUNNING_SUM} launched {counts[RUNNING_SUM]} times in {scans} resamples")
     if resampling == "residual":
-        check(counts["B2 resample_take"] == 2 * scans,
-              f"{what}: B2 launched {counts['B2 resample_take']} times in {scans} resamples")
+        check(counts[RESAMPLES] == 2 * scans,
+              f"{what}: B2 launched {counts[RESAMPLES]} times in {scans} resamples")
         out.update(sync_sites=sites)
     if keep is not None:
         keep["weights"] = box["state"].particles.weight
@@ -2408,7 +2457,7 @@ def run_fleet(dev, b: int = FLEET_B, n: int = FLEET_N, scans: int = FLEET_SCANS,
     worst_pos, worst_yaw = worst
     counts = read_counts()
     passes = 2 if resampling == "residual" else 1
-    for name, per_update in (("B2 resample_take", passes), (POOL_DRAW, 1), (reweight, 1),
+    for name, per_update in ((b2_entry(n), passes), (POOL_DRAW, 1), (reweight, 1),
                              (RUNNING_SUM, 1)):
         check(counts[name] == scans * per_update,
               f"{what}: {name} launched {counts[name]} times in {scans} updates")
@@ -2542,7 +2591,7 @@ def run_prob_node(dev) -> tuple[dict, dict]:
     likelihood_field_prob) at nav2 defaults: B1-log on every update, the
     cube B1 never."""
     counts, out = run_node(dev, NODE_SCANS, "prob node",
-                           ("B1-log fused_reweight", "B2 resample_take"),
+                           ("B1-log fused_reweight", B2_TILE),
                            laser_model_type="likelihood_field_prob")
     check(counts["B1-log fused_reweight"] == out["valid"],
           f"prob node: B1-log launched {counts['B1-log fused_reweight']} times in "
@@ -2554,7 +2603,7 @@ def run_prob_node(dev) -> tuple[dict, dict]:
 
 def run_beam_node(dev, mode: str) -> tuple[dict, dict]:
     """The beam node at nav2 defaults (100 m) in ``beam_fast_path=mode``."""
-    counts, out = run_node(dev, BEAM_NODE_SCANS, f"beam node {mode}", ("B2 resample_take",),
+    counts, out = run_node(dev, BEAM_NODE_SCANS, f"beam node {mode}", (B2_TILE,),
                            laser_model_type="beam", beam_fast_path=mode)
     updates = out["valid"]
     expected = {  # launches of each beam kernel: the map load and every update
@@ -2710,7 +2759,7 @@ def run_ndt_node(dev, scans: int = NDT_NODE_SCANS) -> tuple[dict, dict]:
     counts = read_counts()
     check(valid >= scans - 1, f"NDT node: only {valid} valid updates of {scans}")
     check_ndt_launches(counts, valid, "NDT node")
-    check(counts["B2 resample_take"] > 0, "NDT node: B2 was never launched")
+    check(counts[RESAMPLES] > 0, "NDT node: B2 was never launched")
     steady = sorted(times[2:])
     return counts, dict(
         scans=scans, valid=valid, live_cells_mean=float(np.mean(live)), worst_pos_m=worst_pos,
@@ -2756,8 +2805,8 @@ def run_ndt_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
               f"{math.degrees(e_yaw.max()):.1f} deg")
     counts = read_counts()
     check_ndt_launches(counts, scans, "NDT fleet")
-    check(counts["B2 resample_take"] == scans,
-          f"NDT fleet: B2 launched {counts['B2 resample_take']} times in {scans} updates")
+    check(counts[RESAMPLES] == scans,
+          f"NDT fleet: B2 launched {counts[RESAMPLES]} times in {scans} updates")
     steady = sorted(times[2:])
     mean_s = sum(steady) / len(steady)
     return counts, dict(
@@ -2979,7 +3028,7 @@ def run_raw_node(dev, map_yaml: str, raw, mode: str, smi: str,
               f"{what}: the node waited on the stream: {sites}")
     counts = read_counts()
     check(len(estimates) >= end - 1, f"{what}: only {len(estimates)} valid updates of {end}")
-    for name in ("B1 fused_reweight", "B2 resample_take"):
+    for name in ("B1 fused_reweight", RESAMPLES):
         check(counts[name] > 0, f"{what}: {name} was never launched")
     steady = sorted(times[2:])
     mean_ms = 1e3 * sum(steady) / len(steady)
@@ -3030,7 +3079,7 @@ def run_replay(dev, map_yaml: str, workdir: str) -> tuple[dict, dict]:
             check(summary["updates"] >= 5, f"{name}: only {summary['updates']} updates")
             check(summary["ape"]["rmse"] <= GATE_POS_M,
                   f"{name}: APE rmse {summary['ape']['rmse']:.3f} m")
-            for kernel in ("B1 fused_reweight", "B2 resample_take"):
+            for kernel in ("B1 fused_reweight", RESAMPLES):
                 check(counts[name][kernel] > 0, f"{name}: {kernel} was never launched")
             saved[driven] = np.load(result)
             out[name] = dict(wall_s=wall, updates=summary["updates"], ape=summary["ape"],
@@ -3430,7 +3479,7 @@ def run_repeatable(dev) -> dict:
         check(equal, f"repeatable {what}: two runs from the same generators differ")
         check(counts[RUNNING_SUM] > 0, f"repeatable {what}: no {RUNNING_SUM}")
         out[what] = dict(updates=REPEAT_UPDATES, bit_equal=equal, tensors=len(first),
-                         running_sums=counts[RUNNING_SUM], searches=counts["B2 resample_take"],
+                         running_sums=counts[RUNNING_SUM], searches=counts[RESAMPLES],
                          seconds=time.perf_counter() - t0)
     return out
 
@@ -3473,10 +3522,10 @@ def run_examples(dev) -> dict:
     fleet = load_example("torch_fleet_demo").main(device=dev)
     counts = read_counts()
     check(fleet["worst_pos_m"] < GATE_POS_M, "fleet demo: a filter left the gate")
-    for name in ("B2 resample_take", REWEIGHT_STATES):
+    for name in (RESAMPLES, REWEIGHT_STATES):
         check(counts[name] > 0, f"fleet demo: {name} never launched")
     out["fleet_demo"] = dict(fleet, seconds=time.perf_counter() - t0,
-                             resamples=counts["B2 resample_take"])
+                             resamples=counts[RESAMPLES])
 
     t0 = time.perf_counter()
     reset_counts()
@@ -3649,10 +3698,10 @@ def run_mega_sharded(dev, world: int, scans: int = MEGA_SCANS):
           f"mega sharded: B5 launched {counts['B5 fused_propagate_winlut']} times in "
           f"{scans} updates")
     # a resample searches once through B2 and draws its pool once through B3
-    check(counts["B2 resample_take"] > 0, "mega sharded: B2 was never launched")
-    check(counts[POOL_DRAW] == counts["B2 resample_take"],
+    check(counts[B2_SEARCH] > 0, "mega sharded: B2 was never launched")
+    check(counts[POOL_DRAW] == counts[B2_SEARCH],
           f"mega sharded: {POOL_DRAW} launched {counts[POOL_DRAW]} times in "
-          f"{counts['B2 resample_take']} resamples")
+          f"{counts[B2_SEARCH]} resamples")
     for name in ("B1 fused_reweight", "B4 fused_reweight values3", WINLUT_STATES["bf16"],
                  WINLUT_COVERAGE):
         check(counts[name] == 0, f"mega sharded: {name} launched {counts[name]} times")
@@ -3755,7 +3804,7 @@ def run_fleet_sharded(dev, world: int, scans: int = SHARDED_FLEET_SCANS):
         e_pos, e_yaw = fleet_errors(pose, s, t, "fleet sharded")
         worst[0], worst[1] = max(worst[0], float(e_pos.max())), max(worst[1], float(e_yaw.max()))
     counts = read_counts()
-    for name in ("B2 resample_take", POOL_DRAW, "B4 fused_reweight values3"):
+    for name in (B2_TILE, POOL_DRAW, "B4 fused_reweight values3"):
         check(counts[name] == scans,
               f"fleet sharded: {name} launched {counts[name]} times in {scans} updates")
     check(counts["B1 fused_reweight"] == 0, "fleet sharded: B1 launched")
@@ -3921,6 +3970,7 @@ def main() -> int:
     rs_node = check_running_sum((), 2001, dev, iters=200)
     rs_sparse = check_running_sum((), SPARSE_NODE_PARTICLES + 1, dev, iters=100)
     rs_large = check_running_sum((), LARGE_N + 1, dev, iters=50)
+    rs_mega = check_running_sum((), MEGA_N, dev, iters=20)  # the sharded CDF's local sums
     w_big = check_winlut(dev, iters=50)
     f_mega = check_fused_step(MEGA_N, dev, iters=20)
     f_ragged = check_fused_step(MEGA_N - 1000, dev, iters=5)
@@ -3959,7 +4009,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     checked = (k_main, r_main, rc_main, k_big, r_big, rc_big, c_big, k_fleet, r_fleet, rc_fleet,
                c_fleet, p_fleet, p_big, p_mega, d_fleet, d_big, d_mega, r_mega, rc_mega,
-               rs_fleet, rs_node, rs_sparse, rs_large, w_big,
+               rs_fleet, rs_node, rs_sparse, rs_large, rs_mega, w_big,
                ws_big, ws_int8, wc_big, wc_edge, wc_fleet, f_mega, f_ragged, f_l2,
                s_node, s_long, s_wide, l_fleet, l_node,
                o_fleet, o_node, c_node, c_build, c_long, c_l2, c_record, e_node, e_l2,
@@ -3971,7 +4021,8 @@ def main() -> int:
             f", library {ms(k['library_ms'])} (device {ms(k['library_device_ms'])})")
         extra = "".join(f", {key} {k[key]}" for key in (
             "max_rel_err", "outside_rtol_share", "live_cells", "hit_share", "library_note",
-            "max_abs_err_float64", "rows_moved_from_plain", "misses", "covered") if key in k)
+            "max_abs_err_float64", "rows_moved_from_plain", "misses", "covered",
+            "launches_per_call") if key in k)
         if "device_ms_each" in k:
             extra += "; device, one call alone (ms) " + json.dumps(k["device_ms_each"])
         if "device_launches_seen" in k:
@@ -4209,19 +4260,22 @@ def main() -> int:
     for path, c in by_path.items():
         for name in OFF_MAIN_PATHS:  # B3 and B6 go through their new entries
             check(c[name] == 0, f"{path}: {name} launched {c[name]} times")
-        # B2's two stages, once each a resample; the sorted positions' running
-        # sum at most once a search (once a multinomial resample, once a
-        # residual one's two searches, never a systematic one)
-        check(c["B2-cdf monotone_cdf"] == c["B2 resample_take"],
-              f"{path}: {c['B2-cdf monotone_cdf']} CDF builds for {c['B2 resample_take']} "
-              f"searches")
-        check(c[RUNNING_SUM] <= c["B2 resample_take"],
-              f"{path}: {c[RUNNING_SUM]} running sums for {c['B2 resample_take']} searches")
+        # B2 once a resample, one launch: past one tile a filter the CDF kernel
+        # then the search (the CDF once a search), at one tile the one-tile
+        # entry and no CDF; the sorted positions' running sum at most once a
+        # resample (once a multinomial one, once a residual one's two passes,
+        # never a systematic one)
+        check(c[B2_CDF] == c[B2_SEARCH],
+              f"{path}: {c[B2_CDF]} CDF builds for {c[B2_SEARCH]} searches")
+        check(c[B2_SEARCH] == 0 or c[B2_TILE] == 0,
+              f"{path}: {c[B2_SEARCH]} searches and {c[B2_TILE]} one-tile launches")
+        check(c[RUNNING_SUM] <= c[RESAMPLES],
+              f"{path}: {c[RUNNING_SUM]} running sums for {c[RESAMPLES]} resamples")
         # every reweight of a main path composes its transform in the kernel
         reweights = sum(c[name] for name in REWEIGHT_KERNELS)
         check(c[REWEIGHT_STATES] == reweights,
               f"{path}: {c[REWEIGHT_STATES]} of {reweights} reweights through the states entry")
-    resampled = mega_counts["B2 resample_take"] > 0
+    resampled = mega_counts[B2_SEARCH] > 0
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
              "plain_device_ms", "library_device_ms", "shape")
     mega_drew = mega_counts[POOL_DRAW] > 0
@@ -4230,7 +4284,7 @@ def main() -> int:
     for k, path in ((k_big, "windowed"), (r_mega if resampled else r_big,
                                           "mega" if resampled else "windowed"),
                     (rc_mega if resampled else rc_big, "mega" if resampled else "windowed"),
-                    (rs_fleet, "fleet"),
+                    (r_main, "node"), (rs_fleet, "fleet"),
                     (d_main, "mega" if mega_drew else "windowed"), (p_big, None),
                     (c_fleet, "fleet"), (f_mega, "mega"), (w_big, None), (ws_big, "windowed"),
                     (wc_big, "windowed"), (i_big, None), (ws_int8, "windowed_int8"),
@@ -4264,7 +4318,10 @@ def main() -> int:
                 {**{key: r[key] for key in timed}, "path": path,
                  "launches": by_path[path][RUNNING_SUM]}
                 for r, path in ((rs_node, "node"), (rs_sparse, "sparse_node"),
-                                (rs_large, "large_residual"))]
+                                (rs_large, "large_residual"), (rs_mega, "mega_sharded"))]
+        if k is r_main:  # the one-tile entry at the fleet's 64 x 4096
+            entry["other_shapes"] = [{**{key: r_fleet[key] for key in timed}, "path": "fleet",
+                                      "launches": by_path["fleet"][B2_TILE]}]
         if k is f_mega:  # the L2 branch of the same kernel
             entry["other_shapes"] = [{key: f_l2[key] for key in timed}]
         if k is c_build:  # the ray entry's other maps, the last through L2
@@ -4280,7 +4337,8 @@ def main() -> int:
         entry.update({key: k[key] for key in k if key.startswith("model_")})
         if any(k is x for x in (d_main, ws_big, ws_int8, wc_big)):
             entry["device_launches_seen"] = k["device_launches_seen"]
-        if k in (r_mega, r_big):
+        entry.update({key: k[key] for key in ("launches_per_call", "library_note") if key in k})
+        if k in (r_mega, r_big, r_main):
             entry.update({key: k[key] for key in (
                 "cdf_device_ms", "search_device_ms", "old_path_ms", "old_path_device_ms",
                 "old_cdf_device_ms")})

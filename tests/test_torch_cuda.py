@@ -182,7 +182,8 @@ def test_b2_cdf_kernel_monotone_exact_intervals_and_ulp_bound(dev, lead, n):
                                              ((), 262144, "uniform"), ((3,), 4099, "uniform")])
 def test_b2_whole_function_is_cdf_kernel_then_search(dev, lead, n, strategy):
     """``resample_take`` from the weights on the card: one CDF build and one
-    search, donors bit-equal to ``search_take`` on the kernel's own CDF and
+    search (one launch of the one-tile entry up to a tile a filter), donors
+    bit-equal to ``search_take`` on the kernel's own CDF and
     to its plain version there, no donor with zero weight, padding at 1.5
     and the all-zero filter zero rows, and rows apart from the plain whole
     function only where a position lies between the two CDFs' values of
@@ -201,10 +202,13 @@ def test_b2_whole_function_is_cdf_kernel_then_search(dev, lead, n, strategy):
     pos = draw(gen, n, lead).contiguous()
     pos[..., -5:] = 1.5
     values = torch.randn((*lead, 4, n), generator=gen, device=dev)
-    counts = b2.cdf_launches, b2.launches
+    counts = b2.cdf_launches, b2.launches, b2.tile_launches
     got = b2.resample_take(w, pos, values)
     torch.cuda.synchronize()
-    assert (b2.cdf_launches, b2.launches) == (counts[0] + 1, counts[1] + 1)
+    # at one tile a filter the one-tile entry, else the CDF kernel and the search
+    one = int(n <= b2.TILE)
+    assert (b2.cdf_launches, b2.launches, b2.tile_launches) == (
+        counts[0] + 1 - one, counts[1] + 1 - one, counts[2] + one)
     cdf = b2.monotone_cdf(w)
     assert torch.equal(got, b2.search_take(cdf, pos, values))
     assert torch.equal(got, b2.search_take_reference(cdf, pos, values))
@@ -221,6 +225,141 @@ def test_b2_whole_function_is_cdf_kernel_then_search(dev, lead, n, strategy):
     moved = (torch.searchsorted(plain_cdf, pos, right=True) != idx)
     differs = (got != b2.search_take_reference(plain_cdf, pos, values)).any(-1)
     assert torch.equal(differs, moved)
+
+
+def kernels_per_call(fn, calls=4):
+    """Kernels on the card a call of ``fn`` runs, from ``torch.profiler``
+    (memory copies and sets left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    return len(kernels) / calls
+
+
+def assert_cdf_contract(w, cdf):
+    """Monotone, each zero-weight slot's entry the one before it (0 before
+    the first live slot), the last live slot's entry exactly 1, an
+    all-zero filter all 0, every entry within CDF_ULP of float64."""
+    n = w.shape[-1]
+    assert cdf.shape == w.shape and torch.isfinite(cdf).all()
+    assert (cdf[..., 1:] >= cdf[..., :-1]).all()
+    prev = torch.cat([torch.zeros_like(cdf[..., :1]), cdf[..., :-1]], dim=-1)
+    dead = w == 0
+    assert torch.equal(cdf[dead], prev[dead])
+    exact = torch.cumsum(w.double(), dim=-1)
+    exact = exact / torch.clamp_min(exact[..., -1:], 1e-38)
+    assert float((cdf.double() - exact).abs().max()) <= CDF_ULP
+    flat_w, flat_c = w.reshape(-1, n), cdf.reshape(-1, n)
+    live_any = (flat_w > 0).any(-1)
+    last = n - 1 - torch.argmax(torch.flip(flat_w > 0, [-1]).to(torch.int8), dim=-1)
+    at_last = torch.take_along_dim(flat_c, last[:, None], dim=-1)[:, 0]
+    assert bool((at_last[live_any] == 1.0).all())
+    assert not flat_c[~live_any].any()
+
+
+@pytest.mark.parametrize("lead,n", [((), 1), ((), 7), ((), 4095), ((), 4096), ((), 4097),
+                                    ((), 8193), ((), 10001), ((), 262145), ((), 2097152),
+                                    ((64,), 4097), ((300,), 8193)])
+def test_b2_cdf_and_running_sum_are_one_launch_at_every_length(dev, lead, n):
+    """The CDF kernel, normalized (``monotone_cdf``) and not
+    (``running_sum``), is one kernel a call at every length: one tile, a
+    few, the large and mega filters' 262145 and 2^21, the fleet's 64 x 4097
+    and 300 filters x 3 tiles, past what the card holds at once (its blocks
+    loop over tiles).  Two calls bit-equal; the CDF's contract
+    (``assert_cdf_contract``, an all-zero filter all 0 where there are
+    several); the running sum monotone, each zero weight's entry the one
+    before, within CDF_ULP of its float64 total, and the CDF its own
+    division by its last entry, bit for bit."""
+    from beluga_tpu_torch.ops import cuda_resample as b2
+
+    w = cdf_weights(dev, lead, n, n + 7)
+    before = b2.cdf_launches, b2.sum_launches
+    cdf, m = b2.monotone_cdf(w), b2.running_sum(w)
+    torch.cuda.synchronize()
+    assert (b2.cdf_launches, b2.sum_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(cdf, b2.monotone_cdf(w)) and torch.equal(m, b2.running_sum(w))
+    assert_cdf_contract(w, cdf)
+    prev = torch.cat([torch.zeros_like(m[..., :1]), m[..., :-1]], dim=-1)
+    assert (m[..., 1:] >= m[..., :-1]).all() and torch.equal(m[w == 0], prev[w == 0])
+    exact = torch.cumsum(w.double(), dim=-1)
+    total = torch.clamp_min(exact[..., -1:], 1e-38)
+    assert float(((m.double() - exact) / total).abs().max()) <= CDF_ULP
+    assert torch.equal(cdf, m / torch.clamp_min(m[..., -1:], 1e-38))
+    assert kernels_per_call(lambda: b2.monotone_cdf(w)) == 1.0
+    assert kernels_per_call(lambda: b2.running_sum(w)) == 1.0
+    plan = b2.cdf_plan(n, math.prod(lead), *b2._card(dev.index or 0))
+    if (lead, n) == ((300,), 8193):
+        assert plan.grid < plan.tiles * 300  # the blocks looped over tiles
+
+
+@pytest.mark.parametrize("lead,n", [((), 2000), ((64,), 4096)])
+@pytest.mark.parametrize("kind", ["sorted", "systematic", "padded"])
+def test_b2_one_tile_entry_is_the_cdf_and_the_search_in_one_launch(dev, lead, n, kind):
+    """Up to a tile a filter, ``resample_take`` is one launch of the
+    one-tile entry, its donors bit-equal to ``search_take`` on
+    ``monotone_cdf``'s CDF of the same weights: sorted multinomial and
+    systematic positions with padding at 1.5, and padding alone (no
+    donor); no CDF kernel and no search kernel run, an all-zero filter
+    gives zero rows."""
+    from beluga_tpu_torch.ops import cuda_resample as b2
+    from beluga_tpu_torch.ops.resample import sorted_multinomial_positions, systematic_positions
+
+    w = cdf_weights(dev, lead, n, n + 3)
+    gen = torch.Generator(device=dev).manual_seed(n + 3)
+    values = torch.randn((*lead, 4, n), generator=gen, device=dev)
+    if kind == "padded":
+        pos = torch.full((*lead, n), 1.5, device=dev)
+    else:
+        draw = sorted_multinomial_positions if kind == "sorted" else systematic_positions
+        pos = draw(gen, n, lead).contiguous()
+        pos[..., -9:] = 1.5
+    counts = b2.tile_launches, b2.launches, b2.cdf_launches
+    got = b2.resample_take(w, pos, values)
+    torch.cuda.synchronize()
+    assert (b2.tile_launches, b2.launches, b2.cdf_launches) == (counts[0] + 1, *counts[1:])
+    assert torch.equal(got, b2.search_take(b2.monotone_cdf(w), pos, values))
+    assert not got[..., -9:, :].any()
+    if lead:
+        assert not got.reshape(-1, n, 4)[-1].any()
+    assert kernels_per_call(lambda: b2.resample_take(w, pos, values)) == 1.0
+
+
+def test_b2_cdf_kernel_refuses_a_grid_it_cannot_hold(dev):
+    """A cooperative grid larger than the card holds at once, or than the
+    filter's tiles, is refused by the C entry and raised by the wrapper's
+    check; the plan's grid runs."""
+    from beluga_tpu_torch.ops import cuda_resample as b2
+    from beluga_tpu_torch.ops._build import stream_ptr
+
+    n = 2097152
+    w = torch.rand(n, device=dev)
+    out = torch.empty_like(w)
+    sms, per_sm = b2._card(dev.index or 0)
+    plan = b2.cdf_plan(n, 1, sms, per_sm)
+    words = b2._scratch(dev, stream_ptr(dev), plan)
+    cdf = b2._kernels().cdf
+    for grid, refused in ((plan.tiles + 1, True), (plan.grid, False)):
+        err = cdf(w.data_ptr(), n, 1, words.data_ptr(), 1, out.data_ptr(), grid, stream_ptr(dev))
+        assert (err != 0) is refused
+        if refused:
+            with pytest.raises(RuntimeError, match="cudaError"):
+                b2._raise_on(err, "CDF kernel launch")
+    torch.cuda.synchronize()
+    assert torch.equal(out, b2.monotone_cdf(w))
+    many = cdf_weights(dev, (300,), 8193, 5)  # 900 tiles, more than the card holds at once
+    plan = b2.cdf_plan(8193, 300, sms, per_sm)
+    assert plan.grid < plan.tiles * 300
+    err = cdf(many.data_ptr(), 8193, 300, b2._scratch(dev, stream_ptr(dev), plan).data_ptr(), 1,
+              torch.empty_like(many).data_ptr(), plan.tiles * 300, stream_ptr(dev))
+    assert err != 0  # every item a block of its own: refused, not run
 
 
 @pytest.mark.parametrize("lead,p,c,n", [((64,), 512, 2, 4096), ((), 4096, 2, 262144),
@@ -394,7 +533,7 @@ def test_fleet_on_card(dev):
     state = init_fleet_state(0, 4, host_pose(xs[0], ys[0], yaws[0]),
                              np.diag([0.25, 0.25, 0.068]), params)
     assert state.particles.log_weight.is_cuda and state.particles.log_weight.shape == (4, 4096)
-    counts = (cuda_reweight.launches, cuda_reweight.values3_launches, cuda_resample.launches,
+    counts = (cuda_reweight.launches, cuda_reweight.values3_launches, cuda_resample.tile_launches,
               cuda_pool_take.draw_launches, cuda_pool_take.launches)
     states_launches = cuda_reweight.states_launches
     state, est = make_fleet_update(params, models)(
@@ -403,7 +542,7 @@ def test_fleet_on_card(dev):
         torch.as_tensor(pts[0]).to(dev).expand(4, BEAMS, 2).contiguous(),
         torch.as_tensor(mask[0]).to(dev).expand(4, BEAMS).contiguous())
     assert est.valid.all() and torch.isfinite(est.pose.xy).all()
-    assert (cuda_reweight.launches, cuda_reweight.values3_launches, cuda_resample.launches,
+    assert (cuda_reweight.launches, cuda_reweight.values3_launches, cuda_resample.tile_launches,
             cuda_pool_take.draw_launches, cuda_pool_take.launches) == (
         counts[0], counts[1] + 1, counts[2] + 1, counts[3] + 1, counts[4])
     assert cuda_reweight.states_launches == states_launches + 1
@@ -424,12 +563,12 @@ def test_node_on_card(dev):
                                    initial_pose_x=2.0, initial_pose_y=2.0))
     node.set_map(make_grid(data, 0.1))
     assert node._state.particles.log_weight.is_cuda
-    b1, b2 = cuda_reweight.launches, cuda_resample.launches
+    b1, b2 = cuda_reweight.launches, cuda_resample.tile_launches
     b1_states = cuda_reweight.states_launches
     pts = np.random.default_rng(0).uniform(0.5, 2.0, (30, 2)).astype(np.float32)
     res = node.handle_scan((0.0, 0.0, 0.0), pts)
     assert res.valid and np.isfinite(res.pose).all()
-    assert (cuda_reweight.launches, cuda_resample.launches) == (b1 + 1, b2 + 1)
+    assert (cuda_reweight.launches, cuda_resample.tile_launches) == (b1 + 1, b2 + 1)
     assert cuda_reweight.states_launches == b1_states + 1
     assert not node.handle_scan((0.01, 0.0, 0.0), pts).valid
     node.global_localization()
@@ -1836,10 +1975,12 @@ def test_residual_on_card_matches_plain_version(dev, lead, n):
     w[..., n // 3 : n // 3 + n // 20] = 0.0
     u = torch.rand((*lead, n + 1), generator=gen, device=dev)
     ident = torch.arange(n, dtype=torch.float32, device=dev).expand(*lead, n).contiguous()
-    before = b2.launches, b2.cdf_launches
+    before = b2.launches, b2.cdf_launches, b2.tile_launches
     got = b2.resample_take_tree_residual(w, ident, u)
     torch.cuda.synchronize()
-    assert (b2.launches, b2.cdf_launches) == (before[0] + 2, before[1] + 2)
+    one = int(n <= b2.TILE)  # two passes, each one launch up to a tile a filter
+    assert (b2.launches, b2.cdf_launches, b2.tile_launches) == (
+        before[0] + 2 - 2 * one, before[1] + 2 - 2 * one, before[2] + 2 * one)
     counts, u_det, residual, u_res, det = b2.residual_positions(w, u)
     for i in np.ndindex(lead):
         c = torch.bincount(got[i].long(), minlength=n)
