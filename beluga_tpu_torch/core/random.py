@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from beluga_tpu_torch.lie import SE2, SE3, SO2, SO3
+from beluga_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -27,10 +28,10 @@ def _sqrt_psd(cov) -> Tensor:
     eigenvalues clamp to zero): on the host for a host array, on the
     tensor's device for a tensor ``[..., D, D]`` (one per filter)."""
     if isinstance(cov, torch.Tensor):
-        c = cov.float()
+        with span("sync.recovery_sqrt_cov"):  # eigh's error check reads back
+            w, v = torch.linalg.eigh(cov.float())
     else:
-        c = torch.as_tensor(np.asarray(cov, np.float32))
-    w, v = torch.linalg.eigh(c)
+        w, v = torch.linalg.eigh(torch.as_tensor(np.asarray(cov, np.float32)))
     return v * torch.sqrt(torch.clamp_min(w, 0.0))[..., None, :]
 
 

@@ -82,6 +82,7 @@ from beluga_tpu_torch.ops.resample import (
     sorted_multinomial_positions,
 )
 from beluga_tpu_torch.ops.spatial_hash import spatial_hash_se2
+from beluga_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -434,30 +435,40 @@ def step(ops: "ParticleOps", params: AmclParams, models: AmclModels, ctx: Any,
          draws: UpdateDraws | None = None,
          sort_now: bool | None = None) -> tuple[AmclState, Estimate]:
     """:func:`update` with the particle-axis steps of ``ops``: :data:`DENSE`,
-    or the sharded update's (``parallel/mega.py``)."""
-    moved, motion_latest = _on_motion(
-        params, models, state.motion_latest, state.motion_seeded, odom_pose
-    )
-    due = moved | np.asarray(state.force_update)
-    state = state._replace(motion_latest=motion_latest,
-                           motion_seeded=_host(np.ones_like(due)))
-    if due.all():
-        state = _gated_in(ops, params, models, ctx, state, odom_pose, points, beam_mask,
-                          draws, sort_now)
-    elif due.any():
-        # filters that gate apart: step them all, keep the gated-out ones
-        new = _gated_in(ops, params, models, ctx, state, odom_pose, points, beam_mask,
-                        draws, sort_now)
-        keep = torch.as_tensor(due, device=state.particles.log_weight.device)
-        state = new._replace(
-            particles=_select(keep, new.particles, state.particles),
-            thrun=tree_where(keep, new.thrun, state.thrun),
-            resample_count=np.where(due, new.resample_count, state.resample_count),
-            control_prev=tree_where(torch.as_tensor(due), odom_pose, state.control_prev),
-            control_seeded=state.control_seeded | due,
-            force_update=state.force_update & ~due,
-        )
-    mean, cov = ops.estimate(params, models, state.particles)
+    or the sharded update's (``parallel/mega.py``).
+
+    While a ``torch.profiler`` records, the update marks its stages as
+    ranges ``amcl.<stage>`` inside ``amcl.update``, and each call that
+    makes the host wait for the card as ``sync.<site>``
+    (:func:`~beluga_tpu_torch.utils.profiling.span`)."""
+    with span("amcl.update"):
+        with span("amcl.gate"):
+            moved, motion_latest = _on_motion(
+                params, models, state.motion_latest, state.motion_seeded, odom_pose
+            )
+            due = moved | np.asarray(state.force_update)
+        state = state._replace(motion_latest=motion_latest,
+                               motion_seeded=_host(np.ones_like(due)))
+        if due.all():
+            state = _gated_in(ops, params, models, ctx, state, odom_pose, points, beam_mask,
+                              draws, sort_now)
+        elif due.any():
+            # filters that gate apart: step them all, keep the gated-out ones
+            new = _gated_in(ops, params, models, ctx, state, odom_pose, points, beam_mask,
+                            draws, sort_now)
+            with span("amcl.select"):
+                with span("sync.gate_keep"):
+                    keep = torch.as_tensor(due, device=state.particles.log_weight.device)
+                state = new._replace(
+                    particles=_select(keep, new.particles, state.particles),
+                    thrun=tree_where(keep, new.thrun, state.thrun),
+                    resample_count=np.where(due, new.resample_count, state.resample_count),
+                    control_prev=tree_where(torch.as_tensor(due), odom_pose, state.control_prev),
+                    control_seeded=state.control_seeded | due,
+                    force_update=state.force_update & ~due,
+                )
+        with span("amcl.estimate"):
+            mean, cov = ops.estimate(params, models, state.particles)
     return state, Estimate(mean, cov, _host(due))
 
 
@@ -471,54 +482,65 @@ def _gated_in(ops: "ParticleOps", params: AmclParams, models: AmclModels, ctx: A
     lead = tuple(particles.log_weight.shape[:-1])
     n = particles.capacity
     dev = particles.log_weight.device
-    prev_pose = tree_where(torch.as_tensor(np.asarray(state.control_seeded)),
-                           state.control_prev, odom_pose)
+    fused = models.fused_propagate_reweight
 
     # -- propagate | reweight | normalize -----------------------------------
-    if draws is None:
-        z = torch.randn((*lead, 3, n), generator=ops.slot_generator(gen), dtype=torch.float32,
-                        device=dev)
-    else:
-        z = draws.motion_normals
-    if models.fused_propagate_reweight is not None:
-        new_states, log_lik = models.fused_propagate_reweight(
-            ctx, z, particles.state, odom_pose, prev_pose, points, beam_mask)
-    else:
-        new_states = models.propagate(ctx, z, particles.state, odom_pose, prev_pose)
-        log_lik = models.log_weight(ctx, new_states, points, beam_mask)
-    log_w = torch.where(ops.mask(particles), particles.log_weight + log_lik, DEAD_LOG_WEIGHT)
-    particles = ops.normalize(ParticleSet(new_states, log_w, particles.active))
-
-    # -- Thrun recovery probability (post-normalize, amcl_core.hpp:179) -----
-    avg_weight = 1.0 / torch.clamp_min(particles.active.float(), 1.0)
-    thrun, p_random = thrun_update(state.thrun, params.alpha_slow, params.alpha_fast, avg_weight)
-
-    # -- resample policy: every_n [&& ESS drop] -----------------------------
-    # the counter cycles over resample_interval * sort_interval so that it
-    # drives both the resample and the theta-sort schedule (amcl.py:344-349)
-    modulus = params.resample_interval * max(params.sort_interval, 1)
-    resample_count = (np.asarray(state.resample_count) + 1) % modulus
-    do_resample = resample_count % params.resample_interval == 0
-    select = None  # device bool[B] of the filters that resample; None: all
-    if do_resample.any() and params.selective_resampling:
-        ess_low = ops.ess(particles) < 0.5 * particles.active.float()
-        if lead:
-            select = torch.as_tensor(do_resample, device=dev) & ess_low  # no readback
+    with span("amcl.propagate_reweight" if fused else "amcl.propagate"):
+        prev_pose = tree_where(torch.as_tensor(np.asarray(state.control_seeded)),
+                               state.control_prev, odom_pose)
+        if draws is None:
+            z = torch.randn((*lead, 3, n), generator=ops.slot_generator(gen),
+                            dtype=torch.float32, device=dev)
         else:
-            do_resample = np.asarray(bool(ess_low))  # one readback
-    elif not do_resample.all():
-        select = torch.as_tensor(do_resample, device=dev)
+            z = draws.motion_normals
+        if fused is not None:
+            new_states, log_lik = fused(ctx, z, particles.state, odom_pose, prev_pose, points,
+                                        beam_mask)
+        else:
+            new_states = models.propagate(ctx, z, particles.state, odom_pose, prev_pose)
+    with span("amcl.reweight"):
+        if fused is None:
+            log_lik = models.log_weight(ctx, new_states, points, beam_mask)
+        log_w = torch.where(ops.mask(particles), particles.log_weight + log_lik, DEAD_LOG_WEIGHT)
+    with span("amcl.normalize"):
+        particles = ops.normalize(ParticleSet(new_states, log_w, particles.active))
+
+        # -- Thrun recovery probability (post-normalize, amcl_core.hpp:179) -
+        avg_weight = 1.0 / torch.clamp_min(particles.active.float(), 1.0)
+        thrun, p_random = thrun_update(state.thrun, params.alpha_slow, params.alpha_fast,
+                                       avg_weight)
+
+        # -- resample policy: every_n [&& ESS drop] -------------------------
+        # the counter cycles over resample_interval * sort_interval so that it
+        # drives both the resample and the theta-sort schedule (amcl.py:344-349)
+        modulus = params.resample_interval * max(params.sort_interval, 1)
+        resample_count = (np.asarray(state.resample_count) + 1) % modulus
+        do_resample = resample_count % params.resample_interval == 0
+        select = None  # device bool[B] of the filters that resample; None: all
+        if do_resample.any() and params.selective_resampling:
+            ess_low = ops.ess(particles) < 0.5 * particles.active.float()
+            if lead:
+                with span("sync.resample_select"):
+                    select = torch.as_tensor(do_resample, device=dev) & ess_low
+            else:
+                with span("sync.ess_gate"):
+                    do_resample = np.asarray(bool(ess_low))  # one readback
+        elif not do_resample.all():
+            with span("sync.resample_select"):
+                select = torch.as_tensor(do_resample, device=dev)
 
     if do_resample.any():
-        resampled = ops.resample(params, models, ctx, gen, particles, p_random, draws)
-        # reset the estimator after injecting randomness (amcl_core.hpp:184-186)
-        fresh = ThrunState.init(dev, lead)
-        thrun_r = tree_map(lambda a, b: torch.where(p_random > 0.0, a, b), fresh, thrun)
+        with span("amcl.resample"):
+            resampled = ops.resample(params, models, ctx, gen, particles, p_random, draws)
+            # reset the estimator after injecting randomness (amcl_core.hpp:184-186)
+            fresh = ThrunState.init(dev, lead)
+            thrun_r = tree_map(lambda a, b: torch.where(p_random > 0.0, a, b), fresh, thrun)
         if select is None:
             particles, thrun = resampled, thrun_r
         else:
-            particles = _select(select, resampled, particles)
-            thrun = tree_where(select, thrun_r, thrun)
+            with span("amcl.select"):
+                particles = _select(select, resampled, particles)
+                thrun = tree_where(select, thrun_r, thrun)
 
     if params.sorted_slots and sort_now is not False:
         # keep the theta-sorted slot invariant on the sort schedule, outside
@@ -530,10 +552,15 @@ def _gated_in(ops: "ParticleOps", params: AmclParams, models: AmclModels, ctx: A
         else:
             sort_due = np.ones(lead, bool)
         if sort_due.all():
-            particles = ops.sort_slots(models, particles)
+            with span("amcl.sort"):
+                particles = ops.sort_slots(models, particles)
         elif sort_due.any():
-            particles = _select(torch.as_tensor(sort_due, device=dev),
-                                ops.sort_slots(models, particles), particles)
+            with span("sync.sort_select"):
+                keep = torch.as_tensor(sort_due, device=dev)
+            with span("amcl.sort"):
+                sorted_particles = ops.sort_slots(models, particles)
+            with span("amcl.select"):
+                particles = _select(keep, sorted_particles, particles)
 
     return state._replace(
         particles=particles,
@@ -595,28 +622,31 @@ def inject_and_count(params: AmclParams, models: AmclModels, ctx: Any, gen: torc
     that every rank counts the same hashes."""
     lead = tuple(particles.log_weight.shape[:-1])
     dev = particles.log_weight.device
-    if draws is None:
-        randoms, count, slots, inject_u = _draw_injection(models, ctx, gen, particles,
-                                                          p_random, n, pool)
-    else:
-        randoms, count, slots, inject_u = (draws.random_states, draws.inject_count,
-                                           draws.inject_slots, draws.inject_uniform)
-    if pool and pool < n:
-        # bounded pool: n_inj ~ Binomial(n, p), clamped to the pool, entries
-        # at iid uniform slots; colliding targets keep the last of their entries
-        n_inj = torch.clamp_max(count.to(dev), float(pool))
-        target = torch.where(torch.arange(pool, device=dev) < n_inj[..., None],
-                             slots.to(dev), n)  # n: dropped
-        candidates = tree_scatter(donors, target, randoms)
-    else:
-        candidates = tree_where(inject_u < p_random[..., None], randoms, donors)
+    with span("amcl.recovery"):
+        if draws is None:
+            randoms, count, slots, inject_u = _draw_injection(models, ctx, gen, particles,
+                                                              p_random, n, pool)
+        else:
+            randoms, count, slots, inject_u = (draws.random_states, draws.inject_count,
+                                               draws.inject_slots, draws.inject_uniform)
+        if pool and pool < n:
+            # bounded pool: n_inj ~ Binomial(n, p), clamped to the pool, entries
+            # at iid uniform slots; colliding targets keep the last of their entries
+            n_inj = torch.clamp_max(count.to(dev), float(pool))
+            target = torch.where(torch.arange(pool, device=dev) < n_inj[..., None],
+                                 slots.to(dev), n)  # n: dropped
+            candidates = tree_scatter(donors, target, randoms)
+        else:
+            candidates = tree_where(inject_u < p_random[..., None], randoms, donors)
     m = params.max_particles
     if params.min_particles < m:
         # KLD on the candidates in draw/CDF order, before any theta sort
         # (take_while_kld.hpp:72-88)
-        hashes = models.hash_state(params, candidates)
-        active = kld_active_count(hashes if gather is None else gather(hashes),
-                                  params.min_particles, m, params.kld_epsilon, params.kld_z)
+        with span("amcl.kld"):
+            hashes = models.hash_state(params, candidates)
+            active = kld_active_count(hashes if gather is None else gather(hashes),
+                                      params.min_particles, m, params.kld_epsilon,
+                                      params.kld_z)
     else:
         # take_while_kld's `count <= min` clause keeps all of them
         active = torch.full(lead, m, dtype=torch.int32, device=dev)

@@ -19,6 +19,7 @@ import math
 import torch
 
 from beluga_tpu_torch.lie import SE2, SE3, SO2, to_2d, to_3d
+from beluga_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -91,7 +92,9 @@ def diff_drive_propagate(
         params, pose, previous_pose
     )
     if r1_mu.dim() > 0:
-        coef = torch.stack([r1_mu, r1_sd, t_mu, t_sd, r2_mu, r2_sd]).to(z.device)[..., None]
+        coef = torch.stack([r1_mu, r1_sd, t_mu, t_sd, r2_mu, r2_sd])
+        with span("sync.motion_coefficients"):  # a pageable copy: the stream drains
+            coef = coef.to(z.device)[..., None]
         r1_mu, r1_sd, t_mu, t_sd, r2_mu, r2_sd = coef.unbind(0)
     rot1 = r1_mu + r1_sd * z[..., 0, :]
     trans = t_mu + t_sd * z[..., 1, :]

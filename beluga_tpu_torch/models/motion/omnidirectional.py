@@ -20,6 +20,7 @@ import torch
 
 from beluga_tpu_torch.lie import SE2, SO2
 from beluga_tpu_torch.models.motion.differential_drive import _rotation_variance, _wrap
+from beluga_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -78,7 +79,8 @@ def omni_drive_propagate(
     particles' device in one copy."""
     coef = omni_drive_decompose(params, pose, previous_pose)
     if coef[0].dim() > 0:
-        coef = torch.stack(coef).to(z.device)[..., None].unbind(0)
+        with span("sync.motion_coefficients"):  # a pageable copy: the stream drains
+            coef = torch.stack(coef).to(z.device)[..., None].unbind(0)
     first_rotation, rotation, rot_std, distance, trans_std, strafe_std = coef
     rot_draw = rotation + rot_std * z[..., 0, :]
     trans_draw = distance + trans_std * z[..., 1, :]

@@ -75,8 +75,8 @@ After a warm-up each workload runs ``--scans`` scans on the host clock
 under the profiler.  For each it prints one JSON line: the wall ms per
 update, device-busy ms per update (the sum of the CUDA kernels' and
 copies' device times under the profiler), the device's idle share
-(1 - busy / wall), kernel launches per update, and the model stages
-(wrapped in profiler ranges here, not in the port), a few PyTorch
+(1 - busy / wall), kernel launches per update, the update's stages (its
+own ``amcl.*`` ranges, host and device ms), a few PyTorch
 operators by name (device time and calls per update), the kernels that
 take the most time, and the port's hand-written kernels by name (device
 time and launches per update, and each launch's least and greatest device
@@ -101,8 +101,12 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from beluga_tpu_torch.tools import workloads
 
-STAGES = ("propagate", "log_weight", "random_state", "hash_state", "estimate", "sort_key",
-          "fused_propagate_reweight", "prepare")
+# the update's own ranges (``filters/amcl.py:step``, ``utils/profiling.py:span``),
+# and this tool's ``prepare``; PERF.md §3 names the model-table label each
+# replaces, for a parent's profile from a tree older than them
+STAGES = ("amcl.update", "amcl.gate", "amcl.propagate", "amcl.propagate_reweight",
+          "amcl.reweight", "amcl.normalize", "amcl.resample", "amcl.recovery", "amcl.kld",
+          "amcl.sort", "amcl.select", "amcl.estimate", "prepare")
 # PyTorch operators whose device time the profile reports by name, to see
 # how they scale with the particle count
 OPS = ("aten::cummax", "aten::sort", "aten::cumsum", "aten::matmul", "aten::index_select",
@@ -132,32 +136,15 @@ HAND_KERNELS = {
 _SYMBOL = re.compile(r"(\w+_kernel)\b")
 
 
-def _ranged(models):
-    """The model table with each function inside a profiler range."""
-    def wrap(name, fn):
-        def inner(*args, **kwargs):
-            with record_function(name):
-                return fn(*args, **kwargs)
-        return inner
-
-    from beluga_tpu_torch.filters.amcl import se2_sort_key
-
-    models = models._replace(sort_key=models.sort_key or se2_sort_key)
-    return models._replace(**{s: wrap(s, getattr(models, s)) for s in STAGES
-                              if getattr(models, s, None) is not None})
-
-
 def _node(scans: int, scans_fn=workloads.arena_scans, forced: bool = False, **overrides):
     """The node on ``scans_fn(scans)``; ``forced`` asks for each update with
     ``request_nomotion_update`` (a robot that does not move)."""
     from beluga_tpu_torch.maps.occupancy import make_grid
-    from beluga_tpu_torch.node import AmclNode, make_packed_step_se2
+    from beluga_tpu_torch.node import AmclNode
 
     s = scans_fn(scans)
     node = AmclNode(workloads.node_config(s, **overrides), seed=0)
     node.set_map(make_grid(s.data, workloads.RES))
-    node._models = _ranged(node._models)
-    node._step = make_packed_step_se2(node.params, node._models, node.device)
 
     def step(t):
         if forced:
@@ -176,15 +163,13 @@ def _raw_node(scans: int, pipelined: bool = False, **overrides):
     import tempfile
 
     from beluga_tpu_torch.maps.occupancy import load_pgm_yaml
-    from beluga_tpu_torch.node import AmclNode, make_packed_step_se2
+    from beluga_tpu_torch.node import AmclNode
 
     raw = workloads.arena_ranges(scans)
     s = raw.scans
     node = AmclNode(workloads.node_config(s, **overrides), seed=0, pipelined=pipelined)
     with tempfile.TemporaryDirectory() as d:
         node.set_map(load_pgm_yaml(workloads.arena_map_yaml(d)))
-    node._models = _ranged(node._models)
-    node._step = make_packed_step_se2(node.params, node._models, node.device)
 
     def step(t):
         r = node.handle_laser_scan((s.xs[t], s.ys[t], s.yaws[t]), raw.ranges[t], raw.angle_min,
@@ -215,11 +200,11 @@ def _large(scans: int, resampling: str = "systematic"):
     from beluga_tpu_torch.filters.amcl import host_pose, update
 
     w = workloads.large_filter(scans, torch.device("cuda"), resampling=resampling)
-    models, s = _ranged(w.models), w.scans
+    s = w.scans
     box = {"state": w.state}
 
     def step(t):
-        box["state"], est = update(w.params, models, w.ctx, box["state"],
+        box["state"], est = update(w.params, w.models, w.ctx, box["state"],
                                    host_pose(s.xs[t], s.ys[t], s.yaws[t]), w.points[t], w.mask[t])
         est.pose.xy.cpu()  # the one readback per scan, as the node does
 
@@ -228,12 +213,12 @@ def _large(scans: int, resampling: str = "systematic"):
 
 def _fleet(scans: int, make_workload=workloads.fleet):
     """A fleet through ``parallel.fleet.make_fleet_update``, or through the
-    workload's own ``step`` (the winlut fleet's, its stages unranged)."""
+    workload's own ``step`` (the winlut fleet's)."""
     from beluga_tpu_torch.parallel.fleet import make_fleet_update
 
     w = make_workload(scans, torch.device("cuda"))
     batch = w.points.shape[1]
-    fleet_update = w.step or make_fleet_update(w.params, _ranged(w.models))
+    fleet_update = w.step or make_fleet_update(w.params, w.models)
     box = {"state": w.state}
 
     def step(t):
@@ -252,7 +237,7 @@ def _forced(make_workload, sort_every: int | None):
 
     def make(scans: int):
         w = make_workload(scans, torch.device("cuda"))
-        models, s = _ranged(w.models), w.scans
+        s = w.scans
         box = {"state": w.state}
 
         def step(t):
@@ -261,7 +246,7 @@ def _forced(make_workload, sort_every: int | None):
             if w.prepare is not None:
                 with record_function("prepare"):
                     ctx = w.prepare(ctx, w.points[t], w.mask[t])
-            box["state"], est = update(w.params, models, ctx,
+            box["state"], est = update(w.params, w.models, ctx,
                                        box["state"]._replace(force_update=True),
                                        host_pose(s.xs[t], s.ys[t], s.yaws[t]), w.points[t],
                                        w.mask[t], sort_now=sort_now)
@@ -291,8 +276,6 @@ def _ndt_node(scans: int, dim: int = 2):
                               workloads.INITIAL_COV_3D)
         clouds, masks = workloads.ndt_clouds(s)
         odoms = [(x, y, 0.0, 0.0, 0.0, yaw) for x, y, yaw in zip(s.xs, s.ys, s.yaws)]
-    node._models = _ranged(node._models)
-    node._step = node._make_packed_step()
 
     def step(t):
         if not node.handle_point_cloud(odoms[t], clouds[t], masks[t]).valid:
@@ -309,7 +292,7 @@ def _ndt_fleet(scans: int):
 
     w = workloads.ndt_fleet(scans, torch.device("cuda"))
     batch = w.points.shape[0]
-    fleet_update = make_fleet_update(w.params, _ranged(w.models))
+    fleet_update = make_fleet_update(w.params, w.models)
     odoms = workloads.fleet_odometry(w.scans, 0, batch)
     box = {"state": w.state}
 
@@ -328,11 +311,10 @@ def _vdb(scans: int):
     from beluga_tpu_torch.lie import SE3
 
     w = workloads.vdb_filter(scans, torch.device("cuda"))
-    models = _ranged(w.models)
     box = {"state": w.state}
 
     def step(t):
-        box["state"], est = update(w.params, models, w.ctx,
+        box["state"], est = update(w.params, w.models, w.ctx,
                                    box["state"]._replace(force_update=True), SE3.identity(),
                                    w.points, w.mask)
         est.pose.xyz.cpu()

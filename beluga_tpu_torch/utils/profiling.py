@@ -6,6 +6,9 @@ beluga_benchmark analog).
   * :func:`time_compiled`: steady-state time of a call, on CUDA events on
     the card;
   * :func:`trace`: a ``torch.profiler`` trace written as a Chrome trace;
+  * :func:`span`: a named range of the program in such a trace (the
+    update's stages and its blocking host-device syncs), free while no
+    profiler records;
   * :func:`card_label`: the card's name and power limit, to stand beside a
     number measured on it.
 """
@@ -87,6 +90,27 @@ def trace(log_dir: str):
         yield prof
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks the block as the range ``name`` while a
+    ``torch.profiler`` profile records: a ``record_function``, on the
+    profiler's clock beside the device's kernels and copies, which are tied
+    to it by their launches.  Otherwise one shared null context: a flag
+    check, with no ``record_function`` built (one costs microseconds even
+    with the profiler off).
+
+    Names: ``amcl.<stage>`` for the stages of the filter update, and
+    ``sync.<site>`` around each call in it that makes the host wait for the
+    card (a blocking host-to-device copy, a readback, a library call that
+    reads back), so that the count of ``sync.*`` ranges is the count of
+    syncs."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def card_label(device) -> str:

@@ -1,0 +1,12 @@
+"""Device milliseconds a tick of the estimate (the weighted mean and the
+covariance's GEMM): the kernels launched from the program's
+``amcl.estimate`` ranges, nested ranges included, over the traced ticks.
+0 where the update ran without the stage; nothing where the program marks
+no ``amcl.update``."""
+
+
+def read(ctx):
+    tr = ctx.trace
+    if not tr.ticks or not any(name == "amcl.update" for name, *_ in tr.ranges):
+        return None
+    return tr.kernel_us_under("amcl.estimate") * 1e-3 / tr.ticks
