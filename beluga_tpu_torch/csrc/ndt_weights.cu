@@ -26,28 +26,47 @@
 // What bounds it on an H100: the operations.  Per (particle, live cell):
 // the rotation of the mean (2D 6, 3D 15) and of the covariance (2D 16, 3D
 // 90), D divisions and floors; per (particle, live cell, stencil offset):
-// the key (~6 integer operations) and one compare, what an exact match
-// needs, and per hit the error, T, the inverse and the quadratic form (2D
-// ~25, 3D ~70) and the exp (counted as 10).  The bytes are the map once,
-// the cells once and 4(D^2 + D) + 4 bytes a particle, far below.  The
-// binary search below takes ceil(log2(m + 1)) dependent steps a probe
-// instead of one compare: that is this design's cost, above the bound.
-// The old design wrote a (4 + 4P + 1)-byte row per (particle, cell,
-// offset) and read it back through ~30 PyTorch operations and a batched
-// library inverse; here nothing between the poses and the weights leaves
-// the SM.
+// finding the probe's row; per hit the error, T, the inverse and the
+// quadratic form (2D ~25, 3D ~70) and the exp (counted as 10).  The bytes
+// are the map once, the cells once and 4(D^2 + D) + 4 bytes a particle,
+// far below.
 //
-// Design: a block of kWarps warps works on one filter (blockIdx.y).  Warp
-// 0 compacts the filter's live slots, in slot order, into a shared list
-// (ballot and popcount); the block stages the map's keys and rows in
-// shared memory when they fit (else the same kernel searches them in
-// global memory, through L2) and the first cache_cells live cells.  Each
-// warp then takes per_warp particles; g lanes (the least power of two, at
-// most 32, that covers the live cells) share a particle, so that 32 / g
-// particles go through a warp at once; each lane adds its cells in slot
-// order and a fixed __shfl_xor_sync tree adds the lanes: no float atomics,
-// so a run repeats bit for bit.  One launch over the whole particle axis:
-// the kernel has no intermediates to bound, so no chunks.
+// Finding a row.  A map whose live keys fit a box of at most 2^15 cells
+// (every map the repo runs: 48 x 48 live cells for the 2D arena, 39 x 39 x
+// 4 in 3D, each with a cell of padding on every side) comes with a dense
+// cell -> row index over that box (maps/ndt.py:CellIndex), held here in
+// shared memory as int16; a binary search of the sorted keys took
+// ceil(log2(m + 1)) dependent loads a probe, each with a compare and a
+// branch (81 a (particle, cell) at 287 keys, most of the old kernel's
+// time).  The box lies in the key's wrapped coordinates (the low 16 bits
+// of cell + 2^15 an axis in 2D, 10 of cell + 2^9 in 3D) and an axis'
+// offset in it is taken modulo that width, so the index finds a row
+// exactly when the search would, wrapped aliases included.  A cell whose
+// whole stencil lies inside the box (an inner cell: almost every cell the
+// scans see) reads each stencil cell at a fixed delta from its own place,
+// one load a probe, unrolled for the standard stencils; any other cell
+// checks each probe against the box.  The probes give a mask of hits,
+// and a loop over its set bits, in stencil order, does the arithmetic of
+// the hits alone, so that lanes whose particles hit at different offsets
+// share the passes.  A map whose box is larger (a sparse city-scale map)
+// has no index, and the kernel searches its keys as before: the map alone
+// chooses the path.
+//
+// Design: a block of kWarps warps works on one filter (blockIdx.y).  The
+// block compacts the filter's live slots, in slot order, into a shared
+// list (a ballot a warp, the warps' counts in shared memory); stages the
+// index, the map's rows (and, without an index, its keys) in shared
+// memory when they fit (else the rows are read through L2), and the
+// first cache_cells live cells.  g lanes share a particle: from the
+// launch's shape the fewest that fill the card (a 4096 x 4096 fleet takes
+// one, a node of 2000 particles 32), lowered in the block to the least
+// power of two that covers its live cells.  At g = 1 a thread walks every
+// live cell of its particle in slot order, and all lanes of a warp read
+// the same cell (a broadcast), so no lane idles for want of a cell; at g
+// > 1 each lane adds its cells in slot order and a fixed __shfl_xor_sync
+// tree adds the lanes.  No float atomics, so a run repeats bit for bit.
+// One launch over the whole particle axis: the kernel has no
+// intermediates to bound, so no chunks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,14 +77,45 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxOffsets = 32;
 constexpr int kTargetBlocks = 132 * 4;        // a few blocks on every SM
+constexpr long long kTargetThreads = 132 * 1024;  // lanes that keep every SM busy
+constexpr int kMaxPasses = 8;                 // passes of a block over its particles
 constexpr size_t kMapSmemLimit = 64 * 1024;   // a larger map is read through L2
 constexpr size_t kCellCacheBytes = 32 * 1024;
+constexpr int kMaxIndexCells = 1 << 15;       // maps/ndt.py:INDEX_MAX_CELLS
 
 struct Params {
-  int m, n, c, k, per_warp, cache_cells;
+  int m, n, c, k, per_block, cache_cells, lanes, index_cells;
   float res, min_lik, d1, coef;
+  uint32_t lo[3], size[3];  // the cell index's box (maps/ndt.py:CellIndex)
+  // a cell whose box offset u satisfies u - reach < span on every axis has
+  // every stencil cell inside the box, at its flat place plus delta[o]
+  uint32_t reach[3], span[3];
   int off[kMaxOffsets * 3];
+  int delta[kMaxOffsets];
 };
+
+// a map row or a cached measurement cell (mean, then covariance) from a
+// row of P floats, 8-byte (2D) or 16-byte (3D) aligned
+template <int D>
+__device__ __forceinline__ void load_row(const float* __restrict__ src, float* dst) {
+  if constexpr (D == 2) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float2 v = reinterpret_cast<const float2*>(src)[j];
+      dst[2 * j] = v.x;
+      dst[2 * j + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float4 v = reinterpret_cast<const float4*>(src)[j];
+      dst[4 * j] = v.x;
+      dst[4 * j + 1] = v.y;
+      dst[4 * j + 2] = v.z;
+      dst[4 * j + 3] = v.w;
+    }
+  }
+}
 
 template <int D>
 __device__ __forceinline__ uint32_t encode(const int* cell, const int* off) {
@@ -124,43 +174,115 @@ __device__ __forceinline__ float quad_form(const float* t, const float* e) {
   }
 }
 
-template <int D, bool kSharedMap>
+// d1 * exp(coef * e^T T^-1 e) of a map row (its mean and covariance) for
+// the world Gaussian (mw, cw): e = mw - mean, T = cw + covariance
+template <int D>
+__device__ __forceinline__ float hit_likelihood(const float* __restrict__ rw, const float* mw,
+                                                const float* cw, const Params& p) {
+  float r[D + D * D], e[D], tt[D * D];
+  load_row<D>(rw, r);
+#pragma unroll
+  for (int a = 0; a < D; ++a) e[a] = __fsub_rn(mw[a], r[a]);
+#pragma unroll
+  for (int a = 0; a < D * D; ++a) tt[a] = __fadd_rn(cw[a], r[D + a]);
+  return __fmul_rn(p.d1, expf(__fmul_rn(p.coef, quad_form<D>(tt, e))));
+}
+
+// The flat place in the index of the cell at stencil offset off from the
+// cell at box offsets u, or -1 outside the box: each axis taken modulo the
+// key's width, so that it is found exactly when its key is.
+template <int D, uint32_t kAxisMask>
+__device__ __forceinline__ int box_probe(const uint32_t* u, const int* off, const Params& p) {
+  bool inside = true;
+  uint32_t at = 0;
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+    const uint32_t v = (u[a] + static_cast<uint32_t>(off[a])) & kAxisMask;
+    inside = inside && v < p.size[a];
+    at = at * p.size[a] + v;
+  }
+  return inside ? static_cast<int>(at) : -1;
+}
+
+// The filter's live slots, in slot order, into s_live; returns their
+// count.  Every thread of the block takes part: each loads the mask bytes
+// of up to 32 slots at once, then a ballot a warp and the warps' counts in
+// s_warp place them.
+__device__ __forceinline__ int compact_live(const uint8_t* __restrict__ mask, int c,
+                                            uint16_t* s_live, int* s_warp) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int count = 0;
+  for (int base = 0; base < c; base += 32 * kThreads) {
+    uint32_t bits = 0;
+#pragma unroll 8
+    for (int j = 0; j < 32; ++j) {
+      const int s = base + j * kThreads + threadIdx.x;
+      if (s < c && mask[s] != 0) bits |= 1u << j;
+    }
+    const int chunks = min(32, (c - base + kThreads - 1) / kThreads);
+    for (int j = 0; j < chunks; ++j) {
+      const bool live = (bits >> j) & 1u;
+      const unsigned ballot = __ballot_sync(0xFFFFFFFFu, live);
+      if (lane == 0) s_warp[warp] = __popc(ballot);
+      __syncthreads();
+      int before = count;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const int cw = s_warp[w];
+        before += w < warp ? cw : 0;
+        count += cw;
+      }
+      if (live) {
+        s_live[before + __popc(ballot & ((1u << lane) - 1u))] =
+            static_cast<uint16_t>(base + j * kThreads + threadIdx.x);
+      }
+      __syncthreads();  // s_warp is rewritten by the next chunk
+    }
+  }
+  return count;
+}
+
+// kK: the stencil's size where it is the standard one of its dimension (9
+// in 2D, 7 in 3D), so that the probes of an inner cell unroll; 0 for any
+template <int D, bool kSharedMap, bool kIndexed, int kK>
 __global__ void __launch_bounds__(kThreads)
-    ndt_weights_kernel(const uint32_t* __restrict__ keys, const float* __restrict__ values,
-                       const float* __restrict__ rot, const float* __restrict__ trans,
-                       const float* __restrict__ means, const float* __restrict__ covs,
-                       const uint8_t* __restrict__ cell_mask, const Params p,
-                       float* __restrict__ out) {
+    ndt_weights_kernel(const uint32_t* __restrict__ keys, const int16_t* __restrict__ index,
+                       const float* __restrict__ values, const float* __restrict__ rot,
+                       const float* __restrict__ trans, const float* __restrict__ means,
+                       const float* __restrict__ covs, const uint8_t* __restrict__ cell_mask,
+                       const Params p, float* __restrict__ out) {
   constexpr int P = D + D * D;  // a map row and a measurement cell: mean, covariance
+  constexpr uint32_t kAxisMask = D == 2 ? 0xFFFFu : 1023u;
+  constexpr uint32_t kBias = D == 2 ? 32768u : 512u;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s_vals = reinterpret_cast<float*>(smem);          // [m][P] when kSharedMap
-  float* s_cells = s_vals + (kSharedMap ? p.m * P : 0);    // [cache_cells][P]
+  // [index_cells] int16 when kIndexed (a multiple of 8), then the rows
+  // [m][P] when kSharedMap, the cached cells [cache_cells][P], the sorted
+  // keys [m] when kSharedMap and not kIndexed, the live slots [c]
+  int16_t* s_index = reinterpret_cast<int16_t*>(smem);
+  float* s_vals = reinterpret_cast<float*>(s_index + (kIndexed ? p.index_cells : 0));
+  float* s_cells = s_vals + (kSharedMap ? p.m * P : 0);
   uint32_t* s_keys = reinterpret_cast<uint32_t*>(s_cells + p.cache_cells * P);
-  uint16_t* s_live = reinterpret_cast<uint16_t*>(s_keys + (kSharedMap ? p.m : 0));  // [c]
-  __shared__ int s_count;
+  uint16_t* s_live = reinterpret_cast<uint16_t*>(s_keys + (kSharedMap && !kIndexed ? p.m : 0));
   __shared__ int s_off[kMaxOffsets * 3];
+  __shared__ int s_delta[kMaxOffsets];
+  __shared__ int s_warp[kWarps];
 
   const int f = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp == 0) {  // the live slots in slot order
-    const uint8_t* mask = cell_mask + static_cast<size_t>(f) * p.c;
-    int count = 0;
-    for (int base = 0; base < p.c; base += 32) {
-      const int s = base + lane;
-      const bool live = s < p.c && mask[s] != 0;
-      const unsigned ballot = __ballot_sync(0xFFFFFFFFu, live);
-      if (live) s_live[count + __popc(ballot & ((1u << lane) - 1u))] = static_cast<uint16_t>(s);
-      count += __popc(ballot);
-    }
-    if (lane == 0) s_count = count;
-  }
   for (int j = threadIdx.x; j < p.k * D; j += blockDim.x) s_off[j] = p.off[j];
-  if (kSharedMap) {
-    for (int j = threadIdx.x; j < p.m; j += blockDim.x) s_keys[j] = keys[j];
+  for (int j = threadIdx.x; j < p.k; j += blockDim.x) s_delta[j] = p.delta[j];
+  if constexpr (kIndexed) {
+    const int4* src = reinterpret_cast<const int4*>(index);
+    int4* dst = reinterpret_cast<int4*>(s_index);
+    for (int j = threadIdx.x; j < p.index_cells / 8; j += blockDim.x) dst[j] = src[j];
+  }
+  if constexpr (kSharedMap) {
+    if constexpr (!kIndexed) {
+      for (int j = threadIdx.x; j < p.m; j += blockDim.x) s_keys[j] = keys[j];
+    }
     for (int j = threadIdx.x; j < p.m * P; j += blockDim.x) s_vals[j] = values[j];
   }
-  __syncthreads();
-  const int live = s_count;
+  const int live = compact_live(cell_mask + static_cast<size_t>(f) * p.c, p.c, s_live, s_warp);
   const float* f_means = means + static_cast<size_t>(f) * p.c * D;
   const float* f_covs = covs + static_cast<size_t>(f) * p.c * D * D;
   const int cached = min(live, p.cache_cells);
@@ -173,12 +295,15 @@ __global__ void __launch_bounds__(kThreads)
 
   const uint32_t* k_tab = kSharedMap ? s_keys : keys;
   const float* v_tab = kSharedMap ? s_vals : values;
-  int g = 32;  // lanes a particle
+  int dl[kK > 0 ? kK : 1];  // the stencil's deltas, in registers where it unrolls
+#pragma unroll
+  for (int o = 0; o < kK; ++o) dl[o] = s_delta[o];
+  int g = p.lanes;  // lanes a particle: no more than the live cells need
   while (g > 1 && (g >> 1) >= live) g >>= 1;
-  const int sub = lane / g, lane_in = lane - sub * g;
-  const int first = (blockIdx.x * kWarps + warp) * p.per_warp;
-  const int end = min(first + p.per_warp, p.n);
-  for (int base = first; base < end; base += 32 / g) {
+  const int sub = lane / g, lane_in = lane - sub * g, held = 32 / g;
+  const int first = blockIdx.x * p.per_block;
+  const int end = min(first + p.per_block, p.n);
+  for (int base = first + warp * held; base < end; base += kWarps * held) {
     const int i = base + sub;
     float acc = 0.0f;
     if (i < end) {
@@ -191,10 +316,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = lane_in; j < live; j += g) {
         float mu[D], sg[D * D];
         if (j < cached) {
+          float c[P];
+          load_row<D>(s_cells + j * P, c);
 #pragma unroll
-          for (int e = 0; e < D; ++e) mu[e] = s_cells[j * P + e];
+          for (int e = 0; e < D; ++e) mu[e] = c[e];
 #pragma unroll
-          for (int e = 0; e < D * D; ++e) sg[e] = s_cells[j * P + D + e];
+          for (int e = 0; e < D * D; ++e) sg[e] = c[D + e];
         } else {
           const size_t s = s_live[j];
 #pragma unroll
@@ -233,25 +360,58 @@ __global__ void __launch_bounds__(kThreads)
           }
         }
         float sum = 0.0f;
-        for (int o = 0; o < p.k; ++o) {
-          const uint32_t key = encode<D>(cell, s_off + o * D);
-          int lo = 0, hi = p.m;
-          while (lo < hi) {  // the first key >= key
-            const int mid = (lo + hi) >> 1;
-            if (k_tab[mid] < key) {
-              lo = mid + 1;
+        if constexpr (kIndexed) {
+          // the cell's offsets in the box; inner: all its stencil cells inside
+          uint32_t u[D];
+          bool inner = true;
+          uint32_t at = 0;
+#pragma unroll
+          for (int a = 0; a < D; ++a) {
+            u[a] = (static_cast<uint32_t>(cell[a]) + kBias - p.lo[a]) & kAxisMask;
+            inner = inner && u[a] - p.reach[a] < p.span[a];
+            at = at * p.size[a] + u[a];
+          }
+          // bit o: stencil cell o holds a live row (one load each)
+          uint32_t hits = 0;
+          if (inner) {
+            if constexpr (kK > 0) {
+#pragma unroll
+              for (int o = 0; o < kK; ++o) {
+                hits |= static_cast<uint32_t>(s_index[at + dl[o]] >= 0) << o;
+              }
             } else {
-              hi = mid;
+              for (int o = 0; o < p.k; ++o) {
+                hits |= static_cast<uint32_t>(s_index[at + s_delta[o]] >= 0) << o;
+              }
+            }
+          } else {
+            for (int o = 0; o < p.k; ++o) {
+              const int probe = box_probe<D, kAxisMask>(u, s_off + o * D, p);
+              hits |= static_cast<uint32_t>(probe >= 0 && s_index[probe] >= 0) << o;
             }
           }
-          if (lo >= p.m || k_tab[lo] != key) continue;
-          const float* row = v_tab + static_cast<size_t>(lo) * P;
-          float e[D], tt[D * D];
-#pragma unroll
-          for (int a = 0; a < D; ++a) e[a] = __fsub_rn(mw[a], row[a]);
-#pragma unroll
-          for (int a = 0; a < D * D; ++a) tt[a] = __fadd_rn(cw[a], row[D + a]);
-          sum += __fmul_rn(p.d1, expf(__fmul_rn(p.coef, quad_form<D>(tt, e))));
+          while (hits != 0u) {  // the hits in stencil order
+            const int o = __ffs(hits) - 1;
+            hits &= hits - 1u;
+            const int row =
+                s_index[inner ? at + s_delta[o] : box_probe<D, kAxisMask>(u, s_off + o * D, p)];
+            sum += hit_likelihood<D>(v_tab + static_cast<size_t>(row) * P, mw, cw, p);
+          }
+        } else {
+          for (int o = 0; o < p.k; ++o) {
+            const uint32_t key = encode<D>(cell, s_off + o * D);
+            int lo = 0, hi = p.m;
+            while (lo < hi) {  // the first key >= key
+              const int mid = (lo + hi) >> 1;
+              if (k_tab[mid] < key) {
+                lo = mid + 1;
+              } else {
+                hi = mid;
+              }
+            }
+            if (lo >= p.m || k_tab[lo] != key) continue;
+            sum += hit_likelihood<D>(v_tab + static_cast<size_t>(lo) * P, mw, cw, p);
+          }
         }
         acc += sum < p.min_lik ? p.min_lik : sum;  // a NaN stays NaN, as in clamp_min
       }
@@ -261,36 +421,68 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, bool kSharedMap>
-int launch(const void* keys, const void* values, const void* rot, const void* trans,
-           const void* means, const void* covs, const void* mask, int filters, const Params& p,
-           size_t smem, void* out, cudaStream_t stream) {
-  const auto kernel = ndt_weights_kernel<D, kSharedMap>;
+template <int D, bool kSharedMap, bool kIndexed, int kK>
+int launch(const void* keys, const void* index, const void* values, const void* rot,
+           const void* trans, const void* means, const void* covs, const void* mask,
+           int filters, const Params& p, size_t smem, void* out, cudaStream_t stream) {
+  const auto kernel = ndt_weights_kernel<D, kSharedMap, kIndexed, kK>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int per_block = kWarps * p.per_warp;
-  const dim3 grid((p.n + per_block - 1) / per_block, filters);
+  const dim3 grid((p.n + p.per_block - 1) / p.per_block, filters);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const uint32_t*>(keys), static_cast<const float*>(values),
-      static_cast<const float*>(rot), static_cast<const float*>(trans),
-      static_cast<const float*>(means), static_cast<const float*>(covs),
-      static_cast<const uint8_t*>(mask), p, static_cast<float*>(out));
+      static_cast<const uint32_t*>(keys), static_cast<const int16_t*>(index),
+      static_cast<const float*>(values), static_cast<const float*>(rot),
+      static_cast<const float*>(trans), static_cast<const float*>(means),
+      static_cast<const float*>(covs), static_cast<const uint8_t*>(mask), p,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool kSharedMap>
+int launch_map(const void* keys, const void* index, const void* values, const void* rot,
+               const void* trans, const void* means, const void* covs, const void* mask,
+               int filters, const Params& p, size_t smem, void* out, cudaStream_t s) {
+  constexpr int kStandard = D == 2 ? 9 : 7;  // models/sensor/ndt.py:KERNEL_2D, KERNEL_3D
+  if (index == nullptr) {
+    return launch<D, kSharedMap, false, 0>(keys, index, values, rot, trans, means, covs, mask,
+                                           filters, p, smem, out, s);
+  }
+  if (p.k == kStandard) {
+    return launch<D, kSharedMap, true, kStandard>(keys, index, values, rot, trans, means, covs,
+                                                  mask, filters, p, smem, out, s);
+  }
+  return launch<D, kSharedMap, true, 0>(keys, index, values, rot, trans, means, covs, mask,
+                                        filters, p, smem, out, s);
+}
+
+template <int D>
+int launch_dim(bool shared_map, const void* keys, const void* index, const void* values,
+               const void* rot, const void* trans, const void* means, const void* covs,
+               const void* mask, int filters, const Params& p, size_t smem, void* out,
+               cudaStream_t s) {
+  return shared_map ? launch_map<D, true>(keys, index, values, rot, trans, means, covs, mask,
+                                          filters, p, smem, out, s)
+                    : launch_map<D, false>(keys, index, values, rot, trans, means, covs, mask,
+                                           filters, p, smem, out, s);
 }
 
 }  // namespace
 
 // The weights of `filters` filters of n particles: keys uint32 [>= m]
-// sorted (m live), values float32 [>= m][D + D*D]; rot float32 [filters,
-// n, D, D], trans float32 [filters, n, D]; means float32 [filters, c, D],
-// covs float32 [filters, c, D, D], mask uint8 [filters, c]; offsets int
-// [k][D] on the host (k <= 32); coef = -d2 / 2.  Writes out float32
-// [filters, n].  Returns cudaGetLastError() of the launch, or
-// cudaErrorInvalidValue for inputs the kernel does not take.
-extern "C" int beluga_ndt_weights(const void* keys, int m, const void* values, const void* rot,
+// sorted (m live), values float32 [>= m][D + D*D]; index int16
+// [index_cells] 16-byte aligned, index_cells a multiple of 8, the map's
+// cell index over the box lo[d], size[d] (box: 2d host values), or null
+// to search the keys; rot float32 [filters, n, D, D], trans float32
+// [filters, n, D]; means float32 [filters, c, D], covs float32 [filters,
+// c, D, D], mask uint8 [filters, c]; offsets int [k][D] on the host (k <=
+// 32); coef = -d2 / 2.  Writes out float32 [filters, n].  Returns
+// cudaGetLastError() of the launch, or cudaErrorInvalidValue for inputs
+// the kernel does not take.
+extern "C" int beluga_ndt_weights(const void* keys, int m, const void* index, int index_cells,
+                                  const unsigned* box, const void* values, const void* rot,
                                   const void* trans, const void* means, const void* covs,
                                   const void* mask, int filters, int n, int c, int d,
                                   const int* offsets, int k, float res, float min_lik, float d1,
@@ -309,27 +501,68 @@ extern "C" int beluga_ndt_weights(const void* keys, int m, const void* values, c
   p.d1 = d1;
   p.coef = coef;
   for (int j = 0; j < k * d; ++j) p.off[j] = offsets[j];
-  const long long total = static_cast<long long>(filters) * n;
-  p.per_warp = 1;
-  while (p.per_warp < 32 && total / (2LL * kWarps * p.per_warp) >= kTargetBlocks) {
-    p.per_warp *= 2;
+  const bool indexed = index != nullptr;
+  p.index_cells = indexed ? index_cells : 0;
+  for (int a = 0; a < 3; ++a) {
+    p.lo[a] = indexed && a < d ? box[a] : 0;
+    p.size[a] = indexed && a < d ? box[d + a] : 0;
   }
+  for (int j = 0; j < kMaxOffsets; ++j) p.delta[j] = 0;
+  for (int a = 0; a < 3; ++a) p.reach[a] = p.span[a] = 0;  // no cell is inner
+  if (indexed) {
+    long long cells = 1;
+    for (int a = 0; a < d; ++a) cells *= p.size[a];
+    if (index_cells % 8 != 0 || index_cells > kMaxIndexCells || cells > index_cells ||
+        reinterpret_cast<uintptr_t>(index) % 16 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    // the stencil's reach below and above the cell on each axis; where it
+    // fits the box, an inner cell's stencil cells lie at fixed deltas
+    long long reach_lo[3] = {0, 0, 0}, reach_hi[3] = {0, 0, 0};
+    for (int o = 0; o < k; ++o) {
+      for (int a = 0; a < d; ++a) {
+        const long long v = offsets[o * d + a];
+        reach_lo[a] = v < -reach_lo[a] ? -v : reach_lo[a];
+        reach_hi[a] = v > reach_hi[a] ? v : reach_hi[a];
+      }
+    }
+    bool fits = true;
+    for (int a = 0; a < d; ++a) fits = fits && reach_lo[a] + reach_hi[a] < p.size[a];
+    if (fits) {
+      for (int a = 0; a < d; ++a) {
+        p.reach[a] = static_cast<uint32_t>(reach_lo[a]);
+        p.span[a] = static_cast<uint32_t>(p.size[a] - reach_lo[a] - reach_hi[a]);
+      }
+      for (int o = 0; o < k; ++o) {
+        long long delta = 0;
+        for (int a = 0; a < d; ++a) delta = delta * p.size[a] + offsets[o * d + a];
+        p.delta[o] = static_cast<int>(delta);
+      }
+    }
+  }
+  // lanes a particle from the launch's shape: the fewest that keep every SM
+  // busy (a fleet takes one, a node of 2000 several); the block lowers it
+  // to what its live cells need
+  const long long total = static_cast<long long>(filters) * n;
+  p.lanes = 1;
+  while (p.lanes < 32 && total * p.lanes < kTargetThreads) p.lanes *= 2;
+  const int held = kWarps * (32 / p.lanes);  // particles a block holds at once
+  int passes = 1;
+  while (passes < kMaxPasses && total / (2LL * held * passes) >= kTargetBlocks) passes *= 2;
+  p.per_block = held * passes;
   const size_t row = sizeof(float) * (d + d * d);
   p.cache_cells = static_cast<int>(kCellCacheBytes / row);
   if (p.cache_cells > c) p.cache_cells = c;
-  const size_t map_bytes = (row + sizeof(uint32_t)) * static_cast<size_t>(m);
+  const size_t key_bytes = indexed ? 0 : sizeof(uint32_t) * static_cast<size_t>(m);
+  const size_t map_bytes = row * static_cast<size_t>(m) + key_bytes;
   const bool shared_map = map_bytes <= kMapSmemLimit;
-  const size_t smem = row * p.cache_cells + (shared_map ? map_bytes : 0) +
-                      sizeof(uint16_t) * static_cast<size_t>(c);
+  const size_t smem = sizeof(int16_t) * p.index_cells + (shared_map ? map_bytes : 0) +
+                      row * p.cache_cells + sizeof(uint16_t) * static_cast<size_t>(c);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 2) {
-    return shared_map ? launch<2, true>(keys, values, rot, trans, means, covs, mask, filters, p,
-                                        smem, out, s)
-                      : launch<2, false>(keys, values, rot, trans, means, covs, mask, filters, p,
-                                         smem, out, s);
+    return launch_dim<2>(shared_map, keys, index, values, rot, trans, means, covs, mask, filters,
+                         p, smem, out, s);
   }
-  return shared_map ? launch<3, true>(keys, values, rot, trans, means, covs, mask, filters, p,
-                                      smem, out, s)
-                    : launch<3, false>(keys, values, rot, trans, means, covs, mask, filters, p,
-                                       smem, out, s);
+  return launch_dim<3>(shared_map, keys, index, values, rot, trans, means, covs, mask, filters, p,
+                       smem, out, s);
 }

@@ -10,7 +10,8 @@ eᵀ(Σa + Σb)⁻¹e), min_likelihood)`` against the map, over a 3x3 stencil in
 
 Maps of more than 256 rows, and any stencil of its own, take the stencil
 probe: on the card, the fused kernel of ``ops/cuda_ndt.py:ndt_weights``
-computes every particle's weight in one launch; on the CPU, its plain
+computes every particle's weight in one launch, finding each probe's map
+row through the map's cell index where it has one; on the CPU, its plain
 version probes through B10's plain version.  Smaller maps take the dense
 cross-evaluation of every (query, map cell) pair, which has no kernel.
 The plain versions cut the particle axis into chunks of ``particle_chunk``
@@ -217,7 +218,8 @@ def _ndt_weights(params, ndt_map, states, meas_means, meas_covs, cell_mask, part
     if not _dense(ndt_map, kernel, meas_means.shape[-1]):  # the fused kernel on the card
         return ndt_weights(ndt_map.keys, ndt_map.values, ndt_map.num_cells, ndt_map.resolution,
                            rot, trans, meas_means, meas_covs, cell_mask, kernel,
-                           params.minimum_likelihood, params.d1, params.d2, particle_chunk)
+                           params.minimum_likelihood, params.d1, params.d2, particle_chunk,
+                           index=ndt_map.index)
 
     def body(r: Tensor, t: Tensor) -> Tensor:
         mean_w, cov_w = world_gaussians(r, t, meas_means, meas_covs)

@@ -11,6 +11,9 @@ go through the fused kernel instead (``csrc/ndt_weights.cu``):
 :func:`ndt_weights` computes each particle's whole weight in one launch,
 and :func:`ndt_weights_reference`, its plain version, is the chunked probe
 path (:func:`probe_likelihood`) with B10's plain version as its probe.
+Given the map's cell index (``maps/ndt.py:CellIndex``), the fused kernel
+finds each probe's row by its address in the index; without one, by a
+binary search of the sorted keys.
 
 B10's contract: ``queries`` are encoded cell keys; each is matched exactly
 against the map's sorted live keys ``keys[:num_cells]``; a match fetches
@@ -46,10 +49,13 @@ Tensor = torch.Tensor
 MAX_OFFSETS = 32  # stencil cells, passed by value
 MAX_SLOTS = 32768  # measurement slots a filter: their live list in shared memory
 MAX_FILTERS = 65535  # grid.y
+MAX_INDEX_CELLS = 1 << 15  # the cell index in shared memory (maps/ndt.py:INDEX_MAX_CELLS)
 
-# kernel launches since the count was last set to 0: B10, the fused kernel
+# kernel launches since the count was last set to 0: B10, the fused kernel,
+# and those of its launches that probed the map by address (its cell index)
 launches = 0
 weights_launches = 0
+weights_indexed_launches = 0
 
 _fn = None
 _weights_fn = None
@@ -138,7 +144,7 @@ def _weights_kernel():
 
         fn = load_library("ndt_weights").beluga_ndt_weights
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, p, i, f, f, f, f, p, p]
+        fn.argtypes = [p, i, p, i, p, p, p, p, p, p, p, i, i, i, i, p, i, f, f, f, f, p, p]
         fn.restype = ctypes.c_int
         _weights_fn = fn
     return _weights_fn
@@ -307,10 +313,26 @@ def _check_weights(keys, values, num_cells, rot, trans, meas_means, meas_covs, c
     return lead, n, c, d
 
 
+def _check_index(index, device, d: int) -> None:
+    """The cell index as the kernel takes it (``maps/ndt.py:CellIndex``)."""
+    rows, lo, size = index.rows, tuple(index.lo), tuple(index.size)
+    if not isinstance(rows, Tensor) or rows.device != device:
+        raise ValueError(f"the cell index must be a tensor on {device}")
+    if rows.dtype != torch.int16 or rows.dim() != 1 or not rows.is_contiguous() \
+            or rows.numel() % 8 or not 0 < rows.numel() <= MAX_INDEX_CELLS:
+        raise ValueError(f"the cell index's rows must be contiguous int16[E], E a multiple of "
+                         f"8 in [8, {MAX_INDEX_CELLS}], got {rows.dtype}{list(rows.shape)}")
+    width = 1 << (16 if d == 2 else 10)
+    if len(lo) != d or len(size) != d or not all(0 <= v < width for v in lo) \
+            or not all(0 <= v <= width for v in size) or math.prod(size) > rows.numel():
+        raise ValueError(f"the cell index's box {lo}, {size} does not fit a {d}D key or its "
+                         f"{rows.numel()} rows")
+
+
 def ndt_weights(keys: Tensor, values: Tensor, num_cells: int, resolution: float, rot: Tensor,
                 trans: Tensor, meas_means: Tensor, meas_covs: Tensor, cell_mask: Tensor,
                 offsets, minimum_likelihood: float = 0.0, d1: float = 1.0, d2: float = 1.0,
-                particle_chunk: int = 512) -> Tensor:
+                particle_chunk: int = 512, index=None) -> Tensor:
     """Each particle's NDT weight ``1 + Σ_live cells max(Σ_stencil
     found·d1·exp(-d2/2 · eᵀ(Σa + Σb)⁻¹e), minimum_likelihood)``,
     ``f32[..., N]``, in one launch on the card.
@@ -324,10 +346,14 @@ def ndt_weights(keys: Tensor, values: Tensor, num_cells: int, resolution: float,
         shape broadcasts to the poses'.
       offsets: the stencil, a host integer array ``[K, D]``.
       particle_chunk: the plain version's chunk; the kernel has none.
+      index: the map's cell index (``NdtMap.index``), or None: the kernel
+        then searches the sorted keys.  Either finds the same rows.
     """
-    global weights_launches
+    global weights_launches, weights_indexed_launches
     lead, n, c, d = _check_weights(keys, values, num_cells, rot, trans, meas_means, meas_covs,
                                    cell_mask, offsets)
+    if index is not None:
+        _check_index(index, keys.device, d)
     if keys.device.type == "cpu":
         return ndt_weights_reference(keys, values, num_cells, resolution, rot, trans,
                                      meas_means, meas_covs, cell_mask, offsets,
@@ -342,14 +368,22 @@ def ndt_weights(keys: Tensor, values: Tensor, num_cells: int, resolution: float,
     mask = cell_mask.expand(*lead, c).contiguous()
     k32 = keys.to(torch.int32)  # the low 32 bits, read as uint32_t
     vals, r, t = values.contiguous(), rot.contiguous(), trans.contiguous()
+    if vals.data_ptr() % 16:  # the kernel reads a row 8 (2D) or 16 (3D) bytes at a time
+        vals = vals.clone()
     out = torch.empty((*lead, n), dtype=torch.float32, device=keys.device)
     stream = stream_ptr(keys.device)
-    err = _weights_kernel()(k32.data_ptr(), num_cells, vals.data_ptr(), r.data_ptr(),
-                            t.data_ptr(), means.data_ptr(), covs.data_ptr(), mask.data_ptr(),
-                            filters, n, c, d, host_off, off.shape[0], float(resolution),
-                            float(minimum_likelihood), float(d1), -float(d2) / 2.0,
-                            out.data_ptr(), stream)
+    if index is None:
+        rows, cells, box = None, 0, None
+    else:
+        rows, cells = index.rows.data_ptr(), index.rows.numel()
+        box = (ctypes.c_uint * (2 * d))(*index.lo, *index.size)
+    err = _weights_kernel()(k32.data_ptr(), num_cells, rows, cells, box, vals.data_ptr(),
+                            r.data_ptr(), t.data_ptr(), means.data_ptr(), covs.data_ptr(),
+                            mask.data_ptr(), filters, n, c, d, host_off, off.shape[0],
+                            float(resolution), float(minimum_likelihood), float(d1),
+                            -float(d2) / 2.0, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ndt_weights kernel launch failed: cudaError {err}")
     weights_launches += 1
+    weights_indexed_launches += index is not None
     return out

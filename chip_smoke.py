@@ -389,6 +389,16 @@ NDT_HIT_OPS = {2: 38, 3: 81}
 # within rtol 1e-4 (the kernel sums the stencil and the cells in its own
 # order and in 3D inverts by the adjugate where the plain version takes LU)
 NDT_RTOL = 1e-4
+# the fused kernel at the NDT node's shape may take no more device time
+# than it did with the binary search (PERF.md section 6, row B10-fused)
+NDT_NODE_DEVICE_MS = 0.0125
+# the benchmark's NDT shape (mclbench's ndt_fleet.track): robots, particles
+# a robot, the arena scans they are spread over; the filters held against
+# the plain version, and those whose probe hits are counted
+NDT_BENCH_ROBOTS, NDT_BENCH_PARTICLES, NDT_BENCH_SCANS = 4096, 4096, 64
+NDT_BENCH_CHECKED, NDT_BENCH_HITS = 8, 64
+# the fused kernel's launches that found their rows by the map's cell index
+NDT_INDEXED = "B10-fused by the cell index"
 
 
 class SmokeFailure(Exception):
@@ -1947,11 +1957,14 @@ def check_ndt_probe(dev, iters: int, dim: int) -> dict:
     )
 
 
-def ndt_weights_inputs(dev, which: str) -> tuple[tuple, str]:
-    """The fused NDT kernel's arguments at a main path's shape: the NDT
-    node's (2000 particles about its first pose, one 360-beam scan, the 2D
-    map), the NDT fleet's (64 x 4096 particles, 60 points) or the NDT-3D
-    node's (2000 particles, one 3600-point cloud, the 3D map)."""
+def ndt_weights_inputs(dev, which: str) -> tuple[tuple, object, str]:
+    """The fused NDT kernel's arguments at a main path's shape, the map's
+    cell index and a label: the NDT node's (2000 particles about its first
+    pose, one 360-beam scan, the 2D map), the NDT fleet's (64 x 4096
+    particles, 60 points), the NDT-3D node's (2000 particles, one
+    3600-point cloud, the 3D map) or the benchmark's (``ndt_fleet.track``:
+    4096 x 4096 particles, 360-beam scans, the 2D map; filter b about the
+    pose of scan b mod 64 of the arena circle, 0.1 m and 0.05 rad apart)."""
     from beluga_tpu_torch.core.random import sample_normal_se3
     from beluga_tpu_torch.lie import SE2, SE3
     from beluga_tpu_torch.models.sensor.ndt import (
@@ -1974,6 +1987,20 @@ def ndt_weights_inputs(dev, which: str) -> tuple[tuple, str]:
         states = SE2.from_xytheta(*(torch.as_tensor(xyt[:, i], dtype=torch.float32)
                                     for i in range(3)), device=dev)
         points, mask = (torch.as_tensor(v[0]).to(dev) for v in (s.points, s.mask))
+    elif which == "bench":
+        s = workloads.ndt_scans(NDT_BENCH_SCANS)
+        ndt_map = workloads.ndt_map_2d(dev)
+        scan = torch.arange(NDT_BENCH_ROBOTS, device=dev) % NDT_BENCH_SCANS
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(17)
+        pose = torch.as_tensor(np.stack([s.xs, s.ys, s.yaws], -1), dtype=torch.float32,
+                               device=dev)[scan]
+        spread = torch.as_tensor([0.1, 0.1, 0.05], device=dev)
+        xyt = pose[:, None, :] + spread * torch.randn(
+            (NDT_BENCH_ROBOTS, NDT_BENCH_PARTICLES, 3), generator=gen, device=dev)
+        states = SE2.from_xytheta(xyt[..., 0], xyt[..., 1], xyt[..., 2])
+        points = torch.as_tensor(s.points).to(dev)[scan]
+        mask = torch.as_tensor(s.mask).to(dev)[scan]
     else:
         s = workloads.ndt_scans(1)
         clouds, cmask = workloads.ndt_clouds(s)
@@ -1992,9 +2019,18 @@ def ndt_weights_inputs(dev, which: str) -> tuple[tuple, str]:
             rot.contiguous(), trans.contiguous(), means, covs, cell_mask, kernel,
             p.minimum_likelihood, p.d1, p.d2)
     lead = "x".join(str(v) for v in rot.shape[:-2])
-    path = {"node": "NDT node", "fleet": "NDT fleet", "3d": "NDT-3D node"}[which]
-    return args, (f"{path}, {lead} particles x {cell_mask.shape[-1]} slots, "
-                  f"{ndt_map.num_cells} keys ({ndt_map.dim}D), K = {len(kernel)}")
+    path = {"node": "NDT node", "fleet": "NDT fleet", "3d": "NDT-3D node",
+            "bench": "ndt_fleet.track"}[which]
+    return args, ndt_map.index, (f"{path}, {lead} particles x {cell_mask.shape[-1]} slots, "
+                                 f"{ndt_map.num_cells} keys ({ndt_map.dim}D), K = {len(kernel)}")
+
+
+def filters_of(args, filters: int) -> tuple:
+    """The fused kernel's arguments of the first ``filters`` filters of a
+    fleet: each filter's weights depend on its own poses and cells alone."""
+    rot, trans, means, covs, cell_mask = args[4:9]
+    return (*args[:4], rot[:filters], trans[:filters], means[:filters], covs[:filters],
+            cell_mask[:filters], *args[9:])
 
 
 def ndt_hits(args, chunk: int = 256) -> tuple[int, int]:
@@ -2016,30 +2052,59 @@ def ndt_hits(args, chunk: int = 256) -> tuple[int, int]:
 
 
 def check_ndt_weights(dev, iters: int, which: str) -> dict:
-    """The fused NDT kernel at a main path's shape (``ndt_weights_inputs``)
-    against its plain version (the chunked probe path through B10's plain
-    version): every weight finite, two launches bit-equal, every weight
-    within ``NDT_RTOL``; no single library call computes the function."""
+    """The fused NDT kernel at a main path's shape (``ndt_weights_inputs``),
+    with the map's cell index as the model passes it, against its plain
+    version (the chunked probe path through B10's plain version): every
+    weight finite, two launches bit-equal and equal to the search of the
+    sorted keys, every weight within ``NDT_RTOL``; no single library call
+    computes the function.  At the benchmark's shape the plain version and
+    the hit count take the first ``NDT_BENCH_CHECKED`` filters (the hits
+    scaled to the fleet), and the plain version is not timed."""
     from beluga_tpu_torch.ops import cuda_ndt
 
-    args, label = ndt_weights_inputs(dev, which)
-    got = cuda_ndt.ndt_weights(*args)
-    again = cuda_ndt.ndt_weights(*args)
-    want = cuda_ndt.ndt_weights_reference(*args)
+    args, index, label = ndt_weights_inputs(dev, which)
+    before = cuda_ndt.weights_indexed_launches
+    got = cuda_ndt.ndt_weights(*args, index=index)
+    again = cuda_ndt.ndt_weights(*args, index=index)
+    indexed = cuda_ndt.weights_indexed_launches - before
+    searched = cuda_ndt.ndt_weights(*args)
+    bench = which == "bench"
+    checked = filters_of(args, NDT_BENCH_CHECKED) if bench else args
+    want = cuda_ndt.ndt_weights_reference(*checked)
     torch.cuda.synchronize()
+    check(indexed == 2, f"NDT weights {label}: {indexed} of 2 launches by the cell index")
     check(bool(torch.isfinite(got).all()), f"NDT weights {label}: weights not finite")
     check(torch.equal(got, again), f"NDT weights {label}: two launches differ")
-    rel = ((got - want).abs() / want.abs()).reshape(-1)
+    check(torch.equal(got, searched), f"NDT weights {label}: the index and the search differ")
+    got_checked = got[:NDT_BENCH_CHECKED] if bench else got
+    rel = ((got_checked - want).abs() / want.abs()).reshape(-1)
     outside = float((rel > NDT_RTOL).float().mean())
     check(outside == 0.0,
           f"NDT weights {label}: {outside:.2e} of the particles beyond rtol {NDT_RTOL} "
           f"(max {float(rel.max()):.2e})")
     m, rot, cell_mask, kernel = args[2], args[4], args[8], args[9]
-    hits, probes = ndt_hits(args)
+    if bench:  # the hits of the first filters, scaled to the fleet
+        part, part_probes = ndt_hits(filters_of(args, NDT_BENCH_HITS), chunk=64)
+        live_all = int(cell_mask.sum()) * rot.shape[-3] * len(kernel)
+        hits, probes = round(part * live_all / part_probes), live_all
+    else:
+        hits, probes = ndt_hits(args)
     live = int(cell_mask.sum()) // max(math.prod(cell_mask.shape[:-1]), 1)  # a filter
     check(0 < hits < probes, f"NDT weights {label}: {hits} hits of {probes} probes")
-    times = timings(lambda: cuda_ndt.ndt_weights(*args),
-                    lambda: cuda_ndt.ndt_weights_reference(*args), iters, plain_iters=3)
+    times = timings(lambda: cuda_ndt.ndt_weights(*args, index=index),
+                    None if bench else lambda: cuda_ndt.ndt_weights_reference(*args), iters,
+                    plain_iters=3)
+    # the kernel's own device time: the median launch the profiler recorded
+    launch_device_ms(times, lambda: cuda_ndt.ndt_weights(*args, index=index),
+                     "ndt_weights_kernel")
+    search = {}
+    launch_device_ms(search, lambda: cuda_ndt.ndt_weights(*args), "ndt_weights_kernel")
+    times["search_ms"] = cuda_ms(lambda: cuda_ndt.ndt_weights(*args), iters)
+    times["search_device_ms"] = search["device_ms"]
+    if which == "node":
+        check(times["device_ms"] is None or times["device_ms"] <= NDT_NODE_DEVICE_MS,
+              f"NDT weights {label}: {times['device_ms']} device ms, above "
+              f"{NDT_NODE_DEVICE_MS}")
     d, k, n = rot.shape[-1], len(kernel), rot.shape[:-2].numel()
     p = d + d * d
     cells = probes // k  # (particle, live cell) pairs
@@ -2049,8 +2114,10 @@ def check_ndt_weights(dev, iters: int, which: str) -> dict:
     return dict(
         name="B10-fused ndt_weights", route="cuda", source="beluga_tpu_torch/csrc/ndt_weights.cu",
         replaces="beluga_tpu/ops/pallas_ndt.py:48",
-        max_abs_err=float((got - want).abs().max()), max_rel_err=float(rel.max()),
+        max_abs_err=float((got_checked - want).abs().max()), max_rel_err=float(rel.max()),
         outside_rtol_share=outside, live_cells=live, hit_share=hits / probes,
+        probe="cell index" if index is not None else "search",
+        index_box=None if index is None else list(index.size),
         bound_ms=bms, bound_by=by, shape=label, **times,
     )
 
@@ -2141,6 +2208,7 @@ def reset_counts() -> None:
 
     cuda_ndt.launches = 0
     cuda_ndt.weights_launches = 0
+    cuda_ndt.weights_indexed_launches = 0
     cuda_codebook.launches = 0
     cuda_reweight.launches = 0
     cuda_reweight.values3_launches = 0
@@ -2205,6 +2273,7 @@ def read_counts() -> dict:
             "B9 scan_lut_correlate": cuda_scan_lut.launches,
             "B10 ndt_probe": cuda_ndt.launches,
             "B10-fused ndt_weights": cuda_ndt.weights_launches,
+            NDT_INDEXED: cuda_ndt.weights_indexed_launches,
             "B11 codebook_lookup": cuda_codebook.launches,
             "R1 cast_rays": raycast.launches,
             "R1-exact beam_weights": raycast.exact_launches,
@@ -2719,11 +2788,13 @@ def run_beam_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
 
 
 def check_ndt_launches(counts: dict, updates: int, what: str) -> None:
-    """The NDT paths weigh through the fused kernel, once per update, and
-    never through the standalone probe."""
+    """The NDT paths weigh through the fused kernel, once per update, by
+    their map's cell index, and never through the standalone probe."""
     fused = counts["B10-fused ndt_weights"]
     check(fused == updates, f"{what}: the fused NDT kernel launched {fused} times in "
           f"{updates} updates")
+    check(counts[NDT_INDEXED] == fused,
+          f"{what}: {counts[NDT_INDEXED]} of {fused} fused launches by the cell index")
     check(counts["B10 ndt_probe"] == 0,
           f"{what}: B10 launched {counts['B10 ndt_probe']} times")
 
@@ -4004,6 +4075,8 @@ def main() -> int:
     f_node = check_ndt_weights(dev, iters=50, which="node")
     f_fleet = check_ndt_weights(dev, iters=20, which="fleet")
     f_3d = check_ndt_weights(dev, iters=20, which="3d")
+    f_bench = check_ndt_weights(dev, iters=10, which="bench")
+    torch.cuda.empty_cache()
     v_bench = check_codebook_lookup(dev, iters=20, volume="bench")
     v_floor = check_codebook_lookup(dev, iters=20, volume="floor")
     torch.cuda.empty_cache()
@@ -4014,7 +4087,7 @@ def main() -> int:
                s_node, s_long, s_wide, l_fleet, l_node,
                o_fleet, o_node, c_node, c_build, c_long, c_l2, c_record, e_node, e_l2,
                g_shared, g_full, k_log_node, k_log_fleet, c_log_fleet, i_big, n_fleet,
-               n_3d, f_node, f_fleet, f_3d, v_bench, v_floor)
+               n_3d, f_node, f_fleet, f_3d, f_bench, v_bench, v_floor)
     ms = lambda v: "not measured" if v is None else f"{v:.5f} ms"  # noqa: E731
     for k in checked:
         lib = "" if k["library_ms"] is None else (
@@ -4022,7 +4095,10 @@ def main() -> int:
         extra = "".join(f", {key} {k[key]}" for key in (
             "max_rel_err", "outside_rtol_share", "live_cells", "hit_share", "library_note",
             "max_abs_err_float64", "rows_moved_from_plain", "misses", "covered",
-            "launches_per_call") if key in k)
+            "launches_per_call", "probe", "index_box") if key in k)
+        if "search_ms" in k:
+            extra += (f"; by binary search {ms(k['search_ms'])} (device "
+                      f"{ms(k['search_device_ms'])})")
         if "device_ms_each" in k:
             extra += "; device, one call alone (ms) " + json.dumps(k["device_ms_each"])
         if "device_launches_seen" in k:
@@ -4260,6 +4336,10 @@ def main() -> int:
     for path, c in by_path.items():
         for name in OFF_MAIN_PATHS:  # B3 and B6 go through their new entries
             check(c[name] == 0, f"{path}: {name} launched {c[name]} times")
+        # every map of a main path fits the fused NDT kernel's cell index
+        check(c[NDT_INDEXED] == c["B10-fused ndt_weights"],
+              f"{path}: {c[NDT_INDEXED]} of {c['B10-fused ndt_weights']} fused NDT launches "
+              f"by the cell index")
         # B2 once a resample, one launch: past one tile a filter the CDF kernel
         # then the search (the CDF once a search), at one tile the one-tile
         # entry and no CDF; the sorted positions' running sum at most once a
@@ -4324,6 +4404,8 @@ def main() -> int:
                                       "launches": by_path["fleet"][B2_TILE]}]
         if k is f_mega:  # the L2 branch of the same kernel
             entry["other_shapes"] = [{key: f_l2[key] for key in timed}]
+        if k is f_fleet:  # the benchmark's shape
+            entry["other_shapes"] = [{key: f_bench[key] for key in timed}]
         if k is c_build:  # the ray entry's other maps, the last through L2
             entry["device_ms_each"] = c_build["device_ms_each"]
             entry["other_shapes"] = [{key: c[key] for key in (*timed, "device_ms_each")}

@@ -1691,11 +1691,16 @@ def test_b11_kernel_matches_plain_version(dev, volume):
     assert b11.launches == before + 2
 
 
-def ndt_weights_case(d, rows, batch, minl, dev, seed=3, n=1500, c=200):
-    """The fused NDT kernel's arguments: a map of ``rows`` cells (its means
-    inside them), measurement cells made from map means seen from a pose
-    (60% live, NaN in the masked ones) and ``n`` poses about it, one filter
-    or ``batch``."""
+def ndt_weights_case(d, rows, batch, minl, dev, seed=3, n=1500, c=200, layout="dense"):
+    """The fused NDT kernel's arguments, and the map's cell index: a map of
+    ``rows`` cells (its means inside them), measurement cells made from map
+    means seen from a pose (60% live, NaN in the masked ones) and ``n``
+    poses about it, one filter or ``batch``.  ``layout`` "sparse" adds 16
+    map cells 300 cells away on every axis, so that the map's box is past
+    the index's budget; "alias" moves every other pose by the key's period
+    along x (65536 cells in 2D, 1024 in 3D), so that its probes find the
+    map's cells through the key's wrap, and widens the map's covariances
+    so that such a hit weighs."""
     from beluga_tpu_torch.lie import SE2, SE3, SO3
     from beluga_tpu_torch.maps.ndt import make_ndt_map
     from beluga_tpu_torch.models.sensor.ndt import KERNEL_2D, KERNEL_3D, pose_matrices
@@ -1706,19 +1711,28 @@ def ndt_weights_case(d, rows, batch, minl, dev, seed=3, n=1500, c=200):
     cells = cells[rng.permutation(len(cells))[:rows]]
     means = (cells + rng.uniform(0.2, 0.8, cells.shape)) * 0.5
     a = rng.normal(0, 0.1, (len(cells), d, d))
-    ndt_map = make_ndt_map(cells, means, a @ a.transpose(0, 2, 1) + 0.01 * np.eye(d), 0.5,
-                           device=dev)
+    map_covs = a @ a.transpose(0, 2, 1) + 0.01 * np.eye(d)
+    if layout == "sparse":
+        far = np.unique(rng.integers(0, 4, (16, d)), axis=0) + 300
+        cells = np.concatenate([cells, far])
+        means = np.concatenate([means, (far + 0.5) * 0.5])
+        map_covs = np.concatenate([map_covs, np.broadcast_to(0.01 * np.eye(d), (len(far), d, d))])
+    if layout == "alias":
+        map_covs = map_covs + (1e9 if d == 2 else 1e6) * np.eye(d)
+    ndt_map = make_ndt_map(cells, means, map_covs, 0.5, device=dev)
     lead = () if batch is None else (batch,)
     yaw, origin = rng.uniform(-np.pi, np.pi), rng.uniform(-1.0, 1.0, d)
     rz = np.eye(d)
     rz[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
-    mu = means[rng.integers(0, len(cells), (*lead, c))]
+    mu = means[rng.integers(0, rows, (*lead, c))]
     local = (mu - origin) @ rz + rng.normal(0, 0.05, mu.shape)
     b = rng.normal(0, 0.08, (*lead, c, d, d))
     mcov = b @ np.swapaxes(b, -1, -2) + 1e-3 * np.eye(d)
     cmask = rng.uniform(size=(*lead, c)) < 0.6
     local[~cmask], mcov[~cmask] = np.nan, np.nan
     xy = origin[:2] + rng.normal(0, 0.2, (*lead, n, 2))
+    if layout == "alias":
+        xy[..., 1::2, 0] += (1 << (16 if d == 2 else 10)) * 0.5
     yaws = yaw + rng.normal(0, 0.05, (*lead, n))
 
     def f32(v):
@@ -1734,46 +1748,86 @@ def ndt_weights_case(d, rows, batch, minl, dev, seed=3, n=1500, c=200):
     return (ndt_map.keys, ndt_map.values, ndt_map.num_cells, ndt_map.resolution,
             rot.contiguous(), trans.contiguous(), f32(local), f32(mcov),
             torch.as_tensor(cmask, device=dev), KERNEL_2D if d == 2 else KERNEL_3D, minl,
-            1.0, 1.0)
+            1.0, 1.0), ndt_map.index
 
 
 @pytest.mark.parametrize("minl", [0.0, 1e-3])
 @pytest.mark.parametrize("batch", [None, 8])
-@pytest.mark.parametrize("rows", ["shared", "global"])
+@pytest.mark.parametrize("rows", ["shared", "global", "sparse", "alias"])
 @pytest.mark.parametrize("d,c", [(2, 200), (3, 200), (2, 3000), (3, 2000)])
 def test_ndt_weights_kernel_matches_plain_version(dev, d, c, rows, batch, minl):
     """The fused NDT kernel against its plain version on the same card
-    tensors: a map in shared memory (287 or 996 rows) and one too large for
-    it (4000 rows, searched through L2), one filter and a fleet,
-    ``minimum_likelihood`` zero and positive, and 200 measurement slots or
-    so many (60% live) that the live cells outgrow the kernel's 32 KB cell
-    cache and the rest are read through L2.  Every particle's weight
-    within rtol 1e-4 (the kernel's sums take another order, its 3D inverse
-    the adjugate where the plain version takes LU); two launches
-    bit-equal."""
+    tensors: a map whose rows fit shared memory (287 or 996 rows) and one
+    too large for it (4000 rows, read through L2), both probed through
+    their cell index; a map whose box is past the index's budget (the 287
+    or 996 rows and 16 cells far away), probed by the binary search; poses
+    whose probes find the map through the key's wrap; one filter and a
+    fleet, ``minimum_likelihood`` zero and positive, and 200 measurement
+    slots or so many (60% live) that the live cells outgrow the kernel's
+    32 KB cell cache and the rest are read through L2.  Every particle's
+    weight within rtol 1e-4 (the kernel's sums take another order, its 3D
+    inverse the adjugate where the plain version takes LU); two launches
+    bit-equal; the search of the sorted keys gives the index's bits."""
     from beluga_tpu_torch.ops import cuda_ndt
 
-    m = {"shared": 287 if d == 2 else 996, "global": 4000}[rows]
-    args = ndt_weights_case(d, m, batch, minl, dev, c=c)
+    m = {"global": 4000}.get(rows, 287 if d == 2 else 996)
+    layout = rows if rows in ("sparse", "alias") else "dense"
+    args, index = ndt_weights_case(d, m, batch, minl, dev, c=c, layout=layout)
+    assert (index is None) == (rows == "sparse")
     if c > 200:  # live cells beyond the cache in every filter
         cache_cells = 32 * 1024 // (4 * (d + d * d))
         assert int(args[8].sum(-1).min()) > cache_cells
-    before = cuda_ndt.weights_launches
-    got = cuda_ndt.ndt_weights(*args)
-    again = cuda_ndt.ndt_weights(*args)
+    before = cuda_ndt.weights_launches, cuda_ndt.weights_indexed_launches
+    got = cuda_ndt.ndt_weights(*args, index=index)
+    again = cuda_ndt.ndt_weights(*args, index=index)
+    searched = cuda_ndt.ndt_weights(*args)
     want = cuda_ndt.ndt_weights_reference(*args, particle_chunk=128)
     torch.cuda.synchronize()
-    assert cuda_ndt.weights_launches == before + 2
+    indexed = 0 if index is None else 2
+    assert (cuda_ndt.weights_launches, cuda_ndt.weights_indexed_launches) == \
+        (before[0] + 3, before[1] + indexed)
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
-    assert torch.equal(got, again)
+    assert torch.equal(got, again) and torch.equal(got, searched)
     rel = (got - want).abs() / want.abs()
     assert float(rel.max()) <= 1e-4, float(rel.max())
     assert float(want.max()) > 1.5  # cells match the map
+    if rows == "alias":  # the moved poses find the map too
+        assert float(want[..., 1::2].max()) > 1.1
+
+
+@pytest.mark.parametrize("reach", ["near", "far"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_ndt_weights_kernel_with_a_stencil_of_its_own(dev, d, reach):
+    """A stencil other than the standard one through the cell index: its
+    probes are not unrolled; "far" adds an offset longer than the box, so
+    that no cell has its whole stencil inside and every probe is checked
+    against the box.  Within rtol 1e-4 of the plain version, and the
+    search of the sorted keys gives the same bits."""
+    from beluga_tpu_torch.ops import cuda_ndt
+
+    args, index = ndt_weights_case(d, 287 if d == 2 else 996, 4, 1e-3, dev)
+    kern = np.array([[0, 0], [1, 0], [-1, 0], [0, 1], [0, -1], [2, 0], [0, -2]]) if d == 2 \
+        else np.array([[0, 0, 0], [1, 1, 0], [-1, 0, 1], [0, 2, 0]])
+    if reach == "far":
+        kern = np.concatenate([kern, [[0] * (d - 1) + [-40]]])
+    args = (*args[:9], kern.astype(np.int32), *args[10:])
+    assert index is not None and index.size[-1] <= 40  # "far" reaches past the box
+    before = cuda_ndt.weights_indexed_launches
+    got = cuda_ndt.ndt_weights(*args, index=index)
+    searched = cuda_ndt.ndt_weights(*args)
+    want = cuda_ndt.ndt_weights_reference(*args, particle_chunk=128)
+    torch.cuda.synchronize()
+    assert cuda_ndt.weights_indexed_launches == before + 1
+    assert torch.equal(got, searched)
+    rel = (got - want).abs() / want.abs()
+    assert float(rel.max()) <= 1e-4, float(rel.max())
+    assert float(want.max()) > 1.5
 
 
 def test_ndt_nodes_on_card(dev):
     """The 2D and 3D NDT nodes on arena maps of more than 256 rows: the
-    fused NDT kernel once per update, the standalone probe B10 never."""
+    fused NDT kernel once per update, through the map's cell index, and
+    the standalone probe B10 never."""
     from beluga_tpu_torch.io import synthetic
     from beluga_tpu_torch.io.config import AmclNodeConfig
     from beluga_tpu_torch.maps.ndt import make_ndt_map
@@ -1789,11 +1843,13 @@ def test_ndt_nodes_on_card(dev):
                          initial_pose_y=float(ys[0]), initial_pose_yaw=float(yaws[0]))
     node = NdtAmclNode(cfg)
     node.set_map(make_ndt_map(*fit_ndt_cells(p2, 0.4), 0.4))
-    before, before_fused = b10.launches, b10.weights_launches
+    before, before_fused, before_indexed = (b10.launches, b10.weights_launches,
+                                            b10.weights_indexed_launches)
     for i in range(3):
         r = node.handle_point_cloud((xs[i], ys[i], yaws[i]), pts[i][mask[i]])
         assert r.valid and np.hypot(r.pose[0] - xs[i], r.pose[1] - ys[i]) < 0.9
     assert b10.weights_launches == before_fused + 3  # the fused kernel once per update
+    assert b10.weights_indexed_launches == before_indexed + 3  # by the map's cell index
     assert b10.launches == before
     p3 = np.concatenate([np.c_[p2, np.full(len(p2), z)] for z in np.arange(0, 2, 0.1)])
     node3 = NdtAmclNode3D(AmclNodeConfig())
@@ -1802,10 +1858,12 @@ def test_ndt_nodes_on_card(dev):
                            np.diag([0.05, 0.05, 0.01, 0.001, 0.001, 0.02]))
     cloud = np.concatenate([np.c_[pts[0][mask[0]], np.full(int(mask[0].sum()), z)]
                             for z in (0.5, 1.0, 1.5)]).astype(np.float32)
-    before, before_fused = b10.launches, b10.weights_launches
+    before, before_fused, before_indexed = (b10.launches, b10.weights_launches,
+                                            b10.weights_indexed_launches)
     r = node3.handle_point_cloud((0, 0, 0, 0, 0, 0), cloud)
     assert r.valid and r.pose.shape == (6,)
     assert b10.weights_launches == before_fused + 1 and b10.launches == before
+    assert b10.weights_indexed_launches == before_indexed + 1
 
 
 def test_vdb_filter_on_card(dev):

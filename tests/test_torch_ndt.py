@@ -18,6 +18,8 @@ through the 3x3 library inverse within rtol 1e-5.
 The C++ golden values hold at rel 1e-5, as in ``tests/test_ndt.py``.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +38,7 @@ from beluga_tpu.ops.pallas_ndt import ndt_probe as j_ndt_probe
 from beluga_tpu_torch import convert
 from beluga_tpu_torch.io import synthetic
 from beluga_tpu_torch.lie import SE2, SE3, SO3
+from beluga_tpu_torch.maps import ndt as ndt_map_mod
 from beluga_tpu_torch.maps.ndt import encode_cells, make_ndt_map
 from beluga_tpu_torch.models.sensor import ndt as ndt_mod
 from beluga_tpu_torch.models.sensor.ndt import (
@@ -602,3 +605,135 @@ def test_closed_form_parts_from_lu_only_near_singular():
         assert closed == pytest.approx(lu, rel=1e-5) and lu > 0.1
     lu, closed = liks(1e-8, u)
     assert abs(lu - closed) > 1e-4 * lu
+
+
+# -- the cell index: the fused kernel's probe by address ----------------------
+
+
+def _index_map(d, cells, sentinels=0):
+    """``make_ndt_map`` of ``cells`` (random means, identity covariances),
+    or with ``sentinels`` rows of key 0xFFFFFFFF past the live ones, as the
+    empty map keeps one, with the index built from the live keys."""
+    cells = np.asarray(cells, np.int32).reshape(-1, d)
+    means = np.random.default_rng(len(cells)).normal(size=cells.shape).astype(np.float32)
+    covs = np.broadcast_to(np.eye(d, dtype=np.float32), (len(cells), d, d))
+    m = make_ndt_map(cells, means, covs, 0.5, device="cpu")
+    if not sentinels:
+        return m
+    keys = np.concatenate([m.keys.numpy(), np.full(sentinels, 0xFFFFFFFF, np.int64)])
+    pad = lambda a: torch.cat([a, a[:1].expand(sentinels, *a.shape[1:])])  # noqa: E731
+    return ndt_map_mod.NdtMap(keys=t(keys), means=pad(m.means), covs=pad(m.covs),
+                              values=pad(m.values), num_cells=m.num_cells,
+                              resolution=m.resolution,
+                              index=ndt_map_mod.cell_index(keys, m.num_cells, d, "cpu"))
+
+
+def _index_cases():
+    rng = np.random.default_rng(40)
+    top2, top3 = (1 << 15) - 1, (1 << 9) - 1
+    return {  # d, cells, sentinel rows
+        "2d-random": (2, np.unique(rng.integers(-30, 30, (300, 2)), axis=0), 0),
+        "3d-random": (3, np.unique(rng.integers(-8, 8, (400, 3)), axis=0), 0),
+        # live cells beside the cell whose key the sentinel rows carry
+        "2d-sentinel": (2, [[top2, top2 - 1], [top2 - 1, top2], [top2 - 3, top2 - 2]], 2),
+        "3d-sentinel": (3, [[top3, top3, top3 - 1], [top3 - 2, top3, top3]], 1),
+        # a box that runs across the key's wrap on every axis
+        "2d-across-the-wrap": (2, [[top2, -(1 << 15)], [-(1 << 15) + 2, top2 - 3],
+                                   [top2 - 1, top2]], 0),
+        "3d-across-the-wrap": (3, [[top3, -(1 << 9), 0], [-(1 << 9) + 1, top3, top3],
+                                   [top3 - 2, top3 - 1, -(1 << 9)]], 0),
+        # the same cell twice (searchsorted finds the first row), cells out
+        # of the key's range (they wrap), a one-cell box edge
+        "2d-duplicates-and-wrapped": (2, [[3, 4], [3, 4], [65540, -2], [4, 4], [3, 5]], 0),
+        "3d-duplicates-and-wrapped": (3, [[1, 1, 1], [1, 1, 1], [1025, 1, 0], [0, 0, 0]], 0),
+        "2d-one-cell": (2, [[-7, 9]], 0),
+        # every other cell of an axis: the padded box is the whole axis
+        "3d-whole-axis": (3, np.stack([np.arange(-512, 512, 2), np.zeros(512), np.zeros(512)],
+                                      -1), 0),
+        "2d-empty": (2, np.zeros((0, 2)), 0),
+        "3d-empty": (3, np.zeros((0, 3)), 0),
+    }
+
+
+@pytest.mark.parametrize("case", list(_index_cases()))
+def test_cell_index_finds_the_rows_searchsorted_finds(case):
+    """Every cell of the index's box, a band of 3 cells about it, and each
+    of those moved by the key's period on every axis (an alias: the same
+    key) gives through the index the row ``NdtMap.lookup`` gives by
+    ``searchsorted``, or none; the same for far and random cells."""
+    d, cells, sentinels = _index_cases()[case]
+    m = _index_map(d, cells, sentinels)
+    index = m.index
+    assert index is not None and index.rows.dtype == torch.int16
+    assert index.rows.numel() % 8 == 0 and index.rows.numel() >= np.prod(index.size)
+    bits = 16 if d == 2 else 10
+    bias = 1 << (bits - 1)
+    band = 3
+    axes = [np.arange(lo - band, lo + size + band) for lo, size in zip(index.lo, index.size)]
+    u = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, d)
+    probes = [u % (1 << bits) - bias]  # back to cell coordinates
+    for a in range(d):
+        for k in (-1, 1, 3):
+            moved = probes[0].copy()
+            moved[:, a] += k << bits
+            probes.append(moved)
+    rng = np.random.default_rng(41)
+    probes.append(rng.integers(-(1 << 20), 1 << 20, (2000, d)))
+    q = t(np.concatenate(probes))
+    rows, found = m.lookup(q)
+    want = torch.where(found, rows, ndt_map_mod.NO_ROW)
+    got = index.lookup(q)
+    assert torch.equal(got, want)
+    if m.num_cells:
+        assert bool(found.any()) and not bool(found.all())
+        assert int(found.sum()) >= len(probes) - 1  # each alias of a live cell hits
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_cell_index_only_within_its_budget(d):
+    """A box of ``INDEX_MAX_CELLS`` cells has an index (with no room for
+    the padding); one cell more, or two clusters far apart (a sparse
+    map), has none, and the map alone decides.  The repo's maps fit with
+    a cell of padding on each side: the arena at 0.4 m (48 x 48 live) and
+    its 3D extrusion at 0.5 m (39 x 39 x 4)."""
+    budget = ndt_map_mod.INDEX_MAX_CELLS
+    side = (128, 256) if d == 2 else (32, 32, 32)
+    corner = np.array(side) - 1
+    assert np.prod(side) == budget
+    fits = _index_map(d, [np.zeros(d), corner])
+    assert fits.index is not None and fits.index.size == side
+    over = corner.copy()
+    over[0] += 1
+    assert _index_map(d, [np.zeros(d), over]).index is None
+    rng = np.random.default_rng(42)
+    cluster = rng.integers(0, 6, (40, d))
+    assert _index_map(d, np.concatenate([cluster, cluster + 300])).index is None
+    from beluga_tpu_torch.tools import workloads
+
+    m = workloads.ndt_map_2d("cpu") if d == 2 else workloads.ndt_map_3d("cpu")
+    assert m.index.size == ((50, 50) if d == 2 else (41, 41, 6))
+    assert m.to("cpu").index.size == m.index.size
+
+
+def test_fused_wrapper_checks_the_cell_index():
+    """The wrapper takes the map's index, and refuses one the kernel
+    cannot read."""
+    _, m = probe_map(2, 90)
+    _, st, _, means, covs, cmask = probe_inputs(probe_map(2, 90)[0], 2, 91)
+    rot, trans = ndt_mod.pose_matrices(st)
+    args = (m.keys, m.values, m.num_cells, m.resolution, rot, trans, t(means), t(covs),
+            t(cmask), ndt_mod.KERNEL_2D)
+    assert m.index is not None
+    assert torch.equal(cuda_ndt.ndt_weights(*args, index=m.index),
+                       cuda_ndt.ndt_weights_reference(*args))
+    idx = m.index
+    bad = {
+        "int16": dataclasses.replace(idx, rows=idx.rows.to(torch.int32)),
+        "multiple of 8": dataclasses.replace(idx, rows=idx.rows[:-1]),
+        "does not fit": dataclasses.replace(idx, size=(idx.size[0] + 1, idx.size[1])),
+        "box": dataclasses.replace(idx, lo=(0, 0, 0), size=(1, 1, 1)),
+        "a tensor on cpu": dataclasses.replace(idx, rows=idx.rows.to("meta")),
+    }
+    for match, index in bad.items():
+        with pytest.raises(ValueError, match=match):
+            cuda_ndt.ndt_weights(*args, index=index)
