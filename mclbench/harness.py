@@ -11,13 +11,20 @@ model ``mclbench/sensors/<sensor>.py`` and each per-layer metric's reader
 configuration or a metric is added by adding files and entries, never by
 editing these.
 
-A tick is one simulator step of the whole fleet, a closed loop: the scans
-in host memory (where a fleet server receives them, one for each of the
-lattice's 4096 poses, the bytes of 4096 robots' scans) are copied to the
-card in one transfer with the robots' lattice points, each robot's scan is
-picked there, the fleet update is called once on the robots' odometry, and
-every robot's estimate is read back; the next tick starts when the
-estimate is on the host.  Every mix takes this one path.
+A tick is one simulator step of every robot the driver serves, a closed
+loop: the scans in host memory (where a server receives them, one for each
+of the lattice's poses) are copied to the card in one transfer with the
+robots' lattice points, each robot's scan is picked there, the driver's
+update is called once on the robots' odometry, and every robot's estimate
+is read back; the next tick starts when the estimate is on the host.  A
+driver may serve one filter (``robots`` 1) as well as a fleet.
+
+The check comes from the configuration's reference: its own ``check``
+where it defines one, else ``reference/common.py:check``, with the same
+signature, ``check(records, inputs, sensor, config, device, low=False,
+seed=0) -> dict``, returning some of ``common.NUMBERS``, each held to the
+configuration's ``limits``.  What a driver's records hold is agreed
+between that driver and that check.
 """
 
 from __future__ import annotations
@@ -220,10 +227,6 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda",
         peak = torch.cuda.max_memory_allocated(device)
     else:
         peak = 0
-    found = forbidden_modules()
-    if found:
-        raise SystemExit(f"modules of JAX or the JAX package are loaded: {', '.join(found)}")
-
     attempted = failed = 0
     gate_m, gate_rad = config["gate"]["position_m"], math.radians(config["gate"]["yaw_deg"])
     for tick, est in poses_log[WARMUP_TICKS:]:
@@ -246,7 +249,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda",
     ref = importlib.import_module(f"mclbench.reference.{config['reference']}")
     sensor = ref.Sensor(data, config, device)
     inputs = {"poses": poses32, "points": points_h, "mask": mask_h}
-    numbers = common.check(records, inputs, sensor, config, device)
+    check = getattr(ref, "check", common.check)
+    numbers = check(records, inputs, sensor, config, device)
     limits = config["limits"]
     checks = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}
     correct = all(math.isfinite(c["value"]) and c["value"] <= c["limit"]
@@ -286,11 +290,15 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda",
             f"{k} {v:.3f}" for k, v in sorted(tr.host_ms_by_span().items())))
     result["device"] = dev
     if control:
-        low = common.check(records, inputs, sensor, config, device, low=True, seed=seed)
+        low = check(records, inputs, sensor, config, device, low=True, seed=seed)
         result["control_checks"] = {k: {"value": v, "limit": limits[k]} for k, v in low.items()}
     for k, c in checks.items():
         log(f"check {k}: {c['value']} (limit {c['limit']})")
     result["checks"] = checks
+    # after the window, the metric readers, the reference and its checks
+    found = forbidden_modules()
+    if found:
+        raise SystemExit(f"modules of JAX or the JAX package are loaded: {', '.join(found)}")
     return result
 
 

@@ -21,13 +21,17 @@ The numbers, each against its limit in the configuration file:
   reference value);
 * ``resample_gap``: the widest distance from an output particle of a robot
   that moved to the nearest particle of the reference's propagation (B2
-  takes donors, copies and sorts them); for a robot that stood, from its
-  particle in the same slot before the update (kept bit for bit);
+  takes donors, copies and sorts them; :func:`nearest`, which past
+  :data:`ALL_PAIRS_MAX` pairs reads :data:`NEAREST_RADIUS` where none
+  lies within it), or, where a recovery state may sit in the slot, from
+  the nearest free cell's centre if that is nearer; for a robot that
+  stood, from its particle in the same slot before the update (kept bit
+  for bit);
 * ``resample_ks``: the Kolmogorov-Smirnov distance, times the square root
   of the particle count, between the donors (each output particle's
   nearest reference particle) and the reference's weights, the slots in
   the order of their weights (a multinomial draw reads under 2 nearly
-  always);
+  always), over the outputs that have a donor within the radius;
 * ``recovery_gap`` (a sensor whose recovery draws free cells): the widest
   distance of a drawn recovery state from the centre of a free cell;
 * ``estimate_gap``: the widest gap, over every robot of the fleet on the
@@ -37,10 +41,21 @@ The numbers, each against its limit in the configuration file:
 The control (``low=True``) puts this reference, computed in bfloat16 (the
 likelihood field's bf16 table in float8), in the program's place and takes
 the same numbers; it has to fail at least one of them.
+
+:func:`check` is the check of a configuration whose reference module
+(``reference/<reference>.py``) defines none.  One that does brings its
+own, with the same signature, ``check(records, inputs, sensor, config,
+device, low=False, seed=0) -> dict``: it returns some of :data:`NUMBERS`,
+each of which the configuration's ``limits`` must hold, and what a
+driver's records hold is agreed between that driver and that check.  The
+pieces here (:func:`nearest`, :func:`ks_distance`, :func:`motion`,
+:func:`pose_gap`, :func:`thrun_probability`) take one filter of 2097152
+particles as well as a fleet's.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import numpy as np
@@ -50,6 +65,18 @@ F64 = torch.float64
 LOW = torch.bfloat16
 NUMBERS = ("motion_gap", "sensor_gap", "resample_gap", "resample_ks", "recovery_gap",
            "estimate_gap")
+# m and rad: how far :func:`nearest` looks for a donor; every configuration's
+# resample_gap limit lies below it
+NEAREST_RADIUS = 0.01
+ALL_PAIRS_MAX = 4096 * 4096  # N·M up to which nearest searches every pair
+_CELL = NEAREST_RADIUS * (1.0 + 1e-6)  # x, y cells: the radius and _EPS reach one cell
+_BINS = int(2.0 * math.pi / NEAREST_RADIUS)  # heading bins, each wider than the radius
+_WIDTH = torch.tensor([_CELL, _CELL, 2.0 * math.pi / _BINS], dtype=F64)
+_OFFSETS = torch.tensor([d for d in itertools.product((-1, 0, 1), repeat=3) if any(d)])
+_EPS = 1e-9  # added to each reach: above the rounding of a coordinate or a gap
+_OUTPUTS = 1 << 18  # outputs a block of the grid search
+_PAIRS = 1 << 23  # output-reference pairs a pass of the grid search
+_NONE = torch.iinfo(torch.int64).max
 
 
 def wrap(a: torch.Tensor) -> torch.Tensor:
@@ -113,7 +140,129 @@ def thrun_probability(thrun: torch.Tensor, avg: float, alpha_slow: float,
 
 def nearest(out_xy, out_th, ref_xy, ref_th, chunk: int = 1024):
     """For each output particle ``[N]``, the distance to and the index of
-    the nearest reference particle ``[M]`` (``pose_gap``)."""
+    the nearest reference particle ``[M]`` (``pose_gap``, ties to the
+    lowest index).
+
+    While ``N·M`` is at most :data:`ALL_PAIRS_MAX` (every filter of a
+    fleet), the search over every pair (:func:`all_pairs`, ``chunk``
+    outputs at a time).  Past that a grid of the reference particles, with
+    memory bounded whatever ``N`` and ``M`` are: where the nearest lies
+    within :data:`NEAREST_RADIUS`, both are those of :func:`all_pairs`,
+    bit for bit on the card (on the CPU in one thread); where none does,
+    the output reads ``NEAREST_RADIUS``, a lower bound, and the index -1."""
+    n, m = out_xy.shape[0], ref_xy.shape[0]
+    if n * m <= ALL_PAIRS_MAX:
+        return all_pairs(out_xy, out_th, ref_xy, ref_th, chunk)
+    dt = torch.promote_types(out_xy.dtype, ref_xy.dtype)
+    dist = torch.full((n,), math.inf, dtype=dt, device=out_xy.device)
+    idx = torch.full((n,), -1, dtype=torch.int64, device=out_xy.device)
+    grid = _Grid(ref_xy, ref_th)
+    for s in range(0, n, _OUTPUTS):
+        grid.search(out_xy[s:s + _OUTPUTS], out_th[s:s + _OUTPUTS], dist[s:s + _OUTPUTS],
+                    idx[s:s + _OUTPUTS])
+    far = ~(dist <= NEAREST_RADIUS)
+    dist[far], idx[far] = NEAREST_RADIUS, -1
+    return dist, idx
+
+
+class _Grid:
+    """The finite reference particles sorted by cell: a hair over
+    :data:`NEAREST_RADIUS` wide in x and y over their box, ``2π /
+    _BINS`` in heading, the bins wrapping across ±π; so every particle
+    within the radius of a point lies in the point's cell or one of its
+    26 neighbours."""
+
+    def __init__(self, xy, th):
+        self.xy, self.th = xy, th
+        finite = torch.nonzero(torch.isfinite(xy).all(-1) & torch.isfinite(th)).squeeze(1)
+        xy, th = xy[finite], th[finite]
+        self.origin = xy.amin(0) if len(finite) else xy.new_zeros(2)
+        cell = torch.floor(self.units(xy, th)).long()
+        cell[:, 2].clamp_(0, _BINS - 1)
+        self.shape = (cell[:, :2].amax(0) + 1).tolist() if len(finite) else [0, 0]
+        self.keys, order = torch.sort(self.key(cell))
+        self.order = finite[order]
+
+    def units(self, xy, th):
+        """Coordinates in cells: ``[..., 3]`` (x, y, heading)."""
+        xy = (xy - self.origin) / _CELL
+        t = torch.remainder(th + math.pi, 2.0 * math.pi) * (_BINS / (2.0 * math.pi))
+        return torch.cat([xy, t[..., None]], -1)
+
+    def key(self, cell):
+        return (cell[..., 0] * self.shape[1] + cell[..., 1]) * _BINS + cell[..., 2]
+
+    def search(self, out_xy, out_th, dist, idx) -> None:
+        """Lower ``dist``, ``idx`` of the outputs to their nearest reference
+        particle within the radius: first in each output's own cell, then
+        in the neighbours that the cube of the distance found so far (at
+        most the radius) reaches."""
+        ok = torch.isfinite(out_xy).all(-1) & torch.isfinite(out_th)
+        u = self.units(torch.where(ok[:, None], out_xy, 0.0), torch.where(ok, out_th, 0.0))
+        # far outside the box, two cells from it: no reference particle within reach
+        top = torch.tensor([*self.shape, _BINS], dtype=u.dtype, device=u.device) + 1.0
+        u = torch.minimum(torch.maximum(u, torch.full_like(u, -2.0)), top)
+        cell = torch.floor(u).long()
+        cell[:, 2].clamp_(0, _BINS - 1)
+        own = ok & (cell[:, :2] >= 0).all(-1) & (cell[:, 0] < self.shape[0]) & (
+            cell[:, 1] < self.shape[1])
+        rows = torch.nonzero(own).squeeze(1)
+        self._scan(rows, self.key(cell[rows]), out_xy, out_th, dist, idx)
+
+        reach = (dist.clamp(max=NEAREST_RADIUS) + _EPS)[:, None] / _WIDTH.to(u)
+        lo = torch.floor(u - reach).long()
+        hi = torch.floor(u + reach).long()
+        near = cell[:, None, :] + _OFFSETS.to(cell.device)  # [n, 26, 3]
+        inside = ((near >= lo[:, None]) & (near <= hi[:, None])).all(-1)
+        inside &= ok[:, None] & (near[..., :2] >= 0).all(-1)
+        inside &= (near[..., 0] < self.shape[0]) & (near[..., 1] < self.shape[1])
+        near[..., 2] %= _BINS
+        rows, which = torch.nonzero(inside, as_tuple=True)
+        self._scan(rows, self.key(near[rows, which]), out_xy, out_th, dist, idx)
+
+    def _scan(self, rows, keys, out_xy, out_th, dist, idx) -> None:
+        """Merge into ``dist``, ``idx`` the pairs of each output ``rows[s]``
+        with every reference particle in cell ``keys[s]``, :data:`_PAIRS`
+        pairs at a time."""
+        start = torch.searchsorted(self.keys, keys)
+        count = torch.searchsorted(self.keys, keys, right=True) - start
+        some = count > 0
+        rows, start, count = rows[some], start[some], count[some]
+        if not len(count):
+            return
+        end = torch.cumsum(count, 0)
+        total = int(end[-1])
+        first = end - count
+        for a in range(0, total, _PAIRS):
+            k = torch.arange(a, min(a + _PAIRS, total), device=end.device)
+            s = torch.searchsorted(end, k, right=True)
+            o = rows[s]
+            j = self.order[start[s] + k - first[s]]
+            g = _gaps(out_xy, out_th, self.xy, self.th, o, j)
+            best = torch.full_like(dist, math.inf).scatter_reduce(0, o, g, "amin")
+            low = torch.full_like(idx, _NONE).scatter_reduce(
+                0, o, torch.where(g == best[o], j, _NONE), "amin")
+            tie = (best == dist) & (idx >= 0)
+            idx.copy_(torch.where(best < dist, low,
+                                  torch.where(tie, torch.minimum(idx, low), idx)))
+            torch.minimum(dist, best, out=dist)
+
+
+def _gaps(out_xy, out_th, ref_xy, ref_th, o, j):
+    """``pose_gap`` of the pairs ``(o, j)``.  Their count is padded to a
+    multiple of 16, so that on the CPU every heading takes the vector
+    path of ``atan2``, as each pair does in :func:`all_pairs` (its scalar
+    tail can differ in the last bit)."""
+    t = o.numel()
+    pad = -t % 16
+    if pad:
+        o = torch.cat([o, o.new_zeros(pad)])
+        j = torch.cat([j, j.new_zeros(pad)])
+    return pose_gap(out_xy[o], out_th[o], ref_xy[j], ref_th[j])[:t]
+
+
+def all_pairs(out_xy, out_th, ref_xy, ref_th, chunk: int = 1024):
+    """:func:`nearest` over every pair, ``chunk`` outputs at a time."""
     dist, idx = [], []
     for s in range(0, out_xy.shape[0], chunk):
         d = pose_gap(out_xy[s:s + chunk, None], out_th[s:s + chunk, None], ref_xy[None],
@@ -233,8 +382,13 @@ def check(records: list, inputs: dict, sensor, config: dict, device, low: bool =
                 if sensor.draws_free_cells and float(p_rand[j]) > 0.0:
                     d = torch.minimum(d, sensor.recovery_distance(o_xy[j], o_th[j]))
                 out["resample_gap"] = max(out["resample_gap"], float(d.max()))
-                w = torch.softmax(logw[j], -1)
-                out["resample_ks"] = max(out["resample_ks"], ks_distance(donors, w))
+                # an output with no donor within the radius (index -1, past
+                # ALL_PAIRS_MAX) is resample_gap's: the radius, unless a recovery
+                # state explains it; the draw is that of the outputs with one
+                some = donors >= 0
+                if bool(some.any()):
+                    ks = ks_distance(donors[some], torch.softmax(logw[j], -1))
+                    out["resample_ks"] = max(out["resample_ks"], ks)
             if "recovery_gap" in out and "pool_xy" in rec:
                 if low:
                     pool_xy, pool_rot = sensor.low_pool(rec["pool_xy"].shape, gen, device)
