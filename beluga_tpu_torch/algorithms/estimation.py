@@ -13,6 +13,10 @@ eigenvalue of ``Σ w q qᵀ``, signed to w >= 0) and the covariance of
 ``log(mean⁻¹ · state)`` in the tangent space, with the same correction.
 Weights are normalized here, as ``beluga::estimate`` does.  States and
 weights may carry leading filter axes; each filter gets its own estimate.
+
+On CUDA tensors the SE2 estimate is kernel E1 (``ops/cuda_estimate.py``,
+one launch for every filter); elsewhere its plain version,
+:func:`estimate_se2_reference`.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from beluga_tpu_torch.lie import SE2, SE3, SO2, SO3
+from beluga_tpu_torch.ops import cuda_estimate
 
 Tensor = torch.Tensor
 
@@ -53,7 +58,27 @@ def estimate_vector(values: Tensor, weights: Tensor, mask: Tensor | None = None)
 
 
 def estimate_se2(states: SE2, weights: Tensor, mask: Tensor | None = None):
-    """``(SE2 mean [...], f32[..., 3, 3] covariance)`` over (x, y, yaw)."""
+    """``(SE2 mean [...], f32[..., 3, 3] covariance)`` over (x, y, yaw):
+    kernel E1 on CUDA tensors, :func:`estimate_se2_reference` elsewhere."""
+    if states.xy.is_cuda:
+        return cuda_estimate.estimate_se2_weights(states, weights, mask)
+    return estimate_se2_reference(states, weights, mask)
+
+
+def estimate_se2_log(states: SE2, log_weight: Tensor, active: Tensor):
+    """:func:`estimate_se2` of a particle set's weights, given as its
+    log-weights ``f32[..., N]`` and live prefix ``active`` ``int32[...]``:
+    ``exp(log_weight)`` on slots below ``active``, 0 past it.  On CUDA
+    tensors kernel E1 forms them in registers; elsewhere the plain version
+    runs on ``ParticleSet.weight`` and ``ParticleSet.mask``'s values."""
+    if states.xy.is_cuda:
+        return cuda_estimate.estimate_se2_log(states, log_weight, active)
+    mask = torch.arange(log_weight.shape[-1], device=log_weight.device) < active[..., None]
+    return estimate_se2_reference(states, torch.where(mask, torch.exp(log_weight), 0.0), mask)
+
+
+def estimate_se2_reference(states: SE2, weights: Tensor, mask: Tensor | None = None):
+    """Plain PyTorch version of :func:`estimate_se2` (and of kernel E1)."""
     w = _normalize_weights(weights, mask)
     corr = torch.clamp_min(1.0 - torch.sum(w * w, dim=-1), 1e-9)
 

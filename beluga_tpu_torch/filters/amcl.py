@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from beluga_tpu_torch import resolve_device
-from beluga_tpu_torch.algorithms.estimation import estimate_se2
+from beluga_tpu_torch.algorithms.estimation import estimate_se2_log
 from beluga_tpu_torch.algorithms.kld import kld_active_count
 from beluga_tpu_torch.algorithms.thrun import ThrunState, thrun_update
 from beluga_tpu_torch.core.particles import (
@@ -290,7 +290,7 @@ def default_hash_state(params: AmclParams, states: SE2) -> Tensor:
 
 def default_estimate(params: AmclParams, particles: ParticleSet):
     del params
-    return estimate_se2(particles.state, particles.weight, particles.mask)
+    return estimate_se2_log(particles.state, particles.log_weight, particles.active)
 
 
 def host_pose(x: float, y: float, theta: float) -> SE2:

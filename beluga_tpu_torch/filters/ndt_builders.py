@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from beluga_tpu_torch.algorithms.estimation import estimate_se2, estimate_se3
+from beluga_tpu_torch.algorithms.estimation import estimate_se2_log, estimate_se3
 from beluga_tpu_torch.core.random import normal_se2_from_draws, normal_se3_from_draws
 from beluga_tpu_torch.filters.amcl import (
     AmclModels,
@@ -59,7 +59,7 @@ def recovery_se2_from_draws(z: Tensor, particles):
     """Recovery states about each filter's estimate, a Gaussian of
     covariance ``cov + 1e-6·I`` (ndt_amcl_node.cpp:248-254,
     ndt_builders.py:65-68), from the standard normals ``z`` f32[..., n, 3]."""
-    mean, cov = estimate_se2(particles.state, particles.weight, particles.mask)
+    mean, cov = estimate_se2_log(particles.state, particles.log_weight, particles.active)
     return normal_se2_from_draws(z, mean, cov + 1e-6 * _eye(3, cov.device))
 
 

@@ -324,6 +324,12 @@ OFF_MAIN_PATHS = ("B3 pool_take", "B6 winlut_lookup", "B6-int8 winlut_lookup")
 REWEIGHT_STATES = "B1/B4 states entry"
 REWEIGHT_KERNELS = ("B1 fused_reweight", "B1-log fused_reweight", "B4 fused_reweight values3",
                     "B4-log fused_reweight values3")
+# kernel E1, the SE2 estimate (no Pallas counterpart: it replaces XLA's
+# reductions in beluga_tpu/algorithms/estimation.py:estimate_se2); its bytes,
+# 20 a particle in (a log-weight, the (x, y) and (cos, sin) pairs), 4 a
+# filter's live count in, 52 a filter's estimate out
+ESTIMATE = "E1 estimate_se2"
+ESTIMATE_BYTES_PER_PARTICLE, ESTIMATE_BYTES_PER_FILTER = 20, 56
 # float32 operations per (output cell, unmasked beam) of kernel B9: nearest
 # a multiply and an add; bilinear the x lerp (3), two products and two sums
 B9_OPS = {"nearest": 2, "bilinear": 7}
@@ -1162,6 +1168,67 @@ def check_pool_draw(batch: int | None, p: int, n: int, dev, iters: int) -> dict:
         max_abs_err=max(float((got.xy - want.xy).abs().max()), rot_err), bound_ms=bms,
         bound_by=by, shape=label, library_note="torch.gather of the pooled rows, no headings",
         **times,
+    )
+
+
+def check_estimate(lead: tuple, n: int, dev, iters: int) -> dict:
+    """Kernel E1 from log-weights and live counts at ``lead`` filters of
+    ``n`` particles (ragged live prefixes; with filters, the first has no
+    live slot): two calls bit-equal, one launch a call, and within a stated
+    bound of its plain version, timed beside the plain version as the main
+    paths ran it before the kernel (the weights, the mask, the moments)."""
+    from beluga_tpu_torch.algorithms.estimation import estimate_se2_log, estimate_se2_reference
+    from beluga_tpu_torch.lie import SE2
+    from beluga_tpu_torch.ops import cuda_estimate
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + len(lead))
+    b = math.prod(lead)
+    centre = torch.rand((b, 1, 2), generator=gen, device=dev) * 20.0
+    xy = centre + torch.randn((b, n, 2), generator=gen, device=dev)
+    theta = torch.randn((b, n), generator=gen, device=dev) * 0.3 + 1.0
+    log_w = torch.randn((b, n), generator=gen, device=dev)
+    active = torch.randint(n // 2, n + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    active[-1] = n
+    if b > 1:
+        active[0] = 0
+    states = SE2.from_xytheta(xy[..., 0].reshape(*lead, n), xy[..., 1].reshape(*lead, n),
+                              theta.reshape(*lead, n))
+    log_w, active = log_w.reshape(*lead, n), active.reshape(lead)
+
+    def plain():
+        mask = torch.arange(n, device=dev) < active[..., None]
+        return estimate_se2_reference(states, torch.where(mask, torch.exp(log_w), 0.0), mask)
+
+    before = cuda_estimate.launches
+    got, again, want = estimate_se2_log(states, log_w, active), estimate_se2_log(states, log_w,
+                                                                                 active), plain()
+    torch.cuda.synchronize()
+    label = f"[{', '.join(map(str, (*lead, n)))}]"
+    check(cuda_estimate.launches == before + 2, f"E1 {label}: not one launch a call")
+    check(all(torch.equal(x, y) for x, y in ((got[0].xy, again[0].xy),
+                                             (got[0].rot.z, again[0].rot.z), (got[1], again[1]))),
+          f"E1 {label}: two calls differ")
+    # the plain version's own float32 error on these inputs is ~1e-7 of each
+    # part's scale (tests/test_torch_estimate.py); 1e-5 leaves room for both
+    gaps = dict(xy=(got[0].xy - want[0].xy).abs().max() / want[0].xy.abs().max(),
+                rot=(got[0].rot.z - want[0].rot.z).abs().max(),
+                cov_t=(got[1][..., :2, :2] - want[1][..., :2, :2]).abs().max()
+                / want[1][..., :2, :2].abs().max())
+    yaw, yaw_want = got[1][..., 2, 2], want[1][..., 2, 2]
+    finite = torch.isfinite(yaw_want)
+    check(torch.equal(finite, torch.isfinite(yaw)), f"E1 {label}: degenerate yaw differs")
+    gaps["yaw_var"] = (yaw - yaw_want)[finite].abs().max() / yaw_want[finite].abs().max()
+    gaps = {k: float(v) for k, v in gaps.items()}
+    check(max(gaps.values()) <= 1e-5, f"E1 {label}: relative gaps {gaps} from the plain version")
+    times = timings(lambda: estimate_se2_log(states, log_w, active), plain, iters)
+    launch_device_ms(times, lambda: estimate_se2_log(states, log_w, active), "estimate_kernel")
+    bms, by = bound_ms(b * (ESTIMATE_BYTES_PER_PARTICLE * n + ESTIMATE_BYTES_PER_FILTER), 0)
+    return dict(
+        name=ESTIMATE, route="cuda", source="beluga_tpu_torch/csrc/estimate.cu",
+        replaces="beluga_tpu/algorithms/estimation.py:estimate_se2 (XLA's reductions, no Pallas)",
+        max_abs_err=float((got[0].xy - want[0].xy).abs().max()), max_rel_err=gaps,
+        bound_ms=bms, bound_by=by, shape=label, **times,
     )
 
 
@@ -2196,6 +2263,7 @@ def reset_counts() -> None:
         cuda_beam,
         cuda_beam_lut,
         cuda_codebook,
+        cuda_estimate,
         cuda_fused_step,
         cuda_ndt,
         cuda_pool_take,
@@ -2206,6 +2274,7 @@ def reset_counts() -> None:
         raycast,
     )
 
+    cuda_estimate.launches = 0
     cuda_ndt.launches = 0
     cuda_ndt.weights_launches = 0
     cuda_ndt.weights_indexed_launches = 0
@@ -2240,6 +2309,7 @@ def read_counts() -> dict:
         cuda_beam,
         cuda_beam_lut,
         cuda_codebook,
+        cuda_estimate,
         cuda_fused_step,
         cuda_ndt,
         cuda_pool_take,
@@ -2277,7 +2347,8 @@ def read_counts() -> dict:
             "B11 codebook_lookup": cuda_codebook.launches,
             "R1 cast_rays": raycast.launches,
             "R1-exact beam_weights": raycast.exact_launches,
-            REWEIGHT_STATES: cuda_reweight.states_launches}
+            REWEIGHT_STATES: cuda_reweight.states_launches,
+            ESTIMATE: cuda_estimate.launches}
 
 
 class B2Cummax:
@@ -2527,7 +2598,7 @@ def run_fleet(dev, b: int = FLEET_B, n: int = FLEET_N, scans: int = FLEET_SCANS,
     counts = read_counts()
     passes = 2 if resampling == "residual" else 1
     for name, per_update in ((b2_entry(n), passes), (POOL_DRAW, 1), (reweight, 1),
-                             (RUNNING_SUM, 1)):
+                             (RUNNING_SUM, 1), (ESTIMATE, 1)):
         check(counts[name] == scans * per_update,
               f"{what}: {name} launched {counts[name]} times in {scans} updates")
     others = {"B1 fused_reweight", "B1-log fused_reweight", "B4 fused_reweight values3",
@@ -2605,8 +2676,9 @@ def run_mega(dev, scans: int = MEGA_SCANS, n: int | None = None) -> tuple[dict, 
     check(max(last) <= MEGA_LAST_GATE_M,
           f"mega: max error {max(last):.3f} m over the last {MEGA_LAST} scans > "
           f"{MEGA_LAST_GATE_M} m")
-    check(counts["B5 fused_propagate_winlut"] == scans,
-          f"mega: B5 launched {counts['B5 fused_propagate_winlut']} times in {scans} updates")
+    for name in ("B5 fused_propagate_winlut", ESTIMATE):
+        check(counts[name] == scans,
+              f"mega: {name} launched {counts[name]} times in {scans} updates")
     for name in ("B1 fused_reweight", "B4 fused_reweight values3", WINLUT_STATES["bf16"],
                  WINLUT_COVERAGE):
         check(counts[name] == 0, f"mega: {name} launched {counts[name]} times")
@@ -2878,6 +2950,9 @@ def run_ndt_fleet(dev, b: int = FLEET_B, n: int = FLEET_N,
     check_ndt_launches(counts, scans, "NDT fleet")
     check(counts[RESAMPLES] == scans,
           f"NDT fleet: B2 launched {counts[RESAMPLES]} times in {scans} updates")
+    check(counts[ESTIMATE] == scans + counts[RESAMPLES],
+          f"NDT fleet: E1 launched {counts[ESTIMATE]} times in {scans} updates (the estimate "
+          f"and the recovery's at each of {counts[RESAMPLES]} resamples)")
     steady = sorted(times[2:])
     mean_s = sum(steady) / len(steady)
     return counts, dict(
@@ -4034,6 +4109,10 @@ def main() -> int:
     d_fleet = check_pool_draw(FLEET_B, 512, FLEET_N, dev, iters=200)
     d_big = check_pool_draw(None, 4096, LARGE_N, dev, iters=50)
     d_mega = check_pool_draw(None, 512, 4096, dev, iters=200)
+    est_bench = check_estimate((NDT_BENCH_ROBOTS,), NDT_BENCH_PARTICLES, dev, iters=20)
+    est_fleet = check_estimate((FLEET_B,), FLEET_N, dev, iters=100)
+    est_node = check_estimate((), 2000, dev, iters=200)
+    est_mega = check_estimate((), MEGA_N, dev, iters=50)
     r_mega, rc_mega = check_resample(MEGA_N, resample_inputs(MEGA_N, dev), dev, iters=20)
     # the sorted positions' running sum at the fleet's, the node's, the sparse
     # node's and the large residual filter's shapes (M + 1 uniforms a filter)
@@ -4081,7 +4160,8 @@ def main() -> int:
     v_floor = check_codebook_lookup(dev, iters=20, volume="floor")
     torch.cuda.empty_cache()
     checked = (k_main, r_main, rc_main, k_big, r_big, rc_big, c_big, k_fleet, r_fleet, rc_fleet,
-               c_fleet, p_fleet, p_big, p_mega, d_fleet, d_big, d_mega, r_mega, rc_mega,
+               c_fleet, p_fleet, p_big, p_mega, d_fleet, d_big, d_mega, est_bench, est_fleet,
+               est_node, est_mega, r_mega, rc_mega,
                rs_fleet, rs_node, rs_sparse, rs_large, rs_mega, w_big,
                ws_big, ws_int8, wc_big, wc_edge, wc_fleet, f_mega, f_ragged, f_l2,
                s_node, s_long, s_wide, l_fleet, l_node,
