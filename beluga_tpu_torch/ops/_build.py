@@ -3,9 +3,20 @@
 Each ``csrc/<name>.cu`` exposes a plain C launcher and is compiled at first
 use with ``nvcc`` into its own shared library under
 ``build/beluga_tpu_torch/`` beside the package, named by a hash of the
-source, the shared headers and the flags, then loaded with ``ctypes``.  No PyTorch header is
-compiled, so a build takes seconds.  Importing this module needs neither
-``nvcc`` nor a GPU.
+source, the shared headers and the flags, then loaded with ``ctypes``.  No
+PyTorch header is compiled, so a build takes seconds.  Importing this
+module needs neither ``nvcc`` nor a GPU.
+
+A wrapper in ``ops/`` declares each C entry it calls as a module-level
+:class:`Entry`: library, symbol, ``argtypes`` (every entry returns its
+``cudaError_t`` as ``int``), the name its error gives the call, and in
+``expect`` the library's constants the wrapper plans for.  Declaring loads
+nothing; the entry binds on its first call (building and loading the
+library, checking those constants once), and each call launches and raises
+``RuntimeError("<what> failed: cudaError <n>")`` on a nonzero return.  The
+launch's stream (:func:`stream_ptr`) is the last argument.  A wrapper
+sends a tensor's device through :func:`on_card`: CUDA to the kernel,
+CPU to the plain PyTorch version, any other refused.
 """
 
 from __future__ import annotations
@@ -17,6 +28,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Any
 
 import torch
 
@@ -109,3 +121,52 @@ def stream_ptr(device: torch.device) -> int:
     a ``Stream`` object (a few µs of host time a call)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+class Entry:
+    """The C entry ``int symbol(argtypes...)`` of ``csrc/<library>.cu``,
+    bound at its first call or :meth:`bind`, when each ``int name(void)``
+    of ``expect`` must return its value there.  A nonzero return raises: a
+    launch the card refused (too large a cooperative grid: 720) never ran."""
+
+    __slots__ = ("library", "symbol", "argtypes", "what", "expect", "_fn")
+
+    def __init__(self, library: str, symbol: str, argtypes: list, what: str,
+                 expect: dict[str, int] | None = None):
+        self.library, self.symbol, self.argtypes, self.what = library, symbol, argtypes, what
+        self.expect = expect or {}
+        self._fn = None
+
+    @property
+    def bound(self) -> bool:
+        return self._fn is not None
+
+    def bind(self) -> Any:
+        """The ``ctypes`` function, bound once."""
+        if self._fn is None:
+            lib = load_library(self.library)
+            for name, want in self.expect.items():
+                constant = getattr(lib, name)
+                constant.argtypes, constant.restype = [], ctypes.c_int
+                if constant() != want:
+                    raise RuntimeError(f"csrc/{self.library}.cu's {name}() is {constant()}, "
+                                       f"the wrapper plans for {want}")
+            fn = getattr(lib, self.symbol)
+            fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, *args) -> None:
+        err = (self._fn or self.bind())(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.what} failed: cudaError {err}")
+
+
+def on_card(device: torch.device) -> bool:
+    """Whether tensors on ``device`` go to the kernel (CUDA) rather than to
+    the plain PyTorch version (CPU); any other device raises."""
+    if device.type == "cuda":
+        return True
+    if device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return False

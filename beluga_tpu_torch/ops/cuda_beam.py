@@ -32,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from beluga_tpu_torch.ops._build import stream_ptr
+from beluga_tpu_torch.ops._build import Entry, stream_ptr, on_card
 from beluga_tpu_torch.ops.distance_transform import squared_distance_transform
 
 Tensor = torch.Tensor
@@ -43,20 +43,10 @@ MAX_FILTERS = 65535  # grid.y; any beam count (the kernel loops over tiles of 25
 # kernel launches since the count was last set to 0
 launches = 0
 
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        from beluga_tpu_torch.ops._build import load_library
-
-        fn = load_library("beam").beluga_sphere_trace
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, i, p, p, p, p, i, p, p, p, i, i, f, f, i, p, p, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_sphere_trace = Entry("beam", "beluga_sphere_trace",
+                      [_p, _i, _i, _p, _p, _p, _p, _i, _p, _p, _p, _i, _i, _f, _f, _i, _p, _p, _p],
+                      "sphere-trace kernel launch")
 
 
 # -- the beam mixture (beam_model.hpp:125-147) ---------------------------------
@@ -265,11 +255,9 @@ def sphere_trace_beam_weights(dist_cells: Tensor, tx: Tensor, ty: Tensor, cos: T
     """
     global launches
     _check(dist_cells, tx, ty, cos, sin, bearings, ranges, beam_mask)
-    if dist_cells.device.type == "cpu":
+    if not on_card(dist_cells.device):
         return sphere_trace_reference(dist_cells, tx, ty, cos, sin, bearings, ranges,
                                       beam_mask, resolution, params_vec, march_steps)
-    if dist_cells.device.type != "cuda":
-        raise ValueError(f"unsupported device {dist_cells.device}")
     max_cells, m = _params(resolution, params_vec)
     h, w = dist_cells.shape
     n, nb = tx.shape[-1], ranges.shape[-1]
@@ -277,11 +265,9 @@ def sphere_trace_beam_weights(dist_cells: Tensor, tx: Tensor, ty: Tensor, cos: T
     out = torch.empty(tx.shape, dtype=torch.float32, device=tx.device)
     host = (ctypes.c_float * len(m))(*m)
     stream = stream_ptr(tx.device)
-    err = _kernel()(dist_cells.data_ptr(), h, w, tx.data_ptr(), ty.data_ptr(), cos.data_ptr(),
-                    sin.data_ptr(), n, bearings.data_ptr(), ranges.data_ptr(),
-                    beam_mask.data_ptr(), nb, filters, float(resolution), max_cells,
-                    int(march_steps), host, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"sphere-trace kernel launch failed: cudaError {err}")
+    _sphere_trace(dist_cells.data_ptr(), h, w, tx.data_ptr(), ty.data_ptr(), cos.data_ptr(),
+                  sin.data_ptr(), n, bearings.data_ptr(), ranges.data_ptr(),
+                  beam_mask.data_ptr(), nb, filters, float(resolution), max_cells,
+                  int(march_steps), host, out.data_ptr(), stream)
     launches += 1
     return out

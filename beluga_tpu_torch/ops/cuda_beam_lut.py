@@ -41,7 +41,7 @@ import math
 
 import torch
 
-from beluga_tpu_torch.ops._build import stream_ptr
+from beluga_tpu_torch.ops._build import Entry, stream_ptr, on_card
 from beluga_tpu_torch.ops.cuda_beam import Mixture, masked_beam_sum, mixture, mixture_pz3
 from beluga_tpu_torch.ops.cuda_winlut import floor_mod
 
@@ -59,23 +59,12 @@ MAX_LUT_ENTRIES = 2**31  # the kernel's int offsets into the LUT
 launches = 0
 origins_launches = 0
 
-_fns = None
-
-
-def _kernels():
-    """``(weights, origins)``: the library's two C entries."""
-    global _fns
-    if _fns is None:
-        from beluga_tpu_torch.ops._build import load_library
-
-        lib = load_library("beam_lut")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.beluga_beam_lut.argtypes = [p, i, i, i, f, p, p, p, i, p, p, p, p, i, i, p, p, p]
-        lib.beluga_beam_lut_origins.argtypes = [p, p, i, i, i, i, p, p]
-        for fn in (lib.beluga_beam_lut, lib.beluga_beam_lut_origins):
-            fn.restype = ctypes.c_int
-        _fns = lib.beluga_beam_lut, lib.beluga_beam_lut_origins
-    return _fns
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_weights = Entry("beam_lut", "beluga_beam_lut",
+                 [_p, _i, _i, _i, _f, _p, _p, _p, _i, _p, _p, _p, _p, _i, _i, _p, _p, _p],
+                 "beam LUT kernel launch")
+_origins = Entry("beam_lut", "beluga_beam_lut_origins", [_p, _p, _i, _i, _i, _i, _p, _p],
+                 "beam LUT origins kernel launch")
 
 
 def padded_dims(h: int, w: int) -> tuple[int, int]:
@@ -153,15 +142,11 @@ def device_window_origins(xi: Tensor, yi: Tensor, hq: int, wq: int) -> Tensor:
     f, n = xi.shape
     if f > MAX_FILTERS:
         raise ValueError(f"{f} filters; the kernel takes at most {MAX_FILTERS}")
-    if xi.device.type == "cpu":
+    if not on_card(xi.device):
         return window_origins(xi, yi, hq, wq)
-    if xi.device.type != "cuda":
-        raise ValueError(f"unsupported device {xi.device}")
     out = torch.empty((f, -(-n // TILE), 2, 2), dtype=torch.int32, device=xi.device)
     stream = stream_ptr(xi.device)
-    err = _kernels()[1](xi.data_ptr(), yi.data_ptr(), n, f, hq, wq, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"beam LUT origins kernel launch failed: cudaError {err}")
+    _origins(xi.data_ptr(), yi.data_ptr(), n, f, hq, wq, out.data_ptr(), stream)
     origins_launches += 1
     return out
 
@@ -246,23 +231,18 @@ def beam_lut_windowed(lut_bf16: Tensor, theta: Tensor, xi: Tensor, yi: Tensor, z
                                                                beam_mask)]
     _check(lut_bf16, *flat)
     theta2, xi2, yi2, z2, bearing2, mask2 = flat
-    if lut_bf16.device.type == "cpu":
+    if not on_card(lut_bf16.device):
         out = beam_lut_windowed_reference(lut_bf16, *flat, max_range, mix)
         return out.reshape(theta.shape)
-    if lut_bf16.device.type != "cuda":
-        raise ValueError(f"unsupported device {lut_bf16.device}")
     hq, wq, k = lut_bf16.shape
     n, nb = theta2.shape[-1], z2.shape[-1]
     host = _host_mixture(tuple(float(v) for v in mix))
     origins = torch.empty((f, -(-n // TILE), 2, 2), dtype=torch.int32, device=theta.device)
     out = torch.empty((f, n), dtype=torch.float32, device=theta.device)
     stream = stream_ptr(theta.device)
-    err = _kernels()[0](lut_bf16.data_ptr(), hq, wq, k, float(max_range), theta2.data_ptr(),
-                        xi2.data_ptr(), yi2.data_ptr(), n, origins.data_ptr(), z2.data_ptr(),
-                        bearing2.data_ptr(), mask2.data_ptr(), nb, f, host, out.data_ptr(),
-                        stream)
-    if err != 0:
-        raise RuntimeError(f"beam LUT kernel launch failed: cudaError {err}")
+    _weights(lut_bf16.data_ptr(), hq, wq, k, float(max_range), theta2.data_ptr(),
+             xi2.data_ptr(), yi2.data_ptr(), n, origins.data_ptr(), z2.data_ptr(),
+             bearing2.data_ptr(), mask2.data_ptr(), nb, f, host, out.data_ptr(), stream)
     launches += 1
     origins_launches += 1
     return out.reshape(theta.shape)

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from beluga_tpu_torch.ops._build import stream_ptr
+from beluga_tpu_torch.ops._build import Entry, stream_ptr, on_card
 from beluga_tpu_torch.ops.gather2d import codebook_lookup as codebook_lookup_reference
 
 Tensor = torch.Tensor
@@ -27,24 +27,10 @@ Tensor = torch.Tensor
 # kernel launches since the count was last set to 0
 launches = 0
 
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        from beluga_tpu_torch.ops._build import load_library
-
-        fn = load_library("codebook_lookup").beluga_codebook_lookup
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_lookup = Entry("codebook_lookup", "beluga_codebook_lookup",
+                [_p, _i, _i, _p, _i, _p, _p, ctypes.c_longlong, _p, _p],
+                "codebook_lookup kernel launch")
 
 def _check(codes: Tensor, codebook: Tensor, yi: Tensor, xi: Tensor) -> None:
     for name, t in (("codebook", codebook), ("yi", yi), ("xi", xi)):
@@ -65,10 +51,8 @@ def codebook_lookup(codes: Tensor, codebook: Tensor, yi: Tensor, xi: Tensor) -> 
     the shape of the int32 queries ``yi`` and ``xi``."""
     global launches
     _check(codes, codebook, yi, xi)
-    if codes.device.type == "cpu":
+    if not on_card(codes.device):
         return codebook_lookup_reference(codes, codebook, yi, xi)
-    if codes.device.type != "cuda":
-        raise ValueError(f"unsupported device {codes.device}")
     h, w = codes.shape
     table = codes.contiguous()
     if table.data_ptr() % 16:
@@ -76,10 +60,7 @@ def codebook_lookup(codes: Tensor, codebook: Tensor, yi: Tensor, xi: Tensor) -> 
     y, x = yi.contiguous(), xi.contiguous()
     out = torch.empty(yi.shape, dtype=torch.float32, device=codes.device)
     stream = stream_ptr(codes.device)
-    err = _kernel()(table.data_ptr(), h, w, codebook.contiguous().data_ptr(),
-                    codebook.shape[0], y.data_ptr(), x.data_ptr(), y.numel(), out.data_ptr(),
-                    stream)
-    if err != 0:
-        raise RuntimeError(f"codebook_lookup kernel launch failed: cudaError {err}")
+    _lookup(table.data_ptr(), h, w, codebook.contiguous().data_ptr(), codebook.shape[0],
+            y.data_ptr(), x.data_ptr(), y.numel(), out.data_ptr(), stream)
     launches += 1
     return out

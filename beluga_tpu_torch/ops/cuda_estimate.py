@@ -26,7 +26,7 @@ import math
 import torch
 
 from beluga_tpu_torch.lie import SE2, SO2
-from beluga_tpu_torch.ops._build import load_library, stream_ptr
+from beluga_tpu_torch.ops._build import Entry, stream_ptr
 
 Tensor = torch.Tensor
 
@@ -37,21 +37,11 @@ MAX_SLOTS = 2**30
 # kernel launches since the count was last set to 0
 launches = 0
 
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = load_library("estimate")
-        if lib.beluga_estimate_threads() != THREADS:
-            raise RuntimeError("csrc/estimate.cu's block size differs from THREADS")
-        fn = lib.beluga_estimate_se2
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [p, ll, p, ll, p, p, ll, p, ll, i, i, i, i, i, p, p, p, p, p, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_p, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_estimate = Entry("estimate", "beluga_estimate_se2",
+                  [_p, _ll, _p, _ll, _p, _p, _ll, _p, _ll, _i, _i, _i, _i, _i, _p, _p, _p, _p, _p,
+                   _p],
+                  "estimate kernel launch", expect={"beluga_estimate_threads": THREADS})
 
 
 @functools.lru_cache(maxsize=256)
@@ -168,15 +158,13 @@ def _launch(states: SE2, w: Tensor, mask: Tensor | None, active: Tensor | None):
         partials, counts = _scratch_for(device, stream, filters, chunks)
     vec = (w.data_ptr() % 8 == 0 and w_stride % 2 == 0 and xy.data_ptr() % 16 == 0
            and xy_stride % 4 == 0 and z.data_ptr() % 16 == 0 and z_stride % 4 == 0)
-    err = _kernel()(
+    _estimate(
         w.data_ptr(), w_stride, None if mask is None else mask.data_ptr(), mask_stride,
         None if active is None else active.data_ptr(), xy.data_ptr(), xy_stride,
         z.data_ptr(), z_stride, n, filters, chunks, pairs, int(vec),
         None if partials is None else partials.data_ptr(),
         None if counts is None else counts.data_ptr(),
         cov.data_ptr(), mean.xy.data_ptr(), mean.rot.z.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"estimate kernel launch failed: cudaError {err}")
     launches += 1
     return mean, cov
 

@@ -42,7 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from beluga_tpu_torch.ops._build import stream_ptr
+from beluga_tpu_torch.ops._build import Entry, stream_ptr, on_card
 from beluga_tpu_torch.ops.cuda_winlut import (
     MAX_PARTICLES,
     floor_mod,
@@ -63,20 +63,10 @@ MAX_TILE = 8192  # slots a tile: eight a thread of a 1024-thread block
 # kernel launches since the count was last set to 0
 launches = 0
 
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        from beluga_tpu_torch.ops._build import load_library
-
-        fn = load_library("winlut").beluga_fused_step
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, p, i, i, i, i, i, p, p, p, p, p, p, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_fused_step = Entry("winlut", "beluga_fused_step",
+                    [_p, _p, _p, _p, _i, _p, _i, _i, _i, _i, _i, _p, _p, _p, _p, _p, _p, _p],
+                    "fused step kernel launch")
 
 
 def pack_scalars(r1_mu, r1_sd, t_mu, t_sd, r2_mu, r2_sd, world_to_field, inv_res, off_x,
@@ -170,18 +160,14 @@ def fused_propagate_winlut(x: Tensor, y: Tensor, theta: Tensor, z: Tensor, value
     """
     global launches
     _check(x, y, theta, z, values_t, scalars, tile, tblk)
-    if x.device.type == "cpu":
+    if not on_card(x.device):
         return fused_propagate_winlut_reference(x, y, theta, z, values_t, scalars, tile, tblk)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     k, wx, wy = values_t.shape
     n = x.shape[0]
     outs = torch.empty((5, n), dtype=torch.float32, device=x.device)
     stream = stream_ptr(x.device)
-    err = _kernel()(x.data_ptr(), y.data_ptr(), theta.data_ptr(), z.data_ptr(), n,
-                    values_t.data_ptr(), k, wx, wy, min(tblk, k), tile, scalars.data_ptr(),
-                    *(o.data_ptr() for o in outs), stream)
-    if err != 0:
-        raise RuntimeError(f"fused step kernel launch failed: cudaError {err}")
+    _fused_step(x.data_ptr(), y.data_ptr(), theta.data_ptr(), z.data_ptr(), n,
+                values_t.data_ptr(), k, wx, wy, min(tblk, k), tile, scalars.data_ptr(),
+                *(o.data_ptr() for o in outs), stream)
     launches += 1
     return tuple(outs.unbind())

@@ -42,7 +42,7 @@ import math
 import numpy as np
 import torch
 
-from beluga_tpu_torch.ops._build import stream_ptr
+from beluga_tpu_torch.ops._build import Entry, stream_ptr, on_card
 
 Tensor = torch.Tensor
 
@@ -57,23 +57,13 @@ launches = 0
 weights_launches = 0
 weights_indexed_launches = 0
 
-_fn = None
-_weights_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        from beluga_tpu_torch.ops._build import load_library
-
-        fn = load_library("ndt_probe").beluga_ndt_probe
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_probe = Entry("ndt_probe", "beluga_ndt_probe",
+               [_p, _i, _p, _i, _p, ctypes.c_longlong, _p, _p, _p], "ndt_probe kernel launch")
+_weights = Entry("ndt_weights", "beluga_ndt_weights",
+                 [_p, _i, _p, _i, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _p, _i, _f, _f, _f,
+                  _f, _p, _p],
+                 "ndt_weights kernel launch")
 
 
 def ndt_probe_reference(keys: Tensor, values: Tensor, num_cells: int,
@@ -113,10 +103,8 @@ def ndt_probe(keys: Tensor, values: Tensor, num_cells: int,
     ``num_cells`` are live, with ``values`` ``f32[M, P]``."""
     global launches
     _check(keys, values, num_cells, queries)
-    if keys.device.type == "cpu":
+    if not on_card(keys.device):
         return ndt_probe_reference(keys, values, num_cells, queries)
-    if keys.device.type != "cuda":
-        raise ValueError(f"unsupported device {keys.device}")
     p = values.shape[1]
     # the keys' low 32 bits as int32 (the conversion wraps), read by the
     # kernel as uint32_t
@@ -126,28 +114,13 @@ def ndt_probe(keys: Tensor, values: Tensor, num_cells: int,
     out = torch.empty((*queries.shape, p), dtype=torch.float32, device=keys.device)
     found = torch.empty(queries.shape, dtype=torch.uint8, device=keys.device)
     stream = stream_ptr(keys.device)
-    err = _kernel()(k32.data_ptr(), num_cells, vals.data_ptr(), p, q32.data_ptr(),
-                    q32.numel(), out.data_ptr(), found.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"ndt_probe kernel launch failed: cudaError {err}")
+    _probe(k32.data_ptr(), num_cells, vals.data_ptr(), p, q32.data_ptr(), q32.numel(),
+           out.data_ptr(), found.data_ptr(), stream)
     launches += 1
     return out, found.view(torch.bool)
 
 
 # -- the fused NDT stencil likelihood ------------------------------------------
-
-
-def _weights_kernel():
-    global _weights_fn
-    if _weights_fn is None:
-        from beluga_tpu_torch.ops._build import load_library
-
-        fn = load_library("ndt_weights").beluga_ndt_weights
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, p, i, p, p, p, p, p, p, p, i, i, i, i, p, i, f, f, f, f, p, p]
-        fn.restype = ctypes.c_int
-        _weights_fn = fn
-    return _weights_fn
 
 
 def _matmul(a: Tensor, b: Tensor) -> Tensor:
@@ -354,12 +327,10 @@ def ndt_weights(keys: Tensor, values: Tensor, num_cells: int, resolution: float,
                                    cell_mask, offsets)
     if index is not None:
         _check_index(index, keys.device, d)
-    if keys.device.type == "cpu":
+    if not on_card(keys.device):
         return ndt_weights_reference(keys, values, num_cells, resolution, rot, trans,
                                      meas_means, meas_covs, cell_mask, offsets,
                                      minimum_likelihood, d1, d2, particle_chunk)
-    if keys.device.type != "cuda":
-        raise ValueError(f"unsupported device {keys.device}")
     filters = math.prod(lead)
     off = np.ascontiguousarray(np.asarray(offsets, np.int32))
     host_off = (ctypes.c_int * off.size)(*off.reshape(-1).tolist())
@@ -377,13 +348,10 @@ def ndt_weights(keys: Tensor, values: Tensor, num_cells: int, resolution: float,
     else:
         rows, cells = index.rows.data_ptr(), index.rows.numel()
         box = (ctypes.c_uint * (2 * d))(*index.lo, *index.size)
-    err = _weights_kernel()(k32.data_ptr(), num_cells, rows, cells, box, vals.data_ptr(),
-                            r.data_ptr(), t.data_ptr(), means.data_ptr(), covs.data_ptr(),
-                            mask.data_ptr(), filters, n, c, d, host_off, off.shape[0],
-                            float(resolution), float(minimum_likelihood), float(d1),
-                            -float(d2) / 2.0, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"ndt_weights kernel launch failed: cudaError {err}")
+    _weights(k32.data_ptr(), num_cells, rows, cells, box, vals.data_ptr(), r.data_ptr(),
+             t.data_ptr(), means.data_ptr(), covs.data_ptr(), mask.data_ptr(), filters, n, c, d,
+             host_off, off.shape[0], float(resolution), float(minimum_likelihood), float(d1),
+             -float(d2) / 2.0, out.data_ptr(), stream)
     weights_launches += 1
     weights_indexed_launches += index is not None
     return out

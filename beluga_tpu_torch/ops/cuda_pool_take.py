@@ -25,7 +25,7 @@ import math
 import torch
 
 from beluga_tpu_torch.lie import SE2, SO2
-from beluga_tpu_torch.ops._build import load_library, stream_ptr
+from beluga_tpu_torch.ops._build import Entry, stream_ptr, on_card
 
 Tensor = torch.Tensor
 
@@ -37,32 +37,12 @@ MAX_COLS = 8
 launches = 0
 draw_launches = 0
 
-_fn = None
-_draw_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = load_library("pool_take").beluga_pool_take
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
-def _draw_kernel():
-    global _draw_fn
-    if _draw_fn is None:
-        fn = load_library("pool_take").beluga_pooled_free_cells
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, ctypes.c_longlong, p, i, p, p, i, i, p, p, p]
-        fn.restype = ctypes.c_int
-        _draw_fn = fn
-    return _draw_fn
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_take = Entry("pool_take", "beluga_pool_take", [_p, _i, _i, _p, _i, _i, _p, _p],
+              "pool_take kernel launch")
+_draw = Entry("pool_take", "beluga_pooled_free_cells",
+              [_p, ctypes.c_longlong, _p, _i, _p, _p, _i, _i, _p, _p, _p],
+              "pooled_free_cells kernel launch")
 
 
 def pool_take_reference(pool: Tensor, idx: Tensor) -> Tensor:
@@ -76,10 +56,10 @@ def pool_take_reference(pool: Tensor, idx: Tensor) -> Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def _plan(pool, idx) -> tuple[int, int, int, int]:
+def _plan(pool, idx) -> tuple[int, int, int, int, bool]:
     """The wrapper's checks on ``(shape, dtype, device, contiguous)`` of
     ``pool`` and ``idx`` (raising on what the kernel does not take), cached
-    by them: ``(P, C, n, filters)``."""
+    by them: ``(P, C, n, filters, whether the kernel runs)``."""
     (pshape, pdtype, pdev, pcontig), (ishape, idtype, idev, icontig) = pool, idx
     if idev != pdev:
         raise ValueError(f"idx is on {idev}, pool on {pdev}")
@@ -94,12 +74,11 @@ def _plan(pool, idx) -> tuple[int, int, int, int]:
     if idtype != torch.int32 or ishape[:-1] != pshape[:-2]:
         raise ValueError(f"idx must be int32 with the pool's filter axes "
                          f"{list(pshape[:-2])} then n, got {idtype}{list(ishape)}")
-    if pdev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {pdev}")
+    kernel = on_card(pdev)
     batch = math.prod(ishape[:-1])
-    if pdev.type == "cuda" and batch > 65535:
+    if kernel and batch > 65535:
         raise ValueError(f"{batch} filters; the kernel takes at most 65535")
-    return p, c, ishape[-1], batch
+    return p, c, ishape[-1], batch, kernel
 
 
 def pool_take(pool: Tensor, idx: Tensor) -> Tensor:
@@ -108,15 +87,13 @@ def pool_take(pool: Tensor, idx: Tensor) -> Tensor:
     checks are cached by the tensors' shapes, dtypes, devices and
     contiguity."""
     global launches
-    p, c, n, batch = _plan((pool.shape, pool.dtype, pool.device, pool.is_contiguous()),
-                           (idx.shape, idx.dtype, idx.device, idx.is_contiguous()))
-    if not pool.is_cuda:
+    p, c, n, batch, kernel = _plan((pool.shape, pool.dtype, pool.device, pool.is_contiguous()),
+                                   (idx.shape, idx.dtype, idx.device, idx.is_contiguous()))
+    if not kernel:
         return pool_take_reference(pool, idx)
     out = torch.empty((*idx.shape, c), dtype=torch.float32, device=pool.device)
     stream = stream_ptr(pool.device)
-    err = _kernel()(pool.data_ptr(), p, c, idx.data_ptr(), n, batch, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"pool_take kernel launch failed: cudaError {err}")
+    _take(pool.data_ptr(), p, c, idx.data_ptr(), n, batch, out.data_ptr(), stream)
     launches += 1
     return out
 
@@ -130,10 +107,10 @@ def pooled_free_cells_reference(free_xy: Tensor, cand: Tensor, idx: Tensor,
 
 
 @functools.lru_cache(maxsize=64)
-def _draw_plan(free_xy, cand, idx, theta) -> tuple[int, int, int, int]:
+def _draw_plan(free_xy, cand, idx, theta) -> tuple[int, int, int, int, bool]:
     """The draw entry's checks on its tensors' ``(shape, dtype, device,
     contiguous)`` (raising on what the kernel does not take), cached by
-    them: ``(rows, P, n, filters)``."""
+    them: ``(rows, P, n, filters, whether the kernel runs)``."""
     tensors = {"free_xy": free_xy, "cand": cand, "idx": idx, "theta": theta}
     device = free_xy[2]
     for name, (_, _, dev, contiguous) in tensors.items():
@@ -141,8 +118,7 @@ def _draw_plan(free_xy, cand, idx, theta) -> tuple[int, int, int, int]:
             raise ValueError(f"{name} is on {dev}, free_xy on {device}")
         if not contiguous:
             raise ValueError(f"{name} must be contiguous")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
+    kernel = on_card(device)
     (fshape, fdtype, _, _), (cshape, cdtype, _, _) = free_xy, cand
     (ishape, idtype, _, _), (tshape, tdtype, _, _) = idx, theta
     if fdtype != torch.float32 or len(fshape) != 2 or fshape[1] != 2:
@@ -157,9 +133,9 @@ def _draw_plan(free_xy, cand, idx, theta) -> tuple[int, int, int, int]:
     if tdtype != torch.float32 or tuple(tshape) != tuple(ishape):
         raise ValueError(f"theta must be float32{list(ishape)}, got {tdtype}{list(tshape)}")
     batch = math.prod(lead)
-    if device.type == "cuda" and batch > 65535:
+    if kernel and batch > 65535:
         raise ValueError(f"{batch} filters; the kernel takes at most 65535")
-    return fshape[0], cshape[-1], ishape[-1], batch
+    return fshape[0], cshape[-1], ishape[-1], batch, kernel
 
 
 def pooled_free_cells(free_xy: Tensor, cand: Tensor, idx: Tensor, theta: Tensor) -> SE2:
@@ -182,16 +158,14 @@ def pooled_free_cells(free_xy: Tensor, cand: Tensor, idx: Tensor, theta: Tensor)
     the tensors' shapes, dtypes, devices and contiguity.
     """
     global draw_launches
-    rows, p, n, batch = _draw_plan(*((t.shape, t.dtype, t.device, t.is_contiguous())
-                                     for t in (free_xy, cand, idx, theta)))
-    if not free_xy.is_cuda:
+    rows, p, n, batch, kernel = _draw_plan(*((t.shape, t.dtype, t.device, t.is_contiguous())
+                                             for t in (free_xy, cand, idx, theta)))
+    if not kernel:
         return pooled_free_cells_reference(free_xy, cand, idx, theta)
     xy = torch.empty((*idx.shape, 2), dtype=torch.float32, device=free_xy.device)
     z = torch.empty_like(xy)
     stream = stream_ptr(free_xy.device)
-    err = _draw_kernel()(free_xy.data_ptr(), rows, cand.data_ptr(), p, idx.data_ptr(),
-                         theta.data_ptr(), n, batch, xy.data_ptr(), z.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"pooled_free_cells kernel launch failed: cudaError {err}")
+    _draw(free_xy.data_ptr(), rows, cand.data_ptr(), p, idx.data_ptr(), theta.data_ptr(), n,
+          batch, xy.data_ptr(), z.data_ptr(), stream)
     draw_launches += 1
     return SE2(xy, SO2(z))

@@ -47,7 +47,7 @@ from typing import Any
 import torch
 
 from beluga_tpu_torch.core.particles import tree_leaves, tree_map, tree_where
-from beluga_tpu_torch.ops._build import stream_ptr
+from beluga_tpu_torch.ops._build import Entry, stream_ptr, on_card
 from beluga_tpu_torch.ops.resample import (
     interleave_slots,
     sorted_multinomial_positions,
@@ -67,45 +67,17 @@ tile_launches = 0
 cdf_launches = 0
 sum_launches = 0
 
-_fns = None
-
-
-@dataclasses.dataclass(frozen=True)
-class _Kernels:
-    cdf: Any  # beluga_cdf
-    search: Any  # beluga_resample_take
-    take_tile: Any  # beluga_resample_take_tile
-    blocks_per_sm: Any  # beluga_cdf_blocks_per_sm
-
-
-def _kernels() -> _Kernels:
-    """The library's C entries, its tile checked against :data:`TILE`."""
-    global _fns
-    if _fns is None:
-        from beluga_tpu_torch.ops._build import load_library
-
-        lib = load_library("resample")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.beluga_cdf.argtypes = [p, i, i, p, i, p, i, p]
-        lib.beluga_resample_take.argtypes = [p, i, p, i, p, i, p, i, p]
-        lib.beluga_resample_take_tile.argtypes = [p, i, p, i, p, i, p, i, p]
-        lib.beluga_cdf_blocks_per_sm.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        for fn in (lib.beluga_cdf, lib.beluga_resample_take, lib.beluga_resample_take_tile,
-                   lib.beluga_cdf_blocks_per_sm, lib.beluga_cdf_tile):
-            fn.restype = ctypes.c_int
-        if lib.beluga_cdf_tile() != TILE:
-            raise RuntimeError(f"csrc/resample.cu scans tiles of {lib.beluga_cdf_tile()} "
-                               f"weights, the wrapper plans for {TILE}")
-        _fns = _Kernels(lib.beluga_cdf, lib.beluga_resample_take, lib.beluga_resample_take_tile,
-                        lib.beluga_cdf_blocks_per_sm)
-    return _fns
-
-
-def _raise_on(err: int, what: str) -> None:
-    """Raises for a nonzero ``cudaError`` from a C entry: a launch that
-    the card refused (too large a cooperative grid: 720) never ran."""
-    if err != 0:
-        raise RuntimeError(f"{what} failed: cudaError {err}")
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_TILE = {"beluga_cdf_tile": TILE}  # the entries that scan tiles check theirs
+_cdf = Entry("resample", "beluga_cdf", [_p, _i, _i, _p, _i, _p, _i, _p], "CDF kernel launch",
+             expect=_TILE)
+_search = Entry("resample", "beluga_resample_take", [_p, _i, _p, _i, _p, _i, _p, _i, _p],
+                "resample kernel launch")
+_take_tile = Entry("resample", "beluga_resample_take_tile",
+                   [_p, _i, _p, _i, _p, _i, _p, _i, _p], "one-tile resample launch",
+                   expect=_TILE)
+_blocks_per_sm = Entry("resample", "beluga_cdf_blocks_per_sm", [ctypes.POINTER(_i)],
+                       "the CDF kernel's occupancy")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,7 +141,7 @@ def _card(index: int) -> tuple[int, int]:
     """``(SMs, co-resident CDF blocks an SM)`` of card ``index``."""
     per_sm = ctypes.c_int(0)
     with torch.cuda.device(index):
-        _raise_on(_kernels().blocks_per_sm(ctypes.byref(per_sm)), "the CDF kernel's occupancy")
+        _blocks_per_sm(ctypes.byref(per_sm))
     return torch.cuda.get_device_properties(index).multi_processor_count, per_sm.value
 
 
@@ -200,11 +172,8 @@ def _scan(values: Tensor, normalize: bool) -> Tensor | None:
     filters, n = math.prod(values.shape[:-1]), values.shape[-1]
     if filters > MAX_FILTERS:
         raise ValueError(f"{filters} filters; the kernel takes at most {MAX_FILTERS}")
-    if values.device.type == "cpu":
+    if not on_card(values.device):
         return None
-    if values.device.type != "cuda":
-        raise ValueError(f"unsupported device {values.device}")
-    fns = _kernels()
     device = values.device
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -212,8 +181,8 @@ def _scan(values: Tensor, normalize: bool) -> Tensor | None:
     stream = stream_ptr(device)
     out = torch.empty_like(values)
     words = _scratch(device, stream, plan) if plan.wait else out  # unused at one tile
-    _raise_on(fns.cdf(values.data_ptr(), n, filters, words.data_ptr(), int(normalize),
-                      out.data_ptr(), plan.grid, stream), "CDF kernel launch")
+    _cdf(values.data_ptr(), n, filters, words.data_ptr(), int(normalize), out.data_ptr(),
+         plan.grid, stream)
     return out
 
 
@@ -259,7 +228,8 @@ def resample_take_reference(weights: Tensor, positions: Tensor, values: Tensor) 
     return search_take_reference(monotone_cdf_reference(weights), positions, values)
 
 
-def _check(cdf: Tensor, positions: Tensor, values: Tensor, name: str = "cdf") -> None:
+def _check(cdf: Tensor, positions: Tensor, values: Tensor, name: str = "cdf") -> bool:
+    """The checks both devices share; whether the kernel runs."""
     device = cdf.device
     for label, t in ((name, cdf), ("positions", positions), ("values", values)):
         if t.device != device:
@@ -278,19 +248,17 @@ def _check(cdf: Tensor, positions: Tensor, values: Tensor, name: str = "cdf") ->
         raise ValueError(f"values must be float32{list(lead) + ['D', n]}, got {list(values.shape)}")
     if math.prod(lead) > MAX_FILTERS:
         raise ValueError(f"{math.prod(lead)} filters; the kernel takes at most {MAX_FILTERS}")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
+    return on_card(device)
 
 
-def _take(entry, first: Tensor, positions: Tensor, values: Tensor, what: str) -> Tensor:
+def _take(entry: Entry, first: Tensor, positions: Tensor, values: Tensor) -> Tensor:
     """One launch of the search entry (``first`` a CDF) or the one-tile
     entry (``first`` the weights): donor rows ``f32[..., M, D]``."""
     d, n = values.shape[-2:]
     m = positions.shape[-1]
     out = torch.empty((*positions.shape, d), dtype=torch.float32, device=first.device)
-    _raise_on(entry(first.data_ptr(), n, positions.data_ptr(), m, values.data_ptr(), d,
-                    out.data_ptr(), math.prod(positions.shape[:-1]), stream_ptr(first.device)),
-              what)
+    entry(first.data_ptr(), n, positions.data_ptr(), m, values.data_ptr(), d, out.data_ptr(),
+          math.prod(positions.shape[:-1]), stream_ptr(first.device))
     return out
 
 
@@ -300,10 +268,9 @@ def search_take(cdf: Tensor, positions: Tensor, values: Tensor) -> Tensor:
     f32[..., D, N].  Launches the kernel on CUDA tensors, runs the plain
     version on CPU tensors."""
     global launches
-    _check(cdf, positions, values)
-    if cdf.device.type == "cpu":
+    if not _check(cdf, positions, values):
         return search_take_reference(cdf, positions, values)
-    out = _take(_kernels().search, cdf, positions, values, "resample kernel launch")
+    out = _take(_search, cdf, positions, values)
     launches += 1
     return out
 
@@ -326,10 +293,10 @@ def resample_take(weights: Tensor, positions: Tensor, values: Tensor) -> Tensor:
         raise ValueError(f"weights must be float32 with the positions' filter axes, "
                          f"got {weights.dtype}{list(weights.shape)}")
     weights = weights.contiguous()
-    if weights.device.type != "cuda" or not one_launch_take(weights.shape[-1]):
+    if not on_card(weights.device) or not one_launch_take(weights.shape[-1]):
         return search_take(monotone_cdf(weights), positions, values)
     _check(weights, positions, values, "weights")
-    out = _take(_kernels().take_tile, weights, positions, values, "one-tile resample launch")
+    out = _take(_take_tile, weights, positions, values)
     tile_launches += 1
     return out
 

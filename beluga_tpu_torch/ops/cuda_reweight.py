@@ -39,7 +39,7 @@ import math
 import torch
 
 from beluga_tpu_torch.lie import SE2
-from beluga_tpu_torch.ops._build import stream_ptr
+from beluga_tpu_torch.ops._build import Entry, stream_ptr, on_card
 from beluga_tpu_torch.ops.gather2d import codebook_lookup
 
 Tensor = torch.Tensor
@@ -56,20 +56,11 @@ log_launches = 0
 values3_log_launches = 0
 states_launches = 0
 
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        from beluga_tpu_torch.ops._build import load_library
-
-        fn = load_library("reweight").beluga_reweight
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, i, i, p, i, p, p, p, p, i, i, p, p, i, f, f, p, i, i, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_reweight = Entry("reweight", "beluga_reweight",
+                  [_p, _i, _i, _i, _p, _i, _p, _p, _p, _p, _i, _i, _p, _p, _i, _f, _f, _p, _i, _i,
+                   _p],
+                  "reweight kernel launch")
 
 
 def build_values3(codes: Tensor, codebook: Tensor, log_space: bool = False) -> Tensor:
@@ -165,10 +156,10 @@ def _meta(t: Tensor | None) -> tuple | None:
 @functools.lru_cache(maxsize=64)
 def _plan(codes, codebook, particles, states: bool, points, beam_mask, values3) -> tuple:
     """The wrapper's checks on its tensors' :func:`_meta` (raising on what
-    the kernel does not take), cached by them: ``(H, W, K, n, nb,
-    filters)``.  ``particles`` holds tx, ty, cos and sin ``[..., N]``, or
-    with ``states`` the states' xy and rot ``[..., N, 2]`` and
-    world_to_field's xy and rot ``[2]``."""
+    the kernel does not take), cached by them: whether the kernel runs, and
+    ``(H, W, K, n, nb, filters)``.  ``particles`` holds tx, ty, cos and sin
+    ``[..., N]``, or with ``states`` the states' xy and rot ``[..., N, 2]``
+    and world_to_field's xy and rot ``[2]``."""
     names = (("xy", "rot", "world_to_field.xy", "world_to_field.rot") if states
              else ("tx", "ty", "cos", "sin"))
     tensors = {"codes": codes, "codebook": codebook, **dict(zip(names, particles)),
@@ -181,8 +172,7 @@ def _plan(codes, codebook, particles, states: bool, points, beam_mask, values3) 
             raise ValueError(f"{name} is on {dev}, codes on {device}")
         if not contiguous:
             raise ValueError(f"{name} must be contiguous")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
+    kernel = on_card(device)
     (cshape, cdtype, _, _), (bshape, bdtype, _, _) = codes, codebook
     if cdtype != torch.uint8 or len(cshape) != 2:
         raise ValueError(f"codes must be uint8[H, W], got {cdtype}{list(cshape)}")
@@ -218,7 +208,7 @@ def _plan(codes, codebook, particles, states: bool, points, beam_mask, values3) 
     filters = math.prod(lead)
     if filters > MAX_FILTERS:
         raise ValueError(f"{filters} filters; the kernel takes at most {MAX_FILTERS}")
-    return cshape[0], cshape[1], bshape[0], n, nb, filters
+    return kernel, (cshape[0], cshape[1], bshape[0], n, nb, filters)
 
 
 def _launch(plan, codes, codebook, particles, states: bool, points, beam_mask, resolution,
@@ -229,12 +219,10 @@ def _launch(plan, codes, codebook, particles, states: bool, points, beam_mask, r
     out = torch.empty(shape, dtype=torch.float32, device=codes.device)
     stream = stream_ptr(codes.device)
     table = codes if values3 is None else values3
-    err = _kernel()(table.data_ptr(), int(values3 is not None), h, w, codebook.data_ptr(), k,
-                    *(t.data_ptr() for t in particles), int(states), n, points.data_ptr(),
-                    beam_mask.data_ptr(), nb, resolution, unknown_prob, out.data_ptr(), filters,
-                    int(log_space), stream)
-    if err != 0:
-        raise RuntimeError(f"reweight kernel launch failed: cudaError {err}")
+    _reweight(table.data_ptr(), int(values3 is not None), h, w, codebook.data_ptr(), k,
+              *(t.data_ptr() for t in particles), int(states), n, points.data_ptr(),
+              beam_mask.data_ptr(), nb, resolution, unknown_prob, out.data_ptr(), filters,
+              int(log_space), stream)
     if values3 is None and log_space:
         log_launches += 1
     elif values3 is None:
@@ -269,9 +257,9 @@ def fused_reweight(
     contiguity.
     """
     particles = (tx, ty, cos, sin)
-    plan = _plan(_meta(codes), _meta(codebook), tuple(map(_meta, particles)), False,
-                 _meta(points), _meta(beam_mask), _meta(values3))
-    if not codes.is_cuda:
+    kernel, plan = _plan(_meta(codes), _meta(codebook), tuple(map(_meta, particles)), False,
+                         _meta(points), _meta(beam_mask), _meta(values3))
+    if not kernel:
         if values3 is not None:
             return fused_reweight_values3_reference(
                 values3, tx, ty, cos, sin, points, beam_mask, resolution, unknown_prob,
@@ -300,9 +288,9 @@ def fused_reweight_states(
       the rest: as :func:`fused_reweight`.
     """
     particles = (states.xy, states.rot.z, world_to_field.xy, world_to_field.rot.z)
-    plan = _plan(_meta(codes), _meta(codebook), tuple(map(_meta, particles)), True,
-                 _meta(points), _meta(beam_mask), _meta(values3))
-    if not codes.is_cuda:
+    kernel, plan = _plan(_meta(codes), _meta(codebook), tuple(map(_meta, particles)), True,
+                         _meta(points), _meta(beam_mask), _meta(values3))
+    if not kernel:
         return fused_reweight_states_reference(codes, codebook, world_to_field, states, points,
                                                beam_mask, resolution, unknown_prob, values3,
                                                log_space)

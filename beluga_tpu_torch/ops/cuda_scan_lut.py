@@ -37,7 +37,7 @@ import math
 
 import torch
 
-from beluga_tpu_torch.ops._build import stream_ptr
+from beluga_tpu_torch.ops._build import Entry, stream_ptr, on_card
 
 Tensor = torch.Tensor
 
@@ -48,24 +48,13 @@ MAX_CELLS = 2**31 - 1  # the kernel packs a cell index of the field into an int
 # the scan: one kernel)
 launches = 0
 
-_fns = None
 _trig: dict[tuple[int, str], Tensor] = {}
 
-
-def _kernels():
-    """``(from tables, from the scan)``: the library's two C entries."""
-    global _fns
-    if _fns is None:
-        from beluga_tpu_torch.ops._build import load_library
-
-        lib = load_library("scan_lut")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.beluga_scan_lut.argtypes = [p, i, i, p, p, i, i, i, i, p, p]
-        lib.beluga_scan_lut_points.argtypes = [p, i, i, p, p, p, f, i, i, i, i, p, p]
-        for fn in (lib.beluga_scan_lut, lib.beluga_scan_lut_points):
-            fn.restype = ctypes.c_int
-        _fns = lib.beluga_scan_lut, lib.beluga_scan_lut_points
-    return _fns
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_from_tables = Entry("scan_lut", "beluga_scan_lut", [_p, _i, _i, _p, _p, _i, _i, _i, _i, _p, _p],
+                     "scan_lut kernel launch")
+_from_points = Entry("scan_lut", "beluga_scan_lut_points",
+                     [_p, _i, _i, _p, _p, _p, _f, _i, _i, _i, _i, _p, _p], "scan_lut kernel launch")
 
 
 def theta_bins(n_theta: int, device) -> Tensor:
@@ -182,18 +171,14 @@ def correlate(padded: Tensor, shifts: Tensor, weights: Tensor, sampling: str = "
     large as fits; it changes no value."""
     global launches
     _check(padded, shifts, weights, sampling)
-    if padded.device.type == "cpu":
+    if not on_card(padded.device):
         return correlate_reference(padded, shifts, weights, sampling)
-    if padded.device.type != "cuda":
-        raise ValueError(f"unsupported device {padded.device}")
     hp, wp = padded.shape
     k, nb, _ = shifts.shape
     out = torch.empty((k, hp, wp), dtype=torch.float32, device=padded.device)
     stream = stream_ptr(padded.device)
-    err = _kernels()[0](padded.data_ptr(), hp, wp, shifts.data_ptr(), weights.data_ptr(), k, nb,
-                        int(sampling == "bilinear"), _halo(halo), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"scan_lut kernel launch failed: cudaError {err}")
+    _from_tables(padded.data_ptr(), hp, wp, shifts.data_ptr(), weights.data_ptr(), k, nb,
+                 int(sampling == "bilinear"), _halo(halo), out.data_ptr(), stream)
     launches += 1
     return out
 
@@ -212,12 +197,10 @@ def scan_lut_correlate(padded: Tensor, points: Tensor, beam_mask: Tensor, resolu
     if sampling not in SAMPLINGS:
         raise ValueError(f"unknown sampling: {sampling!r}")
     hp, wp = padded.shape
-    if padded.device.type == "cpu":
+    if not on_card(padded.device):
         shifts, weights = scan_lut_tables(points, beam_mask, resolution, n_theta, hp, wp,
                                           sampling)
         return correlate(padded.contiguous(), shifts, weights, sampling)
-    if padded.device.type != "cuda":
-        raise ValueError(f"unsupported device {padded.device}")
     padded, points, beam_mask = padded.contiguous(), points.contiguous(), beam_mask.contiguous()
     nb = points.shape[0]
     if padded.dtype != torch.float32 or padded.dim() != 2:
@@ -235,10 +218,8 @@ def scan_lut_correlate(padded: Tensor, points: Tensor, beam_mask: Tensor, resolu
     trig = bin_trig(n_theta, padded.device)
     out = torch.empty((n_theta, hp, wp), dtype=torch.float32, device=padded.device)
     stream = stream_ptr(padded.device)
-    err = _kernels()[1](padded.data_ptr(), hp, wp, points.data_ptr(), beam_mask.data_ptr(),
-                        trig.data_ptr(), float(resolution), n_theta, nb,
-                        int(sampling == "bilinear"), _halo(halo), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"scan_lut kernel launch failed: cudaError {err}")
+    _from_points(padded.data_ptr(), hp, wp, points.data_ptr(), beam_mask.data_ptr(),
+                 trig.data_ptr(), float(resolution), n_theta, nb, int(sampling == "bilinear"),
+                 _halo(halo), out.data_ptr(), stream)
     launches += 1
     return out

@@ -55,7 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from beluga_tpu_torch.lie import SE2
-from beluga_tpu_torch.ops._build import load_library, stream_ptr
+from beluga_tpu_torch.ops._build import Entry, stream_ptr, on_card
 
 Tensor = torch.Tensor
 F32 = torch.float32
@@ -73,31 +73,21 @@ states_launches = 0
 int8_states_launches = 0
 coverage_launches = 0
 
-_fns: dict = {}
-
-
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the C entries of csrc/winlut.cu that this module calls, and their arguments
-_ARGTYPES = {
-    "beluga_winlut_lookup": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _F, _P, _P],
-    "beluga_winlut_lookup_int8": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _F, _P, _F, _P,
-                                  _P],
-    "beluga_winlut_lookup_states": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _F, _I, _P,
-                                    _P, _P, _F, _F, _F, _P, _F, _P, _F, _P, _P],
-    "beluga_winlut_coverage_states": [_I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _F, _I, _I,
-                                      _I, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P],
-}
-
-
-def _entry(name: str):
-    """The C entry ``name`` of the winlut library, loaded (and built) once."""
-    fn = _fns.get(name)
-    if fn is None:
-        fn = getattr(load_library("winlut"), name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
+_lookup = Entry("winlut", "beluga_winlut_lookup",
+                [_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _F, _P, _P],
+                "winlut kernel launch")
+_lookup_int8 = Entry("winlut", "beluga_winlut_lookup_int8",
+                     [_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _F, _P, _F, _P, _P],
+                     "winlut kernel launch")
+_lookup_states = Entry("winlut", "beluga_winlut_lookup_states",
+                       [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _F, _I, _P, _P, _P, _F,
+                        _F, _F, _P, _F, _P, _F, _P, _P],
+                       "winlut states kernel launch")
+_coverage_states = Entry("winlut", "beluga_winlut_coverage_states",
+                         [_I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _F, _I, _I, _I, _P, _P, _P,
+                          _F, _F, _F, _F, _P, _P, _P],
+                         "winlut coverage kernel launch")
 
 
 def floor_mod(a: Tensor, b: Tensor) -> Tensor:
@@ -214,7 +204,8 @@ def _meta(t: Tensor) -> tuple:
 @functools.lru_cache(maxsize=64)
 def _plan(values_t, xi, yi, t, tile, tblk, has_scale) -> tuple:
     """The wrapper's checks on its tensors' :func:`_meta` (raising on what
-    the kernel does not take), cached by them: ``(K, Wx, Wy, tblk)``."""
+    the kernel does not take), cached by them: ``(K, Wx, Wy, tblk, whether
+    the kernel runs)``."""
     (vshape, vdtype, device, _), n = values_t, xi[0][0] if len(xi[0]) == 1 else -1
     if vdtype not in (torch.bfloat16, torch.int8) or len(vshape) != 3:
         raise ValueError(f"values_t must be bfloat16 or int8 [K, Wx, Wy], got "
@@ -233,10 +224,9 @@ def _plan(values_t, xi, yi, t, tile, tblk, has_scale) -> tuple:
         raise ValueError(f"{n} particles; the kernel takes at most {MAX_PARTICLES}")
     if tile < 1 or tblk < 1:
         raise ValueError(f"tile and tblk must be positive, got {tile}, {tblk}")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
+    kernel = on_card(device)
     k, wx, wy = vshape
-    return k, wx, wy, min(tblk, k)
+    return k, wx, wy, min(tblk, k), kernel
 
 
 @functools.lru_cache(maxsize=64)
@@ -277,9 +267,9 @@ def winlut_lookup(values_t: Tensor, xi: Tensor, yi: Tensor, t: Tensor, miss,
     dtypes, devices and contiguity; a device scalar is passed by address.
     """
     global launches, int8_launches
-    k, wx, wy, tb = _plan(_meta(values_t), _meta(xi), _meta(yi), _meta(t), tile, tblk,
-                          scale is not None)
-    if not values_t.is_cuda:
+    k, wx, wy, tb, kernel = _plan(_meta(values_t), _meta(xi), _meta(yi), _meta(t), tile, tblk,
+                                  scale is not None)
+    if not kernel:
         return winlut_lookup_reference(values_t, xi, yi, t, miss, base, tile, tblk, scale)
     dev = values_t.device
     n = xi.shape[0]
@@ -290,15 +280,10 @@ def winlut_lookup(values_t: Tensor, xi: Tensor, yi: Tensor, t: Tensor, miss,
             tile, miss_ptr, float(base))
     if scale is not None:
         scale_ptr, _scale = _float_ptr(scale, dev)
-        err = _entry("beluga_winlut_lookup_int8")(*head, scale_ptr, INV127, out.data_ptr(),
-                                                  stream)
-    else:
-        err = _entry("beluga_winlut_lookup")(*head, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"winlut kernel launch failed: cudaError {err}")
-    if scale is not None:
+        _lookup_int8(*head, scale_ptr, INV127, out.data_ptr(), stream)
         int8_launches += 1
     else:
+        _lookup(*head, out.data_ptr(), stream)
         launches += 1
     return out
 
@@ -409,13 +394,14 @@ def winlut_coverage_states_reference(geo: WindowGeometry, states: SE2, center_x,
 
 
 @functools.lru_cache(maxsize=64)
-def _states_plan(states, field, scalars, tile: int, tblk: int, fleet: bool = False) -> int:
+def _states_plan(states, field, scalars, tile: int, tblk: int,
+                 fleet: bool = False) -> tuple[int, bool]:
     """The states and coverage entries' checks on their tensors' ``_meta``
     (raising on what the kernels do not take), cached by them: ``n``, the
-    states a filter.  ``states`` holds the states' xy and rot (``[N, 2]``,
-    or with ``fleet`` also ``[B, N, 2]``), ``field`` world_to_field's xy
-    and rot, ``scalars`` the device scalars each entry reads by address
-    (name, meta, dtype)."""
+    states a filter, and whether the kernel runs.  ``states`` holds the
+    states' xy and rot (``[N, 2]``, or with ``fleet`` also ``[B, N, 2]``),
+    ``field`` world_to_field's xy and rot, ``scalars`` the device scalars
+    each entry reads by address (name, meta, dtype)."""
     (xshape, _, device, _), _ = states
     dims = (2, 3) if fleet else (2,)
     for name, (shape, dtype, dev, contiguous) in zip(("states.xy", "states.rot"), states):
@@ -436,18 +422,17 @@ def _states_plan(states, field, scalars, tile: int, tblk: int, fleet: bool = Fal
         if dev != device or dtype != want or math.prod(shape) != 1:
             raise ValueError(f"{name} must be one {want} on {device}, got {dtype}{list(shape)} "
                              f"on {dev}")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
+    kernel = on_card(device)
     n = xshape[-2]
     if math.prod(xshape[:-1]) > MAX_PARTICLES:
         raise ValueError(f"{n} particles; the kernel takes at most {MAX_PARTICLES}")
     if tile < 1 or tblk < 1:
         raise ValueError(f"tile and tblk must be positive, got {tile}, {tblk}")
-    if device.type == "cuda" and not 0 < n:
+    if kernel and not 0 < n:
         raise ValueError("the kernel takes at least one particle")
-    if device.type == "cuda" and tile > MAX_STATES_TILE:
+    if kernel and tile > MAX_STATES_TILE:
         raise ValueError(f"tile {tile}; the kernel takes at most {MAX_STATES_TILE}")
-    return n
+    return n, kernel
 
 
 def _frame_floats(k_bins: int, dth: float, resolution: float) -> tuple[float, float, float, float]:
@@ -496,10 +481,10 @@ def winlut_lookup_states(lut, states: SE2, miss, base: float = 1.0, tile: int = 
     wf = lut.world_to_field
     scalars = (("lut.x0", _meta(lut.x0), torch.int64), ("lut.y0", _meta(lut.y0), torch.int64),
                ("lut.theta0", _meta(lut.theta0), torch.float32))
-    n = _states_plan((_meta(states.xy), _meta(states.rot.z)), (_meta(wf.xy), _meta(wf.rot.z)),
-                     scalars, tile, tblk)
+    n, kernel = _states_plan((_meta(states.xy), _meta(states.rot.z)),
+                             (_meta(wf.xy), _meta(wf.rot.z)), scalars, tile, tblk)
     k, wx, wy = _table_plan(_meta(lut.values_t), lut.scale is not None, states.xy.device)
-    if not states.xy.is_cuda:
+    if not kernel:
         return winlut_lookup_states_reference(lut, states, miss, base, tile, tblk)
     dev = states.xy.device
     int8 = lut.scale is not None
@@ -507,13 +492,11 @@ def winlut_lookup_states(lut, states: SE2, miss, base: float = 1.0, tile: int = 
     scale_ptr, _scale = _float_ptr(lut.scale, dev) if int8 else (None, None)
     res, half_span, dth, half = _frame_floats(lut.k_bins, lut.dth, lut.resolution)
     out = torch.empty(n, dtype=torch.float32, device=dev)
-    err = _entry("beluga_winlut_lookup_states")(
+    _lookup_states(
         lut.values_t.data_ptr(), int(int8), k, wx, wy, min(tblk, k), states.xy.data_ptr(),
         states.rot.z.data_ptr(), n, tile, wf.xy.data_ptr(), wf.rot.z.data_ptr(), res,
         lut.pad_cells, lut.x0.data_ptr(), lut.y0.data_ptr(), lut.theta0.data_ptr(), half_span,
         dth, half, miss_ptr, float(base), scale_ptr, INV127, out.data_ptr(), stream_ptr(dev))
-    if err != 0:
-        raise RuntimeError(f"winlut states kernel launch failed: cudaError {err}")
     if int8:
         int8_states_launches += 1
     else:
@@ -554,17 +537,16 @@ def winlut_coverage_states(geo: WindowGeometry, states: SE2, center_x, center_y,
     """
     global coverage_launches
     wf = geo.world_to_field
-    if not states.xy.is_cuda:
-        _states_plan((_meta(states.xy), _meta(states.rot.z)), (_meta(wf.xy), _meta(wf.rot.z)),
-                     (), tile, tblk, True)
+    tensors = (_meta(states.xy), _meta(states.rot.z)), (_meta(wf.xy), _meta(wf.rot.z))
+    n, kernel = _states_plan(*tensors, (), tile, tblk, True)
+    if not kernel:  # the plain version takes the centre as host floats too
         return winlut_coverage_states_reference(geo, states, center_x, center_y, center_theta,
                                                 tile, tblk)
     scalars = tuple((name, _meta(v) if isinstance(v, Tensor) else ((), type(v), None, True),
                      torch.float32)
                     for name, v in (("center_x", center_x), ("center_y", center_y),
                                     ("center_theta", center_theta)))
-    n = _states_plan((_meta(states.xy), _meta(states.rot.z)), (_meta(wf.xy), _meta(wf.rot.z)),
-                     scalars, tile, tblk, True)
+    _states_plan(*tensors, scalars, tile, tblk, True)
     dev = states.xy.device
     lead = tuple(states.xy.shape[:-2])
     filters = math.prod(lead)
@@ -575,14 +557,12 @@ def winlut_coverage_states(geo: WindowGeometry, states: SE2, center_x, center_y,
                                                       device=dev)
     res, half_span, dth, half = _frame_floats(geo.k_bins, geo.dth, geo.resolution)
     out = torch.empty(lead, dtype=torch.float32, device=dev)
-    err = _entry("beluga_winlut_coverage_states")(
+    _coverage_states(
         geo.k_bins, geo.win_x, geo.win_y, min(tblk, geo.k_bins), states.xy.data_ptr(),
         states.rot.z.data_ptr(), filters, n, tile, wf.xy.data_ptr(), wf.rot.z.data_ptr(), res,
         geo.pad, geo.wp, geo.hp, center_x.data_ptr(), center_y.data_ptr(),
         center_theta.data_ptr(), half_span, dth, half, float(np.float32(1.0) / np.float32(n)),
         scratch.data_ptr(), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"winlut coverage kernel launch failed: cudaError {err}")
     coverage_launches += 1
     return out
 

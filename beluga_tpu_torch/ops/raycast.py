@@ -50,7 +50,7 @@ import math
 import torch
 
 from beluga_tpu_torch.lie import SE2, SO2
-from beluga_tpu_torch.ops._build import stream_ptr
+from beluga_tpu_torch.ops._build import Entry, stream_ptr, on_card
 from beluga_tpu_torch.ops.cuda_beam import Mixture, masked_beam_sum, mixture_pz3
 
 Tensor = torch.Tensor
@@ -65,23 +65,14 @@ _PLANE_ATTR = "_r1_free_plane"  # where free_plane keeps a grid's plane
 launches = 0
 exact_launches = 0
 
-_fns: dict = {}
-
-
-def _kernel(name: str):
-    fn = _fns.get(name)
-    if fn is None:
-        from beluga_tpu_torch.ops._build import load_library
-
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn = getattr(load_library("raycast"), name)
-        fn.argtypes = {
-            "beluga_cast_rays": [p, i, i, i, p, p, i, p, p, p, i, f, f, i, i, p, p, p],
-            "beluga_beam_exact": [p, i, i, i, p, p, i, i, p, p, p, i, f, f, i, i, i, p, p, p],
-        }[name]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_cast_rays = Entry("raycast", "beluga_cast_rays",
+                   [_p, _i, _i, _i, _p, _p, _i, _p, _p, _p, _i, _f, _f, _i, _i, _p, _p, _p],
+                   "raycast kernel launch")
+_beam_exact = Entry("raycast", "beluga_beam_exact",
+                    [_p, _i, _i, _i, _p, _p, _i, _i, _p, _p, _p, _i, _f, _f, _i, _i, _i, _p, _p,
+                     _p],
+                    "exact beam kernel launch")
 
 
 # -- the free mask as a bit plane -------------------------------------------------
@@ -322,11 +313,9 @@ def cast_rays(grid, source_xy_local: Tensor, dir_xy_local: Tensor, max_range: fl
             raise ValueError(f"{name} is on {t.device}, the grid on {device}")
         if t.dtype != torch.float32 or t.shape[-1:] != (2,):
             raise ValueError(f"{name} must be float32[..., 2], got {t.dtype}{list(t.shape)}")
-    if device.type == "cpu":
+    if not on_card(device):
         return cast_rays_reference(grid.free_mask, source, direction, max_range,
                                    grid.resolution, steps, variant)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
     shape = source.shape[:-1]
     n = math.prod(shape)
     if n >= 2**31:
@@ -343,13 +332,11 @@ def cast_rays(grid, source_xy_local: Tensor, dir_xy_local: Tensor, max_range: fl
     dist = torch.empty(shape, dtype=torch.float32, device=device)
     hit = torch.empty(shape, dtype=torch.bool, device=device)
     stream = stream_ptr(device)
-    err = _kernel("beluga_cast_rays")(
+    _cast_rays(
         bits.data_ptr(), grid.height, grid.width, bits.shape[1], source.data_ptr(),
         direction.data_ptr(), len(axes), sizes, src_strides, dir_strides, n, float(max_range),
         float(grid.resolution), steps, VARIANTS.index(variant), dist.data_ptr(),
         hit.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"raycast kernel launch failed: cudaError {err}")
     launches += 1
     return dist, hit
 
@@ -423,11 +410,9 @@ def exact_beam_weights(grid, states: SE2, points: Tensor, beam_mask: Tensor, mix
     for name, t in (("states", states.xy), ("points", points), ("beam_mask", beam_mask)):
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, the grid on {device}")
-    if device.type == "cpu":
+    if not on_card(device):
         return exact_beam_weights_reference(grid, states, points, beam_mask, mix, max_range,
                                             variant, log_space)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
     lead, n = tuple(states.shape[:-1]), states.shape[-1]
     nb = points.shape[-2]
     filters = math.prod(lead)
@@ -450,12 +435,10 @@ def exact_beam_weights(grid, states: SE2, points: Tensor, beam_mask: Tensor, mix
     world = (ctypes.c_float * 4)(*plane.world_to_grid)
     scalars = (ctypes.c_float * len(mix))(*mix)
     stream = stream_ptr(device)
-    err = _kernel("beluga_beam_exact")(
+    _beam_exact(
         plane.bits.data_ptr(), grid.height, grid.width, plane.bits.shape[1], xy.data_ptr(),
         rot.data_ptr(), n, filters, world, pts.data_ptr(), mask.data_ptr(), nb,
         float(grid.resolution), float(max_range), num_steps(max_range, grid.resolution),
         VARIANTS.index(variant), int(log_space), scalars, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"exact beam kernel launch failed: cudaError {err}")
     exact_launches += 1
     return out

@@ -108,7 +108,7 @@ def host_costs(dev) -> dict:
 
     out["B3 row entry _plan (key and cache)"] = host_us(lambda: b3._plan(meta(pool), meta(idx)))
     out["torch.empty"] = host_us(lambda: torch.empty((64, 4096, 2), device=dev))
-    fn = b3._kernel()
+    fn = b3._take.bind()
     out["ctypes call, no launch"] = host_us(
         lambda: fn(pool.data_ptr(), 512, 2, idx.data_ptr(), 0, 64, pool.data_ptr(), 0))
     if hasattr(b3, "pooled_free_cells"):

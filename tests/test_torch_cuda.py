@@ -345,21 +345,19 @@ def test_b2_cdf_kernel_refuses_a_grid_it_cannot_hold(dev):
     sms, per_sm = b2._card(dev.index or 0)
     plan = b2.cdf_plan(n, 1, sms, per_sm)
     words = b2._scratch(dev, stream_ptr(dev), plan)
-    cdf = b2._kernels().cdf
-    for grid, refused in ((plan.tiles + 1, True), (plan.grid, False)):
-        err = cdf(w.data_ptr(), n, 1, words.data_ptr(), 1, out.data_ptr(), grid, stream_ptr(dev))
-        assert (err != 0) is refused
-        if refused:
-            with pytest.raises(RuntimeError, match="cudaError"):
-                b2._raise_on(err, "CDF kernel launch")
+    with pytest.raises(RuntimeError, match="CDF kernel launch failed: cudaError"):
+        b2._cdf(w.data_ptr(), n, 1, words.data_ptr(), 1, out.data_ptr(), plan.tiles + 1,
+                stream_ptr(dev))
+    b2._cdf(w.data_ptr(), n, 1, words.data_ptr(), 1, out.data_ptr(), plan.grid, stream_ptr(dev))
     torch.cuda.synchronize()
     assert torch.equal(out, b2.monotone_cdf(w))
     many = cdf_weights(dev, (300,), 8193, 5)  # 900 tiles, more than the card holds at once
     plan = b2.cdf_plan(8193, 300, sms, per_sm)
     assert plan.grid < plan.tiles * 300
-    err = cdf(many.data_ptr(), 8193, 300, b2._scratch(dev, stream_ptr(dev), plan).data_ptr(), 1,
-              torch.empty_like(many).data_ptr(), plan.tiles * 300, stream_ptr(dev))
-    assert err != 0  # every item a block of its own: refused, not run
+    # every item a block of its own: refused, not run
+    with pytest.raises(RuntimeError, match="cudaError"):
+        b2._cdf(many.data_ptr(), 8193, 300, b2._scratch(dev, stream_ptr(dev), plan).data_ptr(), 1,
+                torch.empty_like(many).data_ptr(), plan.tiles * 300, stream_ptr(dev))
 
 
 @pytest.mark.parametrize("lead,p,c,n", [((64,), 512, 2, 4096), ((), 4096, 2, 262144),

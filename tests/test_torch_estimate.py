@@ -17,7 +17,7 @@ import torch
 
 from beluga_tpu_torch.algorithms import estimation
 from beluga_tpu_torch.lie import SE2, SO2
-from beluga_tpu_torch.ops import cuda_estimate
+from beluga_tpu_torch.ops import _build, cuda_estimate
 
 FAR_M, FAR_SPREAD_M = 300.0, 1e-3  # a cluster far from the origin, 1 mm across
 UNDERFLOW_LOG_WEIGHT = -200.0  # expf gives 0 in float32
@@ -161,8 +161,8 @@ def test_cpu_entries_never_load_the_kernel(monkeypatch):
     def refuse(name):
         raise AssertionError(f"the CPU path loaded csrc/{name}.cu")
 
-    monkeypatch.setattr(cuda_estimate, "load_library", refuse)
-    monkeypatch.setattr(cuda_estimate, "_fn", None)
+    monkeypatch.setattr(_build, "load_library", refuse)
+    monkeypatch.setattr(cuda_estimate._estimate, "_fn", None)
     states, log_w, active = estimate_case((8,), 512, seed=5)
     particles = ParticleSet(states, log_w, active)
     want = estimation.estimate_se2_reference(states, particles.weight, particles.mask)

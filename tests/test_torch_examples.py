@@ -60,9 +60,8 @@ def test_star_import_builds_no_kernel_and_imports_no_jax():
         "assert names == sorted(beluga_tpu_torch.__all__), names\n"
         "bad = [m for m in ('jax', 'beluga_tpu', 'triton', 'yaml') if m in sys.modules]\n"
         "assert not bad, bad\n"
-        "built = [m for m, mod in list(sys.modules.items()) if m.startswith('beluga_tpu_torch.')\n"
-        "         and getattr(mod, '_fns', None)]  # a wrapper's library, once loaded\n"
-        "assert not built, built\n"
+        "from beluga_tpu_torch.ops import _build\n"
+        "assert not _build._loaded, sorted(_build._loaded)  # a library, once loaded\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 

@@ -7,10 +7,14 @@ of it needs a card; the kernels themselves are held by
 ``tests/test_torch_cuda.py`` on one.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
+from beluga_tpu_torch.ops import _build
+from beluga_tpu_torch.ops import cuda_pool_take as b3
 from beluga_tpu_torch.ops import cuda_resample as b2
 
 torch.set_num_threads(1)
@@ -107,14 +111,28 @@ def test_scratch_is_kept_between_calls_and_one_set_a_stream(monkeypatch):
     assert tuple(longer.shape) == (4, 8) and longer is not more
 
 
-def test_a_refused_launch_raises():
+@pytest.mark.parametrize("err", [0, 1, 720])
+@pytest.mark.parametrize("entry", [b2._cdf, b3._take], ids=["resample", "pool_take"])
+def test_a_refused_launch_raises(monkeypatch, entry, err):
     """A nonzero cudaError from a C entry (a cooperative grid the card
-    cannot hold: 720; a grid the kernel does not take: 1) raises; 0 does
-    not."""
-    b2._raise_on(0, "CDF kernel launch")
-    for err in (1, 720):
-        with pytest.raises(RuntimeError, match=f"CDF kernel launch failed: cudaError {err}"):
-            b2._raise_on(err, "CDF kernel launch")
+    cannot hold: 720; a grid the kernel does not take: 1) raises, naming
+    the call; 0 does not.  The entry binds to a stand-in library whose
+    entry returns ``err``."""
+    calls = []
+
+    def c_entry(*args):
+        calls.append(args)
+        return err
+
+    lib = SimpleNamespace(**{entry.symbol: c_entry}, beluga_cdf_tile=lambda: TILE)
+    monkeypatch.setitem(_build._loaded, entry.library, lib)
+    monkeypatch.setattr(entry, "_fn", None)
+    if err == 0:
+        entry(1, 2)
+    else:
+        with pytest.raises(RuntimeError, match=f"^{entry.what} failed: cudaError {err}$"):
+            entry(1, 2)
+    assert calls == [(1, 2)]
 
 
 @pytest.mark.parametrize("bad,match", [
