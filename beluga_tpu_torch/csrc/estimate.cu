@@ -51,6 +51,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "block_sum.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -72,31 +74,6 @@ struct Out {
   float* xy;    // [filters, 2]
   float* rot;   // [filters, 2]
 };
-
-// Sums each of the K values over the block; every thread gets the sums,
-// the same bits in each (a butterfly within the warps, then the warps'
-// sums added in warp order).  `shared` holds kWarps * K values.
-template <int K, typename T>
-__device__ __forceinline__ void block_sum(T (&v)[K], T* shared) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) shared[warp * K + k] = v[k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    T s = shared[k];
-    for (int j = 1; j < kWarps; ++j) s += shared[j * K + k];
-    v[k] = s;
-  }
-  __syncthreads();  // the next call may reuse `shared`
-}
 
 // The estimate of filter f from its moments: W, sum w^2, the mean (x, y),
 // the centred sums about it (xx, xy, yy) and sum w z.
@@ -144,7 +121,7 @@ __device__ void combine(const float* part, int chunks, const Out& out, size_t f,
     a[4] += __ldcg(q + 9);
     a[5] += __ldcg(q + 10);
   }
-  block_sum<6>(a, shared);
+  block_sum<kWarps>(a, shared);
   const double W = a[0];
   const double mx = W > 0.0 ? a[2] / W : 0.0, my = W > 0.0 ? a[3] / W : 0.0;
   double s[3] = {0.0, 0.0, 0.0};
@@ -159,7 +136,7 @@ __device__ void combine(const float* part, int chunks, const Out& out, size_t f,
       s[2] += __ldcg(q + 8) - cy * cy / wb + wb * dy * dy;
     }
   }
-  block_sum<3>(s, shared);
+  block_sum<kWarps>(s, shared);
   if (threadIdx.x == 0) write_estimate(out, f, W, a[1], mx, my, s[0], s[1], s[2], a[4], a[5]);
 }
 
@@ -237,7 +214,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       m1[5] += wi * si;
     }
   }
-  block_sum<6>(m1, fshared);
+  block_sum<kWarps>(m1, fshared);
   const float W = m1[0];
   const float mx = W > 0.0f ? m1[2] / W : 0.0f, my = W > 0.0f ? m1[3] / W : 0.0f;
 
@@ -254,7 +231,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     m2[3] += wdx * dy;
     m2[4] += wdy * dy;
   }
-  block_sum<5>(m2, fshared);
+  block_sum<kWarps>(m2, fshared);
 
   if (chunks == 1) {
     if (threadIdx.x == 0) {

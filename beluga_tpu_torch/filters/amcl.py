@@ -71,6 +71,7 @@ from beluga_tpu_torch.core.particles import (
 from beluga_tpu_torch.core.random import sample_normal_se2
 from beluga_tpu_torch.core.weights import effective_sample_size, normalize
 from beluga_tpu_torch.lie import SE2, SE3
+from beluga_tpu_torch.ops import cuda_sort
 from beluga_tpu_torch.ops.cuda_resample import (
     resample_take_tree,
     resample_take_tree_multinomial,
@@ -653,9 +654,23 @@ def inject_and_count(params: AmclParams, models: AmclModels, ctx: Any, gen: torc
     return candidates, active
 
 
-def sort_slots(models: AmclModels, particles: ParticleSet, mask: Tensor) -> ParticleSet:
-    """Theta-sort the slots: log-weights travel with their states, dead
-    slots (``~mask``) sort last (``inf`` keys) so the live prefix holds."""
+def sort_slots(models: AmclModels, particles: ParticleSet) -> ParticleSet:
+    """Theta-sort the slots: log-weights travel with their states, slots
+    past the live prefix sort last (``inf`` keys) so the prefix holds.  On
+    the card, the default key on float32 SE2 filters of at most 4096 slots
+    is kernel S1's one launch (``ops/cuda_sort.py``); every other call is
+    :func:`plain_sort_slots`."""
+    if models.sort_key is None and cuda_sort.takes(particles.state):
+        state, log_w = cuda_sort.sort_slots_se2(particles.state, particles.log_weight,
+                                                particles.active)
+        return ParticleSet(state, log_w, particles.active)
+    return plain_sort_slots(models, particles, particles.mask)
+
+
+def plain_sort_slots(models: AmclModels, particles: ParticleSet, mask: Tensor) -> ParticleSet:
+    """Theta-sort the slots by the model's key (``se2_sort_key`` by
+    default), dead slots (``~mask``) last with ``inf`` keys, in one stable
+    sort of the states and log-weights."""
     key_fn = models.sort_key or se2_sort_key
     keys = torch.where(mask, key_fn(particles.state), torch.inf)
     state, log_w = tree_sort_by(keys, (particles.state, particles.log_weight))
@@ -681,7 +696,7 @@ DENSE = ParticleOps(
     normalize=normalize,
     ess=effective_sample_size,
     resample=_resample,
-    sort_slots=lambda models, particles: sort_slots(models, particles, particles.mask),
+    sort_slots=sort_slots,
     estimate=lambda params, models, particles: models.estimate(params, particles),
     slot_generator=lambda gen: gen,
 )

@@ -16,7 +16,8 @@ library, checking those constants once), and each call launches and raises
 ``RuntimeError("<what> failed: cudaError <n>")`` on a nonzero return.  The
 launch's stream (:func:`stream_ptr`) is the last argument.  A wrapper
 sends a tensor's device through :func:`on_card`: CUDA to the kernel,
-CPU to the plain PyTorch version, any other refused.
+CPU to the plain PyTorch version, any other refused; :func:`row_stride`
+is the layout check of the wrappers whose kernels take filter rows apart.
 """
 
 from __future__ import annotations
@@ -170,3 +171,25 @@ def on_card(device: torch.device) -> bool:
     if device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return False
+
+
+def row_stride(shape, strides, lead: int, inner: tuple[int, ...], name: str) -> int:
+    """The stride from one filter's row to the next of a tensor shaped
+    ``shape[:lead]`` filters of rows ``shape[lead:]``, which must be
+    contiguous (``inner`` their strides): one stride for every filter axis
+    (0 where broadcast), else a ``ValueError``."""
+    for size, stride, want in zip(shape[lead:], strides[lead:], inner):
+        if size > 1 and stride != want:
+            raise ValueError(f"{name} must be contiguous along its particle axis, got strides "
+                             f"{list(strides)} for shape {list(shape)}")
+    step, span = None, None
+    for size, stride in reversed(list(zip(shape[:lead], strides[:lead]))):
+        if size == 1:
+            continue
+        if step is None:
+            step = stride
+        elif stride != span:
+            raise ValueError(f"{name}'s filter axes do not flatten to one stride: strides "
+                             f"{list(strides)} for shape {list(shape)}")
+        span = stride * size
+    return 0 if step is None else step

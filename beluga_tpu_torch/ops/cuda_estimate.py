@@ -26,7 +26,7 @@ import math
 import torch
 
 from beluga_tpu_torch.lie import SE2, SO2
-from beluga_tpu_torch.ops._build import Entry, stream_ptr
+from beluga_tpu_torch.ops._build import Entry, row_stride, stream_ptr
 
 Tensor = torch.Tensor
 
@@ -77,28 +77,6 @@ def _scratch_for(device: torch.device, stream: int, filters: int,
     return partials, counts
 
 
-def _row_stride(shape, strides, lead: int, inner: tuple[int, ...], name: str) -> int:
-    """The stride from one filter's row to the next of a tensor shaped
-    ``shape[:lead]`` filters of rows ``shape[lead:]``, which must be
-    contiguous (``inner`` their strides): one stride for every filter axis
-    (0 where broadcast), else a ``ValueError``."""
-    for size, stride, want in zip(shape[lead:], strides[lead:], inner):
-        if size > 1 and stride != want:
-            raise ValueError(f"{name} must be contiguous along its particle axis, got strides "
-                             f"{list(strides)} for shape {list(shape)}")
-    step, span = None, None
-    for size, stride in reversed(list(zip(shape[:lead], strides[:lead]))):
-        if size == 1:
-            continue
-        if step is None:
-            step = stride
-        elif stride != span:
-            raise ValueError(f"{name}'s filter axes do not flatten to one stride: strides "
-                             f"{list(strides)} for shape {list(shape)}")
-        span = stride * size
-    return 0 if step is None else step
-
-
 @functools.lru_cache(maxsize=256)
 def _layout(xy, z, w, mask, active) -> tuple:
     """The entries' checks on ``(shape, strides, dtype, device)`` of each
@@ -128,7 +106,7 @@ def _layout(xy, z, w, mask, active) -> tuple:
             raise ValueError(f"{name} is on {tdevice}, states.xy on {device}")
         if tdtype != dtype or tuple(tshape) != shape:
             raise ValueError(f"{name} must be {dtype}{list(shape)}, got {tdtype}{list(tshape)}")
-        strides[name] = _row_stride(tshape, tstrides, k, inner, name)
+        strides[name] = row_stride(tshape, tstrides, k, inner, name)
     return (lead, n, math.prod(lead), strides.get("the weights"), strides.get("the mask", 0),
             strides["states.xy"], strides["states.rot.z"], strides.get("active"))
 

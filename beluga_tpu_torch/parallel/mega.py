@@ -55,6 +55,7 @@ from beluga_tpu_torch.filters.amcl import (
     ParticleOps,
     UpdateDraws,
     inject_and_count,
+    plain_sort_slots,
     sort_slots,
     step,
 )
@@ -220,7 +221,10 @@ def _mega_ops(params: AmclParams, group, shard: int, shards: int, estimate_fn) -
         normalize=normalize,
         ess=ess,
         resample=resample,
-        sort_slots=lambda models, particles: sort_slots(models, particles, mask(particles)),
+        # one shard holds the whole live prefix: the dense sort (kernel S1
+        # where it applies), the same permutation as the dense update's
+        sort_slots=sort_slots if shards == 1 else lambda models, particles: plain_sort_slots(
+            models, particles, mask(particles)),
         estimate=lambda params, models, particles: estimate_fn(
             particles.state, weights(particles), group),
         slot_generator=lambda gens: gens.rank,

@@ -330,6 +330,14 @@ REWEIGHT_KERNELS = ("B1 fused_reweight", "B1-log fused_reweight", "B4 fused_rewe
 # filter's live count in, 52 a filter's estimate out
 ESTIMATE = "E1 estimate_se2"
 ESTIMATE_BYTES_PER_PARTICLE, ESTIMATE_BYTES_PER_FILTER = 20, 56
+# kernel S1, the theta sort of sorted_slots filters (no Pallas counterpart:
+# it replaces XLA's reductions, sort and gathers of beluga_tpu/filters/
+# amcl.py:se2_sort_key and beluga_tpu/core/particles.py:tree_sort_by); its
+# bytes, 20 a slot in (the (x, y) and (cos, sin) pairs, a log-weight) and 20
+# out, 4 a filter's live count in
+SORT = "S1 sort_slots_se2"
+SORT_BYTES_PER_PARTICLE, SORT_BYTES_PER_FILTER = 40, 4
+SORT_THETA_ATOL, SORT_Z_EDGE = 1e-6, 1e-4  # tests/test_torch_sort_cuda.py
 # float32 operations per (output cell, unmasked beam) of kernel B9: nearest
 # a multiply and an add; bilinear the x lerp (3), two products and two sums
 B9_OPS = {"nearest": 2, "bilinear": 7}
@@ -1228,6 +1236,114 @@ def check_estimate(lead: tuple, n: int, dev, iters: int) -> dict:
         name=ESTIMATE, route="cuda", source="beluga_tpu_torch/csrc/estimate.cu",
         replaces="beluga_tpu/algorithms/estimation.py:estimate_se2 (XLA's reductions, no Pallas)",
         max_abs_err=float((got[0].xy - want[0].xy).abs().max()), max_rel_err=gaps,
+        bound_ms=bms, bound_by=by, shape=label, **times,
+    )
+
+
+def check_sort(lead: tuple, n: int, dev, iters: int, cut: bool = False) -> dict:
+    """Kernel S1 at ``lead`` filters of ``n`` slots (normal clouds with
+    strays in x, y and heading, runs of equal headings, ragged live
+    prefixes; with ``cut``, in rows of n + 1 cut to n, as the pooled
+    injection's ``tree_scatter`` leaves the states, the log-weights so too):
+    its output bit-equal to the plain version's on every filter with no
+    live slot SORT_Z_EDGE from 3.5 by the float64 z-scores, and to
+    ``tree_sort_by`` of its own keys on all; ``inf`` keys exactly on the
+    dead slots, which stay last in their order; its headings within
+    SORT_THETA_ATOL of the plain key's, its stray flags the float64
+    z-scores' wherever those lie SORT_Z_EDGE from 3.5; two calls bit-equal,
+    one launch a call; timed beside the plain version (the key, the mask's
+    ``inf``, ``tree_sort_by``)."""
+    from beluga_tpu_torch.core.particles import ParticleSet, tree_scatter, tree_sort_by
+    from beluga_tpu_torch.filters.amcl import AmclModels, se2_sort_key, sort_slots
+    from beluga_tpu_torch.lie import SE2, SO2
+    from beluga_tpu_torch.ops import cuda_sort
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + len(lead))
+    b = math.prod(lead)
+    centre = torch.rand((b, 1, 3), generator=gen, device=dev) * 40.0 - 20.0
+    xyt = centre + torch.randn((b, n, 3), generator=gen, device=dev) * 0.35
+    xyt[:, :6, 0] += 4.0  # strays in x, y and heading
+    xyt[:, 6:9, 1] -= 3.0
+    xyt[:, 9:12, 2] += math.pi
+    xyt[:, 20:28, 2] = xyt[:, 20:21, 2]  # equal headings
+    z = torch.stack([torch.cos(xyt[..., 2]), torch.sin(xyt[..., 2])], -1)
+    states = SE2(xyt[..., :2].contiguous().reshape(*lead, n, 2), SO2(z.reshape(*lead, n, 2)))
+    log_w = torch.randn((b, n), generator=gen, device=dev).reshape(*lead, n)
+    if cut:  # every entry dropped: rows of n + 1 (16-, 8- and 4-byte aligned) cut to n
+        drop = torch.full((*lead, 8), n, dtype=torch.int64, device=dev)
+        spare = SE2(states.xy[..., :8, :], SO2(states.rot.z[..., :8, :]))
+        states = tree_scatter(states, drop, spare)
+        log_w = torch.cat([log_w, log_w[..., :1]], -1)[..., :n]
+        check(not states.xy.is_contiguous() and not log_w.is_contiguous(),
+              "S1: the cut rows came out contiguous")
+    active = torch.randint(n // 2, n + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    active[-1] = n
+    active = active.reshape(lead)
+    particles = ParticleSet(states, log_w, active)
+    models = AmclModels(None, None, None, None, None)
+
+    def plain():
+        keys = torch.where(particles.mask, se2_sort_key(states), torch.inf)
+        return tree_sort_by(keys, (states, log_w))
+
+    before = cuda_sort.launches
+    got, again = (cuda_sort.sort_slots_se2(states, log_w, active, keys=True) for _ in range(2))
+    torch.cuda.synchronize()
+    label = f"[{', '.join(map(str, (*lead, n)))}]" + (" cut rows" if cut else "")
+    check(cuda_sort.launches == before + 2, f"S1 {label}: not one launch a call")
+    check(all(torch.equal(x, y) for x, y in ((got[0].xy, again[0].xy),
+                                             (got[0].rot.z, again[0].rot.z), (got[1], again[1]),
+                                             (got[2], again[2]))),
+          f"S1 {label}: two calls differ")
+    keys = got[2]
+    want_states, want_w = tree_sort_by(keys, (states, log_w))
+    check(torch.equal(got[0].xy, want_states.xy) and torch.equal(got[0].rot.z, want_states.rot.z)
+          and torch.equal(got[1], want_w), f"S1 {label}: not the stable sort of its own keys")
+    live = particles.mask
+    check(torch.equal(torch.isinf(keys), ~live), f"S1 {label}: inf keys off the dead slots")
+    check(torch.equal(got[0].xy[~live], states.xy[~live])
+          and torch.equal(got[0].rot.z[~live], states.rot.z[~live])
+          and torch.equal(got[1][~live], log_w[~live]),
+          f"S1 {label}: dead slots not last in their order")
+    plain_keys = torch.where(live, se2_sort_key(states), torch.inf)
+    stray, plain_stray = (keys > 50.0) & live, (plain_keys > 50.0) & live
+    theta_gap = float(((keys - 100.0 * stray) - (plain_keys - 100.0 * plain_stray))[live]
+                      .abs().max())
+    check(theta_gap <= SORT_THETA_ATOL, f"S1 {label}: headings {theta_gap} from the plain key's")
+    x, y = states.x.double(), states.y.double()
+    c, s = states.rot.cos.double(), states.rot.sin.double()
+    centred = lambda v: v - v.mean(-1, keepdim=True)  # noqa: E731
+    sd = lambda v: v.std(-1, correction=0, keepdim=True) + 1e-6  # noqa: E731
+    rc = torch.hypot(centred(c), centred(s))
+    zs = torch.stack([centred(x).abs() / sd(x), centred(y).abs() / sd(y), centred(rc) / sd(rc)],
+                     -1)
+    clear = ((zs - 3.5).abs() > SORT_Z_EDGE).all(-1) & live
+    check(torch.equal(stray[clear], (zs > 3.5).any(-1)[clear]),
+          f"S1 {label}: stray flags differ from float64's away from the threshold")
+    check(int(stray.sum()) > 0, f"S1 {label}: no strays")
+    # the whole output against the plain version's, on the filters whose
+    # live slots all lie clear of the threshold (where the two keys' stray
+    # flags cannot differ by rounding)
+    far = (clear | ~live).all(-1)
+    plain_states, plain_w = plain()
+    same = ((got[0].xy == plain_states.xy).all(-1).all(-1)
+            & (got[0].rot.z == plain_states.rot.z).all(-1).all(-1)
+            & (got[1] == plain_w).all(-1))
+    check(int(far.sum()) * 2 > b, f"S1 {label}: most filters have a slot near the threshold")
+    check(bool(same[far].all()), f"S1 {label}: {int((~same & far).sum())} filters clear of the "
+          "threshold differ from the plain version")
+    times = timings(lambda: sort_slots(models, particles), plain, iters)
+    launch_device_ms(times, lambda: sort_slots(models, particles), "sort_slots_kernel")
+    bms, by = bound_ms(b * (SORT_BYTES_PER_PARTICLE * n + SORT_BYTES_PER_FILTER), 0)
+    return dict(
+        name=SORT, route="cuda", source="beluga_tpu_torch/csrc/sort_slots.cu",
+        replaces="beluga_tpu/filters/amcl.py:se2_sort_key and beluga_tpu/core/particles.py:"
+                 "tree_sort_by (XLA's reductions, sort and gathers, no Pallas)",
+        max_abs_err=theta_gap, strays=int(stray.sum()),
+        stray_flags_differ_from_plain=int((stray != plain_stray)[live].sum()),
+        filters_equal_to_plain=f"{int((same & far).sum())} of {int(far.sum())} clear "
+                               f"({int(same.sum())} of {b} in all)",
         bound_ms=bms, bound_by=by, shape=label, **times,
     )
 
@@ -2270,11 +2386,13 @@ def reset_counts() -> None:
         cuda_resample,
         cuda_reweight,
         cuda_scan_lut,
+        cuda_sort,
         cuda_winlut,
         raycast,
     )
 
     cuda_estimate.launches = 0
+    cuda_sort.launches = 0
     cuda_ndt.launches = 0
     cuda_ndt.weights_launches = 0
     cuda_ndt.weights_indexed_launches = 0
@@ -2316,6 +2434,7 @@ def read_counts() -> dict:
         cuda_resample,
         cuda_reweight,
         cuda_scan_lut,
+        cuda_sort,
         cuda_winlut,
         raycast,
     )
@@ -2348,7 +2467,8 @@ def read_counts() -> dict:
             "R1 cast_rays": raycast.launches,
             "R1-exact beam_weights": raycast.exact_launches,
             REWEIGHT_STATES: cuda_reweight.states_launches,
-            ESTIMATE: cuda_estimate.launches}
+            ESTIMATE: cuda_estimate.launches,
+            SORT: cuda_sort.launches}
 
 
 class B2Cummax:
@@ -2598,7 +2718,7 @@ def run_fleet(dev, b: int = FLEET_B, n: int = FLEET_N, scans: int = FLEET_SCANS,
     counts = read_counts()
     passes = 2 if resampling == "residual" else 1
     for name, per_update in ((b2_entry(n), passes), (POOL_DRAW, 1), (reweight, 1),
-                             (RUNNING_SUM, 1), (ESTIMATE, 1)):
+                             (RUNNING_SUM, 1), (ESTIMATE, 1), (SORT, 1)):
         check(counts[name] == scans * per_update,
               f"{what}: {name} launched {counts[name]} times in {scans} updates")
     others = {"B1 fused_reweight", "B1-log fused_reweight", "B4 fused_reweight values3",
@@ -4113,6 +4233,8 @@ def main() -> int:
     est_fleet = check_estimate((FLEET_B,), FLEET_N, dev, iters=100)
     est_node = check_estimate((), 2000, dev, iters=200)
     est_mega = check_estimate((), MEGA_N, dev, iters=50)
+    sort_bench = check_sort((NDT_BENCH_ROBOTS,), NDT_BENCH_PARTICLES, dev, iters=20, cut=True)
+    sort_node = check_sort((), 2000, dev, iters=200)
     r_mega, rc_mega = check_resample(MEGA_N, resample_inputs(MEGA_N, dev), dev, iters=20)
     # the sorted positions' running sum at the fleet's, the node's, the sparse
     # node's and the large residual filter's shapes (M + 1 uniforms a filter)
@@ -4161,7 +4283,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     checked = (k_main, r_main, rc_main, k_big, r_big, rc_big, c_big, k_fleet, r_fleet, rc_fleet,
                c_fleet, p_fleet, p_big, p_mega, d_fleet, d_big, d_mega, est_bench, est_fleet,
-               est_node, est_mega, r_mega, rc_mega,
+               est_node, est_mega, sort_bench, sort_node, r_mega, rc_mega,
                rs_fleet, rs_node, rs_sparse, rs_large, rs_mega, w_big,
                ws_big, ws_int8, wc_big, wc_edge, wc_fleet, f_mega, f_ragged, f_l2,
                s_node, s_long, s_wide, l_fleet, l_node,
@@ -4175,7 +4297,8 @@ def main() -> int:
         extra = "".join(f", {key} {k[key]}" for key in (
             "max_rel_err", "outside_rtol_share", "live_cells", "hit_share", "library_note",
             "max_abs_err_float64", "rows_moved_from_plain", "misses", "covered",
-            "launches_per_call", "probe", "index_box") if key in k)
+            "launches_per_call", "probe", "index_box", "strays",
+            "stray_flags_differ_from_plain") if key in k)
         if "search_ms" in k:
             extra += (f"; by binary search {ms(k['search_ms'])} (device "
                       f"{ms(k['search_device_ms'])})")

@@ -27,6 +27,7 @@ from beluga_tpu_torch.ops import (
     cuda_resample,
     cuda_reweight,
     cuda_scan_lut,
+    cuda_sort,
     cuda_winlut,
     raycast,
 )
@@ -52,7 +53,8 @@ def test_an_entry_binds_at_its_first_call_and_not_before(monkeypatch):
     (cuda_resample._cdf, "beluga_cdf_tile", cuda_resample.TILE),
     (cuda_resample._take_tile, "beluga_cdf_tile", cuda_resample.TILE),
     (cuda_estimate._estimate, "beluga_estimate_threads", cuda_estimate.THREADS),
-], ids=["cdf", "take_tile", "estimate"])
+    (cuda_sort._sort, "beluga_sort_max_slots", cuda_sort.MAX_SLOTS),
+], ids=["cdf", "take_tile", "estimate", "sort"])
 def test_an_entry_checks_the_constants_its_wrapper_plans_for(monkeypatch, entry, constant,
                                                              value):
     """The library's constant is read when the entry binds: the value the
@@ -134,6 +136,8 @@ WRAPPERS = {
     "fused_reweight_states": lambda: cuda_reweight.fused_reweight_states(
         *_meta(((4, 4), U8), ((3,), F32)), _states(), _states(5),
         *_meta(((3, 2), F32), ((3,), BOOL)), 0.05, 0.1),
+    "sort_slots_se2": lambda: cuda_sort.sort_slots_se2(_states(2, 5), *_meta(((2, 5), F32),
+                                                                            ((2,), I32))),
     "correlate": lambda: cuda_scan_lut.correlate(
         *_meta(((8, 8), F32), ((2, 3, 2), I32), ((2, 3, 3), F32))),
     "scan_lut_correlate": lambda: cuda_scan_lut.scan_lut_correlate(
