@@ -9,6 +9,8 @@ beluga_benchmark analog).
   * :func:`span`: a named range of the program in such a trace (the
     update's stages and its blocking host-device syncs), free while no
     profiler records;
+  * :func:`count`: a host value of the program (a counter) marked in such a
+    trace, free while no profiler records;
   * :func:`card_label`: the card's name and power limit, to stand beside a
     number measured on it.
 """
@@ -113,6 +115,19 @@ def span(name: str):
     if torch.autograd.profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)
     return _OFF
+
+
+def count(name: str, value) -> None:
+    """Mark the host integer ``value`` of the counter ``name`` in a
+    ``torch.profiler`` trace, while one records: a zero-length range named
+    ``count.<name>=<value>``, beside the spans on the profiler's clock.
+    Otherwise nothing, as :func:`span`.  The caller holds ``value`` on the
+    host: reading it back from the card is the caller's sync, not this
+    function's.  ``count("kld.live", n)``: the live particles of a fleet
+    after its update (``mclbench/drivers/kld_fleet.py``)."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        with torch.profiler.record_function(f"count.{name}={int(value)}"):
+            pass
 
 
 def card_label(device) -> str:

@@ -63,6 +63,7 @@ SYNCS = {
     "lf": ["sync.motion_coefficients"],
     "ndt": ["sync.motion_coefficients", "sync.recovery_sqrt_cov"],
     "lf_half": ["sync.motion_coefficients", "sync.gate_keep"],
+    "lf_kld": ["sync.motion_coefficients"],
 }
 
 
@@ -236,7 +237,7 @@ def test_sync_blocks_are_found():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["lf", "ndt", "lf_half"])
+@pytest.mark.parametrize("kind", ["lf", "ndt", "lf_half", "lf_kld"])
 def test_every_sync_of_an_update_is_inside_a_sync_range(world, kind):
     """64 robots x 4096 particles: every call that PyTorch's sync debug
     mode reports during one update has a frame of the package inside a
